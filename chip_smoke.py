@@ -10,20 +10,29 @@ on the card, raising on the first failure:
 
 1. prints the torch and CUDA versions and the card's name and power limit;
 2. builds the kernels and prints the build time;
-3. holds each kernel against its plain PyTorch version at the shapes of the
-   MF step (ML-20M widths, B = 32,768 ids, Zipf(0.8) for items and uniform
-   for users as ``synthetic_ratings`` draws them, with -1 and >= R ids
-   mixed in): the gather must be bit-equal; the scatter-add must lie within
-   the float32 summation bound of a float64 sum, and two launches must give
-   the same bits. Times come from CUDA events (median of 30 after warm-up);
-4. trains online MF at full ML-20M size (138,493 users x 26,744 items x
-   20,000,263 synthetic ratings, rank 10, lr 0.1, reg 0.01, mean combine,
-   B = 32,768) for two epochs in sync mode and two in SSP mode
-   (sync_every=4), with every launch counter
-   at 0 before and checked after: 2 gathers and 2 scatter-adds per step,
-   finite tables, a finite train RMSE that falls;
-5. runs a small MF job on the card and on the CPU from the same tables and
-   compares the tables;
+3. holds each kernel against its plain PyTorch version at the shapes its
+   paths give it, with -1 and >= R ids mixed in: the gathers (K1, K5) must
+   be bit-equal; the scatter-adds (K2, K4) must lie within the float32
+   summation bound of a float64 sum, and two launches must give the same
+   bits. K1 / K2 at the MF step (ML-20M widths, B = 32,768, Zipf(0.8) items
+   and uniform users as ``synthetic_ratings`` draws them), the 20-class PA
+   step (47,236 x 20, 2^20 ids) and the AdaGrad logistic-regression step
+   (1M x 2 pull, 1M x 3 push); K5 / K4 at the binary PA step (the head view
+   47,236[:2,048] with the head-sorted prefix, then the tail) and the
+   logistic-regression step (1M x 1, 13 + 16,384 x 26 ids), plus K4 at 2^20
+   ids: the whole PA push, uniform ids, and one id owning every push. Times
+   are CUDA-event medians of 30 with the card held busy, beside the bound
+   (least bytes / 3.35 TB/s) and the library call's time;
+4. drives each path at full width, every launch counter at 0 just before it
+   and read just after: online MF at ML-20M size (2 epochs sync, 2 SSP);
+   binary PA-I at the RCV1 shape with the head prefix (K5 and K4 twice a
+   step, no K1 / K2); 20-class PA-I (K1 / K2 only); SSP logistic regression
+   at the Criteo shape with SGD and the dense head (K5 and K4 once a step),
+   then a smaller AdaGrad run (K1 / K2 only). Each must learn: MF's train
+   RMSE falls; over the last chunk PA's mistake rate lies below 0.5 (20
+   classes: 0.95) and the logistic log loss below 0.693;
+5. runs small MF, head-prefix PA and SSP logistic-regression jobs on the
+   card and on the CPU from the same tables and compares the tables;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -33,7 +42,6 @@ and prints no result.
 
 from __future__ import annotations
 
-import itertools
 import json
 import os
 import subprocess
@@ -53,6 +61,14 @@ ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS = 138_493, 26_744, 20_000_263
 RANK = 10
 BATCH = 32_768
 
+# The JAX package's bench settings (bench.py run_pa / run_logreg); only the
+# number of examples and epochs is cut.
+PA_NF, PA_NNZ, PA_NEX, PA_HEAD = 47_236, 64, 800_000, 2048
+PA_MC_NEX, PA_MC_CLASSES = 200_000, 20
+LR_NF, LR_NNZ, LR_DENSE, LR_NEX = 1_000_000, 39, 13, 1_000_000
+LR_ADAGRAD_NEX = 262_144
+SPARSE_BATCH = 16_384
+
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -66,6 +82,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def mix_dropped(ids: np.ndarray, num_rows: int) -> np.ndarray:
+    """Some -1 padding and some out-of-range ids, as a push carries them."""
+    ids = np.array(ids, dtype=np.int32)
+    ids[::97] = -1
+    ids[13::101] = num_rows + (np.arange(len(ids[13::101])) % 7)
+    return ids
+
+
 def path_ids(rng, num_rows: int, batch: int, zipf: bool) -> np.ndarray:
     """Ids over ``num_rows`` as ``synthetic_ratings`` draws them: Zipf(0.8)
     for items, uniform for users; with some -1 padding and some
@@ -75,10 +99,7 @@ def path_ids(rng, num_rows: int, batch: int, zipf: bool) -> np.ndarray:
         ids = rng.choice(num_rows, batch, p=pop / pop.sum())
     else:
         ids = rng.integers(0, num_rows, batch)
-    ids = ids.astype(np.int32)
-    ids[::97] = -1
-    ids[13::101] = num_rows + (np.arange(len(ids[13::101])) % 7)
-    return ids
+    return mix_dropped(ids, num_rows)
 
 
 def time_ms(torch, fn, *, setup=None, hold: bool = True, reps: int = 30,
@@ -112,48 +133,48 @@ def time_ms(torch, fn, *, setup=None, hold: bool = True, reps: int = 30,
     return float(np.median([s.elapsed_time(e) for s, e in times]))
 
 
-def check_gather(torch, kernels, name, num_rows, dim, zipf, rng, dev):
-    table = torch.from_numpy(
-        rng.normal(0, 1, (num_rows, dim)).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(path_ids(rng, num_rows, BATCH, zipf)).to(dev)
-    got = kernels.gather_rows_cuda(table, ids)
-    want = kernels.gather_rows_plain(table, ids)
+def check_gather(torch, label, kernel, plain, table, ids, path):
+    """Hold a gather kernel against its plain version (bit-equal) and time
+    it, its plain version and ``index_select``."""
+    num_rows, dim = table.shape
+    B = ids.shape[0]
+    got = kernel(table, ids)
+    want = plain(table, ids)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"K1 {name}: kernel differs from plain version")
-    max_err = float((got - want).abs().max())
+        raise AssertionError(f"{label}: kernel differs from plain version")
     valid = (ids >= 0) & (ids < num_rows)
     safe = torch.where(valid, ids, 0)
-    # Least bytes: the ids, the rows of in-range ids read, the output written.
-    nbytes = BATCH * 4 + int(valid.sum()) * dim * 4 + BATCH * dim * 4
+    uniq = int(torch.unique(ids[valid]).numel())
+    # Least bytes: the ids read, each distinct touched row read once, the
+    # output written.
+    nbytes = B * 4 + uniq * dim * 4 + B * dim * 4
     case = {
-        "shape": name, "R": num_rows, "D": dim, "B": BATCH,
-        "max_abs_err": max_err,
-        "ms": time_ms(torch, lambda _: kernels.gather_rows_cuda(table, ids)),
-        "call_ms": time_ms(torch,
-                           lambda _: kernels.gather_rows_cuda(table, ids),
-                           hold=False),
-        "plain_ms": time_ms(torch,
-                            lambda _: kernels.gather_rows_plain(table, ids)),
+        "shape": label, "path": path, "R": num_rows, "D": dim, "B": B,
+        "unique_rows": uniq, "max_abs_err": float((got - want).abs().max())
+        if B else 0.0,
+        "ms": time_ms(torch, lambda _: kernel(table, ids)),
+        "call_ms": time_ms(torch, lambda _: kernel(table, ids), hold=False),
+        "plain_ms": time_ms(torch, lambda _: plain(table, ids)),
         "library_ms": time_ms(torch, lambda _: table.index_select(0, safe)),
         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
     }
-    log(f"K1 gather_rows {name}: bit-equal to plain; " + json.dumps(case))
+    log(f"{label}: bit-equal to plain; " + json.dumps(case))
     return case
 
 
-def check_scatter(torch, kernels, name, num_rows, dim, zipf, rng, dev):
-    table = torch.from_numpy(
-        rng.normal(0, 1, (num_rows, dim)).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(path_ids(rng, num_rows, BATCH, zipf)).to(dev)
-    deltas = torch.from_numpy(
-        rng.normal(0, 1, (BATCH, dim)).astype(np.float32)).to(dev)
-    got = kernels.scatter_add_cuda_(table.clone(), ids, deltas)
-    again = kernels.scatter_add_cuda_(table.clone(), ids, deltas)
-    plain = kernels.scatter_add_plain(table.clone(), ids, deltas)
+def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
+    """Hold a scatter-add kernel against its plain version and a float64 sum
+    (within the float32 summation bound; the same bits on two launches) and
+    time it, its wrapper's sort, its plain version and ``index_add_``."""
+    num_rows, dim = table.shape
+    B = ids.shape[0]
+    got = kernel(table.clone(), ids, deltas)
+    again = kernel(table.clone(), ids, deltas)
+    want = plain(table.clone(), ids, deltas)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError(f"K2 {name}: two launches gave different bits")
+        raise AssertionError(f"{label}: two launches gave different bits")
     keep = (ids >= 0) & (ids < num_rows)
     kid, kd = ids[keep], deltas[keep]
     ref = table.double().index_add_(0, kid, kd.double())
@@ -161,148 +182,350 @@ def check_scatter(torch, kernels, name, num_rows, dim, zipf, rng, dev):
     # k * eps32 * (sum of the terms' magnitudes) of the exact sum; k is the
     # row's push count plus one (the table value).
     mag = table.double().abs().index_add_(0, kid, kd.double().abs())
-    count = torch.zeros(num_rows, dtype=torch.float64, device=dev)
+    count = torch.zeros(num_rows, dtype=torch.float64, device=table.device)
     count.index_add_(0, kid, torch.ones_like(kid, dtype=torch.float64))
     tol = (count + 1)[:, None] * EPS32 * mag
-    for label, val, bound in (("kernel", got, tol), ("plain", plain, tol)):
-        excess = float((((val.double() - ref).abs()) - bound).max())
+    for which, val in (("kernel", got), ("plain", want)):
+        excess = float((((val.double() - ref).abs()) - tol).max())
         if excess > 0:
             raise AssertionError(
-                f"K2 {name}: {label} outside the float32 bound of the "
-                f"float64 sum by {excess}")
-    max_err = float((got - plain).abs().max())
+                f"{label}: {which} outside the float32 bound of the float64 "
+                f"sum by {excess}")
     uniq = int(torch.unique(kid).numel())
     # Least bytes: the ids, the deltas of in-range ids read, and each
     # touched row read and written once.
-    nbytes = BATCH * 4 + kid.numel() * dim * 4 + 2 * uniq * dim * 4
+    nbytes = B * 4 + kid.numel() * dim * 4 + 2 * uniq * dim * 4
     case = {
-        "shape": name, "R": num_rows, "D": dim, "B": BATCH,
+        "shape": label, "path": path, "R": num_rows, "D": dim, "B": B,
         "unique_rows": uniq, "max_run": int(count.max()),
-        "max_abs_err": max_err,
+        "max_abs_err": float((got - want).abs().max()),
         "max_err_vs_f64": float((got.double() - ref).abs().max()),
-        "ms": time_ms(torch,
-                      lambda t: kernels.scatter_add_cuda_(t, ids, deltas),
+        "ms": time_ms(torch, lambda t: kernel(t, ids, deltas),
                       setup=table.clone),
-        "call_ms": time_ms(torch,
-                           lambda t: kernels.scatter_add_cuda_(t, ids,
-                                                               deltas),
+        "call_ms": time_ms(torch, lambda t: kernel(t, ids, deltas),
                            setup=table.clone, hold=False),
         # The wrapper's stable sort alone: the part of "ms" that is not the
         # hand-written kernel.
         "sort_ms": time_ms(torch, lambda _: torch.sort(ids, stable=True)),
-        "plain_ms": time_ms(torch,
-                            lambda t: kernels.scatter_add_plain(t, ids,
-                                                                deltas),
+        "plain_ms": time_ms(torch, lambda t: plain(t, ids, deltas),
                             setup=table.clone),
         "library_ms": time_ms(torch, lambda t: t.index_add_(0, kid, kd),
                               setup=table.clone),
         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
     }
-    log(f"K2 scatter_add {name}: deterministic, within the float32 bound "
-        "(kernel and plain); " + json.dumps(case))
+    log(f"{label}: deterministic, within the float32 bound (kernel and "
+        "plain); " + json.dumps(case))
     return case
 
 
-def run_mf_path(torch, fps, kernels, data, sync_every, epochs, card):
-    """Train full-width MF over ``epochs`` passes of ``data``; check the
-    launch counts, the tables and the train RMSE; return a summary."""
-    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
+    """Phase 3: every kernel against its plain version at its paths'
+    shapes. Returns ``{kernel name: [case, ...]}``."""
+    rng = np.random.default_rng(0)
 
-    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
-                       rank=RANK, learning_rate=0.1, reg=0.01)
-    mesh = fps.make_ps_mesh()
-    trainer, store = fps.online_mf(mesh, cfg, sync_every=sync_every,
-                                   combine="mean")
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def table(rows, dim):
+        return t(rng.normal(0, 1, (rows, dim)).astype(np.float32))
+
+    def deltas(n, dim):
+        return t(rng.normal(0, 1, (n, dim)).astype(np.float32))
+
+    g1, s2 = kernels.gather_rows_cuda, kernels.scatter_add_cuda_
+    g1p, s2p = kernels.gather_rows_plain, kernels.scatter_add_plain
+    g5, s4 = kernels.gather_rows_dim1_cuda, kernels.scatter_add_dim1_cuda_
+    g5p, s4p = kernels.gather_rows_dim1_plain, kernels.scatter_add_dim1_plain
+    cases = {"gather_rows": [], "scatter_add": [], "gather_rows_dim1": [],
+             "scatter_add_dim1": []}
+
+    # K1 / K2 at the MF step: the item pull and push (mean's count column),
+    # the user factors' gather and update; the "sum" combine's push is off
+    # the smoke's path.
+    for name, rows, zipf in (("items", ML20M_ITEMS, True),
+                             ("users", ML20M_USERS, False)):
+        cases["gather_rows"].append(check_gather(
+            torch, f"K1 MF {name}", g1, g1p, table(rows, RANK),
+            t(path_ids(rng, rows, BATCH, zipf)), "mf"))
+    for name, rows, dim, zipf, path in (
+            ("items_mean_count_column", ML20M_ITEMS, RANK + 1, True, "mf"),
+            ("users", ML20M_USERS, RANK, False, "mf"),
+            ("items_sum", ML20M_ITEMS, RANK, True, "off_path")):
+        cases["scatter_add"].append(check_scatter(
+            torch, f"K2 MF {name}", s2, s2p, table(rows, dim),
+            t(path_ids(rng, rows, BATCH, zipf)), deltas(BATCH, dim), path))
+
+    # K1 / K2 at the 20-class PA step: 2^20 Zipf(0.9) ids into (NF, 20).
+    mc_ids = t(mix_dropped(mc_data["feat_ids"][:SPARSE_BATCH].reshape(-1),
+                           PA_NF))
+    cases["gather_rows"].append(check_gather(
+        torch, "K1 PA multiclass", g1, g1p, table(PA_NF, PA_MC_CLASSES),
+        mc_ids, "pa_multiclass"))
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 PA multiclass", s2, s2p, table(PA_NF, PA_MC_CLASSES),
+        mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass"))
+
+    # The logistic-regression step's ids: the dense head, then the tail.
+    lr_ids = mix_dropped(np.concatenate([
+        np.arange(LR_DENSE), lr_data["feat_ids"][:SPARSE_BATCH, LR_DENSE:]
+        .reshape(-1)]), LR_NF)
+    lr_ids = t(lr_ids)
+    # K1 / K2 at the AdaGrad step: (NF, 2) pull, (NF, 3) push of [g, g^2,
+    # count] into zeros.
+    cases["gather_rows"].append(check_gather(
+        torch, "K1 logreg adagrad", g1, g1p, table(LR_NF, 2), lr_ids,
+        "logreg_adagrad"))
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 logreg adagrad", s2, s2p,
+        torch.zeros((LR_NF, 3), device=dev), lr_ids,
+        deltas(lr_ids.numel(), 3), "logreg_adagrad"))
+
+    # K5 / K4 at the binary PA step: nnz-major ids of one head-sorted batch,
+    # the first q * B through the head view table[:H], the rest through the
+    # whole table.
+    ids = pa_data["feat_ids"][:SPARSE_BATCH].T.reshape(-1)
+    split = pa_q * SPARSE_BATCH
+    pa_table = table(PA_NF, 1)
+    for name, view, part in (("head view", pa_table[:PA_HEAD], ids[:split]),
+                             ("tail", pa_table, ids[split:])):
+        part = t(mix_dropped(part, view.shape[0]))
+        cases["gather_rows_dim1"].append(check_gather(
+            torch, f"K5 PA {name}", g5, g5p, view, part, "pa_binary"))
+        cases["scatter_add_dim1"].append(check_scatter(
+            torch, f"K4 PA {name}", s4, s4p, view, part,
+            deltas(part.numel(), 1), "pa_binary"))
+    lr_table = table(LR_NF, 1)
+    cases["gather_rows_dim1"].append(check_gather(
+        torch, "K5 logreg", g5, g5p, lr_table, lr_ids, "logreg_sgd"))
+    cases["scatter_add_dim1"].append(check_scatter(
+        torch, "K4 logreg", s4, s4p, lr_table, lr_ids,
+        deltas(lr_ids.numel(), 1), "logreg_sgd"))
+    # K4 at 2^20 ids off the path: the whole PA push in one call, uniform
+    # ids, and one id owning every push (its run crosses all 1,024 tiles).
+    n = SPARSE_BATCH * PA_NNZ
+    for name, all_ids in (
+            ("whole push 2^20", mix_dropped(ids, PA_NF)),
+            ("uniform 2^20", rng.integers(0, PA_NF, n)),
+            ("one id owns 2^20", np.full(n, 7))):
+        cases["scatter_add_dim1"].append(check_scatter(
+            torch, f"K4 PA {name}", s4, s4p, table(PA_NF, 1),
+            t(all_ids.astype(np.int32)), deltas(n, 1), "off_path"))
+    return cases
+
+
+def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
+             card):
+    """Train over ``chunks`` (prebuilt on the host) from fresh tables, the
+    launch counters at 0 just before and read just after; check the counts
+    (``per_step`` launches of each kernel a step), finite tables and
+    ``quality(metrics)``; return a summary."""
     tables, local_state = trainer.init_state(0)
-    t0 = time.perf_counter()
-    chunks = list(multi_epoch_chunks(
-        data, epochs, num_workers=1, local_batch=BATCH, steps_per_chunk=64,
-        route_key="user", sync_every=sync_every, seed=0))
-    ingest_s = time.perf_counter() - t0
     steps = sum(int(np.prod(c["weight"].shape[:-1])) for c in chunks)
     stamps = []
-    rmses = []
-
-    def on_chunk(i, m):
-        stamps.append(time.perf_counter())
-        rmses.append(float(np.sqrt(m["se"].sum() / max(1.0, m["n"].sum()))))
-
     torch.cuda.synchronize()
-    before = kernels.launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     tables, local_state, metrics = trainer.fit_stream(
-        tables, local_state, chunks, 1, on_chunk=on_chunk)
+        tables, local_state, chunks, 1,
+        on_chunk=lambda i, m: stamps.append(time.perf_counter()))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    after = kernels.launch_counts()
-    launched = {k: after[k] - before[k] for k in after}
-    mode = "sync" if sync_every is None else f"ssp(sync_every={sync_every})"
-    for k in ("gather_rows", "scatter_add"):
-        if launched[k] != 2 * steps:
+    launched = kernels.launch_counts()
+    for name, count in launched.items():
+        want = per_step.get(name, 0) * steps
+        if count != want:
             raise AssertionError(
-                f"MF {mode}: {k} launched {launched[k]} times, expected "
-                f"{2 * steps} (2 per step x {steps} steps)")
-    for name, t in {**tables, "user_factors": local_state}.items():
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"MF {mode}: {name} has non-finite values")
-    if not all(np.isfinite(rmses)) or not rmses[-1] < rmses[0]:
-        raise AssertionError(f"MF {mode}: train RMSE per chunk {rmses} is "
-                             "not finite and falling")
+                f"{label}: {name} launched {count} times, expected {want} "
+                f"({per_step.get(name, 0)} per step x {steps} steps)")
+    leaves = dict(tables)
+    if isinstance(local_state, torch.Tensor):
+        leaves["local_state"] = local_state
+    for name, tb in leaves.items():
+        if not bool(torch.isfinite(tb).all()):
+            raise AssertionError(f"{label}: {name} has non-finite values")
+    checks = quality(metrics)
     n = float(sum(m["n"].sum() for m in metrics))
     per_chunk = np.diff([t0] + stamps)
     steady = per_chunk[1:] if len(per_chunk) > 1 else per_chunk
     steps_per_chunk = steps // len(chunks)
     summary = {
-        "mode": mode, "epochs": epochs, "chunks": len(chunks),
-        "steps": steps, "host_ingest_s": ingest_s,
-        "ratings": n, "seconds": elapsed,
-        "ratings_per_s": n / elapsed, "ms_per_step": elapsed / steps * 1e3,
+        "path": label, "chunks": len(chunks), "steps": steps,
+        "examples": n, "seconds": elapsed, "examples_per_s": n / elapsed,
+        "ms_per_step": elapsed / steps * 1e3,
         "steady_ms_per_step": float(np.median(steady)) / steps_per_chunk
         * 1e3,
-        "steady_ratings_per_s": steps_per_chunk * BATCH
-        / float(np.median(steady)),
-        "chunk_seconds": per_chunk.tolist(),
-        "train_rmse_per_chunk": rmses, "launches": launched, "card": card,
+        "chunk_seconds": per_chunk.tolist(), "launches": launched,
+        "quality": checks, "card": card,
     }
-    log(f"MF path {mode}: " + json.dumps(summary))
+    log(f"path {label}: " + json.dumps(summary))
     return summary
 
 
-def card_vs_cpu(torch, fps):
-    """The same small MF job on the card and on the CPU, from the same
-    tables; return the largest table difference."""
-    from fps_tpu_torch.core.ingest import epoch_chunks
+def falling_rmse(metrics):
+    rmses = [float(np.sqrt(m["se"].sum() / max(1.0, m["n"].sum())))
+             for m in metrics]
+    if not all(np.isfinite(rmses)) or not rmses[-1] < rmses[0]:
+        raise AssertionError(f"train RMSE per chunk {rmses} is not finite "
+                             "and falling")
+    return {"train_rmse_per_chunk": rmses}
+
+
+def below(key, limit):
+    """``key`` per example over the last chunk (the end of the last epoch)
+    must lie below ``limit``; chance is 0.5 for a binary mistake rate, 0.95
+    for 20 classes, log 2 = 0.693 for the log loss."""
+    def check(metrics):
+        per_chunk = [float(m[key].sum() / max(1.0, m["n"].sum()))
+                     for m in metrics]
+        if not np.isfinite(per_chunk).all() or not per_chunk[-1] < limit:
+            raise AssertionError(f"{key} per example by chunk {per_chunk}: "
+                                 f"the last is not below {limit}")
+        return {f"{key}_per_example_by_chunk": per_chunk, "limit": limit}
+    return check
+
+
+def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
+    """Phase 4: every path at full width, counters reset before each."""
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
     from fps_tpu_torch.utils.datasets import synthetic_ratings
 
-    nu, ni = 300, 200
-    data = synthetic_ratings(nu, ni, 20_000, seed=5)
-    cfg = fps.MFConfig(num_users=nu, num_items=ni, rank=RANK,
-                       learning_rate=0.1, reg=0.01)
-    worst = 0.0
+    mesh = fps.make_ps_mesh()
+    runs = []
+    data = synthetic_ratings(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS, seed=0)
     for sync_every in (None, 4):
+        cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                           rank=RANK, learning_rate=0.1, reg=0.01)
+        trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
+                                   combine="mean")
+        t0 = time.perf_counter()
+        chunks = list(multi_epoch_chunks(
+            data, 2, num_workers=1, local_batch=BATCH, steps_per_chunk=64,
+            route_key="user", sync_every=sync_every, seed=0))
+        ingest_s = time.perf_counter() - t0
+        mode = "sync" if sync_every is None else f"ssp(sync_every={sync_every})"
+        runs.append(dict(run_path(
+            torch, kernels, f"MF {mode}", trainer, chunks,
+            {"gather_rows": 2, "scatter_add": 2}, falling_rmse, card),
+            host_ingest_s=ingest_s))
+    del data
+
+    def sparse(data, epochs, spc, sync_every=None):
+        return list(multi_epoch_chunks(
+            data, epochs, num_workers=1, local_batch=SPARSE_BATCH,
+            steps_per_chunk=spc, sync_every=sync_every, seed=1))
+
+    # Binary PA-I with the head prefix (bench.py run_pa on one device).
+    # 800,000 examples make 49 steps an epoch: 7 chunks of 7 steps.
+    cfg = fps.PAConfig(num_features=PA_NF, variant="PA-I", C=1.0,
+                       hot_features=PA_HEAD, head_prefix_cols=pa_q)
+    trainer, _ = fps.passive_aggressive(mesh, cfg)
+    runs.append(run_path(
+        torch, kernels, "PA-I binary, head prefix", trainer,
+        sparse(pa_data, 2, 7), {"gather_rows_dim1": 2,
+                                "scatter_add_dim1": 2},
+        below("mistakes", 0.5), card))
+    # 20-class PA-I: 200,000 examples, 13 steps an epoch.
+    cfg = fps.PAConfig(num_features=PA_NF, num_classes=PA_MC_CLASSES,
+                       variant="PA-I", C=1.0)
+    trainer, _ = fps.passive_aggressive(mesh, cfg)
+    runs.append(run_path(
+        torch, kernels, "PA-I 20 classes", trainer, sparse(mc_data, 2, 13),
+        {"gather_rows": 1, "scatter_add": 1}, below("mistakes", 0.95), card))
+    # SSP logistic regression, SGD with the dense head (bench.py
+    # run_logreg): 1,000,000 examples make 62 steps an epoch, padded to 64.
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.1,
+                           dense_features=LR_DENSE)
+    trainer, _ = fps.logistic_regression(mesh, cfg, sync_every=8)
+    runs.append(run_path(
+        torch, kernels, "logreg SSP SGD, dense head", trainer,
+        sparse(lr_data, 2, 16, sync_every=8),
+        {"gather_rows_dim1": 1, "scatter_add_dim1": 1},
+        below("logloss", 0.693), card))
+    # A smaller AdaGrad run: 16 steps an epoch. AdaGrad's first steps on a
+    # feature that every example carries are about lr * sqrt(B) times the
+    # mean-to-rms ratio of its per-example gradients (the accumulator sums
+    # per-example squares), so at B = 16,384 the SGD run's lr 0.1
+    # overshoots (log loss 1.84, then 1.19 over two epochs on the card);
+    # lr 0.01 takes steps of about 0.1 there.
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.01,
+                           dense_features=LR_DENSE, optimizer="adagrad")
+    trainer, _ = fps.logistic_regression(mesh, cfg, sync_every=8)
+    small = {k: v[:LR_ADAGRAD_NEX] for k, v in lr_data.items()}
+    runs.append(run_path(
+        torch, kernels, "logreg SSP AdaGrad, dense head", trainer,
+        sparse(small, 2, 16, sync_every=8),
+        {"gather_rows": 1, "scatter_add": 1}, below("logloss", 0.693), card))
+    return runs
+
+
+def card_vs_cpu(torch, fps):
+    """Small MF, head-prefix PA and SSP logistic-regression jobs on the card
+    and on the CPU, from the same tables; return the largest table
+    difference of each, relative to max(1, the table's largest value)."""
+    from fps_tpu_torch.core.ingest import epoch_chunks, multi_epoch_chunks
+    from fps_tpu_torch.utils import datasets as ds
+
+    mf_data = ds.synthetic_ratings(300, 200, 20_000, seed=5)
+    mf_cfg = fps.MFConfig(num_users=300, num_items=200, rank=RANK,
+                          learning_rate=0.1, reg=0.01)
+    pa_data, q = ds.head_sort_slots(
+        ds.synthetic_sparse_classification(8192, 2000, 16, seed=6,
+                                           noise=0.05), 128)
+    lr_data = ds.synthetic_sparse_classification(8192, 5000, 16, seed=7,
+                                                 noise=0.05,
+                                                 dense_features=3)
+    lr_data["label"] = (lr_data["label"] > 0).astype(np.float32)
+    jobs = {
+        "MF sync": (lambda m: fps.online_mf(m, mf_cfg, combine="mean"),
+                    lambda: epoch_chunks(mf_data, num_workers=1,
+                                         local_batch=512, steps_per_chunk=8,
+                                         route_key="user", seed=3)),
+        "MF SSP": (lambda m: fps.online_mf(m, mf_cfg, sync_every=4,
+                                           combine="mean"),
+                   lambda: epoch_chunks(mf_data, num_workers=1,
+                                        local_batch=512, steps_per_chunk=8,
+                                        route_key="user", sync_every=4,
+                                        seed=3)),
+        "PA-I head prefix": (
+            lambda m: fps.passive_aggressive(m, fps.PAConfig(
+                num_features=2000, hot_features=128, head_prefix_cols=q)),
+            lambda: multi_epoch_chunks(pa_data, 2, num_workers=1,
+                                       local_batch=512, steps_per_chunk=8,
+                                       seed=3)),
+        "logreg SSP": (
+            lambda m: fps.logistic_regression(m, fps.LogRegConfig(
+                num_features=5000, learning_rate=0.1, dense_features=3),
+                sync_every=4),
+            lambda: multi_epoch_chunks(lr_data, 2, num_workers=1,
+                                       local_batch=512, steps_per_chunk=8,
+                                       sync_every=4, seed=3)),
+    }
+    worst = {}
+    for job, (build, chunks) in jobs.items():
         runs = {}
         tables0 = local0 = None
         for device in ("cpu", "cuda"):
             mesh = fps.make_ps_mesh(device=device)
-            trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
-                                       combine="mean")
+            trainer, _ = build(mesh)
             if tables0 is None:
                 tables0, local0 = trainer.init_state(7)
             # Copies: the trainer updates its tables in place (donate).
             tables = {k: v.to(mesh.device, copy=True)
                       for k, v in tables0.items()}
-            local = local0.to(mesh.device, copy=True)
-            chunks = epoch_chunks(data, num_workers=1, local_batch=512,
-                                  steps_per_chunk=8, route_key="user",
-                                  sync_every=sync_every, seed=3)
-            tables, local, _ = trainer.fit_stream(tables, local, chunks, 2)
-            runs[device] = {**{k: v.cpu() for k, v in tables.items()},
-                            "user_factors": local.cpu()}
-        for name in runs["cpu"]:
-            diff = float((runs["cpu"][name] - runs["cuda"][name]).abs().max())
-            worst = max(worst, diff)
-            log(f"card vs CPU, sync_every={sync_every}, {name}: max abs "
-                f"diff {diff:.3e}")
+            local = (local0.to(mesh.device, copy=True)
+                     if isinstance(local0, torch.Tensor) else local0)
+            tables, local, _ = trainer.fit_stream(tables, local, chunks(), 2)
+            leaves = {k: v.cpu() for k, v in tables.items()}
+            if isinstance(local, torch.Tensor):
+                leaves["local_state"] = local.cpu()
+            runs[device] = leaves
+        worst[job] = 0.0
+        for name, want in runs["cpu"].items():
+            diff = float((want - runs["cuda"][name]).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            worst[job] = max(worst[job], diff / scale)
+            log(f"card vs CPU, {job}, {name}: max abs diff {diff:.3e} "
+                f"(largest value {scale:.3e})")
     return worst
 
 
@@ -316,15 +539,16 @@ def main() -> int:
     try:
         import fps_tpu_torch as fps
         from fps_tpu_torch.ops import _build, kernels
-        from fps_tpu_torch.utils.datasets import synthetic_ratings
+        from fps_tpu_torch.utils import datasets as ds
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
-    # Full float32 matmuls (the default, stated): TF32 would change the MF
-    # step's dot products and the card-vs-CPU comparison with them.
+    # Full float32 matmuls (the default, stated): TF32 would change the
+    # models' dot products and the card-vs-CPU comparison with them.
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. Environment.
     card = nvidia_smi_line()
@@ -344,64 +568,84 @@ def main() -> int:
         if "registers" in line or "==" in line:
             log("  " + line.strip())
 
-    # 3. Kernels against their plain versions at the MF step's shapes.
-    rng = np.random.default_rng(0)
-    k1 = [check_gather(torch, kernels, "items", ML20M_ITEMS, RANK, True,
-                       rng, dev),
-          check_gather(torch, kernels, "users", ML20M_USERS, RANK, False,
-                       rng, dev)]
-    k2_sum = check_scatter(torch, kernels, "items_sum", ML20M_ITEMS, RANK,
-                           True, rng, dev)
-    k2 = [check_scatter(torch, kernels, "items_mean_count_column",
-                        ML20M_ITEMS, RANK + 1, True, rng, dev),
-          check_scatter(torch, kernels, "users", ML20M_USERS, RANK, False,
-                        rng, dev)]
+    # The sparse workloads' data, as bench.py makes it (seeds 3, 5, 0).
+    t0 = time.perf_counter()
+    pa_data = ds.synthetic_sparse_classification(PA_NEX, PA_NF, PA_NNZ,
+                                                 seed=3, noise=0.05)
+    pa_data["label"] = np.where(pa_data["label"] > 0, 1.0,
+                                -1.0).astype(np.float32)
+    pa_data, pa_q = ds.head_sort_slots(pa_data, PA_HEAD)
+    mc_data = ds.synthetic_sparse_multiclass(PA_MC_NEX, PA_NF, PA_MC_CLASSES,
+                                             PA_NNZ, seed=5)
+    lr_data = ds.synthetic_sparse_classification(
+        LR_NEX, LR_NF, LR_NNZ, seed=0, noise=0.05, dense_features=LR_DENSE)
+    lr_data["label"] = (lr_data["label"] > 0).astype(np.float32)
+    log(f"sparse data made in {time.perf_counter() - t0:.1f} s; PA head "
+        f"prefix q = {pa_q} columns of {PA_NNZ}")
 
-    # 4. The path at full width, counters at 0 just before it.
-    data = synthetic_ratings(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS, seed=0)
-    kernels.reset_launch_counts()
-    runs = [run_mf_path(torch, fps, kernels, data, None, 2, card),
-            run_mf_path(torch, fps, kernels, data, 4, 2, card)]
-    launches = kernels.launch_counts()
-    log(f"launch counters after the MF path: {launches}")
+    # 3. Kernels against their plain versions at the paths' shapes.
+    cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
+                         dev)
+
+    # 4. The paths at full width, counters at 0 just before each.
+    runs = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data,
+                       card)
+    launches = {name: sum(r["launches"][name] for r in runs)
+                for name in kernels.WRAPPERS}
+    log(f"launch counters over the paths: {launches}")
 
     # 5. The card against the CPU.
     worst = card_vs_cpu(torch, fps)
-    # Both devices gather exactly and fold duplicates in batch order (K2 and
-    # the CPU's index_add_); they part only where the card and the CPU order
-    # the rank-10 dot products and reductions differently: about one float32
-    # rounding per step on factors of size 0.1-1. Over the ~40 steps of each
-    # run that stays near 1e-7; 1e-5 leaves a wide margin and still catches
-    # a wrong row, a dropped push or a lost duplicate.
+    # Both devices read exactly. K2 folds duplicates in batch order, as the
+    # CPU's index_add_ does; K4 sums each row's pushes in a tree order, so a
+    # row's sum differs from the CPU's by a few float32 roundings of its
+    # terms each push. The card and the CPU also order dot products and row
+    # sums differently (about one rounding each). PA's and the logistic
+    # loss's steps are continuous in the weights, so these differences stay
+    # near a few ulps of the largest value over the ~30 steps of each job
+    # (about 1e-6 relative); 1e-5 of the largest value leaves a margin and
+    # still catches a wrong row or a dropped push (a push moves a weight by
+    # 1e-4 to 1e-2 of its size here).
     tol = 1e-5
-    if not worst <= tol:
-        raise AssertionError(f"card vs CPU: tables differ by {worst} > {tol}")
-    log(f"card vs CPU: tables agree within {tol} (max abs diff {worst:.3e})")
+    for job, diff in worst.items():
+        if not diff <= tol:
+            raise AssertionError(f"card vs CPU, {job}: tables differ by "
+                                 f"{diff} of their largest value > {tol}")
+    log(f"card vs CPU: tables agree within {tol} of their largest value "
+        f"({json.dumps(worst)})")
 
-    # 6. Summary lines.
-    def entry(name, source, replaces, cases):
-        # One MF step launches the kernel once at each of these shapes, so
-        # the times are per MF step.
+    # 6. Summary lines. Each entry's times are per step of its first path
+    # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail);
+    # every shape is listed under per_shape with the path it belongs to.
+    def entry(name, source, replaces, first_path):
+        own = [c for c in cases[name] if c["path"] == first_path]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": sum(c["ms"] for c in cases),
-            "call_ms": sum(c["call_ms"] for c in cases),
-            "plain_ms": sum(c["plain_ms"] for c in cases),
-            "bound_ms": sum(c["bound_ms"] for c in cases),
+            "launches_by_path": {r["path"]: r["launches"][name]
+                                 for r in runs},
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "ms": sum(c["ms"] for c in own),
+            "call_ms": sum(c["call_ms"] for c in own),
+            "plain_ms": sum(c["plain_ms"] for c in own),
+            "bound_ms": sum(c["bound_ms"] for c in own),
             "bound_by": "bytes",
-            "library_ms": sum(c["library_ms"] for c in cases),
-            "per_shape": cases,
+            "library_ms": sum(c["library_ms"] for c in own),
+            "per_step_of": first_path,
+            "per_shape": cases[name],
         }
 
-    k2_sum["on_path"] = False
+    src = "fps_tpu_torch/ops/csrc/"
+    pallas = "fps_tpu/ops/pallas_kernels.py"
     line = {"kernels": [
-        entry("gather_rows", "fps_tpu_torch/ops/csrc/gather_rows.cu",
-              "fps_tpu/ops/pallas_kernels.py:513", k1),
-        entry("scatter_add", "fps_tpu_torch/ops/csrc/scatter_add.cu",
-              "fps_tpu/ops/pallas_kernels.py:112", k2),
-    ], "extra_shapes": [k2_sum], "mf_path": runs, "card": card}
+        entry("gather_rows", src + "gather_rows.cu", pallas + ":513", "mf"),
+        entry("scatter_add", src + "scatter_add.cu", pallas + ":112", "mf"),
+        entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
+              pallas + ":429", "pa_binary"),
+        entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
+              pallas + ":338", "pa_binary"),
+    ], "paths": runs, "card_vs_cpu": worst, "pa_head_prefix_cols": pa_q,
+        "seconds": time.perf_counter() - t_start, "card": card}
     log(card)
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

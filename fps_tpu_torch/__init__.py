@@ -1,11 +1,13 @@
 """fps_tpu_torch: the PyTorch/CUDA port of fps_tpu, for NVIDIA Hopper.
 
 A second package beside ``fps_tpu`` (the JAX reference, which it never
-imports). This slice runs online matrix factorization end to end on one
-device: ``make_ps_mesh`` → ``online_mf`` → ``Trainer.init_state`` →
-``fit_stream`` / ``run_chunk``, in sync and SSP modes. On a CUDA device every
-pull and push runs on the port's hand-written kernels
-(``fps_tpu_torch/ops/csrc``); on the CPU, on their plain PyTorch versions.
+imports). It runs on one device, in sync and SSP modes: ``make_ps_mesh`` →
+a model constructor (``online_mf``, ``passive_aggressive``,
+``logistic_regression``) → ``Trainer.init_state`` → ``fit_stream`` /
+``run_chunk``. On a CUDA device every pull and push runs on the port's
+hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
+for wide tables, scalar gather and scatter-add for ``(R, 1)`` tables); on the
+CPU, on their plain PyTorch versions.
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is passed
 to :func:`make_ps_mesh`; without CUDA and without a device they raise.
@@ -20,7 +22,15 @@ from fps_tpu_torch.core.api import (
 )
 from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 from fps_tpu_torch.core.store import ParamStore, TableSpec, pull, push
+from fps_tpu_torch.models.logistic_regression import (
+    LogRegConfig,
+    logistic_regression,
+)
 from fps_tpu_torch.models.matrix_factorization import MFConfig, online_mf
+from fps_tpu_torch.models.passive_aggressive import (
+    PAConfig,
+    passive_aggressive,
+)
 from fps_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SHARD_AXIS,
@@ -30,8 +40,9 @@ from fps_tpu_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "ADDITIVE", "DATA_AXIS", "MEAN_COMBINE", "MFConfig", "ParamStore",
-    "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
-    "TrainerConfig", "WorkerLogic", "default_mesh_shape", "make_ps_mesh",
-    "num_workers_of", "online_mf", "pull", "push",
+    "ADDITIVE", "DATA_AXIS", "LogRegConfig", "MEAN_COMBINE", "MFConfig",
+    "PAConfig", "ParamStore", "SHARD_AXIS", "ServerLogic", "StepOutput",
+    "TableSpec", "Trainer", "TrainerConfig", "WorkerLogic",
+    "default_mesh_shape", "logistic_regression", "make_ps_mesh",
+    "num_workers_of", "online_mf", "passive_aggressive", "pull", "push",
 ]

@@ -61,6 +61,15 @@ class WorkerLogic:
         """Map table name -> ``(B,)`` int32 ids to pull for this batch."""
         raise NotImplementedError
 
+    def head_prefix(self, batch) -> Mapping[str, int]:
+        """Optional static guarantee: table name -> count of leading ids (in
+        both :meth:`pull_ids` order and the step's push order) that lie in
+        ``[0, spec.hot_ids) ∪ {-1}``, the frequency head a sorted-slot
+        layout (``head_sort_slots``) puts first. The driver turns it into the
+        head-prefix route of :mod:`fps_tpu_torch.ops`. Counts are plain ints
+        from batch shapes. Default: no guarantee."""
+        return {}
+
     def step(self, batch, pulled: Mapping[str, Tensor], local_state,
              gen: torch.Generator) -> StepOutput:
         """The fused onRecv/onPullRecv body."""

@@ -117,41 +117,64 @@ class Trainer:
 
     # -- one step ---------------------------------------------------------
 
+    def _hot_rows(self, name: str) -> int:
+        """Local hot-row count of a table: global head ids ``[0, H)`` sit in
+        local rows ``[0, ceil(H / S))`` under the owner-major layout."""
+        return -(-self.store.specs[name].hot_ids // self.num_shards)
+
+    def _head_prefix(self, batch) -> dict[str, int]:
+        """The worker's head-prefix guarantee for this batch, for tables that
+        declare their head (an int ``hot_ids > 0``). The port's mesh is one
+        device, where the pull and push streams are the worker's own, so the
+        guarantee holds as given."""
+        out = {}
+        for name, n in self.logic.head_prefix(batch).items():
+            spec = self.store.specs.get(name)
+            if spec is not None and spec.hot_ids > 0 and n:
+                out[name] = int(n)
+        return out
+
     def _compute_step(self, tables, snapshot, local_state, batch, gen):
         """Pull (from the live tables, or the SSP ``snapshot`` when given)
-        and run the worker step; return its pushes unapplied, the new local
-        state and the step's outputs."""
+        and run the worker step; return its pushes unapplied, the head-prefix
+        guarantee for them, the new local state and the step's outputs."""
         batch = self.logic.prepare(batch, gen)
+        hp = self._head_prefix(batch)
         pulled = {}
         for name, tids in self.logic.pull_ids(batch).items():
+            route = dict(hot_rows=self._hot_rows(name),
+                         head_prefix=hp.get(name, 0))
             if snapshot is None:
                 pulled[name] = pull(tables[name], tids,
-                                    num_shards=self.num_shards)
+                                    num_shards=self.num_shards, **route)
             else:
                 rps = tables[name].shape[0]
                 # -1 padding stays -1 (a zero row): the floor-mod of
                 # id_to_phys would wrap it onto a live row for S > 1.
+                # On one shard phys == ids, so the head guarantee holds.
                 phys = torch.where(
                     tids >= 0, id_to_phys(tids, self.num_shards, rps), -1)
-                pulled[name] = ops.gather_rows(snapshot[name], phys)
+                pulled[name] = ops.gather_rows(snapshot[name], phys, **route)
         out = self.logic.step(batch, pulled, local_state, gen)
-        return out.pushes, out.local_state, out.out
+        return out.pushes, hp, out.local_state, out.out
 
-    def _apply_pushes(self, tables, pushes):
+    def _apply_pushes(self, tables, pushes, head_prefix):
         new_tables = dict(tables)
         for name, (pids, pdeltas) in pushes.items():
             sl = self.server_logic[name]
             new_tables[name] = push(
                 tables[name], pids, pdeltas, num_shards=self.num_shards,
                 apply_fn=sl.apply_fn, combine=sl.combine,
+                hot_rows=self._hot_rows(name),
+                head_prefix=head_prefix.get(name, 0),
                 inplace=self.config.donate)
         return new_tables
 
     def _step(self, tables, snapshot, local_state, batch, gen, outs):
-        pushes, local_state, out = self._compute_step(
+        pushes, hp, local_state, out = self._compute_step(
             tables, snapshot, local_state, batch, gen)
         outs.append(out)
-        return self._apply_pushes(tables, pushes), local_state
+        return self._apply_pushes(tables, pushes, hp), local_state
 
     # -- chunks -----------------------------------------------------------
 

@@ -12,7 +12,9 @@ a row gather and :func:`push` a scatter-add (or a combine-then-fold) into
 the local block, through :mod:`fps_tpu_torch.ops`, so on the card both run
 on the port's hand-written kernels.
 
-Not ported, and rejected when set: ``TableSpec.hot_ids``, ``hot_tier``,
+``TableSpec.hot_ids`` takes an int (the frequency head that the scalar
+tables' head-prefix route reads and writes through ``table[:H]``). Not
+ported, and rejected when set: ``hot_ids="auto"``, ``hot_tier``,
 ``cold_budget`` and ``dense_collectives=True`` (ROADMAP.md Queues 1 and 2).
 """
 
@@ -65,12 +67,16 @@ def _one_shard(fn: str, num_shards: int) -> None:
 # ---------------------------------------------------------------------------
 
 def pull(local_shard: Tensor, ids: Tensor, *, num_shards: int,
+         hot_rows: int = 0, head_prefix: int = 0,
          exact: bool = False) -> Tensor:
     """Rows of the table for ``ids`` (``(B,)`` int32): ``(B, dim)``, zero rows
     for padding (``-1``) and other out-of-range ids. Replaces the
-    reference's pull / ``onPullRecv`` / ``answerPull`` round trip."""
+    reference's pull / ``onPullRecv`` / ``answerPull`` round trip.
+    ``hot_rows`` / ``head_prefix``: the head-prefix route of
+    :func:`fps_tpu_torch.ops.gather_rows`."""
     _one_shard("pull", num_shards)
-    return ops.gather_rows(local_shard, ids, exact=exact)
+    return ops.gather_rows(local_shard, ids, hot_rows=hot_rows,
+                           head_prefix=head_prefix, exact=exact)
 
 
 def pull_local(local_shard: Tensor, ids: Tensor, *, num_shards: int) -> Tensor:
@@ -83,6 +89,7 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
          num_shards: int,
          apply_fn: Callable[[Tensor, Tensor], Tensor] | None = None,
          combine: str | Callable[[Tensor, Tensor], Tensor] = "sum",
+         hot_rows: int = 0, head_prefix: int = 0,
          inplace: bool = False) -> Tensor:
     """Fold ``deltas`` for ``ids`` into the table.
 
@@ -100,6 +107,13 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
         ``(summed, counts) -> combined`` over each row's delta sum
         ``(rps, dim)`` and push count ``(rps,)``; untouched rows are masked
         out after it.
+      hot_rows: local leading rows of the table declared write-hot
+        (``TableSpec.hot_ids``). With ``head_prefix`` on the additive fold of
+        a scalar table, the head-prefix route of
+        :func:`fps_tpu_torch.ops.scatter_add_`; otherwise the hot/cold split
+        (kernel K3), which raises as not ported.
+      head_prefix: count of leading ids guaranteed in ``[0, hot_rows) ∪
+        {-1}``.
       inplace: update ``local_shard`` itself (what ``TrainerConfig.donate``
         asks for) instead of returning a new tensor.
 
@@ -116,7 +130,8 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
 
     if apply_fn is None and combine == "sum":
         fold = ops.scatter_add_ if inplace else ops.scatter_add
-        return fold(local_shard, local_idx, deltas.contiguous())
+        return fold(local_shard, local_idx, deltas.contiguous(),
+                    hot_rows=hot_rows, head_prefix=head_prefix)
 
     dim = deltas.shape[1]
     # Accumulate in at least f32, never below the table's own precision.
@@ -149,7 +164,7 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
         acc = ops.scatter_add_(
             torch.zeros((rps, dim + 1), dtype=acc_dt,
                         device=local_shard.device),
-            local_idx, withcnt)
+            local_idx, withcnt, hot_rows=hot_rows)
         combined, counts = acc[:, :dim], acc[:, dim]
         if combine == "mean":
             combined = combined * (1.0 / torch.clamp(counts, min=1.0))[:, None]
@@ -178,10 +193,15 @@ class TableSpec:
     seed only, so that a row's initial value does not depend on which shard
     holds it (the reference's id-seeded initializers).
 
-    ``hot_ids``, ``hot_tier``, ``cold_budget`` and ``dense_collectives=True``
-    select routes this port does not have yet; setting them raises.
-    ``dense_collectives`` ``"auto"`` and ``False`` both mean the gathered
-    route, which is what the JAX package takes on a one-device mesh.
+    ``hot_ids`` is an int ``H >= 0``: global ids ``[0, H)`` are the
+    frequency-ranked head of the table. The driver gives it to the store's
+    pull and push as ``hot_rows``, where it enables the head-prefix route of
+    scalar tables; a push that would take the hot/cold split instead (kernel
+    K3) raises. ``hot_ids="auto"``, ``hot_tier``, ``cold_budget`` and
+    ``dense_collectives=True`` select routes this port does not have yet;
+    setting them raises. ``dense_collectives`` ``"auto"`` and ``False`` both
+    mean the gathered route, which is what the JAX package takes on a
+    one-device mesh.
     """
 
     name: str
@@ -195,7 +215,11 @@ class TableSpec:
     cold_budget: int = 0
 
     def __post_init__(self):
-        unported = {"hot_ids": self.hot_ids != 0,
+        if not isinstance(self.hot_ids, (int, str)) or (
+                isinstance(self.hot_ids, int) and self.hot_ids < 0):
+            raise ValueError(f"TableSpec.hot_ids={self.hot_ids!r} for table "
+                             f"{self.name!r}: expected an int >= 0")
+        unported = {"hot_ids": isinstance(self.hot_ids, str),
                     "hot_tier": self.hot_tier != 0,
                     "cold_budget": self.cold_budget != 0,
                     "dense_collectives": self.dense_collectives is True}

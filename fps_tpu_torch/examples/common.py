@@ -1,0 +1,68 @@
+"""What the port's example jobs share: the JSON event stream, the common
+flags, and the ``--profile`` trace of one chunk.
+
+``--profile DIR`` traces one chunk (the third, past warm-up) with
+``torch.profiler`` on the card, writes ``DIR/trace.json`` and emits a
+``"profile"`` event: the device's busy time, launches and kernels per step
+(:mod:`fps_tpu_torch.utils.trace_summary`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+
+
+def emit(record: dict) -> None:
+    """One JSON line per event: the reference's WOut metrics stream."""
+    json.dump(record, sys.stdout)
+    sys.stdout.write("\n")
+    sys.stdout.flush()
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """The flags every example takes."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--epochs", type=int, default=1)
+    ap.add_argument("--local-batch", type=int, default=256,
+                    help="examples per worker per step")
+    ap.add_argument("--steps-per-chunk", type=int, default=16)
+    ap.add_argument("--sync-every", type=int, default=None,
+                    help="SSP staleness bound s (default: synchronous)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace the third chunk with torch.profiler into DIR")
+    return ap
+
+
+def profiler(args, device):
+    """``(context, step)``: the ``torch.profiler`` context for ``--profile``
+    (a null context without it), and the function to call after each chunk.
+    Chunk 0 runs untraced, chunk 1 warms the profiler up, chunk 2 is traced
+    and summarised in a ``"profile"`` event."""
+    if not args.profile:
+        return contextlib.nullcontext(), lambda: None
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from fps_tpu_torch.utils import trace_summary
+
+    if device.type != "cuda":
+        raise SystemExit("--profile traces the card; it needs a CUDA device")
+    os.makedirs(args.profile, exist_ok=True)
+    path = os.path.join(args.profile, "trace.json")
+
+    def traced(p):
+        p.export_chrome_trace(path)
+        emit({"event": "profile", "trace": path,
+              **trace_summary.summarize(trace_summary.load(path),
+                                        args.steps_per_chunk)})
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=1, warmup=1, active=1, repeat=1),
+                   on_trace_ready=traced)
+    return prof, prof.step

@@ -7,34 +7,21 @@ in a ``"done"`` event with the held-out ``test_rmse``.
     python -m fps_tpu_torch.examples.mf --scale 20m --local-batch 32768
     python -m fps_tpu_torch.examples.mf --scale 100k --device cpu
 
-``--profile DIR`` traces one chunk (the third, past warm-up) with
-``torch.profiler`` on the card, writes ``DIR/trace.json`` and emits a
-``"profile"`` event: the device's busy time, launches and kernels per step
-(:mod:`fps_tpu_torch.utils.trace_summary`).
+``--profile DIR`` traces one chunk on the card (see
+:mod:`fps_tpu_torch.examples.common`).
 """
 
 from __future__ import annotations
 
-import argparse
-import contextlib
-import json
-import os
-import sys
 import time
 
 import numpy as np
 
-
-def emit(record: dict) -> None:
-    """One JSON line per event: the reference's WOut metrics stream."""
-    json.dump(record, sys.stdout)
-    sys.stdout.write("\n")
-    sys.stdout.flush()
+from fps_tpu_torch.examples.common import base_parser, emit, profiler
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        description="Online MF (SGD) on the PyTorch parameter server")
+    ap = base_parser("Online MF (SGD) on the PyTorch parameter server")
     ap.add_argument("--input", default=None,
                     help="u.data-format ratings file (default: synthetic)")
     ap.add_argument("--scale", default="100k", choices=["100k", "1m", "20m"],
@@ -44,17 +31,6 @@ def main(argv=None) -> int:
     ap.add_argument("--reg", type=float, default=0.01)
     ap.add_argument("--combine", default="sum", choices=["sum", "mean"],
                     help="how duplicate items of one batch merge")
-    ap.add_argument("--epochs", type=int, default=1)
-    ap.add_argument("--local-batch", type=int, default=256,
-                    help="examples per worker per step")
-    ap.add_argument("--steps-per-chunk", type=int, default=16)
-    ap.add_argument("--sync-every", type=int, default=None,
-                    help="SSP staleness bound s (default: synchronous)")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
-    ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace the third chunk with torch.profiler into DIR")
     args = ap.parse_args(argv)
 
     from fps_tpu_torch.core.ingest import epoch_chunks
@@ -88,40 +64,16 @@ def main(argv=None) -> int:
                 steps_per_chunk=args.steps_per_chunk, route_key="user",
                 sync_every=args.sync_every, seed=args.seed + e)
 
-    prof = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile, schedule
-
-        from fps_tpu_torch.utils import trace_summary
-
-        if mesh.device.type != "cuda":
-            raise SystemExit("--profile traces the card; it needs a CUDA "
-                             "device")
-        os.makedirs(args.profile, exist_ok=True)
-        path = os.path.join(args.profile, "trace.json")
-
-        def traced(p):
-            p.export_chrome_trace(path)
-            emit({"event": "profile", "trace": path,
-                  **trace_summary.summarize(trace_summary.load(path),
-                                            args.steps_per_chunk)})
-
-        # Chunk 0 untraced, chunk 1 warms the profiler up, chunk 2 traced.
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       schedule=schedule(wait=1, warmup=1, active=1,
-                                        repeat=1),
-                       on_trace_ready=traced)
+    prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
 
     def report(i, m):
         se, n = float(np.sum(m["se"])), max(1.0, float(np.sum(m["n"])))
         emit({"event": "chunk", "i": i, "train_rmse": float(np.sqrt(se / n)),
               "examples": n, "seconds": time.perf_counter() - t0})
-        if prof is not None:
-            prof.step()
+        prof_step()
 
-    with prof if prof is not None else contextlib.nullcontext():
+    with prof:
         tables, local_state, _ = trainer.fit_stream(
             tables, local_state, chunks(), args.seed, on_chunk=report)
     pred = predict_host(store, local_state, W, test["user"], test["item"])

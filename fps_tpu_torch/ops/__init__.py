@@ -2,14 +2,19 @@
 the store's pull and push come down to.
 
 Port of ``fps_tpu/ops/__init__.py`` (``gather_rows``, ``scatter_add``). The
-choice of implementation is the device the table lies on, and nothing else:
-a CUDA tensor goes to the hand-written kernel of
-:mod:`fps_tpu_torch.ops.kernels` (which raises on what it does not take), a
-CPU tensor to the kernel's plain PyTorch version. There are no routing
-thresholds and no fallback from one to the other.
+choice of implementation is the device the table lies on and the kernel's
+contract, and nothing else: a CUDA table of one column goes to the scalar
+kernels (K5 gather, K4 scatter-add), any other CUDA table to the row kernels
+(K1, K2), each in :mod:`fps_tpu_torch.ops.kernels`, which raise on what they
+do not take; a CPU tensor goes to the kernel's plain PyTorch version. There
+are no routing thresholds (the JAX package's were measured on a TPU) and no
+fallback from one to the other.
 
-The JAX package's ``hot_rows`` / ``head_prefix`` routes (the lane-packed and
-scalar-table kernels K3-K5) are not ported; a non-zero value raises.
+``head_prefix`` is ported: on a scalar table with ``hot_rows = H > 0`` the
+leading ``head_prefix`` ids go through the kernel on the head view
+``table[:H]`` and the rest through the whole table, as in the JAX package.
+The lane-packed hot/cold push split (``hot_rows`` without a prefix route,
+kernel K3) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -21,41 +26,81 @@ from fps_tpu_torch.ops import kernels
 Tensor = torch.Tensor
 
 
-def _no_hot_routes(fn: str, hot_rows: int, head_prefix: int) -> None:
-    if hot_rows or head_prefix:
-        raise NotImplementedError(
-            f"{fn}: hot_rows / head_prefix route to the packed and scalar "
-            "kernels (K3-K5), which are not ported yet (ROADMAP.md Queue 2)")
-
-
 def _on(table: Tensor, fn: str) -> str:
     if table.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{fn}: unsupported device {table.device}")
     return table.device.type
 
 
+def _head_route(table: Tensor, head_prefix: int, hot_rows: int) -> bool:
+    """The JAX package's head-prefix route, by contract only: a scalar table
+    with a declared head and a guaranteed prefix."""
+    return head_prefix > 0 and hot_rows > 0 and table.shape[1] == 1
+
+
+def _gather(table: Tensor, ids: Tensor) -> Tensor:
+    cuda = _on(table, "gather_rows") == "cuda"
+    if table.shape[1] == 1:
+        return (kernels.gather_rows_dim1_cuda if cuda
+                else kernels.gather_rows_dim1_plain)(table, ids)
+    return (kernels.gather_rows_cuda if cuda
+            else kernels.gather_rows_plain)(table, ids)
+
+
+def _scatter_(table: Tensor, ids: Tensor, deltas: Tensor) -> Tensor:
+    cuda = _on(table, "scatter_add_") == "cuda"
+    if table.shape[1] == 1:
+        return (kernels.scatter_add_dim1_cuda_ if cuda
+                else kernels.scatter_add_dim1_plain)(table, ids, deltas)
+    return (kernels.scatter_add_cuda_ if cuda
+            else kernels.scatter_add_plain)(table, ids, deltas)
+
+
 def gather_rows(table: Tensor, ids: Tensor, *, hot_rows: int = 0,
                 head_prefix: int = 0, exact: bool = False) -> Tensor:
     """``table[ids]``; ids outside ``[0, rows)`` yield zero rows.
+
+    ``head_prefix > 0`` with ``hot_rows = H > 0`` on a scalar table asserts
+    that ``ids[:head_prefix]`` lie in ``[0, H) ∪ {-1}`` (the frequency head
+    that ``head_sort_slots`` puts first): those ids read from ``table[:H]``,
+    so an id ``>= H`` inside the prefix reads zero, the JAX package's
+    documented contract. Without that route ``hot_rows`` changes nothing
+    for a read.
 
     Every read is exact on both devices, so ``exact`` (the JAX package's
     escape from its lossy scalar-table route) changes nothing here; it is
     kept so callers read the same in both packages.
     """
-    _no_hot_routes("gather_rows", hot_rows, head_prefix)
-    if _on(table, "gather_rows") == "cuda":
-        return kernels.gather_rows_cuda(table, ids)
-    return kernels.gather_rows_plain(table, ids)
+    if _head_route(table, head_prefix, hot_rows):
+        head = _gather(table[:hot_rows], ids[:head_prefix])
+        tail = _gather(table, ids[head_prefix:])
+        return torch.cat([head, tail], 0)
+    return _gather(table, ids)
 
 
 def scatter_add_(table: Tensor, ids: Tensor, deltas: Tensor, *,
                  hot_rows: int = 0, head_prefix: int = 0) -> Tensor:
     """In place: ``table[ids] += deltas``; ids outside ``[0, rows)`` are
-    dropped, duplicate ids accumulate. Returns ``table``."""
-    _no_hot_routes("scatter_add_", hot_rows, head_prefix)
-    if _on(table, "scatter_add_") == "cuda":
-        return kernels.scatter_add_cuda_(table, ids, deltas)
-    return kernels.scatter_add_plain(table, ids, deltas)
+    dropped, duplicate ids accumulate. Returns ``table``.
+
+    With the head-prefix route (see :func:`gather_rows`) the leading
+    ``head_prefix`` pushes fold into ``table[:H]`` (a push to an id ``>= H``
+    there is dropped) and the rest into the whole table.
+
+    Raises:
+      NotImplementedError: ``hot_rows > 0`` without the head-prefix route,
+        the JAX package's hot/cold split through the lane-packed kernel K3.
+    """
+    if _head_route(table, head_prefix, hot_rows):
+        _scatter_(table[:hot_rows], ids[:head_prefix], deltas[:head_prefix])
+        return _scatter_(table, ids[head_prefix:], deltas[head_prefix:])
+    if hot_rows:
+        raise NotImplementedError(
+            f"scatter_add_: hot_rows={hot_rows} without a head-prefix route "
+            "takes the hot/cold push split through the lane-packed kernel "
+            "K3 (scatter_add_packed_pallas), which is not ported yet "
+            "(ROADMAP.md Queue 2)")
+    return _scatter_(table, ids, deltas)
 
 
 def scatter_add(table: Tensor, ids: Tensor, deltas: Tensor, *,

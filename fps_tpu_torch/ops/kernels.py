@@ -1,4 +1,4 @@
-"""The port's two hand-written CUDA kernels, each beside its plain version.
+"""The port's hand-written CUDA kernels, each beside its plain version.
 
 For each kernel this module holds the CUDA wrapper, the plain PyTorch version
 of the same function, and the wrapper's launch counter (a plain int,
@@ -21,6 +21,25 @@ rules out the float atomics of ``index_add_`` on the card. The wrapper sorts
 the ids stably (a permutation), and the kernel gives each run of equal ids to
 one thread per column, which adds the run's deltas to the row in batch order.
 The serial run of a Zipf-hot id is its slow spot.
+
+K5 ``gather_rows_dim1_cuda`` (``csrc/gather_rows_dim1.cu``) replaces
+``gather_rows_dim1_pallas``, the read of an ``(R, 1)`` scalar table. It is
+bound by the stream of ids in and values out (the table, at most 4 MB on the
+paths that use it, stays in L2). Each thread takes four ids with one 16-byte
+load and writes four values with one 16-byte store; a bounds check writes
+zero for a dropped id. The read is exact, where the TPU kernel's hi+lo bf16
+read keeps about 16 mantissa bits.
+
+K4 ``scatter_add_dim1_cuda_`` (``csrc/scatter_add_dim1.cu``) replaces
+``scatter_add_dim1_pallas``, the push into an ``(R, 1)`` table. It is bound
+by bytes and must be deterministic, like K2, but K2's serial walk of a run
+would cost milliseconds here: a scalar push carries 2^20 Zipf ids, and the
+hottest row takes tens of thousands of them. The wrapper sorts the ids
+stably; the kernel reduces every run by a segmented scan in a fixed tree
+order (within each tile of 1,024 sorted positions, then across the tiles'
+partials), and adds each run's sum into its row once. No atomics: the same
+bits on every launch, and a batch that is one run costs what a uniform batch
+costs.
 """
 
 from __future__ import annotations
@@ -140,7 +159,106 @@ def scatter_add_cuda_(table: torch.Tensor, ids: torch.Tensor,
 
 scatter_add_cuda_.launches = 0
 
-WRAPPERS = {"gather_rows": gather_rows_cuda, "scatter_add": scatter_add_cuda_}
+# ---------------------------------------------------------------------------
+# K5: scalar-table gather
+# ---------------------------------------------------------------------------
+
+def _check_dim1(fn: str, table: torch.Tensor) -> None:
+    _check(table.dim() == 2 and table.shape[1] == 1,
+           f"{fn}: table must be (R, 1), got {tuple(table.shape)}")
+
+
+def gather_rows_dim1_plain(table: torch.Tensor,
+                           ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for an ``(R, 1)`` table, zero for ids outside
+    ``[0, R)``."""
+    _check_dim1("gather_rows_dim1_plain", table)
+    return gather_rows_plain(table, ids)
+
+
+def gather_rows_dim1_cuda(table: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """K5 on the card: ``(B, 1)`` values of the ``(R, 1)`` float32 table for
+    ``(B,)`` int32 ids, zero for ids outside ``[0, R)``."""
+    _check_table_ids("gather_rows_dim1_cuda", table, ids)
+    _check_dim1("gather_rows_dim1_cuda", table)
+    R = table.shape[0]
+    B = ids.shape[0]
+    out = torch.empty((B, 1), dtype=table.dtype, device=table.device)
+    if B == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.fps_gather_rows_dim1_f32(table.data_ptr(), ids.data_ptr(),
+                                          out.data_ptr(), R, B,
+                                          _stream(table))
+    _raise_on_error(rc, "gather_rows_dim1_cuda")
+    gather_rows_dim1_cuda.launches += 1
+    return out
+
+
+gather_rows_dim1_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: scalar-table scatter-add
+# ---------------------------------------------------------------------------
+
+DIM1_TILE = 1024  # sorted positions per block of K4 (kTile in the source)
+
+
+def scatter_add_dim1_plain(table: torch.Tensor, ids: torch.Tensor,
+                           deltas: torch.Tensor) -> torch.Tensor:
+    """In place, for an ``(R, 1)`` table: ``table[ids[b]] += deltas[b]``;
+    duplicates add, ids outside ``[0, R)`` are dropped. Returns ``table``."""
+    _check_dim1("scatter_add_dim1_plain", table)
+    return scatter_add_plain(table, ids, deltas)
+
+
+def scatter_add_dim1_cuda_(table: torch.Tensor, ids: torch.Tensor,
+                           deltas: torch.Tensor) -> torch.Tensor:
+    """K4 on the card, in place: ``table[ids[b]] += deltas[b]`` for the
+    ``(R, 1)`` float32 table, ``(B,)`` int32 ids and ``(B, 1)`` float32
+    deltas; duplicates add in a fixed tree order, ids outside ``[0, R)`` are
+    dropped. Deterministic: the same inputs give the same bits. Returns
+    ``table``."""
+    _check_table_ids("scatter_add_dim1_cuda_", table, ids)
+    _check_dim1("scatter_add_dim1_cuda_", table)
+    _check(deltas.is_cuda and deltas.device == table.device,
+           f"scatter_add_dim1_cuda_: deltas on {deltas.device}, table on "
+           f"{table.device}")
+    _check(deltas.dtype == torch.float32 and deltas.is_contiguous(),
+           "scatter_add_dim1_cuda_: deltas must be contiguous float32")
+    R = table.shape[0]
+    B = ids.shape[0]
+    _check(tuple(deltas.shape) == (B, 1),
+           f"scatter_add_dim1_cuda_: deltas {tuple(deltas.shape)} != "
+           f"({B}, 1)")
+    if B == 0:
+        return table
+    sorted_ids, order = torch.sort(ids, stable=True)
+    num_tiles = -(-B // DIM1_TILE)
+    fwork = torch.empty(2 * num_tiles, dtype=torch.float32,
+                        device=table.device)
+    iwork = torch.empty(2 * num_tiles, dtype=torch.int32,
+                        device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.fps_scatter_add_dim1_f32(
+            table.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+            deltas.data_ptr(), R, B, fwork.data_ptr(), iwork.data_ptr(),
+            fwork[num_tiles:].data_ptr(), iwork[num_tiles:].data_ptr(),
+            num_tiles, _stream(table))
+    _raise_on_error(rc, "scatter_add_dim1_cuda_")
+    scatter_add_dim1_cuda_.launches += 1
+    return table
+
+
+scatter_add_dim1_cuda_.launches = 0
+
+WRAPPERS = {"gather_rows": gather_rows_cuda, "scatter_add": scatter_add_cuda_,
+            "gather_rows_dim1": gather_rows_dim1_cuda,
+            "scatter_add_dim1": scatter_add_dim1_cuda_}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,14 +1,20 @@
-"""MovieLens-style ratings for the port: synthetic generator, loader, split.
+"""Datasets for the port: synthetic generators, loaders, split.
 
-A copy of ``synthetic_ratings``, the numpy branch of ``load_movielens`` and
-``train_test_split`` from ``fps_tpu/utils/datasets.py`` (the JAX package's
-compiled C++ parser is not carried over). The same seed gives the same
-arrays as the JAX package's functions.
+A copy of ``fps_tpu/utils/datasets.py`` for the ported workloads:
+MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``), sparse
+classification for passive-aggressive and logistic regression
+(``synthetic_sparse_classification``, ``synthetic_sparse_multiclass``,
+``head_sort_slots``), the svmlight / Criteo loaders (``load_svmlight``,
+``load_criteo``, ``sniff_sparse_format``, ``load_sparse``) and
+``train_test_split``. The loaders are the JAX package's pure-Python
+branches; its compiled C++ parsers are not carried over. The same seed gives
+the same arrays as the JAX package's functions.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 
@@ -82,3 +88,334 @@ def train_test_split(data: dict, test_frac: float = 0.1, seed: int = 1):
         {k: v[te] for k, v in data.items()},
     )
 
+
+# ---------------------------------------------------------------------------
+# Sparse classification: RCV1 / Criteo shapes.
+# ---------------------------------------------------------------------------
+
+# Criteo schema: 13 numeric columns, then 26 categorical ones.
+CRITEO_NUM_COLS = 13
+CRITEO_CAT_COLS = 26
+CRITEO_NNZ = CRITEO_NUM_COLS + CRITEO_CAT_COLS
+
+_MASK64 = (1 << 64) - 1
+
+
+def _criteo_hash(col: int, token: bytes) -> int:
+    """FNV-1a 64 + splitmix64 finalizer: bit for bit the JAX package's
+    ``hash_bytes`` (``fps_tpu/native/src/fps_native.cc``), so that both
+    packages hash a Criteo file to the same ids."""
+    h = (1469598103934665603 ^ col) & _MASK64
+    for b in token:
+        h = ((h ^ b) * 1099511628211) & _MASK64
+    z = (h + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+_SVM_NUM = re.compile(rb"^[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?$")
+_SVM_IDX = re.compile(rb"^\d+$")
+
+
+def _parse_svmlight_py(path: str, nnz_cap: int | None):
+    """Pure-python svmlight parse, with the JAX package's conventions:
+    malformed data lines raise; rows longer than nnz_cap keep their first
+    nnz_cap features (count returned as ``truncated``). Tokens are
+    validated against the exact grammar of its native scanner
+    (``_SVM_NUM``/``_SVM_IDX``) BEFORE float()/int(), which are more
+    permissive ("1_0", "inf", "+5" as an index)."""
+    rows = []
+    malformed = 0
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.split(b"#", 1)[0].strip()
+            if not line:
+                continue
+            parts = line.split()
+            try:
+                if not _SVM_NUM.match(parts[0]):
+                    raise ValueError
+                label = float(parts[0])
+                feats = []
+                for tok in parts[1:]:
+                    idx, val = tok.split(b":", 1)
+                    if not _SVM_IDX.match(idx) or not _SVM_NUM.match(val):
+                        raise ValueError
+                    feats.append((int(idx), float(val)))
+            except (ValueError, IndexError):
+                malformed += 1
+                continue
+            rows.append((label, feats))
+    if malformed:
+        raise ValueError(
+            f"{path}: {malformed} malformed svmlight line(s) — refusing "
+            "to return a silently-truncated dataset"
+        )
+    n = len(rows)
+    max_nnz = max((len(f) for _, f in rows), default=0)
+    nnz = int(nnz_cap) if nnz_cap else max(max_nnz, 1)
+    labels = np.zeros(n, np.float32)
+    ids = np.zeros((n, nnz), np.int32)
+    vals = np.zeros((n, nnz), np.float32)
+    truncated = 0
+    for r, (label, feats) in enumerate(rows):
+        labels[r] = label
+        truncated += max(0, len(feats) - nnz)
+        for k, (idx, val) in enumerate(feats[:nnz]):
+            ids[r, k] = idx
+            vals[r, k] = val
+    return labels, ids, vals, truncated
+
+
+def load_svmlight(path: str, *, num_features: int | None = None,
+                  nnz_cap: int | None = None):
+    """Load an svmlight/RCV1 file into the framework's sparse batch shape.
+
+    Returns ``(data, num_features)`` where data has ``feat_ids (N, nnz)``,
+    ``feat_vals (N, nnz)``, ``label (N,)`` in {-1, +1} (svmlight labels
+    mapped by sign; 0 maps to -1). Pad slots are id 0 / value 0 — inactive
+    under the models' ``x != 0`` convention. Ids are kept verbatim
+    (1-based in RCV1), so ``num_features`` defaults to ``max_id + 1``.
+    """
+    labels, ids, vals, truncated = _parse_svmlight_py(path, nnz_cap)
+    if truncated:
+        import warnings
+
+        warnings.warn(
+            f"{path}: nnz_cap={nnz_cap} dropped {truncated} feature "
+            "value(s) from over-long rows",
+            stacklevel=2,
+        )
+    max_id = int(ids.max()) if len(ids) else 0
+    if num_features is not None and max_id >= num_features:
+        raise ValueError(
+            f"{path}: feature id {max_id} >= num_features={num_features} — "
+            "oversized ids would silently index past the parameter table"
+        )
+    nf = num_features or max_id + 1
+    data = {
+        "feat_ids": ids,
+        "feat_vals": vals,
+        "label": np.where(labels > 0, 1.0, -1.0).astype(np.float32),
+    }
+    return data, nf
+
+
+def _parse_criteo_py(path: str, num_features: int):
+    """Pure-python Criteo TSV parse, with the conventions of the JAX
+    package's native scanner, including the categorical hash and the
+    FIXED-SLOT layout: numeric column j always sits at batch slot j (id j, value 0 =
+    inactive when missing), categoricals append from slot 13. The fixed
+    head is what lets ``LogRegConfig.dense_features`` pull/push the
+    numeric weights densely instead of via per-example scatter rows."""
+    cat_space = num_features - CRITEO_NUM_COLS
+    labels, ids_rows, vals_rows = [], [], []
+    malformed = 0
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.rstrip(b"\r\n")
+            if not line:
+                continue
+            fields = line.split(b"\t")
+            ok = len(fields) == 1 + CRITEO_NNZ and fields[0] in (b"0", b"1")
+            row_ids = np.zeros(CRITEO_NNZ, np.int32)
+            row_vals = np.zeros(CRITEO_NNZ, np.float32)
+            row_ids[:CRITEO_NUM_COLS] = np.arange(CRITEO_NUM_COLS)
+            nnz = CRITEO_NUM_COLS  # cat slots start after the fixed head
+            if ok:
+                for j, tok in enumerate(fields[1 : 1 + CRITEO_NUM_COLS]):
+                    if not tok:
+                        continue
+                    # The strict grammar of the native parse_signed:
+                    # float() alone would admit "1_0"/"inf"/"nan".
+                    if not _SVM_NUM.match(tok):
+                        ok = False
+                        break
+                    v = float(tok)
+                    if v >= 0:
+                        row_vals[j] = np.log1p(v)
+            if ok:
+                for j, tok in enumerate(fields[1 + CRITEO_NUM_COLS:],
+                                        start=CRITEO_NUM_COLS):
+                    if not tok:
+                        continue
+                    h = _criteo_hash(j, tok)
+                    row_ids[nnz] = CRITEO_NUM_COLS + (h % cat_space)
+                    row_vals[nnz] = 1.0
+                    nnz += 1
+            if not ok:
+                malformed += 1
+                continue
+            labels.append(float(fields[0]))
+            ids_rows.append(row_ids)
+            vals_rows.append(row_vals)
+    if malformed:
+        raise ValueError(
+            f"{path}: {malformed} malformed Criteo line(s) — refusing to "
+            "return a silently-truncated dataset"
+        )
+    n = len(labels)
+    return (
+        np.asarray(labels, np.float32),
+        np.stack(ids_rows) if n else np.zeros((0, CRITEO_NNZ), np.int32),
+        np.stack(vals_rows) if n else np.zeros((0, CRITEO_NNZ), np.float32),
+    )
+
+
+def load_criteo(path: str, *, num_features: int = 1 << 20):
+    """Load a Criteo click-log TSV (label + 13 numeric + 26 categorical).
+
+    Returns ``(data, num_features)`` with ``feat_ids (N, 39)``,
+    ``feat_vals (N, 39)``, ``label (N,)`` in {-1, +1} (clicks +1). Numeric
+    column j: id j, value log1p(x), negatives/missing inactive; categorical
+    column j: id ``13 + hash(j, token) % (num_features - 13)``, value 1.
+    """
+    if num_features <= CRITEO_NUM_COLS:
+        raise ValueError("num_features must exceed 13 (the numeric columns)")
+    labels, ids, vals = _parse_criteo_py(path, num_features)
+    data = {
+        "feat_ids": ids,
+        "feat_vals": vals,
+        "label": np.where(labels > 0, 1.0, -1.0).astype(np.float32),
+    }
+    return data, num_features
+
+
+def sniff_sparse_format(path: str) -> str:
+    """Best-effort format detection: ``"svmlight"`` (idx:val tokens) or
+    ``"criteo"`` (>= 39 tab-separated fields)."""
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith(b"#"):
+                continue
+            if line.count(b"\t") >= CRITEO_NNZ:
+                return "criteo"
+            if b":" in line:
+                return "svmlight"
+            break
+    raise ValueError(f"{path}: cannot determine sparse dataset format")
+
+
+def load_sparse(path: str, *, fmt: str = "auto",
+                num_features: int | None = None,
+                nnz_cap: int | None = None):
+    """Dispatch to :func:`load_svmlight` / :func:`load_criteo` by format.
+
+    Returns ``(data, num_features)`` in the framework's sparse batch shape
+    (labels in {-1, +1}; logreg callers map to {0, 1}).
+    """
+    if fmt == "auto":
+        fmt = sniff_sparse_format(path)
+    if fmt == "svmlight":
+        return load_svmlight(path, num_features=num_features,
+                             nnz_cap=nnz_cap)
+    if fmt == "criteo":
+        return load_criteo(path, num_features=num_features or (1 << 20))
+    raise ValueError(f"unknown sparse dataset format {fmt!r}")
+
+def synthetic_sparse_classification(
+    num_examples: int,
+    num_features: int,
+    nnz_per_example: int,
+    *,
+    seed: int = 0,
+    noise: float = 0.1,
+    dense_features: int = 0,
+):
+    """Linearly separable-ish sparse examples with Zipfian feature frequency.
+
+    ``dense_features=d`` mirrors the Criteo TSV loader's FIXED-SLOT layout:
+    batch slot ``j < d`` always carries feature id ``j`` (a dense numeric
+    column, present in ~every example; occasionally value 0 = missing),
+    and the remaining ``nnz - d`` slots draw Zipfian ids from ``[d, NF)``
+    — the shape `LogRegConfig.dense_features` exploits. Default 0 keeps
+    the fully-random layout.
+
+    Returns dict with ``feat_ids (N, nnz)``, ``feat_vals (N, nnz)``,
+    ``label (N,)`` in {-1, +1}.
+    """
+    if not 0 <= dense_features <= min(nnz_per_example, num_features):
+        raise ValueError(f"dense_features={dense_features} out of range")
+    rng = np.random.default_rng(seed)
+    w_true = rng.normal(0, 1, num_features)
+    d = dense_features
+    tail_nnz = nnz_per_example - d
+    tail_nf = num_features - d
+    feat_pop = 1.0 / np.arange(1, tail_nf + 1) ** 0.9
+    feat_pop /= feat_pop.sum()
+    tail_ids = d + rng.choice(tail_nf, (num_examples, tail_nnz), p=feat_pop)
+    head_ids = np.broadcast_to(np.arange(d, dtype=np.int64),
+                               (num_examples, d))
+    ids = np.concatenate([head_ids, tail_ids], axis=1)
+    vals = rng.normal(0, 1, (num_examples, nnz_per_example)).astype(np.float32)
+    if d:
+        # ~5% missing numerics (value 0 = inactive), like real Criteo rows.
+        vals[:, :d] = np.where(rng.random((num_examples, d)) < 0.05, 0.0,
+                               vals[:, :d])
+    margin = np.sum(w_true[ids] * vals, axis=-1) / np.sqrt(nnz_per_example)
+    flip = rng.random(num_examples) < noise
+    label = np.where((margin > 0) ^ flip, 1.0, -1.0).astype(np.float32)
+    return {
+        "feat_ids": ids.astype(np.int32),
+        "feat_vals": vals,
+        "label": label,
+    }
+
+
+def head_sort_slots(data: dict, head_features: int):
+    """Reorder each example's nnz slots so frequency-head ids come first.
+
+    For frequency-ranked feature spaces (the shipped loaders and synthetic
+    generators put the hottest ids lowest), stable-partitioning every
+    example's slots into (ids < head_features) then (ids >= head_features)
+    makes the first ``q = min_examples(head_count)`` slot COLUMNS carry
+    head ids in EVERY example — a static guarantee the sparse workers turn
+    into ``ops.gather_rows``/``scatter_add`` ``head_prefix`` routing
+    (head-only kernels whose cost scales with the head's row tiles, not
+    the table's). Measured at ~15% of the end-to-end PA headline
+    (BASELINE.md round-5 section). Slot order within an example is
+    semantically irrelevant (the models sum over slots), so this is a
+    pure relayout.
+
+    Returns ``(data2, q)`` — data with ``feat_ids``/``feat_vals`` columns
+    reordered per example (other columns untouched), and the guaranteed
+    head-prefix column count (0 if any example has no head feature).
+    """
+    ids = np.asarray(data["feat_ids"])
+    vals = np.asarray(data["feat_vals"])
+    is_tail = ids >= head_features
+    order = np.argsort(is_tail, axis=1, kind="stable")
+    out = dict(data)
+    out["feat_ids"] = np.take_along_axis(ids, order, axis=1)
+    out["feat_vals"] = np.take_along_axis(vals, order, axis=1)
+    q = int((~is_tail).sum(axis=1).min())
+    return out, q
+
+
+def synthetic_sparse_multiclass(
+    num_examples: int,
+    num_features: int,
+    num_classes: int,
+    nnz_per_example: int,
+    *,
+    seed: int = 0,
+    noise: float = 0.05,
+):
+    """Sparse multiclass examples: label = argmax_c <w_c, x> with label noise."""
+    rng = np.random.default_rng(seed)
+    w_true = rng.normal(0, 1, (num_features, num_classes))
+    feat_pop = 1.0 / np.arange(1, num_features + 1) ** 0.9
+    feat_pop /= feat_pop.sum()
+    ids = rng.choice(num_features, (num_examples, nnz_per_example), p=feat_pop)
+    vals = rng.normal(0, 1, (num_examples, nnz_per_example)).astype(np.float32)
+    scores = np.einsum("bn,bnc->bc", vals, w_true[ids])
+    label = np.argmax(scores, axis=-1)
+    flip = rng.random(num_examples) < noise
+    label = np.where(flip, rng.integers(0, num_classes, num_examples), label)
+    return {
+        "feat_ids": ids.astype(np.int32),
+        "feat_vals": vals,
+        "label": label.astype(np.int32),
+    }

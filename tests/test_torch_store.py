@@ -152,8 +152,16 @@ def test_param_store_init_lookup_dump():
     assert not zeros.any()
 
 
+def _hot_push_without_prefix():
+    """``hot_ids=2`` constructs now; its push without a head-prefix route is
+    the hot/cold split of kernel K3, which still raises."""
+    spec = tstore.TableSpec("t", 4, 2, hot_ids=2)
+    t, i, d = _t(*_inputs(spec.num_ids, spec.dim, 6, seed=5))
+    tstore.push(t, i, d, num_shards=1, hot_rows=spec.hot_ids)
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tstore.TableSpec("t", 4, 2, hot_ids=2),
+    _hot_push_without_prefix,
     lambda: tstore.TableSpec("t", 4, 2, hot_ids="auto"),
     lambda: tstore.TableSpec("t", 4, 2, hot_tier=2),
     lambda: tstore.TableSpec("t", 4, 2, cold_budget=8),
@@ -175,6 +183,9 @@ def test_unported_options_raise(make):
 
 def test_ported_defaults_construct():
     tstore.TableSpec("t", 4, 2, dense_collectives=False)
+    assert tstore.TableSpec("t", 4, 1, hot_ids=2).hot_ids == 2
+    with pytest.raises(ValueError, match="hot_ids"):
+        tstore.TableSpec("t", 4, 1, hot_ids=-1)
     TrainerConfig(sync_every=4, donate=False, max_steps_per_call=8)
     ServerLogic(combine="mean")
 
@@ -206,3 +217,54 @@ def test_pull_push_over_several_shards_raise():
         tstore.pull(t, i, num_shards=2)
     with pytest.raises(NotImplementedError, match="NCCL"):
         tstore.push(t, i, d, num_shards=2)
+
+
+@pytest.fixture
+def pallas_backend():
+    import fps_tpu.ops as jops
+
+    prev = jops.get_backend()
+    jops.set_backend("pallas")
+    yield
+    jops.set_backend(prev)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_head_prefix_pull_push_match_jax(pallas_backend, inplace):
+    """``pull`` / ``push`` with ``hot_rows`` and ``head_prefix`` on a scalar
+    table against the JAX package's store on one device, whose head-prefix
+    route runs the Pallas scalar kernels (interpret mode, bf16 hi+lo: 2^-16
+    of each value, plus the float32 summation bound)."""
+    R, H, B, q = 9_000, 1024, 6_000, 2048
+    rng = np.random.default_rng(2)
+    table = rng.normal(0, 1, (R, 1)).astype(np.float32)
+    ids = np.concatenate([rng.integers(0, H, q),
+                          rng.integers(-1, R, B - q)]).astype(np.int32)
+    ids[:q:13] = -1
+    deltas = rng.normal(0, 1, (B, 1)).astype(np.float32)
+    want_pull = _on_one_device(
+        lambda t, i: jstore.pull(t, i, num_shards=1, hot_rows=H,
+                                 head_prefix=q), table, ids)
+    want_push = _on_one_device(
+        lambda t, i, d: jstore.push(t, i, d, num_shards=1, data_axis=None,
+                                    hot_rows=H, head_prefix=q),
+        table, ids, deltas)
+    t, i, d = _t(table, ids, deltas)
+    got_pull = tstore.pull(t, i, num_shards=1, hot_rows=H,
+                           head_prefix=q).numpy()
+    got_push = tstore.push(t, i, d, num_shards=1, hot_rows=H, head_prefix=q,
+                           inplace=inplace).numpy()
+    keep = ids >= 0
+    np.testing.assert_array_equal(
+        got_pull, np.where(keep[:, None], table[np.clip(ids, 0, None)], 0))
+    assert np.all(np.abs(got_pull - want_pull)
+                  <= (2.0**-16 + 1.2e-7) * np.abs(got_pull))
+    ref = table.astype(np.float64)
+    np.add.at(ref[:, 0], ids[keep], deltas[keep, 0])
+    mag = np.abs(table).astype(np.float64)
+    np.add.at(mag[:, 0], ids[keep], np.abs(deltas[keep, 0]))
+    count = np.bincount(ids[keep], minlength=R)[:, None] + 1.0
+    bound = 2.0**-16 * mag + count * np.finfo(np.float32).eps * mag
+    assert np.all(np.abs(got_push - ref) <= bound)
+    assert np.all(np.abs(got_push - want_push) <= 2 * bound)
+    np.testing.assert_array_equal(t.numpy(), got_push if inplace else table)
