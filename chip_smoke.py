@@ -20,19 +20,34 @@ on the card, raising on the first failure:
    (1M x 2 pull, 1M x 3 push); K5 / K4 at the binary PA step (the head view
    47,236[:2,048] with the head-sorted prefix, then the tail) and the
    logistic-regression step (1M x 1, 13 + 16,384 x 26 ids), plus K4 at 2^20
-   ids: the whole PA push, uniform ids, and one id owning every push. Times
-   are CUDA-event medians of 30 with the card held busy, beside the bound
-   (least bytes / 3.35 TB/s) and the library call's time;
+   ids: the whole PA push, uniform ids, and one id owning every push. K3,
+   the head scatter-add of the hot/cold split, the same way at the head
+   shapes of its paths (H = 2,048: the MF item push's count-column
+   scatter, the 20-class PA push, the AdaGrad push), with one id owning
+   every push and on the whole-table route; then the crossover sweep behind
+   ``packed_crossover_rows``: K3 over the whole table against K2 with its
+   sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
+   32,768. Times are CUDA-event medians of 30 (the sweep: 10) with the card
+   held busy, beside the bound (least bytes / 3.35 TB/s) and the library
+   call's time;
 4. drives each path at full width, every launch counter at 0 just before it
    and read just after: online MF at ML-20M size (2 epochs sync, 2 SSP);
    binary PA-I at the RCV1 shape with the head prefix (K5 and K4 twice a
    step, no K1 / K2); 20-class PA-I (K1 / K2 only); SSP logistic regression
    at the Criteo shape with SGD and the dense head (K5 and K4 once a step),
-   then a smaller AdaGrad run (K1 / K2 only). Each must learn: MF's train
-   RMSE falls; over the last chunk PA's mistake rate lies below 0.5 (20
-   classes: 0.95) and the logistic log loss below 0.693;
-5. runs small MF, head-prefix PA and SSP logistic-regression jobs on the
-   card and on the CPU from the same tables and compares the tables;
+   then a smaller AdaGrad run (K1 / K2 only). Then the hot/cold split
+   through device-resident ingest and ``run_indexed``: MF at ML-20M size
+   with ``hot_items = 2048`` (2 epochs sync, 2 SSP; K1 2, K2 2 and K3 1 a
+   step), 20-class PA-I and AdaGrad logistic regression with
+   ``hot_features = 2048`` (K1, K2 and K3 once a step each), and one traced
+   run_indexed epoch of the MF configuration for the device's busy share.
+   Each must learn: MF's train RMSE falls; over the last chunk PA's mistake
+   rate lies below 0.5 (20 classes: 0.95) and the logistic log loss below
+   0.693;
+5. runs small MF, head-prefix PA and SSP logistic-regression jobs, and
+   run_indexed jobs of MF with ``hot_items`` and 20-class PA with
+   ``hot_features``, on the card and on the CPU from the same tables and
+   compares the tables;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +83,7 @@ PA_MC_NEX, PA_MC_CLASSES = 200_000, 20
 LR_NF, LR_NNZ, LR_DENSE, LR_NEX = 1_000_000, 39, 13, 1_000_000
 LR_ADAGRAD_NEX = 262_144
 SPARSE_BATCH = 16_384
+HOT = 2048  # the write-hot head of the split paths (bench.py's head size)
 
 
 def log(*parts) -> None:
@@ -163,6 +179,28 @@ def check_gather(torch, label, kernel, plain, table, ids, path):
     return case
 
 
+def check_sum_bound(torch, label, table, kid, kd, got, want):
+    """Hold a scatter-add's kernel result ``got`` and plain result ``want``
+    against the float64 sum of ``table`` and the pushes ``kd`` to rows
+    ``kid``; return that sum and each row's push count."""
+    ref = table.double().index_add_(0, kid, kd.double())
+    # Tolerance: a float32 sum of k terms in any order lies within
+    # k * eps32 * (sum of the terms' magnitudes) of the exact sum; k is the
+    # row's push count plus one (the table value).
+    mag = table.double().abs().index_add_(0, kid, kd.double().abs())
+    count = torch.zeros(table.shape[0], dtype=torch.float64,
+                        device=table.device)
+    count.index_add_(0, kid, torch.ones_like(kid, dtype=torch.float64))
+    tol = (count + 1)[:, None] * EPS32 * mag
+    for which, val in (("kernel", got), ("plain", want)):
+        excess = float((((val.double() - ref).abs()) - tol).max())
+        if excess > 0:
+            raise AssertionError(
+                f"{label}: {which} outside the float32 bound of the float64 "
+                f"sum by {excess}")
+    return ref, count
+
+
 def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
     """Hold a scatter-add kernel against its plain version and a float64 sum
     (within the float32 summation bound; the same bits on two launches) and
@@ -177,20 +215,7 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
         raise AssertionError(f"{label}: two launches gave different bits")
     keep = (ids >= 0) & (ids < num_rows)
     kid, kd = ids[keep], deltas[keep]
-    ref = table.double().index_add_(0, kid, kd.double())
-    # Tolerance: a float32 sum of k terms in any order lies within
-    # k * eps32 * (sum of the terms' magnitudes) of the exact sum; k is the
-    # row's push count plus one (the table value).
-    mag = table.double().abs().index_add_(0, kid, kd.double().abs())
-    count = torch.zeros(num_rows, dtype=torch.float64, device=table.device)
-    count.index_add_(0, kid, torch.ones_like(kid, dtype=torch.float64))
-    tol = (count + 1)[:, None] * EPS32 * mag
-    for which, val in (("kernel", got), ("plain", want)):
-        excess = float((((val.double() - ref).abs()) - tol).max())
-        if excess > 0:
-            raise AssertionError(
-                f"{label}: {which} outside the float32 bound of the float64 "
-                f"sum by {excess}")
+    ref, count = check_sum_bound(torch, label, table, kid, kd, got, want)
     uniq = int(torch.unique(kid).numel())
     # Least bytes: the ids, the deltas of in-range ids read, and each
     # touched row read and written once.
@@ -218,6 +243,103 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
     return case
 
 
+def sixteenths(torch, x):
+    """``x`` rounded to a multiple of 1/16 within [-1/2, 1/2]. Float32 sums
+    of up to 2^20 such terms stay below 2^24 sixteenths, so every partial
+    sum is exact and any order of adding gives the float64 sum."""
+    return torch.round(x.clamp(-2, 2) * 4) / 16
+
+
+def check_packed(torch, label, kernels, table, ids, deltas, hot_rows, path,
+                 reps=30):
+    """Hold K3 against its plain version and a float64 sum over the head
+    rows (within the float32 summation bound; the same bits on two
+    launches), and on sixteenths of the same inputs against the exact
+    float64 sum, bit for bit: the worst-case bound grows with a row's push
+    count past the row's own sum, so only the exact sums catch a lost or
+    doubled push to a hot row. Time K3, its plain version and
+    ``index_add_`` of the head pushes into ``table[:H]``."""
+    kernel = kernels.scatter_add_packed_cuda_
+    plain = kernels.scatter_add_packed_plain
+    num_rows, dim = table.shape
+    H = min(hot_rows, num_rows)
+    B = ids.shape[0]
+    got = kernel(table.clone(), ids, deltas, H)
+    again = kernel(table.clone(), ids, deltas, H)
+    want = plain(table.clone(), ids, deltas, H)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches gave different bits")
+    if not torch.equal(got[H:], table[H:]):
+        raise AssertionError(f"{label}: rows past the head changed")
+    keep = (ids >= 0) & (ids < H)
+    kid, kd = ids[keep], deltas[keep]
+    ref, count = check_sum_bound(torch, label, table, kid, kd, got, want)
+    et, ed = sixteenths(torch, table), sixteenths(torch, deltas)
+    exact = et.double().index_add_(0, kid, ed[keep].double())
+    for which, fn in (("kernel", kernel), ("plain", plain)):
+        if not torch.equal(fn(et.clone(), ids, ed, H).double(), exact):
+            raise AssertionError(
+                f"{label}: {which} differs from the exact sum of sixteenths")
+    uniq = int(torch.unique(kid).numel())
+    # Least bytes: every id read, the head pushes' deltas read, each
+    # touched head row read and written once.
+    nbytes = B * 4 + kid.numel() * dim * 4 + 2 * uniq * dim * 4
+    head = table[:H]
+    case = {
+        "shape": label, "path": path, "R": num_rows, "D": dim, "B": B,
+        "H": H, "head_pushes": int(kid.numel()), "unique_rows": uniq,
+        "max_run": int(count.max()) if num_rows else 0,
+        "slices": kernels.packed_slices(B, H, dim),
+        "max_abs_err": float((got - want).abs().max()),
+        "max_err_vs_f64": float((got.double() - ref).abs().max()),
+        "ms": time_ms(torch, lambda t: kernel(t, ids, deltas, H),
+                      setup=table.clone, reps=reps),
+        "call_ms": time_ms(torch, lambda t: kernel(t, ids, deltas, H),
+                           setup=table.clone, hold=False, reps=reps),
+        "plain_ms": time_ms(torch, lambda t: plain(t, ids, deltas, H),
+                            setup=table.clone, reps=reps),
+        "library_ms": time_ms(torch, lambda t: t.index_add_(0, kid, kd),
+                              setup=head.clone, reps=reps),
+        "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+    log(f"{label}: deterministic, within the float32 bound and exact on "
+        "sixteenths (kernel and plain); " + json.dumps(case))
+    return case
+
+
+def crossover_sweep(torch, kernels, dev):
+    """K3 over the whole table (``hot_rows = R``) against K2 with its sort,
+    at the JAX package's sweep shape (B = 32,768 Zipf(0.8) ids); the
+    largest R at which K3 is not slower, for each D, is what
+    ``fps_tpu_torch.ops.packed_crossover_rows`` returns."""
+    rng = np.random.default_rng(1)
+    rows = []
+    for dim in (10, 32, 100, 200):
+        for num_rows in (512, 1024, 2048, 4096, 8192, 16384, 32768):
+            pop = 1.0 / np.arange(1, num_rows + 1) ** 0.8
+            ids = torch.from_numpy(rng.choice(
+                num_rows, BATCH, p=pop / pop.sum()).astype(np.int32)).to(dev)
+            table = torch.from_numpy(rng.normal(
+                0, 1, (num_rows, dim)).astype(np.float32)).to(dev)
+            deltas = torch.from_numpy(rng.normal(
+                0, 1, (BATCH, dim)).astype(np.float32)).to(dev)
+            k3 = time_ms(torch, lambda t: kernels.scatter_add_packed_cuda_(
+                t, ids, deltas, num_rows), setup=table.clone, reps=10,
+                warmup=2)
+            k2 = time_ms(torch, lambda t: kernels.scatter_add_cuda_(
+                t, ids, deltas), setup=table.clone, reps=10, warmup=2)
+            rows.append({"D": dim, "R": num_rows, "k3_ms": k3, "k2_ms": k2})
+            log(f"crossover D={dim} R={num_rows}: K3 {k3:.4f} ms, K2 (with "
+                f"sort) {k2:.4f} ms")
+    wins = {}
+    for dim in (10, 32, 100, 200):
+        ok = [r["R"] for r in rows if r["D"] == dim and r["k3_ms"] <= r["k2_ms"]]
+        wins[dim] = max(ok) if ok else 0
+    log(f"crossover: K3 not slower than K2 through R = {json.dumps(wins)}")
+    return {"rows": rows, "k3_wins_through_R": wins}
+
+
 def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     """Phase 3: every kernel against its plain version at its paths'
     shapes. Returns ``{kernel name: [case, ...]}``."""
@@ -237,7 +359,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     g5, s4 = kernels.gather_rows_dim1_cuda, kernels.scatter_add_dim1_cuda_
     g5p, s4p = kernels.gather_rows_dim1_plain, kernels.scatter_add_dim1_plain
     cases = {"gather_rows": [], "scatter_add": [], "gather_rows_dim1": [],
-             "scatter_add_dim1": []}
+             "scatter_add_dim1": [], "scatter_add_packed": []}
 
     # K1 / K2 at the MF step: the item pull and push (mean's count column),
     # the user factors' gather and update; the "sum" combine's push is off
@@ -255,6 +377,19 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
             torch, f"K2 MF {name}", s2, s2p, table(rows, dim),
             t(path_ids(rng, rows, BATCH, zipf)), deltas(BATCH, dim), path))
 
+    # The MF item push with hot_items = 2,048: the count-column scatter into
+    # zeros, the head through K3, the tail through K2 (head ids -1).
+    item_ids = t(path_ids(rng, ML20M_ITEMS, BATCH, True))
+    item_deltas = deltas(BATCH, RANK + 1)
+    acc = torch.zeros((ML20M_ITEMS, RANK + 1), device=dev)
+    cases["scatter_add_packed"].append(check_packed(
+        torch, "K3 MF item head", kernels, acc, item_ids, item_deltas, HOT,
+        "mf_hot"))
+    tail_ids = torch.where((item_ids >= 0) & (item_ids < HOT), -1, item_ids)
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 MF item tail", s2, s2p, acc, tail_ids, item_deltas,
+        "mf_hot"))
+
     # K1 / K2 at the 20-class PA step: 2^20 Zipf(0.9) ids into (NF, 20).
     mc_ids = t(mix_dropped(mc_data["feat_ids"][:SPARSE_BATCH].reshape(-1),
                            PA_NF))
@@ -264,6 +399,19 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     cases["scatter_add"].append(check_scatter(
         torch, "K2 PA multiclass", s2, s2p, table(PA_NF, PA_MC_CLASSES),
         mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass"))
+    mc_deltas = deltas(mc_ids.numel(), PA_MC_CLASSES)
+    cases["scatter_add_packed"].append(check_packed(
+        torch, "K3 PA multiclass head", kernels,
+        table(PA_NF, PA_MC_CLASSES), mc_ids, mc_deltas, HOT,
+        "pa_multiclass_hot"))
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 PA multiclass tail", s2, s2p, table(PA_NF, PA_MC_CLASSES),
+        torch.where((mc_ids >= 0) & (mc_ids < HOT), -1, mc_ids), mc_deltas,
+        "pa_multiclass_hot"))
+    cases["scatter_add_packed"].append(check_packed(
+        torch, "K3 one id owns 2^20 pushes", kernels,
+        table(PA_NF, PA_MC_CLASSES), torch.full_like(mc_ids, 7), mc_deltas,
+        HOT, "off_path"))
 
     # The logistic-regression step's ids: the dense head, then the tail.
     lr_ids = mix_dropped(np.concatenate([
@@ -279,6 +427,21 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         torch, "K2 logreg adagrad", s2, s2p,
         torch.zeros((LR_NF, 3), device=dev), lr_ids,
         deltas(lr_ids.numel(), 3), "logreg_adagrad"))
+    lr_deltas = deltas(lr_ids.numel(), 3)
+    cases["scatter_add_packed"].append(check_packed(
+        torch, "K3 logreg adagrad head", kernels,
+        torch.zeros((LR_NF, 3), device=dev), lr_ids, lr_deltas, HOT,
+        "logreg_adagrad_hot"))
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 logreg adagrad tail", s2, s2p,
+        torch.zeros((LR_NF, 3), device=dev),
+        torch.where((lr_ids >= 0) & (lr_ids < HOT), -1, lr_ids), lr_deltas,
+        "logreg_adagrad_hot"))
+    # The whole-table route (hot_rows >= R), as hot_ids="auto" takes it.
+    cases["scatter_add_packed"].append(check_packed(
+        torch, "K3 whole table 4,096 x 10", kernels, table(4096, RANK),
+        t(path_ids(rng, 4096, BATCH, True)), deltas(BATCH, RANK), 4096,
+        "off_path"))
 
     # K5 / K4 at the binary PA step: nnz-major ids of one head-sorted batch,
     # the first q * B through the head view table[:H], the rest through the
@@ -361,6 +524,127 @@ def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
     return summary
 
 
+def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
+                     local_batch, epochs, per_step, quality, card,
+                     chunk_steps):
+    """Train ``epochs`` epochs through device-resident ingest and
+    ``run_indexed`` from fresh tables, the launch counters at 0 just before
+    the run and read just after (the dataset's upload is set-up, before
+    them); check the counts (``per_step`` launches of each kernel for every
+    step of every epoch), finite
+    tables and ``quality`` over the metrics cut into pieces of
+    ``chunk_steps`` steps (``None``: one piece an epoch); return a
+    summary."""
+    mesh = trainer.mesh
+    t0 = time.perf_counter()
+    dataset = fps.DeviceDataset(mesh, data)
+    plan = fps.DeviceEpochPlan(
+        dataset, num_workers=1, local_batch=local_batch, route_key=route_key,
+        seed=0, sync_every=trainer.config.sync_every)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    steps_per_call = trainer._indexed_call_steps(plan)
+    steps_run = epochs * plan.steps_per_epoch
+    tables, local_state = trainer.init_state(0)
+    stamps = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tables, local_state, metrics = trainer.run_indexed(
+        tables, local_state, plan, 1, epochs=epochs,
+        on_epoch=lambda e, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    for name, count in launched.items():
+        want = per_step.get(name, 0) * steps_run
+        if count != want:
+            raise AssertionError(
+                f"{label}: {name} launched {count} times, expected {want} "
+                f"({per_step.get(name, 0)} per step x {steps_run} steps)")
+    leaves = dict(tables)
+    if isinstance(local_state, torch.Tensor):
+        leaves["local_state"] = local_state
+    for name, tb in leaves.items():
+        if not bool(torch.isfinite(tb).all()):
+            raise AssertionError(f"{label}: {name} has non-finite values")
+    pieces = [{k: v[i:i + (chunk_steps or len(m["n"]))] for k, v in m.items()}
+              for m in metrics
+              for i in range(0, len(m["n"]), chunk_steps or len(m["n"]))]
+    checks = quality(pieces)
+    n = float(sum(m["n"].sum() for m in metrics))
+    per_epoch = np.diff([t0] + stamps)
+    steps_per_epoch_run = steps_run // epochs
+    summary = {
+        "path": label, "epochs": epochs,
+        "steps_per_epoch": plan.steps_per_epoch,
+        "steps_per_call": steps_per_call, "steps_run": steps_run,
+        "examples": n, "upload_seconds": upload_s, "seconds": elapsed,
+        "examples_per_s": n / elapsed, "ms_per_step": elapsed / steps_run
+        * 1e3,
+        "steady_ms_per_step": float(per_epoch[-1]) / steps_per_epoch_run
+        * 1e3,
+        "epoch_seconds": per_epoch.tolist(), "launches": launched,
+        "quality": checks, "card": card,
+    }
+    log(f"path {label}: " + json.dumps(summary))
+    return summary
+
+
+def traced_mf_epoch(torch, fps, mf_data, card):
+    """Device busy share of the MF run_indexed step with hot_items: one
+    untraced and one traced epoch of 64 steps over the first 63 x 32,768
+    ratings (``torch.profiler``, summarised by
+    ``fps_tpu_torch.utils.trace_summary``), against the untraced step of the
+    same epoch. The trace goes to a temporary directory and is deleted."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from fps_tpu_torch.utils import trace_summary
+
+    mesh = fps.make_ps_mesh()
+    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                       rank=RANK, learning_rate=0.1, reg=0.01, hot_items=HOT)
+    trainer, _ = fps.online_mf(mesh, cfg, combine="mean")
+    part = {k: v[:63 * BATCH] for k, v in mf_data.items()}
+    plan = fps.DeviceEpochPlan(fps.DeviceDataset(mesh, part), num_workers=1,
+                               local_batch=BATCH, route_key="user", seed=0)
+    tables, local_state = trainer.init_state(0)
+    times = []
+    for e in range(2):  # warm-up, then the untraced epoch that is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables, local_state, _ = trainer.run_indexed(
+            tables, local_state, plan, 1, start_epoch=e)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    untraced_ms = times[-1] / plan.steps_per_epoch * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(path))
+        with prof:
+            for e in (2, 3):
+                tables, local_state, _ = trainer.run_indexed(
+                    tables, local_state, plan, 1, start_epoch=e)
+                torch.cuda.synchronize()
+                prof.step()
+        summary = trace_summary.summarize(trace_summary.load(path),
+                                          plan.steps_per_epoch)
+    busy = summary["device_busy_ms_per_step"]
+    out = {"path": "MF sync, hot_items, run_indexed (traced epoch)",
+           "steps": plan.steps_per_epoch, "untraced_ms_per_step": untraced_ms,
+           "device_busy_ms_per_step": busy,
+           "device_busy_share": busy / untraced_ms,
+           "device_launches_per_step": summary["device_launches_per_step"],
+           "kernels": summary["kernels"], "card": card}
+    log("traced MF run_indexed epoch: " + json.dumps(out))
+    return out
+
+
 def falling_rmse(metrics):
     rmses = [float(np.sqrt(m["se"].sum() / max(1.0, m["n"].sum())))
              for m in metrics]
@@ -407,7 +691,7 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
             torch, kernels, f"MF {mode}", trainer, chunks,
             {"gather_rows": 2, "scatter_add": 2}, falling_rmse, card),
             host_ingest_s=ingest_s))
-    del data
+        del chunks
 
     def sparse(data, epochs, spc, sync_every=None):
         return list(multi_epoch_chunks(
@@ -455,7 +739,47 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
         torch, kernels, "logreg SSP AdaGrad, dense head", trainer,
         sparse(small, 2, 16, sync_every=8),
         {"gather_rows": 1, "scatter_add": 1}, below("logloss", 0.693), card))
-    return runs
+
+    # The hot/cold split through device-resident ingest and run_indexed.
+    # MF as bench.py run_mf trains it, with hot_items = 2,048: calls of 64
+    # steps (the last call of each epoch padded with weight-0 steps).
+    split = {"gather_rows": 2, "scatter_add": 2, "scatter_add_packed": 1}
+    for sync_every in (None, 4):
+        cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                           rank=RANK, learning_rate=0.1, reg=0.01,
+                           hot_items=HOT)
+        trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
+                                   combine="mean", max_steps_per_call=64)
+        mode = "sync" if sync_every is None else f"ssp(sync_every={sync_every})"
+        runs.append(run_indexed_path(
+            torch, fps, kernels, f"MF {mode}, hot_items, run_indexed",
+            trainer, data, "user", BATCH, 2, split, falling_rmse, card, 64))
+    mf_data = data
+    del data
+    # 20-class PA-I with hot_features = 2,048 (the multiclass table takes
+    # the split: K3 for the head, K2 for the tail).
+    cfg = fps.PAConfig(num_features=PA_NF, num_classes=PA_MC_CLASSES,
+                       variant="PA-I", C=1.0, hot_features=HOT)
+    trainer, _ = fps.passive_aggressive(mesh, cfg)
+    runs.append(run_indexed_path(
+        torch, fps, kernels, "PA-I 20 classes, hot_features, run_indexed",
+        trainer, mc_data, None, SPARSE_BATCH, 2,
+        {"gather_rows": 1, "scatter_add": 1, "scatter_add_packed": 1},
+        below("mistakes", 0.95), card, None))
+    # AdaGrad logistic regression with hot_features = 2,048: the apply_fn
+    # push's (NF, 3) sum-and-count scatter takes the split.
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.01,
+                           dense_features=LR_DENSE, optimizer="adagrad",
+                           hot_features=HOT)
+    trainer, _ = fps.logistic_regression(mesh, cfg, sync_every=8)
+    runs.append(run_indexed_path(
+        torch, fps, kernels, "logreg SSP AdaGrad, hot_features, run_indexed",
+        trainer, small, None, SPARSE_BATCH, 2,
+        {"gather_rows": 1, "scatter_add": 1, "scatter_add_packed": 1},
+        below("logloss", 0.693), card, None))
+    # Last, so that the profiler cannot slow the timed paths.
+    traced = traced_mf_epoch(torch, fps, mf_data, card)
+    return runs, traced
 
 
 def card_vs_cpu(torch, fps):
@@ -500,6 +824,35 @@ def card_vs_cpu(torch, fps):
                                        local_batch=512, steps_per_chunk=8,
                                        sync_every=4, seed=3)),
     }
+    # The hot/cold split through run_indexed: MF with hot_items (the item
+    # push's count-column scatter on K3 + K2) and 20-class PA with
+    # hot_features, each over a dataset resident on its device.
+    mc_data = ds.synthetic_sparse_multiclass(4096, 2000, 20, 16, seed=8)
+
+    def indexed(data, route_key, local_batch, sync_every=None):
+        def run(trainer, tables, local):
+            plan = fps.DeviceEpochPlan(
+                fps.DeviceDataset(trainer.mesh, data), num_workers=1,
+                local_batch=local_batch, route_key=route_key, seed=3,
+                sync_every=sync_every)
+            return trainer.run_indexed(tables, local, plan, 2, epochs=2)
+        return run
+
+    hot_mf = fps.MFConfig(num_users=300, num_items=200, rank=RANK,
+                          learning_rate=0.1, reg=0.01, hot_items=64)
+    jobs.update({
+        "MF hot_items, run_indexed": (
+            lambda m: fps.online_mf(m, hot_mf, combine="mean",
+                                    max_steps_per_call=8),
+            indexed(mf_data, "user", 512)),
+        "MF hot_items SSP, run_indexed": (
+            lambda m: fps.online_mf(m, hot_mf, sync_every=4, combine="mean"),
+            indexed(mf_data, "user", 512, 4)),
+        "PA-I 20 classes hot_features, run_indexed": (
+            lambda m: fps.passive_aggressive(m, fps.PAConfig(
+                num_features=2000, num_classes=20, hot_features=128)),
+            indexed(mc_data, None, 256)),
+    })
     worst = {}
     for job, (build, chunks) in jobs.items():
         runs = {}
@@ -514,7 +867,11 @@ def card_vs_cpu(torch, fps):
                       for k, v in tables0.items()}
             local = (local0.to(mesh.device, copy=True)
                      if isinstance(local0, torch.Tensor) else local0)
-            tables, local, _ = trainer.fit_stream(tables, local, chunks(), 2)
+            if job.endswith("run_indexed"):
+                tables, local, _ = chunks(trainer, tables, local)
+            else:
+                tables, local, _ = trainer.fit_stream(tables, local,
+                                                      chunks(), 2)
             leaves = {k: v.cpu() for k, v in tables.items()}
             if isinstance(local, torch.Tensor):
                 leaves["local_state"] = local.cpu()
@@ -587,9 +944,11 @@ def main() -> int:
     cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
                          dev)
 
+    sweep = crossover_sweep(torch, kernels, dev)
+
     # 4. The paths at full width, counters at 0 just before each.
-    runs = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data,
-                       card)
+    runs, traced = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data,
+                               lr_data, card)
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -597,7 +956,10 @@ def main() -> int:
     # 5. The card against the CPU.
     worst = card_vs_cpu(torch, fps)
     # Both devices read exactly. K2 folds duplicates in batch order, as the
-    # CPU's index_add_ does; K4 sums each row's pushes in a tree order, so a
+    # CPU's index_add_ does; K3 sums each head row's pushes per batch slice
+    # and then across slices, where the CPU sums them in batch order into
+    # zeros (a few float32 roundings of the row's terms); K4 sums each row's
+    # pushes in a tree order, so a
     # row's sum differs from the CPU's by a few float32 roundings of its
     # terms each push. The card and the CPU also order dot products and row
     # sums differently (about one rounding each). PA's and the logistic
@@ -615,8 +977,9 @@ def main() -> int:
         f"({json.dumps(worst)})")
 
     # 6. Summary lines. Each entry's times are per step of its first path
-    # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail);
-    # every shape is listed under per_shape with the path it belongs to.
+    # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
+    # K3: one MF step with hot_items, the item head); every shape is listed
+    # under per_shape with the path it belongs to.
     def entry(name, source, replaces, first_path):
         own = [c for c in cases[name] if c["path"] == first_path]
         return {
@@ -644,7 +1007,10 @@ def main() -> int:
               pallas + ":429", "pa_binary"),
         entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
               pallas + ":338", "pa_binary"),
-    ], "paths": runs, "card_vs_cpu": worst, "pa_head_prefix_cols": pa_q,
+        dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
+                   pallas + ":178", "mf_hot"), crossover_sweep=sweep),
+    ], "paths": runs, "traced_mf_run_indexed": traced, "card_vs_cpu": worst,
+        "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)
     log(json.dumps(line))

@@ -3,11 +3,13 @@
 A second package beside ``fps_tpu`` (the JAX reference, which it never
 imports). It runs on one device, in sync and SSP modes: ``make_ps_mesh`` →
 a model constructor (``online_mf``, ``passive_aggressive``,
-``logistic_regression``) → ``Trainer.init_state`` → ``fit_stream`` /
-``run_chunk``. On a CUDA device every pull and push runs on the port's
+``logistic_regression``) → ``Trainer.init_state`` → ``DeviceDataset`` +
+``DeviceEpochPlan`` → ``run_indexed`` (or ``fit_stream`` / ``run_chunk``
+over chunks). On a CUDA device every pull and push runs on the port's
 hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
-for wide tables, scalar gather and scatter-add for ``(R, 1)`` tables); on the
-CPU, on their plain PyTorch versions.
+for wide tables, the head scatter-add of the hot/cold push split, scalar
+gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
+PyTorch versions.
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is passed
 to :func:`make_ps_mesh`; without CUDA and without a device they raise.
@@ -19,6 +21,11 @@ from fps_tpu_torch.core.api import (
     ServerLogic,
     StepOutput,
     WorkerLogic,
+)
+from fps_tpu_torch.core.device_ingest import (
+    DeviceDataset,
+    DeviceEpochPlan,
+    device_epoch_chunks,
 )
 from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 from fps_tpu_torch.core.store import ParamStore, TableSpec, pull, push
@@ -40,9 +47,10 @@ from fps_tpu_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "ADDITIVE", "DATA_AXIS", "LogRegConfig", "MEAN_COMBINE", "MFConfig",
-    "PAConfig", "ParamStore", "SHARD_AXIS", "ServerLogic", "StepOutput",
-    "TableSpec", "Trainer", "TrainerConfig", "WorkerLogic",
-    "default_mesh_shape", "logistic_regression", "make_ps_mesh",
+    "ADDITIVE", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
+    "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
+    "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
+    "TrainerConfig", "WorkerLogic", "default_mesh_shape",
+    "device_epoch_chunks", "logistic_regression", "make_ps_mesh",
     "num_workers_of", "online_mf", "passive_aggressive", "pull", "push",
 ]

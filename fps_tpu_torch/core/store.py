@@ -12,10 +12,12 @@ a row gather and :func:`push` a scatter-add (or a combine-then-fold) into
 the local block, through :mod:`fps_tpu_torch.ops`, so on the card both run
 on the port's hand-written kernels.
 
-``TableSpec.hot_ids`` takes an int (the frequency head that the scalar
-tables' head-prefix route reads and writes through ``table[:H]``). Not
-ported, and rejected when set: ``hot_ids="auto"``, ``hot_tier``,
-``cold_budget`` and ``dense_collectives=True`` (ROADMAP.md Queues 1 and 2).
+``TableSpec.hot_ids`` takes an int (the frequency-ranked head: the scalar
+tables' head-prefix route, and the hot/cold push split of wider tables
+through kernel K3) or ``"auto"`` (the whole table through K3 when it is
+thinner than :func:`fps_tpu_torch.ops.packed_crossover_rows`). Not ported,
+and rejected when set: ``hot_tier``, ``cold_budget`` and
+``dense_collectives=True`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -110,8 +112,10 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
       hot_rows: local leading rows of the table declared write-hot
         (``TableSpec.hot_ids``). With ``head_prefix`` on the additive fold of
         a scalar table, the head-prefix route of
-        :func:`fps_tpu_torch.ops.scatter_add_`; otherwise the hot/cold split
-        (kernel K3), which raises as not ported.
+        :func:`fps_tpu_torch.ops.scatter_add_`; otherwise, on a table wider
+        than one column, the hot/cold split (kernel K3 for the head, K2 for
+        the tail), for the additive fold and for the sum-and-count scatter
+        of the mean, callable and ``apply_fn`` folds alike.
       head_prefix: count of leading ids guaranteed in ``[0, hot_rows) ∪
         {-1}``.
       inplace: update ``local_shard`` itself (what ``TrainerConfig.donate``
@@ -195,9 +199,12 @@ class TableSpec:
 
     ``hot_ids`` is an int ``H >= 0``: global ids ``[0, H)`` are the
     frequency-ranked head of the table. The driver gives it to the store's
-    pull and push as ``hot_rows``, where it enables the head-prefix route of
-    scalar tables; a push that would take the hot/cold split instead (kernel
-    K3) raises. ``hot_ids="auto"``, ``hot_tier``, ``cold_budget`` and
+    pull and push as ``hot_rows``: the head-prefix route of scalar tables,
+    and the hot/cold push split of wider ones (kernel K3 for the head).
+    ``hot_ids="auto"`` sends a shard's whole push through K3 when the shard
+    has at most :func:`fps_tpu_torch.ops.packed_crossover_rows` rows, and
+    through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
+    on any other string. ``hot_tier``, ``cold_budget`` and
     ``dense_collectives=True`` select routes this port does not have yet;
     setting them raises. ``dense_collectives`` ``"auto"`` and ``False`` both
     mean the gathered route, which is what the JAX package takes on a
@@ -218,9 +225,9 @@ class TableSpec:
         if not isinstance(self.hot_ids, (int, str)) or (
                 isinstance(self.hot_ids, int) and self.hot_ids < 0):
             raise ValueError(f"TableSpec.hot_ids={self.hot_ids!r} for table "
-                             f"{self.name!r}: expected an int >= 0")
-        unported = {"hot_ids": isinstance(self.hot_ids, str),
-                    "hot_tier": self.hot_tier != 0,
+                             f"{self.name!r}: expected an int >= 0 or "
+                             "'auto'")
+        unported = {"hot_tier": self.hot_tier != 0,
                     "cold_budget": self.cold_budget != 0,
                     "dense_collectives": self.dense_collectives is True}
         for field, set_ in unported.items():
@@ -228,7 +235,7 @@ class TableSpec:
                 raise NotImplementedError(
                     f"TableSpec.{field}={getattr(self, field)!r} for table "
                     f"{self.name!r}: this route is not ported yet "
-                    "(ROADMAP.md Queues 1 and 2)")
+                    "(ROADMAP.md Queue 1)")
 
     def zeros_init(self) -> "TableSpec":
         return dataclasses.replace(

@@ -1,5 +1,11 @@
 """What the port's example jobs share: the JSON event stream, the common
-flags, and the ``--profile`` trace of one chunk.
+flags, the chunk source behind ``--ingest``, and the ``--profile`` trace of
+one chunk.
+
+``--ingest device`` (the default, as in the JAX package) keeps the dataset
+on the device and builds each chunk there
+(:mod:`fps_tpu_torch.core.device_ingest`); ``--ingest host`` builds every
+chunk in numpy and copies it over (the unbounded-stream shape).
 
 ``--profile DIR`` traces one chunk (the third, past warm-up) with
 ``torch.profiler`` on the card, writes ``DIR/trace.json`` and emits a
@@ -37,7 +43,61 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace the third chunk with torch.profiler into DIR")
+    ap.add_argument("--ingest", default="device", choices=["device", "host"],
+                    help="'device' keeps the dataset resident on the device "
+                         "and builds chunks there; 'host' builds every chunk "
+                         "in numpy and copies it over (the unbounded-stream "
+                         "shape)")
     return ap
+
+
+def make_epoch_source(args, mesh, data, *, route_key=None):
+    """Restartable chunk source honouring ``--ingest`` and the batching
+    flags: ``source(start_epoch=0, epochs=1) -> chunk iterator``. The device
+    path builds the dataset and the epoch plan once."""
+    from fps_tpu_torch.parallel.mesh import num_workers_of
+
+    W = num_workers_of(mesh)
+    if args.ingest == "device":
+        from fps_tpu_torch.core.device_ingest import (
+            DeviceDataset,
+            DeviceEpochPlan,
+            device_epoch_chunks,
+        )
+
+        ds = DeviceDataset(mesh, data)
+        plan = DeviceEpochPlan(
+            ds, num_workers=W, local_batch=args.local_batch,
+            route_key=route_key, sync_every=args.sync_every, seed=args.seed)
+
+        def source(start_epoch=0, epochs=1):
+            return device_epoch_chunks(
+                ds, num_workers=W, local_batch=args.local_batch,
+                steps_per_chunk=args.steps_per_chunk, route_key=route_key,
+                sync_every=args.sync_every, seed=args.seed,
+                start_epoch=start_epoch, epochs=epochs, plan=plan)
+    else:
+        from fps_tpu_torch.core.ingest import epoch_chunks
+
+        def source(start_epoch=0, epochs=1):
+            def it():
+                for e in range(start_epoch, start_epoch + epochs):
+                    yield from epoch_chunks(
+                        data, num_workers=W, local_batch=args.local_batch,
+                        steps_per_chunk=args.steps_per_chunk,
+                        route_key=route_key, sync_every=args.sync_every,
+                        seed=None if args.seed is None else args.seed + e)
+
+            return it()
+
+    return source
+
+
+def make_chunks(args, mesh, data, *, route_key=None):
+    """Chunk iterator over ``--epochs`` passes (the one-shot form of
+    :func:`make_epoch_source`)."""
+    return make_epoch_source(args, mesh, data, route_key=route_key)(
+        0, args.epochs)
 
 
 def profiler(args, device):

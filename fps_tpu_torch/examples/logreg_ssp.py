@@ -1,11 +1,11 @@
 """Bounded-staleness logistic regression on the PyTorch port (Criteo CTR
 style).
 
-Port of ``fps_tpu/examples/logreg_ssp.py`` with the flags this slice
-supports: host ingest, one device. ``--sync-every s`` (default 8: this job
-exists to exercise SSP) bounds how stale a step's weights may be. Prints one
-JSON line per event, ending in a ``"done"`` event with the held-out
-``test_accuracy``.
+Port of ``fps_tpu/examples/logreg_ssp.py`` with the flags the port
+supports: device-resident or host ingest (``--ingest``), one device.
+``--sync-every s`` (default 8: this job exists to exercise SSP) bounds how
+stale a step's weights may be. Prints one JSON line per event, ending in a
+``"done"`` event with the held-out ``test_accuracy``.
 
     python -m fps_tpu_torch.examples.logreg_ssp --num-features 1000000 \\
         --nnz 39 --dense-features 13 --num-examples 1000000 \\
@@ -25,7 +25,12 @@ import time
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, profiler
+from fps_tpu_torch.examples.common import (
+    base_parser,
+    emit,
+    make_chunks,
+    profiler,
+)
 
 
 def main(argv=None) -> int:
@@ -49,13 +54,12 @@ def main(argv=None) -> int:
     if args.sync_every is None:
         args.sync_every = 8
 
-    from fps_tpu_torch.core.ingest import multi_epoch_chunks
     from fps_tpu_torch.models.logistic_regression import (
         LogRegConfig,
         logistic_regression,
         predict_proba_host,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh, num_workers_of
+    from fps_tpu_torch.parallel.mesh import make_ps_mesh
     from fps_tpu_torch.utils.datasets import (
         load_sparse,
         sniff_sparse_format,
@@ -81,7 +85,6 @@ def main(argv=None) -> int:
             dense_features=dense)
     data["label"] = (data["label"] > 0).astype(np.float32)  # {0, 1}
     train, test = train_test_split(data, test_frac=0.1, seed=args.seed + 1)
-    W = num_workers_of(mesh)
     emit({"event": "start", "workload": "logreg_ssp",
           "sync_every": args.sync_every, "optimizer": args.optimizer,
           "num_features": args.num_features, "dense_features": dense,
@@ -93,10 +96,7 @@ def main(argv=None) -> int:
     trainer, store = logistic_regression(mesh, cfg,
                                          sync_every=args.sync_every)
     tables, local_state = trainer.init_state(args.seed)
-    chunks = multi_epoch_chunks(
-        train, args.epochs, num_workers=W, local_batch=args.local_batch,
-        steps_per_chunk=args.steps_per_chunk, sync_every=args.sync_every,
-        seed=args.seed)
+    chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
 

@@ -1,8 +1,9 @@
 """Online matrix factorization on the PyTorch port (MovieLens-style ratings).
 
-Port of ``fps_tpu/examples/mf.py`` with the flags this slice supports:
-host ingest, one device, sync or SSP. Prints one JSON line per event, ending
-in a ``"done"`` event with the held-out ``test_rmse``.
+Port of ``fps_tpu/examples/mf.py`` with the flags the port supports:
+device-resident or host ingest (``--ingest``), one device, sync or SSP.
+Prints one JSON line per event, ending in a ``"done"`` event with the
+held-out ``test_rmse``.
 
     python -m fps_tpu_torch.examples.mf --scale 20m --local-batch 32768
     python -m fps_tpu_torch.examples.mf --scale 100k --device cpu
@@ -17,7 +18,12 @@ import time
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, profiler
+from fps_tpu_torch.examples.common import (
+    base_parser,
+    emit,
+    make_chunks,
+    profiler,
+)
 
 
 def main(argv=None) -> int:
@@ -33,7 +39,6 @@ def main(argv=None) -> int:
                     help="how duplicate items of one batch merge")
     args = ap.parse_args(argv)
 
-    from fps_tpu_torch.core.ingest import epoch_chunks
     from fps_tpu_torch.models.matrix_factorization import (
         MFConfig,
         online_mf,
@@ -57,13 +62,7 @@ def main(argv=None) -> int:
                                combine=args.combine)
     tables, local_state = trainer.init_state(args.seed)
 
-    def chunks():
-        for e in range(args.epochs):
-            yield from epoch_chunks(
-                train, num_workers=W, local_batch=args.local_batch,
-                steps_per_chunk=args.steps_per_chunk, route_key="user",
-                sync_every=args.sync_every, seed=args.seed + e)
-
+    chunks = make_chunks(args, mesh, train, route_key="user")
     prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
 
@@ -75,7 +74,7 @@ def main(argv=None) -> int:
 
     with prof:
         tables, local_state, _ = trainer.fit_stream(
-            tables, local_state, chunks(), args.seed, on_chunk=report)
+            tables, local_state, chunks, args.seed, on_chunk=report)
     pred = predict_host(store, local_state, W, test["user"], test["item"])
     emit({"event": "done", "test_rmse": rmse(pred, test["rating"]),
           "seconds": time.perf_counter() - t0})

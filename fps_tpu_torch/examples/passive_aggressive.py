@@ -1,11 +1,11 @@
 """Passive-aggressive classification on the PyTorch port (RCV1-style sparse
 examples).
 
-Port of ``fps_tpu/examples/passive_aggressive.py`` with the flags this slice
-supports: host ingest, one device, sync or SSP. ``--num-classes 2`` (the
-default) runs the binary model, ``> 2`` the multiclass one. Prints one JSON
-line per event, ending in a ``"done"`` event with the held-out
-``test_accuracy``.
+Port of ``fps_tpu/examples/passive_aggressive.py`` with the flags the port
+supports: device-resident or host ingest (``--ingest``), one device, sync or
+SSP. ``--num-classes 2`` (the default) runs the binary model, ``> 2`` the
+multiclass one. Prints one JSON line per event, ending in a ``"done"`` event
+with the held-out ``test_accuracy``.
 
     python -m fps_tpu_torch.examples.passive_aggressive --num-features 47236 \\
         --nnz 64 --num-examples 800000 --local-batch 16384 --head-features 2048
@@ -24,7 +24,12 @@ import time
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, profiler
+from fps_tpu_torch.examples.common import (
+    base_parser,
+    emit,
+    make_chunks,
+    profiler,
+)
 
 
 def main(argv=None) -> int:
@@ -47,13 +52,12 @@ def main(argv=None) -> int:
                          "frequency-ranked features (0: off)")
     args = ap.parse_args(argv)
 
-    from fps_tpu_torch.core.ingest import multi_epoch_chunks
     from fps_tpu_torch.models.passive_aggressive import (
         PAConfig,
         passive_aggressive,
         predict_host,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh, num_workers_of
+    from fps_tpu_torch.parallel.mesh import make_ps_mesh
     from fps_tpu_torch.utils.datasets import (
         head_sort_slots,
         load_sparse,
@@ -90,7 +94,6 @@ def main(argv=None) -> int:
             raise SystemExit("--head-features is binary-only")
         data, q = head_sort_slots(data, args.head_features)
     train, test = train_test_split(data, test_frac=0.1, seed=args.seed + 1)
-    W = num_workers_of(mesh)
     emit({"event": "start", "workload": "passive_aggressive",
           "variant": args.variant, "num_classes": args.num_classes,
           "num_features": args.num_features, "head_prefix_cols": q,
@@ -103,10 +106,7 @@ def main(argv=None) -> int:
     trainer, store = passive_aggressive(mesh, cfg,
                                         sync_every=args.sync_every)
     tables, local_state = trainer.init_state(args.seed)
-    chunks = multi_epoch_chunks(
-        train, args.epochs, num_workers=W, local_batch=args.local_batch,
-        steps_per_chunk=args.steps_per_chunk, sync_every=args.sync_every,
-        seed=args.seed)
+    chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
 

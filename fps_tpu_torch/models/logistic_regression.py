@@ -6,7 +6,8 @@ snapshot up to ``s`` steps stale, computes sigmoid-loss gradients over hashed
 sparse features and pushes per-feature deltas that land in the live table
 every step. With ``optimizer="sgd"`` the table is ``(NF, 1)`` and its pulls
 and pushes run on the scalar kernels K5 and K4 on the card; ``"adagrad"``
-keeps its accumulator in column 1 of an ``(NF, 2)`` table, on K1 and K2.
+keeps its accumulator in column 1 of an ``(NF, 2)`` table, on K1 and K2
+(and K3 for the write-hot head with ``hot_features``).
 
 Batch columns: ``feat_ids (B, nnz)``, ``feat_vals (B, nnz)``,
 ``label (B,)`` in {0, 1}, ``weight (B,)``.
@@ -42,8 +43,12 @@ class LogRegConfig:
     scattered rows; the same per-id sums under the additive fold, up to the
     order of float32 sums.
 
-    ``hot_features`` is the hot/cold push split of kernel K3, which is not
-    ported: a value > 0 raises.
+    ``hot_features = H``: feature ids ``[0, H)`` are the write-hot head
+    (ids frequency-ranked, as the generators and loaders rank them). Under
+    AdaGrad the ``apply_fn`` push's sum-and-count scatter, ``(NF, 3)``,
+    takes the hot/cold split: the head through kernel K3, the tail through
+    K2. Under SGD the table has one column and its push stays on K4, which
+    sums hot runs without walking them.
     """
 
     num_features: int
@@ -156,14 +161,9 @@ class LogisticRegressionWorker(WorkerLogic):
 
 
 def make_store(mesh, cfg: LogRegConfig) -> ParamStore:
-    if cfg.hot_features:
-        raise NotImplementedError(
-            f"LogRegConfig.hot_features={cfg.hot_features} is the hot/cold "
-            "push split of kernel K3, which is not ported yet (ROADMAP.md "
-            "Queue 2)")
     spec = TableSpec(
         name=WEIGHT_TABLE, num_ids=cfg.num_features, dim=cfg.table_width,
-        dtype=cfg.dtype,
+        dtype=cfg.dtype, hot_ids=min(cfg.hot_features, cfg.num_features),
     ).zeros_init()
     return ParamStore(mesh, [spec])
 

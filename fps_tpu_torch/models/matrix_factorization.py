@@ -47,8 +47,10 @@ class MFConfig:
     reg: float = 0.01
     init_min: float = -0.1
     init_max: float = 0.1
-    # Write-hot item head (the JAX package's NuPS-style push split through
-    # the lane-packed kernel K3): not ported; a value > 0 raises.
+    # Item ids [0, hot_items) are write-hot (the NuPS-style hot/cold push
+    # split): the item push takes the head through kernel K3 and the tail
+    # through K2. Ids must be frequency-ranked (the generators and loaders
+    # rank them so). 0 disables.
     hot_items: int = 0
     # Negative sampling of unrated items: each rating also samples this many
     # uniform random items, pseudo-rated ``negative_target`` with weight
@@ -173,11 +175,6 @@ class MatrixFactorizationWorker(WorkerLogic):
 
 
 def make_store(mesh, cfg: MFConfig) -> ParamStore:
-    if cfg.hot_items:
-        raise NotImplementedError(
-            f"MFConfig.hot_items={cfg.hot_items}: the item push's hot/cold "
-            "split runs on kernel K3, which is not ported yet (ROADMAP.md "
-            "Queue 2)")
     spec = TableSpec(
         name=ITEM_TABLE,
         num_ids=cfg.num_items,
@@ -185,6 +182,7 @@ def make_store(mesh, cfg: MFConfig) -> ParamStore:
         init_fn=ranged_uniform_init(cfg.init_min, cfg.init_max, cfg.rank,
                                     cfg.dtype),
         dtype=cfg.dtype,
+        hot_ids=min(cfg.hot_items, cfg.num_items),
     )
     return ParamStore(mesh, [spec])
 

@@ -7,7 +7,8 @@ pulls the rows of all its features in one gather, computes every margin and
 closed-form step size densely, and pushes all per-feature deltas in one
 scatter-add (mini-batch PA: updates within a batch see the same pulled
 weights). On the card the binary model's pulls and pushes run on the scalar
-kernels K5 and K4, the multiclass model's on K1 and K2.
+kernels K5 and K4, the multiclass model's on K1 and K2 (and K3 for the
+write-hot head with ``hot_features``).
 
 Closed-form step sizes (Crammer et al. 2006), hinge loss
 ``l = max(0, 1 - y * m)``:
@@ -47,9 +48,10 @@ class PAConfig:
     ``[0, H)``; the worker then flattens ids nnz-major so that those ``q * B``
     leading ids read and write through the head view ``table[:H]``. A
     routing hint: the results are those of the plain layout, up to the order
-    of float32 sums. ``hot_features`` without ``head_prefix_cols`` (and on
-    the multiclass model) is the hot/cold push split of kernel K3, which is
-    not ported and raises.
+    of float32 sums. ``hot_features`` without ``head_prefix_cols`` marks the
+    write-hot head all the same: on the multiclass ``(NF, C)`` table the
+    push takes the hot/cold split (kernel K3 for the head, K2 for the tail);
+    on the binary ``(NF, 1)`` table it stays on K4.
     """
 
     num_features: int
@@ -204,11 +206,6 @@ class MulticlassPassiveAggressiveWorker(WorkerLogic):
 
 
 def make_store(mesh, cfg: PAConfig) -> ParamStore:
-    if cfg.hot_features and not (cfg.head_prefix_cols and cfg.num_classes == 2):
-        raise NotImplementedError(
-            f"PAConfig.hot_features={cfg.hot_features} without the binary "
-            "model's head_prefix_cols is the hot/cold push split of kernel "
-            "K3, which is not ported yet (ROADMAP.md Queue 2)")
     spec = TableSpec(
         name=WEIGHT_TABLE,
         num_ids=cfg.num_features,

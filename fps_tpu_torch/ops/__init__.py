@@ -7,14 +7,30 @@ contract, and nothing else: a CUDA table of one column goes to the scalar
 kernels (K5 gather, K4 scatter-add), any other CUDA table to the row kernels
 (K1, K2), each in :mod:`fps_tpu_torch.ops.kernels`, which raise on what they
 do not take; a CPU tensor goes to the kernel's plain PyTorch version. There
-are no routing thresholds (the JAX package's were measured on a TPU) and no
-fallback from one to the other.
+are no routing thresholds (the JAX package's were measured on a TPU, and its
+``SCATTER_FLOP_BUDGET`` fallback is gone) and no fallback from one to the
+other.
 
-``head_prefix`` is ported: on a scalar table with ``hot_rows = H > 0`` the
-leading ``head_prefix`` ids go through the kernel on the head view
-``table[:H]`` and the rest through the whole table, as in the JAX package.
-The lane-packed hot/cold push split (``hot_rows`` without a prefix route,
-kernel K3) is not ported yet and raises.
+Routes a push takes with ``hot_rows = H > 0`` (``TableSpec.hot_ids``):
+
+* ``head_prefix > 0`` on a scalar table: the head-prefix route. The leading
+  ``head_prefix`` ids go through the kernel on the head view ``table[:H]``
+  and the rest through the whole table, as in the JAX package.
+* a table wider than one column, ``H >= R``: the whole push through K3, the
+  head scatter-add, with no tail.
+* a table wider than one column, ``0 < H < R``: the hot/cold split. Ids in
+  ``[0, H)`` go to K3 into ``table[:H]``; the rest go to K2 with the head ids
+  rewritten to ``-1``.
+* a scalar ``(R, 1)`` table without the prefix route: K4 alone, ``H``
+  ignored. K4 already sums every run of equal ids by a tree without walking
+  it serially, so a hot head costs it nothing extra, and the JAX package
+  also gives its scalar route precedence over the split; the function is
+  the same either way.
+
+A read ignores ``hot_rows`` except on the head-prefix route.
+
+:func:`packed_crossover_rows` is the ``TableSpec.hot_ids="auto"`` policy,
+with thresholds measured on the H100.
 """
 
 from __future__ import annotations
@@ -24,6 +40,29 @@ import torch
 from fps_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
+
+
+def packed_crossover_rows(dim: int) -> int:
+    """The ``TableSpec.hot_ids="auto"`` policy: the most rows a shard may
+    have for its whole push to take K3 (``hot_rows = R``) rather than K2.
+
+    Measured by ``chip_smoke.py`` phase 3 on an NVIDIA H100 80GB HBM3 at
+    700.00 W: K3 over the whole table against K2 with its sort, B = 32,768
+    Zipf(0.8) ids (the JAX package's sweep shape), R from 512 to 32,768.
+    K3 was not slower than K2 through R = 32,768 at D = 10 and 32 (the top
+    of the sweep), through 16,384 at D = 100 and through 8,192 at D = 200.
+    Between measured widths the threshold of the wider one applies.
+    ``PERF.md`` has the sweep's times.
+    """
+    for width, rows in _PACKED_CROSSOVER:
+        if dim <= width:
+            return rows
+    return 0
+
+
+# (widest D, most rows) from the sweep above; wider than 200: not measured,
+# so K2.
+_PACKED_CROSSOVER = ((32, 32_768), (100, 16_384), (200, 8_192))
 
 
 def _on(table: Tensor, fn: str) -> str:
@@ -47,13 +86,24 @@ def _gather(table: Tensor, ids: Tensor) -> Tensor:
             else kernels.gather_rows_plain)(table, ids)
 
 
-def _scatter_(table: Tensor, ids: Tensor, deltas: Tensor) -> Tensor:
+def _scatter_(table: Tensor, ids: Tensor, deltas: Tensor,
+              hot_rows: int = 0) -> Tensor:
     cuda = _on(table, "scatter_add_") == "cuda"
-    if table.shape[1] == 1:
+    R, D = table.shape
+    if D == 1:
         return (kernels.scatter_add_dim1_cuda_ if cuda
                 else kernels.scatter_add_dim1_plain)(table, ids, deltas)
-    return (kernels.scatter_add_cuda_ if cuda
-            else kernels.scatter_add_plain)(table, ids, deltas)
+    rows = (kernels.scatter_add_cuda_ if cuda
+            else kernels.scatter_add_plain)
+    if hot_rows > 0 and R > 0:
+        head = (kernels.scatter_add_packed_cuda_ if cuda
+                else kernels.scatter_add_packed_plain)
+        if hot_rows >= R:
+            return head(table, ids, deltas, R)
+        head(table, ids, deltas, hot_rows)
+        in_head = (ids >= 0) & (ids < hot_rows)
+        return rows(table, torch.where(in_head, -1, ids), deltas)
+    return rows(table, ids, deltas)
 
 
 def gather_rows(table: Tensor, ids: Tensor, *, hot_rows: int = 0,
@@ -85,22 +135,15 @@ def scatter_add_(table: Tensor, ids: Tensor, deltas: Tensor, *,
 
     With the head-prefix route (see :func:`gather_rows`) the leading
     ``head_prefix`` pushes fold into ``table[:H]`` (a push to an id ``>= H``
-    there is dropped) and the rest into the whole table.
-
-    Raises:
-      NotImplementedError: ``hot_rows > 0`` without the head-prefix route,
-        the JAX package's hot/cold split through the lane-packed kernel K3.
+    there is dropped) and the rest into the whole table. Otherwise
+    ``hot_rows = H > 0`` on a table wider than one column takes the hot/cold
+    split (K3 for the head, K2 for the tail; K3 alone when ``H >= R``); the
+    sums are the same, in another order.
     """
     if _head_route(table, head_prefix, hot_rows):
         _scatter_(table[:hot_rows], ids[:head_prefix], deltas[:head_prefix])
         return _scatter_(table, ids[head_prefix:], deltas[head_prefix:])
-    if hot_rows:
-        raise NotImplementedError(
-            f"scatter_add_: hot_rows={hot_rows} without a head-prefix route "
-            "takes the hot/cold push split through the lane-packed kernel "
-            "K3 (scatter_add_packed_pallas), which is not ported yet "
-            "(ROADMAP.md Queue 2)")
-    return _scatter_(table, ids, deltas)
+    return _scatter_(table, ids, deltas, hot_rows)
 
 
 def scatter_add(table: Tensor, ids: Tensor, deltas: Tensor, *,

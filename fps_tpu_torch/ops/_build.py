@@ -137,5 +137,8 @@ def library() -> ctypes.CDLL:
             lib.fps_scatter_add_dim1_f32.argtypes = [vp, vp, vp, vp, ll, ll,
                                                      vp, vp, vp, vp, ll, vp]
             lib.fps_scatter_add_dim1_f32.restype = ci
+            lib.fps_scatter_add_packed_f32.argtypes = [vp, vp, vp, ll, ll, ci,
+                                                       vp, ll, vp]
+            lib.fps_scatter_add_packed_f32.restype = ci
             _lib = lib
         return _lib

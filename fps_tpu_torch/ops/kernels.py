@@ -40,9 +40,22 @@ order (within each tile of 1,024 sorted positions, then across the tiles'
 partials), and adds each run's sum into its row once. No atomics: the same
 bits on every launch, and a batch that is one run costs what a uniform batch
 costs.
+
+K3 ``scatter_add_packed_cuda_`` (``csrc/scatter_add_packed.cu``) replaces
+``scatter_add_packed_pallas``, the push into the write-hot head rows
+``[0, H)`` (the hot/cold split's head, or the whole table when ``H = R``).
+It is bound by bytes, must be deterministic and must not serialise on the
+Zipf-hot rows that the head holds, with no sort. Each block takes a (row
+tile, column tile, batch slice), compacts its slice's ids to those in its
+row tile in batch order, stages their deltas in shared memory and adds them
+into per-thread row accumulators: the one-hot contraction on CUDA cores, in
+exact float32. A second pass sums the slices' partials in slice order into
+``table[:H]``. The wrapper picks the slice count (:func:`packed_slices`).
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -256,9 +269,88 @@ def scatter_add_dim1_cuda_(table: torch.Tensor, ids: torch.Tensor,
 
 scatter_add_dim1_cuda_.launches = 0
 
+# ---------------------------------------------------------------------------
+# K3: scatter-add into the write-hot head rows
+# ---------------------------------------------------------------------------
+
+PACKED_SLICE_IDS = 512       # fewest ids a batch slice of K3 takes
+PACKED_SLICES_MAX = 256      # most batch slices of one launch
+PACKED_PARTIAL_BYTES = 32 << 20  # most scratch for the slices' partial sums
+
+
+def packed_slices(batch: int, head_rows: int, dim: int) -> int:
+    """K3's batch slices for a push: enough that the blocks of one row tile
+    (where a single hot row puts all the work) fill the card, at least
+    ``PACKED_SLICE_IDS`` ids each, and no more than ``PACKED_PARTIAL_BYTES``
+    of ``(slices, H, D)`` float32 partial sums."""
+    by_bytes = PACKED_PARTIAL_BYTES // max(1, head_rows * dim * 4)
+    return max(1, min(-(-batch // PACKED_SLICE_IDS), PACKED_SLICES_MAX,
+                      by_bytes))
+
+
+def _head_rows(fn: str, table: torch.Tensor, hot_rows) -> int:
+    hot_rows = operator.index(hot_rows)
+    _check(hot_rows >= 0, f"{fn}: hot_rows must be >= 0, got {hot_rows}")
+    return min(hot_rows, table.shape[0])
+
+
+def scatter_add_packed_plain(table: torch.Tensor, ids: torch.Tensor,
+                             deltas: torch.Tensor,
+                             hot_rows: int) -> torch.Tensor:
+    """In place, for the head rows ``[0, H)`` with ``H = min(hot_rows, R)``:
+    ``table[r] += sum of deltas[b] with ids[b] == r``; ids outside ``[0, H)``
+    are left alone. The head's sums are taken into zeros (``index_add_``, in
+    batch order) and added into ``table[:H]`` once. Returns ``table``."""
+    H = _head_rows("scatter_add_packed_plain", table, hot_rows)
+    keep = (ids >= 0) & (ids < H)
+    head = torch.zeros((H, table.shape[1]), dtype=table.dtype,
+                       device=table.device)
+    head.index_add_(0, ids[keep], deltas[keep].to(table.dtype))
+    table[:H] += head
+    return table
+
+
+def scatter_add_packed_cuda_(table: torch.Tensor, ids: torch.Tensor,
+                             deltas: torch.Tensor,
+                             hot_rows: int) -> torch.Tensor:
+    """K3 on the card, in place: ``table[r] += sum of deltas[b] with
+    ids[b] == r`` for the head rows ``[0, H)``, ``H = min(hot_rows, R)``, of
+    the ``(R, D)`` float32 table, ``(B,)`` int32 ids and ``(B, D)`` float32
+    deltas; ids outside ``[0, H)`` are left alone. Exact float32 sums in a
+    fixed order: the same inputs give the same bits. Returns ``table``."""
+    fn = "scatter_add_packed_cuda_"
+    _check_table_ids(fn, table, ids)
+    _check(deltas.is_cuda and deltas.device == table.device,
+           f"{fn}: deltas on {deltas.device}, table on {table.device}")
+    _check(deltas.dtype == torch.float32 and deltas.is_contiguous(),
+           f"{fn}: deltas must be contiguous float32")
+    R, D = table.shape
+    B = ids.shape[0]
+    _check(tuple(deltas.shape) == (B, D),
+           f"{fn}: deltas {tuple(deltas.shape)} != ({B}, {D})")
+    _check(B < 2**31, f"{fn}: batch has >= 2**31 ids")
+    H = _head_rows(fn, table, hot_rows)
+    if B * D * H == 0:
+        return table
+    slices = packed_slices(B, H, D)
+    partial = torch.empty(slices * H * D, dtype=torch.float32,
+                          device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.fps_scatter_add_packed_f32(
+            table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), H, B, D,
+            partial.data_ptr(), slices, _stream(table))
+    _raise_on_error(rc, fn)
+    scatter_add_packed_cuda_.launches += 1
+    return table
+
+
+scatter_add_packed_cuda_.launches = 0
+
 WRAPPERS = {"gather_rows": gather_rows_cuda, "scatter_add": scatter_add_cuda_,
             "gather_rows_dim1": gather_rows_dim1_cuda,
-            "scatter_add_dim1": scatter_add_dim1_cuda_}
+            "scatter_add_dim1": scatter_add_dim1_cuda_,
+            "scatter_add_packed": scatter_add_packed_cuda_}
 
 
 def launch_counts() -> dict[str, int]:

@@ -198,16 +198,29 @@ def test_pulled_ids_host_matches_jax(dense):
         np.testing.assert_array_equal(got[WEIGHT_TABLE], want[WEIGHT_TABLE])
 
 
-def test_hot_features_are_not_ported():
-    with pytest.raises(NotImplementedError, match="K3"):
-        logistic_regression(make_ps_mesh(device="cpu"),
-                            LogRegConfig(num_features=NF, hot_features=8))
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_hot_features_match_jax(optimizer):
+    """``hot_features`` marks the write-hot head of the one weight table:
+    under AdaGrad the ``(NF, 3)`` sum-and-count scatter takes the hot/cold
+    split (K3's plain version for the head); under SGD the ``(NF, 1)`` push
+    stays on K4's. Against the JAX package (tests/test_logreg.py)."""
+    kw = dict(num_features=NF, learning_rate=0.3, optimizer=optimizer,
+              hot_features=8)
+    table = _parity(_data(), kw, sync_every=4, chunks_n=4)
+    assert np.abs(table[:8]).max() > 0
+    trainer, store = logistic_regression(make_ps_mesh(device="cpu"),
+                                         LogRegConfig(**kw))
+    assert store.specs[WEIGHT_TABLE].hot_ids == 8
 
 
 @pytest.mark.parametrize("argv", [
     ["--dense-features", "3", "--nnz", "8"],
     ["--optimizer", "adagrad", "--learning-rate", "0.3"],
-], ids=["sgd_dense_head", "adagrad"])
+    ["--dense-features", "3", "--nnz", "8", "--ingest", "host"],
+    ["--optimizer", "adagrad", "--learning-rate", "0.3", "--ingest",
+     "device"],
+], ids=["sgd_dense_head", "adagrad", "sgd_host_ingest",
+        "adagrad_device_ingest"])
 def test_example_cli_runs_on_cpu(argv):
     from fps_tpu_torch.examples import logreg_ssp as example
 

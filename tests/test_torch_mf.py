@@ -51,12 +51,13 @@ def pallas_backend():
     jops.set_backend(prev)
 
 
-def _parity(sync_every, combine, chunks_n, atol):
+def _parity(sync_every, combine, chunks_n, atol, **extra):
     data = jdatasets.synthetic_ratings(NU, NI, NR, rank=3, noise=0.05, seed=3)
     jmesh = jmake_ps_mesh(num_shards=1, num_data=1, devices=jax.devices()[:1])
-    jtrainer, _ = jonline_mf(jmesh, JMFConfig(**MF_KW), sync_every=sync_every,
-                             combine=combine)
-    ttrainer, tstore = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW),
+    jtrainer, _ = jonline_mf(jmesh, JMFConfig(**MF_KW, **extra),
+                             sync_every=sync_every, combine=combine)
+    ttrainer, tstore = online_mf(make_ps_mesh(device="cpu"),
+                                 MFConfig(**MF_KW, **extra),
                                  sync_every=sync_every, combine=combine)
     jtables, jlocal = jtrainer.init_state(jax.random.key(0))
     ttables = tables_from_jax(tstore, {k: np.asarray(v)
@@ -96,6 +97,23 @@ def test_mf_slice_matches_jax_pallas_backend(pallas_backend):
     # The JAX side's pushes run scatter_add_pallas in interpret mode, which
     # sums duplicates by a one-hot contraction: another order again.
     _parity(None, "sum", chunks_n=2, atol=1e-5)
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("sync_every", [None, 4])
+def test_mf_hot_items_matches_jax(sync_every, combine):
+    """``hot_items``: the item push takes the hot/cold split (K3's plain
+    version for the head, K2's for the tail); the JAX package off a TPU
+    folds the same pushes by its XLA scatter. The head rows' sums part by
+    the order of float32 additions only."""
+    _parity(sync_every, combine, chunks_n=4, atol=1e-6, hot_items=16)
+
+
+@pytest.mark.parametrize("hot_items", [16, NI])
+def test_mf_hot_items_matches_jax_pallas_backend(pallas_backend, hot_items):
+    # The JAX side's head runs its packed kernel in interpret mode (bf16
+    # hi+lo, about 2^-16 of each delta); NI is the whole-table route.
+    _parity(None, "mean", chunks_n=2, atol=1e-5, hot_items=hot_items)
 
 
 def _train_port(sync_every=None, epochs=3, seed=3, combine="sum"):
@@ -282,6 +300,7 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import sys\n"
         "import fps_tpu_torch, fps_tpu_torch.convert\n"
         "import fps_tpu_torch.core.api, fps_tpu_torch.core.driver\n"
+        "import fps_tpu_torch.core.device_ingest\n"
         "import fps_tpu_torch.core.ingest, fps_tpu_torch.core.rng\n"
         "import fps_tpu_torch.core.store, fps_tpu_torch.ops\n"
         "import fps_tpu_torch.ops._build, fps_tpu_torch.ops.kernels\n"
@@ -314,6 +333,27 @@ def test_chip_smoke_refuses_to_run_without_cuda():
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_example_cli_host_ingest_matches_device_ingest_quality():
+    """``--ingest host`` (numpy chunks copied over) and the default
+    ``--ingest device`` (chunks built from the resident dataset) both train
+    to a finite, comparable held-out RMSE."""
+    from fps_tpu_torch.examples import mf
+
+    rmse_of = {}
+    for ingest in ("host", "device"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mf.main(["--scale", "100k", "--device", "cpu", "--rank",
+                          "4", "--local-batch", "2048", "--sync-every", "4",
+                          "--combine", "mean", "--learning-rate", "0.1",
+                          "--ingest", ingest, "--epochs", "2"])
+        events = [json.loads(line) for line in buf.getvalue().splitlines()]
+        assert rc == 0 and events[-1]["event"] == "done"
+        rmse_of[ingest] = events[-1]["test_rmse"]
+    assert all(np.isfinite(list(rmse_of.values())))
+    assert abs(rmse_of["host"] - rmse_of["device"]) < 0.1, rmse_of
 
 
 def test_example_cli_runs_on_cpu():

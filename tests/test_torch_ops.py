@@ -2,10 +2,11 @@
 
 On the CPU the port runs each kernel's plain PyTorch version; these tests
 hold it, and the port's ``ops`` dispatch, against the JAX package's Pallas
-kernels (``gather_rows_pallas`` / ``scatter_add_pallas`` and the scalar-table
-``gather_rows_dim1_pallas`` / ``scatter_add_dim1_pallas``, in interpret mode,
-as tests/test_ops.py runs them) and against ``fps_tpu.ops`` on its XLA path,
-including the scalar tables' head-prefix route. Inputs are made with numpy
+kernels (``gather_rows_pallas`` / ``scatter_add_pallas``, the scalar-table
+``gather_rows_dim1_pallas`` / ``scatter_add_dim1_pallas`` and the head's
+``scatter_add_packed_pallas``, in interpret mode, as tests/test_ops.py runs
+them) and against ``fps_tpu.ops`` on its XLA path, including the scalar
+tables' head-prefix route and the hot/cold split. Inputs are made with numpy
 from a seed and mix duplicates, ``-1`` and ``>= R`` ids. The CUDA kernels
 themselves run on the card (chip_smoke.py, tests/test_torch_cuda.py).
 """
@@ -20,6 +21,7 @@ from fps_tpu.ops.pallas_kernels import (
     gather_rows_dim1_pallas,
     gather_rows_pallas,
     scatter_add_dim1_pallas,
+    scatter_add_packed_pallas,
     scatter_add_pallas,
 )
 
@@ -128,19 +130,182 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
 
 @pytest.mark.parametrize("kw", [{"hot_rows": 4},
                                 {"hot_rows": 4, "head_prefix": 8}])
-def test_hot_routes_are_not_ported(kw):
-    """The hot/cold push split (kernel K3) is the one route still to port:
-    ``hot_rows`` on a push without a head-prefix route raises, also with a
-    prefix on a table wider than one column, where the JAX package would
-    take K3. A read ignores ``hot_rows`` there, as the JAX package does."""
-    t = torch.arange(20, dtype=torch.float32).reshape(10, 2)
-    i = torch.tensor([3, -1, 9], dtype=torch.int32)
+def test_hot_routes_on_a_wide_table_match_jax(kw):
+    """``hot_rows`` on a push into a table wider than one column is the
+    hot/cold split (K3's plain version for the head, K2's for the tail),
+    also with a prefix, which routes only scalar tables. It folds the same
+    pushes as the JAX package's XLA route (which ignores ``hot_rows`` off a
+    TPU), in another order: equal within the float32 summation bound. A read
+    ignores ``hot_rows`` there, as the JAX package does."""
+    rng = np.random.default_rng(4)
+    table = rng.normal(0, 1, (10, 2)).astype(np.float32)
+    ids = np.array([3, -1, 9, 3, 0, 10, 3, 5], np.int32)
+    deltas = rng.normal(0, 1, (8, 2)).astype(np.float32)
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
     np.testing.assert_array_equal(tops.gather_rows(t, i, **kw).numpy(),
                                   tops.gather_rows(t, i).numpy())
-    with pytest.raises(NotImplementedError, match="K3"):
-        tops.scatter_add(t, i, torch.zeros(3, 2), **kw)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tops.scatter_add_(t, i, torch.zeros(3, 2), **kw)
+    want = np.asarray(jops.scatter_add(jnp.asarray(table), jnp.asarray(ids),
+                                       jnp.asarray(deltas), **kw))
+    bound = _sum_bound(table, ids, deltas)
+    got = tops.scatter_add(t, i, d, **kw).numpy()
+    assert np.all(np.abs(got - want) <= bound)
+    t2 = t.clone()
+    assert tops.scatter_add_(t2, i, d, **kw) is t2
+    np.testing.assert_array_equal(t2.numpy(), got)
+
+
+# ---------------------------------------------------------------------------
+# K3: the head scatter-add of the hot/cold split.
+# ---------------------------------------------------------------------------
+
+def _f64_oracle(table, ids, deltas):
+    want = table.astype(np.float64)
+    keep = (ids >= 0) & (ids < table.shape[0])
+    np.add.at(want, ids[keep], deltas[keep].astype(np.float64))
+    return want
+
+
+@pytest.mark.parametrize("R,D,B", [(64, 8, 100), (53, 11, 513),
+                                   (16, 130, 64), (512, 1, 700),
+                                   (300, 200, 400)])
+def test_packed_plain_matches_jax(R, D, B):
+    """K3's plain version over the whole table (``hot_rows = R``) against
+    ``scatter_add_packed_pallas`` in interpret mode (bf16 hi+lo, 2^-16 of
+    each delta), the XLA route and a float64 sum (float32 summation bound);
+    the cases of tests/test_ops.py, ids below 0 and >= R mixed in."""
+    rng = np.random.default_rng(R + D)
+    table = rng.normal(0, 1, (R, D)).astype(np.float32)
+    ids = (rng.zipf(1.5, B) % (R + 8) - 2).astype(np.int32)
+    deltas = rng.normal(0, 1, (B, D)).astype(np.float32)
+    jt, ji, jd = jnp.asarray(table), jnp.asarray(ids), jnp.asarray(deltas)
+    want_pallas = np.asarray(scatter_add_packed_pallas(jt, ji, jd,
+                                                       interpret=True))
+    want_xla = np.asarray(jops.scatter_add(jt, ji, jd))
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
+    got = kernels.scatter_add_packed_plain(t.clone(), i, d, R).numpy()
+    bound = _sum_bound(table, ids, deltas)
+    assert np.all(np.abs(got - _f64_oracle(table, ids, deltas)) <= bound)
+    assert np.all(np.abs(got - want_xla) <= bound)
+    assert np.all(np.abs(got - want_pallas)
+                  <= _hilo_bound(table, ids, deltas))
+    # A head past the table is the whole table; rows past a head stay.
+    np.testing.assert_array_equal(
+        kernels.scatter_add_packed_plain(t.clone(), i, d, R + 7).numpy(), got)
+    H = max(1, R // 3)
+    part = kernels.scatter_add_packed_plain(t.clone(), i, d, H).numpy()
+    np.testing.assert_array_equal(part[H:], table[H:])
+    head_ids = np.where(ids < H, ids, -1)
+    assert np.all(np.abs(part - _f64_oracle(table, head_ids, deltas))
+                  <= _sum_bound(table, head_ids, deltas))
+
+
+@pytest.mark.parametrize("R,D,B,hot", [(64, 8, 100, 16), (130, 3, 513, 7),
+                                       (57, 200, 64, 8), (300, 11, 2000, 64)])
+def test_hot_cold_split_matches_jax(pallas_backend, R, D, B, hot):
+    """``scatter_add`` with ``hot_rows`` against the JAX package's split
+    (head through its packed kernel in interpret mode, tail through XLA,
+    tests/test_ops.py runs it so): drops, duplicates and the head/tail
+    boundary ids. Bounds: 2^-16 of each head delta (the reference's hi+lo)
+    plus twice the float32 summation bound; against a float64 sum and the
+    XLA route (``hot_rows`` ignored), the float32 summation bound."""
+    rng = np.random.default_rng(7)
+    table = rng.normal(0, 1, (R, D)).astype(np.float32)
+    ids = (rng.zipf(1.5, B) % R).astype(np.int32)  # heavy head duplication
+    ids[::9] = -1
+    ids[4::13] = R
+    ids[1::17] = hot - 1  # boundary: last head row
+    ids[2::17] = hot      # boundary: first tail row
+    deltas = rng.normal(0, 1, (B, D)).astype(np.float32)
+    jt, ji, jd = jnp.asarray(table), jnp.asarray(ids), jnp.asarray(deltas)
+    want_pallas = np.asarray(jops.scatter_add(jt, ji, jd, hot_rows=hot))
+    jops.set_backend("xla")
+    want_xla = np.asarray(jops.scatter_add(jt, ji, jd, hot_rows=hot))
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
+    got = tops.scatter_add(t, i, d, hot_rows=hot).numpy()
+    np.testing.assert_array_equal(t.numpy(), table)  # functional form
+    bound = _sum_bound(table, ids, deltas)
+    assert np.all(np.abs(got - _f64_oracle(table, ids, deltas)) <= bound)
+    assert np.all(np.abs(got - want_xla) <= bound)
+    head_ids = np.where(ids < hot, ids, -1)
+    assert np.all(np.abs(got - want_pallas)
+                  <= 2 * bound + _hilo_bound(table, head_ids, deltas))
+    # The tail rows are K2's plain version alone: batch order, the bits of
+    # the XLA route.
+    np.testing.assert_array_equal(got[hot:], want_xla[hot:])
+
+
+@pytest.mark.parametrize("hot", [96, 96 * 4])
+def test_whole_table_route_matches_jax(pallas_backend, hot):
+    """``hot_rows >= R``: the whole push through K3, no tail (the
+    reference's whole-shard route); drops at both ends."""
+    rng = np.random.default_rng(3)
+    R, D, B = 96, 8, 512
+    table = rng.normal(0, 0.1, (R, D)).astype(np.float32)
+    ids = rng.integers(-1, R + 2, B).astype(np.int32)
+    deltas = rng.normal(0, 1e-2, (B, D)).astype(np.float32)
+    jt, ji, jd = jnp.asarray(table), jnp.asarray(ids), jnp.asarray(deltas)
+    want_pallas = np.asarray(jops.scatter_add(jt, ji, jd, hot_rows=hot))
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
+    got = tops.scatter_add(t, i, d, hot_rows=hot).numpy()
+    np.testing.assert_array_equal(
+        got, kernels.scatter_add_packed_plain(t.clone(), i, d, R).numpy())
+    bound = _sum_bound(table, ids, deltas)
+    assert np.all(np.abs(got - _f64_oracle(table, ids, deltas)) <= bound)
+    assert np.all(np.abs(got - want_pallas)
+                  <= 2 * bound + _hilo_bound(table, ids, deltas))
+
+
+def test_hot_rows_on_a_scalar_table_take_k4_alone():
+    """Without the head-prefix route a scalar table's push ignores
+    ``hot_rows``: K4's plain version, the bits of the plain push."""
+    table, ids, deltas = _inputs(300, 1, 2000, seed=12)
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
+    want = kernels.scatter_add_dim1_plain(t.clone(), i, d).numpy()
+    for hot in (1, 100, 300, 1000):
+        np.testing.assert_array_equal(
+            tops.scatter_add(t, i, d, hot_rows=hot).numpy(), want)
+
+
+def test_packed_plain_refuses_a_bad_head():
+    t, i, d = torch.zeros(5, 2), torch.zeros(3, dtype=torch.int32), None
+    with pytest.raises(ValueError, match="hot_rows"):
+        kernels.scatter_add_packed_plain(t, i, torch.zeros(3, 2), -1)
+    with pytest.raises(TypeError):
+        kernels.scatter_add_packed_plain(t, i, torch.zeros(3, 2), 2.0)
+    del d
+
+
+@pytest.mark.parametrize("D", [3, 20])
+def test_packed_plain_exact_on_a_hot_row(D):
+    """K3's plain version with one head row owning most pushes, on
+    sixteenths in [-1/2, 1/2] (every float32 partial sum exact): equal to
+    the float64 sum and to the XLA route bit for bit."""
+    B, R, H = 1 << 15, 300, 64
+    rng = np.random.default_rng(D)
+    table = (np.round(rng.normal(0, 1, (R, D)).clip(-2, 2) * 4) / 16
+             ).astype(np.float32)
+    deltas = (np.round(rng.normal(0, 1, (B, D)).clip(-2, 2) * 4) / 16
+              ).astype(np.float32)
+    ids = np.full(B, 7, np.int32)
+    ids[::5] = rng.integers(-2, R + 2, B)[::5]
+    head_ids = np.where(ids < H, ids, -1)
+    t, i, d = (torch.from_numpy(x) for x in (table, ids, deltas))
+    got = kernels.scatter_add_packed_plain(t.clone(), i, d, H).numpy()
+    np.testing.assert_array_equal(got, _f64_oracle(table, head_ids, deltas))
+    np.testing.assert_array_equal(got, np.asarray(jops.scatter_add(
+        jnp.asarray(table), jnp.asarray(head_ids), jnp.asarray(deltas))))
+
+
+@pytest.mark.parametrize("batch,head,dim,want", [
+    (0, 2048, 11, 1), (100, 2048, 11, 1), (32_768, 2048, 11, 64),
+    (1 << 20, 2048, 20, 204), (425_997, 2048, 3, 256),
+    (32_768, 32_768, 100, 2), (32_768, 1 << 20, 200, 1)])
+def test_packed_slices(batch, head, dim, want):
+    """K3's batch slices: at least 512 ids each, at most 256, and at most
+    32 MiB of partial sums."""
+    got = kernels.packed_slices(batch, head, dim)
+    assert got == want
+    assert got == 1 or got * head * dim * 4 <= kernels.PACKED_PARTIAL_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +453,8 @@ def test_kernel_sources_and_build_are_in_the_package():
 
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
     assert names == ["gather_rows.cu", "gather_rows_dim1.cu",
-                     "scatter_add.cu", "scatter_add_dim1.cu"]
+                     "scatter_add.cu", "scatter_add_dim1.cu",
+                     "scatter_add_packed.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     for path in _build.sources():
         with open(path) as f:

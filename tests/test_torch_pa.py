@@ -203,9 +203,24 @@ def test_head_prefix_counts_only_with_a_declared_head():
     dict(num_features=NF, hot_features=H),
     dict(num_features=NF, num_classes=5, hot_features=H),
 ], ids=["binary_without_prefix", "multiclass"])
-def test_hot_features_without_prefix_route_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="K3"):
-        passive_aggressive(make_ps_mesh(device="cpu"), PAConfig(**kw))
+def test_hot_features_without_prefix_route_match_jax(backend, kw):
+    """``hot_features`` without the head prefix: the binary ``(NF, 1)``
+    push stays on K4's plain version, the multiclass push takes the
+    hot/cold split (K3's plain version for the head). Against the JAX
+    package, whose pallas backend runs its packed kernel for the head."""
+    if kw.get("num_classes", 2) == 2:
+        data, _ = _binary_data()
+        local_batch = 512
+    else:
+        data = jdatasets.synthetic_sparse_multiclass(2000, NF, 5, NNZ, seed=3)
+        local_batch = 128
+    kw = dict(kw, variant="PA-I", C=1.0)
+    table, _ = _parity(data, kw, local_batch=local_batch, chunks_n=3,
+                       backend=backend)
+    assert float(table[:H].abs().max()) > 0
+    ttrainer, _ = passive_aggressive(make_ps_mesh(device="cpu"),
+                                     PAConfig(**kw))
+    assert ttrainer._hot_rows(WEIGHT_TABLE) == H
 
 
 def test_multiclass_refuses_head_prefix():
@@ -287,7 +302,10 @@ def test_sparse_loaders_equal_jax(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--head-features", "100"],
     ["--num-classes", "5", "--sync-every", "2"],
-], ids=["binary_head_prefix", "multiclass_ssp"])
+    ["--head-features", "100", "--ingest", "host"],
+    ["--num-classes", "5", "--ingest", "device"],
+], ids=["binary_head_prefix", "multiclass_ssp", "host_ingest",
+        "device_ingest"])
 def test_example_cli_runs_on_cpu(argv):
     from fps_tpu_torch.examples import passive_aggressive as example
 

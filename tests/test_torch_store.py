@@ -17,7 +17,7 @@ from fps_tpu.core import store as jstore
 from fps_tpu.parallel import mesh as jmesh
 
 from fps_tpu_torch.core import store as tstore
-from fps_tpu_torch.core.api import ServerLogic
+from fps_tpu_torch.core.api import ServerLogic, StepOutput, WorkerLogic
 from fps_tpu_torch.core.driver import TrainerConfig
 from fps_tpu_torch.models.matrix_factorization import MFConfig, make_store
 from fps_tpu_torch.parallel import mesh as tmesh
@@ -152,17 +152,7 @@ def test_param_store_init_lookup_dump():
     assert not zeros.any()
 
 
-def _hot_push_without_prefix():
-    """``hot_ids=2`` constructs now; its push without a head-prefix route is
-    the hot/cold split of kernel K3, which still raises."""
-    spec = tstore.TableSpec("t", 4, 2, hot_ids=2)
-    t, i, d = _t(*_inputs(spec.num_ids, spec.dim, 6, seed=5))
-    tstore.push(t, i, d, num_shards=1, hot_rows=spec.hot_ids)
-
-
 @pytest.mark.parametrize("make", [
-    _hot_push_without_prefix,
-    lambda: tstore.TableSpec("t", 4, 2, hot_ids="auto"),
     lambda: tstore.TableSpec("t", 4, 2, hot_tier=2),
     lambda: tstore.TableSpec("t", 4, 2, cold_budget=8),
     lambda: tstore.TableSpec("t", 4, 2, dense_collectives=True),
@@ -171,14 +161,97 @@ def _hot_push_without_prefix():
     lambda: TrainerConfig(guard="mask"),
     lambda: TrainerConfig(hot_sync_every=2),
     lambda: ServerLogic(hot_fold="adagrad"),
-    lambda: make_store(tmesh.make_ps_mesh(device="cpu"),
-                       MFConfig(num_users=4, num_items=6, hot_items=3)),
-], ids=["hot_ids", "hot_ids_auto", "hot_tier", "cold_budget", "dense",
-        "push_delay", "step_tap", "guard", "hot_sync_every", "hot_fold",
-        "mf_hot_items"])
+], ids=["hot_tier", "cold_budget", "dense", "push_delay", "step_tap",
+        "guard", "hot_sync_every", "hot_fold"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="not ported"):
         make()
+
+
+def _hot_push_matches_jax():
+    """``TableSpec(hot_ids=2)``'s push without a prefix route is the
+    hot/cold split (K3's plain version for the head): the sums of the JAX
+    package's push, in another order."""
+    spec = tstore.TableSpec("t", 4, 2, hot_ids=2)
+    table, ids, deltas = _inputs(spec.num_ids, spec.dim, 60, seed=5)
+    want = _on_one_device(
+        lambda t, i, d: jstore.push(t, i, d, num_shards=1, data_axis=None,
+                                    hot_rows=spec.hot_ids),
+        table, ids, deltas)
+    t, i, d = _t(table, ids, deltas)
+    got = tstore.push(t, i, d, num_shards=1, hot_rows=spec.hot_ids).numpy()
+    assert np.all(np.abs(got - want) <= _bound(table, ids, deltas))
+
+
+def _hot_ids_auto_constructs():
+    """``hot_ids="auto"`` is a table spec; the trainer resolves it (see
+    test_hot_ids_auto_resolution)."""
+    assert tstore.TableSpec("t", 4, 2, hot_ids="auto").hot_ids == "auto"
+    with pytest.raises(ValueError, match="hot_ids"):
+        tstore.TableSpec("t", 4, 2, hot_ids=-1)
+
+
+def _mf_hot_items_set_the_head():
+    """``MFConfig.hot_items`` sets ``hot_ids = min(hot_items, num_items)``
+    on the item table, as the JAX package's ``make_store`` does."""
+    from fps_tpu.models.matrix_factorization import MFConfig as JMFConfig
+    from fps_tpu.models.matrix_factorization import make_store as jmake_store
+
+    mesh = tmesh.make_ps_mesh(device="cpu")
+    jm = jmesh.make_ps_mesh(num_shards=1, num_data=1,
+                            devices=jax.devices()[:1])
+    for hot in (3, 6, 9):
+        kw = dict(num_users=4, num_items=6, hot_items=hot)
+        got = make_store(mesh, MFConfig(**kw)).specs["item_factors"]
+        want = jmake_store(jm, JMFConfig(**kw)).specs["item_factors"]
+        assert got.hot_ids == want.hot_ids == min(hot, 6)
+
+
+@pytest.mark.parametrize("check", [_hot_push_matches_jax,
+                                   _hot_ids_auto_constructs,
+                                   _mf_hot_items_set_the_head],
+                         ids=["hot_ids", "hot_ids_auto", "mf_hot_items"])
+def test_hot_options_are_ported(check):
+    check()
+
+
+def _bound(table, ids, deltas):
+    """Twice the float32 summation bound of each row's pushes: two sums of
+    the same terms in different orders."""
+    R = table.shape[0]
+    keep = (ids >= 0) & (ids < R)
+    mag = np.abs(table).astype(np.float64)
+    np.add.at(mag, ids[keep], np.abs(deltas[keep]).astype(np.float64))
+    count = np.bincount(ids[keep], minlength=R)[:, None] + 1.0
+    return 2 * count * np.finfo(np.float32).eps * mag
+
+
+@pytest.mark.parametrize("combine,apply_fn", [
+    ("sum", None), ("mean", None), (_callable_combine, None),
+    ("sum", _apply), ("mean", _apply)])
+@pytest.mark.parametrize("hot", [8, 50, 200])
+def test_hot_push_matches_jax(combine, apply_fn, hot):
+    """``push`` with ``hot_rows`` (the split, or the whole table through
+    K3's plain version when ``hot >= R``) against the JAX package's push on
+    one device, for the additive fold and the sum-and-count scatter of the
+    other folds. The mean's scaling rounds once more on either side (see
+    test_push_matches_jax); the rest is the order of float32 sums."""
+    table, ids, deltas = _inputs(50, 6, 400, seed=9)
+    want = _on_one_device(
+        lambda t, i, d: jstore.push(t, i, d, num_shards=1, data_axis=None,
+                                    apply_fn=apply_fn, combine=combine,
+                                    hot_rows=hot),
+        table, ids, deltas)
+    t, i, d = _t(table, ids, deltas)
+    got = tstore.push(t, i, d, num_shards=1, apply_fn=apply_fn,
+                      combine=combine, hot_rows=hot).numpy()
+    eps = np.finfo(np.float32).eps
+    bound = (_bound(table, ids, deltas)
+             + 4 * eps * (np.abs(table) + np.abs(want - table)))
+    assert np.all(np.abs(got - want) <= bound)
+    if combine == "sum" and apply_fn is None:
+        # The tail rows take K2's plain version: the JAX push's bits.
+        np.testing.assert_array_equal(got[hot:], want[hot:])
 
 
 def test_ported_defaults_construct():
@@ -268,3 +341,102 @@ def test_head_prefix_pull_push_match_jax(pallas_backend, inplace):
     assert np.all(np.abs(got_push - ref) <= bound)
     assert np.all(np.abs(got_push - want_push) <= 2 * bound)
     np.testing.assert_array_equal(t.numpy(), got_push if inplace else table)
+
+
+def test_packed_crossover_rows_are_the_measured_thresholds():
+    """The H100 sweep's thresholds (chip_smoke.py phase 3): 32,768 rows
+    through D = 32, 16,384 through 100, 8,192 through 200, and K2 (0) past
+    the widest width measured."""
+    from fps_tpu_torch.ops import packed_crossover_rows
+
+    for dim, want in ((1, 32_768), (10, 32_768), (32, 32_768),
+                      (33, 16_384), (100, 16_384), (101, 8_192),
+                      (200, 8_192), (201, 0)):
+        assert packed_crossover_rows(dim) == want, dim
+
+
+class _Pusher(WorkerLogic):
+    """Pulls rows of table "t" and pushes a delta that depends on them (the
+    JAX package's test_hot_ids_auto_trains_equivalently)."""
+
+    def pull_ids(self, batch):
+        return {"t": batch["id"].to(torch.int32)}
+
+    def step(self, batch, pulled, local_state, gen):
+        ids = torch.where(batch["weight"] > 0,
+                          batch["id"].to(torch.int32), -1)
+        deltas = 0.5 * batch["val"][:, None] - 0.1 * pulled["t"]
+        return StepOutput(pushes={"t": (ids, deltas)},
+                          local_state=local_state, out={})
+
+
+def _pusher_trainer(spec):
+    from fps_tpu_torch.core.driver import Trainer
+
+    mesh = tmesh.make_ps_mesh(device="cpu")
+    store = tstore.ParamStore(mesh, [spec])
+    return Trainer(mesh, store, _Pusher(),
+                   server_logic=ServerLogic(combine="mean"),
+                   config=TrainerConfig(donate=False))
+
+
+def test_hot_ids_auto_resolution():
+    """``hot_ids="auto"`` on one shard: the whole table through K3 when it
+    has at most ``packed_crossover_rows(dim)`` rows, K2 (0) above; an int is
+    the head itself; any other string raises in the trainer (the JAX
+    package's tests/test_ops.py, on one shard)."""
+    from fps_tpu_torch.ops import packed_crossover_rows
+
+    cut = packed_crossover_rows(10)
+    specs = {"thin": tstore.TableSpec("thin", cut, 10, hot_ids="auto"),
+             "fat": tstore.TableSpec("fat", cut + 1, 10, hot_ids="auto"),
+             "head": tstore.TableSpec("head", 8 * 65536, 10, hot_ids=4096),
+             "wide": tstore.TableSpec("wide", 100, 300, hot_ids="auto"),
+             "bad": tstore.TableSpec("bad", 100, 4, hot_ids="Auto")}
+    tr = _pusher_trainer(specs["thin"])
+    tr.store.specs.update(specs)
+    assert tr._hot_rows("thin") == cut
+    assert tr._hot_rows("fat") == 0
+    assert tr._hot_rows("head") == 4096
+    assert tr._hot_rows("wide") == 0
+    with pytest.raises(ValueError, match="hot_ids"):
+        tr._hot_rows("bad")
+
+
+def test_hot_ids_auto_trains_equivalently():
+    """End to end: ``hot_ids="auto"`` on a thin table takes the whole-table
+    route (K3's plain version on the CPU) and trains the table the plain
+    route trains, to the order of float32 sums; the route is asserted to
+    fire."""
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.ops import kernels
+
+    R, D, n = 512, 4, 1024
+    rng = np.random.default_rng(9)
+    data = {"id": rng.integers(0, R, n).astype(np.int32),
+            "val": rng.normal(0, 1, n).astype(np.float32)}
+    chunks = list(epoch_chunks(data, num_workers=1, local_batch=32,
+                               steps_per_chunk=2, seed=1))
+
+    def run(hot):
+        tr = _pusher_trainer(tstore.TableSpec("t", R, D,
+                                              hot_ids=hot).zeros_init())
+        t, ls = tr.init_state(0)
+        for i, c in enumerate(chunks):
+            t, ls, _ = tr.run_chunk(t, ls, c, i)
+        return tr, tr.store.dump_model("t")[1]
+
+    tr, got = run("auto")
+    assert tr._hot_rows("t") == R
+    calls = []
+    real = kernels.scatter_add_packed_plain
+    try:
+        kernels.scatter_add_packed_plain = (
+            lambda *a: calls.append(a[3]) or real(*a))
+        tr.run_chunk(tr.store.tables, (), chunks[0], 0)
+    finally:
+        kernels.scatter_add_packed_plain = real
+    assert calls and set(calls) == {R}
+    _, want = run(0)
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
