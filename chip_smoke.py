@@ -13,10 +13,16 @@ on the card, raising on the first failure:
 3. holds each kernel against its plain PyTorch version at the shapes its
    paths give it, with -1 and >= R ids mixed in: the gathers (K1, K5) must
    be bit-equal; the scatter-adds (K2, K4) must lie within the float32
-   summation bound of a float64 sum, and two launches must give the same
-   bits. K1 / K2 at the MF step (ML-20M widths, B = 32,768, Zipf(0.8) items
-   and uniform users as ``synthetic_ratings`` draws them), the 20-class PA
-   step (47,236 x 20, 2^20 ids) and the AdaGrad logistic-regression step
+   summation bound of a float64 sum, equal the exact float64 sum bit for
+   bit on inputs rounded to sixteenths, and give the same bits on two
+   launches; K2's hand-written radix sort must equal ``torch.sort(keys,
+   stable=True)`` bit for bit, in keys and positions, at every K2 shape and
+   at its off-path edges (R = 1, R = 2^31 - 1, every id dropped, one id
+   owning 2^20 ids, runs across its tile edges, a batch that is not a
+   multiple of the tile). K1 / K2 at the MF step (ML-20M widths, B =
+   32,768, Zipf(0.8) items and uniform users as ``synthetic_ratings``
+   draws them), the 20-class PA step (47,236 x 20, 2^20 ids) and the
+   AdaGrad logistic-regression step
    (1M x 2 pull, 1M x 3 push); K5 / K4 at the binary PA step (the head view
    47,236[:2,048] with the head-sorted prefix, then the tail) and the
    logistic-regression step (1M x 1, 13 + 16,384 x 26 ids), plus K4 at 2^20
@@ -28,8 +34,9 @@ on the card, raising on the first failure:
    ``packed_crossover_rows``: K3 over the whole table against K2 with its
    sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
    32,768. Times are CUDA-event medians of 30 (the sweep: 10) with the card
-   held busy, beside the bound (least bytes / 3.35 TB/s) and the library
-   call's time;
+   held busy, beside the bound (least bytes / 3.35 TB/s), the library
+   call's time and, for K2 and K4, their sort's time (K2: its radix sort;
+   ``torch.sort``'s beside it);
 4. drives each path at full width, every launch counter at 0 just before it
    and read just after: online MF at ML-20M size (2 epochs sync, 2 SSP);
    binary PA-I at the RCV1 shape with the head prefix (K5 and K4 twice a
@@ -47,7 +54,10 @@ on the card, raising on the first failure:
 5. runs small MF, head-prefix PA and SSP logistic-regression jobs, and
    run_indexed jobs of MF with ``hot_items`` and 20-class PA with
    ``hot_features``, on the card and on the CPU from the same tables and
-   compares the tables;
+   compares the tables; then traces 10 K2 calls at each of its path shapes
+   (``torch.profiler``) for the device time and launches of each kernel K2
+   launches, which must be 3 a sort pass plus 2, and 10 calls of the sort
+   alone at each sort edge, 3 kernels a pass;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -201,10 +212,16 @@ def check_sum_bound(torch, label, table, kid, kd, got, want):
     return ref, count
 
 
-def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
+def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
+                  kernels=None, collect=None):
     """Hold a scatter-add kernel against its plain version and a float64 sum
-    (within the float32 summation bound; the same bits on two launches) and
-    time it, its wrapper's sort, its plain version and ``index_add_``."""
+    (within the float32 summation bound; the same bits on two launches), and
+    on sixteenths of the same inputs against the exact float64 sum, bit for
+    bit; time it, its sort, its plain version and ``index_add_``. With
+    ``kernels`` (K2) the sort is K2's hand-written radix sort, first held
+    bit for bit to ``torch.sort(keys, stable=True)``; without (K4) it is
+    the wrapper's ``torch.sort``. ``collect`` (a list) gathers the inputs
+    for :func:`k2_breakdown`."""
     num_rows, dim = table.shape
     B = ids.shape[0]
     got = kernel(table.clone(), ids, deltas)
@@ -216,6 +233,17 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
     keep = (ids >= 0) & (ids < num_rows)
     kid, kd = ids[keep], deltas[keep]
     ref, count = check_sum_bound(torch, label, table, kid, kd, got, want)
+    et, ed = sixteenths(torch, table), sixteenths(torch, deltas)
+    exact = et.double().index_add_(0, kid, ed[keep].double())
+    for which, fn in (("kernel", kernel), ("plain", plain)):
+        if not torch.equal(fn(et.clone(), ids, ed).double(), exact):
+            raise AssertionError(
+                f"{label}: {which} differs from the exact sum of sixteenths")
+    if kernels is not None:
+        check_sort(torch, kernels, label, ids, num_rows)
+        sort_fn = (lambda _: kernels.radix_sort_cuda(ids, num_rows))
+    else:
+        sort_fn = (lambda _: torch.sort(ids, stable=True))
     uniq = int(torch.unique(kid).numel())
     # Least bytes: the ids, the deltas of in-range ids read, and each
     # touched row read and written once.
@@ -229,18 +257,135 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path):
                       setup=table.clone),
         "call_ms": time_ms(torch, lambda t: kernel(t, ids, deltas),
                            setup=table.clone, hold=False),
-        # The wrapper's stable sort alone: the part of "ms" that is not the
-        # hand-written kernel.
-        "sort_ms": time_ms(torch, lambda _: torch.sort(ids, stable=True)),
+        # The sort alone, a part of "ms"; torch.sort's time beside it.
+        "sort_ms": time_ms(torch, sort_fn),
+        "torch_sort_ms": time_ms(torch,
+                                 lambda _: torch.sort(ids, stable=True)),
         "plain_ms": time_ms(torch, lambda t: plain(t, ids, deltas),
                             setup=table.clone),
         "library_ms": time_ms(torch, lambda t: t.index_add_(0, kid, kd),
                               setup=table.clone),
         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
     }
-    log(f"{label}: deterministic, within the float32 bound (kernel and "
-        "plain); " + json.dumps(case))
+    log(f"{label}: deterministic, within the float32 bound and exact on "
+        "sixteenths (kernel and plain); " + json.dumps(case))
+    if collect is not None:
+        collect.append((label, table, ids, deltas))
     return case
+
+
+def profiled(torch, fn, calls=10):
+    """Device µs and launches a call of each kernel of K2 and its sort
+    (``radix_*``, ``rows_*``) over ``calls`` calls of ``fn``, from
+    ``torch.profiler``: ``({name: µs}, {name: launches})``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for ev in prof.key_averages():
+        name = re.search(r"\b(radix_\w+|rows_\w+)", ev.key)
+        if not name:
+            continue
+        us[name[1]] = us.get(name[1], 0.0) + (
+            getattr(ev, "device_time_total", 0)
+            or getattr(ev, "cuda_time_total", 0)) / calls
+        count[name[1]] = count.get(name[1], 0) + ev.count
+    if any(n % calls for n in count.values()):
+        raise AssertionError(f"kernel launches {count} over {calls} calls "
+                             "are not the same each call")
+    return us, {k: n // calls for k, n in count.items()}
+
+
+def traced_launches(torch, kernels, num_rows, fn, plus, label):
+    """The kernels ``fn`` launches a call, traced: the sort's passes are
+    its count kernel's launches; there must be as many as
+    ``radix_sort_passes(num_rows)`` and 3 kernels a pass plus ``plus``."""
+    us, launched = profiled(torch, fn)
+    passes = launched.get("radix_count", 0)
+    total = sum(launched.values())
+    if (passes != kernels.radix_sort_passes(num_rows)
+            or total != 3 * passes + plus):
+        raise AssertionError(
+            f"{label}: traced launches a call {launched}, expected "
+            f"{kernels.radix_sort_passes(num_rows)} passes of 3 kernels "
+            f"plus {plus}")
+    return {"device_us": us, "launches": launched, "kernels_per_call": total,
+            "sort_passes": passes}
+
+
+def k2_breakdown(torch, kernels, inputs, sort_inputs):
+    """Traced, at each K2 shape: the device µs and launches a call of each
+    kernel K2 launches (the sort's count, scan and scatter; the sum's tile
+    and carry passes), which must be 3 a sort pass plus 2; at each sort
+    edge, the sort's own, 3 a pass. Run last, after every timed phase."""
+    out = {}
+    for label, table, ids, deltas in inputs:
+        work = table.clone()
+        out[label] = traced_launches(
+            torch, kernels, table.shape[0],
+            lambda: kernels.scatter_add_cuda_(work, ids, deltas), 2, label)
+        log(f"K2 breakdown, {label}, a call: " + json.dumps(out[label]))
+    sorts = {}
+    for label, ids, num_rows in sort_inputs:
+        sorts[label] = traced_launches(
+            torch, kernels, num_rows,
+            lambda: kernels.radix_sort_cuda(ids, num_rows), 0, label)
+        log(f"K2 sort, {label}, a call: " + json.dumps(sorts[label]))
+    return out, sorts
+
+
+def check_sort(torch, kernels, label, ids, num_rows):
+    """Hold K2's radix sort to ``torch.sort(keys, stable=True)`` (keys
+    and int32 positions, bit for bit)."""
+    keys, perm = kernels.radix_sort_cuda(ids, num_rows)
+    want_keys, want_perm = kernels.radix_sort_plain(ids, num_rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys, want_keys) and torch.equal(perm, want_perm)):
+        raise AssertionError(f"{label}: the radix sort differs from "
+                             "torch.sort(keys, stable=True)")
+
+
+def sort_edges(torch, kernels, dev):
+    """K2's sort off the paths, each bit-equal to ``torch.sort``: one pass
+    (R = 1) and four (R = 2^31 - 1), every id dropped, one id owning 2^20
+    ids, equal keys across the sort's 4,096-position tiles, and batches that
+    are not a multiple of the tile. Returns each case with its time, and
+    the inputs for :func:`k2_breakdown`."""
+    rng = np.random.default_rng(4)
+    tile_runs = np.repeat(np.arange(12), [1, 4095, 1, 4096, 8192, 3, 4093,
+                                          7, 4096, 2, 1, 4094])
+    cases = [
+        ("R = 1", 1, rng.integers(-1, 3, BATCH)),
+        ("R = 2^31 - 1", 2**31 - 1, rng.integers(-5, 2**31 - 1, BATCH)),
+        ("every id dropped", PA_NF, np.where(np.arange(BATCH) % 2, -1,
+                                             PA_NF)),
+        ("one id owns 2^20", PA_NF, np.full(SPARSE_BATCH * PA_NNZ, 7)),
+        # 262,225 ids: tiles of 4,096 positions, the largest.
+        ("runs across tile edges", PA_NF, np.concatenate(
+            [tile_runs + 12 * k for k in range(9)] + [np.full(4096, -1)])
+         [::-1]),
+        ("B = 32,767 (not a multiple of the tile)", ML20M_ITEMS,
+         rng.integers(-1, ML20M_ITEMS + 1, BATCH - 1)),
+    ]
+    out, inputs = [], []
+    for label, num_rows, ids in cases:
+        ids = torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(dev)
+        check_sort(torch, kernels, label, ids, num_rows)
+        case = {"shape": label, "R": num_rows, "B": int(ids.numel()),
+                "sort_ms": time_ms(torch, lambda _: kernels.radix_sort_cuda(
+                    ids, num_rows)),
+                "torch_sort_ms": time_ms(torch, lambda _: torch.sort(
+                    ids, stable=True))}
+        log(f"K2 sort, {label}: bit-equal to torch.sort; " + json.dumps(case))
+        out.append(case)
+        inputs.append((label, ids, num_rows))
+    return out, inputs
 
 
 def sixteenths(torch, x):
@@ -360,6 +505,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     g5p, s4p = kernels.gather_rows_dim1_plain, kernels.scatter_add_dim1_plain
     cases = {"gather_rows": [], "scatter_add": [], "gather_rows_dim1": [],
              "scatter_add_dim1": [], "scatter_add_packed": []}
+    k2_inputs = cases["k2_inputs"] = []
 
     # K1 / K2 at the MF step: the item pull and push (mean's count column),
     # the user factors' gather and update; the "sum" combine's push is off
@@ -375,7 +521,8 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
             ("items_sum", ML20M_ITEMS, RANK, True, "off_path")):
         cases["scatter_add"].append(check_scatter(
             torch, f"K2 MF {name}", s2, s2p, table(rows, dim),
-            t(path_ids(rng, rows, BATCH, zipf)), deltas(BATCH, dim), path))
+            t(path_ids(rng, rows, BATCH, zipf)), deltas(BATCH, dim), path,
+            kernels, k2_inputs))
 
     # The MF item push with hot_items = 2,048: the count-column scatter into
     # zeros, the head through K3, the tail through K2 (head ids -1).
@@ -388,7 +535,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     tail_ids = torch.where((item_ids >= 0) & (item_ids < HOT), -1, item_ids)
     cases["scatter_add"].append(check_scatter(
         torch, "K2 MF item tail", s2, s2p, acc, tail_ids, item_deltas,
-        "mf_hot"))
+        "mf_hot", kernels, k2_inputs))
 
     # K1 / K2 at the 20-class PA step: 2^20 Zipf(0.9) ids into (NF, 20).
     mc_ids = t(mix_dropped(mc_data["feat_ids"][:SPARSE_BATCH].reshape(-1),
@@ -398,7 +545,8 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         mc_ids, "pa_multiclass"))
     cases["scatter_add"].append(check_scatter(
         torch, "K2 PA multiclass", s2, s2p, table(PA_NF, PA_MC_CLASSES),
-        mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass"))
+        mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass",
+        kernels, k2_inputs))
     mc_deltas = deltas(mc_ids.numel(), PA_MC_CLASSES)
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 PA multiclass head", kernels,
@@ -407,7 +555,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     cases["scatter_add"].append(check_scatter(
         torch, "K2 PA multiclass tail", s2, s2p, table(PA_NF, PA_MC_CLASSES),
         torch.where((mc_ids >= 0) & (mc_ids < HOT), -1, mc_ids), mc_deltas,
-        "pa_multiclass_hot"))
+        "pa_multiclass_hot", kernels, k2_inputs))
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 one id owns 2^20 pushes", kernels,
         table(PA_NF, PA_MC_CLASSES), torch.full_like(mc_ids, 7), mc_deltas,
@@ -426,7 +574,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     cases["scatter_add"].append(check_scatter(
         torch, "K2 logreg adagrad", s2, s2p,
         torch.zeros((LR_NF, 3), device=dev), lr_ids,
-        deltas(lr_ids.numel(), 3), "logreg_adagrad"))
+        deltas(lr_ids.numel(), 3), "logreg_adagrad", kernels, k2_inputs))
     lr_deltas = deltas(lr_ids.numel(), 3)
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 logreg adagrad head", kernels,
@@ -436,7 +584,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         torch, "K2 logreg adagrad tail", s2, s2p,
         torch.zeros((LR_NF, 3), device=dev),
         torch.where((lr_ids >= 0) & (lr_ids < HOT), -1, lr_ids), lr_deltas,
-        "logreg_adagrad_hot"))
+        "logreg_adagrad_hot", kernels, k2_inputs))
     # The whole-table route (hot_rows >= R), as hot_ids="auto" takes it.
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 whole table 4,096 x 10", kernels, table(4096, RANK),
@@ -943,6 +1091,8 @@ def main() -> int:
     # 3. Kernels against their plain versions at the paths' shapes.
     cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
                          dev)
+    k2_inputs = cases.pop("k2_inputs")
+    sort_cases, sort_inputs = sort_edges(torch, kernels, dev)
 
     sweep = crossover_sweep(torch, kernels, dev)
 
@@ -955,11 +1105,16 @@ def main() -> int:
 
     # 5. The card against the CPU.
     worst = card_vs_cpu(torch, fps)
-    # Both devices read exactly. K2 folds duplicates in batch order, as the
-    # CPU's index_add_ does; K3 sums each head row's pushes per batch slice
-    # and then across slices, where the CPU sums them in batch order into
-    # zeros (a few float32 roundings of the row's terms); K4 sums each row's
-    # pushes in a tree order, so a
+    breakdown, sort_traced = k2_breakdown(torch, kernels, k2_inputs,
+                                          sort_inputs)
+    del k2_inputs, sort_inputs
+    for case in sort_cases:
+        case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
+    # Both devices read exactly. The CPU folds each row's pushes one by one
+    # in batch order (index_add_); on the card K2 and K4 sum each row's
+    # pushes in a fixed tree order (a scan within tiles of sorted positions,
+    # then across the tiles) and add the sum into the row once, and K3 sums
+    # each head row's pushes per batch slice and then across slices. So a
     # row's sum differs from the CPU's by a few float32 roundings of its
     # terms each push. The card and the CPU also order dot products and row
     # sums differently (about one rounding each). PA's and the logistic
@@ -1002,7 +1157,18 @@ def main() -> int:
     pallas = "fps_tpu/ops/pallas_kernels.py"
     line = {"kernels": [
         entry("gather_rows", src + "gather_rows.cu", pallas + ":513", "mf"),
-        entry("scatter_add", src + "scatter_add.cu", pallas + ":112", "mf"),
+        dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
+                   "mf"),
+             sort={"source": src + "radix_sort.cu",
+                   "passes_by_shape": {label: b["sort_passes"]
+                                       for label, b in breakdown.items()},
+                   "ms": sum(c["sort_ms"] for c in cases["scatter_add"]
+                             if c["path"] == "mf"),
+                   "torch_sort_ms": sum(
+                       c["torch_sort_ms"] for c in cases["scatter_add"]
+                       if c["path"] == "mf"),
+                   "off_path": sort_cases},
+             traced_by_shape=breakdown),
         entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
               pallas + ":429", "pa_binary"),
         entry("scatter_add_dim1", src + "scatter_add_dim1.cu",

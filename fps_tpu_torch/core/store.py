@@ -14,8 +14,9 @@ on the port's hand-written kernels.
 
 ``TableSpec.hot_ids`` takes an int (the frequency-ranked head: the scalar
 tables' head-prefix route, and the hot/cold push split of wider tables
-through kernel K3) or ``"auto"`` (the whole table through K3 when it is
-thinner than :func:`fps_tpu_torch.ops.packed_crossover_rows`). Not ported,
+through kernel K3) or ``"auto"`` (the whole table through K3 when it has
+no more rows than :func:`fps_tpu_torch.ops.packed_crossover_rows` allows
+at its width, and through K2 otherwise). Not ported,
 and rejected when set: ``hot_tier``, ``cold_budget`` and
 ``dense_collectives=True`` (ROADMAP.md Queue 1).
 """
@@ -202,8 +203,9 @@ class TableSpec:
     pull and push as ``hot_rows``: the head-prefix route of scalar tables,
     and the hot/cold push split of wider ones (kernel K3 for the head).
     ``hot_ids="auto"`` sends a shard's whole push through K3 when the shard
-    has at most :func:`fps_tpu_torch.ops.packed_crossover_rows` rows, and
-    through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
+    has at most :func:`fps_tpu_torch.ops.packed_crossover_rows` rows (the
+    H100 sweep against K2 with its radix sort: 8,192 rows at up to 10
+    columns, 2,048 at up to 32, none wider), and through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
     on any other string. ``hot_tier``, ``cold_budget`` and
     ``dense_collectives=True`` select routes this port does not have yet;
     setting them raises. ``dense_collectives`` ``"auto"`` and ``False`` both

@@ -47,12 +47,13 @@ def packed_crossover_rows(dim: int) -> int:
     have for its whole push to take K3 (``hot_rows = R``) rather than K2.
 
     Measured by ``chip_smoke.py`` phase 3 on an NVIDIA H100 80GB HBM3 at
-    700.00 W: K3 over the whole table against K2 with its sort, B = 32,768
-    Zipf(0.8) ids (the JAX package's sweep shape), R from 512 to 32,768.
-    K3 was not slower than K2 through R = 32,768 at D = 10 and 32 (the top
-    of the sweep), through 16,384 at D = 100 and through 8,192 at D = 200.
-    Between measured widths the threshold of the wider one applies.
-    ``PERF.md`` has the sweep's times.
+    700.00 W: K3 over the whole table against K2 with its radix sort,
+    B = 32,768 Zipf(0.8) ids (the JAX package's sweep shape), R from 512 to
+    32,768. K3 was not slower than K2 through R = 8,192 at D = 10 and
+    through 2,048 at D = 32; at D = 100 and 200 K2 was faster at every R.
+    Between measured widths the threshold of the wider one applies, so a
+    table wider than 32 columns always takes K2. ``PERF.md`` has the
+    sweep's times.
     """
     for width, rows in _PACKED_CROSSOVER:
         if dim <= width:
@@ -60,9 +61,8 @@ def packed_crossover_rows(dim: int) -> int:
     return 0
 
 
-# (widest D, most rows) from the sweep above; wider than 200: not measured,
-# so K2.
-_PACKED_CROSSOVER = ((32, 32_768), (100, 16_384), (200, 8_192))
+# (widest D, most rows) from the sweep above; wider than 32: K2.
+_PACKED_CROSSOVER = ((10, 8_192), (32, 2_048))
 
 
 def _on(table: Tensor, fn: str) -> str:

@@ -129,9 +129,11 @@ def library() -> ctypes.CDLL:
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.fps_gather_rows_f32.argtypes = [vp, vp, vp, ll, ll, ci, vp]
             lib.fps_gather_rows_f32.restype = ci
-            lib.fps_scatter_add_sorted_f32.argtypes = [vp, vp, vp, vp, ll, ll,
-                                                       ci, vp]
-            lib.fps_scatter_add_sorted_f32.restype = ci
+            lib.fps_radix_sort_i32.argtypes = [vp, ll, ll, vp, ll, vp]
+            lib.fps_radix_sort_i32.restype = ci
+            lib.fps_scatter_add_f32.argtypes = [vp, vp, vp, ll, ll, ci, vp, ll,
+                                                vp, ll, vp]
+            lib.fps_scatter_add_f32.restype = ci
             lib.fps_gather_rows_dim1_f32.argtypes = [vp, vp, vp, ll, ll, vp]
             lib.fps_gather_rows_dim1_f32.restype = ci
             lib.fps_scatter_add_dim1_f32.argtypes = [vp, vp, vp, vp, ll, ll,

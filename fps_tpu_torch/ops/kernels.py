@@ -14,13 +14,20 @@ One thread per output element copies its value or writes zero for an id
 outside ``[0, R)``; a bounds check takes the place of the TPU kernel's
 one-hot matmul over every row tile.
 
-K2 ``scatter_add_cuda_`` (``csrc/scatter_add.cu``) replaces
-``scatter_add_pallas``. It is bound by bytes too (deltas and ids read, the
-touched rows read and written), but it must also be deterministic, which
-rules out the float atomics of ``index_add_`` on the card. The wrapper sorts
-the ids stably (a permutation), and the kernel gives each run of equal ids to
-one thread per column, which adds the run's deltas to the row in batch order.
-The serial run of a Zipf-hot id is its slow spot.
+K2 ``scatter_add_cuda_`` (``csrc/scatter_add.cu``, with the sort in
+``csrc/radix_sort.cu``) replaces ``scatter_add_pallas``. It is bound by
+bytes too (deltas and ids read, the touched rows read and written), but it
+must also be deterministic, which rules out the float atomics of
+``index_add_`` on the card, and a push's Zipf-hot id owns up to tens of
+thousands of its rows, so no run may be walked serially. One C call sorts
+and sums: a stable LSD radix sort of the keys (the id, or ``R`` for a
+dropped id) with their batch positions, on the ``ceil(log2(R + 1))`` bits
+the table needs, 8 a pass (:func:`radix_sort_passes`); then K4's segmented
+tree over rows of ``D`` columns: each thread reads its sorted position's
+delta row through the permutation, each tile of 128 positions scans its
+rows by run in a fixed shuffle tree, the tiles' partials are scanned in
+tile order, and each run's sum is added into its row once. It stops at the first dropped key. No atomics and the same bits
+on every launch; a batch that is one run costs what a uniform batch costs.
 
 K5 ``gather_rows_dim1_cuda`` (``csrc/gather_rows_dim1.cu``) replaces
 ``gather_rows_dim1_pallas``, the read of an ``(R, 1)`` scalar table. It is
@@ -128,6 +135,84 @@ gather_rows_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K2's sort: a stable radix sort of the ids on the bits the table needs
+# ---------------------------------------------------------------------------
+
+# The tile sizes of csrc/radix_sort.cu and csrc/scatter_add.cu, which size
+# the scratch: the sort's tiles are 256 to 4,096 positions, as few tiles as
+# keep their count at 64 where the largest tile allows.
+SORT_MAX_TILE = 4096     # kMaxTile
+SORT_TARGET_TILES = 64   # kTargetTiles
+SORT_RADIX = 256         # kRadix: 8-bit digits
+SUM_TILE = 128           # kTile of the sum
+
+
+def radix_sort_passes(num_rows: int) -> int:
+    """The sort's passes for a table of ``num_rows`` rows: its keys lie in
+    ``[0, R]`` and take ``max(1, ceil(log2(R + 1)))`` bits, 8 a pass."""
+    num_rows = operator.index(num_rows)
+    _check(num_rows >= 0, f"radix_sort_passes: num_rows {num_rows} < 0")
+    return -(-max(1, num_rows.bit_length()) // 8)
+
+
+def _sort_keys(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The sort key of each id: the id in ``[0, R)``, ``R`` for any other,
+    so that dropped ids sort last."""
+    return torch.where((ids >= 0) & (ids < num_rows), ids,
+                       num_rows).to(torch.int32)
+
+
+def _sort_words(batch: int) -> int:
+    """int32 scratch of the sort: keys and positions double-buffered, and
+    the (digit, tile) counts of the most tiles the sort can cut."""
+    tiles = max(SORT_TARGET_TILES, -(-batch // SORT_MAX_TILE))
+    return 4 * batch + SORT_RADIX * tiles
+
+
+def radix_sort_plain(ids: torch.Tensor,
+                     num_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(keys, positions)``: the keys of ``ids`` (``R`` for an id outside
+    ``[0, R)``) in ascending order, stable, and the int32 batch position of
+    each. ``torch.sort(keys, stable=True)``."""
+    keys, order = torch.sort(_sort_keys(ids, num_rows), stable=True)
+    return keys, order.to(torch.int32)
+
+
+def radix_sort_cuda(ids: torch.Tensor,
+                    num_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's sort on the card, alone: what :func:`radix_sort_plain` returns,
+    from ``radix_sort_passes(num_rows)`` passes of an 8-bit LSD radix sort
+    (``csrc/radix_sort.cu``). K2 runs the same sort inside its own C call;
+    this wrapper serves the tests and ``chip_smoke.py``."""
+    fn = "radix_sort_cuda"
+    _check(ids.is_cuda, f"{fn}: ids must be a CUDA tensor (got {ids.device})")
+    _check(ids.dtype == torch.int32 and ids.dim() == 1 and
+           ids.is_contiguous(),
+           f"{fn}: ids must be contiguous 1-D int32, got {tuple(ids.shape)} "
+           f"{ids.dtype}")
+    _check_batch(fn, ids)
+    num_rows = operator.index(num_rows)
+    _check(0 <= num_rows < 2**31,
+           f"{fn}: num_rows {num_rows} outside [0, 2**31)")
+    B = ids.shape[0]
+    work = torch.empty(max(1, _sort_words(B)), dtype=torch.int32,
+                       device=ids.device)
+    if B == 0:
+        return work[:0], work[:0]
+    lib = _build.library()
+    with torch.cuda.device(ids.device):
+        rc = lib.fps_radix_sort_i32(ids.data_ptr(), num_rows, B,
+                                    work.data_ptr(), work.numel(),
+                                    _stream(ids))
+    _raise_on_error(rc, fn)
+    radix_sort_cuda.launches += 1
+    return work[:B], work[2 * B:3 * B]
+
+
+radix_sort_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K2: scatter-add
 # ---------------------------------------------------------------------------
 
@@ -140,14 +225,19 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
     return table.index_add_(0, ids[keep], deltas[keep].to(table.dtype))
 
 
+def _check_batch(fn: str, ids: torch.Tensor) -> None:
+    _check(ids.shape[0] < 2**31, f"{fn}: batch has >= 2**31 ids")
+
+
 def scatter_add_cuda_(table: torch.Tensor, ids: torch.Tensor,
                       deltas: torch.Tensor) -> torch.Tensor:
     """K2 on the card, in place: ``table[ids[b]] += deltas[b]`` for the
     ``(R, D)`` float32 table, ``(B,)`` int32 ids and ``(B, D)`` float32
-    deltas; duplicates add in batch order, ids outside ``[0, R)`` are
-    dropped. Deterministic: the same inputs give the same bits. Returns
-    ``table``."""
+    deltas; duplicates add in a fixed tree order, ids outside ``[0, R)`` are
+    dropped. Deterministic: the same inputs give the same bits. One C call
+    launches the sort's and the sum's kernels. Returns ``table``."""
     _check_table_ids("scatter_add_cuda_", table, ids)
+    _check_batch("scatter_add_cuda_", ids)
     _check(deltas.is_cuda and deltas.device == table.device,
            f"scatter_add_cuda_: deltas on {deltas.device}, table on "
            f"{table.device}")
@@ -159,12 +249,16 @@ def scatter_add_cuda_(table: torch.Tensor, ids: torch.Tensor,
            f"scatter_add_cuda_: deltas {tuple(deltas.shape)} != ({B}, {D})")
     if B * D == 0:
         return table
-    sorted_ids, order = torch.sort(ids, stable=True)
+    sort_words = _sort_words(B)
+    sum_words = (2 * D + 2) * -(-B // SUM_TILE)
+    work = torch.empty(sort_words + sum_words, dtype=torch.int32,
+                       device=table.device)
     lib = _build.library()
     with torch.cuda.device(table.device):
-        rc = lib.fps_scatter_add_sorted_f32(
-            table.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-            deltas.data_ptr(), R, B, D, _stream(table))
+        rc = lib.fps_scatter_add_f32(
+            table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), R, B, D,
+            work.data_ptr(), sort_words, work[sort_words:].data_ptr(),
+            sum_words, _stream(table))
     _raise_on_error(rc, "scatter_add_cuda_")
     scatter_add_cuda_.launches += 1
     return table

@@ -5,7 +5,9 @@ PA and logistic-regression shapes; these tests add the edges: odd and wide
 rows, empty batches, tables of one row, every id dropped, one id owning the
 whole batch, odd batch lengths against the scalar gather's 16-byte path, the
 head view of a scalar table, K3's head at and around its row-tile edges, the
-hot/cold split and the whole-table route, and the wrappers' refusals. Every
+hot/cold split and the whole-table route, K2's radix sort against
+``torch.sort`` (bit for bit) and K2 against exact sums of sixteenths, runs
+across the sort's and the sum's tile edges, and the wrappers' refusals. Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -76,17 +78,118 @@ def test_scatter_kernel_deterministic_and_within_bound(dev, R, D, B):
                  <= _sum_bound(table, ids, deltas)).all())
 
 
+def _sixteenths(x):
+    """``x`` rounded to a multiple of 1/16 within [-1/2, 1/2]: float32 sums
+    of up to 2^20 such terms are exact in any order."""
+    return torch.round(x.clamp(-2, 2) * 4) / 16
+
+
+def _exact_sum(table, ids, deltas):
+    keep = (ids >= 0) & (ids < table.shape[0])
+    return table.double().index_add_(0, ids[keep].long(),
+                                     deltas[keep].double())
+
+
 def test_scatter_one_id_owns_the_batch(dev):
-    """The longest run there is: the kernel adds it in batch order, the
-    order the CPU's index_add_ folds it in, so the bits match the CPU."""
+    """The longest run there is, summed by the tree: on sixteenths every
+    float32 partial sum is exact, so the row must equal the float64 sum bit
+    for bit (a lost or doubled push shows), and the other rows stay."""
     rng = np.random.default_rng(0)
-    table = torch.from_numpy(rng.normal(0, 1, (8, 10)).astype(np.float32))
-    deltas = torch.from_numpy(rng.normal(0, 1, (5000, 10)).astype(np.float32))
+    table = _sixteenths(torch.from_numpy(
+        rng.normal(0, 1, (8, 10)).astype(np.float32)))
+    deltas = _sixteenths(torch.from_numpy(
+        rng.normal(0, 1, (5000, 10)).astype(np.float32)))
     ids = torch.full((5000,), 3, dtype=torch.int32)
-    want = kernels.scatter_add_plain(table.clone(), ids, deltas)
     got = kernels.scatter_add_cuda_(table.to(dev), ids.to(dev),
-                                    deltas.to(dev))
-    assert torch.equal(got.cpu(), want)
+                                    deltas.to(dev)).cpu()
+    assert torch.equal(got.double(), _exact_sum(table, ids, deltas))
+    np.testing.assert_array_equal(np.delete(got.numpy(), 3, 0),
+                                  np.delete(table.numpy(), 3, 0))
+
+
+# (R, D, B): the paths' widths (3, 10, 11, 20) and the sweep's (32 to 200,
+# several column chunks a block), batches across the sum's 128-position
+# tiles and the sort's 4,096.
+WIDE_SHAPES = [(500, 3, 4097), (26_744, 11, 32_768), (138_493, 10, 9000),
+               (47_236, 20, 70_000), (300, 32, 2000), (300, 33, 2000),
+               (300, 65, 2000), (300, 100, 3000), (300, 200, 1500)]
+
+
+@pytest.mark.parametrize("R,D,B", SHAPES + WIDE_SHAPES)
+def test_scatter_kernel_exact_on_sixteenths(dev, R, D, B):
+    table, ids, deltas = _inputs(R, D, B, seed=R + 7 * D + B, dev=dev)
+    et, ed = _sixteenths(table), _sixteenths(deltas)
+    got = kernels.scatter_add_cuda_(et.clone(), ids, ed)
+    assert torch.equal(got.double(), _exact_sum(et, ids, ed))
+
+
+def test_scatter_runs_across_tile_edges(dev):
+    """Runs that start, end or cross exactly at the sum's 128-position and
+    the sort's 4,096-position tile edges (the first three end at 127, 128
+    and 256, so one starts at the odd multiple 128), one run over many
+    tiles, and dropped ids at both ends of the batch, which sort last."""
+    lengths = [127, 1, 128, 1, 255, 1, 256, 512, 3, 253, 1024, 7, 4096,
+               2048, 1]
+    ids = np.concatenate([np.full(n, r, np.int32)
+                          for r, n in enumerate(lengths)])
+    rng = np.random.default_rng(12)
+    ids = np.concatenate([np.full(5, -1, np.int32), rng.permutation(ids),
+                          np.full(9, 100, np.int32)])
+    table = rng.normal(0, 1, (len(lengths) + 1, 11)).astype(np.float32)
+    deltas = rng.normal(0, 1, (len(ids), 11)).astype(np.float32)
+    t, i, d = (torch.from_numpy(x).to(dev) for x in (table, ids, deltas))
+    got = kernels.scatter_add_cuda_(t.clone(), i, d)
+    plain = kernels.scatter_add_plain(t.clone(), i, d)
+    assert bool(((got.double() - plain.double()).abs()
+                 <= _sum_bound(t, i, d)).all())
+    et, ed = _sixteenths(t), _sixteenths(d)
+    assert torch.equal(kernels.scatter_add_cuda_(et.clone(), i, ed).double(),
+                       _exact_sum(et, i, ed))
+
+
+def _check_sort(ids, R):
+    keys, perm = kernels.radix_sort_cuda(ids, R)
+    want_keys, want_perm = kernels.radix_sort_plain(ids, R)
+    assert keys.dtype == perm.dtype == torch.int32
+    assert torch.equal(keys, want_keys)
+    assert torch.equal(perm, want_perm)
+
+
+@pytest.mark.parametrize("R,D,B", SHAPES + WIDE_SHAPES)
+def test_radix_sort_bit_equal_to_torch_sort(dev, R, D, B):
+    _, ids, _ = _inputs(R, D, B, seed=R + B, dev=dev)
+    _check_sort(ids, R)
+
+
+@pytest.mark.parametrize("case", ["R=1", "R=2^31-1", "every id dropped",
+                                  "one id owns 2^20", "tile edges",
+                                  "B=4095", "B=4097", "B=1"])
+def test_radix_sort_edges_bit_equal_to_torch_sort(dev, case):
+    """The off-path cases: one pass (R = 1) and four (R = 2^31 - 1), no key
+    below R, one key everywhere, equal keys across the sort's 4,096-position
+    tiles, and batches that are not a multiple of the tile (the sort cuts a
+    batch into 1 to 16 warps' worth of 256 positions a tile)."""
+    rng = np.random.default_rng(len(case))
+    R = 47_236
+    if case == "R=1":
+        R, ids = 1, rng.integers(-1, 3, 10_000)
+    elif case == "R=2^31-1":
+        R = 2**31 - 1
+        ids = rng.integers(-5, R, 70_000, dtype=np.int64)
+        ids[::9] = R - 1
+    elif case == "every id dropped":
+        ids = np.where(np.arange(9000) % 2, -1, R)
+    elif case == "one id owns 2^20":
+        ids = np.full(1 << 20, 7)
+    elif case == "tile edges":
+        # 262,225 ids: the sort's largest tiles, of 4,096 positions.
+        ids = np.repeat(np.arange(12), [1, 4095, 1, 4096, 8192, 3, 4093, 7,
+                                        4096, 2, 1, 4094])
+        ids = np.concatenate([ids + 12 * k for k in range(9)] +
+                             [np.full(4096, -1)])[::-1].copy()
+    else:
+        ids = rng.integers(-1, R + 1, int(case[2:]))
+    _check_sort(torch.from_numpy(ids.astype(np.int32)).to(dev), R)
 
 
 def test_scatter_every_id_dropped_leaves_the_table(dev):
@@ -127,12 +230,17 @@ def test_wrappers_refuse_what_they_do_not_take(dev, bad):
     else:
         ids = ids.cpu()
     kernels.reset_launch_counts()
+    kernels.radix_sort_cuda.launches = 0
     with pytest.raises(ValueError):
         kernels.scatter_add_cuda_(table, ids, deltas)
     if bad != "deltas_shape":
         with pytest.raises(ValueError):
             kernels.gather_rows_cuda(table, ids)
+    if bad in ("int64_ids", "cpu_ids"):
+        with pytest.raises(ValueError):
+            kernels.radix_sort_cuda(ids, 30)
     assert not any(kernels.launch_counts().values())
+    assert kernels.radix_sort_cuda.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -291,12 +399,6 @@ def _head_bound(table, ids, deltas, H):
     """The float32 summation bound over the head rows' pushes only."""
     head = (ids >= 0) & (ids < H)
     return _sum_bound(table, torch.where(head, ids, -1), deltas)
-
-
-def _sixteenths(x):
-    """``x`` rounded to a multiple of 1/16 within [-1/2, 1/2]: float32 sums
-    of up to 2^20 such terms are exact in any order."""
-    return torch.round(x.clamp(-2, 2) * 4) / 16
 
 
 def _exact_head_sum(table, ids, deltas, H):

@@ -452,12 +452,14 @@ def test_kernel_sources_and_build_are_in_the_package():
     from fps_tpu_torch.ops import _build
 
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["gather_rows.cu", "gather_rows_dim1.cu",
-                     "scatter_add.cu", "scatter_add_dim1.cu",
+    assert names == ["gather_rows.cu", "gather_rows_dim1.cu", "pdl.cuh",
+                     "radix_sort.cu", "scatter_add.cu", "scatter_add_dim1.cu",
                      "scatter_add_packed.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     for path in _build.sources():
         with open(path) as f:
             src = f.read()
-        assert "__global__" in src and 'extern "C"' in src
-        assert "cudaGetLastError" in src and "atomicAdd" not in src
+        assert "atomicAdd" not in src
+        if path.endswith(".cu"):
+            assert "__global__" in src and 'extern "C"' in src
+            assert "cudaGetLastError" in src

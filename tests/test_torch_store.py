@@ -344,14 +344,13 @@ def test_head_prefix_pull_push_match_jax(pallas_backend, inplace):
 
 
 def test_packed_crossover_rows_are_the_measured_thresholds():
-    """The H100 sweep's thresholds (chip_smoke.py phase 3): 32,768 rows
-    through D = 32, 16,384 through 100, 8,192 through 200, and K2 (0) past
-    the widest width measured."""
+    """The H100 sweep's thresholds against the redesigned K2 (chip_smoke.py
+    phase 3): 8,192 rows through D = 10, 2,048 through 32, and K2 (0) past
+    32, where K2 was faster at every measured R."""
     from fps_tpu_torch.ops import packed_crossover_rows
 
-    for dim, want in ((1, 32_768), (10, 32_768), (32, 32_768),
-                      (33, 16_384), (100, 16_384), (101, 8_192),
-                      (200, 8_192), (201, 0)):
+    for dim, want in ((1, 8_192), (10, 8_192), (11, 2_048), (32, 2_048),
+                      (33, 0), (100, 0), (200, 0), (201, 0)):
         assert packed_crossover_rows(dim) == want, dim
 
 
