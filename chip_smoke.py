@@ -30,7 +30,10 @@ on the card, raising on the first failure:
    the head scatter-add of the hot/cold split, the same way at the head
    shapes of its paths (H = 2,048: the MF item push's count-column
    scatter, the 20-class PA push, the AdaGrad push), with one id owning
-   every push and on the whole-table route; then the crossover sweep behind
+   every push and on the whole-table route, rows past the head unchanged,
+   timed beside the same slices unclustered; at the three path shapes the
+   split as the store calls it (``ops.scatter_add_`` with ``hot_rows``)
+   against K2 alone over the whole push; then the crossover sweep behind
    ``packed_crossover_rows``: K3 over the whole table against K2 with its
    sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
    32,768. Times are CUDA-event medians of 30 (the sweep: 10) with the card
@@ -56,8 +59,10 @@ on the card, raising on the first failure:
    ``hot_features``, on the card and on the CPU from the same tables and
    compares the tables; then traces 10 K2 calls at each of its path shapes
    (``torch.profiler``) for the device time and launches of each kernel K2
-   launches, which must be 3 a sort pass plus 2, and 10 calls of the sort
-   alone at each sort edge, 3 kernels a pass;
+   launches, which must be 3 a sort pass plus 2, 10 calls of the sort
+   alone at each sort edge, 3 kernels a pass, and 10 K3 calls at each K3
+   shape, its slice pass once a call and its fold pass once more where the
+   plan has more than one cluster;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -276,8 +281,9 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
 
 def profiled(torch, fn, calls=10):
     """Device µs and launches a call of each kernel of K2 and its sort
-    (``radix_*``, ``rows_*``) over ``calls`` calls of ``fn``, from
-    ``torch.profiler``: ``({name: µs}, {name: launches})``."""
+    (``radix_*``, ``rows_*``) and of K3 (``packed_*``) over ``calls`` calls
+    of ``fn``, from ``torch.profiler``: ``({name: µs}, {name:
+    launches})``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -289,7 +295,7 @@ def profiled(torch, fn, calls=10):
         torch.cuda.synchronize()
     us, count = {}, {}
     for ev in prof.key_averages():
-        name = re.search(r"\b(radix_\w+|rows_\w+)", ev.key)
+        name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+)", ev.key)
         if not name:
             continue
         us[name[1]] = us.get(name[1], 0.0) + (
@@ -338,6 +344,31 @@ def k2_breakdown(torch, kernels, inputs, sort_inputs):
             lambda: kernels.radix_sort_cuda(ids, num_rows), 0, label)
         log(f"K2 sort, {label}, a call: " + json.dumps(sorts[label]))
     return out, sorts
+
+
+def k3_breakdown(torch, kernels, inputs):
+    """Traced, at each K3 shape: the device µs and launches a call of each
+    kernel K3 launches. The slice pass runs once a call and the fold pass
+    once more where the plan has more than one cluster a tile. Run last,
+    after every timed phase."""
+    out = {}
+    for label, table, ids, deltas, H in inputs:
+        work = table.clone()
+        us, launched = profiled(
+            torch, lambda: kernels.scatter_add_packed_cuda_(work, ids,
+                                                            deltas, H))
+        plan = kernels.card_packed_plan(ids.device, ids.numel(), H,
+                                         table.shape[1])
+        want = {"packed_slice_pass": 1}
+        if plan.groups > 1:
+            want["packed_fold_pass"] = 1
+        if launched != want:
+            raise AssertionError(f"{label}: traced K3 launches a call "
+                                 f"{launched}, expected {want}")
+        out[label] = {"device_us": us, "launches": launched,
+                      "kernels_per_call": sum(launched.values())}
+        log(f"K3 breakdown, {label}, a call: " + json.dumps(out[label]))
+    return out
 
 
 def check_sort(torch, kernels, label, ids, num_rows):
@@ -396,14 +427,17 @@ def sixteenths(torch, x):
 
 
 def check_packed(torch, label, kernels, table, ids, deltas, hot_rows, path,
-                 reps=30):
+                 reps=30, collect=None):
     """Hold K3 against its plain version and a float64 sum over the head
     rows (within the float32 summation bound; the same bits on two
-    launches), and on sixteenths of the same inputs against the exact
-    float64 sum, bit for bit: the worst-case bound grows with a row's push
-    count past the row's own sum, so only the exact sums catch a lost or
-    doubled push to a hot row. Time K3, its plain version and
-    ``index_add_`` of the head pushes into ``table[:H]``."""
+    launches; rows past the head unchanged), and on sixteenths of the same
+    inputs against the exact float64 sum, bit for bit: the worst-case bound
+    grows with a row's push count past the row's own sum, so only the exact
+    sums catch a lost or doubled push to a hot row. Time K3, K3 with the
+    same slices unclustered (each block's partial through global scratch,
+    the design before the cluster reduction), its plain version and
+    ``index_add_`` of the head pushes into ``table[:H]``. ``collect`` (a
+    list) gathers the inputs for :func:`k3_breakdown`."""
     kernel = kernels.scatter_add_packed_cuda_
     plain = kernels.scatter_add_packed_plain
     num_rows, dim = table.shape
@@ -431,17 +465,23 @@ def check_packed(torch, label, kernels, table, ids, deltas, hot_rows, path,
     # touched head row read and written once.
     nbytes = B * 4 + kid.numel() * dim * 4 + 2 * uniq * dim * 4
     head = table[:H]
+    plan = kernels.card_packed_plan(ids.device, B, H, dim)
+    flat = plan._replace(cluster=1, groups=plan.slices,
+                         partial_words=plan.slices * H * dim)
     case = {
         "shape": label, "path": path, "R": num_rows, "D": dim, "B": B,
         "H": H, "head_pushes": int(kid.numel()), "unique_rows": uniq,
         "max_run": int(count.max()) if num_rows else 0,
-        "slices": kernels.packed_slices(B, H, dim),
+        "plan": plan._asdict(),
         "max_abs_err": float((got - want).abs().max()),
         "max_err_vs_f64": float((got.double() - ref).abs().max()),
         "ms": time_ms(torch, lambda t: kernel(t, ids, deltas, H),
                       setup=table.clone, reps=reps),
         "call_ms": time_ms(torch, lambda t: kernel(t, ids, deltas, H),
                            setup=table.clone, hold=False, reps=reps),
+        "unclustered_ms": time_ms(
+            torch, lambda t: kernel(t, ids, deltas, H, plan=flat),
+            setup=table.clone, reps=reps),
         "plain_ms": time_ms(torch, lambda t: plain(t, ids, deltas, H),
                             setup=table.clone, reps=reps),
         "library_ms": time_ms(torch, lambda t: t.index_add_(0, kid, kd),
@@ -450,6 +490,32 @@ def check_packed(torch, label, kernels, table, ids, deltas, hot_rows, path,
     }
     log(f"{label}: deterministic, within the float32 bound and exact on "
         "sixteenths (kernel and plain); " + json.dumps(case))
+    if collect is not None:
+        collect.append((label, table, ids, deltas, H))
+    return case
+
+
+def split_end_to_end(torch, kernels, ops, label, table, ids, deltas, path):
+    """The hot/cold split as the store calls it, ``ops.scatter_add_`` with
+    ``hot_rows = 2,048`` (K3 for the head, the ``torch.where`` rewrite, K2
+    for the tail), against K2 alone over the whole push: both within the
+    float32 summation bound of the float64 sum, both timed."""
+    num_rows, dim = table.shape
+    got = ops.scatter_add_(table.clone(), ids, deltas, hot_rows=HOT)
+    want = kernels.scatter_add_cuda_(table.clone(), ids, deltas)
+    torch.cuda.synchronize()
+    keep = (ids >= 0) & (ids < num_rows)
+    check_sum_bound(torch, label, table, ids[keep], deltas[keep], got, want)
+    case = {
+        "shape": label, "path": path, "R": num_rows, "D": dim,
+        "B": ids.shape[0], "hot_rows": HOT,
+        "split_ms": time_ms(torch, lambda t: ops.scatter_add_(
+            t, ids, deltas, hot_rows=HOT), setup=table.clone),
+        "k2_ms": time_ms(torch, lambda t: kernels.scatter_add_cuda_(
+            t, ids, deltas), setup=table.clone),
+    }
+    log(f"{label}: the split and K2 alone within the float32 bound; "
+        + json.dumps(case))
     return case
 
 
@@ -488,6 +554,8 @@ def crossover_sweep(torch, kernels, dev):
 def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     """Phase 3: every kernel against its plain version at its paths'
     shapes. Returns ``{kernel name: [case, ...]}``."""
+    import fps_tpu_torch.ops as ops
+
     rng = np.random.default_rng(0)
 
     def t(a):
@@ -504,8 +572,9 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     g5, s4 = kernels.gather_rows_dim1_cuda, kernels.scatter_add_dim1_cuda_
     g5p, s4p = kernels.gather_rows_dim1_plain, kernels.scatter_add_dim1_plain
     cases = {"gather_rows": [], "scatter_add": [], "gather_rows_dim1": [],
-             "scatter_add_dim1": [], "scatter_add_packed": []}
+             "scatter_add_dim1": [], "scatter_add_packed": [], "split": []}
     k2_inputs = cases["k2_inputs"] = []
+    k3_inputs = cases["k3_inputs"] = []
 
     # K1 / K2 at the MF step: the item pull and push (mean's count column),
     # the user factors' gather and update; the "sum" combine's push is off
@@ -531,7 +600,10 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     acc = torch.zeros((ML20M_ITEMS, RANK + 1), device=dev)
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 MF item head", kernels, acc, item_ids, item_deltas, HOT,
-        "mf_hot"))
+        "mf_hot", collect=k3_inputs))
+    cases["split"].append(split_end_to_end(
+        torch, kernels, ops, "split MF item push", acc, item_ids,
+        item_deltas, "mf_hot"))
     tail_ids = torch.where((item_ids >= 0) & (item_ids < HOT), -1, item_ids)
     cases["scatter_add"].append(check_scatter(
         torch, "K2 MF item tail", s2, s2p, acc, tail_ids, item_deltas,
@@ -548,10 +620,13 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass",
         kernels, k2_inputs))
     mc_deltas = deltas(mc_ids.numel(), PA_MC_CLASSES)
+    mc_table = table(PA_NF, PA_MC_CLASSES)
     cases["scatter_add_packed"].append(check_packed(
-        torch, "K3 PA multiclass head", kernels,
-        table(PA_NF, PA_MC_CLASSES), mc_ids, mc_deltas, HOT,
-        "pa_multiclass_hot"))
+        torch, "K3 PA multiclass head", kernels, mc_table, mc_ids, mc_deltas,
+        HOT, "pa_multiclass_hot", collect=k3_inputs))
+    cases["split"].append(split_end_to_end(
+        torch, kernels, ops, "split PA multiclass push", mc_table, mc_ids,
+        mc_deltas, "pa_multiclass_hot"))
     cases["scatter_add"].append(check_scatter(
         torch, "K2 PA multiclass tail", s2, s2p, table(PA_NF, PA_MC_CLASSES),
         torch.where((mc_ids >= 0) & (mc_ids < HOT), -1, mc_ids), mc_deltas,
@@ -559,7 +634,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 one id owns 2^20 pushes", kernels,
         table(PA_NF, PA_MC_CLASSES), torch.full_like(mc_ids, 7), mc_deltas,
-        HOT, "off_path"))
+        HOT, "off_path", collect=k3_inputs))
 
     # The logistic-regression step's ids: the dense head, then the tail.
     lr_ids = mix_dropped(np.concatenate([
@@ -576,10 +651,13 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         torch.zeros((LR_NF, 3), device=dev), lr_ids,
         deltas(lr_ids.numel(), 3), "logreg_adagrad", kernels, k2_inputs))
     lr_deltas = deltas(lr_ids.numel(), 3)
+    lr_zeros = torch.zeros((LR_NF, 3), device=dev)
     cases["scatter_add_packed"].append(check_packed(
-        torch, "K3 logreg adagrad head", kernels,
-        torch.zeros((LR_NF, 3), device=dev), lr_ids, lr_deltas, HOT,
-        "logreg_adagrad_hot"))
+        torch, "K3 logreg adagrad head", kernels, lr_zeros, lr_ids,
+        lr_deltas, HOT, "logreg_adagrad_hot", collect=k3_inputs))
+    cases["split"].append(split_end_to_end(
+        torch, kernels, ops, "split logreg adagrad push", lr_zeros, lr_ids,
+        lr_deltas, "logreg_adagrad_hot"))
     cases["scatter_add"].append(check_scatter(
         torch, "K2 logreg adagrad tail", s2, s2p,
         torch.zeros((LR_NF, 3), device=dev),
@@ -589,7 +667,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     cases["scatter_add_packed"].append(check_packed(
         torch, "K3 whole table 4,096 x 10", kernels, table(4096, RANK),
         t(path_ids(rng, 4096, BATCH, True)), deltas(BATCH, RANK), 4096,
-        "off_path"))
+        "off_path", collect=k3_inputs))
 
     # K5 / K4 at the binary PA step: nnz-major ids of one head-sorted batch,
     # the first q * B through the head view table[:H], the rest through the
@@ -1092,6 +1170,8 @@ def main() -> int:
     cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
                          dev)
     k2_inputs = cases.pop("k2_inputs")
+    k3_inputs = cases.pop("k3_inputs")
+    split = cases.pop("split")
     sort_cases, sort_inputs = sort_edges(torch, kernels, dev)
 
     sweep = crossover_sweep(torch, kernels, dev)
@@ -1107,16 +1187,18 @@ def main() -> int:
     worst = card_vs_cpu(torch, fps)
     breakdown, sort_traced = k2_breakdown(torch, kernels, k2_inputs,
                                           sort_inputs)
-    del k2_inputs, sort_inputs
+    k3_traced = k3_breakdown(torch, kernels, k3_inputs)
+    del k2_inputs, sort_inputs, k3_inputs
     for case in sort_cases:
         case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
     # Both devices read exactly. The CPU folds each row's pushes one by one
     # in batch order (index_add_); on the card K2 and K4 sum each row's
     # pushes in a fixed tree order (a scan within tiles of sorted positions,
     # then across the tiles) and add the sum into the row once, and K3 sums
-    # each head row's pushes per batch slice and then across slices. So a
-    # row's sum differs from the CPU's by a few float32 roundings of its
-    # terms each push. The card and the CPU also order dot products and row
+    # each head row's pushes in a fixed tree a batch of 1,024, the batches
+    # in order within a slice, then across a cluster's slices and the
+    # clusters in order. So a row's sum differs from the CPU's by a few
+    # float32 roundings of its terms each push. The card and the CPU also order dot products and row
     # sums differently (about one rounding each). PA's and the logistic
     # loss's steps are continuous in the weights, so these differences stay
     # near a few ulps of the largest value over the ~30 steps of each job
@@ -1174,7 +1256,9 @@ def main() -> int:
         entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
               pallas + ":338", "pa_binary"),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
-                   pallas + ":178", "mf_hot"), crossover_sweep=sweep),
+                   pallas + ":178", "mf_hot"),
+             traced_by_shape=k3_traced, split_end_to_end=split,
+             crossover_sweep=sweep),
     ], "paths": runs, "traced_mf_run_indexed": traced, "card_vs_cpu": worst,
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}

@@ -137,8 +137,8 @@ class Trainer:
         ``hot_ids="auto"`` routes the whole shard through the head kernel K3
         when the shard is at most :func:`fps_tpu_torch.ops.
         packed_crossover_rows` rows (measured on the H100 against K2 with its
-        radix sort: a few thousand rows at narrow widths, none past 32
-        columns), and resolves to 0 (K2) otherwise. An int is the global head count: global hot ids
+        radix sort: 512 to 16,384 rows by width, none past 200 columns), and
+        resolves to 0 (K2) otherwise. An int is the global head count: global hot ids
         ``[0, H)`` sit in local rows ``[0, ceil(H / S))`` under the
         owner-major layout.
         """

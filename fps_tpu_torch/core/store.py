@@ -204,8 +204,9 @@ class TableSpec:
     and the hot/cold push split of wider ones (kernel K3 for the head).
     ``hot_ids="auto"`` sends a shard's whole push through K3 when the shard
     has at most :func:`fps_tpu_torch.ops.packed_crossover_rows` rows (the
-    H100 sweep against K2 with its radix sort: 8,192 rows at up to 10
-    columns, 2,048 at up to 32, none wider), and through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
+    H100 sweep against K2 with its radix sort: 16,384 rows at up to 10
+    columns, 8,192 at up to 32, 1,024 at up to 100, 512 at up to 200, none
+    wider), and through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
     on any other string. ``hot_tier``, ``cold_budget`` and
     ``dense_collectives=True`` select routes this port does not have yet;
     setting them raises. ``dense_collectives`` ``"auto"`` and ``False`` both

@@ -49,11 +49,10 @@ def packed_crossover_rows(dim: int) -> int:
     Measured by ``chip_smoke.py`` phase 3 on an NVIDIA H100 80GB HBM3 at
     700.00 W: K3 over the whole table against K2 with its radix sort,
     B = 32,768 Zipf(0.8) ids (the JAX package's sweep shape), R from 512 to
-    32,768. K3 was not slower than K2 through R = 8,192 at D = 10 and
-    through 2,048 at D = 32; at D = 100 and 200 K2 was faster at every R.
-    Between measured widths the threshold of the wider one applies, so a
-    table wider than 32 columns always takes K2. ``PERF.md`` has the
-    sweep's times.
+    32,768. K3 was not slower than K2 through R = 16,384 at D = 10, 8,192
+    at D = 32, 1,024 at D = 100 and 512 at D = 200. Between measured widths
+    the threshold of the wider one applies, so a table wider than 200
+    columns always takes K2. ``PERF.md`` has the sweep's times.
     """
     for width, rows in _PACKED_CROSSOVER:
         if dim <= width:
@@ -61,8 +60,8 @@ def packed_crossover_rows(dim: int) -> int:
     return 0
 
 
-# (widest D, most rows) from the sweep above; wider than 32: K2.
-_PACKED_CROSSOVER = ((10, 8_192), (32, 2_048))
+# (widest D, most rows) from the sweep above; wider than 200: K2.
+_PACKED_CROSSOVER = ((10, 16_384), (32, 8_192), (100, 1_024), (200, 512))
 
 
 def _on(table: Tensor, fn: str) -> str:

@@ -140,7 +140,10 @@ def library() -> ctypes.CDLL:
                                                      vp, vp, vp, vp, ll, vp]
             lib.fps_scatter_add_dim1_f32.restype = ci
             lib.fps_scatter_add_packed_f32.argtypes = [vp, vp, vp, ll, ll, ci,
-                                                       vp, ll, vp]
+                                                       ll, ci, ll, ci, vp, ll,
+                                                       vp]
             lib.fps_scatter_add_packed_f32.restype = ci
+            lib.fps_packed_clusters_resident.argtypes = [ci, ci, ci]
+            lib.fps_packed_clusters_resident.restype = ci
             _lib = lib
         return _lib

@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "pdl.cuh"
+#include "warp_tree.cuh"
 
 namespace {
 
@@ -84,21 +85,6 @@ __device__ __forceinline__ uint32_t key_at(const int32_t* __restrict__ ids,
 
 __device__ __forceinline__ int digit_of(uint32_t key, int shift) {
   return static_cast<int>((key >> shift) & (kRadix - 1));
-}
-
-// The lanes of the warp whose digit equals this lane's, among the live
-// lanes: one ballot a digit bit (the pass's digits have `bits` bits).
-__device__ __forceinline__ unsigned peers_of(int d, int bits, bool live) {
-  unsigned m = __ballot_sync(kFull, live);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    if (b < bits) {
-      const bool bit = (d >> b) & 1;
-      const unsigned v = __ballot_sync(kFull, bit);
-      m &= bit ? v : ~v;
-    }
-  }
-  return m;
 }
 
 // A tile's keys: loaded, their digits and peer masks, and the count of each

@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "pdl.cuh"
+#include "warp_tree.cuh"
 
 // radix_sort.cu
 extern "C" int fps_radix_sort_i32(const void* ids, long long num_rows,
@@ -69,70 +70,6 @@ constexpr int kWarps = kTile / 32;
 constexpr int kMaxChunk = 16;  // most columns a block of pass A carries
 constexpr int kCarryThreads = 1024;
 constexpr int kBatch = 8;  // tiles a carry thread loads at a time
-
-// Segmented inclusive scan within a warp: (f, s[:n]) in lane order, f = 1
-// where a segment starts. Fixed shuffle tree, so a fixed addition order.
-// n is the same on every lane.
-template <int W>
-__device__ __forceinline__ void warp_seg_scan(int lane, int n, int& f,
-                                              float (&s)[W]) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int f_up = __shfl_up_sync(kFull, f, d);
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (j < n) {
-        const float s_up = __shfl_up_sync(kFull, s[j], d);
-        if (lane >= d && !f) s[j] = s_up + s[j];
-      }
-    }
-    if (lane >= d) f |= f_up;
-  }
-}
-
-// Segmented inclusive scan over the block's threads (a multiple of 32, at
-// most 1,024). On return s[:n] is the thread's segmented sum. `wf` and `ws`
-// (one entry per warp) are scratch.
-template <int W>
-__device__ __forceinline__ void block_seg_scan(int n, int f, float (&s)[W],
-                                               int* wf, float (*ws)[W]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  warp_seg_scan<W>(lane, n, f, s);
-  if (lane == 31) {
-    wf[warp] = f;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (j < n) ws[warp][j] = s[j];
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int g = lane < warps ? wf[lane] : 1;
-    float t[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      t[j] = (lane < warps && j < n) ? ws[lane][j] : 0.0f;
-    }
-    warp_seg_scan<W>(lane, n, g, t);
-    if (lane < warps) {
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        if (j < n) ws[lane][j] = t[j];
-      }
-    }
-  }
-  __syncthreads();
-  // No segment start between the warp's first lane and this one: the
-  // segment reaches back into earlier warps, whose scan ends at its start.
-  if (warp > 0 && !f) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (j < n) s[j] = ws[warp - 1][j] + s[j];
-    }
-  }
-}
 
 // Pass A over columns [c0, c0 + n) with n = min(width, dim - c0), c0 =
 // blockIdx.y * width. tile_sum and first_sum are column-major: column c of

@@ -52,17 +52,23 @@ K3 ``scatter_add_packed_cuda_`` (``csrc/scatter_add_packed.cu``) replaces
 ``scatter_add_packed_pallas``, the push into the write-hot head rows
 ``[0, H)`` (the hot/cold split's head, or the whole table when ``H = R``).
 It is bound by bytes, must be deterministic and must not serialise on the
-Zipf-hot rows that the head holds, with no sort. Each block takes a (row
-tile, column tile, batch slice), compacts its slice's ids to those in its
-row tile in batch order, stages their deltas in shared memory and adds them
-into per-thread row accumulators: the one-hot contraction on CUDA cores, in
-exact float32. A second pass sums the slices' partials in slice order into
-``table[:H]``. The wrapper picks the slice count (:func:`packed_slices`).
+Zipf-hot rows that the head holds, with no sort of the batch. Each block
+keeps a head tile (the whole 2,048-row head at the paths' widths) in shared
+memory for a batch slice: it collects the slice's pushes into the tile in
+batch order, ranks each 1,024 of them stably by row (K2's ballot-per-bit
+radix ranks, in shared memory), sums each run of a row by K2's segmented
+tree and adds the run's sum into the row once. Blocks in clusters of up to
+8 sum their tiles through distributed shared memory in rank order; a
+second kernel sums the clusters' partials in order into ``table[:H]``. The
+wrapper plans tiles, slices and clusters (:func:`packed_plan`,
+:func:`card_packed_plan`).
 """
 
 from __future__ import annotations
 
+import functools
 import operator
+from typing import NamedTuple
 
 import torch
 
@@ -367,19 +373,102 @@ scatter_add_dim1_cuda_.launches = 0
 # K3: scatter-add into the write-hot head rows
 # ---------------------------------------------------------------------------
 
-PACKED_SLICE_IDS = 512       # fewest ids a batch slice of K3 takes
-PACKED_SLICES_MAX = 256      # most batch slices of one launch
-PACKED_PARTIAL_BYTES = 32 << 20  # most scratch for the slices' partial sums
+# The constants of csrc/scatter_add_packed.cu that shape its plan.
+PACKED_MAX_WIDTH = 64       # kMaxWidth: columns a head tile
+PACKED_MAX_CLUSTER = 8      # kMaxCluster
+PACKED_MAX_SMEM = 232_448   # kMaxSmem: 227 KB, a block's most
+PACKED_FIXED_SMEM = 33_792  # kFixedSmem: shared memory beside the head tile
+PACKED_STRIDES = (4, 8, 12, 16, 20, 32, 64)  # kStrides
+PACKED_SLICE_IDS = 512      # fewest ids a batch slice takes
+H100_SMS = 132
 
 
-def packed_slices(batch: int, head_rows: int, dim: int) -> int:
-    """K3's batch slices for a push: enough that the blocks of one row tile
-    (where a single hot row puts all the work) fill the card, at least
-    ``PACKED_SLICE_IDS`` ids each, and no more than ``PACKED_PARTIAL_BYTES``
-    of ``(slices, H, D)`` float32 partial sums."""
-    by_bytes = PACKED_PARTIAL_BYTES // max(1, head_rows * dim * 4)
-    return max(1, min(-(-batch // PACKED_SLICE_IDS), PACKED_SLICES_MAX,
-                      by_bytes))
+class PackedPlan(NamedTuple):
+    """How K3 cuts a push: head tiles of ``tile_rows`` x ``width`` (of
+    ``row_tiles`` x ``col_tiles``; a row takes ``stride`` floats of shared
+    memory), ``slices`` batch slices in clusters of ``cluster`` (``groups``
+    clusters a tile), ``smem_bytes`` of shared memory a block, and
+    ``partial_words`` float32 of scratch (none with one cluster)."""
+    width: int
+    stride: int
+    col_tiles: int
+    tile_rows: int
+    row_tiles: int
+    slices: int
+    cluster: int
+    groups: int
+    smem_bytes: int
+    partial_words: int
+
+
+def packed_plan(batch: int, head_rows: int, dim: int, sms: int = H100_SMS,
+                resident=None) -> PackedPlan:
+    """K3's plan for a push of ``batch`` ids into a head of ``head_rows`` x
+    ``dim`` on a card of ``sms`` multiprocessors.
+
+    Columns go in tiles of at most ``PACKED_MAX_WIDTH``, as even as may be
+    (multiples of 4 where ``dim`` is, for 16-byte loads); rows in as few
+    tiles as fit in ``PACKED_MAX_SMEM`` beside the fixed staging, as even
+    as may be, a row taking the least of ``PACKED_STRIDES`` that holds the
+    tile's width, and a byte.
+    Slices: about one block per multiprocessor over all tiles, at least
+    ``PACKED_SLICE_IDS`` ids each, rounded down to a multiple of the
+    cluster, which is ``PACKED_MAX_CLUSTER`` or the slice count if fewer.
+    ``resident(width, smem_bytes, cluster)``, where given, is the most
+    clusters the card holds at once; the slices are cut so that every tile's
+    clusters run in one wave where that leaves each tile a cluster.
+    """
+    batch, head_rows, dim, sms = (operator.index(x)
+                                  for x in (batch, head_rows, dim, sms))
+    _check(batch >= 0 and head_rows >= 1 and dim >= 1 and sms >= 1,
+           f"packed_plan: batch {batch}, head_rows {head_rows}, dim {dim}, "
+           f"sms {sms}")
+    chunks = -(-dim // PACKED_MAX_WIDTH)
+    width = -(-dim // chunks)
+    if dim % 4 == 0:
+        width = -(-width // 4) * 4
+    stride = min(w for w in PACKED_STRIDES if w >= width)
+    col_tiles = -(-dim // width)
+    # A row: stride floats and a byte (16 bytes of bytes at a time).
+    fit = (PACKED_MAX_SMEM - PACKED_FIXED_SMEM - 15) // (4 * stride + 1)
+    row_tiles = -(-head_rows // fit)
+    tile_rows = -(-head_rows // row_tiles)  # as even as may be
+    tiles = row_tiles * col_tiles
+    smem_bytes = (PACKED_FIXED_SMEM + 4 * tile_rows * stride
+                  + -(-tile_rows // 16) * 16)
+    slices = max(1, min(sms // tiles, -(-batch // PACKED_SLICE_IDS), 65535))
+    cluster = min(PACKED_MAX_CLUSTER, slices)
+    slices -= slices % cluster
+    if resident is not None:
+        most = resident(width, smem_bytes, cluster)
+        if tiles <= most < tiles * (slices // cluster):
+            slices = most // tiles * cluster
+    groups = slices // cluster
+    return PackedPlan(
+        width=width, stride=stride, col_tiles=col_tiles, tile_rows=tile_rows,
+        row_tiles=row_tiles, slices=slices, cluster=cluster, groups=groups,
+        smem_bytes=smem_bytes,
+        partial_words=groups * head_rows * dim if groups > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: torch.device, width: int, smem_bytes: int,
+              cluster: int) -> int:
+    with torch.cuda.device(device):
+        return _build.library().fps_packed_clusters_resident(
+            width, smem_bytes, cluster)
+
+
+@functools.lru_cache(maxsize=256)
+def card_packed_plan(device: torch.device, batch: int, head_rows: int,
+                     dim: int) -> PackedPlan:
+    """:func:`packed_plan` for the CUDA ``device``: its multiprocessors, and
+    the clusters it holds at once (``cudaOccupancyMaxActiveClusters``, which
+    builds the kernels). What :func:`scatter_add_packed_cuda_` launches; a
+    training loop asks for the same few shapes every step."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return packed_plan(batch, head_rows, dim, sms,
+                       functools.partial(_resident, device))
 
 
 def _head_rows(fn: str, table: torch.Tensor, hot_rows) -> int:
@@ -405,13 +494,15 @@ def scatter_add_packed_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 def scatter_add_packed_cuda_(table: torch.Tensor, ids: torch.Tensor,
-                             deltas: torch.Tensor,
-                             hot_rows: int) -> torch.Tensor:
+                             deltas: torch.Tensor, hot_rows: int, *,
+                             plan: PackedPlan | None = None) -> torch.Tensor:
     """K3 on the card, in place: ``table[r] += sum of deltas[b] with
     ids[b] == r`` for the head rows ``[0, H)``, ``H = min(hot_rows, R)``, of
     the ``(R, D)`` float32 table, ``(B,)`` int32 ids and ``(B, D)`` float32
     deltas; ids outside ``[0, H)`` are left alone. Exact float32 sums in a
-    fixed order: the same inputs give the same bits. Returns ``table``."""
+    fixed order: the same inputs and plan give the same bits. ``plan``
+    (default :func:`card_packed_plan`) is for tests and measurements; the
+    kernel refuses one it cannot run. Returns ``table``."""
     fn = "scatter_add_packed_cuda_"
     _check_table_ids(fn, table, ids)
     _check(deltas.is_cuda and deltas.device == table.device,
@@ -426,14 +517,16 @@ def scatter_add_packed_cuda_(table: torch.Tensor, ids: torch.Tensor,
     H = _head_rows(fn, table, hot_rows)
     if B * D * H == 0:
         return table
-    slices = packed_slices(B, H, D)
-    partial = torch.empty(slices * H * D, dtype=torch.float32,
+    if plan is None:
+        plan = card_packed_plan(table.device, B, H, D)
+    partial = torch.empty(max(1, plan.partial_words), dtype=torch.float32,
                           device=table.device)
     lib = _build.library()
     with torch.cuda.device(table.device):
         rc = lib.fps_scatter_add_packed_f32(
             table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), H, B, D,
-            partial.data_ptr(), slices, _stream(table))
+            plan.slices, plan.cluster, plan.tile_rows, plan.width,
+            partial.data_ptr(), partial.numel(), _stream(table))
     _raise_on_error(rc, fn)
     scatter_add_packed_cuda_.launches += 1
     return table

@@ -4,7 +4,9 @@
 PA and logistic-regression shapes; these tests add the edges: odd and wide
 rows, empty batches, tables of one row, every id dropped, one id owning the
 whole batch, odd batch lengths against the scalar gather's 16-byte path, the
-head view of a scalar table, K3's head at and around its row-tile edges, the
+head view of a scalar table, K3's head past one tile of shared memory, its
+slices and clusters (the last cluster partly empty), batches around one
+staged chunk, runs across chunks and slices, the plans it refuses, the
 hot/cold split and the whole-table route, K2's radix sort against
 ``torch.sort`` (bit for bit) and K2 against exact sums of sixteenths, runs
 across the sort's and the sum's tile edges, and the wrappers' refusals. Every
@@ -407,12 +409,15 @@ def _exact_head_sum(table, ids, deltas, H):
                                      deltas[head].double())
 
 
-def _check_packed(table, ids, deltas, H):
+def _check_packed(table, ids, deltas, H, plan=None):
     """Deterministic, within the float32 bound of the plain version, rows
     past the head untouched; and on sixteenths of the same inputs equal to
-    the exact float64 sum (the bound alone grows past a hot row's sum)."""
-    got = kernels.scatter_add_packed_cuda_(table.clone(), ids, deltas, H)
-    again = kernels.scatter_add_packed_cuda_(table.clone(), ids, deltas, H)
+    the exact float64 sum (the bound alone grows past a hot row's sum).
+    ``plan``: K3's plan, the card's by default."""
+    got = kernels.scatter_add_packed_cuda_(table.clone(), ids, deltas, H,
+                                           plan=plan)
+    again = kernels.scatter_add_packed_cuda_(table.clone(), ids, deltas, H,
+                                             plan=plan)
     plain = kernels.scatter_add_packed_plain(table.clone(), ids, deltas, H)
     assert torch.equal(got, again)
     assert bool(((got.double() - plain.double()).abs()
@@ -420,14 +425,14 @@ def _check_packed(table, ids, deltas, H):
     # Rows past the head are untouched.
     assert torch.equal(got[H:], table[H:])
     et, ed = _sixteenths(table), _sixteenths(deltas)
-    exact = kernels.scatter_add_packed_cuda_(et.clone(), ids, ed, H)
+    exact = kernels.scatter_add_packed_cuda_(et.clone(), ids, ed, H,
+                                             plan=plan)
     assert torch.equal(exact.double(), _exact_head_sum(et, ids, ed, H))
     return got
 
 
-# (R, D, B, H): R = 1, an empty batch, each D from 1 to 200, and the head at
-# the edge of a row tile (8 rows a thread; 2,048 / 680 / 184 / 96 / 64 rows a
-# tile for D = 1 / 3 / 11 / 20 / >= 32).
+# (R, D, B, H): R = 1, an empty batch, each D from 1 to 200, and heads at
+# and around 64 to 2,048 rows (the row-tile edges of K3's first design).
 PACKED_SHAPES = [(1, 4, 100, 1), (50, 5, 0, 20), (300, 1, 5000, 256),
                  (2000, 1, 9000, 2048), (1000, 3, 3000, 680),
                  (1000, 3, 3000, 681), (500, 11, 4096, 183),
@@ -461,7 +466,7 @@ def test_packed_every_id_dropped_leaves_the_table(dev):
     assert torch.equal(got, table)
 
 
-@pytest.mark.parametrize("D", [3, 20])
+@pytest.mark.parametrize("D", [3, 11, 20])
 def test_packed_one_id_owns_2_20_pushes(dev, D):
     """Every push to one row. On sixteenths each float32 partial sum is
     exact, so the row must equal the float64 sum bit for bit: a lost or
@@ -479,6 +484,90 @@ def test_packed_one_id_owns_2_20_pushes(dev, D):
     assert torch.equal(got[1000].double(), exact)
     np.testing.assert_array_equal(np.delete(got.numpy(), 1000, 0),
                                   np.delete(table.numpy(), 1000, 0))
+
+
+# (R, D, B, H): heads past one tile of shared memory. 4,096 x 20 and
+# 2,753 x 20 take two row tiles (2,452 rows of 20 fit); 2,048 x 200 three
+# row tiles of four column tiles; 4,096 x 32 three row tiles; 600 x 130
+# three column tiles of 44, 44 and 42.
+TILED_SHAPES = [(4096, 20, 20_000, 4096), (5000, 20, 8000, 2753),
+                (2048, 200, 5000, 2048), (4096, 32, 30_000, 4096),
+                (600, 130, 3000, 600)]
+
+
+@pytest.mark.parametrize("R,D,B,H", TILED_SHAPES)
+def test_packed_head_past_one_tile(dev, R, D, B, H):
+    plan = kernels.packed_plan(B, H, D)
+    assert plan.row_tiles * plan.col_tiles > 1
+    table, ids, deltas = _inputs(R, D, B, seed=R + D, dev=dev)
+    _check_packed(table, ids, deltas, H)
+
+
+def _plan(B, H, D, slices, cluster):
+    groups = slices // cluster
+    return kernels.packed_plan(B, H, D)._replace(
+        slices=slices, cluster=cluster, groups=groups,
+        partial_words=groups * H * D if groups > 1 else 0)
+
+
+# (B, slices, cluster): slices past the batch's end, so that the last
+# cluster holds empty slices (17 ids over 16 slices of 2: slices 9-15 are
+# empty), or one partly empty; clusters of 1 (each block's partial through
+# global scratch), of 2 and 4, and one cluster alone (straight into the
+# table).
+@pytest.mark.parametrize("B,slices,cluster", [
+    (17, 16, 8), (3000, 24, 8), (5000, 16, 1), (5000, 6, 2), (700, 8, 8),
+    (4100, 12, 4)])
+def test_packed_slices_and_clusters(dev, B, slices, cluster):
+    table, ids, deltas = _inputs(300, 11, B, seed=B + slices, dev=dev)
+    _check_packed(table, ids, deltas, 256, _plan(B, 256, 11, slices, cluster))
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 1000, 1023, 1024, 1025])
+@pytest.mark.parametrize("D", [3, 20])
+def test_packed_batch_around_one_chunk(dev, B, D):
+    """Batches shorter than one staged chunk of 1,024 ids, and at its edge;
+    the card's plan takes one slice for all of them."""
+    table, ids, deltas = _inputs(2048, D, B, seed=B * D, dev=dev)
+    _check_packed(table, ids, deltas, 2048)
+
+
+@pytest.mark.parametrize("slices,cluster", [(1, 1), (8, 8), (16, 8)])
+def test_packed_runs_across_chunk_edges(dev, slices, cluster):
+    """Runs of one row across the 1,024-id chunks, the 32-push rounds of a
+    warp and the slices: runs of 1,023, 1, 1,024, 2, 31, 32, 33 and 4,095
+    pushes of rows owned by one warp (8 rows apart) and by others, with
+    tail ids between some."""
+    lengths = [1023, 1, 1024, 2, 31, 32, 33, 4095, 1, 1025, 64, 3]
+    runs = [np.full(n, (8 * k) % 256 if k % 3 else k, np.int32)
+            for k, n in enumerate(lengths)]
+    runs.insert(5, np.full(37, 900, np.int32))  # past the head
+    ids = np.concatenate(runs)
+    B, D = ids.size, 11
+    rng = np.random.default_rng(slices)
+    table = torch.from_numpy(rng.normal(0, 1, (300, D)).astype(np.float32))
+    deltas = torch.from_numpy(rng.normal(0, 1, (B, D)).astype(np.float32))
+    _check_packed(table.to(dev), torch.from_numpy(ids).to(dev),
+                  deltas.to(dev), 256, _plan(B, 256, D, slices, cluster))
+
+
+@pytest.mark.parametrize("bad", ["slices_not_clusters", "cluster_9",
+                                 "too_much_smem", "no_scratch", "width_65"])
+def test_packed_kernel_refuses_a_plan_it_cannot_run(dev, bad):
+    table, ids, deltas = _inputs(300, 11, 5000, seed=9, dev=dev)
+    plan = kernels.packed_plan(5000, 256, 11)
+    plan = {
+        "slices_not_clusters": _plan(5000, 256, 11, 12, 8),
+        "cluster_9": _plan(5000, 256, 11, 18, 9),
+        "too_much_smem": plan._replace(tile_rows=30_000),
+        "no_scratch": _plan(5000, 256, 11, 16, 8)._replace(partial_words=0),
+        "width_65": plan._replace(width=65),
+    }[bad]
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        kernels.scatter_add_packed_cuda_(table.clone(), ids, deltas, 256,
+                                         plan=plan)
+    assert not any(kernels.launch_counts().values())
 
 
 @pytest.mark.parametrize("H", [1, 64, 300, 512])

@@ -11,6 +11,9 @@ from a seed and mix duplicates, ``-1`` and ``>= R`` ids. The CUDA kernels
 themselves run on the card (chip_smoke.py, tests/test_torch_cuda.py).
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,12 +170,13 @@ def _f64_oracle(table, ids, deltas):
 
 @pytest.mark.parametrize("R,D,B", [(64, 8, 100), (53, 11, 513),
                                    (16, 130, 64), (512, 1, 700),
-                                   (300, 200, 400)])
+                                   (300, 200, 400), (2453, 20, 700)])
 def test_packed_plain_matches_jax(R, D, B):
     """K3's plain version over the whole table (``hot_rows = R``) against
     ``scatter_add_packed_pallas`` in interpret mode (bf16 hi+lo, 2^-16 of
     each delta), the XLA route and a float64 sum (float32 summation bound);
-    the cases of tests/test_ops.py, ids below 0 and >= R mixed in."""
+    the cases of tests/test_ops.py, ids below 0 and >= R mixed in, and a
+    head one row past the card kernel's tile at D = 20 (two row tiles)."""
     rng = np.random.default_rng(R + D)
     table = rng.normal(0, 1, (R, D)).astype(np.float32)
     ids = (rng.zipf(1.5, B) % (R + 8) - 2).astype(np.int32)
@@ -298,14 +302,97 @@ def test_packed_plain_exact_on_a_hot_row(D):
 
 @pytest.mark.parametrize("batch,head,dim,want", [
     (0, 2048, 11, 1), (100, 2048, 11, 1), (32_768, 2048, 11, 64),
-    (1 << 20, 2048, 20, 204), (425_997, 2048, 3, 256),
-    (32_768, 32_768, 100, 2), (32_768, 1 << 20, 200, 1)])
+    (1 << 20, 2048, 20, 128), (425_997, 2048, 3, 128),
+    (32_768, 32_768, 100, 1), (32_768, 1 << 20, 200, 1)])
 def test_packed_slices(batch, head, dim, want):
-    """K3's batch slices: at least 512 ids each, at most 256, and at most
-    32 MiB of partial sums."""
-    got = kernels.packed_slices(batch, head, dim)
-    assert got == want
-    assert got == 1 or got * head * dim * 4 <= kernels.PACKED_PARTIAL_BYTES
+    """K3's batch slices on 132 multiprocessors: one block a multiprocessor
+    over all head tiles, at least 512 ids each, a multiple of the cluster;
+    the scratch holds a partial a cluster (none with one cluster)."""
+    plan = kernels.packed_plan(batch, head, dim)
+    assert plan.slices == want
+    assert 1 <= plan.cluster <= kernels.PACKED_MAX_CLUSTER
+    assert plan.slices % plan.cluster == 0
+    assert plan.groups == plan.slices // plan.cluster
+    assert plan.partial_words == (plan.groups * head * dim
+                                  if plan.groups > 1 else 0)
+
+
+def _packed_source_constants():
+    """The constexpr ints of csrc/scatter_add_packed.cu (sums, products,
+    quotients and shifts of literals and earlier constants) and its row
+    strides."""
+    from fps_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "scatter_add_packed.cu")) as f:
+        text = f.read()
+    env = {}
+    for name, expr in re.findall(
+            r"constexpr int (\w+) =\s*([\w\s*+/<]+);", text):
+        # The source's own integer arithmetic.
+        expr = " ".join(expr.split()).replace("/", "//")
+        env[name] = eval(expr, {}, dict(env))
+    strides = re.search(r"kStrides\[\] = \{([^}]*)\}", text)[1]
+    return env, tuple(int(w) for w in strides.split(","))
+
+
+def test_packed_plan_constants_match_the_source():
+    env, strides = _packed_source_constants()
+    assert kernels.PACKED_MAX_WIDTH == env["kMaxWidth"]
+    assert kernels.PACKED_MAX_CLUSTER == env["kMaxCluster"]
+    assert kernels.PACKED_MAX_SMEM == env["kMaxSmem"] == 227 * 1024
+    assert kernels.PACKED_FIXED_SMEM == env["kFixedSmem"]
+    assert kernels.PACKED_STRIDES == strides
+
+
+# (batch, H, D, row tiles, column tiles, width): the five K3 shapes of
+# chip_smoke.py (MF item head, 20-class PA head, AdaGrad head, one id owning
+# 2^20 pushes, the whole 4,096 x 10 table) and the edges: a head one row past
+# a tile, a head of 2,048 x 200 and 600 x 130 in column tiles, one row, a
+# batch under a chunk.
+PLAN_SHAPES = [
+    (32_768, 2048, 11, 1, 1, 11), (1 << 20, 2048, 20, 1, 1, 20),
+    (425_997, 2048, 3, 1, 1, 3), (32_768, 4096, 10, 2, 1, 10),
+    (20_000, 4096, 20, 2, 1, 20), (8000, 2453, 20, 2, 1, 20),
+    (8000, 2452, 20, 1, 1, 20), (5000, 2048, 200, 3, 4, 52),
+    (3000, 600, 130, 1, 3, 44), (100, 1, 1, 1, 1, 1), (1000, 2048, 20, 1, 1, 20)]
+
+
+@pytest.mark.parametrize("batch,head,dim,row_tiles,col_tiles,width",
+                         PLAN_SHAPES)
+def test_packed_plan_tiles_and_shared_memory(batch, head, dim, row_tiles,
+                                             col_tiles, width):
+    """Head tiles: columns in tiles of at most 64 (multiples of 4 where D
+    is), rows in as few tiles as fit in 227 KB beside the staging, each row
+    W floats (the least stride that holds the width) and a byte."""
+    plan = kernels.packed_plan(batch, head, dim)
+    assert (plan.row_tiles, plan.col_tiles, plan.width) == (
+        row_tiles, col_tiles, width)
+    assert plan.stride == min(w for w in kernels.PACKED_STRIDES
+                              if w >= width)
+    assert plan.tile_rows * plan.row_tiles >= head
+    assert plan.tile_rows * (plan.row_tiles - 1) < head
+    assert plan.width * (plan.col_tiles - 1) < dim <= plan.width * plan.col_tiles
+    assert plan.smem_bytes == (kernels.PACKED_FIXED_SMEM
+                               + 4 * plan.tile_rows * plan.stride
+                               + -(-plan.tile_rows // 16) * 16)
+    assert plan.smem_bytes <= kernels.PACKED_MAX_SMEM
+    # One more row in the tile would not fit, where the head was cut.
+    if plan.row_tiles > 1:
+        assert (kernels.PACKED_FIXED_SMEM
+                + 4 * (head // (plan.row_tiles - 1)) * plan.stride
+                + head // (plan.row_tiles - 1)) > kernels.PACKED_MAX_SMEM
+
+
+@pytest.mark.parametrize("resident,want", [(15, 120), (30, 128), (3, 24),
+                                           (0, 128), (-2, 128)])
+def test_packed_plan_keeps_clusters_in_one_wave(resident, want):
+    """With the card's count of co-resident clusters of 8 (15 on the H100
+    at the PA head's 195 KB), the slices are cut so that every cluster runs
+    at once; a count below one a tile (or an error) leaves them."""
+    plan = kernels.packed_plan(1 << 20, 2048, 20,
+                               resident=lambda w, smem, c: resident)
+    assert plan.slices == want and plan.cluster == 8
+    assert plan.groups == want // 8
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +541,7 @@ def test_kernel_sources_and_build_are_in_the_package():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
     assert names == ["gather_rows.cu", "gather_rows_dim1.cu", "pdl.cuh",
                      "radix_sort.cu", "scatter_add.cu", "scatter_add_dim1.cu",
-                     "scatter_add_packed.cu"]
+                     "scatter_add_packed.cu", "warp_tree.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     for path in _build.sources():
         with open(path) as f:

@@ -344,13 +344,14 @@ def test_head_prefix_pull_push_match_jax(pallas_backend, inplace):
 
 
 def test_packed_crossover_rows_are_the_measured_thresholds():
-    """The H100 sweep's thresholds against the redesigned K2 (chip_smoke.py
-    phase 3): 8,192 rows through D = 10, 2,048 through 32, and K2 (0) past
-    32, where K2 was faster at every measured R."""
+    """The H100 sweep's thresholds for the redesigned K3 against K2
+    (chip_smoke.py phase 3): 16,384 rows through D = 10, 8,192 through 32,
+    1,024 through 100, 512 through 200, and K2 (0) wider."""
     from fps_tpu_torch.ops import packed_crossover_rows
 
-    for dim, want in ((1, 8_192), (10, 8_192), (11, 2_048), (32, 2_048),
-                      (33, 0), (100, 0), (200, 0), (201, 0)):
+    for dim, want in ((1, 16_384), (10, 16_384), (11, 8_192), (32, 8_192),
+                      (33, 1_024), (100, 1_024), (101, 512), (200, 512),
+                      (201, 0)):
         assert packed_crossover_rows(dim) == want, dim
 
 
