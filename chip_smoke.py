@@ -36,10 +36,13 @@ on the card, raising on the first failure:
    against K2 alone over the whole push; then the crossover sweep behind
    ``packed_crossover_rows``: K3 over the whole table against K2 with its
    sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
-   32,768. Times are CUDA-event medians of 30 (the sweep: 10) with the card
-   held busy, beside the bound (least bytes / 3.35 TB/s), the library
-   call's time and, for K2 and K4, their sort's time (K2: its radix sort;
-   ``torch.sort``'s beside it);
+   32,768. K4's bucket pass by row tile, where its plan has one (the
+   1M-row logistic-regression table), must equal its plain version (a
+   stable sort by bucket) bit for bit. Times are CUDA-event medians of 30
+   (the sweep: 10) with the card held busy, beside the bound (least bytes /
+   3.35 TB/s), the library call's time and, for K2 and K4, their sort's
+   time (K2: its radix sort; K4: its bucket pass, none where the table is
+   one tile; ``torch.sort``'s beside both);
 4. drives each path at full width, every launch counter at 0 just before it
    and read just after: online MF at ML-20M size (2 epochs sync, 2 SSP);
    binary PA-I at the RCV1 shape with the head prefix (K5 and K4 twice a
@@ -60,9 +63,12 @@ on the card, raising on the first failure:
    compares the tables; then traces 10 K2 calls at each of its path shapes
    (``torch.profiler``) for the device time and launches of each kernel K2
    launches, which must be 3 a sort pass plus 2, 10 calls of the sort
-   alone at each sort edge, 3 kernels a pass, and 10 K3 calls at each K3
+   alone at each sort edge, 3 kernels a pass, 10 K3 calls at each K3
    shape, its slice pass once a call and its fold pass once more where the
-   plan has more than one cluster;
+   plan has more than one cluster, and 10 K4 calls at each K4 shape, whose
+   kernels a call (the bucket pass's count and scatter where the plan has
+   buckets, the tile pass, the fold where it has more than one cluster)
+   must be what ``dim1_plan`` counts;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -218,15 +224,16 @@ def check_sum_bound(torch, label, table, kid, kd, got, want):
 
 
 def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
-                  kernels=None, collect=None):
+                  kernels=None, collect=None, sort_fn=None):
     """Hold a scatter-add kernel against its plain version and a float64 sum
     (within the float32 summation bound; the same bits on two launches), and
     on sixteenths of the same inputs against the exact float64 sum, bit for
-    bit; time it, its sort, its plain version and ``index_add_``. With
-    ``kernels`` (K2) the sort is K2's hand-written radix sort, first held
-    bit for bit to ``torch.sort(keys, stable=True)``; without (K4) it is
-    the wrapper's ``torch.sort``. ``collect`` (a list) gathers the inputs
-    for :func:`k2_breakdown`."""
+    bit; time it, its sort, its plain version, ``index_add_`` and
+    ``torch.sort``. With ``kernels`` (K2) the sort is K2's hand-written
+    radix sort, first held bit for bit to ``torch.sort(keys, stable=True)``;
+    without (K4), ``sort_fn`` (its bucket pass), or no sort where it is
+    None. ``collect`` (a list) gathers the inputs for :func:`k2_breakdown`
+    and :func:`k4_breakdown`."""
     num_rows, dim = table.shape
     B = ids.shape[0]
     got = kernel(table.clone(), ids, deltas)
@@ -247,8 +254,6 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
     if kernels is not None:
         check_sort(torch, kernels, label, ids, num_rows)
         sort_fn = (lambda _: kernels.radix_sort_cuda(ids, num_rows))
-    else:
-        sort_fn = (lambda _: torch.sort(ids, stable=True))
     uniq = int(torch.unique(kid).numel())
     # Least bytes: the ids, the deltas of in-range ids read, and each
     # touched row read and written once.
@@ -263,7 +268,7 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
         "call_ms": time_ms(torch, lambda t: kernel(t, ids, deltas),
                            setup=table.clone, hold=False),
         # The sort alone, a part of "ms"; torch.sort's time beside it.
-        "sort_ms": time_ms(torch, sort_fn),
+        "sort_ms": time_ms(torch, sort_fn) if sort_fn is not None else None,
         "torch_sort_ms": time_ms(torch,
                                  lambda _: torch.sort(ids, stable=True)),
         "plain_ms": time_ms(torch, lambda t: plain(t, ids, deltas),
@@ -281,7 +286,8 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
 
 def profiled(torch, fn, calls=10):
     """Device µs and launches a call of each kernel of K2 and its sort
-    (``radix_*``, ``rows_*``) and of K3 (``packed_*``) over ``calls`` calls
+    (``radix_*``, ``rows_*``), of K3 (``packed_*``) and of K4 (``dim1_*``)
+    over ``calls`` calls
     of ``fn``, from ``torch.profiler``: ``({name: µs}, {name:
     launches})``."""
     from torch.profiler import ProfilerActivity, profile
@@ -295,7 +301,8 @@ def profiled(torch, fn, calls=10):
         torch.cuda.synchronize()
     us, count = {}, {}
     for ev in prof.key_averages():
-        name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+)", ev.key)
+        name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+|dim1_\w+)",
+                         ev.key)
         if not name:
             continue
         us[name[1]] = us.get(name[1], 0.0) + (
@@ -369,6 +376,49 @@ def k3_breakdown(torch, kernels, inputs):
                       "kernels_per_call": sum(launched.values())}
         log(f"K3 breakdown, {label}, a call: " + json.dumps(out[label]))
     return out
+
+
+def k4_breakdown(torch, kernels, inputs):
+    """Traced, at each K4 shape: the device µs and launches a call of each
+    kernel K4 launches, which must be what its plan counts: the bucket
+    pass's count and scatter where the plan has more than one bucket, the
+    tile pass, and the fold where it has more than one cluster. Run last,
+    after every timed phase."""
+    out = {}
+    for label, table, ids, deltas in inputs:
+        work = table.clone()
+        us, launched = profiled(
+            torch, lambda: kernels.scatter_add_dim1_cuda_(work, ids, deltas))
+        plan = kernels.card_dim1_plan(ids.device, ids.numel(),
+                                      table.shape[0])
+        want = {"dim1_tile_pass": 1}
+        if plan.buckets > 1:
+            want.update(dim1_bucket_count=1, dim1_bucket_scatter=1)
+        if plan.clusters > 1:
+            want["dim1_fold_pass"] = 1
+        if launched != want or sum(launched.values()) != plan.kernels:
+            raise AssertionError(f"{label}: traced K4 launches a call "
+                                 f"{launched}, expected {want} "
+                                 f"({plan.kernels} kernels, dim1_plan)")
+        out[label] = {"device_us": us, "launches": launched,
+                      "kernels_per_call": plan.kernels}
+        log(f"K4 breakdown, {label}, a call: " + json.dumps(out[label]))
+    return out
+
+
+def check_bucket(torch, kernels, label, ids, deltas, num_rows, plan):
+    """Hold K4's bucket pass alone to its plain version (a stable sort of
+    the kept ids by bucket): ids, deltas and starts bit for bit."""
+    got_ids, got_vals, starts = kernels.dim1_bucket_cuda(ids, deltas,
+                                                         num_rows)
+    want = kernels.dim1_bucket_plain(ids, deltas, num_rows,
+                                     plan.bucket_rows, plan.buckets)
+    n = int(starts[-1])
+    if not (torch.equal(starts, want[2]) and
+            torch.equal(got_ids[:n], want[0]) and
+            torch.equal(got_vals[:n], want[1])):
+        raise AssertionError(f"{label}: K4's bucket pass differs from its "
+                             "plain version")
 
 
 def check_sort(torch, kernels, label, ids, num_rows):
@@ -575,6 +625,21 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
              "scatter_add_dim1": [], "scatter_add_packed": [], "split": []}
     k2_inputs = cases["k2_inputs"] = []
     k3_inputs = cases["k3_inputs"] = []
+    k4_inputs = cases["k4_inputs"] = []
+
+    def k4_case(label, view, ids, dl, path):
+        """K4 at one shape, with its plan and, where the plan has one, its
+        bucket pass held to its plain version and timed alone."""
+        R = view.shape[0]
+        plan = kernels.card_dim1_plan(dev, ids.numel(), R)
+        bucket = None
+        if plan.buckets > 1:
+            check_bucket(torch, kernels, label, ids, dl, R, plan)
+            bucket = (lambda _: kernels.dim1_bucket_cuda(ids, dl, R))
+        case = check_scatter(torch, label, s4, s4p, view, ids, dl, path,
+                             collect=k4_inputs, sort_fn=bucket)
+        case["plan"] = plan._asdict()
+        return case
 
     # K1 / K2 at the MF step: the item pull and push (mean's count column),
     # the user factors' gather and update; the "sum" combine's push is off
@@ -680,25 +745,26 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         part = t(mix_dropped(part, view.shape[0]))
         cases["gather_rows_dim1"].append(check_gather(
             torch, f"K5 PA {name}", g5, g5p, view, part, "pa_binary"))
-        cases["scatter_add_dim1"].append(check_scatter(
-            torch, f"K4 PA {name}", s4, s4p, view, part,
-            deltas(part.numel(), 1), "pa_binary"))
+        cases["scatter_add_dim1"].append(k4_case(
+            f"K4 PA {name}", view, part, deltas(part.numel(), 1),
+            "pa_binary"))
     lr_table = table(LR_NF, 1)
     cases["gather_rows_dim1"].append(check_gather(
         torch, "K5 logreg", g5, g5p, lr_table, lr_ids, "logreg_sgd"))
-    cases["scatter_add_dim1"].append(check_scatter(
-        torch, "K4 logreg", s4, s4p, lr_table, lr_ids,
-        deltas(lr_ids.numel(), 1), "logreg_sgd"))
+    cases["scatter_add_dim1"].append(k4_case(
+        "K4 logreg", lr_table, lr_ids, deltas(lr_ids.numel(), 1),
+        "logreg_sgd"))
     # K4 at 2^20 ids off the path: the whole PA push in one call, uniform
-    # ids, and one id owning every push (its run crosses all 1,024 tiles).
+    # ids, and one id owning every push (its run cut over every block and
+    # cluster).
     n = SPARSE_BATCH * PA_NNZ
     for name, all_ids in (
             ("whole push 2^20", mix_dropped(ids, PA_NF)),
             ("uniform 2^20", rng.integers(0, PA_NF, n)),
             ("one id owns 2^20", np.full(n, 7))):
-        cases["scatter_add_dim1"].append(check_scatter(
-            torch, f"K4 PA {name}", s4, s4p, table(PA_NF, 1),
-            t(all_ids.astype(np.int32)), deltas(n, 1), "off_path"))
+        cases["scatter_add_dim1"].append(k4_case(
+            f"K4 PA {name}", table(PA_NF, 1), t(all_ids.astype(np.int32)),
+            deltas(n, 1), "off_path"))
     return cases
 
 
@@ -1171,6 +1237,7 @@ def main() -> int:
                          dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
+    k4_inputs = cases.pop("k4_inputs")
     split = cases.pop("split")
     sort_cases, sort_inputs = sort_edges(torch, kernels, dev)
 
@@ -1188,15 +1255,16 @@ def main() -> int:
     breakdown, sort_traced = k2_breakdown(torch, kernels, k2_inputs,
                                           sort_inputs)
     k3_traced = k3_breakdown(torch, kernels, k3_inputs)
-    del k2_inputs, sort_inputs, k3_inputs
+    k4_traced = k4_breakdown(torch, kernels, k4_inputs)
+    del k2_inputs, sort_inputs, k3_inputs, k4_inputs
     for case in sort_cases:
         case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
     # Both devices read exactly. The CPU folds each row's pushes one by one
-    # in batch order (index_add_); on the card K2 and K4 sum each row's
-    # pushes in a fixed tree order (a scan within tiles of sorted positions,
-    # then across the tiles) and add the sum into the row once, and K3 sums
-    # each head row's pushes in a fixed tree a batch of 1,024, the batches
-    # in order within a slice, then across a cluster's slices and the
+    # in batch order (index_add_); on the card K2 sums each row's pushes in
+    # a fixed tree order (a scan within tiles of sorted positions, then
+    # across the tiles) and adds the sum into the row once, and K3 and K4
+    # sum each row's pushes in a fixed tree a batch of 1,024, the batches in
+    # order within a block's share, then across a cluster's blocks and the
     # clusters in order. So a row's sum differs from the CPU's by a few
     # float32 roundings of its terms each push. The card and the CPU also order dot products and row
     # sums differently (about one rounding each). PA's and the logistic
@@ -1253,8 +1321,15 @@ def main() -> int:
              traced_by_shape=breakdown),
         entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
               pallas + ":429", "pa_binary"),
-        entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
-              pallas + ":338", "pa_binary"),
+        dict(entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
+                   pallas + ":338", "pa_binary"),
+             bucket_pass={
+                 "ms_by_shape": {c["shape"]: c["sort_ms"]
+                                 for c in cases["scatter_add_dim1"]},
+                 "torch_sort_ms_by_shape": {
+                     c["shape"]: c["torch_sort_ms"]
+                     for c in cases["scatter_add_dim1"]}},
+             traced_by_shape=k4_traced),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
                    pallas + ":178", "mf_hot"),
              traced_by_shape=k3_traced, split_end_to_end=split,

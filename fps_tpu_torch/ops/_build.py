@@ -136,9 +136,15 @@ def library() -> ctypes.CDLL:
             lib.fps_scatter_add_f32.restype = ci
             lib.fps_gather_rows_dim1_f32.argtypes = [vp, vp, vp, ll, ll, vp]
             lib.fps_gather_rows_dim1_f32.restype = ci
-            lib.fps_scatter_add_dim1_f32.argtypes = [vp, vp, vp, vp, ll, ll,
-                                                     vp, vp, vp, vp, ll, vp]
+            lib.fps_scatter_add_dim1_f32.argtypes = [vp, vp, vp, ll, ll, ll,
+                                                     ci, ci, ci, ci, ci, ci,
+                                                     vp, ll, vp]
             lib.fps_scatter_add_dim1_f32.restype = ci
+            lib.fps_dim1_bucket_f32.argtypes = [vp, vp, ll, ll, ci, ci, ci, vp,
+                                                ll, vp]
+            lib.fps_dim1_bucket_f32.restype = ci
+            lib.fps_dim1_clusters_resident.argtypes = [ci, ci]
+            lib.fps_dim1_clusters_resident.restype = ci
             lib.fps_scatter_add_packed_f32.argtypes = [vp, vp, vp, ll, ll, ci,
                                                        ll, ci, ll, ci, vp, ll,
                                                        vp]

@@ -1,5 +1,5 @@
 // Programmatic dependent launch (Hopper), shared by radix_sort.cu,
-// scatter_add.cu and scatter_add_packed.cu: each kernel is launched so that
+// scatter_add.cu, scatter_add_packed.cu and scatter_add_dim1.cu: each kernel is launched so that
 // the card may start it while the kernel before it in the stream still
 // runs, and it waits (grid_wait) until that kernel has finished and its
 // writes are visible before it touches memory. A kernel lets the next one

@@ -1,5 +1,6 @@
 // Warp and block building blocks shared by the radix sort (radix_sort.cu),
-// K2 (scatter_add.cu) and K3 (scatter_add_packed.cu): the peers of a lane
+// K2 (scatter_add.cu), K3 (scatter_add_packed.cu) and K4
+// (scatter_add_dim1.cu): the peers of a lane
 // by digit, from one ballot a digit bit, which ranks keys stably inside a
 // warp; and segmented inclusive scans in a fixed shuffle tree, so that
 // every run's sum is added in the same order on every launch.

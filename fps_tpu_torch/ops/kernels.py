@@ -39,14 +39,19 @@ read keeps about 16 mantissa bits.
 
 K4 ``scatter_add_dim1_cuda_`` (``csrc/scatter_add_dim1.cu``) replaces
 ``scatter_add_dim1_pallas``, the push into an ``(R, 1)`` table. It is bound
-by bytes and must be deterministic, like K2, but K2's serial walk of a run
-would cost milliseconds here: a scalar push carries 2^20 Zipf ids, and the
-hottest row takes tens of thousands of them. The wrapper sorts the ids
-stably; the kernel reduces every run by a segmented scan in a fixed tree
-order (within each tile of 1,024 sorted positions, then across the tiles'
-partials), and adds each run's sum into its row once. No atomics: the same
-bits on every launch, and a batch that is one run costs what a uniform batch
-costs.
+by bytes and must be deterministic, like K2, and must not serialise on the
+Zipf-hot features of a 2^20-id scalar push, with no library sort. A row is
+one float, so a row tile of about 50,000 rows fits in a block's shared
+memory: the whole table on every path but the 1M-feature logistic
+regression, which first takes a bucket pass by row tile (a count, then a
+stable write of each push's id and delta into its tile's stretch). The
+tile pass cuts the pushes, in bucket order, evenly over clusters of 8
+blocks whatever the tiles hold; each block sums its share into the tile in
+shared memory (each chunk of 1,024 ranked by row, K3's ranking, each run
+by a fixed tree), the cluster sums its tiles through distributed shared
+memory in rank order, and a fold adds the clusters' partials in order
+where a tile had more than one. 1 to 4 kernels a call (:func:`dim1_plan`,
+:func:`card_dim1_plan`); no atomics, the same bits on every launch.
 
 K3 ``scatter_add_packed_cuda_`` (``csrc/scatter_add_packed.cu``) replaces
 ``scatter_add_packed_pallas``, the push into the write-hot head rows
@@ -314,62 +319,6 @@ gather_rows_dim1_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: scalar-table scatter-add
-# ---------------------------------------------------------------------------
-
-DIM1_TILE = 1024  # sorted positions per block of K4 (kTile in the source)
-
-
-def scatter_add_dim1_plain(table: torch.Tensor, ids: torch.Tensor,
-                           deltas: torch.Tensor) -> torch.Tensor:
-    """In place, for an ``(R, 1)`` table: ``table[ids[b]] += deltas[b]``;
-    duplicates add, ids outside ``[0, R)`` are dropped. Returns ``table``."""
-    _check_dim1("scatter_add_dim1_plain", table)
-    return scatter_add_plain(table, ids, deltas)
-
-
-def scatter_add_dim1_cuda_(table: torch.Tensor, ids: torch.Tensor,
-                           deltas: torch.Tensor) -> torch.Tensor:
-    """K4 on the card, in place: ``table[ids[b]] += deltas[b]`` for the
-    ``(R, 1)`` float32 table, ``(B,)`` int32 ids and ``(B, 1)`` float32
-    deltas; duplicates add in a fixed tree order, ids outside ``[0, R)`` are
-    dropped. Deterministic: the same inputs give the same bits. Returns
-    ``table``."""
-    _check_table_ids("scatter_add_dim1_cuda_", table, ids)
-    _check_dim1("scatter_add_dim1_cuda_", table)
-    _check(deltas.is_cuda and deltas.device == table.device,
-           f"scatter_add_dim1_cuda_: deltas on {deltas.device}, table on "
-           f"{table.device}")
-    _check(deltas.dtype == torch.float32 and deltas.is_contiguous(),
-           "scatter_add_dim1_cuda_: deltas must be contiguous float32")
-    R = table.shape[0]
-    B = ids.shape[0]
-    _check(tuple(deltas.shape) == (B, 1),
-           f"scatter_add_dim1_cuda_: deltas {tuple(deltas.shape)} != "
-           f"({B}, 1)")
-    if B == 0:
-        return table
-    sorted_ids, order = torch.sort(ids, stable=True)
-    num_tiles = -(-B // DIM1_TILE)
-    fwork = torch.empty(2 * num_tiles, dtype=torch.float32,
-                        device=table.device)
-    iwork = torch.empty(2 * num_tiles, dtype=torch.int32,
-                        device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.fps_scatter_add_dim1_f32(
-            table.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-            deltas.data_ptr(), R, B, fwork.data_ptr(), iwork.data_ptr(),
-            fwork[num_tiles:].data_ptr(), iwork[num_tiles:].data_ptr(),
-            num_tiles, _stream(table))
-    _raise_on_error(rc, "scatter_add_dim1_cuda_")
-    scatter_add_dim1_cuda_.launches += 1
-    return table
-
-
-scatter_add_dim1_cuda_.launches = 0
-
-# ---------------------------------------------------------------------------
 # K3: scatter-add into the write-hot head rows
 # ---------------------------------------------------------------------------
 
@@ -533,6 +482,268 @@ def scatter_add_packed_cuda_(table: torch.Tensor, ids: torch.Tensor,
 
 
 scatter_add_packed_cuda_.launches = 0
+
+# ---------------------------------------------------------------------------
+# K4: scalar-table scatter-add
+# ---------------------------------------------------------------------------
+
+# The constants of csrc/scatter_add_dim1.cu that shape its plan.
+DIM1_CHUNK = 1024           # kTileChunk: pushes the tile pass sums at once
+DIM1_MAX_CLUSTER = 8        # kMaxCluster
+# Blocks a cluster of the tile pass with a bucket pass: each piece's
+# reduction through distributed shared memory reads half as many tiles.
+DIM1_BUCKETED_CLUSTER = 4
+DIM1_MAX_BUCKETS = 256      # kMaxBuckets: buckets of the bucket pass
+DIM1_MAX_BUCKET_BLOCKS = 512  # kMaxBucketBlocks: blocks of the bucket pass
+DIM1_FIXED_SMEM = 17_424    # kFixedSmem: shared memory beside the row tile
+DIM1_GROUP_ROWS = 4         # kGroupRows: rows a written-flag byte
+DIM1_TILE_ALIGN = 64        # kTileAlign: tile rows come in multiples of it
+DIM1_BUCKET_IDS = 2048      # kChunk: fewest ids a block of the bucket pass
+                            # takes, a round of it
+# What a piece of a bucket costs the tile pass beside its pushes, in pushes:
+# the weight of each bucket in the cut of the pushes over the clusters.
+DIM1_PIECE_PUSHES = 16_384
+# The most rows a tile holds: a float a row and a flag byte for each
+# DIM1_GROUP_ROWS rows beside the fixed staging, in a block's shared memory.
+DIM1_MAX_TILE_ROWS = ((PACKED_MAX_SMEM - DIM1_FIXED_SMEM) * DIM1_GROUP_ROWS
+                      // (4 * DIM1_GROUP_ROWS + 1)
+                      // DIM1_TILE_ALIGN * DIM1_TILE_ALIGN)
+
+
+def _dim1_smem(tile_rows: int) -> int:
+    return DIM1_FIXED_SMEM + 4 * tile_rows + tile_rows // DIM1_GROUP_ROWS
+
+
+class Dim1Plan(NamedTuple):
+    """How K4 cuts a push: row tiles of ``tile_rows`` rows (``row_tiles``
+    of them), ``tiles_per_bucket`` a bucket of ``bucket_rows`` rows,
+    ``buckets`` buckets (one: no bucket pass) counted and written by
+    ``bucket_blocks`` blocks; the tile pass in ``clusters`` clusters of
+    ``cluster`` blocks, ``smem_bytes`` of shared memory a block, each
+    bucket weighing ``piece_weight`` pushes more than it holds in the cut
+    of the pushes over the clusters; and the
+    kernels a call: 2 for the bucket pass, 1 for the tile pass, 1 for the
+    fold with more than one cluster."""
+    tile_rows: int
+    row_tiles: int
+    tiles_per_bucket: int
+    bucket_rows: int
+    buckets: int
+    bucket_blocks: int
+    piece_weight: int
+    cluster: int
+    clusters: int
+    smem_bytes: int
+    kernels: int
+
+
+def dim1_plan(batch: int, rows: int, sms: int = H100_SMS,
+              resident=None) -> Dim1Plan:
+    """K4's plan for a push of ``batch`` ids into an ``(rows, 1)`` table on
+    a card of ``sms`` multiprocessors.
+
+    Row tiles: as few as fit a float a row and a flag byte for each 4 rows
+    in ``PACKED_MAX_SMEM`` beside the fixed staging
+    (``DIM1_MAX_TILE_ROWS``), as even as may be, a multiple of
+    ``DIM1_TILE_ALIGN`` rows. More than one
+    tile takes a bucket pass by tile, at most ``DIM1_MAX_BUCKETS`` buckets
+    (past that many tiles, a bucket holds several), its blocks at least
+    ``DIM1_BUCKET_IDS`` ids each, at most two a multiprocessor (and
+    ``DIM1_MAX_BUCKET_BLOCKS``); each bucket then weighs
+    ``DIM1_PIECE_PUSHES`` more in the cut.
+    The tile pass: about one block a multiprocessor, at least a chunk
+    (``DIM1_CHUNK``) of ids each, in clusters of ``DIM1_MAX_CLUSTER``
+    (``DIM1_BUCKETED_CLUSTER`` with a bucket pass), or all of them if
+    fewer. ``resident(smem_bytes, cluster)``, where given, is the most
+    clusters the card holds at once; the clusters are cut to that, so that
+    they run in one wave. The kernels a call follow from ``(batch, rows)``
+    and never from the ids.
+    """
+    batch, rows, sms = (operator.index(x) for x in (batch, rows, sms))
+    _check(batch >= 0 and rows >= 1 and sms >= 1,
+           f"dim1_plan: batch {batch}, rows {rows}, sms {sms}")
+    row_tiles = -(-rows // DIM1_MAX_TILE_ROWS)
+    tile_rows = -(-rows // row_tiles)  # as even as may be
+    tile_rows = -(-tile_rows // DIM1_TILE_ALIGN) * DIM1_TILE_ALIGN
+    tiles_per_bucket = -(-row_tiles // DIM1_MAX_BUCKETS)
+    buckets = -(-row_tiles // tiles_per_bucket)
+    bucket_blocks = (0 if buckets == 1 else
+                     max(1, min(2 * sms, DIM1_MAX_BUCKET_BLOCKS,
+                                -(-batch // DIM1_BUCKET_IDS))))
+    blocks = max(1, min(sms, -(-batch // DIM1_CHUNK), 65535))
+    cluster = min(DIM1_MAX_CLUSTER if buckets == 1 else DIM1_BUCKETED_CLUSTER,
+                  blocks)
+    clusters = blocks // cluster
+    smem_bytes = _dim1_smem(tile_rows)
+    if resident is not None:
+        most = resident(smem_bytes, cluster)
+        if 1 <= most < clusters:
+            clusters = most
+    return Dim1Plan(
+        tile_rows=tile_rows, row_tiles=row_tiles,
+        tiles_per_bucket=tiles_per_bucket,
+        bucket_rows=tiles_per_bucket * tile_rows, buckets=buckets,
+        bucket_blocks=bucket_blocks,
+        piece_weight=DIM1_PIECE_PUSHES if buckets > 1 else 0,
+        cluster=cluster, clusters=clusters,
+        smem_bytes=smem_bytes,
+        kernels=(2 if buckets > 1 else 0) + 1 + (clusters > 1))
+
+
+def _dim1_bucket_words(batch: int, plan: Dim1Plan) -> int:
+    """int32 scratch of the bucket pass: the kept ids and deltas in bucket
+    order, the blocks' counts, the buckets' starts; a multiple of 4."""
+    if plan.buckets == 1:
+        return 0
+    n = 2 * batch + plan.bucket_blocks * plan.buckets + plan.buckets + 1
+    return -(-n // 4) * 4
+
+
+def dim1_work_words(batch: int, plan: Dim1Plan) -> int:
+    """int32 scratch of a K4 call: the bucket pass's, then, with more than
+    one cluster, a partial of every row of a bucket a slot, for the
+    ``clusters + buckets - 1`` slots a cluster's pieces can take."""
+    partial = ((plan.clusters + plan.buckets - 1) * plan.bucket_rows
+               if plan.clusters > 1 else 0)
+    return _dim1_bucket_words(batch, plan) + partial
+
+
+@functools.lru_cache(maxsize=None)
+def _dim1_resident(device: torch.device, smem_bytes: int,
+                   cluster: int) -> int:
+    with torch.cuda.device(device):
+        return _build.library().fps_dim1_clusters_resident(smem_bytes,
+                                                           cluster)
+
+
+@functools.lru_cache(maxsize=256)
+def card_dim1_plan(device: torch.device, batch: int, rows: int) -> Dim1Plan:
+    """:func:`dim1_plan` for the CUDA ``device``: its multiprocessors, and
+    the clusters it holds at once (``cudaOccupancyMaxActiveClusters``,
+    which builds the kernels). What :func:`scatter_add_dim1_cuda_`
+    launches."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dim1_plan(batch, rows, sms, functools.partial(_dim1_resident,
+                                                         device))
+
+
+def scatter_add_dim1_plain(table: torch.Tensor, ids: torch.Tensor,
+                           deltas: torch.Tensor) -> torch.Tensor:
+    """In place, for an ``(R, 1)`` table: ``table[ids[b]] += deltas[b]``;
+    duplicates add, ids outside ``[0, R)`` are dropped. Returns ``table``."""
+    _check_dim1("scatter_add_dim1_plain", table)
+    return scatter_add_plain(table, ids, deltas)
+
+
+def _check_dim1_push(fn: str, table: torch.Tensor, ids: torch.Tensor,
+                     deltas: torch.Tensor) -> None:
+    _check_table_ids(fn, table, ids)
+    _check_dim1(fn, table)
+    _check_batch(fn, ids)
+    _check(deltas.is_cuda and deltas.device == table.device,
+           f"{fn}: deltas on {deltas.device}, table on {table.device}")
+    _check(deltas.dtype == torch.float32 and deltas.is_contiguous(),
+           f"{fn}: deltas must be contiguous float32")
+    B = ids.shape[0]
+    _check(tuple(deltas.shape) == (B, 1),
+           f"{fn}: deltas {tuple(deltas.shape)} != ({B}, 1)")
+
+
+def scatter_add_dim1_cuda_(table: torch.Tensor, ids: torch.Tensor,
+                           deltas: torch.Tensor, *,
+                           plan: Dim1Plan | None = None) -> torch.Tensor:
+    """K4 on the card, in place: ``table[ids[b]] += deltas[b]`` for the
+    ``(R, 1)`` float32 table, ``(B,)`` int32 ids and ``(B, 1)`` float32
+    deltas; duplicates add in a fixed tree order, ids outside ``[0, R)`` are
+    dropped. Deterministic: the same inputs and plan give the same bits.
+    One C call launches the plan's kernels; ``plan`` (default
+    :func:`card_dim1_plan`) is for tests and measurements, and the kernel
+    refuses one it cannot run. Returns ``table``."""
+    fn = "scatter_add_dim1_cuda_"
+    _check_dim1_push(fn, table, ids, deltas)
+    R = table.shape[0]
+    B = ids.shape[0]
+    if B == 0 or R == 0:
+        return table
+    if plan is None:
+        plan = card_dim1_plan(table.device, B, R)
+    work = torch.empty(max(1, dim1_work_words(B, plan)), dtype=torch.int32,
+                       device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.fps_scatter_add_dim1_f32(
+            table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), R, B,
+            plan.tile_rows, plan.tiles_per_bucket, plan.buckets,
+            plan.bucket_blocks, plan.piece_weight, plan.cluster, plan.clusters,
+            work.data_ptr(), work.numel(), _stream(table))
+    _raise_on_error(rc, fn)
+    scatter_add_dim1_cuda_.launches += 1
+    return table
+
+
+scatter_add_dim1_cuda_.launches = 0
+
+
+def dim1_bucket_plain(ids: torch.Tensor, deltas: torch.Tensor,
+                      num_rows: int, bucket_rows: int, buckets: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ids, values, starts)``: the ids in ``[0, num_rows)`` and their
+    deltas (flat), ordered by bucket ``id // bucket_rows`` and in batch
+    order within one (a boolean select a bucket), and the int32 start of
+    each of the ``buckets`` buckets, then the count kept."""
+    keep = (ids >= 0) & (ids < num_rows)
+    kid, kd = ids[keep], deltas.reshape(-1)[keep]
+    bucket = torch.div(kid, bucket_rows, rounding_mode="floor")
+    ins = [bucket == b for b in range(buckets)]
+    counts = torch.stack([m.sum() for m in ins])
+    starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return (torch.cat([kid[m] for m in ins]), torch.cat([kd[m] for m in ins]),
+            starts.to(torch.int32))
+
+
+def dim1_bucket_cuda(ids: torch.Tensor, deltas: torch.Tensor, num_rows: int,
+                     *, plan: Dim1Plan | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's bucket pass on the card, alone: what :func:`dim1_bucket_plain`
+    returns for the plan's buckets, except that the ids and values are
+    ``(B,)`` and only their first ``starts[-1]`` entries are written (no
+    host sync). K4 runs the same kernels inside its own C call; this
+    wrapper serves the tests and ``chip_smoke.py``."""
+    fn = "dim1_bucket_cuda"
+    _check(ids.is_cuda and ids.dtype == torch.int32 and ids.dim() == 1 and
+           ids.is_contiguous(),
+           f"{fn}: ids must be contiguous 1-D int32 on the card, got "
+           f"{tuple(ids.shape)} {ids.dtype} on {ids.device}")
+    _check_batch(fn, ids)
+    B = ids.shape[0]
+    _check(deltas.device == ids.device and deltas.dtype == torch.float32
+           and deltas.is_contiguous() and deltas.numel() == B,
+           f"{fn}: deltas must be {B} contiguous float32 beside the ids")
+    num_rows = operator.index(num_rows)
+    _check(1 <= num_rows < 2**31, f"{fn}: num_rows {num_rows}")
+    if plan is None:
+        plan = card_dim1_plan(ids.device, B, num_rows)
+    _check(plan.buckets > 1, f"{fn}: a table of one tile takes no bucket "
+           "pass")
+    work = torch.empty(max(4, _dim1_bucket_words(B, plan)),
+                       dtype=torch.int32, device=ids.device)
+    if B > 0:
+        lib = _build.library()
+        with torch.cuda.device(ids.device):
+            rc = lib.fps_dim1_bucket_f32(
+                ids.data_ptr(), deltas.data_ptr(), num_rows, B,
+                plan.bucket_rows, plan.buckets, plan.bucket_blocks,
+                work.data_ptr(), work.numel(), _stream(ids))
+        _raise_on_error(rc, fn)
+        dim1_bucket_cuda.launches += 1
+    else:
+        work.zero_()
+    at = 2 * B + plan.bucket_blocks * plan.buckets
+    return (work[:B], work[B:2 * B].view(torch.float32),
+            work[at:at + plan.buckets + 1])
+
+
+dim1_bucket_cuda.launches = 0
 
 WRAPPERS = {"gather_rows": gather_rows_cuda, "scatter_add": scatter_add_cuda_,
             "gather_rows_dim1": gather_rows_dim1_cuda,

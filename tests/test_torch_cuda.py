@@ -4,7 +4,8 @@
 PA and logistic-regression shapes; these tests add the edges: odd and wide
 rows, empty batches, tables of one row, every id dropped, one id owning the
 whole batch, odd batch lengths against the scalar gather's 16-byte path, the
-head view of a scalar table, K3's head past one tile of shared memory, its
+head view of a scalar table, K4's tiles, bucket pass, clusters and plans it
+refuses, K3's head past one tile of shared memory, its
 slices and clusters (the last cluster partly empty), batches around one
 staged chunk, runs across chunks and slices, the plans it refuses, the
 hot/cold split and the whole-table route, K2's radix sort against
@@ -288,8 +289,9 @@ def test_scatter_dim1_kernel_deterministic_and_within_bound(dev, R, B):
 
 @pytest.mark.parametrize("B", [1, 1023, 1024, 1025, 5000, 1 << 20])
 def test_scatter_dim1_one_id_owns_the_batch(dev, B):
-    """One run across every tile: the carry pass chains all the tiles'
-    partials. The tree order is not the CPU's, so the bound, not bits."""
+    """One run across every chunk, block and cluster: the cluster sums and
+    the fold chain every block's part of it. The tree order is not the
+    CPU's, so the bound, not bits."""
     rng = np.random.default_rng(B)
     table = torch.from_numpy(rng.normal(0, 1, (8, 1)).astype(np.float32))
     deltas = torch.from_numpy(rng.normal(0, 1, (B, 1)).astype(np.float32))
@@ -306,8 +308,8 @@ def test_scatter_dim1_one_id_owns_the_batch(dev, B):
 
 
 def test_scatter_dim1_runs_across_tile_edges(dev):
-    """Runs that start, end or cross exactly at the 1,024-position tile
-    edges, with dropped ids at both ends of the sorted order."""
+    """Runs that start, end or cross exactly at 1,024-position edges (a
+    chunk's), with dropped ids before and after them."""
     lengths = [1, 1023, 1, 1024, 2048, 3, 1021, 4096, 7]
     ids = np.concatenate([np.full(n, r, np.int32)
                           for r, n in enumerate(lengths)])
@@ -390,6 +392,218 @@ def test_dim1_wrappers_refuse_what_they_do_not_take(dev, bad):
     if bad != "deltas_flat":
         with pytest.raises(ValueError):
             kernels.gather_rows_dim1_cuda(table, ids)
+    assert not any(kernels.launch_counts().values())
+
+
+def _check_dim1(table, ids, deltas, plan=None):
+    """K4 deterministic (two launches, the same bits), within the float32
+    bound of the plain version, and on sixteenths of the same inputs equal
+    to the exact float64 sum (the bound alone grows past a hot row's sum,
+    so only exact sums show a lost or doubled push). ``plan``: K4's plan,
+    the card's by default."""
+    got = kernels.scatter_add_dim1_cuda_(table.clone(), ids, deltas,
+                                         plan=plan)
+    again = kernels.scatter_add_dim1_cuda_(table.clone(), ids, deltas,
+                                           plan=plan)
+    plain = kernels.scatter_add_dim1_plain(table.clone(), ids, deltas)
+    assert torch.equal(got, again)
+    assert bool(((got.double() - plain.double()).abs()
+                 <= _sum_bound(table, ids, deltas)).all())
+    et, ed = _sixteenths(table), _sixteenths(deltas)
+    exact = kernels.scatter_add_dim1_cuda_(et.clone(), ids, ed, plan=plan)
+    assert torch.equal(exact.double(), _exact_sum(et, ids, ed))
+    return got
+
+
+DIM1_FIT = kernels.DIM1_MAX_TILE_ROWS
+
+
+@pytest.mark.parametrize("R", [1, 4, 2047, DIM1_FIT, DIM1_FIT + 1,
+                               2 * DIM1_FIT, 2 * DIM1_FIT + 1])
+def test_scatter_dim1_table_at_a_tile_edge(dev, R):
+    """Tables of one row, of the most rows one tile holds and one more (a
+    bucket pass over two tiles), of two tiles and one more (three), with
+    ids at both edges of every tile."""
+    table, ids, deltas = _dim1_inputs(R, 70_000, seed=R, dev=dev)
+    plan = kernels.card_dim1_plan(dev, 70_000, R)
+    assert plan.buckets == -(-R // DIM1_FIT)
+    edges = torch.tensor([0, R - 1, min(DIM1_FIT, R - 1),
+                          min(DIM1_FIT - 1, R - 1)], dtype=torch.int32)
+    ids[1::9] = edges.to(dev).repeat(-(-ids[1::9].numel() // 4))[
+        :ids[1::9].numel()]
+    _check_dim1(table, ids, deltas)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1023, 1025, 2047, 2049, 5003, 70_001])
+@pytest.mark.parametrize("R", [2048, 3 * DIM1_FIT])
+def test_scatter_dim1_batch_not_a_multiple_of_the_chunk(dev, B, R):
+    """Batches around and past one chunk of the tile pass (1,024 ids) and a
+    round of the bucket pass (2,048), on one tile and on a bucket pass of
+    three."""
+    table, ids, deltas = _dim1_inputs(R, B, seed=B + R, dev=dev)
+    _check_dim1(table, ids, deltas)
+
+
+def test_scatter_dim1_hot_tile_over_many_clusters(dev):
+    """The logistic-regression shape: 1M rows (20 tiles), Zipf(0.9)
+    features, so that tile 0 takes most pushes and its stretch is cut over
+    most clusters; the cold tiles' stretches share clusters."""
+    R, B = 1_000_000, 425_997
+    rng = np.random.default_rng(7)
+    pop = 1.0 / np.arange(1, R + 1) ** 0.9
+    ids = rng.choice(R, B, p=pop / pop.sum()).astype(np.int32)
+    ids[::97] = -1
+    ids[13::101] = R + 3
+    table = torch.from_numpy(rng.normal(0, 1, (R, 1)).astype(np.float32))
+    deltas = torch.from_numpy(rng.normal(0, 1, (B, 1)).astype(np.float32))
+    plan = kernels.card_dim1_plan(dev, B, R)
+    assert plan.buckets == 20 and plan.clusters > 1
+    counts = np.bincount(ids[(ids >= 0) & (ids < R)] // plan.bucket_rows)
+    assert counts[0] > counts.sum() / 2
+    _check_dim1(table.to(dev), torch.from_numpy(ids).to(dev), deltas.to(dev))
+
+
+def _dim1_plan(B, R, cluster, clusters):
+    return kernels.dim1_plan(B, R)._replace(cluster=cluster,
+                                            clusters=clusters)
+
+
+# (B, R, cluster, clusters): one block; one cluster of 2, 5 and 8 (the
+# cluster adds straight into the table); clusters of 1 (each block's partial
+# through the fold); more clusters than a small batch fills (empty ones);
+# the same on a bucket pass, where a cluster holds pieces of several tiles.
+@pytest.mark.parametrize("B,R,cluster,clusters", [
+    (5000, 3000, 1, 1), (5000, 3000, 2, 1), (5000, 3000, 5, 1),
+    (20_000, 3000, 8, 1), (20_000, 3000, 1, 7), (20_000, 3000, 8, 16),
+    (17, 3000, 8, 16), (40_000, 3 * DIM1_FIT, 1, 1),
+    (40_000, 3 * DIM1_FIT, 4, 3), (40_000, 3 * DIM1_FIT, 8, 16),
+    (300, 3 * DIM1_FIT, 8, 16)])
+def test_scatter_dim1_clusters_and_pieces(dev, B, R, cluster, clusters):
+    table, ids, deltas = _dim1_inputs(R, B, seed=B + cluster, dev=dev)
+    _check_dim1(table, ids, deltas, _dim1_plan(B, R, cluster, clusters))
+
+
+@pytest.mark.parametrize("R", [300, 3 * DIM1_FIT])
+@pytest.mark.parametrize("cluster,clusters", [(1, 1), (8, 2), (8, 16)])
+def test_scatter_dim1_runs_across_chunk_block_and_cluster_edges(
+        dev, R, cluster, clusters):
+    """Runs of one row across the 1,024-push chunks, a warp's 128, the
+    blocks' and the clusters' shares: runs of 1,023, 1, 1,024, 2, 127, 128,
+    129, 2,047, 2,048, 2,049, 4,095 and 8,193 pushes, in rows of each tile,
+    with dropped ids between some."""
+    lengths = [1023, 1, 1024, 2, 127, 128, 129, 2047, 2048, 2049, 4095, 1,
+               64, 8193, 3]
+    rows = [(k * 7919) % R for k in range(len(lengths))]
+    runs = [np.full(n, r, np.int32) for r, n in zip(rows, lengths)]
+    runs.insert(5, np.full(37, -1, np.int32))
+    runs.insert(9, np.full(11, R, np.int32))
+    ids = np.concatenate(runs)
+    B = ids.size
+    rng = np.random.default_rng(R + clusters)
+    table = torch.from_numpy(rng.normal(0, 1, (R, 1)).astype(np.float32))
+    deltas = torch.from_numpy(rng.normal(0, 1, (B, 1)).astype(np.float32))
+    _check_dim1(table.to(dev), torch.from_numpy(ids).to(dev),
+                deltas.to(dev), _dim1_plan(B, R, cluster, clusters))
+
+
+@pytest.mark.parametrize("R", [40, 3 * DIM1_FIT])
+def test_scatter_dim1_every_id_dropped_on_every_route(dev, R):
+    table, _, deltas = _dim1_inputs(R, 70_000, seed=3, dev=dev)
+    ids = torch.full((70_000,), -1, dtype=torch.int32, device=dev)
+    ids[::2] = R
+    ids[1::4] = np.iinfo(np.int32).max
+    for plan in (None, _dim1_plan(70_000, R, 8, 16),
+                 _dim1_plan(70_000, R, 1, 1)):
+        assert torch.equal(kernels.scatter_add_dim1_cuda_(
+            table.clone(), ids, deltas, plan=plan), table)
+
+
+@pytest.mark.parametrize("R", [47_236, 3 * DIM1_FIT])
+def test_scatter_dim1_one_id_owns_2_20_pushes_exactly(dev, R):
+    """Every push to one row, one tile or a bucket pass of three: on
+    sixteenths each float32 partial sum is exact, so the row must equal the
+    float64 sum bit for bit, and every other row stays."""
+    B = 1 << 20
+    rng = np.random.default_rng(R)
+    table = _sixteenths(torch.from_numpy(
+        rng.normal(0, 1, (R, 1)).astype(np.float32)))
+    deltas = _sixteenths(torch.from_numpy(
+        rng.normal(0, 1, (B, 1)).astype(np.float32)))
+    row = R - 5
+    ids = torch.full((B,), row, dtype=torch.int32)
+    got = _check_dim1(table.to(dev), ids.to(dev), deltas.to(dev)).cpu()
+    assert torch.equal(got[row].double(),
+                       table[row].double() + deltas.double().sum(0))
+    np.testing.assert_array_equal(np.delete(got.numpy(), row, 0),
+                                  np.delete(table.numpy(), row, 0))
+
+
+@pytest.mark.parametrize("R,H", [(9000, 1024), (3 * DIM1_FIT, 2048),
+                                 (3 * DIM1_FIT, DIM1_FIT + 5)])
+def test_scatter_dim1_head_view_leaves_the_rows_past_it(dev, R, H):
+    """K4 on ``table[:H]``, a view into a larger table (the head-prefix
+    route's first call; a view of more than one tile too): ids at and past
+    H are dropped, rows >= H unchanged."""
+    table, ids, deltas = _dim1_inputs(R, 100_000, seed=H, dev=dev)
+    ids[2::5] = H
+    ids[3::5] = H - 1
+    whole = table.clone()
+    got = _check_dim1(whole[:H], ids, deltas)
+    kernels.scatter_add_dim1_cuda_(whole[:H], ids, deltas)
+    assert torch.equal(whole[:H], got)
+    assert torch.equal(whole[H:], table[H:])
+
+
+@pytest.mark.parametrize("R,B", [(3 * DIM1_FIT, 70_000),
+                                 (1_000_000, 425_997),
+                                 (256 * DIM1_FIT + 1, 200_000),
+                                 (2 * DIM1_FIT, 17)])
+def test_dim1_bucket_pass_bit_equal_to_plain(dev, R, B):
+    """The bucket pass alone: the kept ids and their deltas in bucket
+    order, stable, and the buckets' starts, bit for bit as the plain
+    version's stable sort by bucket; past 256 tiles a bucket holds two."""
+    _, ids, deltas = _dim1_inputs(R, B, seed=B, dev=dev)
+    plan = kernels.card_dim1_plan(dev, B, R)
+    assert plan.buckets > 1
+    got_ids, got_vals, starts = kernels.dim1_bucket_cuda(ids, deltas, R)
+    want_ids, want_vals, want_starts = kernels.dim1_bucket_plain(
+        ids, deltas, R, plan.bucket_rows, plan.buckets)
+    assert torch.equal(starts, want_starts)
+    n = int(starts[-1])
+    assert torch.equal(got_ids[:n], want_ids)
+    assert torch.equal(got_vals[:n], want_vals)
+
+
+def test_scatter_dim1_past_256_tiles(dev):
+    """A table of 256 tiles and one row more: buckets of two tiles, each
+    tile of a bucket summed from the bucket's stretch in turn."""
+    R, B = 256 * DIM1_FIT + 1, 200_000
+    plan = kernels.card_dim1_plan(dev, B, R)
+    assert plan.tiles_per_bucket == 2 and plan.buckets == 129
+    rng = np.random.default_rng(1)
+    ids = rng.integers(-1, R + 1, B).astype(np.int32)
+    ids[::3] = rng.integers(0, 4 * DIM1_FIT, B)[::3]
+    table = torch.zeros((R, 1), device=dev)
+    table[::1000] = 1.0
+    deltas = torch.from_numpy(rng.normal(0, 1, (B, 1)).astype(np.float32))
+    _check_dim1(table, torch.from_numpy(ids).to(dev), deltas.to(dev))
+
+
+@pytest.mark.parametrize("bad", ["cluster_9", "tile_not_64", "too_much_smem",
+                                 "too_few_tiles", "no_bucket_blocks"])
+def test_dim1_kernel_refuses_a_plan_it_cannot_run(dev, bad):
+    table, ids, deltas = _dim1_inputs(3 * DIM1_FIT, 5000, seed=9, dev=dev)
+    plan = kernels.dim1_plan(5000, 3 * DIM1_FIT)
+    plan = {
+        "cluster_9": plan._replace(cluster=9),
+        "tile_not_64": plan._replace(tile_rows=plan.tile_rows - 2),
+        "too_much_smem": plan._replace(tile_rows=plan.tile_rows + 4096),
+        "too_few_tiles": plan._replace(buckets=2),
+        "no_bucket_blocks": plan._replace(bucket_blocks=0),
+    }[bad]
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        kernels.scatter_add_dim1_cuda_(table.clone(), ids, deltas, plan=plan)
     assert not any(kernels.launch_counts().values())
 
 

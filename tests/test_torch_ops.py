@@ -317,13 +317,12 @@ def test_packed_slices(batch, head, dim, want):
                                   if plan.groups > 1 else 0)
 
 
-def _packed_source_constants():
-    """The constexpr ints of csrc/scatter_add_packed.cu (sums, products,
-    quotients and shifts of literals and earlier constants) and its row
-    strides."""
+def _source_constants(source):
+    """The constexpr ints of csrc/``source`` (sums, products, quotients and
+    shifts of literals and earlier constants), and the source's text."""
     from fps_tpu_torch.ops import _build
 
-    with open(os.path.join(_build.CSRC, "scatter_add_packed.cu")) as f:
+    with open(os.path.join(_build.CSRC, source)) as f:
         text = f.read()
     env = {}
     for name, expr in re.findall(
@@ -331,6 +330,13 @@ def _packed_source_constants():
         # The source's own integer arithmetic.
         expr = " ".join(expr.split()).replace("/", "//")
         env[name] = eval(expr, {}, dict(env))
+    return env, text
+
+
+def _packed_source_constants():
+    """The constexpr ints of csrc/scatter_add_packed.cu and its row
+    strides."""
+    env, text = _source_constants("scatter_add_packed.cu")
     strides = re.search(r"kStrides\[\] = \{([^}]*)\}", text)[1]
     return env, tuple(int(w) for w in strides.split(","))
 
@@ -462,6 +468,154 @@ def test_dim1_plain_versions_refuse_wide_tables():
     with pytest.raises(ValueError, match=r"\(R, 1\)"):
         kernels.scatter_add_dim1_plain(t, i, torch.zeros(3, 2))
     del d
+
+
+def test_dim1_plan_constants_match_the_source():
+    env, _ = _source_constants("scatter_add_dim1.cu")
+    assert kernels.DIM1_CHUNK == env["kTileChunk"]
+    assert kernels.DIM1_BUCKET_IDS == env["kChunk"]
+    assert kernels.DIM1_BUCKETED_CLUSTER <= kernels.DIM1_MAX_CLUSTER
+    assert kernels.DIM1_MAX_CLUSTER == env["kMaxCluster"]
+    assert kernels.DIM1_MAX_BUCKETS == env["kMaxBuckets"] <= env["kThreads"]
+    assert kernels.DIM1_MAX_BUCKET_BLOCKS == env["kMaxBucketBlocks"]
+    assert kernels.PACKED_MAX_SMEM == env["kMaxSmem"]
+    assert kernels.DIM1_FIXED_SMEM == env["kFixedSmem"]
+    assert kernels.DIM1_GROUP_ROWS == env["kGroupRows"]
+    assert kernels.DIM1_TILE_ALIGN == env["kTileAlign"]
+    # A warp sorts its 128 entries of a chunk: 7 bits of place in a key.
+    assert env["kTileChunk"] // env["kWarps"] == 1 << env["kPosBits"] == 128
+
+
+# (batch, R, row tiles, buckets): the K4 shapes of chip_smoke.py (the binary
+# PA head view and tail, the SGD logistic regression, the off-path 2^20-id
+# pushes) and the edges: the most rows one tile holds and one more, one row,
+# an empty batch, a table past 256 tiles, the largest table.
+DIM1_FIT = kernels.DIM1_MAX_TILE_ROWS
+DIM1_PLAN_SHAPES = [
+    (294_912, 2048, 1, 1), (753_664, 47_236, 1, 1),
+    (425_997, 1_000_000, 20, 20), (1 << 20, 47_236, 1, 1),
+    (5000, DIM1_FIT, 1, 1), (5000, DIM1_FIT + 1, 2, 2), (1000, 1, 1, 1),
+    (0, 300, 1, 1), (200_000, 256 * DIM1_FIT + 1, 257, 129),
+    (5000, 2**31 - 1, 42_474, 256)]
+
+
+@pytest.mark.parametrize("batch,rows,row_tiles,buckets", DIM1_PLAN_SHAPES)
+def test_dim1_plan_tiles_and_shared_memory(batch, rows, row_tiles, buckets):
+    """Row tiles: as few as fit a float a row and a flag byte for each 4
+    rows in 227 KB beside the staging, as even as may be, a multiple of 64
+    rows; they cover [0, R); buckets of whole tiles, at most 256, and none
+    past the table."""
+    plan = kernels.dim1_plan(batch, rows)
+    assert (plan.row_tiles, plan.buckets) == (row_tiles, buckets)
+    assert plan.tile_rows % 64 == 0
+    assert plan.tile_rows * plan.row_tiles >= rows
+    assert plan.tile_rows * (plan.row_tiles - 1) < rows
+    assert plan.tile_rows - 63 <= -(-rows // plan.row_tiles) <= plan.tile_rows
+    assert plan.smem_bytes == (kernels.DIM1_FIXED_SMEM + 4 * plan.tile_rows
+                               + plan.tile_rows // 4)
+    assert plan.smem_bytes <= kernels.PACKED_MAX_SMEM
+    # The largest tile: one more group of 64 rows would not fit.
+    assert (kernels.DIM1_FIXED_SMEM + (DIM1_FIT + 64) * 17 // 4
+            > kernels.PACKED_MAX_SMEM >= kernels.DIM1_FIXED_SMEM
+            + DIM1_FIT * 17 // 4)
+    assert plan.bucket_rows == plan.tiles_per_bucket * plan.tile_rows
+    assert plan.buckets <= kernels.DIM1_MAX_BUCKETS
+    assert plan.bucket_rows * plan.buckets >= rows
+    assert plan.bucket_rows * (plan.buckets - 1) < rows
+    if plan.row_tiles > 1:
+        # One tile fewer would not fit.
+        assert -(-rows // (plan.row_tiles - 1)) > DIM1_FIT
+
+
+@pytest.mark.parametrize("rows", [1, 2048, 47_236, DIM1_FIT])
+@pytest.mark.parametrize("batch", [1, 1023, 1025, 1 << 20])
+def test_dim1_plan_one_tile_takes_no_bucket_pass(batch, rows):
+    plan = kernels.dim1_plan(batch, rows)
+    assert plan.row_tiles == plan.buckets == plan.tiles_per_bucket == 1
+    assert plan.bucket_blocks == plan.piece_weight == 0
+    assert plan.kernels == 1 + (plan.clusters > 1)
+    assert kernels.dim1_work_words(batch, plan) == (
+        plan.clusters * plan.tile_rows if plan.clusters > 1 else 0)
+
+
+@pytest.mark.parametrize("batch,rows,blocks,cluster", [
+    (1, 47_236, 1, 1), (1024, 47_236, 1, 1), (1025, 47_236, 2, 2),
+    (5000, 47_236, 5, 5), (8192, 47_236, 8, 8), (9000, 47_236, 8, 8),
+    (100_000, 47_236, 96, 8), (425_997, 47_236, 128, 8),
+    (1 << 20, 47_236, 128, 8), (5000, 1_000_000, 4, 4),
+    (9000, 1_000_000, 8, 4), (425_997, 1_000_000, 132, 4)])
+def test_dim1_plan_blocks_and_clusters(batch, rows, blocks, cluster):
+    """About one tile-pass block a multiprocessor, at least a chunk of
+    1,024 ids each, in clusters of 8, or of 4 with a bucket pass (all of
+    them, if fewer); the bucket pass at most two blocks a multiprocessor of
+    at least 2,048 ids, each bucket weighing 16,384 pushes more in the
+    cut."""
+    plan = kernels.dim1_plan(batch, rows)
+    assert (plan.clusters * plan.cluster, plan.cluster) == (blocks, cluster)
+    if plan.buckets == 1:
+        assert plan.bucket_blocks == plan.piece_weight == 0
+        assert plan.kernels == 1 + (plan.clusters > 1)
+        return
+    assert plan.bucket_blocks == min(2 * kernels.H100_SMS,
+                                     max(1, -(-batch // 2048)))
+    assert plan.bucket_blocks <= kernels.DIM1_MAX_BUCKET_BLOCKS
+    assert plan.piece_weight == kernels.DIM1_PIECE_PUSHES == 16_384
+    assert plan.kernels == 3 + (plan.clusters > 1)
+
+
+@pytest.mark.parametrize("resident,want", [(15, 15), (16, 16), (30, 16),
+                                           (3, 3), (0, 16), (-2, 16)])
+def test_dim1_plan_keeps_clusters_in_one_wave(resident, want):
+    """With the card's count of co-resident clusters of 8 at a block's
+    shared memory, the clusters are cut so that all run at once; a count
+    of none (or an error) leaves them."""
+    seen = []
+
+    def most(smem, cluster):
+        seen.append((smem, cluster))
+        return resident
+
+    plan = kernels.dim1_plan(753_664, 47_236, resident=most)
+    assert plan.clusters == want and plan.cluster == 8
+    assert seen == [(plan.smem_bytes, 8)]
+
+
+# The K4 shapes of chip_smoke.py phase 3 and the kernels a call at each on
+# 132 multiprocessors: one tile (2 kernels: tile pass, fold) or 20 (4: the
+# bucket pass's count and scatter, the tile pass, the fold).
+@pytest.mark.parametrize("batch,rows,kernels_a_call", [
+    (294_912, 2048, 2), (753_664, 47_236, 2), (425_997, 1_000_000, 4),
+    (1 << 20, 47_236, 2)])
+def test_dim1_plan_kernels_a_call_at_the_smoke_shapes(batch, rows,
+                                                      kernels_a_call):
+    plan = kernels.dim1_plan(batch, rows)
+    assert plan.kernels == kernels_a_call
+    assert plan.kernels == (2 * (plan.buckets > 1) + 1
+                            + (plan.clusters > 1))
+    # The partials: a slot of a bucket's rows for each piece a cluster can
+    # take, clusters + buckets - 1 of them.
+    words = kernels.dim1_work_words(batch, plan)
+    assert words >= (plan.clusters + plan.buckets - 1) * plan.bucket_rows
+    assert words % 4 == 0
+
+
+def test_dim1_bucket_plain_orders_by_bucket_stably():
+    """The bucket pass's plain version: kept ids in bucket order, batch
+    order within a bucket, each with its delta; the starts of the
+    buckets."""
+    rng = np.random.default_rng(3)
+    ids = rng.integers(-3, 1030, 5000).astype(np.int32)
+    deltas = rng.normal(0, 1, (5000, 1)).astype(np.float32)
+    got_ids, got_vals, starts = kernels.dim1_bucket_plain(
+        torch.from_numpy(ids), torch.from_numpy(deltas), 1000, 100, 10)
+    keep = (ids >= 0) & (ids < 1000)
+    order = np.argsort(ids[keep] // 100, kind="stable")
+    np.testing.assert_array_equal(got_ids.numpy(), ids[keep][order])
+    np.testing.assert_array_equal(got_vals.numpy(),
+                                  deltas[keep, 0][order])
+    want = np.concatenate([[0], np.cumsum(np.bincount(ids[keep] // 100,
+                                                      minlength=10))])
+    np.testing.assert_array_equal(starts.numpy(), want)
 
 
 @pytest.fixture
