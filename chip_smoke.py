@@ -12,7 +12,12 @@ on the card, raising on the first failure:
 2. builds the kernels and prints the build time;
 3. holds each kernel against its plain PyTorch version at the shapes its
    paths give it, with -1 and >= R ids mixed in: the gathers (K1, K5) must
-   be bit-equal; the scatter-adds (K2, K4) must lie within the float32
+   be bit-equal (as int32 views), K5 at binary PA as the one call of the
+   head-prefix route (the head view and the tail alone beside it, off the
+   path), each timed beside ``index_select`` and ``Tensor.copy_`` of its
+   output's size, and K1 at the 20-class PA pull also over a synchronised
+   loop of 100 calls, a call of which its held time must cover; the
+   scatter-adds (K2, K4) must lie within the float32
    summation bound of a float64 sum, equal the exact float64 sum bit for
    bit on inputs rounded to sixteenths, and give the same bits on two
    launches; K2's hand-written radix sort must equal ``torch.sort(keys,
@@ -36,18 +41,19 @@ on the card, raising on the first failure:
    against K2 alone over the whole push; then the crossover sweep behind
    ``packed_crossover_rows``: K3 over the whole table against K2 with its
    sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
-   32,768. K4's bucket pass by row tile, where its plan has one (the
-   1M-row logistic-regression table), must equal its plain version (a
-   stable sort by bucket) bit for bit. Times are CUDA-event medians of 30
-   (the sweep: 10) with the card held busy, beside the bound (least bytes /
+   32,768. K4's bucket pass by row tile,
+   where its plan has one (the 1M-row logistic-regression table), must
+   equal its plain version (a stable sort by bucket) bit for bit. Times
+   are CUDA-event medians of 30 (the crossover sweep: 10) with the card held busy, beside the bound (least bytes /
    3.35 TB/s), the library call's time and, for K2 and K4, their sort's
    time (K2: its radix sort; K4: its bucket pass, none where the table is
    one tile; ``torch.sort``'s beside both);
 4. drives each path at full width, every launch counter at 0 just before it
    and read just after: online MF at ML-20M size (2 epochs sync, 2 SSP);
-   binary PA-I at the RCV1 shape with the head prefix (K5 and K4 twice a
-   step, no K1 / K2); 20-class PA-I (K1 / K2 only); SSP logistic regression
-   at the Criteo shape with SGD and the dense head (K5 and K4 once a step),
+   binary PA-I at the RCV1 shape with the head prefix (K5 once and K4
+   twice a step, no K1 / K2); 20-class PA-I (K1 / K2 only); SSP logistic
+   regression at the Criteo shape with SGD and the dense head (K5 and K4
+   once a step),
    then a smaller AdaGrad run (K1 / K2 only). Then the hot/cold split
    through device-resident ingest and ``run_indexed``: MF at ML-20M size
    with ``hot_items = 2048`` (2 epochs sync, 2 SSP; K1 2, K2 2 and K3 1 a
@@ -65,10 +71,11 @@ on the card, raising on the first failure:
    launches, which must be 3 a sort pass plus 2, 10 calls of the sort
    alone at each sort edge, 3 kernels a pass, 10 K3 calls at each K3
    shape, its slice pass once a call and its fold pass once more where the
-   plan has more than one cluster, and 10 K4 calls at each K4 shape, whose
+   plan has more than one cluster, 10 K4 calls at each K4 shape, whose
    kernels a call (the bucket pass's count and scatter where the plan has
    buckets, the tile pass, the fold where it has more than one cluster)
-   must be what ``dim1_plan`` counts;
+   must be what ``dim1_plan`` counts, and 10 K1 and K5 calls at each of
+   their path shapes, one kernel a call;
 6. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -93,6 +100,8 @@ EPS32 = float(np.finfo(np.float32).eps)
 # About 1 ms of the card's clock: longer than the host takes to enqueue any
 # one call timed here, so that call's kernels queue up behind the hold.
 HOLD_CYCLES = 2_000_000
+# About 10 ms: longer than the host takes to enqueue 100 gather calls.
+LOOP_HOLD_CYCLES = 20_000_000
 
 ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS = 138_493, 26_744, 20_000_263
 RANK = 10
@@ -171,34 +180,104 @@ def time_ms(torch, fn, *, setup=None, hold: bool = True, reps: int = 30,
     return float(np.median([s.elapsed_time(e) for s, e in times]))
 
 
-def check_gather(torch, label, kernel, plain, table, ids, path):
-    """Hold a gather kernel against its plain version (bit-equal) and time
-    it, its plain version and ``index_select``."""
+def check_gather(torch, kernels, label, kernel, plain, table, ids, path, *,
+                 head=None, loop=False, collect=None):
+    """Hold a gather kernel against its plain version (bit-equal, as int32
+    views: -0.0 and +0.0 differ) and time it, its plain version,
+    ``index_select`` (with the head-prefix route, ``head = (H, q)``: of the
+    head view and the rest, and their concatenation) and ``Tensor.copy_``
+    of an output of the same size (the card's rate for writing it; a
+    yardstick only), and record the kernel's plan. ``loop`` also times a
+    synchronised loop of 100 calls, the card held while the host enqueues
+    them, whose time a call the held time must cover (programmatic
+    dependent launch must not let the end event pass the kernel).
+    ``collect`` (a list) gathers the call for :func:`gather_breakdown`."""
     num_rows, dim = table.shape
     B = ids.shape[0]
-    got = kernel(table, ids)
-    want = plain(table, ids)
+    kw = {} if head is None else {"head_rows": head[0],
+                                  "head_prefix": head[1]}
+
+    def call(_=None):
+        return kernel(table, ids, **kw)
+
+    got = call()
+    want = plain(table, ids, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError(f"{label}: kernel differs from plain version")
-    valid = (ids >= 0) & (ids < num_rows)
+    bound = torch.full_like(ids, num_rows)
+    if head is not None:
+        bound[:head[1]] = min(head[0], num_rows)
+    valid = (ids >= 0) & (ids < bound)
     safe = torch.where(valid, ids, 0)
     uniq = int(torch.unique(ids[valid]).numel())
+    if head is None:
+        def library(_):
+            return table.index_select(0, safe)
+    else:
+        q = head[1]
+
+        def library(_):
+            return torch.cat([table[:head[0]].index_select(0, safe[:q]),
+                              table.index_select(0, safe[q:])])
+    src = torch.zeros((B, dim), device=table.device)
+    dst = torch.empty_like(src)
     # Least bytes: the ids read, each distinct touched row read once, the
     # output written.
     nbytes = B * 4 + uniq * dim * 4 + B * dim * 4
     case = {
         "shape": label, "path": path, "R": num_rows, "D": dim, "B": B,
-        "unique_rows": uniq, "max_abs_err": float((got - want).abs().max())
-        if B else 0.0,
-        "ms": time_ms(torch, lambda _: kernel(table, ids)),
-        "call_ms": time_ms(torch, lambda _: kernel(table, ids), hold=False),
-        "plain_ms": time_ms(torch, lambda _: plain(table, ids)),
-        "library_ms": time_ms(torch, lambda _: table.index_select(0, safe)),
+        "head": head, "unique_rows": uniq,
+        "max_abs_err": float((got - want).abs().max()) if B else 0.0,
+        "ms": time_ms(torch, call),
+        "call_ms": time_ms(torch, call, hold=False),
+        "plain_ms": time_ms(torch, lambda _: plain(table, ids, **kw)),
+        "library_ms": time_ms(torch, library),
+        "copy_ms": time_ms(torch, lambda _: dst.copy_(src)),
         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
     }
+    case["plan"] = kernels.card_plan_for(table, ids)._asdict()
+    if loop:
+        call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # Held too, for as long as the host takes to enqueue the 100 calls,
+        # so that the loop times the card's work and not the host's.
+        torch.cuda._sleep(LOOP_HOLD_CYCLES)
+        start.record()
+        for _ in range(100):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        case["loop_ms"] = start.elapsed_time(end) / 100
+        if not case["ms"] >= 0.9 * case["loop_ms"]:
+            raise AssertionError(
+                f"{label}: held time {case['ms']} ms does not cover a call "
+                f"of a synchronised loop of 100 ({case['loop_ms']} ms)")
     log(f"{label}: bit-equal to plain; " + json.dumps(case))
+    if collect is not None:
+        collect.append((label, call))
     return case
+
+
+def gather_breakdown(torch, inputs):
+    """Traced, at each K1 and K5 shape of the paths: the device µs and
+    launches a call of each kernel, which must be the gather's one kernel
+    (``gather_rows_kernel``, ``gather_dim1_kernel``). Run last, after every
+    timed phase."""
+    out = {}
+    for label, call in inputs:
+        us, launched = profiled(torch, call)
+        want = "gather_dim1_kernel" if label.startswith("K5") else (
+            "gather_rows_kernel")
+        if launched != {want: 1}:
+            raise AssertionError(f"{label}: traced launches a call "
+                                 f"{launched}, expected {{{want!r}: 1}}")
+        out[label] = {"device_us": us, "launches": launched,
+                      "kernels_per_call": 1}
+        log(f"gather breakdown, {label}, a call: " + json.dumps(out[label]))
+    return out
 
 
 def check_sum_bound(torch, label, table, kid, kd, got, want):
@@ -286,8 +365,8 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
 
 def profiled(torch, fn, calls=10):
     """Device µs and launches a call of each kernel of K2 and its sort
-    (``radix_*``, ``rows_*``), of K3 (``packed_*``) and of K4 (``dim1_*``)
-    over ``calls`` calls
+    (``radix_*``, ``rows_*``), of K3 (``packed_*``), of K4 (``dim1_*``) and
+    of K1 and K5 (``gather_*``) over ``calls`` calls
     of ``fn``, from ``torch.profiler``: ``({name: µs}, {name:
     launches})``."""
     from torch.profiler import ProfilerActivity, profile
@@ -301,8 +380,8 @@ def profiled(torch, fn, calls=10):
         torch.cuda.synchronize()
     us, count = {}, {}
     for ev in prof.key_averages():
-        name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+|dim1_\w+)",
-                         ev.key)
+        name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+|dim1_\w+|"
+                         r"gather_\w+)", ev.key)
         if not name:
             continue
         us[name[1]] = us.get(name[1], 0.0) + (
@@ -626,6 +705,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     k2_inputs = cases["k2_inputs"] = []
     k3_inputs = cases["k3_inputs"] = []
     k4_inputs = cases["k4_inputs"] = []
+    gather_inputs = cases["gather_inputs"] = []
 
     def k4_case(label, view, ids, dl, path):
         """K4 at one shape, with its plan and, where the plan has one, its
@@ -647,8 +727,9 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     for name, rows, zipf in (("items", ML20M_ITEMS, True),
                              ("users", ML20M_USERS, False)):
         cases["gather_rows"].append(check_gather(
-            torch, f"K1 MF {name}", g1, g1p, table(rows, RANK),
-            t(path_ids(rng, rows, BATCH, zipf)), "mf"))
+            torch, kernels, f"K1 MF {name}", g1, g1p, table(rows, RANK),
+            t(path_ids(rng, rows, BATCH, zipf)), "mf",
+            collect=gather_inputs))
     for name, rows, dim, zipf, path in (
             ("items_mean_count_column", ML20M_ITEMS, RANK + 1, True, "mf"),
             ("users", ML20M_USERS, RANK, False, "mf"),
@@ -678,8 +759,9 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     mc_ids = t(mix_dropped(mc_data["feat_ids"][:SPARSE_BATCH].reshape(-1),
                            PA_NF))
     cases["gather_rows"].append(check_gather(
-        torch, "K1 PA multiclass", g1, g1p, table(PA_NF, PA_MC_CLASSES),
-        mc_ids, "pa_multiclass"))
+        torch, kernels, "K1 PA multiclass", g1, g1p,
+        table(PA_NF, PA_MC_CLASSES), mc_ids, "pa_multiclass", loop=True,
+        collect=gather_inputs))
     cases["scatter_add"].append(check_scatter(
         torch, "K2 PA multiclass", s2, s2p, table(PA_NF, PA_MC_CLASSES),
         mc_ids, deltas(mc_ids.numel(), PA_MC_CLASSES), "pa_multiclass",
@@ -709,8 +791,8 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     # K1 / K2 at the AdaGrad step: (NF, 2) pull, (NF, 3) push of [g, g^2,
     # count] into zeros.
     cases["gather_rows"].append(check_gather(
-        torch, "K1 logreg adagrad", g1, g1p, table(LR_NF, 2), lr_ids,
-        "logreg_adagrad"))
+        torch, kernels, "K1 logreg adagrad", g1, g1p, table(LR_NF, 2),
+        lr_ids, "logreg_adagrad", collect=gather_inputs))
     cases["scatter_add"].append(check_scatter(
         torch, "K2 logreg adagrad", s2, s2p,
         torch.zeros((LR_NF, 3), device=dev), lr_ids,
@@ -735,22 +817,31 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
         "off_path", collect=k3_inputs))
 
     # K5 / K4 at the binary PA step: nnz-major ids of one head-sorted batch,
-    # the first q * B through the head view table[:H], the rest through the
-    # whole table.
+    # the first q * B read against the head table[:H] and pushed through the
+    # head view, the rest against and through the whole table. The read is
+    # one K5 call (the path's shape); the head view and the tail alone are
+    # timed beside it off the path.
     ids = pa_data["feat_ids"][:SPARSE_BATCH].T.reshape(-1)
     split = pa_q * SPARSE_BATCH
     pa_table = table(PA_NF, 1)
-    for name, view, part in (("head view", pa_table[:PA_HEAD], ids[:split]),
-                             ("tail", pa_table, ids[split:])):
-        part = t(mix_dropped(part, view.shape[0]))
+    parts = {"head view": (pa_table[:PA_HEAD],
+                           t(mix_dropped(ids[:split], PA_HEAD))),
+             "tail": (pa_table, t(mix_dropped(ids[split:], PA_NF)))}
+    cases["gather_rows_dim1"].append(check_gather(
+        torch, kernels, "K5 PA head prefix, one call", g5, g5p, pa_table,
+        torch.cat([parts["head view"][1], parts["tail"][1]]), "pa_binary",
+        head=(PA_HEAD, split), collect=gather_inputs))
+    for name, (view, part) in parts.items():
         cases["gather_rows_dim1"].append(check_gather(
-            torch, f"K5 PA {name}", g5, g5p, view, part, "pa_binary"))
+            torch, kernels, f"K5 PA {name} alone", g5, g5p, view, part,
+            "off_path"))
         cases["scatter_add_dim1"].append(k4_case(
             f"K4 PA {name}", view, part, deltas(part.numel(), 1),
             "pa_binary"))
     lr_table = table(LR_NF, 1)
     cases["gather_rows_dim1"].append(check_gather(
-        torch, "K5 logreg", g5, g5p, lr_table, lr_ids, "logreg_sgd"))
+        torch, kernels, "K5 logreg", g5, g5p, lr_table, lr_ids, "logreg_sgd",
+        collect=gather_inputs))
     cases["scatter_add_dim1"].append(k4_case(
         "K4 logreg", lr_table, lr_ids, deltas(lr_ids.numel(), 1),
         "logreg_sgd"))
@@ -997,7 +1088,7 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
     trainer, _ = fps.passive_aggressive(mesh, cfg)
     runs.append(run_path(
         torch, kernels, "PA-I binary, head prefix", trainer,
-        sparse(pa_data, 2, 7), {"gather_rows_dim1": 2,
+        sparse(pa_data, 2, 7), {"gather_rows_dim1": 1,
                                 "scatter_add_dim1": 2},
         below("mistakes", 0.5), card))
     # 20-class PA-I: 200,000 examples, 13 steps an epoch.
@@ -1238,6 +1329,7 @@ def main() -> int:
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
+    gather_inputs = cases.pop("gather_inputs")
     split = cases.pop("split")
     sort_cases, sort_inputs = sort_edges(torch, kernels, dev)
 
@@ -1256,7 +1348,8 @@ def main() -> int:
                                           sort_inputs)
     k3_traced = k3_breakdown(torch, kernels, k3_inputs)
     k4_traced = k4_breakdown(torch, kernels, k4_inputs)
-    del k2_inputs, sort_inputs, k3_inputs, k4_inputs
+    gather_traced = gather_breakdown(torch, gather_inputs)
+    del k2_inputs, sort_inputs, k3_inputs, k4_inputs, gather_inputs
     for case in sort_cases:
         case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
     # Both devices read exactly. The CPU folds each row's pushes one by one
@@ -1305,8 +1398,17 @@ def main() -> int:
 
     src = "fps_tpu_torch/ops/csrc/"
     pallas = "fps_tpu/ops/pallas_kernels.py"
+    def gather_entry(name, source, replaces, first_path):
+        traced = {label: b for label, b in gather_traced.items()
+                  if label.startswith("K1" if name == "gather_rows" else "K5")}
+        return dict(entry(name, source, replaces, first_path),
+                    copy_ms=sum(c["copy_ms"] for c in cases[name]
+                                if c["path"] == first_path),
+                    traced_by_shape=traced)
+
     line = {"kernels": [
-        entry("gather_rows", src + "gather_rows.cu", pallas + ":513", "mf"),
+        gather_entry("gather_rows", src + "gather_rows.cu", pallas + ":513",
+                     "mf"),
         dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
                    "mf"),
              sort={"source": src + "radix_sort.cu",
@@ -1319,8 +1421,8 @@ def main() -> int:
                        if c["path"] == "mf"),
                    "off_path": sort_cases},
              traced_by_shape=breakdown),
-        entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
-              pallas + ":429", "pa_binary"),
+        gather_entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
+                     pallas + ":429", "pa_binary"),
         dict(entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
                    pallas + ":338", "pa_binary"),
              bucket_pass={

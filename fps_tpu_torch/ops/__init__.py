@@ -14,8 +14,10 @@ other.
 Routes a push takes with ``hot_rows = H > 0`` (``TableSpec.hot_ids``):
 
 * ``head_prefix > 0`` on a scalar table: the head-prefix route. The leading
-  ``head_prefix`` ids go through the kernel on the head view ``table[:H]``
-  and the rest through the whole table, as in the JAX package.
+  ``head_prefix`` ids fold through the kernel on the head view
+  ``table[:H]`` and the rest through the whole table, as in the JAX
+  package; a read is one call (K5, or its plain version, with a bound a
+  position), where the JAX package makes two and concatenates.
 * a table wider than one column, ``H >= R``: the whole push through K3, the
   head scatter-add, with no tail.
 * a table wider than one column, ``0 < H < R``: the hot/cold split. Ids in
@@ -76,11 +78,13 @@ def _head_route(table: Tensor, head_prefix: int, hot_rows: int) -> bool:
     return head_prefix > 0 and hot_rows > 0 and table.shape[1] == 1
 
 
-def _gather(table: Tensor, ids: Tensor) -> Tensor:
+def _gather(table: Tensor, ids: Tensor, hot_rows: int = 0,
+            head_prefix: int = 0) -> Tensor:
     cuda = _on(table, "gather_rows") == "cuda"
     if table.shape[1] == 1:
         return (kernels.gather_rows_dim1_cuda if cuda
-                else kernels.gather_rows_dim1_plain)(table, ids)
+                else kernels.gather_rows_dim1_plain)(
+                    table, ids, head_rows=hot_rows, head_prefix=head_prefix)
     return (kernels.gather_rows_cuda if cuda
             else kernels.gather_rows_plain)(table, ids)
 
@@ -121,9 +125,7 @@ def gather_rows(table: Tensor, ids: Tensor, *, hot_rows: int = 0,
     kept so callers read the same in both packages.
     """
     if _head_route(table, head_prefix, hot_rows):
-        head = _gather(table[:hot_rows], ids[:head_prefix])
-        tail = _gather(table, ids[head_prefix:])
-        return torch.cat([head, tail], 0)
+        return _gather(table, ids, hot_rows, head_prefix)
     return _gather(table, ids)
 
 

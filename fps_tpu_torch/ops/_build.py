@@ -127,15 +127,21 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.fps_gather_rows_f32.argtypes = [vp, vp, vp, ll, ll, ci, vp]
+            lib.fps_gather_rows_f32.argtypes = [vp, vp, vp, ll, ll, ci, ci, ci,
+                                                ci, ci, vp]
             lib.fps_gather_rows_f32.restype = ci
+            lib.fps_gather_rows_blocks_per_sm.argtypes = [ci, ci, ci]
+            lib.fps_gather_rows_blocks_per_sm.restype = ci
             lib.fps_radix_sort_i32.argtypes = [vp, ll, ll, vp, ll, vp]
             lib.fps_radix_sort_i32.restype = ci
             lib.fps_scatter_add_f32.argtypes = [vp, vp, vp, ll, ll, ci, vp, ll,
                                                 vp, ll, vp]
             lib.fps_scatter_add_f32.restype = ci
-            lib.fps_gather_rows_dim1_f32.argtypes = [vp, vp, vp, ll, ll, vp]
+            lib.fps_gather_rows_dim1_f32.argtypes = [vp, vp, vp, ll, ll, ll,
+                                                     ll, ci, ci, vp]
             lib.fps_gather_rows_dim1_f32.restype = ci
+            lib.fps_gather_dim1_blocks_per_sm.argtypes = [ci]
+            lib.fps_gather_dim1_blocks_per_sm.restype = ci
             lib.fps_scatter_add_dim1_f32.argtypes = [vp, vp, vp, ll, ll, ll,
                                                      ci, ci, ci, ci, ci, ci,
                                                      vp, ll, vp]

@@ -9,10 +9,15 @@ the device the tensor lies on.
 
 K1 ``gather_rows_cuda`` (``csrc/gather_rows.cu``) replaces
 ``gather_rows_pallas`` (``fps_tpu/ops/pallas_kernels.py``). It is bound by
-the bytes it moves: the requested rows read once, the output written once.
-One thread per output element copies its value or writes zero for an id
-outside ``[0, R)``; a bounds check takes the place of the TPU kernel's
-one-hot matmul over every row tile.
+the bytes it moves (the requested rows read once, the output written once)
+and, at the smaller pulls, by the latency of the id load and the dependent
+table load. The output is cut into 16-byte chunks; a thread loads the one
+or two ids of each of its chunks, then their table values (8 or 16 bytes a
+load where D allows), then writes them with streaming stores, a chunk a
+pass over a grid of one wave; a bounds check writes zero for an id outside
+``[0, R)`` in place of the TPU kernel's one-hot matmul over every row
+tile. :func:`gather_plan` picks the kernel
+instance (a compiled D for the paths' widths) and the grid.
 
 K2 ``scatter_add_cuda_`` (``csrc/scatter_add.cu``, with the sort in
 ``csrc/radix_sort.cu``) replaces ``scatter_add_pallas``. It is bound by
@@ -32,10 +37,14 @@ on every launch; a batch that is one run costs what a uniform batch costs.
 K5 ``gather_rows_dim1_cuda`` (``csrc/gather_rows_dim1.cu``) replaces
 ``gather_rows_dim1_pallas``, the read of an ``(R, 1)`` scalar table. It is
 bound by the stream of ids in and values out (the table, at most 4 MB on the
-paths that use it, stays in L2). Each thread takes four ids with one 16-byte
-load and writes four values with one 16-byte store; a bounds check writes
-zero for a dropped id. The read is exact, where the TPU kernel's hi+lo bf16
-read keeps about 16 mantissa bits.
+paths that use it, stays in L2) and the latency of the dependent loads. It
+cuts the output as K1 does: four ids a chunk with one 16-byte load (4-byte
+loads on a misaligned view), four values, one 16-byte streaming store; a
+bounds check writes zero for a dropped id. The head-prefix route is one
+launch: the first ``head_prefix`` positions read against ``head_rows``
+rows, the rest against ``R``. Every read goes to L2 (staging the head or a
+small table in shared memory measured no faster). The read is exact, where
+the TPU kernel's hi+lo bf16 read keeps about 16 mantissa bits.
 
 K4 ``scatter_add_dim1_cuda_`` (``csrc/scatter_add_dim1.cu``) replaces
 ``scatter_add_dim1_pallas``, the push into an ``(R, 1)`` table. It is bound
@@ -95,24 +104,129 @@ def _raise_on_error(rc: int, kernel: str) -> None:
 
 
 def _check_table_ids(fn: str, table: torch.Tensor, ids: torch.Tensor) -> None:
-    _check(table.is_cuda and ids.is_cuda,
-           f"{fn}: table and ids must be CUDA tensors "
-           f"(got {table.device}, {ids.device})")
-    _check(table.device == ids.device,
-           f"{fn}: table on {table.device}, ids on {ids.device}")
-    _check(table.dtype == torch.float32 and table.dim() == 2,
-           f"{fn}: table must be 2-D float32, got {tuple(table.shape)} "
-           f"{table.dtype}")
-    _check(ids.dtype == torch.int32 and ids.dim() == 1,
-           f"{fn}: ids must be 1-D int32, got {tuple(ids.shape)} {ids.dtype}")
-    _check(table.is_contiguous() and ids.is_contiguous(),
-           f"{fn}: table and ids must be contiguous")
-    _check(table.shape[0] < 2**31, f"{fn}: table has >= 2**31 rows")
+    # Each message is formatted only where its check fails: these checks run
+    # on every launch of a host-bound step.
+    if not (table.is_cuda and ids.is_cuda):
+        raise ValueError(f"{fn}: table and ids must be CUDA tensors "
+                         f"(got {table.device}, {ids.device})")
+    if table.device != ids.device:
+        raise ValueError(f"{fn}: table on {table.device}, ids on "
+                         f"{ids.device}")
+    if not (table.dtype == torch.float32 and table.dim() == 2):
+        raise ValueError(f"{fn}: table must be 2-D float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if not (ids.dtype == torch.int32 and ids.dim() == 1):
+        raise ValueError(f"{fn}: ids must be 1-D int32, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f"{fn}: table and ids must be contiguous")
+    if table.shape[0] >= 2**31:
+        raise ValueError(f"{fn}: table has >= 2**31 rows")
 
+
+H100_SMS = 132  # multiprocessors of an H100 SXM, where the card is not asked
 
 # ---------------------------------------------------------------------------
 # K1: gather
 # ---------------------------------------------------------------------------
+
+# The constants of csrc/gather.cuh and csrc/gather_rows.cu that shape the
+# gathers' plan.
+GATHER_THREADS = 256     # kThreads: a block, a 16-byte output chunk a thread
+GATHER_WIDTHS = (2, 3, 10, 11, 20)  # the D with an instance of their own
+# Blocks of 256 threads an SM holds at once where the card is not asked:
+# 2,048 threads, an SM's most.
+GATHER_BLOCKS_PER_SM = 8
+
+
+class GatherPlan(NamedTuple):
+    """How K1 and K5 cut a gather: the kernel instance (``width``, the D
+    compiled in: 0 for any D read at run time, 1 for K5's scalar kernel;
+    ``vec`` floats a table load; ``index_bits`` of the flat output index;
+    ``aligned_ids``, K5's 16-byte id loads) and ``blocks``."""
+    width: int
+    vec: int
+    index_bits: int
+    aligned_ids: bool
+    blocks: int
+
+
+def gather_plan(batch: int, dim: int, ids_offset_bytes: int = 0,
+                sms: int = H100_SMS, *, table_offset_bytes: int = 0,
+                resident=None) -> GatherPlan:
+    """The plan of a gather of ``batch`` ids from a table of ``dim``
+    columns whose ids and table start ``ids_offset_bytes`` and
+    ``table_offset_bytes`` past a 16-byte boundary, on a card of ``sms``
+    multiprocessors.
+
+    The instance: D = 1 takes K5's scalar kernel, a D in
+    ``GATHER_WIDTHS`` its own, any other D the one that reads it at run
+    time; the table loads are 16 bytes where D is a multiple of 4, 8 where
+    it is even, 4 otherwise, each only where the table's base is so
+    aligned; the index math is 32-bit while ``batch * dim < 2^31``, past
+    that one 64-bit instance (any D, 4-byte loads). K5 loads ids 16 bytes
+    at a time where they are so aligned. A thread takes one 16-byte output
+    chunk a pass; the grid is as many blocks of ``GATHER_THREADS`` as the
+    chunks need, at most one wave: ``resident(plan)`` blocks a
+    multiprocessor, the most of the plan's instance one holds
+    (``GATHER_BLOCKS_PER_SM`` where it is not given).
+    """
+    batch, dim, ids_offset_bytes, sms, table_offset_bytes = (
+        operator.index(x) for x in (batch, dim, ids_offset_bytes, sms,
+                                    table_offset_bytes))
+    _check(batch >= 0 and dim >= 1 and sms >= 1,
+           f"gather_plan: batch {batch}, dim {dim}, sms {sms}")
+    n = batch * dim
+    index_bits = 32 if n < 2**31 else 64
+    if dim == 1:
+        width, vec = 1, 1
+    elif index_bits == 64:
+        width, vec = 0, 1
+    else:
+        width = dim if dim in GATHER_WIDTHS else 0
+        vec = next(v for v in (4, 2, 1)
+                   if dim % v == 0 and table_offset_bytes % (4 * v) == 0)
+    plan = GatherPlan(width=width, vec=vec, index_bits=index_bits,
+                      aligned_ids=dim == 1 and ids_offset_bytes % 16 == 0,
+                      blocks=0)
+    per_sm = GATHER_BLOCKS_PER_SM if resident is None else resident(plan)
+    chunks = -(-n // 4)
+    return plan._replace(blocks=max(1, min(-(-chunks // GATHER_THREADS),
+                                           sms * per_sm)))
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_resident(device: int, plan: GatherPlan) -> int:
+    lib = _build.library()
+    with torch.cuda.device(device):
+        if plan.width == 1:
+            return lib.fps_gather_dim1_blocks_per_sm(int(plan.aligned_ids))
+        return lib.fps_gather_rows_blocks_per_sm(plan.width, plan.vec,
+                                                 plan.index_bits)
+
+
+@functools.lru_cache(maxsize=1024)
+def card_gather_plan(device: int, batch: int, dim: int,
+                     ids_offset_bytes: int = 0,
+                     table_offset_bytes: int = 0) -> GatherPlan:
+    """:func:`gather_plan` for the CUDA device of index ``device``: its
+    multiprocessors, and the blocks of the plan's instance one holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, which builds
+    the kernels). What :func:`gather_rows_cuda` and
+    :func:`gather_rows_dim1_cuda` launch; a training loop asks for the same
+    few shapes every step, so the key is a few ints."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return gather_plan(batch, dim, ids_offset_bytes, sms,
+                       table_offset_bytes=table_offset_bytes,
+                       resident=functools.partial(_gather_resident, device))
+
+
+def card_plan_for(table: torch.Tensor, ids: torch.Tensor) -> GatherPlan:
+    """The plan :func:`gather_rows_cuda` or :func:`gather_rows_dim1_cuda`
+    launches for these CUDA tensors."""
+    return card_gather_plan(table.device.index, ids.shape[0], table.shape[1],
+                            ids.data_ptr() % 16, table.data_ptr() % 16)
+
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``, zero rows for ids outside ``[0, R)``."""
@@ -124,20 +238,35 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(in_range[:, None], vals, torch.zeros_like(vals))
 
 
-def gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor, *,
+                     plan: GatherPlan | None = None) -> torch.Tensor:
     """K1 on the card: ``(B, D)`` rows of the ``(R, D)`` float32 table for
-    ``(B,)`` int32 ids, zero rows for ids outside ``[0, R)``."""
-    _check_table_ids("gather_rows_cuda", table, ids)
+    ``(B,)`` int32 ids, zero rows for ids outside ``[0, R)``; the bits of
+    :func:`gather_rows_plain`. One launch. A table of one column is K5's
+    (:func:`gather_rows_dim1_cuda`; :func:`fps_tpu_torch.ops.gather_rows`
+    routes it there) and is refused. ``plan`` (default
+    :func:`card_plan_for`) is for tests and measurements; the kernel
+    refuses one it cannot run."""
+    fn = "gather_rows_cuda"
+    _check_table_ids(fn, table, ids)
+    _check_batch(fn, ids)
     R, D = table.shape
+    if D == 1:
+        raise ValueError(f"{fn}: an (R, 1) table is K5's "
+                         "(gather_rows_dim1_cuda)")
     B = ids.shape[0]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B * D == 0:
         return out
+    if plan is None:
+        plan = card_plan_for(table, ids)
     lib = _build.library()
     with torch.cuda.device(table.device):
-        rc = lib.fps_gather_rows_f32(table.data_ptr(), ids.data_ptr(),
-                                     out.data_ptr(), R, B, D, _stream(table))
-    _raise_on_error(rc, "gather_rows_cuda")
+        rc = lib.fps_gather_rows_f32(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), R, B, D,
+            plan.width, plan.vec, plan.index_bits, plan.blocks,
+            _stream(table))
+    _raise_on_error(rc, fn)
     gather_rows_cuda.launches += 1
     return out
 
@@ -237,7 +366,8 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 def _check_batch(fn: str, ids: torch.Tensor) -> None:
-    _check(ids.shape[0] < 2**31, f"{fn}: batch has >= 2**31 ids")
+    if ids.shape[0] >= 2**31:
+        raise ValueError(f"{fn}: batch has >= 2**31 ids")
 
 
 def scatter_add_cuda_(table: torch.Tensor, ids: torch.Tensor,
@@ -282,35 +412,65 @@ scatter_add_cuda_.launches = 0
 # ---------------------------------------------------------------------------
 
 def _check_dim1(fn: str, table: torch.Tensor) -> None:
-    _check(table.dim() == 2 and table.shape[1] == 1,
-           f"{fn}: table must be (R, 1), got {tuple(table.shape)}")
+    if not (table.dim() == 2 and table.shape[1] == 1):
+        raise ValueError(f"{fn}: table must be (R, 1), got "
+                         f"{tuple(table.shape)}")
 
 
-def gather_rows_dim1_plain(table: torch.Tensor,
-                           ids: torch.Tensor) -> torch.Tensor:
+def _head(fn: str, table: torch.Tensor, ids: torch.Tensor, head_rows,
+          head_prefix) -> tuple[int, int]:
+    """``(H, q)``: the head ``min(head_rows, R)`` and the prefix
+    ``min(head_prefix, B)``, both >= 0."""
+    head_rows, head_prefix = (operator.index(head_rows),
+                              operator.index(head_prefix))
+    if head_rows < 0 or head_prefix < 0:
+        raise ValueError(f"{fn}: head_rows {head_rows} and head_prefix "
+                         f"{head_prefix} must be >= 0")
+    return min(head_rows, table.shape[0]), min(head_prefix, ids.shape[0])
+
+
+def gather_rows_dim1_plain(table: torch.Tensor, ids: torch.Tensor, *,
+                           head_rows: int = 0,
+                           head_prefix: int = 0) -> torch.Tensor:
     """``table[ids]`` for an ``(R, 1)`` table, zero for ids outside
-    ``[0, R)``."""
-    _check_dim1("gather_rows_dim1_plain", table)
+    ``[0, R)``; the first ``head_prefix`` positions read against the head
+    ``table[:head_rows]`` instead, so an id ``>= head_rows`` there reads
+    zero (the head-prefix route in one call)."""
+    fn = "gather_rows_dim1_plain"
+    _check_dim1(fn, table)
+    H, q = _head(fn, table, ids, head_rows, head_prefix)
+    if q > 0:
+        head = ids[:q]
+        ids = torch.cat([torch.where(head < H, head, -1), ids[q:]])
     return gather_rows_plain(table, ids)
 
 
-def gather_rows_dim1_cuda(table: torch.Tensor,
-                          ids: torch.Tensor) -> torch.Tensor:
+def gather_rows_dim1_cuda(table: torch.Tensor, ids: torch.Tensor, *,
+                          head_rows: int = 0, head_prefix: int = 0,
+                          plan: GatherPlan | None = None) -> torch.Tensor:
     """K5 on the card: ``(B, 1)`` values of the ``(R, 1)`` float32 table for
-    ``(B,)`` int32 ids, zero for ids outside ``[0, R)``."""
-    _check_table_ids("gather_rows_dim1_cuda", table, ids)
-    _check_dim1("gather_rows_dim1_cuda", table)
-    R = table.shape[0]
+    ``(B,)`` int32 ids, zero for ids outside ``[0, R)``, the first
+    ``head_prefix`` positions read against ``table[:head_rows]``; the bits
+    of :func:`gather_rows_dim1_plain`, in one launch. ``plan`` (default
+    :func:`card_plan_for`) is for tests and measurements; the kernel
+    refuses one it cannot run."""
+    fn = "gather_rows_dim1_cuda"
+    _check_table_ids(fn, table, ids)
+    _check_dim1(fn, table)
+    _check_batch(fn, ids)
+    H, q = _head(fn, table, ids, head_rows, head_prefix)
     B = ids.shape[0]
     out = torch.empty((B, 1), dtype=table.dtype, device=table.device)
     if B == 0:
         return out
+    if plan is None:
+        plan = card_plan_for(table, ids)
     lib = _build.library()
     with torch.cuda.device(table.device):
-        rc = lib.fps_gather_rows_dim1_f32(table.data_ptr(), ids.data_ptr(),
-                                          out.data_ptr(), R, B,
-                                          _stream(table))
-    _raise_on_error(rc, "gather_rows_dim1_cuda")
+        rc = lib.fps_gather_rows_dim1_f32(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0],
+            B, H, q, int(plan.aligned_ids), plan.blocks, _stream(table))
+    _raise_on_error(rc, fn)
     gather_rows_dim1_cuda.launches += 1
     return out
 
@@ -329,7 +489,6 @@ PACKED_MAX_SMEM = 232_448   # kMaxSmem: 227 KB, a block's most
 PACKED_FIXED_SMEM = 33_792  # kFixedSmem: shared memory beside the head tile
 PACKED_STRIDES = (4, 8, 12, 16, 20, 32, 64)  # kStrides
 PACKED_SLICE_IDS = 512      # fewest ids a batch slice takes
-H100_SMS = 132
 
 
 class PackedPlan(NamedTuple):

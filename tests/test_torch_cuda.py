@@ -10,7 +10,10 @@ slices and clusters (the last cluster partly empty), batches around one
 staged chunk, runs across chunks and slices, the plans it refuses, the
 hot/cold split and the whole-table route, K2's radix sort against
 ``torch.sort`` (bit for bit) and K2 against exact sums of sixteenths, runs
-across the sort's and the sum's tile edges, and the wrappers' refusals. Every
+across the sort's and the sum's tile edges, the gathers (K1, K5) bit for
+bit at every width, on views, past 2^31 output floats, with short grids
+and the fused head-prefix read, and the wrappers' and kernels' refusals.
+Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -45,6 +48,11 @@ def _inputs(R, D, B, seed, dev):
     return (torch.from_numpy(x).to(dev) for x in (table, ids, deltas))
 
 
+def _bits(x):
+    """The int32 view of a float32 tensor: equal bits, so -0.0 != +0.0."""
+    return x.contiguous().view(torch.int32)
+
+
 def _sum_bound(table, ids, deltas):
     """Float32 sums of the same terms in any two orders lie within
     2 * k * eps32 * (sum of the terms' magnitudes) of each other, k the
@@ -64,10 +72,16 @@ SHAPES = [(1, 1, 1), (1, 3, 50), (257, 1, 1000), (300, 10, 4096),
 
 @pytest.mark.parametrize("R,D,B", SHAPES)
 def test_gather_kernel_bit_equal_to_plain(dev, R, D, B):
+    """K1, or K5 for a table of one column, as ``ops.gather_rows`` routes
+    them (K1 refuses an (R, 1) table)."""
     table, ids, _ = _inputs(R, D, B, seed=R + D, dev=dev)
-    got = kernels.gather_rows_cuda(table, ids)
+    kernel, plain = ((kernels.gather_rows_dim1_cuda,
+                      kernels.gather_rows_dim1_plain) if D == 1
+                     else (kernels.gather_rows_cuda,
+                           kernels.gather_rows_plain))
+    got = kernel(table, ids)
     assert got.shape == (B, D)
-    assert torch.equal(got, kernels.gather_rows_plain(table, ids))
+    assert torch.equal(got, plain(table, ids))
 
 
 @pytest.mark.parametrize("R,D,B", SHAPES)
@@ -335,8 +349,9 @@ def test_scatter_dim1_every_id_dropped_leaves_the_table(dev):
 
 
 def test_dim1_head_view(dev):
-    """The head-prefix route's calls: the kernels on ``table[:H]``, a view
-    into the table, then on the whole table."""
+    """The head-prefix route's calls: the read in one K5 launch with a bound
+    a position; the push by K4 on ``table[:H]``, a view into the table,
+    then on the whole table."""
     R, H, q, B = 9000, 1024, 3072, 8000
     rng = np.random.default_rng(5)
     table = torch.from_numpy(rng.normal(0, 1, (R, 1)).astype(np.float32))
@@ -351,10 +366,10 @@ def test_dim1_head_view(dev):
     got_g = tops.gather_rows(td, idd, hot_rows=H, head_prefix=q)
     got_s = tops.scatter_add(td, idd, dd, hot_rows=H, head_prefix=q)
     assert kernels.launch_counts() == {"gather_rows": 0, "scatter_add": 0,
-                                       "gather_rows_dim1": 2,
+                                       "gather_rows_dim1": 1,
                                        "scatter_add_dim1": 2,
                                        "scatter_add_packed": 0}
-    assert torch.equal(got_g.cpu(), want_g)
+    assert torch.equal(_bits(got_g.cpu()), _bits(want_g))
     assert bool(((got_s.cpu().double() - want_s.double()).abs()
                  <= _sum_bound(table, ids, deltas)).all())
 
@@ -841,4 +856,174 @@ def test_packed_wrapper_refuses_what_it_does_not_take(dev, bad):
     kernels.reset_launch_counts()
     with pytest.raises((ValueError, TypeError)):
         kernels.scatter_add_packed_cuda_(table, ids, deltas, H)
+    assert not any(kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# K1 / K5: the gathers' chunks, instances, plans and head-prefix route, bit
+# for bit (int32 views) against their plain versions.
+# ---------------------------------------------------------------------------
+
+I32 = np.iinfo(np.int32)
+
+
+def _edge_inputs(R, D, B, seed, dev):
+    """A table with some -0.0 values (their bits must be copied) and ids at
+    every edge: -1, R, R - 1, 2^31 - 1 and -2^31, beside duplicates."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0, 1, (R, D)).astype(np.float32)
+    table[::5, ::3] = -0.0
+    ids = rng.integers(0, max(R, 1), B).astype(np.int32)
+    for k, v in enumerate((-1, R, R - 1, I32.max, I32.min)):
+        ids[k::7] = v
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(ids).to(dev))
+
+
+def _check_gather(table, ids, plan=None):
+    kernel, plain = ((kernels.gather_rows_dim1_cuda,
+                      kernels.gather_rows_dim1_plain) if table.shape[1] == 1
+                     else (kernels.gather_rows_cuda,
+                           kernels.gather_rows_plain))
+    got = kernel(table, ids, plan=plan)
+    want = plain(table, ids)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+    return got
+
+
+@pytest.mark.parametrize("D", [2, 3, 4, 5, 10, 11, 20, 32, 33])
+@pytest.mark.parametrize("B", [1, 3, 4097])
+def test_gather_bit_equal_at_every_width(dev, D, B):
+    """The compiled widths (2, 3, 10, 11, 20), the run-time ones (4, 5, 32,
+    33), 8-byte and 16-byte table loads, chunks across two rows and the
+    ragged last chunk (B * D not a multiple of 4)."""
+    table, ids = _edge_inputs(300, D, B, seed=D * 7 + B, dev=dev)
+    _check_gather(table, ids)
+
+
+@pytest.mark.parametrize("D", [1, 2, 10, 20, 33])
+def test_gather_grid_stride(dev, D):
+    """Grids of 3 blocks and of 1, so that each block strides over many
+    passes, against the plan's one wave."""
+    table, ids = _edge_inputs(1000, D, 50_003, seed=D, dev=dev)
+    plan = kernels.card_plan_for(table, ids)
+    for blocks in (3, 1, plan.blocks):
+        _check_gather(table, ids, plan._replace(blocks=blocks))
+
+
+@pytest.mark.parametrize("D", [1, 2, 10, 20])
+def test_gather_empty_table_reads_positive_zeros(dev, D):
+    table = torch.zeros((0, D), device=dev)
+    ids = torch.tensor([-1, 0, 1, 5, I32.max, I32.min], dtype=torch.int32,
+                       device=dev)
+    got = _check_gather(table, ids)
+    assert not _bits(got).any()
+    if D == 1:
+        got = kernels.gather_rows_dim1_cuda(table, ids, head_rows=4,
+                                            head_prefix=3)
+        assert got.shape == (6, 1) and not _bits(got).any()
+
+
+@pytest.mark.parametrize("D", [1, 2, 10, 20])
+def test_gather_views_of_a_larger_table(dev, D):
+    """``table[:H]``: rows past H are outside [0, H); a view whose base is
+    4-byte aligned only takes 4-byte table loads."""
+    table, ids = _edge_inputs(5000, D, 10_007, seed=3 * D, dev=dev)
+    ids = torch.where(ids >= 0, ids % 3000, ids)
+    _check_gather(table[:1024], ids)
+    flat = torch.zeros(5000 * D + 1, device=dev)
+    shifted = flat[1:].view(5000, D)
+    shifted.copy_(table)
+    assert kernels.card_plan_for(shifted, ids).vec == 1
+    _check_gather(shifted, ids)
+
+
+def test_gather_past_2_31_floats(dev):
+    """B * D >= 2^31 takes the 64-bit instance; the first and last rows
+    are held to the plain version (the whole plain result would need
+    another 9 GB)."""
+    R, D, B = 500, 33, (1 << 26) + 5
+    table, ids = _edge_inputs(R, D, B, seed=9, dev=dev)
+    assert kernels.card_plan_for(table, ids).index_bits == 64
+    assert B * D >= 2**31
+    got = kernels.gather_rows_cuda(table, ids)
+    for part in (slice(0, 4099), slice(B - 4099, B)):
+        want = kernels.gather_rows_plain(table, ids[part])
+        assert torch.equal(_bits(got[part]), _bits(want))
+    del got
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gather_dim1_misaligned_ids_take_the_vector_body(dev, offset):
+    """A view 4, 8 or 12 bytes past a 16-byte boundary: 4-byte id loads,
+    the same 16-byte chunks and stores; prefixes ending anywhere in it."""
+    table, ids = _edge_inputs(2048, 1, 50_001, seed=offset, dev=dev)
+    view = ids[offset:]
+    assert not kernels.card_plan_for(table, view).aligned_ids
+    _check_gather(table, view)
+    for q in (1, 4097, view.numel()):
+        got = kernels.gather_rows_dim1_cuda(table, view, head_rows=300,
+                                            head_prefix=q)
+        want = kernels.gather_rows_dim1_plain(table.cpu(), view.cpu(),
+                                              head_rows=300, head_prefix=q)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("q", [1, 2049, 4096, 30_001, 50_000])
+def test_gather_dim1_head_prefix_in_one_launch(dev, q):
+    """The fused head-prefix read: q not a multiple of 4, q = B, ids >= H
+    inside the prefix reading zero; one launch, the bits of the plain
+    version and of the JAX package's two calls and concatenation."""
+    R, H, B = 47_236, 2048, 50_000
+    table, ids = _edge_inputs(R, 1, B, seed=q, dev=dev)
+    ids[:q] = torch.where(ids[:q] >= 0, ids[:q] % (H + 40), ids[:q])
+    ids[q // 2] = H  # just past the head, inside the prefix
+    kernels.reset_launch_counts()
+    got = kernels.gather_rows_dim1_cuda(table, ids, head_rows=H,
+                                        head_prefix=q)
+    assert kernels.launch_counts()["gather_rows_dim1"] == 1
+    want = kernels.gather_rows_dim1_plain(table, ids, head_rows=H,
+                                          head_prefix=q)
+    assert torch.equal(_bits(got), _bits(want))
+    two = torch.cat([kernels.gather_rows_plain(table[:H], ids[:q]),
+                     kernels.gather_rows_plain(table, ids[q:])])
+    assert torch.equal(_bits(got), _bits(two))
+    past = (ids[:q] >= H)
+    assert past.any() and not _bits(got[:q][past]).any()
+
+
+def test_gather_rows_refuses_a_scalar_table(dev):
+    """An (R, 1) table is K5's: K1's wrapper refuses it, launching nothing,
+    and ``ops.gather_rows`` sends it to K5."""
+    table, ids = _edge_inputs(300, 1, 1001, seed=6, dev=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="K5"):
+        kernels.gather_rows_cuda(table, ids)
+    assert not any(kernels.launch_counts().values())
+    got = tops.gather_rows(table, ids)
+    assert kernels.launch_counts()["gather_rows_dim1"] == 1
+    assert torch.equal(_bits(got), _bits(kernels.gather_rows_plain(table,
+                                                                   ids)))
+
+
+@pytest.mark.parametrize("bad", ["width", "vec", "blocks", "bits",
+                                 "aligned_ids"])
+def test_gathers_refuse_a_plan_they_cannot_run(dev, bad):
+    table, ids = _edge_inputs(300, 10, 1001, seed=4, dev=dev)
+    t1, ids1 = table[:, :1].contiguous(), ids[1:]
+    plan = kernels.card_plan_for(table, ids)
+    plan1 = kernels.card_plan_for(t1, ids1)
+    fix = {"width": (plan._replace(width=11), None),
+           "vec": (plan._replace(vec=4), None),
+           "blocks": (plan._replace(blocks=0), plan1._replace(blocks=0)),
+           "bits": (plan._replace(index_bits=16), None),
+           "aligned_ids": (None, plan1._replace(aligned_ids=True))}[bad]
+    kernels.reset_launch_counts()
+    if fix[0] is not None:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.gather_rows_cuda(table, ids, plan=fix[0])
+    if fix[1] is not None:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.gather_rows_dim1_cuda(t1, ids1, head_rows=100,
+                                          head_prefix=10, plan=fix[1])
     assert not any(kernels.launch_counts().values())

@@ -627,12 +627,19 @@ def pallas_backend():
 
 
 @pytest.mark.parametrize("R,H,B,q", [(47_236, 2048, 12_288, 8192),
-                                     (9_000, 1024, 6_000, 2048)])
+                                     (9_000, 1024, 6_000, 2048),
+                                     (9_000, 1024, 6_000, 2051),
+                                     (9_000, 1024, 3_001, 2_999)])
 def test_head_prefix_matches_jax(pallas_backend, R, H, B, q):
     """The head-prefix route against the JAX package's (tests/test_ops.py
     runs its kernels so): ids[:q] through the head view, the rest through
     the whole table; an id >= H inside the prefix reads zero and its push
-    is dropped, on both sides."""
+    is dropped, on both sides. The port reads in one call with a bound a
+    position (K5's contract; its plain version here), the JAX package in
+    two and a concatenation: prefixes that end inside a 16-byte chunk
+    (q = 2,051 and 2,999) as well. (A prefix that is the whole batch leaves
+    the JAX package an empty tail, which its interpreted scalar scatter
+    refuses; the test below holds the port's read there to numpy.)"""
     rng = np.random.default_rng(7)
     table = rng.normal(0, 1, (R, 1)).astype(np.float32)
     head_ids = rng.integers(0, H, q).astype(np.int32)
@@ -672,6 +679,131 @@ def test_head_prefix_matches_jax(pallas_backend, R, H, B, q):
     np.testing.assert_array_equal(t2.numpy(), got_s)
 
 
+@pytest.mark.parametrize("R,H,B,q", [
+    (500, 64, 300, 37),     # q not a multiple of 4
+    (500, 64, 300, 300),    # the prefix is the whole batch
+    (500, 64, 300, 1000),   # a prefix past the batch: all of it
+    (50, 64, 300, 101),     # a head past the table: the table
+    (500, 0, 300, 40),      # an empty head: the prefix reads zero
+    (500, 64, 300, 0),      # no prefix: the plain gather
+    (0, 64, 300, 40),       # an empty table
+    (500, 64, 0, 10)])      # an empty batch
+def test_dim1_plain_head_prefix_reads_against_a_bound_a_position(R, H, B, q):
+    """K5's contract in one call: positions below min(q, B) read against
+    min(H, R) rows, the rest against R; a dropped position reads +0.0."""
+    rng = np.random.default_rng(R + H + B + q)
+    table = rng.normal(0, 1, (R, 1)).astype(np.float32)
+    ids = rng.integers(-3, max(R, H) + 5, B).astype(np.int32)
+    ids[:min(q, B):5] = H  # just past the head inside the prefix
+    got = kernels.gather_rows_dim1_plain(
+        torch.from_numpy(table), torch.from_numpy(ids), head_rows=H,
+        head_prefix=q).numpy()
+    bound = np.where(np.arange(B) < q, min(H, R), R)
+    keep = (ids >= 0) & (ids < bound)
+    want = np.zeros((B, 1), np.float32)
+    want[keep] = table[ids[keep]]
+    assert got.shape == (B, 1) and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if q == 0:
+        np.testing.assert_array_equal(got, kernels.gather_rows_dim1_plain(
+            torch.from_numpy(table), torch.from_numpy(ids)).numpy())
+
+
+def test_dim1_plain_refuses_a_negative_head():
+    t, i = torch.zeros(5, 1), torch.zeros(3, dtype=torch.int32)
+    for kw in ({"head_rows": -1}, {"head_prefix": -2}):
+        with pytest.raises(ValueError, match="must be >= 0"):
+            kernels.gather_rows_dim1_plain(t, i, **kw)
+
+
+# (batch, D, ids offset, table offset) -> (width, vec, index bits, aligned
+# ids, blocks): the K1 and K5 shapes of chip_smoke.py (the MF pulls, the
+# 20-class PA pull, the AdaGrad pull, the SGD logistic regression and the
+# fused binary PA pull), then the edges: odd and generic widths (the card
+# tests' D in {2, 3, 4, 5, 10, 11, 20, 32, 33} at B in {1, 3, 4,097}),
+# tables aligned to 8 and 4 bytes only, misaligned K5 ids, an output of
+# 2^31 floats, an empty batch.
+GATHER_PLAN_SHAPES = [
+    ((32_768, 10, 0, 0), (10, 2, 32, False, 320)),
+    ((1 << 20, 20, 0, 0), (20, 4, 32, False, 1056)),
+    ((425_997, 2, 0, 0), (2, 2, 32, False, 833)),
+    ((425_997, 1, 0, 0), (1, 1, 32, True, 417)),
+    ((1 << 20, 1, 0, 0), (1, 1, 32, True, 1024)),
+    ((1, 3, 0, 0), (3, 1, 32, False, 1)),
+    ((4097, 11, 0, 0), (11, 1, 32, False, 45)),
+    ((4097, 33, 0, 0), (0, 1, 32, False, 133)),
+    ((3, 32, 0, 8), (0, 2, 32, False, 1)),
+    ((3, 32, 0, 4), (0, 1, 32, False, 1)),
+    ((4097, 20, 0, 8), (20, 2, 32, False, 81)),
+    ((4097, 10, 0, 4), (10, 1, 32, False, 41)),
+    ((4097, 4, 0, 0), (0, 4, 32, False, 17)),
+    ((4097, 5, 0, 0), (0, 1, 32, False, 21)),
+    ((3, 2, 0, 0), (2, 2, 32, False, 1)),
+    ((1, 20, 0, 0), (20, 4, 32, False, 1)),
+    ((4097, 32, 0, 12), (0, 1, 32, False, 129)),
+    ((4097, 2, 0, 4), (2, 1, 32, False, 9)),
+    ((4099, 1, 8, 0), (1, 1, 32, False, 5)),
+    ((2**30, 2, 0, 0), (0, 1, 64, False, 1056)),
+    ((4099, 1, 4, 0), (1, 1, 32, False, 5)),
+    ((4099, 1, 12, 0), (1, 1, 32, False, 5)),
+    ((2**31 - 1, 1, 0, 0), (1, 1, 32, True, 1056)),
+    ((2**28, 8, 0, 0), (0, 1, 64, False, 1056)),
+    ((2**28 - 1, 8, 0, 0), (0, 4, 32, False, 1056)),
+    ((0, 10, 0, 0), (10, 2, 32, False, 1))]
+
+
+@pytest.mark.parametrize("args,want", GATHER_PLAN_SHAPES)
+def test_gather_plan_instance_and_grid(args, want):
+    batch, dim, ids_offset, table_offset = args
+    plan = kernels.gather_plan(batch, dim, ids_offset,
+                               table_offset_bytes=table_offset)
+    got = (plan.width, plan.vec, plan.index_bits, plan.aligned_ids,
+           plan.blocks)
+    assert got == want
+    # A 16-byte output chunk a thread, as many blocks as the chunks need, at
+    # most one wave.
+    wave = kernels.H100_SMS * kernels.GATHER_BLOCKS_PER_SM
+    assert plan.blocks == max(1, min(-(-batch * dim // 1024), wave))
+
+
+def test_gather_plan_asks_the_card_for_resident_blocks():
+    seen = []
+
+    def resident(plan):
+        seen.append(plan)
+        return 3
+
+    plan = kernels.gather_plan(1 << 20, 20, resident=resident)
+    assert plan.blocks == 3 * kernels.H100_SMS
+    assert seen == [plan._replace(blocks=0)]
+    # Fewer chunks than a wave: the grid the chunks need.
+    assert kernels.gather_plan(32_768, 10, resident=resident).blocks == 320
+
+
+def test_gather_plan_constants_match_the_source():
+    env, _ = _source_constants("gather.cuh")
+    assert kernels.GATHER_THREADS == env["kThreads"]
+    _, text = _source_constants("gather_rows.cu")
+    cases = set(re.findall(r"case (\d+) \* 8 \+ (\d+):", text))
+    want = {(str(w), str(v)) for w in (0,) + kernels.GATHER_WIDTHS
+            for v in (4, 2, 1) if w % v == 0}
+    assert cases == want
+
+
+@pytest.mark.parametrize("source", ["gather_rows.cu", "gather_rows_dim1.cu"])
+def test_gathers_launch_through_pdl(source):
+    """Each gather launches with programmatic dependent launch (pdl.cuh's
+    launch or launch_ex) and waits for the kernel before it (grid_wait)
+    before its first load; no plain triple-chevron launch."""
+    _, text = _source_constants(source)
+    assert '#include "pdl.cuh"' in text and '#include "gather.cuh"' in text
+    assert re.search(r"\blaunch(_ex)?\(kernel,", text)
+    assert "<<<" not in text
+    body = text[text.index("__global__"):]
+    assert body.index("grid_wait();") < body.index("__ldg(")
+    assert "__stcs(" in _source_constants("gather.cuh")[1]
+
+
 def test_head_prefix_needs_a_head_and_a_scalar_table():
     """No route without both a declared head and a prefix; a wide table
     reads its rows plainly."""
@@ -693,7 +825,8 @@ def test_kernel_sources_and_build_are_in_the_package():
     from fps_tpu_torch.ops import _build
 
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["gather_rows.cu", "gather_rows_dim1.cu", "pdl.cuh",
+    assert names == ["gather.cuh", "gather_rows.cu", "gather_rows_dim1.cu",
+                     "pdl.cuh",
                      "radix_sort.cu", "scatter_add.cu", "scatter_add_dim1.cu",
                      "scatter_add_packed.cu", "warp_tree.cuh"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
