@@ -41,7 +41,11 @@ on the card, raising on the first failure:
    against K2 alone over the whole push; then the crossover sweep behind
    ``packed_crossover_rows``: K3 over the whole table against K2 with its
    sort, B = 32,768 Zipf(0.8) ids, D in {10, 32, 100, 200}, R from 512 to
-   32,768. K4's bucket pass by row tile,
+   32,768. K1 / K2 at word2vec's text8 width (vocab 50,000, dim 100): the
+   block path's pulls of 8,197 and 49,182 ids and its mean pushes' count-
+   column scatters at D = 101, then, off the main path, the pairs path's
+   81,920 and 491,520 ids, each from the paths' own first step (Zipf ids
+   of the corpus, the worker's negatives). K4's bucket pass by row tile,
    where its plan has one (the 1M-row logistic-regression table), must
    equal its plain version (a stable sort by bucket) bit for bit. Times
    are CUDA-event medians of 30 (the crossover sweep: 10) with the card held busy, beside the bound (least bytes /
@@ -60,13 +64,20 @@ on the card, raising on the first failure:
    step), 20-class PA-I and AdaGrad logistic regression with
    ``hot_features = 2048`` (K1, K2 and K3 once a step each), and one traced
    run_indexed epoch of the MF configuration for the device's busy share.
-   Each must learn: MF's train RMSE falls; over the last chunk PA's mistake
-   rate lies below 0.5 (20 classes: 0.95) and the logistic log loss below
-   0.693;
+   Before them, word2vec SGNS as ``bench.py run_w2v`` trains it, on a 2M-
+   token text8-size corpus: the block worker through
+   ``Word2VecDevicePlan`` and ``run_indexed``, 2 epochs sync, then 1 SSP
+   epoch (s = 4), K1 2 and K2 2 a step, words/s and steady ms a step; the
+   pair worker, two ``run_chunk`` calls of 8 steps (81,920 pairs a step),
+   K1 2 and K2 2 a step; after them, one traced w2v epoch for its busy
+   share. Each must learn: MF's train RMSE falls; over the last chunk PA's
+   mistake rate lies below 0.5 (20 classes: 0.95) and the logistic log
+   loss below 0.693; word2vec's last real step's loss a pair lies below its
+   first and below (1 + K) log 2 = 4.159;
 5. runs small MF, head-prefix PA and SSP logistic-regression jobs, and
-   run_indexed jobs of MF with ``hot_items`` and 20-class PA with
-   ``hot_features``, on the card and on the CPU from the same tables and
-   compares the tables; then traces 10 K2 calls at each of its path shapes
+   run_indexed jobs of MF with ``hot_items``, 20-class PA with
+   ``hot_features`` and word2vec (block sync, pairs SSP), on the card and
+   on the CPU from the same tables and seeds, and compares the tables; then traces 10 K2 calls at each of its path shapes
    (``torch.profiler``) for the device time and launches of each kernel K2
    launches, which must be 3 a sort pass plus 2, 10 calls of the sort
    alone at each sort edge, 3 kernels a pass, 10 K3 calls at each K3
@@ -115,6 +126,13 @@ LR_NF, LR_NNZ, LR_DENSE, LR_NEX = 1_000_000, 39, 13, 1_000_000
 LR_ADAGRAD_NEX = 262_144
 SPARSE_BATCH = 16_384
 HOT = 2048  # the write-hot head of the split paths (bench.py's head size)
+
+# word2vec as bench.py run_w2v trains it (text8 width: vocab 50,000, dim
+# 100, window 5, 5 negatives, lr 0.025, subsample 1e-4, blocks of 8,192
+# tokens, mean combine on both tables); only the corpus is cut, from the
+# bench's 17M tokens to 2M.
+W2V_VOCAB, W2V_DIM, W2V_TOKENS, W2V_BLOCK = 50_000, 100, 2_000_000, 8192
+W2V_PAIR_STEPS = 8  # the pairs-mode call
 
 
 def log(*parts) -> None:
@@ -859,6 +877,24 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     return cases
 
 
+def check_launches(label, launched, per_step, steps):
+    for name, count in launched.items():
+        want = per_step.get(name, 0) * steps
+        if count != want:
+            raise AssertionError(
+                f"{label}: {name} launched {count} times, expected {want} "
+                f"({per_step.get(name, 0)} per step x {steps} steps)")
+
+
+def check_finite(torch, label, tables, local_state):
+    leaves = dict(tables)
+    if isinstance(local_state, torch.Tensor):
+        leaves["local_state"] = local_state
+    for name, tb in leaves.items():
+        if not bool(torch.isfinite(tb).all()):
+            raise AssertionError(f"{label}: {name} has non-finite values")
+
+
 def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
              card):
     """Train over ``chunks`` (prebuilt on the host) from fresh tables, the
@@ -877,18 +913,8 @@ def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launched = kernels.launch_counts()
-    for name, count in launched.items():
-        want = per_step.get(name, 0) * steps
-        if count != want:
-            raise AssertionError(
-                f"{label}: {name} launched {count} times, expected {want} "
-                f"({per_step.get(name, 0)} per step x {steps} steps)")
-    leaves = dict(tables)
-    if isinstance(local_state, torch.Tensor):
-        leaves["local_state"] = local_state
-    for name, tb in leaves.items():
-        if not bool(torch.isfinite(tb).all()):
-            raise AssertionError(f"{label}: {name} has non-finite values")
+    check_launches(label, launched, per_step, steps)
+    check_finite(torch, label, tables, local_state)
     checks = quality(metrics)
     n = float(sum(m["n"].sum() for m in metrics))
     per_chunk = np.diff([t0] + stamps)
@@ -939,18 +965,8 @@ def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launched = kernels.launch_counts()
-    for name, count in launched.items():
-        want = per_step.get(name, 0) * steps_run
-        if count != want:
-            raise AssertionError(
-                f"{label}: {name} launched {count} times, expected {want} "
-                f"({per_step.get(name, 0)} per step x {steps_run} steps)")
-    leaves = dict(tables)
-    if isinstance(local_state, torch.Tensor):
-        leaves["local_state"] = local_state
-    for name, tb in leaves.items():
-        if not bool(torch.isfinite(tb).all()):
-            raise AssertionError(f"{label}: {name} has non-finite values")
+    check_launches(label, launched, per_step, steps_run)
+    check_finite(torch, label, tables, local_state)
     pieces = [{k: v[i:i + (chunk_steps or len(m["n"]))] for k, v in m.items()}
               for m in metrics
               for i in range(0, len(m["n"]), chunk_steps or len(m["n"]))]
@@ -974,25 +990,18 @@ def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
     return summary
 
 
-def traced_mf_epoch(torch, fps, mf_data, card):
-    """Device busy share of the MF run_indexed step with hot_items: one
-    untraced and one traced epoch of 64 steps over the first 63 x 32,768
-    ratings (``torch.profiler``, summarised by
-    ``fps_tpu_torch.utils.trace_summary``), against the untraced step of the
-    same epoch. The trace goes to a temporary directory and is deleted."""
+def traced_epoch(torch, label, trainer, plan, card):
+    """Device busy share of a ``run_indexed`` step: a warm-up and an
+    untraced epoch, timed, then a traced one (``torch.profiler``,
+    summarised by ``fps_tpu_torch.utils.trace_summary``: each kernel's
+    device time a step) against the untraced step. The trace goes to a
+    temporary directory and is deleted."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from fps_tpu_torch.utils import trace_summary
 
-    mesh = fps.make_ps_mesh()
-    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
-                       rank=RANK, learning_rate=0.1, reg=0.01, hot_items=HOT)
-    trainer, _ = fps.online_mf(mesh, cfg, combine="mean")
-    part = {k: v[:63 * BATCH] for k, v in mf_data.items()}
-    plan = fps.DeviceEpochPlan(fps.DeviceDataset(mesh, part), num_workers=1,
-                               local_batch=BATCH, route_key="user", seed=0)
     tables, local_state = trainer.init_state(0)
     times = []
     for e in range(2):  # warm-up, then the untraced epoch that is timed
@@ -1016,16 +1025,31 @@ def traced_mf_epoch(torch, fps, mf_data, card):
                 torch.cuda.synchronize()
                 prof.step()
         summary = trace_summary.summarize(trace_summary.load(path),
-                                          plan.steps_per_epoch)
+                                          plan.steps_per_epoch, top=30)
     busy = summary["device_busy_ms_per_step"]
-    out = {"path": "MF sync, hot_items, run_indexed (traced epoch)",
-           "steps": plan.steps_per_epoch, "untraced_ms_per_step": untraced_ms,
+    out = {"path": label, "steps": plan.steps_per_epoch,
+           "untraced_ms_per_step": untraced_ms,
            "device_busy_ms_per_step": busy,
            "device_busy_share": busy / untraced_ms,
            "device_launches_per_step": summary["device_launches_per_step"],
+           "traced_host_ms_per_step": summary["traced_host_ms_per_step"],
            "kernels": summary["kernels"], "card": card}
-    log("traced MF run_indexed epoch: " + json.dumps(out))
+    log(f"traced epoch, {label}: " + json.dumps(out))
     return out
+
+
+def traced_mf_epoch(torch, fps, mf_data, card):
+    """:func:`traced_epoch` of the MF run_indexed step with hot_items: 64
+    steps over the first 63 x 32,768 ratings."""
+    mesh = fps.make_ps_mesh()
+    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                       rank=RANK, learning_rate=0.1, reg=0.01, hot_items=HOT)
+    trainer, _ = fps.online_mf(mesh, cfg, combine="mean")
+    part = {k: v[:63 * BATCH] for k, v in mf_data.items()}
+    plan = fps.DeviceEpochPlan(fps.DeviceDataset(mesh, part), num_workers=1,
+                               local_batch=BATCH, route_key="user", seed=0)
+    return traced_epoch(torch, "MF sync, hot_items, run_indexed (traced "
+                        "epoch)", trainer, plan, card)
 
 
 def falling_rmse(metrics):
@@ -1221,6 +1245,7 @@ def card_vs_cpu(torch, fps):
             return trainer.run_indexed(tables, local, plan, 2, epochs=2)
         return run
 
+    jobs.update(w2v_card_vs_cpu_jobs(fps))
     hot_mf = fps.MFConfig(num_users=300, num_items=200, rank=RANK,
                           learning_rate=0.1, reg=0.01, hot_items=64)
     jobs.update({
@@ -1267,6 +1292,262 @@ def card_vs_cpu(torch, fps):
             log(f"card vs CPU, {job}, {name}: max abs diff {diff:.3e} "
                 f"(largest value {scale:.3e})")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# word2vec SGNS at text8 width (K1 and K2 at D = 100 and 101).
+# ---------------------------------------------------------------------------
+
+def w2v_config(fps):
+    return fps.W2VConfig(vocab_size=W2V_VOCAB, dim=W2V_DIM)
+
+
+def w2v_first_step_ids(torch, fps, tokens, uni):
+    """The ids of each w2v path's first step, as the trainer makes them on
+    the card: the block plan's first block (8,197 tokens) and, with the
+    block worker's negatives, the OUT pull (49,182); the pairs plan's
+    first step's 81,920 centers and 491,520 contexts and negatives."""
+    from fps_tpu_torch.models import word2vec as w2v
+
+    mesh = fps.make_ps_mesh()
+    cfg = w2v_config(fps)
+    out = {}
+    for mode, worker in (
+            ("block", w2v.Word2VecBlockWorker(cfg, uni, W2V_BLOCK)),
+            ("pairs", w2v.Word2VecWorker(cfg, uni))):
+        plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
+                                      block_len=W2V_BLOCK, seed=1, mode=mode)
+        batch = {k: v[0] for k, v in plan.call_batches(
+            plan.epoch_args(0), 0, 1).items()}
+        ids = worker.pull_ids(worker.prepare(batch, 0))
+        out[mode] = {name: i.cpu().numpy() for name, i in ids.items()}
+    return out
+
+
+def w2v_kernel_cases(torch, kernels, cases, ids_by_mode, dev):
+    """Phase 3 at the w2v shapes: K1 pulls of the (50,000, 100) tables and
+    K2 mean pushes (the sum-and-count scatter, D = 101, into zeros) at the
+    block path's 8,197 and 49,182 ids and, off the main path, the pairs
+    path's 81,920 and 491,520; Zipf ids from the corpus, with -1 and >= R
+    ids mixed in. Appends to ``cases`` and its collected inputs."""
+    from fps_tpu_torch.models.word2vec import IN_TABLE, OUT_TABLE
+
+    rng = np.random.default_rng(9)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for mode, path in (("block", "w2v_block"), ("pairs", "w2v_pairs")):
+        for name, label in ((IN_TABLE, "IN"), (OUT_TABLE, "OUT")):
+            ids = t(mix_dropped(ids_by_mode[mode][name], W2V_VOCAB))
+            B = ids.numel()
+            table = t(rng.normal(0, 0.05, (W2V_VOCAB, W2V_DIM)).astype(
+                np.float32))
+            cases["gather_rows"].append(check_gather(
+                torch, kernels, f"K1 w2v {mode} {label} pull, {B} ids",
+                kernels.gather_rows_cuda, kernels.gather_rows_plain, table,
+                ids, path, collect=cases["gather_inputs"]))
+            deltas = rng.normal(0, 0.01, (B, W2V_DIM + 1)).astype(np.float32)
+            deltas[:, -1] = 1.0  # the count column
+            cases["scatter_add"].append(check_scatter(
+                torch, f"K2 w2v {mode} {label} mean push, {B} ids",
+                kernels.scatter_add_cuda_, kernels.scatter_add_plain,
+                torch.zeros((W2V_VOCAB, W2V_DIM + 1), device=dev), ids,
+                t(deltas), path, kernels, cases["k2_inputs"]))
+
+
+def first_last_real_step(metrics):
+    """Loss a pair at the first and the last step with pairs, over the
+    run's epochs (bench.py ``first_last_real_step``)."""
+    loss = np.concatenate([m["loss"] for m in metrics])
+    n = np.concatenate([m["n"] for m in metrics])
+    real = np.flatnonzero(n > 0)
+    return float(loss[real[0]] / n[real[0]]), float(loss[real[-1]] /
+                                                    n[real[-1]])
+
+
+def w2v_learns(negatives):
+    """The last real step's loss a pair lies below the first step's and
+    below the initial ``(1 + K) log 2`` (4.159 at K = 5)."""
+    limit = (1 + negatives) * float(np.log(2.0))
+
+    def check(metrics):
+        first, last = first_last_real_step(metrics)
+        if not (np.isfinite([first, last]).all() and last < first
+                and last < limit):
+            raise AssertionError(f"w2v loss a pair {first} -> {last}: not "
+                                 f"falling below {limit}")
+        return {"loss_per_pair_first_step": first,
+                "loss_per_pair_last_step": last, "limit": limit}
+    return check
+
+
+def w2v_paths(torch, fps, kernels, tokens, uni, card):
+    """Phase 4, word2vec at text8 width through its entry points: the block
+    worker through ``Word2VecDevicePlan(mode="block")`` and ``run_indexed``
+    (calls of up to 256 steps, as the bench), 2 epochs sync from fresh
+    tables, then 1 SSP epoch (s = 4) from where they ended (as the bench
+    times an epoch after a warm-up one: SGNS from a zero OUT table moves
+    the loss a pair by about 1e-6 in its first epoch of this corpus, a few
+    float32 roundings of the loss's sum); then the pair worker, two
+    ``run_chunk`` calls of 8 steps of the pairs plan from fresh tables, the
+    second timed. Counters at 0 just before each run, read just after: K1 2
+    and K2 2 a step."""
+    mesh = fps.make_ps_mesh()
+    cfg = w2v_config(fps)
+    per_step = {"gather_rows": 2, "scatter_add": 2}
+    runs = []
+    state = None
+    for sync_every, epochs in ((None, 2), (4, 1)):
+        trainer, _ = fps.word2vec_block(mesh, cfg, uni, W2V_BLOCK,
+                                        sync_every=sync_every,
+                                        max_steps_per_call=256)
+        t0 = time.perf_counter()
+        plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
+                                      block_len=W2V_BLOCK, seed=1,
+                                      sync_every=sync_every, mode="block")
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        mode = "sync" if sync_every is None else f"ssp(sync_every={sync_every})"
+        summary, state = run_w2v(
+            torch, kernels, f"w2v block {mode}, run_indexed", trainer, plan,
+            epochs, per_step, len(tokens), card, state)
+        runs.append(dict(summary, upload_seconds=upload_s))
+    # The pair worker: one call of 8 steps (81,920 pairs a step).
+    trainer, _ = fps.word2vec(mesh, cfg, uni)
+    plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
+                                  block_len=W2V_BLOCK, seed=1, mode="pairs")
+    chunk = plan.call_batches(plan.epoch_args(0), 0, W2V_PAIR_STEPS)
+    tables, local_state = trainer.init_state(0)
+    times = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for rep in range(2):  # the second call is the steady one
+        t0 = time.perf_counter()
+        tables, local_state, m = trainer.run_chunk(tables, local_state,
+                                                   chunk, rep)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launched = kernels.launch_counts()
+    check_launches("w2v pairs, run_chunk", launched, per_step,
+                   2 * W2V_PAIR_STEPS)
+    check_finite(torch, "w2v pairs, run_chunk", tables, local_state)
+    m = {k: v.cpu().numpy() for k, v in m.items()}
+    pairs = float(m["n"].sum())
+    summary = {
+        "path": "w2v pairs, run_chunk", "calls": 2,
+        "steps_per_call": W2V_PAIR_STEPS, "pairs_per_call": pairs,
+        "call_seconds": times,
+        "steady_ms_per_step": times[-1] / W2V_PAIR_STEPS * 1e3,
+        "pairs_per_s": pairs / times[-1],
+        "loss_per_pair": float(m["loss"].sum()) / max(pairs, 1.0),
+        "launches": launched, "card": card}
+    if not np.isfinite(summary["loss_per_pair"]):
+        raise AssertionError("w2v pairs: the loss is not finite")
+    log("path w2v pairs, run_chunk: " + json.dumps(summary))
+    runs.append(summary)
+    return runs
+
+
+def run_w2v(torch, kernels, label, trainer, plan, epochs, per_step,
+            num_tokens, card, state=None):
+    """``epochs`` epochs of ``plan`` through ``run_indexed`` from
+    ``state`` (``(tables, local_state)``; ``None``: fresh tables), the
+    launch counters at 0 just before and read just after; checks the
+    counts, finite tables and a falling loss; returns a summary with words/s
+    (corpus tokens an epoch over the time) and steady ms a step (the last
+    epoch), and the state it ended in."""
+    tables, local_state = state or trainer.init_state(0)
+    stamps = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tables, local_state, metrics = trainer.run_indexed(
+        tables, local_state, plan, 1, epochs=epochs,
+        on_epoch=lambda e, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    steps_run = epochs * plan.steps_per_epoch
+    check_launches(label, launched, per_step, steps_run)
+    check_finite(torch, label, tables, local_state)
+    checks = w2v_learns(trainer.logic.cfg.negatives)(metrics)
+    pairs = float(sum(m["n"].sum() for m in metrics))
+    per_epoch = np.diff([t0] + stamps)
+    summary = {
+        "path": label, "epochs": epochs,
+        "steps_per_epoch": plan.steps_per_epoch,
+        "steps_per_call": trainer._indexed_call_steps(plan),
+        "steps_run": steps_run, "tokens_per_epoch": num_tokens,
+        "pairs": pairs, "seconds": elapsed,
+        "words_per_s": epochs * num_tokens / elapsed,
+        "pairs_per_s": pairs / elapsed,
+        "ms_per_step": elapsed / steps_run * 1e3,
+        "steady_ms_per_step": float(per_epoch[-1]) / plan.steps_per_epoch
+        * 1e3,
+        "steady_words_per_s": num_tokens / float(per_epoch[-1]),
+        "epoch_seconds": per_epoch.tolist(), "launches": launched,
+        "quality": checks, "from_fresh_tables": state is None, "card": card}
+    log(f"path {label}: " + json.dumps(summary))
+    return summary, (tables, local_state)
+
+
+def traced_w2v_epoch(torch, fps, tokens, uni, card):
+    """:func:`traced_epoch` of the w2v block step over the corpus's first
+    300,000 tokens (21 steps); its kernels include the mean pushes'
+    accumulator fills and adds."""
+    mesh = fps.make_ps_mesh()
+    trainer, _ = fps.word2vec_block(mesh, w2v_config(fps), uni, W2V_BLOCK,
+                                    max_steps_per_call=256)
+    plan = fps.Word2VecDevicePlan(tokens[:300_000], uni, w2v_config(fps),
+                                  mesh, num_workers=1, block_len=W2V_BLOCK,
+                                  seed=1, mode="block")
+    return traced_epoch(torch, "w2v block sync, run_indexed (traced epoch)",
+                        trainer, plan, card)
+
+
+def w2v_card_vs_cpu_jobs(fps):
+    """Small w2v jobs for :func:`card_vs_cpu`: the block worker (sync) and
+    the pair worker (SSP, s = 4) through ``run_indexed``, 2 epochs each, on
+    a 2,000-word corpus of 60,000 tokens, dim 32, blocks of 1,024; lr 0.1,
+    so that the IN table's largest value triples and OUT's grows from 0 to
+    about 0.02 over the run (the CPU's reading)."""
+    from fps_tpu_torch.utils.datasets import load_text8
+
+    tokens, vocab, uni = load_text8(None, 2000, 60_000, seed=4)
+    cfg = fps.W2VConfig(vocab_size=vocab, dim=32, subsample_t=1e-3,
+                        learning_rate=0.1)
+
+    def indexed(mode, sync_every):
+        def run(trainer, tables, local):
+            plan = fps.Word2VecDevicePlan(
+                tokens, uni, cfg, trainer.mesh, num_workers=1,
+                block_len=1024, seed=5, sync_every=sync_every, mode=mode)
+            return trainer.run_indexed(tables, local, plan, 6, epochs=2)
+        return run
+
+    return {
+        "w2v block, run_indexed": (
+            lambda m: fps.word2vec_block(m, cfg, uni, 1024,
+                                         max_steps_per_call=16),
+            indexed("block", None)),
+        "w2v pairs SSP, run_indexed": (
+            lambda m: fps.word2vec(m, cfg, uni, sync_every=4),
+            indexed("pairs", 4)),
+    }
+
+
+def path_sums(cases, path, copy=False):
+    """A kernel's times summed over its shapes on one path (a step's)."""
+    own = [c for c in cases if c["path"] == path]
+    keys = ["ms", "call_ms", "plain_ms", "library_ms", "bound_ms"]
+    out = {k: sum(c[k] for c in own) for k in keys + (["copy_ms"] if copy
+                                                      else [])}
+    if not copy:
+        out["sort_ms"] = sum(c["sort_ms"] for c in own)
+        out["torch_sort_ms"] = sum(c["torch_sort_ms"] for c in own)
+    out["shapes"] = [c["shape"] for c in own]
+    return out
 
 
 def main() -> int:
@@ -1322,10 +1603,19 @@ def main() -> int:
     lr_data["label"] = (lr_data["label"] > 0).astype(np.float32)
     log(f"sparse data made in {time.perf_counter() - t0:.1f} s; PA head "
         f"prefix q = {pa_q} columns of {PA_NNZ}")
+    # word2vec's corpus, as bench.py run_w2v makes it (load_text8 with no
+    # file: the synthetic Zipfian stream), cut to 2M tokens.
+    t0 = time.perf_counter()
+    w2v_tokens, _, w2v_uni = ds.load_text8(None, W2V_VOCAB, W2V_TOKENS)
+    log(f"text8-size corpus ({W2V_TOKENS} tokens, vocab {W2V_VOCAB}) made "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # 3. Kernels against their plain versions at the paths' shapes.
     cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
                          dev)
+    w2v_kernel_cases(torch, kernels, cases,
+                     w2v_first_step_ids(torch, fps, w2v_tokens, w2v_uni),
+                     dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
@@ -1336,8 +1626,11 @@ def main() -> int:
     sweep = crossover_sweep(torch, kernels, dev)
 
     # 4. The paths at full width, counters at 0 just before each.
+    w2v_runs = w2v_paths(torch, fps, kernels, w2v_tokens, w2v_uni, card)
     runs, traced = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data,
                                lr_data, card)
+    runs += w2v_runs
+    traced_w2v = traced_w2v_epoch(torch, fps, w2v_tokens, w2v_uni, card)
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -1361,7 +1654,9 @@ def main() -> int:
     # clusters in order. So a row's sum differs from the CPU's by a few
     # float32 roundings of its terms each push. The card and the CPU also order dot products and row
     # sums differently (about one rounding each). PA's and the logistic
-    # loss's steps are continuous in the weights, so these differences stay
+    # loss's steps are continuous in the weights, and so are SGNS's (whose
+    # draws, a hash of seeds and counters, are the same on both devices),
+    # so these differences stay
     # near a few ulps of the largest value over the ~30 steps of each job
     # (about 1e-6 relative); 1e-5 of the largest value leaves a margin and
     # still catches a wrong row or a dropped push (a push moves a weight by
@@ -1406,11 +1701,17 @@ def main() -> int:
                                 if c["path"] == first_path),
                     traced_by_shape=traced)
 
+    # K1's and K2's times a step of the w2v paths (the block path's two
+    # pulls or pushes; the pairs path's, off the main path).
+    w2v_steps = {k: {p: path_sums(cases[k], p, copy=k == "gather_rows")
+                     for p in ("w2v_block", "w2v_pairs")}
+                 for k in ("gather_rows", "scatter_add")}
     line = {"kernels": [
-        gather_entry("gather_rows", src + "gather_rows.cu", pallas + ":513",
-                     "mf"),
+        dict(gather_entry("gather_rows", src + "gather_rows.cu",
+                          pallas + ":513", "mf"),
+             w2v_per_step=w2v_steps["gather_rows"]),
         dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
-                   "mf"),
+                   "mf"), w2v_per_step=w2v_steps["scatter_add"],
              sort={"source": src + "radix_sort.cu",
                    "passes_by_shape": {label: b["sort_passes"]
                                        for label, b in breakdown.items()},
@@ -1436,7 +1737,8 @@ def main() -> int:
                    pallas + ":178", "mf_hot"),
              traced_by_shape=k3_traced, split_end_to_end=split,
              crossover_sweep=sweep),
-    ], "paths": runs, "traced_mf_run_indexed": traced, "card_vs_cpu": worst,
+    ], "paths": runs, "traced_mf_run_indexed": traced,
+        "traced_w2v_run_indexed": traced_w2v, "card_vs_cpu": worst,
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)

@@ -3,9 +3,10 @@
 A second package beside ``fps_tpu`` (the JAX reference, which it never
 imports). It runs on one device, in sync and SSP modes: ``make_ps_mesh`` →
 a model constructor (``online_mf``, ``passive_aggressive``,
-``logistic_regression``) → ``Trainer.init_state`` → ``DeviceDataset`` +
-``DeviceEpochPlan`` → ``run_indexed`` (or ``fit_stream`` / ``run_chunk``
-over chunks). On a CUDA device every pull and push runs on the port's
+``logistic_regression``, ``word2vec``, ``word2vec_block``) →
+``Trainer.init_state`` → ``DeviceDataset`` + ``DeviceEpochPlan`` (word2vec:
+``Word2VecDevicePlan``) → ``run_indexed`` (or ``fit_stream`` /
+``run_chunk`` over chunks). On a CUDA device every pull and push runs on the port's
 hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
 for wide tables, the head scatter-add of the hot/cold push split, scalar
 gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
@@ -38,6 +39,12 @@ from fps_tpu_torch.models.passive_aggressive import (
     PAConfig,
     passive_aggressive,
 )
+from fps_tpu_torch.models.word2vec import (
+    W2VConfig,
+    Word2VecDevicePlan,
+    word2vec,
+    word2vec_block,
+)
 from fps_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SHARD_AXIS,
@@ -50,7 +57,8 @@ __all__ = [
     "ADDITIVE", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
     "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
     "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
-    "TrainerConfig", "WorkerLogic", "default_mesh_shape",
-    "device_epoch_chunks", "logistic_regression", "make_ps_mesh",
-    "num_workers_of", "online_mf", "passive_aggressive", "pull", "push",
+    "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",
+    "default_mesh_shape", "device_epoch_chunks", "logistic_regression",
+    "make_ps_mesh", "num_workers_of", "online_mf", "passive_aggressive",
+    "pull", "push", "word2vec", "word2vec_block",
 ]

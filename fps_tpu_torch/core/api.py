@@ -8,8 +8,11 @@ worker-local state and the ``WOut`` outputs.
 
 Differences from the JAX package: random draws come from an explicit
 ``torch.Generator`` handed to :meth:`WorkerLogic.prepare` and
-:meth:`WorkerLogic.step` (in place of a ``jax.random`` key), and initial
-state is made from an integer seed on an explicit ``torch.device``.
+:meth:`WorkerLogic.step` (in place of a ``jax.random`` key), or, for a
+worker with ``step_seeded = True``, from an int seed of the step that the
+same hash turns into the same bits on every device
+(:func:`fps_tpu_torch.core.rng.counter_bits`); initial state is made from an
+integer seed on an explicit ``torch.device``.
 ``HotFold`` (stateful hot-tier folds) belongs to the hot tier, which this
 port does not have yet.
 """
@@ -44,7 +47,15 @@ class StepOutput:
 
 
 class WorkerLogic:
-    """Base class for worker-side algorithm logic."""
+    """Base class for worker-side algorithm logic.
+
+    ``step_seeded``: ``False`` (the default) hands :meth:`prepare` and
+    :meth:`step` the call's ``torch.Generator``; ``True`` hands them an int,
+    the step's own seed (the analog of the JAX package's per-step key), for
+    draws that must be the same on the CPU and the card.
+    """
+
+    step_seeded = False
 
     def init_local_state(self, seed: int, num_workers: int,
                          device: torch.device) -> Pytree:

@@ -28,7 +28,7 @@ clamped reads where it gathers), so chunks are equal array for array.
 Two consumers, one geometry (:class:`DeviceEpochPlan`):
 :func:`device_epoch_chunks` yields ``(T, B)`` chunks of device tensors for
 ``Trainer.fit_stream``, and ``Trainer.run_indexed`` reads each step's batch
-from :meth:`DeviceEpochPlan.call_rows` / :meth:`DeviceEpochPlan.gather`.
+from :meth:`DeviceEpochPlan.call_batches` (``call_rows``, then ``gather``).
 
 Coverage contract (every shuffle): every example exactly once per epoch.
 """
@@ -280,6 +280,14 @@ class DeviceEpochPlan:
         batch = self.dataset.gather(rows)
         batch["weight"] = weight
         return batch
+
+    def call_batches(self, args: dict, start: int,
+                     steps: int) -> dict[str, Tensor]:
+        """The batches of steps ``[start, start + steps)``, what
+        ``Trainer.run_indexed`` reads: every column and the ``weight`` mask,
+        each ``(steps, num_workers * local_batch, ...)``; one index-select
+        per column."""
+        return self.gather(*self.call_rows(args, start, steps))
 
     def local_batch_at(self, args: dict, w: int, t: int) -> dict[str, Tensor]:
         """Worker ``w``'s step-``t`` batch: dict of ``(local_batch, ...)``

@@ -16,9 +16,10 @@ work).
   round starts, while pushes go to the live tables. Worker-local state is
   always live.
 
-* **run_indexed**: epochs over a :class:`~fps_tpu_torch.core.device_ingest.
-  DeviceEpochPlan`, whose columns already lie on the device; each call's
-  batches are an index-select over them, so no chunk crosses from the host.
+* **run_indexed**: epochs over a plan whose data already lies on the device
+  (:class:`~fps_tpu_torch.core.device_ingest.DeviceEpochPlan`, word2vec's
+  ``Word2VecDevicePlan``); each call's batches are built there, so no chunk
+  crosses from the host.
 
 Not ported, and rejected when set: ``push_delay``, ``step_tap``, ``guard``
 and ``hot_sync_every``; checkpoint hooks, rollback, telemetry, tiering,
@@ -82,15 +83,18 @@ class TrainerConfig:
     max_steps_per_call: int | None = None
 
     def __post_init__(self):
-        unported = {"push_delay": self.push_delay != 0,
-                    "step_tap": self.step_tap is not None,
-                    "guard": self.guard is not None,
-                    "hot_sync_every": self.hot_sync_every != 1}
-        for field, set_ in unported.items():
+        unported = {
+            "push_delay": (self.push_delay != 0, "item 3, push_delay"),
+            "step_tap": (self.step_tap is not None,
+                         "item 6, slice C: sketch.py and the step taps"),
+            "guard": (self.guard is not None, "item 8, slice E: durability"),
+            "hot_sync_every": (self.hot_sync_every != 1,
+                               "item 7, slice D: the hot tier")}
+        for field, (set_, where) in unported.items():
             if set_:
                 raise NotImplementedError(
                     f"TrainerConfig.{field}={getattr(self, field)!r} is not "
-                    "ported yet (ROADMAP.md Queue 1)")
+                    f"ported yet (ROADMAP.md Queue 1 {where})")
         if self.sync_every is not None and self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
         if self.max_steps_per_call is not None and self.max_steps_per_call < 1:
@@ -212,23 +216,35 @@ class Trainer:
         """Run ``num_steps`` steps; ``batch_at(i)`` is step ``i``'s batch (a
         dict of device tensors). Sync: one step after the other. SSP: rounds
         of ``sync_every`` steps, each round's pulls from a snapshot of the
-        tables taken as the round begins. Returns ``(tables, local_state,
-        metrics)`` with ``(num_steps,)`` device tensors."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(fold_seed(seed, 0))  # worker 0 of the one-device mesh
+        tables taken as the round begins. The worker draws from one
+        ``torch.Generator`` seeded by ``seed``, or, when it is
+        ``step_seeded``, from step ``i``'s seed ``fold_seed(fold_seed(seed,
+        0), i)``. Returns ``(tables, local_state, metrics)`` with
+        ``(num_steps,)`` device tensors."""
+        seed = fold_seed(seed, 0)  # worker 0 of the one-device mesh
+        if self.logic.step_seeded:
+            def key(i):
+                return fold_seed(seed, i)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+
+            def key(i):
+                return gen
         outs: list[dict[str, Tensor]] = []
         s = self.config.sync_every
         if s is None:
             for i in range(num_steps):
                 tables, local_state = self._step(
-                    tables, None, local_state, batch_at(i), gen, outs)
+                    tables, None, local_state, batch_at(i), key(i), outs)
         else:
             for r in range(num_steps // s):
                 # The round's reads see the tables as the round begins.
                 snapshot = {name: tb.clone() for name, tb in tables.items()}
                 for j in range(r * s, (r + 1) * s):
                     tables, local_state = self._step(
-                        tables, snapshot, local_state, batch_at(j), gen, outs)
+                        tables, snapshot, local_state, batch_at(j), key(j),
+                        outs)
         metrics = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         return tables, local_state, metrics
 
@@ -326,13 +342,16 @@ class Trainer:
                     health=None, watchdog=None):
         """Run ``epochs`` full passes over a device-resident dataset.
 
-        ``plan`` is a :class:`~fps_tpu_torch.core.device_ingest.
-        DeviceEpochPlan` whose ``sync_every`` matches the trainer's config.
-        Each epoch runs in calls of :meth:`_indexed_call_steps` steps; call
-        ``c`` of epoch ``e`` draws from seed ``fold_seed(fold_seed(seed, e),
-        c)`` and reads its batches straight from the resident columns
-        (``plan.call_rows``, then one index-select per column for the
-        call's steps; no host copy). The last call runs only the steps left
+        ``plan`` is an epoch plan whose ``sync_every`` matches the trainer's
+        config: a :class:`~fps_tpu_torch.core.device_ingest.DeviceEpochPlan`
+        or a :class:`~fps_tpu_torch.models.word2vec.Word2VecDevicePlan`.
+        Both give ``steps_per_epoch``, ``epoch_args(e)`` and
+        ``call_batches(args, start, steps)``: the batches of a call's steps,
+        one device tensor a column with a leading step axis, built on the
+        device (no host copy). Each epoch runs in calls of
+        :meth:`_indexed_call_steps` steps; call ``c`` of epoch ``e`` draws
+        from seed ``fold_seed(fold_seed(seed, e), c)``. The last call runs
+        only the steps left
         in the epoch (the JAX package pads it to the full call length with
         weight-0 steps, which leave the state as it is), so each epoch's
         metrics have ``plan.steps_per_epoch`` rows. To resume, pass
@@ -365,7 +384,7 @@ class Trainer:
             raise ValueError("plan.sync_every must match TrainerConfig")
         T = plan.steps_per_epoch
         T_call = self._indexed_call_steps(plan)
-        n_calls = plan.calls_per_epoch(T_call)
+        n_calls = -(-T // T_call)
         all_metrics = []
         for e in range(start_epoch, start_epoch + epochs):
             args = plan.epoch_args(e)
@@ -373,10 +392,8 @@ class Trainer:
             for c in range(n_calls):
                 # T and T_call are sync_every multiples, so is the rest.
                 steps = min(T_call, T - c * T_call)
-                # One index-select per column for the call's steps; each
-                # step's batch is a view of it.
-                batches = plan.gather(*plan.call_rows(args, c * T_call,
-                                                      steps))
+                # Each step's batch is a view of the call's batches.
+                batches = plan.call_batches(args, c * T_call, steps)
                 tables, local_state, metrics = self._run_steps(
                     tables, local_state,
                     lambda i, b=batches: {k: v[i] for k, v in b.items()},

@@ -10,7 +10,13 @@ sources of its own:
 * :func:`uniform_by_id`, a stateless hash of ``(seed, id, column)``, so that
   a table row depends on its id alone: not on the shard count, the number of
   rows drawn, or the device (integer ops and one float multiply-add, each
-  exact or correctly rounded, give the same bits on the CPU and the card).
+  exact or correctly rounded, give the same bits on the CPU and the card);
+* :func:`counter_bits` and the draws made from it (:func:`uniform_by_counter`,
+  :func:`randint_by_counter`), a stateless hash of ``(seed, counter)``: the
+  analog of a ``jax.random`` key folded with a step, for draws that must be
+  the same on the CPU and the card (``torch.Generator`` streams differ
+  between the two). word2vec draws its negatives, keep mask and
+  half-windows so.
 """
 
 from __future__ import annotations
@@ -64,3 +70,29 @@ def uniform_by_id(seed: int, ids: torch.Tensor, dim: int, low: float,
     span = torch.tensor(high - low, dtype=torch.float32, device=ids.device)
     return (u * span + torch.tensor(low, dtype=torch.float32,
                                     device=ids.device)).to(dtype)
+
+
+def counter_bits(seed: int, counters: torch.Tensor) -> torch.Tensor:
+    """32 random bits (int64 in ``[0, 2**32)``) for each of ``counters``
+    (int64 in ``[0, 2**32)``) under ``seed``; the same bits on every device.
+    Both halves of the seed's 64-bit fold key the hash, so two seeds give
+    unrelated streams over the same counters."""
+    s = fold_seed(seed, 0)
+    return _mix32(_mix32(counters ^ (s & _M32)) ^ ((s >> 31) & _M32))
+
+
+def uniform_by_counter(seed: int, counters: torch.Tensor) -> torch.Tensor:
+    """Float32 in ``[0, 1)``, 24 random bits each, one per counter."""
+    return ((counter_bits(seed, counters) >> 8).to(torch.float32)
+            * (1.0 / (1 << 24)))
+
+
+def randint_by_counter(seed: int, counters: torch.Tensor, low: int,
+                       high: int) -> torch.Tensor:
+    """Int64 in ``[low, high)``, one per counter: the high bits of
+    ``bits * (high - low)`` (exact in int64 for ``high - low < 2**31``)."""
+    span = high - low
+    if not 0 < span < 1 << 31:
+        raise ValueError(f"randint_by_counter: empty or too wide range "
+                         f"[{low}, {high})")
+    return low + ((counter_bits(seed, counters) * span) >> 32)

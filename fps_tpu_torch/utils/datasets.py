@@ -5,7 +5,8 @@ MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``), sparse
 classification for passive-aggressive and logistic regression
 (``synthetic_sparse_classification``, ``synthetic_sparse_multiclass``,
 ``head_sort_slots``), the svmlight / Criteo loaders (``load_svmlight``,
-``load_criteo``, ``sniff_sparse_format``, ``load_sparse``) and
+``load_criteo``, ``sniff_sparse_format``, ``load_sparse``), the text8-style
+token stream for word2vec (``synthetic_corpus``, ``load_text8``) and
 ``train_test_split``. The loaders are the JAX package's pure-Python
 branches; its compiled C++ parsers are not carried over. The same seed gives
 the same arrays as the JAX package's functions.
@@ -87,6 +88,68 @@ def train_test_split(data: dict, test_frac: float = 0.1, seed: int = 1):
         {k: v[tr] for k, v in data.items()},
         {k: v[te] for k, v in data.items()},
     )
+
+
+# ---------------------------------------------------------------------------
+# Zipfian token stream (text8-style) for word2vec.
+# ---------------------------------------------------------------------------
+
+def synthetic_corpus(
+    vocab_size: int,
+    num_tokens: int,
+    *,
+    num_topics: int = 16,
+    seed: int = 0,
+):
+    """Token stream with Zipfian unigram frequencies and topical locality
+    (nearby tokens share a topic), so skip-gram has real signal to learn."""
+    rng = np.random.default_rng(seed)
+    # Zipf over the vocab.
+    freq = 1.0 / np.arange(1, vocab_size + 1) ** 1.0
+    freq /= freq.sum()
+    # Each topic reweights a random slice of the vocab.
+    topic_boost = rng.gamma(0.3, 1.0, (num_topics, vocab_size))
+    topic_dist = freq * topic_boost
+    topic_dist /= topic_dist.sum(axis=1, keepdims=True)
+    # Markov chain over topics with sticky self-transitions.
+    tokens = np.empty(num_tokens, dtype=np.int32)
+    seg = 64
+    topic = 0
+    for start in range(0, num_tokens, seg):
+        if rng.random() < 0.3:
+            topic = rng.integers(num_topics)
+        end = min(start + seg, num_tokens)
+        tokens[start:end] = rng.choice(
+            vocab_size, end - start, p=topic_dist[topic]
+        )
+    return tokens
+
+
+def load_text8(path: str | None = None, vocab_size: int = 50_000,
+               num_tokens: int | None = 2_000_000, seed: int = 0):
+    """Load and tokenize text8 if present, else synthesize a Zipfian stream.
+
+    ``num_tokens`` sizes the synthetic stream and truncates a real file's
+    token stream (``None`` = use the whole file). Returns
+    (tokens int32 array, vocab_size, unigram_counts).
+    """
+    if path and os.path.exists(path):
+        with open(path) as f:
+            words = f.read().split()
+        if num_tokens is not None:
+            words = words[:num_tokens]
+        from collections import Counter
+
+        counts = Counter(words)
+        vocab = [w for w, _ in counts.most_common(vocab_size - 1)]
+        w2i = {w: i + 1 for i, w in enumerate(vocab)}  # 0 = UNK
+        tokens = np.fromiter((w2i.get(w, 0) for w in words), np.int32,
+                             len(words))
+        uni = np.bincount(tokens, minlength=vocab_size).astype(np.float64)
+        return tokens, vocab_size, uni
+    tokens = synthetic_corpus(vocab_size, num_tokens or 2_000_000, seed=seed)
+    uni = np.bincount(tokens, minlength=vocab_size).astype(np.float64)
+    return tokens, vocab_size, uni
 
 
 # ---------------------------------------------------------------------------

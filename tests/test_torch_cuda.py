@@ -12,8 +12,9 @@ hot/cold split and the whole-table route, K2's radix sort against
 ``torch.sort`` (bit for bit) and K2 against exact sums of sixteenths, runs
 across the sort's and the sum's tile edges, the gathers (K1, K5) bit for
 bit at every width, on views, past 2^31 output floats, with short grids
-and the fused head-prefix read, and the wrappers' and kernels' refusals.
-Every
+and the fused head-prefix read, and the wrappers' and kernels' refusals;
+K1 and K2 at word2vec's text8 shapes, and its draws on the card against the
+CPU's. Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1027,3 +1028,84 @@ def test_gathers_refuse_a_plan_they_cannot_run(dev, bad):
             kernels.gather_rows_dim1_cuda(t1, ids1, head_rows=100,
                                           head_prefix=10, plan=fix[1])
     assert not any(kernels.launch_counts().values())
+
+
+# word2vec at text8 width: vocab 50,000, dim 100, the block path's pulls
+# (8,197 block rows; 49,182 with the negatives) and its mean pushes'
+# sum-and-count scatters at D = 101, Zipf ids as synthetic_corpus draws them.
+W2V_V, W2V_D = 50_000, 100
+W2V_BATCHES = [8_197, 49_182]
+
+
+def _w2v_ids(B, seed, dev):
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, W2V_V + 1)
+    ids = rng.choice(W2V_V, B, p=pop / pop.sum()).astype(np.int32)
+    ids[::97] = -1
+    ids[13::101] = W2V_V + np.arange(len(ids[13::101])) % 7
+    return torch.from_numpy(ids).to(dev)
+
+
+@pytest.mark.parametrize("B", W2V_BATCHES)
+def test_w2v_pull_bit_equal_to_plain(dev, B):
+    rng = np.random.default_rng(B)
+    table = torch.from_numpy(rng.normal(0, 0.05, (W2V_V, W2V_D)).astype(
+        np.float32)).to(dev)
+    ids = _w2v_ids(B, B + 1, dev)
+    got = kernels.gather_rows_cuda(table, ids)
+    assert torch.equal(_bits(got), _bits(kernels.gather_rows_plain(table,
+                                                                   ids)))
+
+
+@pytest.mark.parametrize("B", W2V_BATCHES)
+def test_w2v_mean_push_scatter(dev, B):
+    """The mean push's scatter into zeros at D = 101 (404-byte rows, the
+    last column the count): deterministic, within the float32 bound of the
+    plain version, and exact on sixteenths."""
+    rng = np.random.default_rng(B + 2)
+    ids = _w2v_ids(B, B + 3, dev)
+    deltas = torch.from_numpy(rng.normal(0, 0.01, (B, W2V_D + 1)).astype(
+        np.float32)).to(dev)
+    deltas[:, -1] = 1.0
+    acc = torch.zeros((W2V_V, W2V_D + 1), device=dev)
+    got = kernels.scatter_add_cuda_(acc.clone(), ids, deltas)
+    again = kernels.scatter_add_cuda_(acc.clone(), ids, deltas)
+    plain = kernels.scatter_add_plain(acc.clone(), ids, deltas)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, -1], plain[:, -1])  # counts: exact
+    assert bool(((got.double() - plain.double()).abs()
+                 <= _sum_bound(acc, ids, deltas)).all())
+    ed = _sixteenths(deltas * 32)
+    assert torch.equal(kernels.scatter_add_cuda_(acc.clone(), ids,
+                                                 ed).double(),
+                       _exact_sum(acc, ids, ed))
+
+
+def test_w2v_draws_on_the_card_equal_the_cpus(dev):
+    """word2vec's draws are a hash of seeds and counters: the negatives,
+    the plan's keep mask (so its compacted stream) and its half-windows are
+    the same on the card as on the CPU."""
+    from fps_tpu_torch.models import word2vec as tw2v
+    from fps_tpu_torch.parallel.mesh import make_ps_mesh
+    from fps_tpu_torch.utils.datasets import synthetic_corpus
+
+    tokens = synthetic_corpus(2000, 50_000, seed=1)
+    uni = np.bincount(tokens, minlength=2000).astype(np.float64)
+    cfg = tw2v.W2VConfig(vocab_size=2000, dim=8, subsample_t=1e-3)
+    worker = tw2v.Word2VecBlockWorker(cfg, uni, 1024)
+    cpu = torch.device("cpu")
+    for seed in (0, 12345, 2**62 + 7):
+        assert torch.equal(worker._draw_negatives(seed, (1029, 5), dev).cpu(),
+                           worker._draw_negatives(seed, (1029, 5), cpu))
+    for mode in ("block", "pairs"):
+        got = {}
+        for where in (dev, cpu):
+            plan = tw2v.Word2VecDevicePlan(
+                tokens, uni, cfg, make_ps_mesh(device=where), num_workers=1,
+                block_len=1024, seed=3, mode=mode)
+            args = plan.epoch_args(1)
+            got[where.type] = dict(
+                plan.call_batches(args, 0, plan.steps_per_epoch),
+                compacted=args["compacted"], kept=args["kept"])
+        for k, v in got["cpu"].items():
+            assert torch.equal(got["cuda"][k].cpu(), v), k

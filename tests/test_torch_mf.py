@@ -310,9 +310,11 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.models.recommendation\n"
         "import fps_tpu_torch.models.passive_aggressive\n"
         "import fps_tpu_torch.models.logistic_regression\n"
+        "import fps_tpu_torch.models.word2vec\n"
         "import fps_tpu_torch.examples.common, fps_tpu_torch.examples.mf\n"
         "import fps_tpu_torch.examples.passive_aggressive\n"
         "import fps_tpu_torch.examples.logreg_ssp\n"
+        "import fps_tpu_torch.examples.word2vec\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"
