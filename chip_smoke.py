@@ -45,7 +45,13 @@ on the card, raising on the first failure:
    block path's pulls of 8,197 and 49,182 ids and its mean pushes' count-
    column scatters at D = 101, then, off the main path, the pairs path's
    81,920 and 491,520 ids, each from the paths' own first step (Zipf ids
-   of the corpus, the worker's negatives). K4's bucket pass by row tile,
+   of the corpus, the worker's negatives). K1 / K2 at iALS's step as
+   ``bench.py run_ials`` makes it (32,768 users, 16,384 Zipf-skewed items,
+   rank 16, B = 65,536, the path's first step): the fixed side's pulls at
+   D = 16 in both halves and the ``A`` (D = 256) and ``b`` (D = 16) pushes
+   keyed by users and by items. K4 at the word2vec sketch tap's stack (16
+   probes x 5 x 1,024 = 81,920 rows, two row tiles, the 409,600 items of
+   the block path's first step). K4's bucket pass by row tile,
    where its plan has one (the 1M-row logistic-regression table), must
    equal its plain version (a stable sort by bucket) bit for bit. Times
    are CUDA-event medians of 30 (the crossover sweep: 10) with the card held busy, beside the bound (least bytes /
@@ -70,14 +76,28 @@ on the card, raising on the first failure:
    epoch (s = 4), K1 2 and K2 2 a step, words/s and steady ms a step; the
    pair worker, two ``run_chunk`` calls of 8 steps (81,920 pairs a step),
    K1 2 and K2 2 a step; after them, one traced w2v epoch for its busy
-   share. Each must learn: MF's train RMSE falls; over the last chunk PA's
-   mistake rate lies below 0.5 (20 classes: 0.95) and the logistic log
-   loss below 0.693; word2vec's last real step's loss a pair lies below its
-   first and below (1 + K) log 2 = 4.159;
+   share. Then the w2v block worker with ``cooccurrence_sketch_tap`` of the
+   16 most frequent words, one ``run_indexed`` call of an epoch (K1 2, K2 2,
+   K4 1 a step; the similarity matrix finite with a positive diagonal);
+   iALS as ``bench.py run_ials`` trains it, a warm-up epoch on throwaway
+   state and then epochs until recall@20 on the first 2,000 held-out pairs
+   reaches 0.35, at most 8 (K1 1, K2 2 a step; the recall curve, seconds an
+   epoch, interactions/s, time to the target, the parts of a half-epoch
+   timed apart and one traced epoch); and MF at ML-20M width with the
+   online top-k tap (k 10, every 4th step, one call of 17 steps; K1 3 and
+   K2 2 a step), whose ids on every tapped step must equal a float64
+   brute-force ranking of that step's live item table. Each must learn:
+   MF's train RMSE falls; over the last chunk PA's mistake rate lies below
+   0.5 (20 classes: 0.95) and the logistic log loss below 0.693; word2vec's
+   last real step's loss a pair lies below its first and below (1 + K) log
+   2 = 4.159;
 5. runs small MF, head-prefix PA and SSP logistic-regression jobs, and
    run_indexed jobs of MF with ``hot_items``, 20-class PA with
    ``hot_features`` and word2vec (block sync, pairs SSP), on the card and
-   on the CPU from the same tables and seeds, and compares the tables; then traces 10 K2 calls at each of its path shapes
+   on the CPU from the same tables and seeds, and compares the tables
+   (within 1e-5 of their largest value); a small iALS job (factors within
+   1e-4 of the largest value) and the w2v block worker with the sketch tap
+   (tap sums bit for bit); then traces 10 K2 calls at each of its path shapes
    (``torch.profiler``) for the device time and launches of each kernel K2
    launches, which must be 3 a sort pass plus 2, 10 calls of the sort
    alone at each sort edge, 3 kernels a pass, 10 K3 calls at each K3
@@ -133,6 +153,21 @@ HOT = 2048  # the write-hot head of the split paths (bench.py's head size)
 # bench's 17M tokens to 2M.
 W2V_VOCAB, W2V_DIM, W2V_TOKENS, W2V_BLOCK = 50_000, 100, 2_000_000, 8192
 W2V_PAIR_STEPS = 8  # the pairs-mode call
+# The w2v example's --sketch-words: a tug-of-war sketch (depth 5, width
+# 1,024) of the 16 most frequent words' contexts, a stack of 81,920 rows.
+SKETCH_PROBES, SKETCH_DEPTH, SKETCH_WIDTH = 16, 5, 1024
+
+# iALS as bench.py run_ials trains it (synthetic_implicit with a rank-8
+# planted model, rank 16, alpha 40, reg 0.1, local batch 65,536 in chunks of
+# 4 steps; recall@20 on the first 2,000 held-out pairs to 0.35, at most 8
+# epochs); nothing is cut.
+IALS_USERS, IALS_ITEMS, IALS_PER_USER = 32_768, 16_384, 64
+IALS_RANK, IALS_BATCH, IALS_STEPS = 16, 65_536, 4
+IALS_TARGET, IALS_MAX_EPOCHS, IALS_EVAL = 0.35, 8, 2000
+
+# MF with the online top-k tap: k 10 for the first 2 users of every 4th
+# step, one run_chunk call of 17 steps (the last one tapped).
+TOPK_K, TOPK_EVERY, TOPK_QUERIES, TOPK_STEPS = 10, 4, 2, 17
 
 
 def log(*parts) -> None:
@@ -387,15 +422,21 @@ def profiled(torch, fn, calls=10):
     of K1 and K5 (``gather_*``) over ``calls`` calls
     of ``fn``, from ``torch.profiler``: ``({name: µs}, {name:
     launches})``."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    # A warm-up window of ``calls`` calls first, its events discarded: the
+    # tracer can miss the kernels that run just after it starts, which
+    # would read as a call that launched fewer.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     us, count = {}, {}
     for ev in prof.key_averages():
         name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+|dim1_\w+|"
@@ -698,6 +739,22 @@ def crossover_sweep(torch, kernels, dev):
     return {"rows": rows, "k3_wins_through_R": wins}
 
 
+def check_k4(torch, kernels, dev, label, view, ids, dl, path, collect):
+    """K4 at one shape, with its plan and, where the plan has one, its
+    bucket pass held to its plain version and timed alone."""
+    R = view.shape[0]
+    plan = kernels.card_dim1_plan(dev, ids.numel(), R)
+    bucket = None
+    if plan.buckets > 1:
+        check_bucket(torch, kernels, label, ids, dl, R, plan)
+        bucket = (lambda _: kernels.dim1_bucket_cuda(ids, dl, R))
+    case = check_scatter(torch, label, kernels.scatter_add_dim1_cuda_,
+                         kernels.scatter_add_dim1_plain, view, ids, dl, path,
+                         collect=collect, sort_fn=bucket)
+    case["plan"] = plan._asdict()
+    return case
+
+
 def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     """Phase 3: every kernel against its plain version at its paths'
     shapes. Returns ``{kernel name: [case, ...]}``."""
@@ -716,8 +773,7 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
 
     g1, s2 = kernels.gather_rows_cuda, kernels.scatter_add_cuda_
     g1p, s2p = kernels.gather_rows_plain, kernels.scatter_add_plain
-    g5, s4 = kernels.gather_rows_dim1_cuda, kernels.scatter_add_dim1_cuda_
-    g5p, s4p = kernels.gather_rows_dim1_plain, kernels.scatter_add_dim1_plain
+    g5, g5p = kernels.gather_rows_dim1_cuda, kernels.gather_rows_dim1_plain
     cases = {"gather_rows": [], "scatter_add": [], "gather_rows_dim1": [],
              "scatter_add_dim1": [], "scatter_add_packed": [], "split": []}
     k2_inputs = cases["k2_inputs"] = []
@@ -726,18 +782,8 @@ def kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data, dev):
     gather_inputs = cases["gather_inputs"] = []
 
     def k4_case(label, view, ids, dl, path):
-        """K4 at one shape, with its plan and, where the plan has one, its
-        bucket pass held to its plain version and timed alone."""
-        R = view.shape[0]
-        plan = kernels.card_dim1_plan(dev, ids.numel(), R)
-        bucket = None
-        if plan.buckets > 1:
-            check_bucket(torch, kernels, label, ids, dl, R, plan)
-            bucket = (lambda _: kernels.dim1_bucket_cuda(ids, dl, R))
-        case = check_scatter(torch, label, s4, s4p, view, ids, dl, path,
-                             collect=k4_inputs, sort_fn=bucket)
-        case["plan"] = plan._asdict()
-        return case
+        return check_k4(torch, kernels, dev, label, view, ids, dl, path,
+                        k4_inputs)
 
     # K1 / K2 at the MF step: the item pull and push (mean's count column),
     # the user factors' gather and update; the "sum" combine's push is off
@@ -1161,6 +1207,7 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
         runs.append(run_indexed_path(
             torch, fps, kernels, f"MF {mode}, hot_items, run_indexed",
             trainer, data, "user", BATCH, 2, split, falling_rmse, card, 64))
+    runs.append(mf_topk_path(torch, fps, kernels, data, card))
     mf_data = data
     del data
     # 20-class PA-I with hot_features = 2,048 (the multiclass table takes
@@ -1536,6 +1583,412 @@ def w2v_card_vs_cpu_jobs(fps):
             indexed("pairs", 4)),
     }
 
+# ---------------------------------------------------------------------------
+# iALS at the bench's width (K1 at D = 16, K2 at D = 256 and 16), the w2v
+# co-occurrence sketch tap (K4 on its 81,920-row stack) and MF's online
+# top-k tap.
+# ---------------------------------------------------------------------------
+
+def ials_data(ds):
+    """bench.py run_ials's data and chunks: ``(train, test, chunks)``, the
+    chunks of ``interaction_chunks(seed=0)``, the same every epoch (the
+    bench makes them anew each epoch from the same seed)."""
+    from fps_tpu_torch.models.ials import interaction_chunks
+
+    data = ds.synthetic_implicit(IALS_USERS, IALS_ITEMS, IALS_PER_USER,
+                                 rank=8, seed=0)
+    train, test = ds.train_test_split(data, test_frac=0.1, seed=1)
+    chunks = list(interaction_chunks(train, num_workers=1,
+                                     local_batch=IALS_BATCH,
+                                     steps_per_chunk=IALS_STEPS, seed=0))
+    return train, test, chunks
+
+
+def ials_kernel_cases(torch, kernels, cases, chunks, dev):
+    """Phase 3 at the iALS step's shapes, from the path's first step: K1's
+    pull of the fixed side (items, 16,384 x 16, in the user half; users,
+    32,768 x 16, in the item half), B = 65,536, and K2's pushes of the
+    solved side's ``A`` (D = 256) and ``b`` (D = 16) accumulators, into
+    zeros, keyed by users (uniform) or items (Zipf-skewed); -1 and >= R ids
+    mixed in."""
+    rng = np.random.default_rng(10)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    step = {k: v[0] for k, v in chunks[0].items()}
+    live = step["weight"] > 0
+    sides = {"user": (IALS_USERS, step["user"]),
+             "item": (IALS_ITEMS, step["item"])}
+    for solve, fixed in (("user", "item"), ("item", "user")):
+        rows, ids = sides[fixed]
+        table = t(rng.normal(0, 0.3, (rows, IALS_RANK)).astype(np.float32))
+        cases["gather_rows"].append(check_gather(
+            torch, kernels, f"K1 iALS {solve} half pull, {rows} x "
+            f"{IALS_RANK}", kernels.gather_rows_cuda,
+            kernels.gather_rows_plain, table, t(mix_dropped(ids, rows)),
+            "ials", collect=cases["gather_inputs"]))
+        rows, ids = sides[solve]
+        ids = t(mix_dropped(np.where(live, ids, -1), rows))
+        for name, dim in (("A", IALS_RANK * IALS_RANK), ("b", IALS_RANK)):
+            cases["scatter_add"].append(check_scatter(
+                torch, f"K2 iALS {solve} half {name} push, D = {dim}",
+                kernels.scatter_add_cuda_, kernels.scatter_add_plain,
+                torch.zeros((rows, dim), device=dev), ids,
+                t(rng.normal(0, 1, (IALS_BATCH, dim)).astype(np.float32)),
+                "ials", kernels, cases["k2_inputs"]))
+
+
+def sketch_spec():
+    from fps_tpu_torch.sketch import TugOfWarSpec
+
+    return TugOfWarSpec(depth=SKETCH_DEPTH, width=SKETCH_WIDTH, seed=0)
+
+
+def sketch_kernel_case(torch, fps, kernels, cases, tokens, uni, dev):
+    """Phase 3 at the sketch tap's stack update: K4 into the (16 x 5 x 1,024,
+    1) stack (two row tiles: its bucket pass runs), the 409,600 items of the
+    w2v block path's first step (the flat bucket of each of its 81,920 pairs
+    in each of 5 hash rows, signed 0/1 weights), -1 and >= R ids mixed
+    in."""
+    from fps_tpu_torch.models import word2vec as w2v
+    from fps_tpu_torch.sketch import tow_rows_items
+
+    mesh = fps.make_ps_mesh()
+    plan = fps.Word2VecDevicePlan(tokens, uni, w2v_config(fps), mesh,
+                                  num_workers=1, block_len=W2V_BLOCK, seed=1,
+                                  mode="block")
+    batch = {k: v[0] for k, v in plan.call_batches(plan.epoch_args(0), 0,
+                                                   1).items()}
+    center, ctx, w = w2v.block_pair_stream(batch)
+    probe = torch.from_numpy(np.argsort(-uni)[:SKETCH_PROBES].astype(
+        np.int32)).to(dev)
+    R = SKETCH_PROBES * SKETCH_DEPTH * SKETCH_WIDTH
+    flat, vals = tow_rows_items(sketch_spec(), SKETCH_PROBES,
+                                w2v._probe_rows(probe, center), ctx, w)
+    ids = torch.from_numpy(mix_dropped(flat.reshape(-1).cpu().numpy(),
+                                       R)).to(dev)
+    cases["scatter_add_dim1"].append(check_k4(
+        torch, kernels, dev, f"K4 w2v sketch tap stack {R} x 1, "
+        f"{ids.numel()} items", torch.zeros((R, 1), device=dev), ids,
+        vals.reshape(-1, 1).contiguous(), "w2v_sketch_tap",
+        cases["k4_inputs"]))
+
+
+def ials_path(torch, fps, kernels, train, test, chunks, card):
+    """Phase 4, iALS as bench.py run_ials trains it: the chunks uploaded
+    once (set-up), a warm-up epoch on throwaway state, then epochs from
+    fresh factors until recall@20 on the first 2,000 held-out pairs reaches
+    0.35 (at most 8), the launch counters at 0 just before them and read
+    just after: K1 1 and K2 2 a step. Then, on the trained state, the
+    parts of a half-epoch timed apart (CUDA events, the card held: the
+    Gramian, one accumulate step, the solve; one step's host time too) and
+    one traced epoch for the device's busy share."""
+    from fps_tpu_torch.models.ials import ITEM_TABLE, recall_at_k
+
+    mesh = fps.make_ps_mesh()
+    solver = fps.IALSSolver(mesh, fps.IALSConfig(
+        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
+        alpha=40.0, reg=0.1))
+    t0 = time.perf_counter()
+    dev_chunks = [{k: torch.from_numpy(v).to(mesh.device)
+                   for k, v in c.items()} for c in chunks]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    half_steps = sum(c["weight"].shape[0] for c in chunks)
+
+    def epoch():
+        solver.epoch(lambda: iter(dev_chunks))
+
+    solver.init(99)
+    epoch()  # warm-up on throwaway state, as the bench
+    solver.init(0)
+    epoch_s, recalls = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for _ in range(IALS_MAX_EPOCHS):
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        recalls.append(recall_at_k(
+            solver, test["user"][:IALS_EVAL], test["item"][:IALS_EVAL], k=20,
+            exclude=(train["user"], train["item"])))
+        if recalls[-1] >= IALS_TARGET:
+            break
+    launched = kernels.launch_counts()
+    steps = 2 * half_steps * len(epoch_s)
+    check_launches("iALS", launched, {"gather_rows": 1, "scatter_add": 2},
+                   steps)
+    check_finite(torch, "iALS", solver.store.tables, None)
+    if not recalls[-1] >= IALS_TARGET:
+        raise AssertionError(f"iALS recall@20 by epoch {recalls}: {IALS_TARGET}"
+                             f" not reached in {IALS_MAX_EPOCHS} epochs")
+
+    # The parts of the user half on the trained state.
+    fixed = solver.store.tables[ITEM_TABLE]
+    gram = solver._gram(fixed, IALS_ITEMS)
+    A = torch.zeros((IALS_USERS, IALS_RANK * IALS_RANK), device=mesh.device)
+    b = torch.zeros((IALS_USERS, IALS_RANK), device=mesh.device)
+    c0 = dev_chunks[0]
+    step = {"solve_ids": c0["user"][:1], "fixed_ids": c0["item"][:1],
+            "rating": c0["rating"][:1], "weight": c0["weight"][:1]}
+    parts = {
+        "gram_ms": time_ms(torch, lambda _: solver._gram(fixed, IALS_ITEMS)),
+        "step_ms": time_ms(torch, lambda _: solver._accumulate(fixed, A, b,
+                                                               step)),
+        "step_call_ms": time_ms(torch, lambda _: solver._accumulate(
+            fixed, A, b, step), hold=False),
+        "solve_ms": time_ms(torch, lambda _: solver._solve(gram, A, b,
+                                                           IALS_USERS)),
+    }
+    n = len(train["user"])
+    summary = {
+        "path": "iALS, bench.py run_ials", "epochs": len(epoch_s),
+        "steps_per_epoch": 2 * half_steps, "interactions": n,
+        "upload_seconds": upload_s, "epoch_seconds": epoch_s,
+        "recall_at_20_by_epoch": recalls, "target": IALS_TARGET,
+        "seconds_to_target": sum(epoch_s),
+        "interactions_per_s": [n / e for e in epoch_s],
+        "ms_per_step": sum(epoch_s) / steps * 1e3,
+        "steady_ms_per_step": epoch_s[-1] / (2 * half_steps) * 1e3,
+        "parts_held": parts, "launches": launched, "card": card}
+    log("path iALS: " + json.dumps(summary))
+    traced = traced_ials_epoch(torch, solver, epoch, 2 * half_steps,
+                               epoch_s[-1], card)
+    return summary, traced
+
+
+def traced_ials_epoch(torch, solver, epoch, steps, untraced_s, card):
+    """One iALS epoch under ``torch.profiler`` (after a warm-up one): the
+    device's busy time a step against the untraced epoch's step."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from fps_tpu_torch.utils import trace_summary
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(path))
+        with prof:
+            for _ in range(2):
+                epoch()
+                torch.cuda.synchronize()
+                prof.step()
+        summary = trace_summary.summarize(trace_summary.load(path), steps,
+                                          top=20)
+    untraced_ms = untraced_s / steps * 1e3
+    busy = summary["device_busy_ms_per_step"]
+    out = {"path": "iALS (traced epoch)", "steps": steps,
+           "untraced_ms_per_step": untraced_ms,
+           "device_busy_ms_per_step": busy,
+           "device_busy_share": busy / untraced_ms,
+           "device_launches_per_step": summary["device_launches_per_step"],
+           "traced_host_ms_per_step": summary["traced_host_ms_per_step"],
+           "kernels": summary["kernels"], "card": card}
+    log("traced epoch, iALS: " + json.dumps(out))
+    return out
+
+
+def w2v_sketch_path(torch, fps, kernels, tokens, uni, card):
+    """Phase 4, the w2v block worker with ``cooccurrence_sketch_tap`` of the
+    16 most frequent words (the example's ``--sketch-words 16``), one
+    ``run_indexed`` call of an epoch of the phase's corpus from fresh
+    tables, the launch counters at 0 just before and read just after: K1 2,
+    K2 2 and K4 1 a step. The similarity matrix must be finite with a
+    positive diagonal."""
+    from fps_tpu_torch.models import word2vec as w2v
+
+    mesh = fps.make_ps_mesh()
+    cfg = w2v_config(fps)
+    probe = np.argsort(-uni)[:SKETCH_PROBES].astype(np.int32)
+    trainer, _ = fps.word2vec_block(
+        mesh, cfg, uni, W2V_BLOCK, max_steps_per_call=256,
+        step_tap=w2v.cooccurrence_sketch_tap(sketch_spec(), probe))
+    plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
+                                  block_len=W2V_BLOCK, seed=1, mode="block")
+    if trainer._indexed_call_steps(plan) != plan.steps_per_epoch:
+        raise AssertionError("the sketch path's epoch is not one call")
+    tables, local_state = trainer.init_state(0)
+    label = "w2v block sync, sketch tap, run_indexed"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tables, local_state, metrics = trainer.run_indexed(
+        tables, local_state, plan, 1, epochs=1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    check_launches(label, launched, {"gather_rows": 2, "scatter_add": 2,
+                                     "scatter_add_dim1": 1},
+                   plan.steps_per_epoch)
+    check_finite(torch, label, tables, local_state)
+    sims = w2v.sketch_similarity(w2v.accumulate_sketch_taps(metrics))
+    if not (np.isfinite(sims).all() and (np.diag(sims) > 0).all()):
+        raise AssertionError(f"{label}: similarity {sims} is not finite with "
+                             "a positive diagonal")
+    summary = {
+        "path": label, "steps": plan.steps_per_epoch, "seconds": elapsed,
+        "ms_per_step": elapsed / plan.steps_per_epoch * 1e3,
+        "words_per_s": len(tokens) / elapsed,
+        "probe_words": probe.tolist(),
+        "similarity_diagonal": np.diag(sims).tolist(),
+        "launches": launched, "card": card}
+    log(f"path {label}: " + json.dumps(summary))
+    return summary
+
+
+def mf_topk_path(torch, fps, kernels, data, card):
+    """Phase 4, MF at ML-20M width with ``make_online_topk_tap`` (k 10, the
+    first 2 users of every 4th step): one ``run_chunk`` of 17 steps from
+    fresh tables, the launch counters at 0 just before and read just after
+    (K1 3 a step: the item pull, the user rows, the tap's query rows; K2 2).
+    On every tapped step the ids must equal a float64 brute-force ranking,
+    by (-score, id), of that step's live item table (copied by a checking
+    tap around the port's) for those users; the other steps emit -1. Then
+    the same chunk again with the port's tap alone, timed (steady ms a
+    step)."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.models import recommendation as rec
+
+    mesh = fps.make_ps_mesh()
+    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                       rank=RANK, learning_rate=0.1, reg=0.01)
+    trainer, store = fps.online_mf(mesh, cfg, combine="mean")
+    topk = rec.make_online_topk_tap(store, "item_factors", TOPK_K,
+                                    every=TOPK_EVERY,
+                                    query_fn=rec.mf_topk_query_fn(
+                                        1, TOPK_QUERIES))
+    seen = {}
+
+    def tap(tables, batch, local_state, t):
+        if t % TOPK_EVERY == 0:
+            seen[t] = (tables["item_factors"].clone(), local_state.clone())
+        return topk(tables, batch, local_state, t)
+
+    trainer.config = dataclasses.replace(trainer.config, step_tap=tap)
+    chunk = next(epoch_chunks(data, num_workers=1, local_batch=BATCH,
+                              steps_per_chunk=TOPK_STEPS, route_key="user",
+                              seed=0))
+    tables, local_state = trainer.init_state(0)
+    label = "MF sync, online top-k tap, run_chunk"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tables, local_state, m = trainer.run_chunk(tables, local_state, chunk, 1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    check_launches(label, launched, {"gather_rows": 3, "scatter_add": 2},
+                   TOPK_STEPS)
+    check_finite(torch, label, tables, local_state)
+    ids = m["tap"]["topk_ids"][:, 0].cpu().numpy()
+    users = m["tap"]["topk_query"][:, 0].cpu().numpy()
+    scores = m["tap"]["topk_scores"][:, 0].cpu().numpy()
+    for t in range(TOPK_STEPS):
+        if t not in seen:
+            if not ((ids[t] == -1).all() and (users[t] == -1).all()):
+                raise AssertionError(f"{label}: step {t} is not tapped but "
+                                     "emitted ids")
+            continue
+        items, user_rows = (x.cpu().numpy().astype(np.float64)
+                            for x in seen[t])
+        valid = users[t] >= 0
+        full = user_rows[users[t][valid]] @ items.T
+        want = np.argsort(-full, axis=1, kind="stable")[:, :TOPK_K]
+        if not valid.any() or not np.array_equal(ids[t][valid], want):
+            raise AssertionError(f"{label}: step {t} ids {ids[t]} != brute "
+                                 f"force {want}")
+        if not (np.diff(scores[t][valid], axis=1) <= 0).all():
+            raise AssertionError(f"{label}: step {t} scores not descending")
+    trainer.config = dataclasses.replace(trainer.config, step_tap=topk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run_chunk(tables, local_state, chunk, 2)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    summary = {"path": label, "steps": TOPK_STEPS,
+               "checked_call_seconds": elapsed,
+               "steady_ms_per_step": steady / TOPK_STEPS * 1e3,
+               "tapped_steps": sorted(seen), "k": TOPK_K,
+               "queries_per_step": TOPK_QUERIES, "launches": launched,
+               "card": card}
+    log(f"path {label}: " + json.dumps(summary))
+    return summary
+
+
+def taps_card_vs_cpu(torch, fps):
+    """Phase 5 for this slice: a small iALS job (2,000 users, 1,000 items,
+    rank 16, 2 epochs) and the w2v block worker with the sketch tap (the
+    small corpus of :func:`w2v_card_vs_cpu_jobs`, 2 epochs), each on the
+    card and on the CPU from the same tables and seeds. iALS's factors must
+    lie within 1e-4 of the largest |value| (the same float32 systems; the
+    sums and solves in another order); the tap sums must be equal bit for
+    bit (±1 sums of 0/1 weights are exact in any order, and the plan's
+    draws are the same on both) and the w2v tables within 1e-5."""
+    from fps_tpu_torch.models import word2vec as w2v
+    from fps_tpu_torch.models.ials import interaction_chunks
+    from fps_tpu_torch.utils import datasets as ds
+
+    data = ds.synthetic_implicit(2000, 1000, 20, rank=4, seed=0)
+    chunks = list(interaction_chunks(data, num_workers=1, local_batch=4096,
+                                     steps_per_chunk=4, seed=0))
+    factors, tables0 = {}, None
+    for device in ("cpu", "cuda"):
+        solver = fps.IALSSolver(fps.make_ps_mesh(device=device),
+                                fps.IALSConfig(2000, 1000, rank=IALS_RANK))
+        if tables0 is None:
+            tables0 = dict(solver.init(7))
+        solver.store.tables = {k: v.to(solver.device, copy=True)
+                               for k, v in tables0.items()}
+        for _ in range(2):
+            solver.epoch(lambda: iter(chunks))
+        factors[device] = solver.factors()
+    ials = max(float(np.abs(c - g).max() / np.abs(c).max())
+               for c, g in zip(factors["cpu"], factors["cuda"]))
+    if not ials <= 1e-4:
+        raise AssertionError(f"card vs CPU, iALS: factors differ by {ials} "
+                             "of their largest value > 1e-4")
+    tokens, vocab, uni = ds.load_text8(None, 2000, 60_000, seed=4)
+    cfg = fps.W2VConfig(vocab_size=vocab, dim=32, subsample_t=1e-3,
+                        learning_rate=0.1)
+    probe = np.argsort(-uni)[:SKETCH_PROBES].astype(np.int32)
+    runs, tables0 = {}, None
+    for device in ("cpu", "cuda"):
+        mesh = fps.make_ps_mesh(device=device)
+        trainer, _ = fps.word2vec_block(
+            mesh, cfg, uni, 1024, max_steps_per_call=16,
+            step_tap=w2v.cooccurrence_sketch_tap(sketch_spec(), probe))
+        if tables0 is None:
+            tables0, local0 = trainer.init_state(7)
+        tables = {k: v.to(mesh.device, copy=True) for k, v in tables0.items()}
+        plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
+                                      block_len=1024, seed=5, mode="block")
+        tables, _, metrics = trainer.run_indexed(tables, local0, plan, 6,
+                                                 epochs=2)
+        runs[device] = ({k: v.cpu() for k, v in tables.items()},
+                        w2v.accumulate_sketch_taps(metrics))
+    if not np.array_equal(runs["cpu"][1], runs["cuda"][1]):
+        raise AssertionError("card vs CPU, w2v sketch tap: the tap sums "
+                             "differ")
+    w2v_diff = max(float((runs["cpu"][0][k] - runs["cuda"][0][k]).abs().max())
+                   / max(1.0, float(runs["cpu"][0][k].abs().max()))
+                   for k in runs["cpu"][0])
+    if not w2v_diff <= 1e-5:
+        raise AssertionError(f"card vs CPU, w2v with the sketch tap: tables "
+                             f"differ by {w2v_diff} > 1e-5")
+    out = {"ials_factors": ials, "w2v_sketch_tap_tables": w2v_diff,
+           "w2v_sketch_tap_sums_bit_equal": True,
+           "w2v_sketch_tap_sum_abs": float(np.abs(runs["cpu"][1]).sum())}
+    log("card vs CPU, iALS and the sketch tap: " + json.dumps(out))
+    return out
+
 
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
@@ -1609,6 +2062,11 @@ def main() -> int:
     w2v_tokens, _, w2v_uni = ds.load_text8(None, W2V_VOCAB, W2V_TOKENS)
     log(f"text8-size corpus ({W2V_TOKENS} tokens, vocab {W2V_VOCAB}) made "
         f"in {time.perf_counter() - t0:.1f} s")
+    # iALS's interactions and chunks, as bench.py run_ials makes them.
+    t0 = time.perf_counter()
+    ials_train, ials_test, ials_chunks = ials_data(ds)
+    log(f"iALS data ({len(ials_train['user'])} training interactions, "
+        f"{len(ials_chunks)} chunks) made in {time.perf_counter() - t0:.1f} s")
 
     # 3. Kernels against their plain versions at the paths' shapes.
     cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
@@ -1616,6 +2074,8 @@ def main() -> int:
     w2v_kernel_cases(torch, kernels, cases,
                      w2v_first_step_ids(torch, fps, w2v_tokens, w2v_uni),
                      dev)
+    ials_kernel_cases(torch, kernels, cases, ials_chunks, dev)
+    sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
@@ -1627,6 +2087,12 @@ def main() -> int:
 
     # 4. The paths at full width, counters at 0 just before each.
     w2v_runs = w2v_paths(torch, fps, kernels, w2v_tokens, w2v_uni, card)
+    w2v_runs.append(w2v_sketch_path(torch, fps, kernels, w2v_tokens, w2v_uni,
+                                    card))
+    ials_run, traced_ials = ials_path(torch, fps, kernels, ials_train,
+                                      ials_test, ials_chunks, card)
+    w2v_runs.append(ials_run)
+    del ials_chunks
     runs, traced = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data,
                                lr_data, card)
     runs += w2v_runs
@@ -1637,6 +2103,7 @@ def main() -> int:
 
     # 5. The card against the CPU.
     worst = card_vs_cpu(torch, fps)
+    taps_worst = taps_card_vs_cpu(torch, fps)
     breakdown, sort_traced = k2_breakdown(torch, kernels, k2_inputs,
                                           sort_inputs)
     k3_traced = k3_breakdown(torch, kernels, k3_inputs)
@@ -1702,16 +2169,22 @@ def main() -> int:
                     traced_by_shape=traced)
 
     # K1's and K2's times a step of the w2v paths (the block path's two
-    # pulls or pushes; the pairs path's, off the main path).
+    # pulls or pushes; the pairs path's, off the main path) and of the iALS
+    # path (a pull and two pushes of each half's step, summed over both
+    # halves: two steps' worth).
     w2v_steps = {k: {p: path_sums(cases[k], p, copy=k == "gather_rows")
                      for p in ("w2v_block", "w2v_pairs")}
                  for k in ("gather_rows", "scatter_add")}
+    ials_steps = {k: path_sums(cases[k], "ials", copy=k == "gather_rows")
+                  for k in ("gather_rows", "scatter_add")}
     line = {"kernels": [
         dict(gather_entry("gather_rows", src + "gather_rows.cu",
                           pallas + ":513", "mf"),
-             w2v_per_step=w2v_steps["gather_rows"]),
+             w2v_per_step=w2v_steps["gather_rows"],
+             ials_two_half_steps=ials_steps["gather_rows"]),
         dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
                    "mf"), w2v_per_step=w2v_steps["scatter_add"],
+             ials_two_half_steps=ials_steps["scatter_add"],
              sort={"source": src + "radix_sort.cu",
                    "passes_by_shape": {label: b["sort_passes"]
                                        for label, b in breakdown.items()},
@@ -1732,13 +2205,17 @@ def main() -> int:
                  "torch_sort_ms_by_shape": {
                      c["shape"]: c["torch_sort_ms"]
                      for c in cases["scatter_add_dim1"]}},
+             sketch_tap_per_step=path_sums(cases["scatter_add_dim1"],
+                                           "w2v_sketch_tap"),
              traced_by_shape=k4_traced),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
                    pallas + ":178", "mf_hot"),
              traced_by_shape=k3_traced, split_end_to_end=split,
              crossover_sweep=sweep),
     ], "paths": runs, "traced_mf_run_indexed": traced,
-        "traced_w2v_run_indexed": traced_w2v, "card_vs_cpu": worst,
+        "traced_w2v_run_indexed": traced_w2v,
+        "traced_ials_epoch": traced_ials, "card_vs_cpu": worst,
+        "card_vs_cpu_ials_and_sketch_tap": taps_worst,
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)

@@ -10,7 +10,8 @@ a model constructor (``online_mf``, ``passive_aggressive``,
 hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
 for wide tables, the head scatter-add of the hot/cold push split, scalar
 gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
-PyTorch versions.
+PyTorch versions. iALS (``IALSSolver``) drives its own loop of
+normal-equation solves over the same store and kernels.
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is passed
 to :func:`make_ps_mesh`; without CUDA and without a device they raise.
@@ -30,6 +31,7 @@ from fps_tpu_torch.core.device_ingest import (
 )
 from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 from fps_tpu_torch.core.store import ParamStore, TableSpec, pull, push
+from fps_tpu_torch.models.ials import IALSConfig, IALSSolver
 from fps_tpu_torch.models.logistic_regression import (
     LogRegConfig,
     logistic_regression,
@@ -55,7 +57,7 @@ from fps_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "ADDITIVE", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
-    "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
+    "IALSConfig", "IALSSolver", "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
     "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
     "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",
     "default_mesh_shape", "device_epoch_chunks", "logistic_regression",

@@ -21,8 +21,11 @@ work).
   ``Word2VecDevicePlan``); each call's batches are built there, so no chunk
   crosses from the host.
 
-Not ported, and rejected when set: ``push_delay``, ``step_tap``, ``guard``
-and ``hot_sync_every``; checkpoint hooks, rollback, telemetry, tiering,
+``TrainerConfig.step_tap`` runs a tap with table access after each step's
+push; its outputs ride the metrics under ``"tap"``.
+
+Not ported, and rejected when set: ``push_delay``, ``guard`` and
+``hot_sync_every``; checkpoint hooks, rollback, telemetry, tiering,
 prefetch and megastep (ROADMAP.md Queue 1 and slices D-F).
 """
 
@@ -70,8 +73,18 @@ class TrainerConfig:
     draws from its own seed, as the JAX package's calls draw from their own
     key. ``run_chunk`` does not read it.
 
-    ``push_delay``, ``step_tap``, ``guard`` and ``hot_sync_every`` are not
-    ported; any value but the default raises ``NotImplementedError``.
+    ``step_tap``: ``tap(tables, batch, local_state, t) -> pytree`` (nested
+    dicts, tuples or lists of tensors), run after step ``t``'s push on the
+    tables as they are then, the step's raw (pre-``prepare``) batch and the
+    new local state; ``t`` is the step's index in its chunk
+    (:meth:`Trainer.run_chunk`) or epoch (:meth:`Trainer.run_indexed`).
+    The metrics gain a ``"tap"`` entry whose leaves are ``(T, W, ...)``:
+    steps, then workers (``W = 1`` on the port's one-device mesh), as the
+    JAX package gathers them. The worker's out channel must be a dict
+    without a ``"tap"`` key.
+
+    ``push_delay``, ``guard`` and ``hot_sync_every`` are not ported; any
+    value but the default raises ``NotImplementedError``.
     """
 
     sync_every: int | None = None
@@ -85,8 +98,6 @@ class TrainerConfig:
     def __post_init__(self):
         unported = {
             "push_delay": (self.push_delay != 0, "item 3, push_delay"),
-            "step_tap": (self.step_tap is not None,
-                         "item 6, slice C: sketch.py and the step taps"),
             "guard": (self.guard is not None, "item 8, slice E: durability"),
             "hot_sync_every": (self.hot_sync_every != 1,
                                "item 7, slice D: the hot tier")}
@@ -205,22 +216,42 @@ class Trainer:
                 inplace=self.config.donate)
         return new_tables
 
-    def _step(self, tables, snapshot, local_state, batch, gen, outs):
+    def _run_tap(self, out, tables, batch, local_state, t: int):
+        """``out`` with the step tap's outputs under ``"tap"``, each leaf
+        given the worker axis (``W = 1``)."""
+        tap = self.config.step_tap
+        if tap is None:
+            return out
+        if not isinstance(out, dict):
+            raise TypeError(
+                "step_tap requires the worker's out channel to be a dict "
+                f"(got {type(out).__name__})")
+        if "tap" in out:
+            raise ValueError(
+                "the worker's out channel already has a 'tap' key; it would "
+                "be clobbered by the step_tap output")
+        tapped = tap(tables, batch, local_state, t)
+        return dict(out, tap=_tree_map(lambda x: x[None], tapped))
+
+    def _step(self, tables, snapshot, local_state, batch, gen, t, outs):
         pushes, hp, local_state, out = self._compute_step(
             tables, snapshot, local_state, batch, gen)
-        outs.append(out)
-        return self._apply_pushes(tables, pushes, hp), local_state
+        tables = self._apply_pushes(tables, pushes, hp)
+        outs.append(self._run_tap(out, tables, batch, local_state, t))
+        return tables, local_state
 
     def _run_steps(self, tables, local_state, batch_at, num_steps: int,
-                   seed: int):
+                   seed: int, t0: int = 0):
         """Run ``num_steps`` steps; ``batch_at(i)`` is step ``i``'s batch (a
-        dict of device tensors). Sync: one step after the other. SSP: rounds
+        dict of device tensors), which the step tap sees as step ``t0 + i``.
+        Sync: one step after the other. SSP: rounds
         of ``sync_every`` steps, each round's pulls from a snapshot of the
         tables taken as the round begins. The worker draws from one
         ``torch.Generator`` seeded by ``seed``, or, when it is
         ``step_seeded``, from step ``i``'s seed ``fold_seed(fold_seed(seed,
         0), i)``. Returns ``(tables, local_state, metrics)`` with
-        ``(num_steps,)`` device tensors."""
+        ``(num_steps,)`` device tensors (the tap's leaves ``(num_steps, 1,
+        ...)``)."""
         seed = fold_seed(seed, 0)  # worker 0 of the one-device mesh
         if self.logic.step_seeded:
             def key(i):
@@ -236,7 +267,8 @@ class Trainer:
         if s is None:
             for i in range(num_steps):
                 tables, local_state = self._step(
-                    tables, None, local_state, batch_at(i), key(i), outs)
+                    tables, None, local_state, batch_at(i), key(i), t0 + i,
+                    outs)
         else:
             for r in range(num_steps // s):
                 # The round's reads see the tables as the round begins.
@@ -244,9 +276,8 @@ class Trainer:
                 for j in range(r * s, (r + 1) * s):
                     tables, local_state = self._step(
                         tables, snapshot, local_state, batch_at(j), key(j),
-                        outs)
-        metrics = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-        return tables, local_state, metrics
+                        t0 + j, outs)
+        return tables, local_state, _tree_stack(outs, torch.stack)
 
     # -- chunks -----------------------------------------------------------
 
@@ -397,9 +428,9 @@ class Trainer:
                 tables, local_state, metrics = self._run_steps(
                     tables, local_state,
                     lambda i, b=batches: {k: v[i] for k, v in b.items()},
-                    steps, fold_seed(fold_seed(seed, e), c))
+                    steps, fold_seed(fold_seed(seed, e), c), c * T_call)
                 parts.append(metrics)
-            metrics = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+            metrics = _tree_stack(parts, torch.cat)
             all_metrics.append(metrics)
             # Host reads through the store see the live tables before any
             # callback runs.
@@ -413,6 +444,27 @@ class Trainer:
         return tables, local_state, all_metrics
 
 
-def _to_host(metrics: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() if isinstance(v, Tensor) else v
-            for k, v in metrics.items()}
+def _tree_map(fn, tree):
+    """``fn`` over the tensor leaves of nested dicts, tuples and lists."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_stack(trees: list, join):
+    """One tree of the same structure as each of ``trees``, each leaf
+    ``join`` (``torch.stack`` or ``torch.cat``) of theirs."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _tree_stack([t[k] for t in trees], join) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_stack(list(z), join)
+                           for z in zip(*trees))
+    return join(trees)
+
+
+def _to_host(metrics: Mapping[str, Any]) -> dict[str, Any]:
+    return _tree_map(lambda v: v.detach().cpu().numpy()
+                     if isinstance(v, Tensor) else v, metrics)

@@ -3,7 +3,10 @@
 Port of ``fps_tpu/examples/mf.py`` with the flags the port supports:
 device-resident or host ingest (``--ingest``), one device, sync or SSP.
 Prints one JSON line per event, ending in a ``"done"`` event with the
-held-out ``test_rmse``.
+held-out ``test_rmse``. ``--topk K --topk-every N`` ranks the top-K items of
+the first users of every N-th step's batch inside the training loop (a step
+tap; one ``"topk_online"`` event per such step); ``--topk K`` alone ranks
+them for a few test users after training (``"topk"`` events).
 
     python -m fps_tpu_torch.examples.mf --scale 20m --local-batch 32768
     python -m fps_tpu_torch.examples.mf --scale 100k --device cpu
@@ -14,6 +17,7 @@ held-out ``test_rmse``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -37,9 +41,19 @@ def main(argv=None) -> int:
     ap.add_argument("--reg", type=float, default=0.01)
     ap.add_argument("--combine", default="sum", choices=["sum", "mean"],
                     help="how duplicate items of one batch merge")
+    ap.add_argument("--topk", type=int, default=0,
+                    help="after training, print top-K items for sample users")
+    ap.add_argument("--topk-every", type=int, default=0,
+                    help="emit top-K (for the users being trained) every N "
+                         "steps from inside the training loop, the "
+                         "reference's streaming ...AndTopK shape; requires "
+                         "--topk")
     args = ap.parse_args(argv)
+    if args.topk_every and not args.topk:
+        ap.error("--topk-every requires --topk")
 
     from fps_tpu_torch.models.matrix_factorization import (
+        ITEM_TABLE,
         MFConfig,
         online_mf,
         predict_host,
@@ -60,6 +74,16 @@ def main(argv=None) -> int:
                    learning_rate=args.learning_rate, reg=args.reg)
     trainer, store = online_mf(mesh, cfg, sync_every=args.sync_every,
                                combine=args.combine)
+    if args.topk_every:
+        from fps_tpu_torch.models.recommendation import (
+            make_online_topk_tap,
+            mf_topk_query_fn,
+        )
+
+        trainer.config = dataclasses.replace(
+            trainer.config, step_tap=make_online_topk_tap(
+                store, ITEM_TABLE, args.topk, every=args.topk_every,
+                query_fn=mf_topk_query_fn(W, 2)))
     tables, local_state = trainer.init_state(args.seed)
 
     chunks = make_chunks(args, mesh, train, route_key="user")
@@ -70,6 +94,13 @@ def main(argv=None) -> int:
         se, n = float(np.sum(m["se"])), max(1.0, float(np.sum(m["n"])))
         emit({"event": "chunk", "i": i, "train_rmse": float(np.sqrt(se / n)),
               "examples": n, "seconds": time.perf_counter() - t0})
+        if "tap" in m:
+            users = m["tap"]["topk_query"]  # (T, W, q)
+            items = m["tap"]["topk_ids"]  # (T, W, q, k)
+            for t in np.flatnonzero((users >= 0).any(axis=(1, 2))):
+                emit({"event": "topk_online", "chunk": i, "step": int(t),
+                      "users": users[t].reshape(-1).tolist(),
+                      "items": items[t].reshape(users[t].size, -1).tolist()})
         prof_step()
 
     with prof:
@@ -78,6 +109,19 @@ def main(argv=None) -> int:
     pred = predict_host(store, local_state, W, test["user"], test["item"])
     emit({"event": "done", "test_rmse": rmse(pred, test["rating"]),
           "seconds": time.perf_counter() - t0})
+
+    if args.topk:
+        from fps_tpu_torch.models.recommendation import (
+            mf_user_vectors,
+            recommend_topk,
+        )
+
+        users = np.unique(test["user"])[:8]
+        q = mf_user_vectors(local_state.cpu().numpy(), W, users)
+        ids, scores = recommend_topk(store, ITEM_TABLE, q, args.topk)
+        for u, row_i, row_s in zip(users, ids, scores):
+            emit({"event": "topk", "user": int(u), "items": row_i.tolist(),
+                  "scores": np.round(row_s, 4).tolist()})
     return 0
 
 

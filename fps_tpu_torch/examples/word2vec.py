@@ -7,8 +7,10 @@ the device, batches built there by ``Word2VecDevicePlan``, trained through
 host`` (pair chunks built in numpy by ``skipgram_chunks`` and copied over,
 through ``fit_stream``; pairs only). Prints one JSON line per event:
 ``start``, a ``chunk`` per epoch (device) or chunk (host) with the SGNS loss
-a pair, ``done`` with words/s and pairs/s, then the nearest neighbours of a
-few frequent words.
+a pair, ``done`` with words/s and pairs/s, with ``--sketch-words P`` the
+``cooccurrence_similarity`` of the P most frequent words (a tug-of-war
+sketch riding the training loop as a step tap, on both workers), then the
+nearest neighbours of a few frequent words.
 
     python -m fps_tpu_torch.examples.word2vec --local-batch 81920
     python -m fps_tpu_torch.examples.word2vec --device cpu --num-tokens 200000 --dim 32
@@ -44,23 +46,22 @@ def main(argv=None) -> int:
                          "device ingest only, its default) or 'pairs' (the "
                          "host ingest's)")
     ap.add_argument("--sketch-words", type=int, default=0,
-                    help="co-occurrence sketch of the P most frequent words "
-                         "(not ported yet; 0 = off)")
+                    help="track the P most frequent words' co-occurrence "
+                         "similarity with a tug-of-war sketch riding the "
+                         "training loop (both workers; 0 = off)")
     args = ap.parse_args(argv)
     mode = args.mode or ("block" if args.ingest == "device" else "pairs")
     if args.ingest == "host" and mode == "block":
         ap.error("--mode block needs --ingest device (the block worker "
                  "reads the device plan's raw blocks)")
-    if args.sketch_words:
-        raise NotImplementedError(
-            "--sketch-words: the co-occurrence sketch is not ported yet "
-            "(ROADMAP.md Queue 1 item 6, slice C: sketch.py and the step "
-            "taps)")
 
     from fps_tpu_torch.models.word2vec import (
         W2VConfig,
         Word2VecDevicePlan,
+        accumulate_sketch_taps,
+        cooccurrence_sketch_tap,
         nearest_neighbors,
+        sketch_similarity,
         skipgram_chunks,
         word2vec,
         word2vec_block,
@@ -79,24 +80,36 @@ def main(argv=None) -> int:
     cfg = W2VConfig(vocab_size=vocab, dim=args.dim, window=args.window,
                     negatives=args.negatives,
                     learning_rate=args.learning_rate)
+    sketch_probe = step_tap = None
+    if args.sketch_words > 0:
+        from fps_tpu_torch.sketch import TugOfWarSpec
+
+        sketch_probe = np.argsort(-uni)[:args.sketch_words].astype(np.int32)
+        step_tap = cooccurrence_sketch_tap(
+            TugOfWarSpec(depth=5, width=1024, seed=args.seed), sketch_probe)
     block_len = max(64, args.local_batch // (2 * cfg.window))
     if mode == "block":
         trainer, store = word2vec_block(mesh, cfg, uni, block_len,
                                         sync_every=args.sync_every,
-                                        max_steps_per_call=256)
+                                        max_steps_per_call=256,
+                                        step_tap=step_tap)
     else:
         trainer, store = word2vec(mesh, cfg, uni, sync_every=args.sync_every,
-                                  max_steps_per_call=256)
+                                  max_steps_per_call=256, step_tap=step_tap)
     tables, local_state = trainer.init_state(args.seed)
 
     prof, prof_step = profiler(args, mesh.device)
     total_pairs = 0.0
+    sketch_sum = None
     t0 = time.perf_counter()
 
     def report(i, m):
-        nonlocal total_pairs
+        nonlocal total_pairs, sketch_sum
         n = max(1.0, float(np.sum(m["n"])))
         total_pairs += n
+        if "tap" in m:
+            part = accumulate_sketch_taps([m])
+            sketch_sum = part if sketch_sum is None else sketch_sum + part
         dt = max(time.perf_counter() - t0, 1e-9)
         emit({"event": "chunk", "i": i, "sgns_loss": float(np.sum(m["loss"]))
               / n, "pairs": n, "pairs_per_sec": total_pairs / dt,
@@ -129,6 +142,12 @@ def main(argv=None) -> int:
     emit({"event": "done", "pairs_per_sec": total_pairs / max(dt, 1e-9),
           "words_per_sec": args.epochs * len(tokens) / max(dt, 1e-9),
           "seconds": dt})
+
+    if sketch_sum is not None:
+        emit({"event": "cooccurrence_similarity",
+              "probe_words": sketch_probe.tolist(),
+              "inner_products": np.round(sketch_similarity(sketch_sum),
+                                         1).tolist()})
 
     # Qualitative: neighbours of a few frequent words (ids 1..4; 0 may be
     # UNK).

@@ -1,0 +1,283 @@
+"""Implicit-feedback iALS (Hu, Koren, Volinsky 2008) on the port.
+
+Port of ``fps_tpu/models/ials.py``. An observed interaction ``(u, i, r)``
+has confidence ``c = 1 + alpha * r`` and preference 1; every unobserved pair
+has confidence 1 and preference 0. Each half-epoch fixes one side and
+solves, for every id of the other side,
+
+    (G + alpha * sum_i r_ui * y_i y_i^T + reg * I) x_u = sum_i (1 + alpha * r_ui) y_i
+
+with ``G = Y^T Y`` the Gramian over every row of the fixed side. Three
+parts, as in the JAX package:
+
+1. **Gramian**: ``Y^T Y`` over the valid rows (``torch.matmul``; the JAX
+   package computes it outside any Pallas kernel too).
+2. **Accumulate**: a Python loop over a chunk's steps: :func:`~fps_tpu_torch.
+   core.store.pull` of the fixed side's rows (kernel K1 on the card), the
+   ``alpha * r * y y^T`` and ``(1 + alpha * r) * y`` blocks, and two
+   :func:`~fps_tpu_torch.core.store.push` calls into the ``A`` and ``b``
+   accumulator tables keyed by the solved side's id (``combine="sum"``, in
+   place: kernel K2, at ``D = rank * rank`` and ``D = rank``). Weight-0
+   padding pushes id ``-1``. The normal equations are one more table of the
+   parameter server.
+3. **Solve**: one batched ``torch.linalg.solve`` (LU, as ``jnp.linalg.solve``)
+   of ``G + A + reg * I``; padding rows are zeroed.
+
+The overlapped chunk pipeline of the JAX package (``prefetch > 0``) is not
+ported: it waits for ``core/prefetch.py`` (ROADMAP.md Queue 1 item 7, slice
+D).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from fps_tpu_torch.core.store import (
+    ParamStore,
+    TableSpec,
+    phys_to_id,
+    pull,
+    push,
+    ranged_uniform_init,
+    rows_per_shard,
+)
+from fps_tpu_torch.parallel.mesh import SHARD_AXIS, PSMesh, num_workers_of
+
+Tensor = torch.Tensor
+
+USER_TABLE = "user_factors"
+ITEM_TABLE = "item_factors"
+
+PREFETCH_ITEM = ("ROADMAP.md Queue 1 item 7, slice D: core/prefetch.py, the "
+                 "overlapped chunk pipeline")
+
+
+@dataclasses.dataclass
+class IALSConfig:
+    num_users: int
+    num_items: int
+    rank: int = 16
+    alpha: float = 40.0
+    reg: float = 0.1
+    init_scale: float = 0.01
+    dtype: torch.dtype = torch.float32
+
+
+class IALSSolver:
+    """Alternating normal-equation solver for implicit feedback.
+
+    Usage::
+
+        solver = IALSSolver(mesh, IALSConfig(nu, ni, rank=16))
+        solver.init(0)
+        for _ in range(epochs):
+            solver.epoch(lambda: interaction_chunks(...))
+        users, items = solver.factors()
+    """
+
+    def __init__(self, mesh: PSMesh, cfg: IALSConfig):
+        self.mesh = mesh
+        self.device = mesh.device
+        self.cfg = cfg
+        self.num_shards = mesh.shape[SHARD_AXIS]
+        # Workers are every device: the interaction stream splits over both
+        # mesh axes.
+        self.num_workers = num_workers_of(mesh)
+        init = ranged_uniform_init(-cfg.init_scale, cfg.init_scale, cfg.rank,
+                                   cfg.dtype)
+        self.store = ParamStore(mesh, [
+            TableSpec(USER_TABLE, cfg.num_users, cfg.rank, init, cfg.dtype),
+            TableSpec(ITEM_TABLE, cfg.num_items, cfg.rank, init, cfg.dtype),
+        ])
+        self._prefetch = 0
+
+    @property
+    def prefetch(self) -> int:
+        """Depth of the JAX package's overlapped chunk pipeline; only 0 (the
+        synchronous loop) is ported."""
+        return self._prefetch
+
+    @prefetch.setter
+    def prefetch(self, depth: int) -> None:
+        if depth != 0:
+            raise NotImplementedError(
+                f"IALSSolver.prefetch={depth!r} is not ported yet "
+                f"({PREFETCH_ITEM}); use 0")
+        self._prefetch = 0
+
+    # -- state --------------------------------------------------------------
+
+    def init(self, seed: int) -> dict[str, Tensor]:
+        """Both factor tables from ``seed`` (the store's per-id hash)."""
+        return self.store.init(seed)
+
+    def factors(self) -> tuple[np.ndarray, np.ndarray]:
+        return (self.store.dump_model(USER_TABLE)[1],
+                self.store.dump_model(ITEM_TABLE)[1])
+
+    # -- the three parts ----------------------------------------------------
+
+    def _valid(self, num_ids: int, rows: int) -> Tensor:
+        """``(rows,)`` bool: the physical row holds a real id."""
+        rps = rows_per_shard(num_ids, self.num_shards)
+        phys = torch.arange(rows, device=self.device)
+        return phys_to_id(phys, self.num_shards, rps) < num_ids
+
+    def _gram(self, table: Tensor, num_ids: int) -> Tensor:
+        """``(k, k)`` Gramian of the table's valid rows."""
+        rows = torch.where(self._valid(num_ids, table.shape[0])[:, None],
+                           table, torch.zeros((), dtype=table.dtype,
+                                              device=table.device))
+        return rows.T @ rows
+
+    def _accumulate(self, fixed: Tensor, A: Tensor, b: Tensor,
+                    chunk: dict[str, Tensor]) -> None:
+        """Fold one chunk's ``(T, B)`` interactions into ``A`` and ``b`` in
+        place, one step (a pull and two pushes) at a time."""
+        cfg = self.cfg
+        k = cfg.rank
+        for t in range(chunk["solve_ids"].shape[0]):
+            solve_ids = chunk["solve_ids"][t].to(torch.int32)
+            fixed_ids = chunk["fixed_ids"][t].to(torch.int32)
+            r = chunk["rating"][t].to(cfg.dtype)
+            w = chunk["weight"][t].to(cfg.dtype)
+
+            y = pull(fixed, fixed_ids, num_shards=self.num_shards)
+            cr = cfg.alpha * r * w  # confidence minus 1, masked
+            outer = cr[:, None, None] * y[:, :, None] * y[:, None, :]
+            vec = ((1.0 + cfg.alpha * r) * w)[:, None] * y
+
+            ids = torch.where(w > 0, solve_ids, -1)
+            push(A, ids, outer.reshape(-1, k * k), num_shards=self.num_shards,
+                 inplace=True)
+            push(b, ids, vec, num_shards=self.num_shards, inplace=True)
+
+    def _solve(self, gram: Tensor, A: Tensor, b: Tensor,
+               num_ids: int) -> Tensor:
+        """The solved ``(rows, k)`` factor table; padding rows zero."""
+        cfg = self.cfg
+        k = cfg.rank
+        lhs = gram[None] + A.reshape(-1, k, k)
+        lhs = lhs + cfg.reg * torch.eye(k, dtype=cfg.dtype,
+                                        device=self.device)[None]
+        x = torch.linalg.solve(lhs, b[:, :, None])[:, :, 0]
+        valid = self._valid(num_ids, x.shape[0])
+        return torch.where(valid[:, None], x,
+                           torch.zeros((), dtype=x.dtype,
+                                       device=x.device)).to(cfg.dtype)
+
+    # -- half-epoch ----------------------------------------------------------
+
+    def half_epoch(self, solve: str, chunks: Iterable[dict]) -> None:
+        """One ALS half-step: solve the ``"user"`` or ``"item"`` factors.
+
+        ``chunks`` yield dicts of ``(T, B)`` columns ``user``, ``item``,
+        ``rating`` and ``weight``: host arrays (as
+        :func:`fps_tpu_torch.core.ingest.epoch_chunks` makes them), which
+        are copied over, or tensors already on the solver's device (as
+        :func:`fps_tpu_torch.core.device_ingest.device_epoch_chunks` makes
+        them), which are used as they are, with no host round trip.
+        """
+        cfg = self.cfg
+        if solve == "user":
+            solve_name, fixed_name = USER_TABLE, ITEM_TABLE
+            solve_col, fixed_col = "user", "item"
+            solve_n, fixed_n = cfg.num_users, cfg.num_items
+        elif solve == "item":
+            solve_name, fixed_name = ITEM_TABLE, USER_TABLE
+            solve_col, fixed_col = "item", "user"
+            solve_n, fixed_n = cfg.num_items, cfg.num_users
+        else:
+            raise ValueError(f"solve must be 'user' or 'item', got {solve!r}")
+
+        fixed = self.store.tables[fixed_name]
+        gram = self._gram(fixed, fixed_n)
+        rows = rows_per_shard(solve_n, self.num_shards) * self.num_shards
+        A = torch.zeros((rows, cfg.rank * cfg.rank), dtype=cfg.dtype,
+                        device=self.device)
+        b = torch.zeros((rows, cfg.rank), dtype=cfg.dtype, device=self.device)
+
+        def to_dev(x):
+            return torch.as_tensor(x).to(self.device)
+
+        for chunk in chunks:
+            self._accumulate(fixed, A, b, {
+                "solve_ids": to_dev(chunk[solve_col]),
+                "fixed_ids": to_dev(chunk[fixed_col]),
+                "rating": to_dev(chunk["rating"]),
+                "weight": to_dev(chunk["weight"]),
+            })
+        self.store.tables[solve_name] = self._solve(gram, A, b, solve_n)
+
+    def epoch(self, make_chunks) -> None:
+        """One full ALS epoch. ``make_chunks()`` returns a fresh chunk
+        iterator (it is consumed twice: once a half-epoch)."""
+        self.half_epoch("user", make_chunks())
+        self.half_epoch("item", make_chunks())
+
+    # -- evaluation ----------------------------------------------------------
+
+    def weighted_loss(self, users: np.ndarray, items: np.ndarray,
+                      ratings: np.ndarray, sample_unobserved: int = 0,
+                      seed: int = 0) -> float:
+        """Host-side iALS objective estimate: the observed confidence-weighted
+        term ``sum c * (1 - x.y)^2`` plus the exact regularizer
+        ``reg * (sum ||x_u||^2 + sum ||y_i||^2)`` (+ optionally a Monte-Carlo
+        estimate of the unobserved ``(0 - x.y)^2`` term: the sampled mean
+        scaled by ``num_users * num_items``, pairs drawn uniformly with
+        replacement)."""
+        cfg = self.cfg
+        U, V = self.factors()
+        xy = np.sum(U[users] * V[items], axis=-1)
+        c = 1.0 + cfg.alpha * ratings
+        loss = float(np.sum(c * (1.0 - xy) ** 2))
+        loss += cfg.reg * float(np.sum(U * U) + np.sum(V * V))
+        if sample_unobserved:
+            rng = np.random.default_rng(seed)
+            su = rng.integers(0, cfg.num_users, sample_unobserved)
+            si = rng.integers(0, cfg.num_items, sample_unobserved)
+            mean_sq = float(np.mean(np.sum(U[su] * V[si], axis=-1) ** 2))
+            loss += mean_sq * cfg.num_users * cfg.num_items
+        return loss
+
+
+def interaction_chunks(data: dict, *, num_workers: int, local_batch: int,
+                       steps_per_chunk: int,
+                       seed: int | None = 0) -> Iterator[dict]:
+    """Fixed-shape ``(T, B)`` interaction chunks for the accumulate pass:
+    :func:`fps_tpu_torch.core.ingest.epoch_chunks` with round-robin
+    placement (iALS has no worker-local state to route for)."""
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    return epoch_chunks(data, num_workers=num_workers,
+                        local_batch=local_batch,
+                        steps_per_chunk=steps_per_chunk, seed=seed)
+
+
+def recall_at_k(solver: IALSSolver, heldout_user: np.ndarray,
+                heldout_item: np.ndarray, *, k: int = 10,
+                exclude: tuple[np.ndarray, np.ndarray] | None = None) -> float:
+    """Fraction of held-out ``(user, item)`` pairs ranked in the user's
+    top-k, on the host.
+
+    ``exclude = (train_users, train_items)`` masks each evaluated user's
+    training items out of the ranking, but never the held-out item itself.
+    """
+    U, V = solver.factors()
+    scores = U[heldout_user] @ V.T  # (H, num_items)
+    if exclude is not None:
+        tu, ti = exclude
+        order = np.argsort(tu, kind="stable")
+        tu_s, ti_s = np.asarray(tu)[order], np.asarray(ti)[order]
+        starts = np.searchsorted(tu_s, np.arange(solver.cfg.num_users))
+        ends = np.searchsorted(tu_s, np.arange(solver.cfg.num_users), "right")
+        for row, u in enumerate(heldout_user):
+            held = scores[row, heldout_item[row]]
+            scores[row, ti_s[starts[u]:ends[u]]] = -np.inf
+            scores[row, heldout_item[row]] = held
+    ranks = np.argsort(-scores, axis=1)[:, :k]
+    return float(np.mean(np.any(ranks == heldout_item[:, None], axis=1)))

@@ -22,11 +22,12 @@ a counter (:func:`fps_tpu_torch.core.rng.counter_bits`), so the same seeds
 give the same draws on the CPU and the card. They are not the JAX package's
 bits; the parity tests hand both packages the same draws.
 
-Not ported here: the co-occurrence sketch taps (``_sketch_pair_stream``,
-``block_pair_stream``, ``cooccurrence_sketch_tap``,
-``accumulate_sketch_taps``, ``sketch_similarity``), which wait for
-``sketch.py`` and ``step_tap``, and the native pair generator, which waits
-for the port's bench (ROADMAP.md Queue 1).
+The co-occurrence sketch tap (:func:`cooccurrence_sketch_tap`, a
+``TrainerConfig.step_tap``) sketches each probe word's context distribution
+from the very batches the worker trains on, on both workers' batches; its
+per-step stack update is one scatter-add (kernel K4 on the card). Not
+ported here: the native pair generator, which waits for the port's bench
+(ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -345,8 +346,8 @@ def make_store(mesh: PSMesh, cfg: W2VConfig) -> ParamStore:
 def _make_trainer(mesh, cfg: W2VConfig, worker, *, sync_every, donate,
                   max_steps_per_call, push_delay=0, step_tap=None,
                   guard=None):
-    # TrainerConfig raises on push_delay, step_tap and guard, naming the
-    # slice that ports each; it is built first so that nothing else is.
+    # TrainerConfig raises on push_delay and guard, naming the slice that
+    # ports each; it is built first so that nothing else is.
     config = TrainerConfig(sync_every=sync_every, donate=donate,
                            max_steps_per_call=max_steps_per_call,
                            push_delay=push_delay, step_tap=step_tap,
@@ -364,8 +365,9 @@ def word2vec(mesh: PSMesh, cfg: W2VConfig, unigram_counts: np.ndarray, *,
              step_tap=None, guard=None):
     """``(trainer, store)`` with the pair worker. ``sync_every`` selects SSP
     as in :func:`fps_tpu_torch.models.matrix_factorization.online_mf`;
-    ``push_delay``, ``step_tap`` and ``guard`` raise ``NotImplementedError``
-    (not ported yet)."""
+    ``step_tap`` is ``TrainerConfig``'s (e.g. :func:`cooccurrence_sketch_tap`);
+    ``push_delay`` and ``guard`` raise ``NotImplementedError`` (not ported
+    yet)."""
     return _make_trainer(
         mesh, cfg, Word2VecWorker(cfg, unigram_counts),
         sync_every=sync_every, donate=donate,
@@ -496,6 +498,107 @@ def nearest_neighbors(store: ParamStore, word_ids: np.ndarray, k: int = 5,
     sims = q @ emb.T
     order = np.argsort(-sims, axis=1)
     return order[:, 1:k + 1], np.take_along_axis(sims, order, 1)[:, 1:k + 1]
+
+
+# ---------------------------------------------------------------------------
+# Streaming co-occurrence similarity by tug-of-war sketches (a step_tap).
+# ---------------------------------------------------------------------------
+
+def _sketch_pair_stream(spec, probe: Tensor, center: Tensor, ctx: Tensor,
+                        w: Tensor) -> Tensor:
+    """Route each ``(center, context, weight)`` pair to its probe's row and
+    add its tug-of-war contribution: one ``(B, P)`` compare and one
+    scatter-add into the flattened ``(P, depth, width)`` stack."""
+    from fps_tpu_torch.sketch import tow_update_rows
+
+    stack = torch.zeros((int(probe.shape[0]), spec.depth, spec.width),
+                        dtype=torch.float32, device=center.device)
+    return tow_update_rows(spec, stack, _probe_rows(probe, center), ctx, w)
+
+
+def _probe_rows(probe: Tensor, center: Tensor) -> Tensor:
+    """Each pair's probe row: the index of its center in ``probe``, or -1."""
+    eq = center[:, None] == probe[None, :]  # (B, P)
+    return torch.where(eq.any(dim=1), torch.argmax(eq.to(torch.int32), dim=1),
+                       -1)
+
+
+def block_pair_stream(batch) -> tuple[Tensor, Tensor, Tensor]:
+    """The exact ``(center, context, weight)`` pair stream of one block
+    batch (``block (L+W,)``, ``half (L,)``, ``valid_len ()``), the pairs
+    :class:`Word2VecBlockWorker` trains on: for each offset ``d`` in
+    ``[1, W]`` and position ``i < L``, weight ``(half[i] >= d) & (i + d <
+    valid_len)`` on both orientations of ``(i, i + d)``. ``W`` is
+    ``len(block) - len(half)``. Ids only: ``2 * W * L`` of each."""
+    block = batch["block"].to(torch.int32)
+    half = batch["half"].to(torch.int32)
+    vlen = batch["valid_len"].to(torch.int32)
+    L = half.shape[0]
+    W = block.shape[0] - L
+    pos = torch.arange(L, dtype=torch.int32, device=block.device)
+    centers, ctxs, ws = [], [], []
+    for d in range(1, W + 1):
+        wk = ((half >= d) & (pos + d < vlen)).to(torch.float32)
+        lo, hi = block[:L], block[d:L + d]
+        centers += [lo, hi]
+        ctxs += [hi, lo]
+        ws += [wk, wk]
+    return torch.cat(centers), torch.cat(ctxs), torch.cat(ws)
+
+
+def cooccurrence_sketch_tap(spec, probe_ids):
+    """A ``step_tap`` emitting each step's tug-of-war sketch of each probe
+    word's context frequencies: row ``p`` of a ``(P, depth, width)`` stack
+    sketches ``{context: weight}`` of the step's pairs whose center is
+    ``probe_ids[p]``. Sketches add, so the stream's sketch is the sum of the
+    emitted stacks over steps and workers (:func:`accumulate_sketch_taps`);
+    padding pairs carry weight 0.
+
+    Reads both batch schemas: pair batches (``center`` / ``context`` /
+    ``weight``) directly, block batches through :func:`block_pair_stream`.
+    """
+    probe_np = np.asarray(probe_ids, np.int32)
+    probes: dict[torch.device, Tensor] = {}
+
+    def tap(tables, batch, local_state, t):
+        del tables, local_state, t
+        if "block" in batch:
+            center, ctx, w = block_pair_stream(batch)
+        else:
+            center = batch["center"].to(torch.int32)
+            ctx = batch["context"].to(torch.int32)
+            w = batch["weight"].to(torch.float32)
+        probe = probes.get(center.device)
+        if probe is None:
+            probe = probes[center.device] = torch.from_numpy(probe_np).to(
+                center.device)
+        return _sketch_pair_stream(spec, probe, center, ctx, w)
+
+    return tap
+
+
+def accumulate_sketch_taps(metrics) -> np.ndarray:
+    """Sum the ``tap`` entries of ``fit_stream`` / ``run_indexed`` metrics
+    (leaves ``(steps, W, P, depth, width)``) into the stream's ``(P, depth,
+    width)`` co-occurrence sketch stack, on the host."""
+    total = None
+    for m in metrics:
+        tap = m["tap"]
+        if isinstance(tap, Tensor):
+            tap = tap.detach().cpu().numpy()
+        part = np.asarray(tap).sum(axis=(0, 1))
+        total = part if total is None else total + part
+    if total is None:
+        raise ValueError("no metrics chunks: nothing was trained")
+    return total
+
+
+def sketch_similarity(sketches: np.ndarray) -> np.ndarray:
+    """``(P, P)`` unbiased co-occurrence inner-product estimates among the
+    probe words (the median over rows of the tug-of-war estimator), on the
+    host."""
+    s = np.asarray(sketches)
+    return np.median(np.einsum("pdw,qdw->pqd", s, s), axis=-1)
 
 
 # ---------------------------------------------------------------------------

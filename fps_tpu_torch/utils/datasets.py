@@ -1,7 +1,9 @@
 """Datasets for the port: synthetic generators, loaders, split.
 
 A copy of ``fps_tpu/utils/datasets.py`` for the ported workloads:
-MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``), sparse
+MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``, and
+the unbounded ``streaming_rating_batches``), implicit feedback for iALS
+(``synthetic_implicit``), sparse
 classification for passive-aggressive and logistic regression
 (``synthetic_sparse_classification``, ``synthetic_sparse_multiclass``,
 ``head_sort_slots``), the svmlight / Criteo loaders (``load_svmlight``,
@@ -76,6 +78,58 @@ def load_movielens(path: str | None = None, scale: str = "100k"):
     }
     nu, ni, nr = sizes[scale]
     return synthetic_ratings(nu, ni, nr), nu, ni
+
+
+def synthetic_implicit(
+    num_users: int,
+    num_items: int,
+    interactions_per_user: int,
+    *,
+    rank: int = 4,
+    seed: int = 0,
+):
+    """Implicit-feedback interactions with planted low-rank preference.
+
+    Each user interacts with items sampled by softmax of a latent affinity,
+    with a count-like positive "rating" (confidence signal, like play counts).
+    Returns a dict with ``user``, ``item``, ``rating`` columns — the iALS
+    (MovieLens-20M implicit) workload shape.
+    """
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0, 1.0, (num_users, rank))
+    q = rng.normal(0, 1.0, (num_items, rank))
+    users = np.repeat(np.arange(num_users), interactions_per_user)
+    # Blocked over users: the dense (U, I) softmax would be O(U*I) memory
+    # (4+ GB at ML-20M-class sizes); per-block cdf + vectorized inverse-cdf
+    # sampling keeps it bounded and fast at any scale.
+    block = max(1, min(num_users, (1 << 25) // max(num_items, 1)))
+    item_blocks = []
+    pf, qf = p.astype(np.float32), q.astype(np.float32)
+    for lo in range(0, num_users, block):
+        b = min(lo + block, num_users) - lo
+        logits = pf[lo:lo + b] @ qf.T  # (b, I) — f32: sampling noise
+        probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+        cdf = np.cumsum(probs, axis=1)  # dwarfs f32 cdf rounding
+        cdf /= cdf[:, -1:]
+        draws = rng.random((b, interactions_per_user))
+        # Row-wise inverse cdf in ONE flat searchsorted: shift each row's
+        # cdf (and its draws) by the row index so rows occupy disjoint
+        # strictly-increasing value ranges, then map flat positions back.
+        # The shift must happen in f64 — at row offsets in the tens of
+        # thousands an f32 sum has ~2^-7 ulp, coarser than the cdf steps.
+        offs = np.arange(b, dtype=np.float64)[:, None]
+        flat = np.searchsorted((cdf.astype(np.float64) + offs).ravel(),
+                               (draws + offs).ravel())
+        rows = np.repeat(np.arange(b, dtype=np.int64), interactions_per_user)
+        item_blocks.append(np.clip(flat - rows * num_items, 0,
+                                   num_items - 1))
+    items = np.concatenate(item_blocks)
+    rating = rng.poisson(2.0, len(users)).astype(np.float32) + 1.0
+    return {
+        "user": users.astype(np.int32),
+        "item": items.astype(np.int32),
+        "rating": rating,
+    }
 
 
 def train_test_split(data: dict, test_frac: float = 0.1, seed: int = 1):
@@ -482,3 +536,38 @@ def synthetic_sparse_multiclass(
         "feat_vals": vals,
         "label": label.astype(np.int32),
     }
+
+
+def streaming_rating_batches(
+    num_users: int,
+    num_items: int,
+    *,
+    rank: int = 6,
+    noise: float = 0.05,
+    seed: int = 0,
+    batch: int = 4096,
+    max_records: int | None = None,
+):
+    """Unbounded-style generator of rating batches from one planted model.
+
+    The streaming analog of :func:`synthetic_ratings` — same planted
+    low-rank structure and Zipfian item popularity, yielded as an endless
+    (or ``max_records``-bounded) sequence of columnar batches for
+    :func:`fps_tpu_torch.core.ingest.stream_chunks`.
+    """
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0, 1.0 / np.sqrt(rank), (num_users, rank))
+    q = rng.normal(0, 1.0 / np.sqrt(rank), (num_items, rank))
+    item_pop = 1.0 / np.arange(1, num_items + 1) ** 0.8
+    item_pop /= item_pop.sum()
+    produced = 0
+    while max_records is None or produced < max_records:
+        n = batch if max_records is None else min(batch, max_records - produced)
+        users = rng.integers(0, num_users, n)
+        items = rng.choice(num_items, n, p=item_pop)
+        ratings = (np.sum(p[users] * q[items], -1)
+                   + rng.normal(0, noise, n)).astype(np.float32)
+        produced += n
+        yield {"user": users.astype(np.int32),
+               "item": items.astype(np.int32),
+               "rating": ratings}

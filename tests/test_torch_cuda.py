@@ -14,7 +14,9 @@ across the sort's and the sum's tile edges, the gathers (K1, K5) bit for
 bit at every width, on views, past 2^31 output floats, with short grids
 and the fused head-prefix read, and the wrappers' and kernels' refusals;
 K1 and K2 at word2vec's text8 shapes, and its draws on the card against the
-CPU's. Every
+CPU's; K2 at iALS's D = 256 (one id owning the push, batches off the tile),
+K4 on the sketch tap's 81,920-row stack with every item dropped, and the
+sketches, the sketch tap and top-k ties on the card against the CPU. Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1109,3 +1111,103 @@ def test_w2v_draws_on_the_card_equal_the_cpus(dev):
                 compacted=args["compacted"], kept=args["kept"])
         for k, v in got["cpu"].items():
             assert torch.equal(got["cuda"][k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# iALS's normal-equation push (K2 at D = 256) and the w2v sketch tap's stack
+# (K4 at 81,920 rows).
+# ---------------------------------------------------------------------------
+
+def test_ials_a_push_one_id_owns_every_push(dev):
+    """K2 at iALS's D = rank^2 = 256: one solved id owns all 65,536 pushes
+    of a step (its 16 column chunks a tile each sum the whole run). On
+    sixteenths the row equals the float64 sum bit for bit; the rest stay."""
+    rng = np.random.default_rng(21)
+    R, D, B = 32_768, 256, 65_536
+    table = _sixteenths(torch.from_numpy(
+        rng.normal(0, 1, (R, D)).astype(np.float32)))
+    deltas = _sixteenths(torch.from_numpy(
+        rng.normal(0, 0.05, (B, D)).astype(np.float32)))
+    ids = torch.full((B,), 12_345, dtype=torch.int32)
+    got = kernels.scatter_add_cuda_(table.to(dev), ids.to(dev),
+                                    deltas.to(dev)).cpu()
+    assert torch.equal(got.double(), _exact_sum(table, ids, deltas))
+    assert torch.equal(torch.cat([got[:12_345], got[12_346:]]),
+                       torch.cat([table[:12_345], table[12_346:]]))
+    again = kernels.scatter_add_cuda_(table.to(dev), ids.to(dev),
+                                      deltas.to(dev)).cpu()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B", [1, 127, 129, 65_536 - 1, 65_536 + 77])
+def test_ials_a_push_batch_not_a_multiple_of_the_tile(dev, B):
+    """K2 at D = 256 with a batch that is not a multiple of its 128-position
+    sum tile (nor of the sort's 4,096): within the float32 bound of the
+    plain version, exact on sixteenths, the same bits twice."""
+    table, ids, deltas = _inputs(16_384, 256, B, seed=B, dev=dev)
+    got = kernels.scatter_add_cuda_(table.clone(), ids, deltas)
+    again = kernels.scatter_add_cuda_(table.clone(), ids, deltas)
+    plain = kernels.scatter_add_plain(table.clone(), ids, deltas)
+    assert torch.equal(got, again)
+    assert bool(((got.double() - plain.double()).abs()
+                 <= _sum_bound(table, ids, deltas)).all())
+    et, ed = _sixteenths(table), _sixteenths(deltas)
+    exact = kernels.scatter_add_cuda_(et.clone(), ids, ed)
+    assert torch.equal(exact.double(), _exact_sum(et, ids, ed))
+
+
+def test_sketch_stack_push_every_item_dropped(dev):
+    """K4 on the w2v sketch tap's stack, 16 probes x 5 x 1,024 = 81,920 rows
+    (two row tiles, so the bucket pass runs), 409,600 items a block step,
+    every one dropped (-1 and >= R): the stack is left bit for bit."""
+    R, B = 16 * 5 * 1024, 409_600
+    rng = np.random.default_rng(22)
+    table = torch.from_numpy(rng.normal(0, 1, (R, 1)).astype(np.float32))
+    ids = np.where(rng.random(B) < 0.5, -1,
+                   R + rng.integers(0, 1000, B)).astype(np.int32)
+    deltas = torch.from_numpy(rng.normal(0, 1, (B, 1)).astype(np.float32))
+    assert kernels.card_dim1_plan(dev, B, R).buckets > 1
+    got = kernels.scatter_add_dim1_cuda_(table.to(dev),
+                                         torch.from_numpy(ids).to(dev),
+                                         deltas.to(dev)).cpu()
+    assert torch.equal(_bits(got), _bits(table))
+
+
+def test_sketches_and_top_k_on_the_card_equal_the_cpus(dev):
+    """The sketch hashes (int64 masked to 32 bits), the K4 stack update of
+    the w2v tap (±1 sums of 0/1 weights: exact in any order) and the top-k
+    order on exact ties are the same on the card as on the CPU."""
+    from fps_tpu_torch import sketch as tsk
+    from fps_tpu_torch.models import recommendation as trec
+    from fps_tpu_torch.models import word2vec as tw2v
+
+    rng = np.random.default_rng(23)
+    cpu = torch.device("cpu")
+    ids = rng.integers(-2**31, 2**31 - 1, 5000).astype(np.int32)
+    spec = tsk.TugOfWarSpec(5, 1024, 3)
+    for where in (dev, cpu):
+        a1, b1, a2, b2 = spec.constants(where)
+        t = torch.from_numpy(ids).to(where)
+        got = (tsk._bucket(t, a1, b1, 1024).cpu(), tsk._sign(t, a2, b2).cpu())
+        if where == cpu:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+        want = got
+    batch = {"center": rng.integers(0, 50, 81_920).astype(np.int32),
+             "context": rng.integers(0, 50, 81_920).astype(np.int32),
+             "weight": rng.integers(0, 2, 81_920).astype(np.float32)}
+    tap = tw2v.cooccurrence_sketch_tap(spec, np.arange(16, dtype=np.int32))
+    stacks = [tap(None, {k: torch.from_numpy(v).to(where)
+                         for k, v in batch.items()}, None, 0).cpu()
+              for where in (dev, cpu)]
+    assert torch.equal(stacks[0], stacks[1])
+    table = torch.from_numpy(np.repeat(rng.integers(-3, 4, (50, 4)), 2,
+                                       0).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-2, 3, (7, 4)).astype(np.float32))
+    ranked = []
+    for where in (dev, cpu):
+        s, i = trec._score_and_local_topk(table.to(where), q.to(where),
+                                          num_shards=1, num_ids=100, n=30)
+        ranked.append((s.cpu(), i.cpu()))
+    assert torch.equal(ranked[0][1], ranked[1][1])
+    assert torch.equal(ranked[0][0], ranked[1][0])

@@ -1,0 +1,293 @@
+"""The PyTorch port's iALS against the JAX package's, on the CPU.
+
+Both solvers start from the same factor tables (the JAX package's, carried
+across with ``fps_tpu_torch.convert``) and take the same numpy interaction
+chunks made from a seed: JAX ``IALSSolver`` on a (data=1, shard=1) mesh,
+the port on ``device="cpu"`` (the kernels' plain versions). Held to both:
+the ``A`` and ``b`` accumulators of one accumulate pass, and the solved
+factors of one half-epoch, one epoch and two, and the dense float64 oracle
+of ``tests/test_ials.py``. Also here: the host metrics on the same factors,
+device-resident chunks, the ``prefetch`` refusal and the example CLI.
+
+Tolerances, stated: the accumulators are float32 sums of the same terms in
+another order, so each lies within ``(k + 3) * eps32 * sum|terms|`` of the
+float64 sum (``k`` the row's interactions; three more roundings for the
+table value and the two multiplies of a term). The factors are solves of
+the same float32 systems: within 1e-4 of the largest |value| of each other
+(measured: about 3e-6 after two epochs).
+"""
+
+import contextlib
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fps_tpu.models import ials as jials
+from fps_tpu.parallel.mesh import make_ps_mesh as jmake_ps_mesh
+from fps_tpu.utils import datasets as jdatasets
+
+from fps_tpu_torch.convert import tables_from_jax
+from fps_tpu_torch.models import ials as tials
+from fps_tpu_torch.parallel.mesh import make_ps_mesh
+from fps_tpu_torch.utils import datasets as tdatasets
+
+EPS32 = float(np.finfo(np.float32).eps)
+NU, NI, RANK = 37, 29, 5
+CFG = dict(alpha=5.0, reg=0.3)
+
+
+def _pair(nu=NU, ni=NI, rank=RANK, **kw):
+    """A JAX solver and a port solver from the same tables."""
+    kw = {**CFG, **kw}
+    mesh = jmake_ps_mesh(num_shards=1, num_data=1, devices=jax.devices()[:1])
+    js = jials.IALSSolver(mesh, jials.IALSConfig(nu, ni, rank=rank, **kw))
+    js.init(jax.random.key(0))
+    ts = tials.IALSSolver(make_ps_mesh(device="cpu"),
+                          tials.IALSConfig(nu, ni, rank=rank, **kw))
+    ts.store.tables = tables_from_jax(
+        ts.store, {n: np.asarray(v) for n, v in js.store.tables.items()})
+    return js, ts
+
+
+def _data(nu=NU, ni=NI, per_user=9, seed=1):
+    return jdatasets.synthetic_implicit(nu, ni, per_user, rank=3, seed=seed)
+
+
+def _chunks(data, seed=0, local_batch=16, steps=3):
+    return list(jials.interaction_chunks(
+        data, num_workers=1, local_batch=local_batch, steps_per_chunk=steps,
+        seed=seed))
+
+
+def _close(got, want):
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= 1e-4 * scale, (
+        float(np.abs(got - want).max()), scale)
+
+
+def _dense_half_epoch(U, V, users, items, ratings, alpha, reg, num_solve):
+    """The float64 oracle of ``tests/test_ials.py`` for one half-step solving
+    the ``U`` side, with its accumulators and their magnitudes."""
+    k = V.shape[1]
+    G = V.T @ V
+    A = np.zeros((num_solve, k, k))
+    b = np.zeros((num_solve, k))
+    magA = np.zeros((num_solve, k, k))
+    magb = np.zeros((num_solve, k))
+    count = np.zeros(num_solve)
+    for u, i, r in zip(users, items, ratings):
+        y = V[i]
+        A[u] += alpha * r * np.outer(y, y)
+        b[u] += (1.0 + alpha * r) * y
+        magA[u] += np.abs(alpha * r * np.outer(y, y))
+        magb[u] += np.abs((1.0 + alpha * r) * y)
+        count[u] += 1
+    out = np.zeros((num_solve, k))
+    for u in range(num_solve):
+        out[u] = np.linalg.solve(G + A[u] + reg * np.eye(k), b[u])
+    return out, A.reshape(num_solve, -1), b, magA.reshape(num_solve, -1), \
+        magb, count
+
+
+@pytest.mark.parametrize("solve", ["user", "item"])
+def test_accumulate_and_half_epoch_match_jax_and_dense_oracle(solve):
+    js, ts = _pair()
+    data = _data()
+    chunks = _chunks(data)
+    U0, V0 = (x.astype(np.float64) for x in js.factors())
+    if solve == "user":
+        fixed, solve_col, fixed_col, n = tials.ITEM_TABLE, "user", "item", NU
+        want, A64, b64, magA, magb, cnt = _dense_half_epoch(
+            U0, V0, data["user"], data["item"], data["rating"],
+            CFG["alpha"], CFG["reg"], NU)
+    else:
+        fixed, solve_col, fixed_col, n = tials.USER_TABLE, "item", "user", NI
+        want, A64, b64, magA, magb, cnt = _dense_half_epoch(
+            V0, U0, data["item"], data["user"], data["rating"],
+            CFG["alpha"], CFG["reg"], NI)
+
+    # The accumulate pass alone: A and b, JAX against the port.
+    acc = js._accumulate_fn()
+    jA = jnp.zeros((n, RANK * RANK), jnp.float32)
+    jb = jnp.zeros((n, RANK), jnp.float32)
+    tA = torch.zeros((n, RANK * RANK))
+    tb = torch.zeros((n, RANK))
+    for c in chunks:
+        cols = {"solve_ids": c[solve_col], "fixed_ids": c[fixed_col],
+                "rating": c["rating"], "weight": c["weight"]}
+        jA, jb = acc(js.store.tables[fixed], jA, jb,
+                     {k: jnp.asarray(v) for k, v in cols.items()})
+        ts._accumulate(ts.store.tables[fixed], tA, tb,
+                       {k: torch.as_tensor(v) for k, v in cols.items()})
+    for got, jgot, exact, mag in ((tA, jA, A64, magA), (tb, jb, b64, magb)):
+        tol = (cnt + 3)[:, None] * EPS32 * mag
+        for name, val in (("port", got.numpy()), ("jax", np.asarray(jgot))):
+            excess = float((np.abs(val - exact) - tol).max())
+            assert excess <= 0, (name, excess)
+
+    # The whole half-epoch: the solved factors.
+    js.half_epoch(solve, chunks)
+    ts.half_epoch(solve, chunks)
+    side = 0 if solve == "user" else 1
+    got, jgot = ts.factors()[side], js.factors()[side]
+    _close(got, jgot)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("epochs", [1, 2])
+def test_epochs_match_jax_and_dense_oracle(epochs):
+    js, ts = _pair()
+    data = _data(seed=2)
+    U, V = (x.astype(np.float64) for x in js.factors())
+    for e in range(epochs):
+        chunks = _chunks(data, seed=e)
+        js.epoch(lambda: iter(chunks))
+        ts.epoch(lambda: iter(chunks))
+        for got, want in zip(ts.factors(), js.factors()):
+            _close(got, want)
+        # The dense float64 epoch: the user half, then the item half on
+        # the new user factors.
+        U = _dense_half_epoch(U, V, data["user"], data["item"],
+                              data["rating"], CFG["alpha"], CFG["reg"],
+                              NU)[0]
+        V = _dense_half_epoch(V, U, data["item"], data["user"],
+                              data["rating"], CFG["alpha"], CFG["reg"],
+                              NI)[0]
+        for got, want in zip(ts.factors(), (U, V)):
+            np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+def test_device_resident_chunks_match_jax_on_the_same_chunks():
+    """``half_epoch`` takes the port's device-resident chunks as they are;
+    the JAX solver gets the same chunks as numpy arrays."""
+    from fps_tpu_torch.core.device_ingest import (
+        DeviceDataset,
+        device_epoch_chunks,
+    )
+
+    js, ts = _pair()
+    data = _data(seed=3)
+    ds = DeviceDataset(ts.mesh, data)
+    chunks = list(device_epoch_chunks(ds, num_workers=1, local_batch=16,
+                                      steps_per_chunk=3, seed=4))
+    assert all(isinstance(v, torch.Tensor) for c in chunks
+               for v in c.values())
+    host = [{k: v.numpy() for k, v in c.items()} for c in chunks]
+    ts.epoch(lambda: iter(chunks))
+    js.epoch(lambda: iter(host))
+    for got, want in zip(ts.factors(), js.factors()):
+        _close(got, want)
+
+
+def test_weighted_loss_and_recall_equal_on_the_same_factors():
+    js, ts = _pair(nu=40, ni=60, rank=6)
+    data = _data(nu=40, ni=60, per_user=20, seed=4)
+    train, test = jdatasets.train_test_split(data, test_frac=0.2, seed=1)
+    chunks = _chunks(train, local_batch=32)
+    js.epoch(lambda: iter(chunks))
+    # Both on exactly the JAX solver's factors.
+    ts.store.tables = tables_from_jax(
+        ts.store, {n: np.asarray(v) for n, v in js.store.tables.items()})
+    for kw in ({}, {"sample_unobserved": 500, "seed": 3}):
+        assert ts.weighted_loss(train["user"], train["item"],
+                                train["rating"], **kw) == js.weighted_loss(
+            train["user"], train["item"], train["rating"], **kw)
+    for k, exclude in ((5, None), (10, (train["user"], train["item"]))):
+        assert tials.recall_at_k(ts, test["user"], test["item"], k=k,
+                                 exclude=exclude) == jials.recall_at_k(
+            js, test["user"], test["item"], k=k, exclude=exclude)
+
+
+def test_recall_beats_random_and_objective_decreases():
+    """The port on its own (``tests/test_ials.py``'s gates): ALS takes a big
+    first drop of the observed objective and ranks held-out items far above
+    chance."""
+    nu, ni = 40, 60
+    data = tdatasets.synthetic_implicit(nu, ni, 20, rank=3, seed=4)
+    train, test = tdatasets.train_test_split(data, test_frac=0.2, seed=1)
+    solver = tials.IALSSolver(make_ps_mesh(device="cpu"),
+                              tials.IALSConfig(nu, ni, rank=6, alpha=10.0,
+                                               reg=0.5))
+    solver.init(0)
+    losses = [solver.weighted_loss(train["user"], train["item"],
+                                   train["rating"])]
+    for _ in range(4):
+        solver.epoch(lambda: tials.interaction_chunks(
+            train, num_workers=1, local_batch=32, steps_per_chunk=2, seed=0))
+        losses.append(solver.weighted_loss(train["user"], train["item"],
+                                           train["rating"]))
+    assert losses[1] < 0.5 * losses[0], losses
+    assert losses[-1] <= losses[1] * 1.05, losses
+    recall = tials.recall_at_k(solver, test["user"], test["item"], k=10,
+                               exclude=(train["user"], train["item"]))
+    assert recall > 3 * 10 / ni, recall
+
+
+def test_init_is_per_id_and_in_range():
+    solver = tials.IALSSolver(make_ps_mesh(device="cpu"),
+                              tials.IALSConfig(50, 30, rank=4,
+                                               init_scale=0.05))
+    tables = solver.init(7)
+    for name, n in ((tials.USER_TABLE, 50), (tials.ITEM_TABLE, 30)):
+        t = tables[name]
+        assert t.shape == (n, 4) and t.dtype == torch.float32
+        assert float(t.abs().max()) < 0.05
+    again = tials.IALSSolver(make_ps_mesh(device="cpu"),
+                             tials.IALSConfig(50, 30, rank=4,
+                                              init_scale=0.05)).init(7)
+    for name in tables:
+        assert torch.equal(tables[name], again[name])
+
+
+def test_interaction_chunks_and_data_equal_jax():
+    data = tdatasets.synthetic_implicit(30, 20, 7, rank=2, seed=5)
+    jdata = jdatasets.synthetic_implicit(30, 20, 7, rank=2, seed=5)
+    for k in data:
+        np.testing.assert_array_equal(data[k], jdata[k])
+    got = list(tials.interaction_chunks(data, num_workers=1, local_batch=8,
+                                        steps_per_chunk=4, seed=3))
+    want = list(jials.interaction_chunks(jdata, num_workers=1, local_batch=8,
+                                         steps_per_chunk=4, seed=3))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_prefetch_raises_naming_its_slice_and_solve_checks_its_side():
+    solver = tials.IALSSolver(make_ps_mesh(device="cpu"),
+                              tials.IALSConfig(5, 4, rank=2))
+    solver.prefetch = 0
+    assert solver.prefetch == 0
+    with pytest.raises(NotImplementedError, match="item 7"):
+        solver.prefetch = 2
+    solver.init(0)
+    with pytest.raises(ValueError, match="solve"):
+        solver.half_epoch("both", [])
+
+
+@pytest.mark.parametrize("ingest", ["device", "host"])
+def test_example_cli(ingest):
+    from fps_tpu_torch.examples import ials
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ials.main(["--device", "cpu", "--num-users", "300",
+                        "--num-items", "200", "--per-user", "20",
+                        "--rank", "8", "--local-batch", "512",
+                        "--steps-per-chunk", "4", "--epochs", "3",
+                        "--ingest", ingest])
+    events = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert rc == 0
+    assert events[0]["event"] == "start" and events[0]["device"] == "cpu"
+    losses = [e["weighted_loss"] for e in events if e["event"] == "epoch"]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    done = events[-1]
+    assert done["event"] == "done"
+    # Chance is 10 / 200 = 0.05.
+    assert done["recall_at_10"] > 0.15, done

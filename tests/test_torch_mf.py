@@ -311,10 +311,14 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.models.passive_aggressive\n"
         "import fps_tpu_torch.models.logistic_regression\n"
         "import fps_tpu_torch.models.word2vec\n"
+        "import fps_tpu_torch.models.ials, fps_tpu_torch.sketch\n"
+        "import fps_tpu_torch.core.combinators\n"
         "import fps_tpu_torch.examples.common, fps_tpu_torch.examples.mf\n"
         "import fps_tpu_torch.examples.passive_aggressive\n"
         "import fps_tpu_torch.examples.logreg_ssp\n"
         "import fps_tpu_torch.examples.word2vec\n"
+        "import fps_tpu_torch.examples.ials\n"
+        "import fps_tpu_torch.examples.streaming_mf\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

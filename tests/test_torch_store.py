@@ -157,12 +157,11 @@ def test_param_store_init_lookup_dump():
     lambda: tstore.TableSpec("t", 4, 2, cold_budget=8),
     lambda: tstore.TableSpec("t", 4, 2, dense_collectives=True),
     lambda: TrainerConfig(push_delay=1),
-    lambda: TrainerConfig(step_tap=lambda *a: None),
     lambda: TrainerConfig(guard="mask"),
     lambda: TrainerConfig(hot_sync_every=2),
     lambda: ServerLogic(hot_fold="adagrad"),
-], ids=["hot_tier", "cold_budget", "dense", "push_delay", "step_tap",
-        "guard", "hot_sync_every", "hot_fold"])
+], ids=["hot_tier", "cold_budget", "dense", "push_delay", "guard",
+        "hot_sync_every", "hot_fold"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="not ported"):
         make()

@@ -564,9 +564,7 @@ def test_hot_words_literal_validated():
 
 
 @pytest.mark.parametrize("option,slice_", [
-    (dict(push_delay=16), "item 3"), (dict(step_tap=lambda *a: None),
-                                      "sketch"),
-    (dict(guard="mask"), "slice E")])
+    (dict(push_delay=16), "item 3"), (dict(guard="mask"), "slice E")])
 @pytest.mark.parametrize("factory", ["word2vec", "word2vec_block"])
 def test_unported_options_raise_naming_their_slice(option, slice_, factory):
     _, uni = _corpus(2000)
@@ -676,8 +674,6 @@ def test_example_cli_refuses_what_is_not_ported():
     from fps_tpu_torch.examples import word2vec
 
     with contextlib.redirect_stdout(io.StringIO()):
-        with pytest.raises(NotImplementedError, match="sketch"):
-            word2vec.main(["--device", "cpu", "--sketch-words", "8"])
         with pytest.raises(SystemExit):
             word2vec.main(["--device", "cpu", "--ingest", "host",
                            "--mode", "block"])
