@@ -107,7 +107,31 @@ on the card, raising on the first failure:
    buckets, the tile pass, the fold where it has more than one cluster)
    must be what ``dim1_plan`` counts, and 10 K1 and K5 calls at each of
    their path shapes, one kernel a call;
-6. prints one JSON line describing every ported kernel, then, as the last
+6. drives the host pipeline and delayed pushes at full width, every launch
+   counter at 0 just before each run and read just after: the prefetch A/B
+   of ``bench.py host_pipeline_ab`` (the same chunk stream, an ``islice``
+   of ``epoch_chunks`` assembled in the stream, through ``fit_stream`` at
+   prefetch 0, 2, 2, 0 from fresh state: MF as ``run_mf``'s host arm, B
+   32,768, 12 chunks of 8 steps; SSP logistic regression as
+   ``run_logreg``'s, B 4,096, rounds of 8; iALS at ``run_ials`` width with
+   ``IALSSolver.prefetch`` over 2 epochs of host chunks), whose tables,
+   local state, metrics (iALS: factors and recall@20) and launch counts
+   must be equal across the arms, with no prefetch thread left after any
+   arm; each arm's wall, time to its first chunk, steady ms a step (CUDA
+   events at each chunk's start), the driver thread's host-serial seconds
+   (assembly and placement, or the queue wait) and the worker's seconds
+   (through the prefetcher's duck-typed timer), the overlap ratio and the
+   speedup; then ``push_delay`` 1 and 4 against 0 with a pusher independent
+   of its pulls into a 26,744 x 10 table (K1, K2) and the 1M x 1 table (K5,
+   K4), which must end equal to delay 0 within the float32 summation bound
+   (bit-equal reported) with the same launches; MF at ML-20M size with
+   ``push_delay = 4`` at lr 0.05, sync and SSP (s = 4), 2 epochs, timed
+   beside the same job at ``push_delay = 0`` in turns 0, 4, 4, 0, whose
+   RMSE must fall with K1 2 and K2 2 a step and equal launches at 0 and
+   4; and a small MF job with
+   ``push_delay = 2`` and ``prefetch = 2``, card against CPU within 1e-5
+   of the largest value. It runs after phase 5;
+7. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -168,6 +192,18 @@ IALS_TARGET, IALS_MAX_EPOCHS, IALS_EVAL = 0.35, 8, 2000
 # MF with the online top-k tap: k 10 for the first 2 users of every 4th
 # step, one run_chunk call of 17 steps (the last one tapped).
 TOPK_K, TOPK_EVERY, TOPK_QUERIES, TOPK_STEPS = 10, 4, 2, 17
+
+# The margin each traced window keeps at its edges (profiled): host seconds
+# after it opens and before it closes, and the cycles of a spin kernel
+# (about 1 ms on an H100) ahead of the traced calls.
+PROFILE_PAD_S, PROFILE_SPIN_CYCLES = 0.01, 2_000_000
+
+# The host pipeline's A/B as bench.py host_pipeline_ab runs it: 12 chunks
+# of 8 steps (an SSP round of 8 a chunk for logistic regression), prefetch
+# depth 2 against 0, in turns: off, on, on, off.
+AB_CHUNKS, AB_STEPS, AB_ORDER = 12, 8, (0, 2, 2, 0)
+# MF with push_delay 4 is timed beside push_delay 0 in the same turns.
+AB_ORDER_DELAY = (0, 4, 4, 0)
 
 
 def log(*parts) -> None:
@@ -428,14 +464,21 @@ def profiled(torch, fn, calls=10):
     torch.cuda.synchronize()
     # A warm-up window of ``calls`` calls first, its events discarded: the
     # tracer can miss the kernels that run just after it starts, which
-    # would read as a call that launched fewer.
+    # would read as a call that launched fewer. Each window also keeps its
+    # traced kernels clear of its edges: the host waits PROFILE_PAD_S after
+    # the window opens, a spin kernel (not traced by name) runs first on the
+    # card, and the host waits again after the card is done, before the
+    # window closes.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(PROFILE_PAD_S)
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
             prof.step()
     us, count = {}, {}
     for ev in prof.key_averages():
@@ -1233,7 +1276,7 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
         below("logloss", 0.693), card, None))
     # Last, so that the profiler cannot slow the timed paths.
     traced = traced_mf_epoch(torch, fps, mf_data, card)
-    return runs, traced
+    return runs, traced, mf_data
 
 
 def card_vs_cpu(torch, fps):
@@ -1990,6 +2033,509 @@ def taps_card_vs_cpu(torch, fps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The host pipeline (prefetch) and delayed pushes (push_delay).
+# ---------------------------------------------------------------------------
+
+class HostProbe:
+    """Host seconds by part (``assemble``, ``place``, ``wait``), apart for
+    the driver thread and the pipeline's worker; ``add`` is the duck-typed
+    timer the prefetcher reports its worker's seconds a chunk to."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.s = {}
+
+    def part(self, name, seconds):
+        import threading
+
+        who = ("driver" if threading.current_thread()
+               is threading.main_thread() else "worker")
+        with self.lock:
+            key = f"{who}_{name}"
+            self.s[key] = self.s.get(key, 0.0) + seconds
+
+    def add(self, name, seconds):  # the prefetcher's timer
+        with self.lock:
+            key = f"timer_{name}"
+            self.s[key] = self.s.get(key, 0.0) + seconds
+
+    def host_serial(self):
+        """The driver thread's seconds getting each next chunk onto the
+        card: assembly plus placement when it does them, the queue wait
+        when the pipeline does."""
+        return sum(self.s.get(f"driver_{k}", 0.0)
+                   for k in ("assemble", "place", "wait"))
+
+
+def timed_source(chunks, probe):
+    """``chunks``, each ``next`` timed as assembly on its thread."""
+    it = iter(chunks)
+    end = object()
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, end)
+        probe.part("assemble", time.perf_counter() - t0)
+        if item is end:
+            return
+        yield item
+
+
+def probed(probe):
+    """A context in which the driver's and the iALS solver's placement and
+    prefetcher are timed into ``probe``: placement by thread, the driver
+    thread's waits on the pipeline, and the worker's seconds through the
+    prefetcher's ``timer``."""
+    import contextlib
+
+    from fps_tpu_torch.core import driver, prefetch
+    from fps_tpu_torch.models import ials
+
+    base_pf, base_place = prefetch.ChunkPrefetcher, prefetch.place_columns
+
+    class TimedPrefetcher(base_pf):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, timer=probe, **kw)
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            try:
+                return super().__next__()
+            finally:
+                probe.part("wait", time.perf_counter() - t0)
+
+    def timed_place(columns, device):
+        t0 = time.perf_counter()
+        out = base_place(columns, device)
+        probe.part("place", time.perf_counter() - t0)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        mods = (driver, ials)
+        try:
+            for m in mods:
+                m.ChunkPrefetcher = TimedPrefetcher
+                m.place_columns = timed_place
+            yield
+        finally:
+            for m in mods:
+                m.ChunkPrefetcher, m.place_columns = base_pf, base_place
+
+    return ctx()
+
+
+def prefetch_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("fps-prefetch")]
+
+
+def chunk_marks(torch, obj, method, marks):
+    """Record a CUDA event on the compute stream, and the host's clock, as
+    each call of ``obj.method`` (one a chunk) begins; the intervals between
+    the events are the pipeline's pace on the card's clock."""
+    fn = getattr(obj, method)
+
+    def marked(*args, **kw):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+        return fn(*args, **kw)
+
+    setattr(obj, method, marked)
+
+
+def steady_ms(marks, steps_per_chunk):
+    """Median ms between chunk starts after the first, a step."""
+    gaps = [a.elapsed_time(b)
+            for (a, _), (b, _) in zip(marks[1:-1], marks[2:])]
+    return float(np.median(gaps)) / steps_per_chunk if gaps else None
+
+
+def ab_arm(torch, kernels, label, depth, run, steps_per_chunk, card):
+    """One arm of the A/B: ``run(depth, probe, marks)`` trains and returns
+    a function that gives its state (run after the clock stops); the
+    counters at 0 just before it and read just after."""
+    probe, marks = HostProbe(), []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with probed(probe):
+        state = run(depth, probe, marks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    state = state()
+    left = prefetch_threads()
+    if left:
+        raise AssertionError(f"{label}, prefetch {depth}: threads {left} "
+                             "alive after the run")
+    serial = probe.host_serial()
+    first = marks[0][1] - t0 if marks else None
+    out = {"path": f"{label}, prefetch {depth}", "prefetch": depth,
+           "chunks": len(marks), "wall_s": wall,
+           "to_first_chunk_s": first, "after_first_chunk_s": wall - first,
+           "steady_ms_per_step": steady_ms(marks, steps_per_chunk),
+           "host_serial_s": serial, "host_serial_share": serial / wall,
+           "worker_s": probe.s.get("timer_prefetch", 0.0),
+           "host_s_by_part": dict(probe.s), "launches": launched,
+           "card": card}
+    return out, state
+
+
+def same_state(torch, label, a, b):
+    """Tables, local state and metrics of two arms, bit for bit."""
+    (ta, la, ma), (tb, lb, mb) = a, b
+    for k in ta:
+        if not torch.equal(ta[k], tb[k]):
+            raise AssertionError(f"{label}: table {k} differs between arms")
+    if isinstance(la, torch.Tensor) and not torch.equal(la, lb):
+        raise AssertionError(f"{label}: local state differs between arms")
+    for x, y in zip(ma, mb):
+        for k in x:
+            if not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{label}: metric {k} differs")
+    if len(ma) != len(mb):
+        raise AssertionError(f"{label}: {len(ma)} and {len(mb)} chunks")
+
+
+def host_ab(torch, kernels, label, make_trainer, make_chunks, card):
+    """bench.py host_pipeline_ab on the port: the same chunk stream (an
+    ``islice`` of ``epoch_chunks``, assembled inside the stream) through
+    ``fit_stream`` at prefetch 0, then 2, each from fresh state after a
+    warm-up of 2 chunks; the arms' tables, local state, metrics and launch
+    counts must be equal."""
+    import dataclasses
+    from itertools import islice
+
+    trainer = make_trainer()
+    base = trainer.config
+    tables, local = trainer.init_state(7)
+    trainer.fit_stream(tables, local, islice(make_chunks(), 2), 8)
+
+    def run(depth, probe, marks):
+        trainer.config = dataclasses.replace(base, prefetch=depth)
+        trainer.__dict__.pop("run_chunk", None)
+        chunk_marks(torch, trainer, "run_chunk", marks)
+        tables, local = trainer.init_state(0)
+        out = trainer.fit_stream(
+            tables, local, timed_source(islice(make_chunks(), AB_CHUNKS),
+                                        probe), 1)
+        return lambda: out
+
+    arms = [ab_arm(torch, kernels, label, d, run, AB_STEPS, card)
+            for d in AB_ORDER]
+    trainer.config = base
+    return finish_ab(torch, label, arms)
+
+
+def finish_ab(torch, label, arms):
+    """The gates and the summary of the arms, run in ``AB_ORDER``: every
+    arm's state and launches equal the first arm's; the overlap ratio and
+    the speedup from the summed host-serial seconds and walls of the two
+    prefetch-0 and the two prefetch-2 arms (each pair also apart)."""
+    (first, a) = arms[0]
+    for arm, b in arms[1:]:
+        same_state(torch, f"{label}, prefetch {arm['prefetch']}", a, b)
+        if arm["launches"] != first["launches"]:
+            raise AssertionError(f"{label}: launches {first['launches']} "
+                                 f"and {arm['launches']} differ")
+    off = [arm for arm, _ in arms if arm["prefetch"] == 0]
+    on = [arm for arm, _ in arms if arm["prefetch"] != 0]
+
+    def ratios(off, on):
+        serial_off = sum(a["host_serial_s"] for a in off)
+        serial_on = sum(a["host_serial_s"] for a in on)
+        return {"overlap_ratio": (1.0 - serial_on / serial_off
+                                  if serial_off > 0 else None),
+                "speedup": (sum(a["wall_s"] for a in off)
+                            / sum(a["wall_s"] for a in on)),
+                "speedup_after_first_chunk": (
+                    sum(a["after_first_chunk_s"] for a in off)
+                    / sum(a["after_first_chunk_s"] for a in on))}
+
+    out = dict({"path": label, "arms": [arm for arm, _ in arms],
+                "by_pair": [ratios([f], [n]) for f, n in zip(off, on)]},
+               **ratios(off, on))
+    log(f"host pipeline A/B, {label}: " + json.dumps(out))
+    return out
+
+
+def ials_ab(torch, fps, kernels, train, test, card):
+    """The iALS arm: ``IALSSolver.prefetch`` 0, then 2, over host chunks
+    (``interaction_chunks``, assembled inside the stream), 2 epochs from the
+    same factors after a warm-up epoch; factors bit-equal, recall@20 and
+    launch counts equal."""
+    from fps_tpu_torch.models.ials import interaction_chunks, recall_at_k
+
+    solver = fps.IALSSolver(fps.make_ps_mesh(), fps.IALSConfig(
+        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
+        alpha=40.0, reg=0.1))
+
+    def chunks(probe=None):
+        c = interaction_chunks(train, num_workers=1, local_batch=IALS_BATCH,
+                               steps_per_chunk=IALS_STEPS, seed=0)
+        return c if probe is None else timed_source(c, probe)
+
+    solver.init(99)
+    solver.epoch(chunks)
+
+    def run(depth, probe, marks):
+        solver.prefetch = depth
+        solver.__dict__.pop("_accumulate", None)
+        chunk_marks(torch, solver, "_accumulate", marks)
+        solver.init(0)
+        for _ in range(2):
+            solver.epoch(lambda: chunks(probe))
+
+        def state():
+            recall = recall_at_k(solver, test["user"][:IALS_EVAL],
+                                 test["item"][:IALS_EVAL], k=20,
+                                 exclude=(train["user"], train["item"]))
+            users, items = solver.factors()
+            return ({"users": torch.from_numpy(users),
+                     "items": torch.from_numpy(items)}, None,
+                    [{"recall_at_20": np.array([recall])}])
+        return state
+
+    arms = [ab_arm(torch, kernels, "iALS host chunks", d, run, IALS_STEPS,
+                   card) for d in AB_ORDER]
+    solver.prefetch = 0
+    return finish_ab(torch, "iALS host chunks", arms)
+
+
+def constant_pusher(torch):
+    """A worker that pushes ``val`` to ``id`` (``(B, k)`` ids, ``(B, k, D)``
+    values): pushes that do not depend on the pulls, so every delivery
+    schedule that lands each push once ends with the same table."""
+    from fps_tpu_torch.core.api import StepOutput, WorkerLogic
+
+    class ConstantPusher(WorkerLogic):
+        def pull_ids(self, batch):
+            return {"t": batch["id"].reshape(-1).to(torch.int32)}
+
+        def step(self, batch, pulled, local_state, gen):
+            ids = batch["id"].reshape(-1).to(torch.int32)
+            vals = batch["val"].reshape(ids.shape[0], -1)
+            return StepOutput(pushes={"t": (ids, vals)},
+                              local_state=local_state, out={"n": vals.sum()})
+
+    return ConstantPusher()
+
+
+def delivered_once(torch, fps, kernels, mf_data, lr_data, card):
+    """``push_delay`` 1 and 4 against 0 with the constant pusher: a wide
+    table (26,744 x 10, B 32,768 Zipf item ids: K1 and K2) and an ``(R, 1)``
+    table (1M rows, 16,384 x 39 ids: K5 and K4), 16 steps each; each table
+    must end equal to the delay-0 one, within the float32 summation bound
+    (bit-equal expected: the same scatter-adds in the same order), and each
+    run launch what the delay-0 run launches."""
+    from fps_tpu_torch.core.driver import Trainer, TrainerConfig
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    rng = np.random.default_rng(3)
+    n_mf = 16 * BATCH
+    cases = {
+        "wide K2": (ML20M_ITEMS, RANK, BATCH, {
+            "id": mf_data["item"][:n_mf, None],
+            "val": rng.normal(0, 1, (n_mf, 1, RANK)).astype(np.float32)}),
+        "(R, 1) K4": (LR_NF, 1, SPARSE_BATCH, {
+            "id": lr_data["feat_ids"][:16 * SPARSE_BATCH],
+            "val": lr_data["feat_vals"][:16 * SPARSE_BATCH, :, None]}),
+    }
+    out = {}
+    mesh = fps.make_ps_mesh()
+    for label, (rows, dim, batch, data) in cases.items():
+        chunks = list(epoch_chunks(data, num_workers=1, local_batch=batch,
+                                   steps_per_chunk=8, seed=1))
+        res = {}
+        for d in (0, 1, 4):
+            store = fps.ParamStore(mesh, [fps.TableSpec("t", rows,
+                                                        dim).zeros_init()])
+            trainer = Trainer(mesh, store, constant_pusher(torch),
+                              config=TrainerConfig(push_delay=d))
+            tables, local = trainer.init_state(0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tables, _, _ = trainer.fit_stream(tables, local, chunks, 1)
+            torch.cuda.synchronize()
+            res[d] = (tables["t"].clone(), kernels.launch_counts())
+        base, launched = res[0]
+        # Float32 sums of the same terms in any order lie within 2 k eps32
+        # sum|terms| of each other, k the row's pushes + 1.
+        ids = torch.from_numpy(np.concatenate(
+            [c["id"].reshape(-1) for c in chunks])).to(base.device).long()
+        vals = torch.from_numpy(np.concatenate(
+            [c["val"].reshape(-1, dim) for c in chunks])).to(base.device)
+        keep = (ids >= 0) & (ids < rows)
+        mag = torch.zeros((rows, dim), dtype=torch.float64,
+                          device=base.device).index_add_(
+            0, ids[keep], vals[keep].double().abs())
+        cnt = torch.zeros(rows, dtype=torch.float64,
+                          device=base.device).index_add_(
+            0, ids[keep], torch.ones_like(ids[keep], dtype=torch.float64))
+        bound = 2 * (cnt + 1)[:, None] * EPS32 * mag
+        entry = {"steps": 16, "pushes_per_step": batch * (
+            data["id"].shape[1]), "launches_delay_0": launched}
+        for d in (1, 4):
+            got, got_launched = res[d]
+            if got_launched != launched:
+                raise AssertionError(
+                    f"push_delay {d}, {label}: launches {got_launched}, at "
+                    f"delay 0 {launched}")
+            diff = (got.double() - base.double()).abs()
+            if not bool((diff <= bound).all()):
+                raise AssertionError(
+                    f"push_delay {d}, {label}: differs from delay 0 past "
+                    "the float32 summation bound")
+            entry[f"delay_{d}"] = {"bit_equal": bool(torch.equal(got, base)),
+                                   "max_abs_diff": float(diff.max())}
+        out[label] = entry
+    log("push_delay delivered once: " + json.dumps(out))
+    return out
+
+
+def push_delay_learns(torch, fps, kernels, mf_data, runs, card):
+    """MF at ML-20M width with ``push_delay = 4`` at half phase 4's learning
+    rate (tests/test_staleness.py's recipe), sync and SSP (s = 4), 2 epochs
+    of prebuilt host chunks as phase 4's MF, timed beside the same job at
+    ``push_delay = 0`` in turns (0, 4, 4, 0) at this position: every run's
+    RMSE falls and its tables stay finite, a step launches what phase 4's MF
+    step launches (K1 2, K2 2), and the runs at 4 launch what those at 0
+    do. Each mode's summary gives the ms a step at 4 over that at 0, by
+    pair and over both, and that at 0 over phase 4's (this phase runs after
+    phase 5's traces). Returns ``(runs, summaries)``."""
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+
+    mesh = fps.make_ps_mesh()
+    runs_out, out = [], []
+    for sync_every in (None, 4):
+        cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                           rank=RANK, learning_rate=0.05, reg=0.01)
+        chunks = list(multi_epoch_chunks(
+            mf_data, 2, num_workers=1, local_batch=BATCH, steps_per_chunk=64,
+            route_key="user", sync_every=sync_every, seed=0))
+        mode = ("sync" if sync_every is None
+                else f"ssp(sync_every={sync_every})")
+        turns = []
+        for d in AB_ORDER_DELAY:
+            trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
+                                       combine="mean", push_delay=d)
+            turns.append(run_path(
+                torch, kernels, f"MF {mode}, push_delay {d}", trainer,
+                chunks, {"gather_rows": 2, "scatter_add": 2}, falling_rmse,
+                card))
+        at = {d: [t for t, dd in zip(turns, AB_ORDER_DELAY) if dd == d]
+              for d in (0, 4)}
+        for t in at[4]:
+            if t["launches"] != at[0][0]["launches"]:
+                raise AssertionError(
+                    f"MF {mode}: launches at push_delay 4 {t['launches']}, "
+                    f"at 0 {at[0][0]['launches']}")
+
+        def ms(ts):
+            return float(np.mean([t["steady_ms_per_step"] for t in ts]))
+
+        phase4 = next(r for r in runs if r["path"] == f"MF {mode}")
+        summary = {
+            "path": f"MF {mode}, push_delay 4 against 0",
+            "order": list(AB_ORDER_DELAY),
+            "delay_4_over_0": ms(at[4]) / ms(at[0]),
+            "delay_4_over_0_by_pair": [
+                a["steady_ms_per_step"] / b["steady_ms_per_step"]
+                for a, b in zip(at[4], at[0])],
+            "phase4_steady_ms_per_step": phase4["steady_ms_per_step"],
+            "delay_0_over_phase4": ms(at[0])
+            / phase4["steady_ms_per_step"],
+            "card": card}
+        log("push_delay 4 beside 0: " + json.dumps(summary))
+        runs_out += turns
+        out.append(summary)
+        del chunks
+    return runs_out, out
+
+
+def pipeline_card_vs_cpu(torch, fps):
+    """A small MF job with ``push_delay = 2`` and ``prefetch = 2`` on the
+    card and on the CPU from the same tables: the largest difference of
+    its tables and local state, relative to max(1, the largest value)."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.utils import datasets as ds
+
+    data = ds.synthetic_ratings(300, 200, 20_000, seed=5)
+    cfg = fps.MFConfig(num_users=300, num_items=200, rank=RANK,
+                       learning_rate=0.1, reg=0.01)
+    runs, tables0, local0 = {}, None, None
+    for device in ("cpu", "cuda"):
+        trainer, _ = fps.online_mf(fps.make_ps_mesh(device=device), cfg,
+                                   combine="mean", push_delay=2)
+        trainer.config = dataclasses.replace(trainer.config, prefetch=2)
+        if tables0 is None:
+            tables0, local0 = trainer.init_state(7)
+        tables = {k: v.to(trainer.device, copy=True)
+                  for k, v in tables0.items()}
+        local = local0.to(trainer.device, copy=True)
+        tables, local, _ = trainer.fit_stream(
+            tables, local, epoch_chunks(data, num_workers=1, local_batch=512,
+                                        steps_per_chunk=8, route_key="user",
+                                        seed=3), 2)
+        runs[device] = dict({k: v.cpu() for k, v in tables.items()},
+                            local_state=local.cpu())
+    worst = 0.0
+    for name, want in runs["cpu"].items():
+        diff = float((want - runs["cuda"][name]).abs().max())
+        worst = max(worst, diff / max(1.0, float(want.abs().max())))
+    if not worst <= 1e-5:
+        raise AssertionError(f"card vs CPU, MF push_delay 2 prefetch 2: "
+                             f"{worst} of the largest value > 1e-5")
+    log(f"card vs CPU, MF push_delay 2, prefetch 2: {worst:.3e} of the "
+        "largest value")
+    return worst
+
+
+def pipeline_phase(torch, fps, kernels, mf_data, lr_data, ials_train,
+                   ials_test, runs, card):
+    """The host pipeline and delayed pushes, at full width: (a) the
+    prefetch A/B on the MF (bench.py run_mf's), SSP logistic-regression
+    (run_logreg's) and iALS arms; (b) push_delay delivered once on K2 and
+    K4 tables, and MF with push_delay 4 learning; (c) the card against the
+    CPU with push_delay 2 and prefetch 2."""
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    mesh = fps.make_ps_mesh()
+    ab = [
+        host_ab(torch, kernels, "MF, bench.py run_mf host arm",
+                lambda: fps.online_mf(mesh, fps.MFConfig(
+                    num_users=ML20M_USERS, num_items=ML20M_ITEMS, rank=RANK,
+                    learning_rate=0.1, reg=0.01), combine="mean")[0],
+                lambda: epoch_chunks(mf_data, num_workers=1,
+                                     local_batch=BATCH,
+                                     steps_per_chunk=AB_STEPS,
+                                     route_key="user", seed=5), card),
+        host_ab(torch, kernels, "logreg SSP, bench.py run_logreg host arm",
+                lambda: fps.logistic_regression(mesh, fps.LogRegConfig(
+                    num_features=LR_NF, learning_rate=0.1,
+                    dense_features=LR_DENSE), sync_every=8)[0],
+                lambda: epoch_chunks(lr_data, num_workers=1, local_batch=4096,
+                                     steps_per_chunk=AB_STEPS, sync_every=8,
+                                     seed=5), card),
+        ials_ab(torch, fps, kernels, ials_train, ials_test, card),
+    ]
+    once = delivered_once(torch, fps, kernels, mf_data, lr_data, card)
+    delay_runs, learns = push_delay_learns(torch, fps, kernels, mf_data, runs,
+                                           card)
+    worst = pipeline_card_vs_cpu(torch, fps)
+    return {"prefetch_ab": ab, "push_delay_delivered_once": once,
+            "push_delay_learns": learns, "push_delay_runs": delay_runs,
+            "card_vs_cpu": worst}
+
+
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
     own = [c for c in cases if c["path"] == path]
@@ -2093,13 +2639,11 @@ def main() -> int:
                                       ials_test, ials_chunks, card)
     w2v_runs.append(ials_run)
     del ials_chunks
-    runs, traced = paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data,
-                               lr_data, card)
+    runs, traced, mf_data = paths_phase(torch, fps, kernels, pa_data, pa_q,
+                                        mc_data, lr_data, card)
     runs += w2v_runs
     traced_w2v = traced_w2v_epoch(torch, fps, w2v_tokens, w2v_uni, card)
-    launches = {name: sum(r["launches"][name] for r in runs)
-                for name in kernels.WRAPPERS}
-    log(f"launch counters over the paths: {launches}")
+
 
     # 5. The card against the CPU.
     worst = card_vs_cpu(torch, fps)
@@ -2110,6 +2654,20 @@ def main() -> int:
     k4_traced = k4_breakdown(torch, kernels, k4_inputs)
     gather_traced = gather_breakdown(torch, gather_inputs)
     del k2_inputs, sort_inputs, k3_inputs, k4_inputs, gather_inputs
+
+    # 6. The host pipeline and delayed pushes, counters at 0 before each.
+    # It runs after phase 5's traces: its times compare runs made inside
+    # it, in turns, never with a phase that ran before the profiler.
+    pipeline = pipeline_phase(torch, fps, kernels, mf_data, lr_data,
+                              ials_train, ials_test, runs, card)
+    del mf_data
+    runs += [dict(arm, path=f"{arm['path']}, arm {i}")
+             for ab in pipeline["prefetch_ab"]
+             for i, arm in enumerate(ab["arms"])]
+    runs += pipeline.pop("push_delay_runs")
+    launches = {name: sum(r["launches"][name] for r in runs)
+                for name in kernels.WRAPPERS}
+    log(f"launch counters over the paths: {launches}")
     for case in sort_cases:
         case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
     # Both devices read exactly. The CPU folds each row's pushes one by one
@@ -2136,7 +2694,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 6. Summary lines. Each entry's times are per step of its first path
+    # 7. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -2215,6 +2773,7 @@ def main() -> int:
     ], "paths": runs, "traced_mf_run_indexed": traced,
         "traced_w2v_run_indexed": traced_w2v,
         "traced_ials_epoch": traced_ials, "card_vs_cpu": worst,
+        "host_pipeline_and_push_delay": pipeline,
         "card_vs_cpu_ials_and_sketch_tap": taps_worst,
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}

@@ -24,13 +24,23 @@ work).
 ``TrainerConfig.step_tap`` runs a tap with table access after each step's
 push; its outputs ride the metrics under ``"tap"``.
 
-Not ported, and rejected when set: ``push_delay``, ``guard`` and
-``hot_sync_every``; checkpoint hooks, rollback, telemetry, tiering,
-prefetch and megastep (ROADMAP.md Queue 1 and slices D-F).
+* **push_delay** (``d``): a step's pushes reach the tables ``d`` steps after
+  they were computed (the reference's pushes in flight); what is still in
+  flight when a call ends is delivered then, oldest first.
+* **prefetch**: ``fit_stream`` assembles and places chunks up to
+  ``prefetch`` chunks ahead on a worker thread
+  (:mod:`fps_tpu_torch.core.prefetch`); the tables and metrics are the same
+  bits either way.
+
+Not ported, and refused with ``NotImplementedError`` naming the ROADMAP.md
+Queue 1 item that ports each: ``guard`` (item 8), ``hot_sync_every``
+(item 7b), ``auto_tier`` (item 7c); checkpoint hooks and rollback (item 8),
+telemetry and supervision (item 9).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import warnings
 from typing import Any, Callable, Iterable, Mapping
@@ -40,6 +50,12 @@ import torch
 
 from fps_tpu_torch import ops
 from fps_tpu_torch.core.api import ServerLogic, WorkerLogic
+from fps_tpu_torch.core.prefetch import (
+    ChunkPrefetcher,
+    PlacedChunk,
+    place_columns,
+    placed_batches,
+)
 from fps_tpu_torch.core.rng import fold_seed
 from fps_tpu_torch.core.store import (
     ParamStore,
@@ -57,10 +73,28 @@ __all__ = ["TrainerConfig", "Trainer", "num_workers_of"]
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Execution-mode knobs.
+    """Execution-mode knobs: the JAX package's fields, in its order.
 
     ``sync_every``: ``None`` is the synchronous mode; ``s`` is SSP with
     staleness bound ``s``.
+
+    ``push_delay``: a worker's pushes reach the tables ``push_delay`` steps
+    after they were computed (0: at once). Worker-local state updates at
+    once. What is still in flight when a call (a ``run_chunk``, a
+    ``run_indexed`` call) ends is delivered then, oldest first. With
+    ``sync_every`` it brackets the reference's asynchrony from both sides:
+    stale reads and delayed writes.
+
+    ``step_tap``: ``tap(tables, batch, local_state, t) -> pytree`` (nested
+    dicts, tuples or lists of tensors), run after step ``t``'s push delivery
+    on the tables as they are then (with ``push_delay > 0`` the push
+    delivered is the one from ``push_delay`` steps before), the step's raw
+    (pre-``prepare``) batch and the new local state; ``t`` is the step's
+    index in its chunk (:meth:`Trainer.run_chunk`) or epoch
+    (:meth:`Trainer.run_indexed`). The metrics gain a ``"tap"`` entry whose
+    leaves are ``(T, W, ...)``: steps, then workers (``W = 1`` on the
+    port's one-device mesh), as the JAX package gathers them. The worker's
+    out channel must be a dict without a ``"tap"`` key.
 
     ``donate``: as in the JAX package, the caller hands its tables over to
     the call. Here that means the tables are updated **in place**: the
@@ -68,23 +102,24 @@ class TrainerConfig:
     afterwards. With ``False`` every push makes a new tensor and the
     caller's tables are left as they were.
 
+    ``prefetch``: depth of :meth:`Trainer.fit_stream`'s background pipeline
+    (0: the synchronous host loop); ``prefetch_max > 0`` lets the depth
+    rise to it when the driver keeps finding the buffer empty
+    (:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`). ``health_lag``
+    is 0 or 1; it acts only where rollback, a health monitor or a watchdog
+    forces a host sync after every chunk, none of which is ported, so both
+    values run the same loop. ``metrics_drain_every``: without ``on_chunk``,
+    ``fit_stream`` moves the buffered metrics to the host every this many
+    chunks (0: at the end only).
+
     ``max_steps_per_call`` bounds the steps of one call of
     :meth:`Trainer.run_indexed` (rounded to whole SSP rounds); each call
     draws from its own seed, as the JAX package's calls draw from their own
     key. ``run_chunk`` does not read it.
 
-    ``step_tap``: ``tap(tables, batch, local_state, t) -> pytree`` (nested
-    dicts, tuples or lists of tensors), run after step ``t``'s push on the
-    tables as they are then, the step's raw (pre-``prepare``) batch and the
-    new local state; ``t`` is the step's index in its chunk
-    (:meth:`Trainer.run_chunk`) or epoch (:meth:`Trainer.run_indexed`).
-    The metrics gain a ``"tap"`` entry whose leaves are ``(T, W, ...)``:
-    steps, then workers (``W = 1`` on the port's one-device mesh), as the
-    JAX package gathers them. The worker's out channel must be a dict
-    without a ``"tap"`` key.
-
-    ``push_delay``, ``guard`` and ``hot_sync_every`` are not ported; any
-    value but the default raises ``NotImplementedError``.
+    ``guard`` (ROADMAP.md Queue 1 item 8), ``hot_sync_every`` (item 7b) and
+    ``auto_tier`` (item 7c) are not ported; any value but the default
+    raises ``NotImplementedError``.
     """
 
     sync_every: int | None = None
@@ -92,15 +127,21 @@ class TrainerConfig:
     step_tap: Callable[..., Any] | None = None
     guard: Any = None
     donate: bool = True
+    prefetch: int = 0
+    prefetch_max: int = 0
+    health_lag: int = 0
+    metrics_drain_every: int = 8
     hot_sync_every: int = 1
+    auto_tier: bool = False
     max_steps_per_call: int | None = None
 
     def __post_init__(self):
         unported = {
-            "push_delay": (self.push_delay != 0, "item 3, push_delay"),
             "guard": (self.guard is not None, "item 8, slice E: durability"),
             "hot_sync_every": (self.hot_sync_every != 1,
-                               "item 7, slice D: the hot tier")}
+                               "item 7b, slice D: the hot tier"),
+            "auto_tier": (bool(self.auto_tier),
+                          "item 7c, slice D: adaptive tiering")}
         for field, (set_, where) in unported.items():
             if set_:
                 raise NotImplementedError(
@@ -108,6 +149,8 @@ class TrainerConfig:
                     f"ported yet (ROADMAP.md Queue 1 {where})")
         if self.sync_every is not None and self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
+        if self.push_delay < 0:
+            raise ValueError(f"push_delay must be >= 0, got {self.push_delay}")
         if self.max_steps_per_call is not None and self.max_steps_per_call < 1:
             raise ValueError("max_steps_per_call must be >= 1, got "
                              f"{self.max_steps_per_call}")
@@ -233,10 +276,16 @@ class Trainer:
         tapped = tap(tables, batch, local_state, t)
         return dict(out, tap=_tree_map(lambda x: x[None], tapped))
 
-    def _step(self, tables, snapshot, local_state, batch, gen, t, outs):
+    def _step(self, tables, snapshot, local_state, batch, gen, t, outs,
+              in_flight):
         pushes, hp, local_state, out = self._compute_step(
             tables, snapshot, local_state, batch, gen)
-        tables = self._apply_pushes(tables, pushes, hp)
+        # This step's pushes go in flight, with the head-prefix guarantee of
+        # the batch that made them; the pushes of push_delay steps ago land
+        # (at push_delay = 0, this step's own).
+        in_flight.append((pushes, hp))
+        while len(in_flight) > self.config.push_delay:
+            tables = self._apply_pushes(tables, *in_flight.popleft())
         outs.append(self._run_tap(out, tables, batch, local_state, t))
         return tables, local_state
 
@@ -251,7 +300,17 @@ class Trainer:
         ``step_seeded``, from step ``i``'s seed ``fold_seed(fold_seed(seed,
         0), i)``. Returns ``(tables, local_state, metrics)`` with
         ``(num_steps,)`` device tensors (the tap's leaves ``(num_steps, 1,
-        ...)``)."""
+        ...)``).
+
+        With ``push_delay = d`` the pushes wait in a queue of at most ``d``
+        steps' pushes: step ``i`` delivers step ``i - d``'s, and the call
+        ends by delivering what is left, oldest first, as the JAX package's
+        ring buffer does. The ring's cold slots (ids ``-1``, zero deltas)
+        change no row, so they are not delivered at all: each real push
+        lands exactly once, and a call launches the kernels it launches at
+        ``d = 0``. A queued push holds the worker's own tensors (ids from
+        the batch, freshly computed deltas), which no later step rewrites.
+        """
         seed = fold_seed(seed, 0)  # worker 0 of the one-device mesh
         if self.logic.step_seeded:
             def key(i):
@@ -263,12 +322,13 @@ class Trainer:
             def key(i):
                 return gen
         outs: list[dict[str, Tensor]] = []
+        in_flight = collections.deque()
         s = self.config.sync_every
         if s is None:
             for i in range(num_steps):
                 tables, local_state = self._step(
                     tables, None, local_state, batch_at(i), key(i), t0 + i,
-                    outs)
+                    outs, in_flight)
         else:
             for r in range(num_steps // s):
                 # The round's reads see the tables as the round begins.
@@ -276,12 +336,15 @@ class Trainer:
                 for j in range(r * s, (r + 1) * s):
                     tables, local_state = self._step(
                         tables, snapshot, local_state, batch_at(j), key(j),
-                        t0 + j, outs)
+                        t0 + j, outs, in_flight)
+        while in_flight:  # the end of the call: deliver what is in flight
+            tables = self._apply_pushes(tables, *in_flight.popleft())
         return tables, local_state, _tree_stack(outs, torch.stack)
 
     # -- chunks -----------------------------------------------------------
 
-    def run_chunk(self, tables, local_state, batches, seed: int):
+    def run_chunk(self, tables, local_state, batches, seed: int, *,
+                  timer=None, recorder=None):
         """Run one chunk of steps.
 
         Args:
@@ -292,16 +355,25 @@ class Trainer:
             ``(T, B)`` (sync) or ``(R, s, B)`` (SSP); ``B`` is the global
             batch, worker-major. Tensors already on the trainer's device
             (:func:`~fps_tpu_torch.core.device_ingest.device_epoch_chunks`)
-            are used as they are, with no copy.
+            are used as they are, with no copy. A
+            :class:`~fps_tpu_torch.core.prefetch.PlacedChunk` (the
+            pipeline's) is already placed: its copies are waited for on the
+            current stream, not made again.
           seed: seed of this chunk's ``torch.Generator`` (for ``prepare`` /
             ``step`` draws, e.g. negative sampling).
+          timer, recorder: the JAX package's phase timer and recorder
+            (telemetry, ROADMAP.md Queue 1 item 9); not ported, any value
+            but ``None`` raises ``NotImplementedError``.
 
         Returns:
           ``(tables, local_state, metrics)``: metrics is a dict of ``(T,)``
           tensors on the device, one entry per step, summed over workers.
         """
-        batches = {k: torch.as_tensor(v).to(self.device)
-                   for k, v in batches.items()}
+        _refuse("run_chunk", timer=(timer, "item 9, slice F"),
+                recorder=(recorder, "item 9, slice F"))
+        if not isinstance(batches, PlacedChunk):
+            batches = self._place_chunk(batches)
+        batches = placed_batches(batches, self.device)
         lead = next(iter(batches.values())).shape
         if self.config.sync_every is None:
             steps = lead[0]
@@ -321,27 +393,90 @@ class Trainer:
         self.store.tables = dict(tables)
         return tables, local_state, metrics
 
-    def fit_stream(self, tables, local_state, chunks: Iterable[Mapping],
-                   seed: int, metrics_reduce=None, on_chunk=None):
-        """Run :meth:`run_chunk` over a stream of chunks.
+    def _place_chunk(self, batches) -> PlacedChunk:
+        """Place one chunk's columns on the trainer's device: the placement
+        that :meth:`run_chunk` and the pipeline's worker thread both run, so
+        prefetch on and off give the same device inputs by construction
+        (:func:`~fps_tpu_torch.core.prefetch.place_columns`)."""
+        return place_columns(batches, self.device)
 
-        Chunk ``i`` runs from seed ``fold_seed(seed, i)``. ``on_chunk(i,
+    def fit_stream(self, tables, local_state, chunks: Iterable[Mapping],
+                   seed: int, metrics_reduce=None, checkpointer=None,
+                   checkpoint_every: int = 0, start_step: int = 0,
+                   on_chunk=None, rollback=None, recorder=None, health=None,
+                   watchdog=None):
+        """Run :meth:`run_chunk` over a stream of chunks (the JAX package's
+        parameters, in its order; ``key`` is ``seed``).
+
+        Chunk ``j = start_step + i`` (the ``i``-th the iterator yields) runs
+        from seed ``fold_seed(seed, j)``: to resume a stream, pass the index
+        of its next chunk with an iterator positioned there. ``on_chunk(j,
         metrics)`` is called after each chunk with its metrics as numpy
-        arrays (that waits for the device); without it the metrics stay on
-        the device until the stream ends.
+        arrays (that waits for the device). Without it the metrics stay on
+        the device and move to the host every
+        ``TrainerConfig.metrics_drain_every`` chunks (0: when the stream
+        ends).
+
+        With ``TrainerConfig.prefetch > 0`` the chunks are assembled and
+        placed on a worker thread, ``prefetch`` chunks ahead
+        (:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`); the worker
+        is joined on every exit path, and an error in the source or in a
+        copy re-raises here at its chunk's position.
 
         Returns:
           ``(tables, local_state, metrics)``: the per-chunk host metrics
           list, or ``metrics_reduce(list)`` when given.
+
+        Raises:
+          NotImplementedError: ``checkpointer`` / ``checkpoint_every`` /
+            ``rollback`` (durability, ROADMAP.md Queue 1 item 8) or
+            ``recorder`` / ``health`` / ``watchdog`` (telemetry and
+            supervision, item 9).
+          ValueError: ``prefetch`` or ``metrics_drain_every`` below 0, or
+            ``health_lag`` other than 0 and 1.
         """
+        _refuse("fit_stream", checkpointer=(checkpointer, "item 8, slice E"),
+                checkpoint_every=(checkpoint_every or None, "item 8, slice E"),
+                rollback=(rollback, "item 8, slice E"),
+                recorder=(recorder, "item 9, slice F"),
+                health=(health, "item 9, slice F"),
+                watchdog=(watchdog, "item 9, slice F"))
+        cfg = self.config
+        if cfg.prefetch < 0:
+            raise ValueError(
+                f"TrainerConfig.prefetch must be >= 0, got {cfg.prefetch}")
+        if cfg.health_lag not in (0, 1):
+            raise ValueError("TrainerConfig.health_lag must be 0 or 1, got "
+                             f"{cfg.health_lag}")
+        if cfg.metrics_drain_every < 0:
+            raise ValueError("TrainerConfig.metrics_drain_every must be >= "
+                             f"0, got {cfg.metrics_drain_every}")
+        it = iter(chunks)
+        pf = None
+        if cfg.prefetch:
+            it = pf = ChunkPrefetcher(
+                it, self._place_chunk, depth=cfg.prefetch,
+                max_depth=cfg.prefetch_max or None, start_index=start_step,
+                device=self.device)
         all_metrics = []
-        for i, chunk in enumerate(chunks):
-            tables, local_state, metrics = self.run_chunk(
-                tables, local_state, chunk, fold_seed(seed, i))
-            if on_chunk is not None:
-                metrics = _to_host(metrics)
-                on_chunk(i, metrics)
-            all_metrics.append(metrics)
+        de = cfg.metrics_drain_every
+        try:
+            for j, chunk in enumerate(it, start_step):
+                tables, local_state, metrics = self.run_chunk(
+                    tables, local_state, chunk, fold_seed(seed, j))
+                if on_chunk is not None:
+                    metrics = _to_host(metrics)
+                    all_metrics.append(metrics)
+                    on_chunk(j, metrics)
+                    continue
+                # An unbounded stream must not pile up device buffers.
+                all_metrics.append(metrics)
+                if de and (j - start_step) % de == de - 1:
+                    all_metrics[-de:] = [_to_host(m)
+                                         for m in all_metrics[-de:]]
+        finally:
+            if pf is not None:
+                pf.close()
         all_metrics = [_to_host(m) for m in all_metrics]
         if metrics_reduce is not None and all_metrics:
             return tables, local_state, metrics_reduce(all_metrics)
@@ -397,20 +532,17 @@ class Trainer:
 
         Raises:
           NotImplementedError: ``checkpointer`` / ``checkpoint_every`` /
-            ``rollback`` (durability, slice E) or ``recorder`` / ``health``
-            / ``watchdog`` (telemetry and supervision, slice F).
+            ``rollback`` (durability, ROADMAP.md Queue 1 item 8) or
+            ``recorder`` / ``health`` / ``watchdog`` (telemetry and
+            supervision, item 9).
           ValueError: ``plan.sync_every`` differs from the config.
         """
-        unported = {"checkpointer": (checkpointer, "E"),
-                    "checkpoint_every": (checkpoint_every or None, "E"),
-                    "rollback": (rollback, "E"),
-                    "recorder": (recorder, "F"), "health": (health, "F"),
-                    "watchdog": (watchdog, "F")}
-        for name, (value, slice_) in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"run_indexed({name}=...) is not ported yet: slice "
-                    f"{slice_} (ROADMAP.md, later slices)")
+        _refuse("run_indexed", checkpointer=(checkpointer, "item 8, slice E"),
+                checkpoint_every=(checkpoint_every or None, "item 8, slice E"),
+                rollback=(rollback, "item 8, slice E"),
+                recorder=(recorder, "item 9, slice F"),
+                health=(health, "item 9, slice F"),
+                watchdog=(watchdog, "item 9, slice F"))
         if (self.config.sync_every or None) != (plan.sync_every or None):
             raise ValueError("plan.sync_every must match TrainerConfig")
         T = plan.steps_per_epoch
@@ -442,6 +574,17 @@ class Trainer:
         if on_epoch is None and as_numpy:
             all_metrics = [_to_host(m) for m in all_metrics]
         return tables, local_state, all_metrics
+
+
+def _refuse(fn: str, **args) -> None:
+    """Raise ``NotImplementedError`` for the first unported argument of
+    ``fn`` that was given: ``args`` maps its name to ``(value, item)``,
+    ``None`` meaning not given."""
+    for name, (value, item) in args.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{fn}({name}=...) is not ported yet (ROADMAP.md Queue 1 "
+                f"{item})")
 
 
 def _tree_map(fn, tree):

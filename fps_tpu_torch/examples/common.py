@@ -7,6 +7,9 @@ on the device and builds each chunk there
 (:mod:`fps_tpu_torch.core.device_ingest`); ``--ingest host`` builds every
 chunk in numpy and copies it over (the unbounded-stream shape).
 
+``--prefetch N`` assembles and places chunks N ahead on a worker thread
+(``TrainerConfig.prefetch``; ``IALSSolver.prefetch`` in the iALS example).
+
 ``--profile DIR`` traces one chunk (the third, past warm-up) with
 ``torch.profiler`` on the card, writes ``DIR/trace.json`` and emits a
 ``"profile"`` event: the device's busy time, launches and kernels per step
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -48,7 +52,24 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "and builds chunks there; 'host' builds every chunk "
                          "in numpy and copies it over (the unbounded-stream "
                          "shape)")
+    ap.add_argument("--prefetch", type=int, default=0, metavar="N",
+                    help="overlapped host pipeline depth "
+                         "(fps_tpu_torch.core.prefetch): chunk assembly and "
+                         "placement run up to N chunks ahead on a worker "
+                         "thread; 0 = synchronous host loop. The tables are "
+                         "the same bits either way")
     return ap
+
+
+def apply_host_pipeline(args, trainer):
+    """Fold ``--prefetch`` into the trainer's config (host-side only: the
+    steps are the same)."""
+    if args.prefetch < 0:
+        raise SystemExit(f"--prefetch must be >= 0, got {args.prefetch}")
+    if args.prefetch:
+        trainer.config = dataclasses.replace(trainer.config,
+                                             prefetch=args.prefetch)
+    return trainer
 
 
 def make_epoch_source(args, mesh, data, *, route_key=None):

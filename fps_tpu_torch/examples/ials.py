@@ -2,7 +2,9 @@
 
 Port of ``fps_tpu/examples/ials.py`` with the flags the port supports: one
 device, ``--ingest device`` (the interactions resident on the device, each
-chunk built there) or ``--ingest host`` (numpy chunks copied over).
+chunk built there) or ``--ingest host`` (numpy chunks copied over);
+``--prefetch N`` assembles and places them N chunks ahead on a worker
+thread.
 Alternating normal-equation solves (``fps_tpu_torch.models.ials``). Prints
 one JSON line per event: ``start``, an ``epoch`` event with the weighted
 loss and the epoch's seconds (its weighted loss on the host included), and
@@ -67,6 +69,10 @@ def main(argv=None) -> int:
     solver = IALSSolver(mesh, IALSConfig(num_users=nu, num_items=ni,
                                          rank=args.rank, alpha=args.alpha,
                                          reg=args.reg))
+    # The solver drives its own loop, so --prefetch lands on it directly.
+    if args.prefetch < 0:
+        raise SystemExit(f"--prefetch must be >= 0, got {args.prefetch}")
+    solver.prefetch = args.prefetch
     solver.init(args.seed)
     # The interactions split over every device (no worker-local state to
     # route for); each epoch consumes its chunks twice, once a side.

@@ -26,6 +26,7 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    apply_host_pipeline,
     base_parser,
     emit,
     make_chunks,
@@ -95,6 +96,7 @@ def main(argv=None) -> int:
                        optimizer=args.optimizer, dense_features=dense)
     trainer, store = logistic_regression(mesh, cfg,
                                          sync_every=args.sync_every)
+    apply_host_pipeline(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
     chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)

@@ -7,6 +7,8 @@ held-out ``test_rmse``. ``--topk K --topk-every N`` ranks the top-K items of
 the first users of every N-th step's batch inside the training loop (a step
 tap; one ``"topk_online"`` event per such step); ``--topk K`` alone ranks
 them for a few test users after training (``"topk"`` events).
+``--negative-samples N`` adds N sampled unrated items a rating as
+pseudo-negatives of weight ``--negative-weight``.
 
     python -m fps_tpu_torch.examples.mf --scale 20m --local-batch 32768
     python -m fps_tpu_torch.examples.mf --scale 100k --device cpu
@@ -23,6 +25,7 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    apply_host_pipeline,
     base_parser,
     emit,
     make_chunks,
@@ -48,6 +51,10 @@ def main(argv=None) -> int:
                          "steps from inside the training loop, the "
                          "reference's streaming ...AndTopK shape; requires "
                          "--topk")
+    ap.add_argument("--negative-samples", type=int, default=0,
+                    help="sample this many unrated items per rating as "
+                         "weighted pseudo-negatives (implicit feedback)")
+    ap.add_argument("--negative-weight", type=float, default=0.5)
     args = ap.parse_args(argv)
     if args.topk_every and not args.topk:
         ap.error("--topk-every requires --topk")
@@ -71,9 +78,12 @@ def main(argv=None) -> int:
           "mesh": dict(mesh.shape), "device": str(mesh.device)})
 
     cfg = MFConfig(num_users=nu, num_items=ni, rank=args.rank,
-                   learning_rate=args.learning_rate, reg=args.reg)
+                   learning_rate=args.learning_rate, reg=args.reg,
+                   negative_samples=args.negative_samples,
+                   negative_weight=args.negative_weight)
     trainer, store = online_mf(mesh, cfg, sync_every=args.sync_every,
                                combine=args.combine)
+    apply_host_pipeline(args, trainer)
     if args.topk_every:
         from fps_tpu_torch.models.recommendation import (
             make_online_topk_tap,

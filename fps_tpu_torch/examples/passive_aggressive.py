@@ -25,6 +25,7 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    apply_host_pipeline,
     base_parser,
     emit,
     make_chunks,
@@ -105,6 +106,7 @@ def main(argv=None) -> int:
                    head_prefix_cols=q)
     trainer, store = passive_aggressive(mesh, cfg,
                                         sync_every=args.sync_every)
+    apply_host_pipeline(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
     chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)

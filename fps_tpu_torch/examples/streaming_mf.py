@@ -21,7 +21,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, profiler
+from fps_tpu_torch.examples.common import (
+    apply_host_pipeline,
+    base_parser,
+    emit,
+    profiler,
+)
 
 
 class _TargetReached(Exception):
@@ -59,6 +64,7 @@ def main(argv=None) -> int:
     cfg = MFConfig(num_users=args.num_users, num_items=args.num_items,
                    rank=args.rank, learning_rate=args.learning_rate)
     trainer, _ = online_mf(mesh, cfg, sync_every=args.sync_every)
+    apply_host_pipeline(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
 
     source = streaming_rating_batches(

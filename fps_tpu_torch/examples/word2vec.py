@@ -25,7 +25,12 @@ import time
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, profiler
+from fps_tpu_torch.examples.common import (
+    apply_host_pipeline,
+    base_parser,
+    emit,
+    profiler,
+)
 
 
 def main(argv=None) -> int:
@@ -96,6 +101,7 @@ def main(argv=None) -> int:
     else:
         trainer, store = word2vec(mesh, cfg, uni, sync_every=args.sync_every,
                                   max_steps_per_call=256, step_tap=step_tap)
+    apply_host_pipeline(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
 
     prof, prof_step = profiler(args, mesh.device)

@@ -23,9 +23,10 @@ parts, as in the JAX package:
 3. **Solve**: one batched ``torch.linalg.solve`` (LU, as ``jnp.linalg.solve``)
    of ``G + A + reg * I``; padding rows are zeroed.
 
-The overlapped chunk pipeline of the JAX package (``prefetch > 0``) is not
-ported: it waits for ``core/prefetch.py`` (ROADMAP.md Queue 1 item 7, slice
-D).
+``IALSSolver.prefetch > 0`` assembles and places a half-epoch's chunks that
+many chunks ahead on a worker thread
+(:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`), as the JAX package
+does; the accumulate order, and so the solve, is the same either way.
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from fps_tpu_torch.core.prefetch import (
+    ChunkPrefetcher,
+    place_columns,
+    placed_batches,
+)
 from fps_tpu_torch.core.store import (
     ParamStore,
     TableSpec,
@@ -51,10 +57,6 @@ Tensor = torch.Tensor
 
 USER_TABLE = "user_factors"
 ITEM_TABLE = "item_factors"
-
-PREFETCH_ITEM = ("ROADMAP.md Queue 1 item 7, slice D: core/prefetch.py, the "
-                 "overlapped chunk pipeline")
-
 
 @dataclasses.dataclass
 class IALSConfig:
@@ -93,21 +95,8 @@ class IALSSolver:
             TableSpec(USER_TABLE, cfg.num_users, cfg.rank, init, cfg.dtype),
             TableSpec(ITEM_TABLE, cfg.num_items, cfg.rank, init, cfg.dtype),
         ])
-        self._prefetch = 0
-
-    @property
-    def prefetch(self) -> int:
-        """Depth of the JAX package's overlapped chunk pipeline; only 0 (the
-        synchronous loop) is ported."""
-        return self._prefetch
-
-    @prefetch.setter
-    def prefetch(self, depth: int) -> None:
-        if depth != 0:
-            raise NotImplementedError(
-                f"IALSSolver.prefetch={depth!r} is not ported yet "
-                f"({PREFETCH_ITEM}); use 0")
-        self._prefetch = 0
+        # Depth of half_epoch's overlapped host pipeline (0: synchronous).
+        self.prefetch = 0
 
     # -- state --------------------------------------------------------------
 
@@ -193,6 +182,9 @@ class IALSSolver:
             solve_n, fixed_n = cfg.num_items, cfg.num_users
         else:
             raise ValueError(f"solve must be 'user' or 'item', got {solve!r}")
+        if self.prefetch < 0:
+            raise ValueError(
+                f"IALSSolver.prefetch must be >= 0, got {self.prefetch}")
 
         fixed = self.store.tables[fixed_name]
         gram = self._gram(fixed, fixed_n)
@@ -201,16 +193,23 @@ class IALSSolver:
                         device=self.device)
         b = torch.zeros((rows, cfg.rank), dtype=cfg.dtype, device=self.device)
 
-        def to_dev(x):
-            return torch.as_tensor(x).to(self.device)
+        def place(chunk):
+            return place_columns({
+                "solve_ids": chunk[solve_col],
+                "fixed_ids": chunk[fixed_col],
+                "rating": chunk["rating"],
+                "weight": chunk["weight"],
+            }, self.device)
 
-        for chunk in chunks:
-            self._accumulate(fixed, A, b, {
-                "solve_ids": to_dev(chunk[solve_col]),
-                "fixed_ids": to_dev(chunk[fixed_col]),
-                "rating": to_dev(chunk["rating"]),
-                "weight": to_dev(chunk["weight"]),
-            })
+        pf = (ChunkPrefetcher(chunks, place, depth=self.prefetch,
+                              device=self.device) if self.prefetch else None)
+        try:
+            for placed in pf if pf is not None else map(place, chunks):
+                self._accumulate(fixed, A, b,
+                                 placed_batches(placed, self.device))
+        finally:
+            if pf is not None:
+                pf.close()
         self.store.tables[solve_name] = self._solve(gram, A, b, solve_n)
 
     def epoch(self, make_chunks) -> None:

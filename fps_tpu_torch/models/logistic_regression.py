@@ -187,8 +187,9 @@ def logistic_regression(mesh, cfg: LogRegConfig, *,
                         sync_every: int | None = None, push_delay: int = 0,
                         donate: bool = True,
                         max_steps_per_call: int | None = None, guard=None):
-    """(trainer, store); pass ``sync_every=s`` for SSP bounded staleness.
-    ``push_delay`` and ``guard`` are not ported; setting them raises."""
+    """(trainer, store); pass ``sync_every=s`` for SSP bounded staleness
+    and ``push_delay=d`` for delayed pushes (``TrainerConfig``'s). ``guard``
+    is not ported; setting it raises."""
     from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 
     store = make_store(mesh, cfg)

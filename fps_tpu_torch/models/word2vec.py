@@ -33,6 +33,7 @@ ported here: the native pair generator, which waits for the port's bench
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Iterator, Mapping
 
 import numpy as np
@@ -346,8 +347,26 @@ def make_store(mesh: PSMesh, cfg: W2VConfig) -> ParamStore:
 def _make_trainer(mesh, cfg: W2VConfig, worker, *, sync_every, donate,
                   max_steps_per_call, push_delay=0, step_tap=None,
                   guard=None):
-    # TrainerConfig raises on push_delay and guard, naming the slice that
-    # ports each; it is built first so that nothing else is.
+    if push_delay >= 16:
+        # The JAX package's measured guardrail (docs/STALENESS.md, finding
+        # #5): its staleness sweep held SGNS partner recovery at 0.675-0.700
+        # through s = 64 stale reads at full lr, but delayed writes with the
+        # lr-downscale recipe collapsed it (0.125 at s = d = 16, 0.050 at
+        # s = d = 64; chance 0.017), by under-training, not divergence.
+        downscaled = cfg.learning_rate < W2VConfig.learning_rate
+        warnings.warn(
+            f"word2vec with push_delay={push_delay}"
+            + (f" and downscaled learning_rate={cfg.learning_rate} "
+               f"(< default {W2VConfig.learning_rate})" if downscaled
+               else "")
+            + ": the measured staleness sweep (docs/STALENESS.md finding "
+            "#5) collapsed SGNS quality in this regime (partner recovery "
+            "0.70 -> 0.125 at delay 16 with the lr-downscale recipe). "
+            "Prefer bounding READS (sync_every) at full lr and keeping "
+            "push_delay small or zero.",
+            UserWarning, stacklevel=3)
+    # TrainerConfig raises on guard, naming the item that ports it; it is
+    # built first so that nothing else is.
     config = TrainerConfig(sync_every=sync_every, donate=donate,
                            max_steps_per_call=max_steps_per_call,
                            push_delay=push_delay, step_tap=step_tap,
@@ -365,8 +384,9 @@ def word2vec(mesh: PSMesh, cfg: W2VConfig, unigram_counts: np.ndarray, *,
              step_tap=None, guard=None):
     """``(trainer, store)`` with the pair worker. ``sync_every`` selects SSP
     as in :func:`fps_tpu_torch.models.matrix_factorization.online_mf`;
-    ``step_tap`` is ``TrainerConfig``'s (e.g. :func:`cooccurrence_sketch_tap`);
-    ``push_delay`` and ``guard`` raise ``NotImplementedError`` (not ported
+    ``step_tap`` and ``push_delay`` are ``TrainerConfig``'s (e.g.
+    :func:`cooccurrence_sketch_tap`; ``push_delay >= 16`` warns, as in the
+    JAX package); ``guard`` raises ``NotImplementedError`` (not ported
     yet)."""
     return _make_trainer(
         mesh, cfg, Word2VecWorker(cfg, unigram_counts),

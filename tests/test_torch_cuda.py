@@ -15,8 +15,12 @@ bit at every width, on views, past 2^31 output floats, with short grids
 and the fused head-prefix read, and the wrappers' and kernels' refusals;
 K1 and K2 at word2vec's text8 shapes, and its draws on the card against the
 CPU's; K2 at iALS's D = 256 (one id owning the push, batches off the tile),
-K4 on the sketch tap's 81,920-row stack with every item dropped, and the
-sketches, the sketch tap and top-k ties on the card against the CPU. Every
+K4 on the sketch tap's 81,920-row stack with every item dropped, the
+sketches, the sketch tap and top-k ties on the card against the CPU, and the
+host pipeline's side-stream placement (50 chunks with the compute stream
+held, bit-equal to synchronous placement; a device-resident source whose
+data the held compute stream is still writing, bit-equal to prefetch 0; a
+CUDA error in the worker's copy re-raised in ``fit_stream``). Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1211,3 +1215,148 @@ def test_sketches_and_top_k_on_the_card_equal_the_cpus(dev):
         ranked.append((s.cpu(), i.cpu()))
     assert torch.equal(ranked[0][1], ranked[1][1])
     assert torch.equal(ranked[0][0], ranked[1][0])
+
+
+# ---------------------------------------------------------------------------
+# The host pipeline: chunks placed on the prefetcher's side stream.
+# ---------------------------------------------------------------------------
+
+def _pipeline_chunks(n_chunks=50):
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.utils.datasets import synthetic_ratings
+
+    data = synthetic_ratings(500, 300, n_chunks * 2 * 64, seed=2)
+    chunks = list(epoch_chunks(data, num_workers=1, local_batch=64,
+                               steps_per_chunk=2, route_key="user", seed=1))
+    assert len(chunks) == n_chunks
+    return chunks
+
+
+def _held_mf_stream(dev, prefetch, chunks, **fit_kw):
+    """Small MF over ``chunks`` with ``prefetch``; a step tap holds the
+    compute stream about 10 ms at each chunk's first step, so the card runs
+    far behind the host and a chunk's memory, if it went back to the pool
+    before its steps read it, would be reused by a later copy."""
+    import dataclasses
+
+    from fps_tpu_torch import MFConfig, make_ps_mesh, online_mf
+
+    trainer, _ = online_mf(make_ps_mesh(device=dev),
+                           MFConfig(num_users=500, num_items=300, rank=10,
+                                    learning_rate=0.05), combine="mean")
+
+    def hold(tables, batch, local_state, t):
+        if t == 0:
+            torch.cuda._sleep(20_000_000)
+        return {}
+
+    trainer.config = dataclasses.replace(
+        trainer.config, prefetch=prefetch, step_tap=hold,
+        metrics_drain_every=0)
+    tables, local = trainer.init_state(0)
+    out = trainer.fit_stream(tables, local, iter(chunks), 1, **fit_kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def _no_prefetch_threads():
+    import threading
+
+    return not any(t.name.startswith("fps-prefetch")
+                   for t in threading.enumerate())
+
+
+def test_side_stream_placement_with_the_compute_stream_held(dev):
+    """50 chunks placed on the side stream at depth 1 while the compute
+    stream is held give the tables of synchronous placement bit for bit:
+    the compute stream waits on each chunk's copy event, and each chunk's
+    tensors are marked as used on it (``record_stream``)."""
+    chunks = _pipeline_chunks()
+    want = _held_mf_stream(dev, 0, chunks)
+    got = _held_mf_stream(dev, 1, chunks)
+    assert _no_prefetch_threads()
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2], want[2]):
+        for k in ("se", "n"):
+            np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_cuda_error_in_the_worker_copy_reraises_in_fit_stream(dev):
+    """A copy that fails on the card (here the allocation of 512 GiB on the
+    card for a pinned column of one value expanded to 2^37) raises on the
+    worker thread and re-raises in ``fit_stream`` at its chunk's position;
+    nothing falls back."""
+    chunks = _pipeline_chunks()[:3]
+    column = torch.zeros((), pin_memory=True).expand(2**37)
+    assert column.is_pinned()
+    bad = dict(chunks[1], rating=column)
+    seen = []
+    with pytest.raises(RuntimeError, match="out of memory"):
+        _held_mf_stream(dev, 2, [chunks[0], bad, chunks[2]],
+                        on_chunk=lambda i, m: seen.append(i))
+    assert seen == [0]
+    assert _no_prefetch_threads()
+
+
+def _device_source_stream(dev, prefetch, compute):
+    """Small MF through ``fit_stream`` at ``prefetch`` over a device-resident
+    source: the epoch plan's chunks (``DeviceEpochPlan.chunk``, what
+    ``device_epoch_chunks`` yields; the epoch's shuffle drawn beforehand,
+    so that the source's first work on the card reads the dataset). The
+    dataset's columns are zeroed and made ready, then the data is copied
+    back on the compute stream behind a held kernel just before the stream
+    starts. The compute stream is the default stream, or one from the pool
+    (``compute="pool"``), which no other stream waits for implicitly."""
+    import contextlib
+    import dataclasses
+
+    from fps_tpu_torch import MFConfig, make_ps_mesh, online_mf
+    from fps_tpu_torch.core.device_ingest import DeviceDataset, DeviceEpochPlan
+    from fps_tpu_torch.utils.datasets import synthetic_ratings
+
+    with (torch.cuda.stream(torch.cuda.Stream(dev)) if compute == "pool"
+          else contextlib.nullcontext()):
+        mesh = make_ps_mesh(device=dev)
+        trainer, _ = online_mf(mesh, MFConfig(num_users=500, num_items=300,
+                                              rank=10, learning_rate=0.05),
+                               combine="mean")
+        trainer.config = dataclasses.replace(trainer.config,
+                                             prefetch=prefetch)
+        ds = DeviceDataset(mesh, synthetic_ratings(500, 300, 20 * 2 * 64,
+                                                   seed=2))
+        plan = DeviceEpochPlan(ds, num_workers=1, local_batch=64,
+                               route_key="user", seed=1)
+        args = plan.epoch_args(0)
+        tables, local = trainer.init_state(0)
+        saved = {k: v.clone() for k, v in ds.columns.items()}
+        for v in ds.columns.values():
+            v.zero_()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        for k, v in ds.columns.items():
+            v.copy_(saved[k])
+        chunks = (plan.chunk(args, start, 2)
+                  for start in range(0, plan.steps_per_epoch, 2))
+        out = trainer.fit_stream(tables, local, chunks, 1)
+        torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("compute", ["default", "pool"])
+def test_device_resident_source_waits_for_the_compute_stream(dev, compute):
+    """A device-resident source read on the prefetcher's side stream sees
+    what the compute stream wrote before the stream began, however far
+    behind the card runs: tables, local state and metrics at prefetch 2
+    equal those at prefetch 0 bit for bit."""
+    got = _device_source_stream(dev, 2, compute)
+    want = _device_source_stream(dev, 0, compute)
+    assert _no_prefetch_threads()
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1])
+    assert len(got[2]) == len(want[2])
+    for g, w in zip(got[2], want[2]):
+        for k in ("se", "n"):
+            np.testing.assert_array_equal(g[k], w[k])

@@ -7,7 +7,7 @@ the port on ``device="cpu"`` (the kernels' plain versions). Held to both:
 the ``A`` and ``b`` accumulators of one accumulate pass, and the solved
 factors of one half-epoch, one epoch and two, and the dense float64 oracle
 of ``tests/test_ials.py``. Also here: the host metrics on the same factors,
-device-resident chunks, the ``prefetch`` refusal and the example CLI.
+device-resident chunks, ``prefetch`` and the example CLI.
 
 Tolerances, stated: the accumulators are float32 sums of the same terms in
 another order, so each lies within ``(k + 3) * eps32 * sum|terms|`` of the
@@ -20,6 +20,7 @@ the same float32 systems: within 1e-4 of the largest |value| of each other
 import contextlib
 import io
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -259,14 +260,34 @@ def test_interaction_chunks_and_data_equal_jax():
             np.testing.assert_array_equal(g[k], w[k])
 
 
-def test_prefetch_raises_naming_its_slice_and_solve_checks_its_side():
+def test_prefetch_is_bit_identical_and_solve_checks_its_side():
+    """``prefetch = 2`` runs the placement on the pipeline's worker thread:
+    the same chunks accumulate in the same order, so two epochs give the
+    factors of ``prefetch = 0`` bit for bit, and the JAX package's with
+    ``prefetch = 2`` within its bound. A negative depth raises."""
+    data = _data()
+    chunks = _chunks(data)
+    factors = {}
+    for depth in (0, 2):
+        js, ts = _pair()
+        ts.prefetch = js.prefetch = depth
+        for _ in range(2):
+            ts.epoch(lambda: iter(chunks))
+            js.epoch(lambda: iter(chunks))
+        factors[depth] = ts.factors()
+        for got, want in zip(ts.factors(), js.factors()):
+            _close(got, want)
+    for got, want in zip(factors[2], factors[0]):
+        np.testing.assert_array_equal(got, want)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("fps-prefetch")]
     solver = tials.IALSSolver(make_ps_mesh(device="cpu"),
                               tials.IALSConfig(5, 4, rank=2))
-    solver.prefetch = 0
-    assert solver.prefetch == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        solver.prefetch = 2
     solver.init(0)
+    solver.prefetch = -1
+    with pytest.raises(ValueError, match="prefetch"):
+        solver.half_epoch("user", [])
+    solver.prefetch = 0
     with pytest.raises(ValueError, match="solve"):
         solver.half_epoch("both", [])
 

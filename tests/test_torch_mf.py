@@ -312,7 +312,7 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.models.logistic_regression\n"
         "import fps_tpu_torch.models.word2vec\n"
         "import fps_tpu_torch.models.ials, fps_tpu_torch.sketch\n"
-        "import fps_tpu_torch.core.combinators\n"
+        "import fps_tpu_torch.core.combinators, fps_tpu_torch.core.prefetch\n"
         "import fps_tpu_torch.examples.common, fps_tpu_torch.examples.mf\n"
         "import fps_tpu_torch.examples.passive_aggressive\n"
         "import fps_tpu_torch.examples.logreg_ssp\n"

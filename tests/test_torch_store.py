@@ -156,12 +156,12 @@ def test_param_store_init_lookup_dump():
     lambda: tstore.TableSpec("t", 4, 2, hot_tier=2),
     lambda: tstore.TableSpec("t", 4, 2, cold_budget=8),
     lambda: tstore.TableSpec("t", 4, 2, dense_collectives=True),
-    lambda: TrainerConfig(push_delay=1),
     lambda: TrainerConfig(guard="mask"),
     lambda: TrainerConfig(hot_sync_every=2),
+    lambda: TrainerConfig(auto_tier=True),
     lambda: ServerLogic(hot_fold="adagrad"),
-], ids=["hot_tier", "cold_budget", "dense", "push_delay", "guard",
-        "hot_sync_every", "hot_fold"])
+], ids=["hot_tier", "cold_budget", "dense", "guard", "hot_sync_every",
+        "auto_tier", "hot_fold"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="not ported"):
         make()

@@ -22,6 +22,7 @@ import contextlib
 import importlib
 import io
 import json
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -563,8 +564,7 @@ def test_hot_words_literal_validated():
     assert {s.hot_ids for s in store.specs.values()} == {"auto"}
 
 
-@pytest.mark.parametrize("option,slice_", [
-    (dict(push_delay=16), "item 3"), (dict(guard="mask"), "slice E")])
+@pytest.mark.parametrize("option,slice_", [(dict(guard="mask"), "slice E")])
 @pytest.mark.parametrize("factory", ["word2vec", "word2vec_block"])
 def test_unported_options_raise_naming_their_slice(option, slice_, factory):
     _, uni = _corpus(2000)
@@ -572,6 +572,25 @@ def test_unported_options_raise_naming_their_slice(option, slice_, factory):
     args = (cfg, uni) if factory == "word2vec" else (cfg, uni, 64)
     with pytest.raises(NotImplementedError, match=slice_):
         getattr(tw2v, factory)(make_ps_mesh(device="cpu"), *args, **option)
+
+
+@pytest.mark.parametrize("factory", ["word2vec", "word2vec_block"])
+def test_push_delay_16_warns_as_the_jax_factory_does(factory):
+    """``push_delay >= 16`` warns (the JAX package's guardrail from its
+    staleness sweep), with the downscaled learning rate named; below 16 it
+    is quiet, and the delay reaches the trainer's config."""
+    _, uni = _corpus(2000)
+    cfg = tw2v.W2VConfig(vocab_size=V, dim=8, subsample_t=None,
+                         learning_rate=0.01)
+    args = (cfg, uni) if factory == "word2vec" else (cfg, uni, 64)
+    mesh = make_ps_mesh(device="cpu")
+    with pytest.warns(UserWarning, match="push_delay=16 and downscaled"):
+        trainer, _ = getattr(tw2v, factory)(mesh, *args, push_delay=16)
+    assert trainer.config.push_delay == 16
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        trainer, _ = getattr(tw2v, factory)(mesh, *args, push_delay=15)
+    assert trainer.config.push_delay == 15
 
 
 def test_loss_falls_on_the_host_pair_stream_sync_and_ssp():
