@@ -131,7 +131,20 @@ on the card, raising on the first failure:
    4; and a small MF job with
    ``push_delay = 2`` and ``prefetch = 2``, card against CPU within 1e-5
    of the largest value. It runs after phase 5;
-7. prints one JSON line describing every ported kernel, then, as the last
+7. drives the sharded mesh on the one card, every launch counter at 0
+   just before each run and read just after: MF at ML-20M width (the data
+   of ``load_movielens(None, "20m")``, phase 4's rank, its global batch of
+   32,768 split over the workers) through ``run_indexed``, one epoch sync
+   and one SSP (s = 4), on a (1, 1), a (1, 4) and a (2, 2) mesh whose
+   positions are all ``cuda:0``, whose RMSE must fall with K1 2 and K2 2
+   a position a step and whose data replicas must be bit-equal; binary
+   PA-I at (1, 4), K5 and K4 once a position a step, mistakes below 0.5;
+   the dense against the gathered push of one MF item push at 4 shards,
+   within the float32 summation bound; small MF jobs on both meshes, card
+   against CPU within 1e-5 of the largest value. It prints each run's ms
+   a step and launches a step. The positions share one card, so these
+   times measure the single controller's launches, not scaling;
+8. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -170,6 +183,8 @@ LR_NF, LR_NNZ, LR_DENSE, LR_NEX = 1_000_000, 39, 13, 1_000_000
 LR_ADAGRAD_NEX = 262_144
 SPARSE_BATCH = 16_384
 HOT = 2048  # the write-hot head of the split paths (bench.py's head size)
+# The sharded mesh's (data, shard) shapes, every position on the one card.
+MESH_SHAPES = ((1, 4), (2, 2))
 
 # word2vec as bench.py run_w2v trains it (text8 width: vocab 50,000, dim
 # 100, window 5, 5 negatives, lr 0.025, subsample 1e-4, blocks of 8,192
@@ -976,12 +991,48 @@ def check_launches(label, launched, per_step, steps):
 
 
 def check_finite(torch, label, tables, local_state):
+    from fps_tpu_torch.parallel.mesh import Blocks
+
     leaves = dict(tables)
-    if isinstance(local_state, torch.Tensor):
+    if isinstance(local_state, (Blocks, torch.Tensor)):
         leaves["local_state"] = local_state
     for name, tb in leaves.items():
-        if not bool(torch.isfinite(tb).all()):
-            raise AssertionError(f"{label}: {name} has non-finite values")
+        for block in blocks_of(torch, tb):
+            if not bool(torch.isfinite(block).all()):
+                raise AssertionError(f"{label}: {name} has non-finite "
+                                     "values")
+
+
+def blocks_of(torch, x):
+    """The tensors of a table or local-state leaf: a ``Blocks``' blocks, or
+    the tensor itself."""
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def on_device(torch, x, device):
+    """A copy of tables or local state (``Blocks``, tensors, dicts of them)
+    with every block on ``device``."""
+    from fps_tpu_torch.parallel.mesh import Blocks
+
+    if isinstance(x, dict):
+        return {k: on_device(torch, v, device) for k, v in x.items()}
+    if isinstance(x, Blocks):
+        return Blocks([b.to(device, copy=True) for b in x],
+                      replicas=x.replicas)
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    return x
+
+
+def on_host(torch, x):
+    """The global arrays of tables or local state as CPU tensors."""
+    from fps_tpu_torch.parallel.mesh import Blocks
+
+    if isinstance(x, dict):
+        return {k: on_host(torch, v) for k, v in x.items()}
+    if isinstance(x, Blocks):
+        return torch.from_numpy(x.numpy())
+    return x.cpu()
 
 
 def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
@@ -1016,7 +1067,9 @@ def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
         "steady_ms_per_step": float(np.median(steady)) / steps_per_chunk
         * 1e3,
         "chunk_seconds": per_chunk.tolist(), "launches": launched,
-        "quality": checks, "card": card,
+        "launches_per_step": {k: v / steps for k, v in launched.items()
+                              if v},
+        "mesh": dict(trainer.mesh.shape), "quality": checks, "card": card,
     }
     log(f"path {label}: " + json.dumps(summary))
     return summary
@@ -1024,20 +1077,23 @@ def run_path(torch, kernels, label, trainer, chunks, per_step, quality,
 
 def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
                      local_batch, epochs, per_step, quality, card,
-                     chunk_steps):
+                     chunk_steps, state_check=None):
     """Train ``epochs`` epochs through device-resident ingest and
     ``run_indexed`` from fresh tables, the launch counters at 0 just before
     the run and read just after (the dataset's upload is set-up, before
     them); check the counts (``per_step`` launches of each kernel for every
     step of every epoch), finite
     tables and ``quality`` over the metrics cut into pieces of
-    ``chunk_steps`` steps (``None``: one piece an epoch); return a
-    summary."""
+    ``chunk_steps`` steps (``None``: one piece an epoch), and
+    ``state_check(tables, local_state)`` where given; return a summary.
+    Every position of the trainer's mesh is a worker of ``local_batch``
+    examples a step."""
     mesh = trainer.mesh
     t0 = time.perf_counter()
     dataset = fps.DeviceDataset(mesh, data)
     plan = fps.DeviceEpochPlan(
-        dataset, num_workers=1, local_batch=local_batch, route_key=route_key,
+        dataset, num_workers=fps.num_workers_of(mesh),
+        local_batch=local_batch, route_key=route_key,
         seed=0, sync_every=trainer.config.sync_every)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
@@ -1056,6 +1112,8 @@ def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
     launched = kernels.launch_counts()
     check_launches(label, launched, per_step, steps_run)
     check_finite(torch, label, tables, local_state)
+    state = (state_check(tables, local_state) if state_check is not None
+             else None)
     pieces = [{k: v[i:i + (chunk_steps or len(m["n"]))] for k, v in m.items()}
               for m in metrics
               for i in range(0, len(m["n"]), chunk_steps or len(m["n"]))]
@@ -1073,8 +1131,12 @@ def run_indexed_path(torch, fps, kernels, label, trainer, data, route_key,
         "steady_ms_per_step": float(per_epoch[-1]) / steps_per_epoch_run
         * 1e3,
         "epoch_seconds": per_epoch.tolist(), "launches": launched,
-        "quality": checks, "card": card,
+        "launches_per_step": {k: v / steps_run for k, v in launched.items()
+                              if v},
+        "mesh": dict(mesh.shape), "quality": checks, "card": card,
     }
+    if state is not None:
+        summary["state"] = state
     log(f"path {label}: " + json.dumps(summary))
     return summary
 
@@ -1361,18 +1423,16 @@ def card_vs_cpu(torch, fps):
             if tables0 is None:
                 tables0, local0 = trainer.init_state(7)
             # Copies: the trainer updates its tables in place (donate).
-            tables = {k: v.to(mesh.device, copy=True)
-                      for k, v in tables0.items()}
-            local = (local0.to(mesh.device, copy=True)
-                     if isinstance(local0, torch.Tensor) else local0)
+            tables = on_device(torch, tables0, mesh.device)
+            local = on_device(torch, local0, mesh.device)
             if job.endswith("run_indexed"):
                 tables, local, _ = chunks(trainer, tables, local)
             else:
                 tables, local, _ = trainer.fit_stream(tables, local,
                                                       chunks(), 2)
-            leaves = {k: v.cpu() for k, v in tables.items()}
-            if isinstance(local, torch.Tensor):
-                leaves["local_state"] = local.cpu()
+            leaves = on_host(torch, tables)
+            if local0 != ():
+                leaves["local_state"] = on_host(torch, local)
             runs[device] = leaves
         worst[job] = 0.0
         for name, want in runs["cpu"].items():
@@ -1769,7 +1829,7 @@ def ials_path(torch, fps, kernels, train, test, chunks, card):
                              f" not reached in {IALS_MAX_EPOCHS} epochs")
 
     # The parts of the user half on the trained state.
-    fixed = solver.store.tables[ITEM_TABLE]
+    fixed = solver.store.table(ITEM_TABLE)
     gram = solver._gram(fixed, IALS_ITEMS)
     A = torch.zeros((IALS_USERS, IALS_RANK * IALS_RANK), device=mesh.device)
     b = torch.zeros((IALS_USERS, IALS_RANK), device=mesh.device)
@@ -1988,8 +2048,7 @@ def taps_card_vs_cpu(torch, fps):
                                 fps.IALSConfig(2000, 1000, rank=IALS_RANK))
         if tables0 is None:
             tables0 = dict(solver.init(7))
-        solver.store.tables = {k: v.to(solver.device, copy=True)
-                               for k, v in tables0.items()}
+        solver.store.tables = on_device(torch, tables0, solver.device)
         for _ in range(2):
             solver.epoch(lambda: iter(chunks))
         factors[device] = solver.factors()
@@ -2010,12 +2069,12 @@ def taps_card_vs_cpu(torch, fps):
             step_tap=w2v.cooccurrence_sketch_tap(sketch_spec(), probe))
         if tables0 is None:
             tables0, local0 = trainer.init_state(7)
-        tables = {k: v.to(mesh.device, copy=True) for k, v in tables0.items()}
+        tables = on_device(torch, tables0, mesh.device)
         plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=1,
                                       block_len=1024, seed=5, mode="block")
         tables, _, metrics = trainer.run_indexed(tables, local0, plan, 6,
                                                  epochs=2)
-        runs[device] = ({k: v.cpu() for k, v in tables.items()},
+        runs[device] = (on_host(torch, tables),
                         w2v.accumulate_sketch_taps(metrics))
     if not np.array_equal(runs["cpu"][1], runs["cuda"][1]):
         raise AssertionError("card vs CPU, w2v sketch tap: the tap sums "
@@ -2191,9 +2250,10 @@ def same_state(torch, label, a, b):
     """Tables, local state and metrics of two arms, bit for bit."""
     (ta, la, ma), (tb, lb, mb) = a, b
     for k in ta:
-        if not torch.equal(ta[k], tb[k]):
+        if not torch.equal(on_host(torch, ta[k]), on_host(torch, tb[k])):
             raise AssertionError(f"{label}: table {k} differs between arms")
-    if isinstance(la, torch.Tensor) and not torch.equal(la, lb):
+    if (la is not None and la != ()
+            and not torch.equal(on_host(torch, la), on_host(torch, lb))):
         raise AssertionError(f"{label}: local state differs between arms")
     for x, y in zip(ma, mb):
         for k in x:
@@ -2363,7 +2423,7 @@ def delivered_once(torch, fps, kernels, mf_data, lr_data, card):
             kernels.reset_launch_counts()
             tables, _, _ = trainer.fit_stream(tables, local, chunks, 1)
             torch.cuda.synchronize()
-            res[d] = (tables["t"].clone(), kernels.launch_counts())
+            res[d] = (tables["t"][0].clone(), kernels.launch_counts())
         base, launched = res[0]
         # Float32 sums of the same terms in any order lie within 2 k eps32
         # sum|terms| of each other, k the row's pushes + 1.
@@ -2478,15 +2538,14 @@ def pipeline_card_vs_cpu(torch, fps):
         trainer.config = dataclasses.replace(trainer.config, prefetch=2)
         if tables0 is None:
             tables0, local0 = trainer.init_state(7)
-        tables = {k: v.to(trainer.device, copy=True)
-                  for k, v in tables0.items()}
-        local = local0.to(trainer.device, copy=True)
+        tables = on_device(torch, tables0, trainer.device)
+        local = on_device(torch, local0, trainer.device)
         tables, local, _ = trainer.fit_stream(
             tables, local, epoch_chunks(data, num_workers=1, local_batch=512,
                                         steps_per_chunk=8, route_key="user",
                                         seed=3), 2)
-        runs[device] = dict({k: v.cpu() for k, v in tables.items()},
-                            local_state=local.cpu())
+        runs[device] = dict(on_host(torch, tables),
+                            local_state=on_host(torch, local))
     worst = 0.0
     for name, want in runs["cpu"].items():
         diff = float((want - runs["cuda"][name]).abs().max())
@@ -2534,6 +2593,181 @@ def pipeline_phase(torch, fps, kernels, mf_data, lr_data, ials_train,
     return {"prefetch_ab": ab, "push_delay_delivered_once": once,
             "push_delay_learns": learns, "push_delay_runs": delay_runs,
             "card_vs_cpu": worst}
+
+
+# ---------------------------------------------------------------------------
+# The sharded mesh: meshes of several positions, all on the one card.
+# ---------------------------------------------------------------------------
+
+def replicas_equal(torch, mesh):
+    """``state_check``: every data replica of each table's shard equals
+    replica 0's bit for bit."""
+    D, S = mesh.shape["data"], mesh.shape["shard"]
+
+    def check(tables, local_state):
+        for name, blocks in tables.items():
+            for p in range(S, D * S):
+                if not torch.equal(blocks[p], blocks[p % S]):
+                    raise AssertionError(
+                        f"mesh {D}x{S}: table {name}, position {p} differs "
+                        f"from replica 0 of shard {p % S}")
+        return {"replicas": D, "replicas_bit_equal": True}
+    return check
+
+
+def mesh_card_vs_cpu(torch, fps, shapes):
+    """Small MF jobs (sync and SSP, run_indexed) on each mesh, on the card
+    and on the CPU from the same state; the largest difference of the
+    tables and the local state, relative to max(1, the largest value)."""
+    from fps_tpu_torch.utils import datasets as ds
+
+    data = ds.synthetic_ratings(300, 200, 20_000, seed=5)
+    cfg = fps.MFConfig(num_users=300, num_items=200, rank=RANK,
+                       learning_rate=0.1, reg=0.01)
+    worst = {}
+    for D, S in shapes:
+        for sync_every in (None, 4):
+            runs, tables0, local0 = {}, None, None
+            for device in ("cpu", "cuda:0"):
+                mesh = fps.make_ps_mesh(S, D, device=device)
+                trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
+                                           combine="mean")
+                if tables0 is None:
+                    tables0, local0 = trainer.init_state(7)
+                plan = fps.DeviceEpochPlan(
+                    fps.DeviceDataset(mesh, data), num_workers=D * S,
+                    local_batch=512 // (D * S), route_key="user", seed=3,
+                    sync_every=sync_every)
+                tables, local, _ = trainer.run_indexed(
+                    on_device(torch, tables0, mesh.device),
+                    on_device(torch, local0, mesh.device), plan, 2,
+                    epochs=2)
+                runs[device] = dict(on_host(torch, tables),
+                                    local_state=on_host(torch, local))
+            job = f"MF {'sync' if sync_every is None else 'SSP'} {D}x{S}"
+            worst[job] = max(
+                float((want - runs["cuda:0"][k]).abs().max())
+                / max(1.0, float(want.abs().max()))
+                for k, want in runs["cpu"].items())
+    log("card vs CPU on the mesh: " + json.dumps(worst))
+    for job, diff in worst.items():
+        if not diff <= 1e-5:
+            raise AssertionError(f"card vs CPU, {job}: {diff} of the largest "
+                                 "value > 1e-5")
+    return worst
+
+
+def dense_vs_gathered(torch, fps, kernels, card):
+    """The dense and the gathered push of one MF item push (B = 32,768
+    Zipf(0.8) ids over 4 workers) into the ML-20M item table on a (1, 4)
+    mesh of the card: within the float32 summation bound of a float64 sum
+    of each other, K2 once a position on either route; each route's time
+    (CUDA events, median of 10, host launches included)."""
+    from fps_tpu_torch.core import store as st
+
+    D, S, W = 1, 4, 4
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    store = fps.ParamStore(mesh, [fps.TableSpec("t", ML20M_ITEMS, RANK)])
+    blocks = list(store.init(0)["t"])
+    rng = np.random.default_rng(11)
+    ids = path_ids(rng, ML20M_ITEMS, BATCH, True)
+    ids[::97] = -1
+    dev = mesh.device
+    tid = torch.from_numpy(ids).to(dev)
+    dl = torch.from_numpy(rng.normal(0, 1e-2, (BATCH, RANK)).astype(
+        np.float32)).to(dev)
+    wid, wdl = list(torch.chunk(tid, W)), list(torch.chunk(dl, W))
+    out, times = {}, {}
+    for dense in (False, True):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = st.push(blocks, wid, wdl, num_shards=S, dense=dense)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        if launched["scatter_add"] != W or sum(launched.values()) != W:
+            raise AssertionError(f"dense={dense}: launches {launched}, "
+                                 f"expected K2 {W}")
+        out[dense] = torch.cat(got)
+        times[dense] = time_ms(torch, lambda _: st.push(
+            blocks, wid, wdl, num_shards=S, dense=dense), hold=False,
+            reps=10, warmup=2)
+    table = torch.cat(blocks).double()
+    rps = blocks[0].shape[0]
+    keep = (tid >= 0) & (tid < S * rps)
+    phys = st.id_to_phys(tid[keep].long(), S, rps)
+    mag = table.abs().index_add_(0, phys, dl[keep].double().abs())
+    count = torch.zeros(table.shape[0], dtype=torch.float64,
+                        device=dev).index_add_(
+        0, phys, torch.ones_like(phys, dtype=torch.float64))
+    bound = 2 * (count + 1)[:, None] * EPS32 * mag
+    diff = (out[True].double() - out[False].double()).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError("dense vs gathered push: beyond the float32 "
+                             f"bound by {float((diff - bound).max())}")
+    res = {"shape": f"{ML20M_ITEMS}x{RANK}, B {BATCH}, mesh 1x4",
+           "max_abs_diff": float(diff.max()),
+           "bit_equal": bool(torch.equal(out[True], out[False])),
+           "gathered_ms": times[False], "dense_ms": times[True],
+           "card": card}
+    log("dense vs gathered push: " + json.dumps(res))
+    return res
+
+
+def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card):
+    """The sharded mesh on the one card, every launch counter at 0 just
+    before each run and read just after: MF at ML-20M width
+    (``load_movielens(None, "20m")``'s data, phase 4's rank, the global
+    batch of phase 4 split over the workers) through ``run_indexed``, one
+    epoch sync and one SSP (s = 4), on a (1, 1), a (1, 4) and a (2, 2)
+    mesh whose positions are all ``cuda:0`` (K1 2 and K2 2 a position a
+    step: the shard's gather and the worker's user gather, the shard's
+    count-column scatter and the worker's user scatter), the data replicas
+    bit-equal; binary PA-I at (1, 4) (K5 and K4 once a position a step: no
+    mesh of more than one position keeps the head prefix); the dense
+    against the gathered push at 4 shards; and small MF jobs on both
+    meshes, card against CPU. The positions share one card: the times
+    measure what the single controller's launches cost, not scaling."""
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+
+    runs = []
+    for D, S in ((1, 1),) + MESH_SHAPES:
+        W = D * S
+        mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+        for sync_every in (None, 4):
+            cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                               rank=RANK, learning_rate=0.1, reg=0.01)
+            trainer, _ = fps.online_mf(mesh, cfg, sync_every=sync_every,
+                                       combine="mean", max_steps_per_call=64)
+            mode = ("sync" if sync_every is None
+                    else f"ssp(sync_every={sync_every})")
+            runs.append(run_indexed_path(
+                torch, fps, kernels, f"MF {mode}, mesh {D}x{S}, run_indexed",
+                trainer, mf_data, "user", BATCH // W, 1,
+                {"gather_rows": 2 * W, "scatter_add": 2 * W}, falling_rmse,
+                card, 64, state_check=replicas_equal(torch, mesh)))
+    mesh = fps.make_ps_mesh(4, 1, device="cuda:0")
+    cfg = fps.PAConfig(num_features=PA_NF, variant="PA-I", C=1.0,
+                       hot_features=PA_HEAD, head_prefix_cols=pa_q)
+    trainer, _ = fps.passive_aggressive(mesh, cfg)
+    runs.append(run_path(
+        torch, kernels, "PA-I binary, mesh 1x4", trainer,
+        list(multi_epoch_chunks(pa_data, 2, num_workers=4,
+                                local_batch=SPARSE_BATCH // 4,
+                                steps_per_chunk=7, seed=1)),
+        {"gather_rows_dim1": 4, "scatter_add_dim1": 4},
+        below("mistakes", 0.5), card))
+    dense = dense_vs_gathered(torch, fps, kernels, card)
+    worst = mesh_card_vs_cpu(torch, fps, MESH_SHAPES)
+    steps = {r["path"]: {"ms_per_step": r["ms_per_step"],
+                         "steady_ms_per_step": r["steady_ms_per_step"],
+                         "launches_per_step": r["launches_per_step"]}
+             for r in runs}
+    for path, entry in steps.items():
+        log(f"mesh phase, {path}: {entry['steady_ms_per_step']:.3f} ms a "
+            f"step (steady), launches a step {entry['launches_per_step']} "
+            f"({card})")
+    return {"runs": runs, "per_step": steps, "dense_vs_gathered": dense,
+            "card_vs_cpu": worst, "card": card}
 
 
 def path_sums(cases, path, copy=False):
@@ -2660,11 +2894,15 @@ def main() -> int:
     # it, in turns, never with a phase that ran before the profiler.
     pipeline = pipeline_phase(torch, fps, kernels, mf_data, lr_data,
                               ials_train, ials_test, runs, card)
+
+    # 7. The sharded mesh, counters at 0 before each run.
+    mesh = mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card)
     del mf_data
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
     runs += pipeline.pop("push_delay_runs")
+    runs += mesh["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -2694,7 +2932,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 7. Summary lines. Each entry's times are per step of its first path
+    # 8. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -2775,6 +3013,7 @@ def main() -> int:
         "traced_ials_epoch": traced_ials, "card_vs_cpu": worst,
         "host_pipeline_and_push_delay": pipeline,
         "card_vs_cpu_ials_and_sketch_tap": taps_worst,
+        "sharded_mesh": {k: v for k, v in mesh.items() if k != "runs"},
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)

@@ -1,7 +1,9 @@
 """fps_tpu_torch: the PyTorch/CUDA port of fps_tpu, for NVIDIA Hopper.
 
 A second package beside ``fps_tpu`` (the JAX reference, which it never
-imports). It runs on one device, in sync and SSP modes: ``make_ps_mesh`` →
+imports). It runs on a ``(data, shard)`` mesh driven by one process (each
+position a device, positions may share one), in sync and SSP modes:
+``make_ps_mesh`` →
 a model constructor (``online_mf``, ``passive_aggressive``,
 ``logistic_regression``, ``word2vec``, ``word2vec_block``) →
 ``Trainer.init_state`` → ``DeviceDataset`` + ``DeviceEpochPlan`` (word2vec:
@@ -11,10 +13,12 @@ hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
 for wide tables, the head scatter-add of the hot/cold push split, scalar
 gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
 PyTorch versions. iALS (``IALSSolver``) drives its own loop of
-normal-equation solves over the same store and kernels.
+normal-equation solves over the same store and kernels (on one position;
+word2vec and top-k too).
 
-Entry points run on the current CUDA device unless ``device="cpu"`` is passed
-to :func:`make_ps_mesh`; without CUDA and without a device they raise.
+Entry points run on the visible CUDA devices unless ``device="cpu"`` is
+passed to :func:`make_ps_mesh`; without CUDA and without a device they
+raise.
 """
 
 from fps_tpu_torch.core.api import (
@@ -50,13 +54,14 @@ from fps_tpu_torch.models.word2vec import (
 from fps_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SHARD_AXIS,
+    Blocks,
     default_mesh_shape,
     make_ps_mesh,
     num_workers_of,
 )
 
 __all__ = [
-    "ADDITIVE", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
+    "ADDITIVE", "Blocks", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
     "IALSConfig", "IALSSolver", "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
     "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
     "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",

@@ -3,10 +3,13 @@
 The port draws its own random numbers, so its initial tables are not the
 JAX package's. To run both packages from the same state, read the JAX
 package's tables and local state as numpy arrays (``np.asarray`` of the jax
-arrays, in their owner-major physical layout) and hand them to
-:func:`tables_from_jax` / :func:`local_state_from_jax`. Shapes and dtypes
-are checked against the port's own; a mismatch raises. :func:`to_numpy` is
-the way back, for comparisons.
+arrays: the global arrays, tables in their owner-major physical layout) and
+hand them to :func:`tables_from_jax` / :func:`local_state_from_jax`, which
+cut them into the port's blocks, one a mesh position
+(:class:`~fps_tpu_torch.parallel.mesh.Blocks`). Shapes and dtypes are
+checked against the port's own; a mismatch raises. :func:`to_numpy` is the
+way back, for comparisons: a table's blocks give the JAX package's global
+physical table, the local state's the global local state.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from fps_tpu_torch.core.api import WorkerLogic
 from fps_tpu_torch.core.store import ParamStore, padded_rows
+from fps_tpu_torch.parallel.mesh import DATA_AXIS, Blocks
 
 _META = torch.device("meta")
 
@@ -32,41 +36,64 @@ def _check_array(what: str, array: np.ndarray, shape: tuple,
 
 
 def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
-                    device=None) -> dict[str, torch.Tensor]:
-    """The JAX package's tables (``{name: array}`` in physical layout) as the
-    port's tensors on ``device`` (default: the store's mesh device)."""
+                    device=None) -> dict[str, Blocks]:
+    """The JAX package's tables (``{name: array}``, each the global
+    ``(S * rps, dim)`` physical table) as the port's blocks on the store's
+    mesh: shard ``s``'s rows on every position ``(d, s)``, each position
+    its own copy. ``device``: every block there instead of its position's
+    device."""
     if set(arrays) != set(store.specs):
         raise ValueError(f"tables {sorted(arrays)} != store tables "
                          f"{sorted(store.specs)}")
-    device = store.mesh.device if device is None else torch.device(device)
+    mesh = store.mesh
+    positions = (mesh.positions if device is None
+                 else [torch.device(device)] * len(mesh.positions))
+    S = store.num_shards
     out = {}
     for name, spec in store.specs.items():
         array = np.asarray(arrays[name])
         _check_array(f"table {name!r}", array,
-                     (padded_rows(spec.num_ids, store.num_shards), spec.dim),
-                     spec.dtype)
-        out[name] = torch.from_numpy(np.array(array, copy=True)).to(device)
+                     (padded_rows(spec.num_ids, S), spec.dim), spec.dtype)
+        shards = np.split(array, S)
+        out[name] = Blocks([torch.from_numpy(np.array(shards[p % S],
+                                                      copy=True)).to(dev)
+                            for p, dev in enumerate(positions)],
+                           replicas=mesh.shape[DATA_AXIS])
     return out
 
 
-def local_state_from_jax(logic: WorkerLogic, array: np.ndarray, *, device,
-                         num_workers: int = 1) -> torch.Tensor:
-    """The JAX package's worker-local state (one array, physical layout) as
-    the port's tensor on ``device``. The expected shape and dtype are those
-    of ``logic.init_local_state`` for ``num_workers`` workers."""
-    like = logic.init_local_state(0, num_workers, _META)
+def local_state_from_jax(logic: WorkerLogic, array: np.ndarray, *,
+                         device=None, num_workers: int = 1,
+                         mesh=None) -> Blocks:
+    """The JAX package's worker-local state (one global array, sharded over
+    the workers on axis 0) as the port's blocks, worker ``w``'s rows
+    ``[w * n, (w + 1) * n)`` on its position's device (``mesh``), or on
+    ``device`` for each of ``num_workers`` workers. The expected shape and
+    dtype are those of ``logic.init_local_state`` for that many workers."""
+    if mesh is not None:
+        positions = list(mesh.positions)
+    elif device is not None:
+        positions = [torch.device(device)] * num_workers
+    else:
+        raise ValueError("local_state_from_jax: pass mesh or device")
+    like = logic.init_local_state(0, len(positions), _META)
     if not isinstance(like, torch.Tensor):
         raise TypeError(f"{type(logic).__name__}'s local state is not one "
                         "tensor")
     array = np.asarray(array)
     _check_array("local state", array, like.shape, like.dtype)
-    return torch.from_numpy(np.array(array, copy=True)).to(device)
+    return Blocks([torch.from_numpy(np.array(part, copy=True)).to(dev)
+                   for part, dev in zip(np.split(array, len(positions)),
+                                        positions)])
 
 
 def to_numpy(x: Any):
-    """Tensors (or a dict of them) as numpy arrays on the host."""
+    """Tensors and :class:`Blocks` (or a dict of them) as numpy arrays on
+    the host; a ``Blocks`` gives its global array."""
     if isinstance(x, Mapping):
         return {k: to_numpy(v) for k, v in x.items()}
+    if isinstance(x, Blocks):
+        return x.numpy()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

@@ -9,6 +9,16 @@ compiles a chunk (or a slice of an epoch) into one ``lax.scan`` under
 launches the port's kernels on the card (CUDA graphs over a chunk are later
 work).
 
+On a mesh of ``W`` positions one process drives every worker (a single
+controller): worker ``w`` takes columns ``[w * B, (w + 1) * B)`` of each
+``(steps, W * B)`` batch, draws from ``fold_seed(seed, w)`` and holds its
+block of the local state; every worker pulls as the step begins, then one
+collective push a table lands all the workers' deltas
+(:mod:`fps_tpu_torch.core.store`), and the metrics are summed over the
+shards, then over the data replicas. Tables and local-state leaves are
+:class:`~fps_tpu_torch.parallel.mesh.Blocks`, one block a position. A
+one-position mesh runs the same code with ``W = 1``.
+
 * **sync**: every step pulls from the live tables and its pushes land before
   the next step.
 * **SSP** (``sync_every=s``): chunks are shaped ``(R, s, B, ...)``; each
@@ -64,7 +74,14 @@ from fps_tpu_torch.core.store import (
     push,
     rows_per_shard,
 )
-from fps_tpu_torch.parallel.mesh import SHARD_AXIS, PSMesh, num_workers_of
+from fps_tpu_torch.parallel import collectives
+from fps_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SHARD_AXIS,
+    Blocks,
+    PSMesh,
+    num_workers_of,
+)
 
 Tensor = torch.Tensor
 
@@ -92,8 +109,10 @@ class TrainerConfig:
     (pre-``prepare``) batch and the new local state; ``t`` is the step's
     index in its chunk (:meth:`Trainer.run_chunk`) or epoch
     (:meth:`Trainer.run_indexed`). The metrics gain a ``"tap"`` entry whose
-    leaves are ``(T, W, ...)``: steps, then workers (``W = 1`` on the
-    port's one-device mesh), as the JAX package gathers them. The worker's
+    leaves are ``(T, W, ...)``: steps, then workers, as the JAX package
+    gathers them (the tap runs on each worker's blocks of the tables, raw
+    batch and local state, as under the JAX package's ``shard_map``). The
+    worker's
     out channel must be a dict without a ``"tap"`` key.
 
     ``donate``: as in the JAX package, the caller hands its tables over to
@@ -179,12 +198,38 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
 
-    def init_state(self, seed: int) -> tuple[dict[str, Tensor], Any]:
-        """Tables and worker-local state, made from ``seed``."""
+    def init_state(self, seed: int) -> tuple[dict[str, Blocks], Any]:
+        """Tables and worker-local state, made from ``seed``: each table
+        :class:`~fps_tpu_torch.parallel.mesh.Blocks` of the mesh's
+        positions, each local-state leaf the ``Blocks`` of the workers'
+        rows of the global leaf that ``init_local_state`` makes (the JAX
+        package shards it over the workers on axis 0)."""
         tables = self.store.init(fold_seed(seed, 0))
         local_state = self.logic.init_local_state(
             fold_seed(seed, 1), self.num_workers, self.device)
-        return tables, local_state
+        return tables, _tree_map(self._worker_blocks, local_state)
+
+    def _worker_blocks(self, leaf) -> Blocks:
+        """A local-state leaf as the workers' blocks: a global tensor is cut
+        into ``W`` equal pieces on axis 0."""
+        if isinstance(leaf, Blocks):
+            return leaf
+        return Blocks(collectives.scatter_workers(self.mesh, leaf))
+
+    def _worker_states(self, local_state) -> list:
+        """Each worker's local state (its block of every leaf)."""
+        blocks = _tree_map(self._worker_blocks, local_state)
+        return [_tree_map(lambda b, w=w: b[w], blocks)
+                for w in range(self.num_workers)]
+
+    def _worker_batches(self, batches: Mapping[str, Tensor]) -> list[dict]:
+        """Each worker's columns of a call's batches: ``(steps, W * B, ...)``
+        columns cut on axis 1, worker ``w`` taking ``[w * B, (w + 1) * B)``,
+        on its device."""
+        cut = {k: collectives.scatter_workers(self.mesh, v, 1)
+               for k, v in batches.items()}
+        return [{k: v[w] for k, v in cut.items()}
+                for w in range(self.num_workers)]
 
     # -- one step ---------------------------------------------------------
 
@@ -210,11 +255,23 @@ class Trainer:
                 "int or the literal 'auto'")
         return -(-spec.hot_ids // self.num_shards) if spec.hot_ids else 0
 
+    def _dense(self, name: str) -> bool:
+        """The dense route for this table (the JAX package's
+        ``_resolve_dense``): never on a one-position mesh, where the
+        gathered route has no collective to save; else
+        ``TableSpec.dense_collectives is True``. ``"auto"`` keeps the
+        gathered route: the JAX package's threshold
+        (``DENSE_TABLE_BYTES``) was measured on a TPU's interconnect."""
+        return (self.num_workers > 1
+                and self.store.specs[name].dense_collectives is True)
+
     def _head_prefix(self, batch) -> dict[str, int]:
         """The worker's head-prefix guarantee for this batch, for tables that
-        declare their head (an int ``hot_ids > 0``). The port's mesh is one
-        device, where the pull and push streams are the worker's own, so the
-        guarantee holds as given."""
+        declare their head (an int ``hot_ids > 0``). Honoured only on a
+        one-position mesh: the collective pull and push reorder the id
+        streams (the all-gather across workers)."""
+        if self.num_workers != 1:
+            return {}
         out = {}
         for name, n in self.logic.head_prefix(batch).items():
             spec = self.store.specs.get(name)
@@ -223,45 +280,57 @@ class Trainer:
                 out[name] = int(n)
         return out
 
-    def _compute_step(self, tables, snapshot, local_state, batch, gen):
-        """Pull (from the live tables, or the SSP ``snapshot`` when given)
-        and run the worker step; return its pushes unapplied, the head-prefix
-        guarantee for them, the new local state and the step's outputs."""
-        batch = self.logic.prepare(batch, gen)
-        hp = self._head_prefix(batch)
-        pulled = {}
-        for name, tids in self.logic.pull_ids(batch).items():
+    def _compute_step(self, tables, snapshot, states, batches, keys):
+        """Every worker's step: pull (from the live tables, or the SSP
+        ``snapshot`` when given) and run the worker step; return the
+        workers' pushes unapplied, the head-prefix guarantee for them, the
+        new local states and the step's outputs (one a worker)."""
+        W = self.num_workers
+        batches = [self.logic.prepare(b, k) for b, k in zip(batches, keys)]
+        hp = self._head_prefix(batches[0])
+        ids = [self.logic.pull_ids(b) for b in batches]
+        pulled = [{} for _ in range(W)]
+        for name in ids[0]:
+            tids = [i[name] for i in ids]
             route = dict(hot_rows=self._hot_rows(name),
                          head_prefix=hp.get(name, 0))
             if snapshot is None:
-                pulled[name] = pull(tables[name], tids,
-                                    num_shards=self.num_shards, **route)
+                vals = pull(tables[name], tids, num_shards=self.num_shards,
+                            dense=self._dense(name), **route)
             else:
-                rps = tables[name].shape[0]
+                rps = tables[name][0].shape[0]
                 # -1 padding stays -1 (a zero row): the floor-mod of
                 # id_to_phys would wrap it onto a live row for S > 1.
                 # On one shard phys == ids, so the head guarantee holds.
-                phys = torch.where(
-                    tids >= 0, id_to_phys(tids, self.num_shards, rps), -1)
-                pulled[name] = ops.gather_rows(snapshot[name], phys, **route)
-        out = self.logic.step(batch, pulled, local_state, gen)
-        return out.pushes, hp, out.local_state, out.out
+                vals = [ops.gather_rows(
+                    snap, torch.where(t >= 0, id_to_phys(
+                        t, self.num_shards, rps), -1), **route)
+                    for snap, t in zip(snapshot[name], tids)]
+            for w in range(W):
+                pulled[w][name] = vals[w]
+        outs = [self.logic.step(b, p, s, k)
+                for b, p, s, k in zip(batches, pulled, states, keys)]
+        return ([o.pushes for o in outs], hp, [o.local_state for o in outs],
+                [o.out for o in outs])
 
     def _apply_pushes(self, tables, pushes, head_prefix):
+        """One collective push a table lands every worker's deltas."""
         new_tables = dict(tables)
-        for name, (pids, pdeltas) in pushes.items():
+        for name in pushes[0]:
             sl = self.server_logic[name]
             new_tables[name] = push(
-                tables[name], pids, pdeltas, num_shards=self.num_shards,
+                tables[name], [p[name][0] for p in pushes],
+                [p[name][1] for p in pushes], num_shards=self.num_shards,
                 apply_fn=sl.apply_fn, combine=sl.combine,
                 hot_rows=self._hot_rows(name),
                 head_prefix=head_prefix.get(name, 0),
-                inplace=self.config.donate)
+                dense=self._dense(name), inplace=self.config.donate)
         return new_tables
 
-    def _run_tap(self, out, tables, batch, local_state, t: int):
-        """``out`` with the step tap's outputs under ``"tap"``, each leaf
-        given the worker axis (``W = 1``)."""
+    def _run_tap(self, out, tables, batches, states, t: int):
+        """``out`` with the step tap's outputs under ``"tap"``: the tap runs
+        on each worker's blocks, raw batch and local state, and its leaves
+        gain the worker axis ``W`` on the home device."""
         tap = self.config.step_tap
         if tap is None:
             return out
@@ -273,72 +342,94 @@ class Trainer:
             raise ValueError(
                 "the worker's out channel already has a 'tap' key; it would "
                 "be clobbered by the step_tap output")
-        tapped = tap(tables, batch, local_state, t)
-        return dict(out, tap=_tree_map(lambda x: x[None], tapped))
+        tapped = [tap({name: tb[w] for name, tb in tables.items()}, b, s, t)
+                  for w, (b, s) in enumerate(zip(batches, states))]
+        return dict(out, tap=_tree_stack(tapped, lambda xs: torch.stack(
+            collectives.gather_home(self.mesh, xs))))
 
-    def _step(self, tables, snapshot, local_state, batch, gen, t, outs,
+    def _step(self, tables, snapshot, states, batches, keys, t, outs,
               in_flight):
-        pushes, hp, local_state, out = self._compute_step(
-            tables, snapshot, local_state, batch, gen)
+        pushes, hp, states, out = self._compute_step(
+            tables, snapshot, states, batches, keys)
         # This step's pushes go in flight, with the head-prefix guarantee of
         # the batch that made them; the pushes of push_delay steps ago land
         # (at push_delay = 0, this step's own).
         in_flight.append((pushes, hp))
         while len(in_flight) > self.config.push_delay:
             tables = self._apply_pushes(tables, *in_flight.popleft())
-        outs.append(self._run_tap(out, tables, batch, local_state, t))
-        return tables, local_state
+        # Metrics summed over the shards, then the data replicas.
+        out = _tree_stack(out, lambda xs: collectives.sum_home(self.mesh, xs))
+        outs.append(self._run_tap(out, tables, batches, states, t))
+        return tables, states
 
-    def _run_steps(self, tables, local_state, batch_at, num_steps: int,
+    def _run_steps(self, tables, local_state, batches, num_steps: int,
                    seed: int, t0: int = 0):
-        """Run ``num_steps`` steps; ``batch_at(i)`` is step ``i``'s batch (a
-        dict of device tensors), which the step tap sees as step ``t0 + i``.
-        Sync: one step after the other. SSP: rounds
-        of ``sync_every`` steps, each round's pulls from a snapshot of the
-        tables taken as the round begins. The worker draws from one
-        ``torch.Generator`` seeded by ``seed``, or, when it is
-        ``step_seeded``, from step ``i``'s seed ``fold_seed(fold_seed(seed,
-        0), i)``. Returns ``(tables, local_state, metrics)`` with
-        ``(num_steps,)`` device tensors (the tap's leaves ``(num_steps, 1,
-        ...)``).
+        """Run ``num_steps`` steps over ``batches`` (columns with leading
+        dims ``(num_steps, W * B)``, on the home device); the step tap sees
+        step ``i`` as step ``t0 + i``. Sync: one step after the other. SSP:
+        rounds of ``sync_every`` steps, each round's pulls from a snapshot
+        of the tables (each position's all-gathered physical table) taken
+        as the round begins. Worker ``w`` draws from one ``torch.Generator``
+        seeded by ``fold_seed(seed, w)``, or, when it is ``step_seeded``,
+        from step ``i``'s seed ``fold_seed(fold_seed(seed, w), i)``.
+        Returns ``(tables, local_state, metrics)`` with ``(num_steps,)``
+        device tensors on the home device, summed over the workers (the
+        tap's leaves ``(num_steps, W, ...)``).
 
         With ``push_delay = d`` the pushes wait in a queue of at most ``d``
-        steps' pushes: step ``i`` delivers step ``i - d``'s, and the call
-        ends by delivering what is left, oldest first, as the JAX package's
-        ring buffer does. The ring's cold slots (ids ``-1``, zero deltas)
-        change no row, so they are not delivered at all: each real push
-        lands exactly once, and a call launches the kernels it launches at
-        ``d = 0``. A queued push holds the worker's own tensors (ids from
-        the batch, freshly computed deltas), which no later step rewrites.
+        steps' pushes (every worker's): step ``i`` delivers step ``i - d``'s,
+        and the call ends by delivering what is left, oldest first, as the
+        JAX package's ring buffer does. The ring's cold slots (ids ``-1``,
+        zero deltas) change no row, so they are not delivered at all: each
+        real push lands exactly once, and a call launches the kernels it
+        launches at ``d = 0``. A queued push holds the worker's own tensors
+        (ids from the batch, freshly computed deltas), which no later step
+        rewrites.
         """
-        seed = fold_seed(seed, 0)  # worker 0 of the one-device mesh
+        mesh = self.mesh
+        tables = {name: list(tb) for name, tb in tables.items()}
+        states = self._worker_states(local_state)
+        per_worker = self._worker_batches(batches)
+        seeds = [fold_seed(seed, w) for w in range(self.num_workers)]
         if self.logic.step_seeded:
             def key(i):
-                return fold_seed(seed, i)
+                return [fold_seed(sw, i) for sw in seeds]
         else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
+            gens = []
+            for sw, dev in zip(seeds, mesh.positions):
+                gens.append(torch.Generator(device=dev))
+                gens[-1].manual_seed(sw)
 
             def key(i):
-                return gen
+                return gens
+
+        def batch_at(i):
+            return [{k: v[i] for k, v in b.items()} for b in per_worker]
+
         outs: list[dict[str, Tensor]] = []
         in_flight = collections.deque()
         s = self.config.sync_every
         if s is None:
             for i in range(num_steps):
-                tables, local_state = self._step(
-                    tables, None, local_state, batch_at(i), key(i), t0 + i,
+                tables, states = self._step(
+                    tables, None, states, batch_at(i), key(i), t0 + i,
                     outs, in_flight)
         else:
             for r in range(num_steps // s):
-                # The round's reads see the tables as the round begins.
-                snapshot = {name: tb.clone() for name, tb in tables.items()}
+                # The round's reads see the tables as the round begins: a
+                # copy, since the round's pushes may update them in place.
+                snapshot = {name: collectives.all_gather(
+                    mesh, tb, SHARD_AXIS, copy=True)
+                    for name, tb in tables.items()}
                 for j in range(r * s, (r + 1) * s):
-                    tables, local_state = self._step(
-                        tables, snapshot, local_state, batch_at(j), key(j),
+                    tables, states = self._step(
+                        tables, snapshot, states, batch_at(j), key(j),
                         t0 + j, outs, in_flight)
         while in_flight:  # the end of the call: deliver what is in flight
             tables = self._apply_pushes(tables, *in_flight.popleft())
+        D = mesh.shape[DATA_AXIS]
+        tables = {name: Blocks(tb, replicas=D) for name, tb in tables.items()}
+        local_state = _tree_stack(states, Blocks)
         return tables, local_state, _tree_stack(outs, torch.stack)
 
     # -- chunks -----------------------------------------------------------
@@ -386,8 +477,7 @@ class Trainer:
             batches = {k: v.reshape((steps,) + v.shape[2:])
                        for k, v in batches.items()}
         tables, local_state, metrics = self._run_steps(
-            tables, local_state, lambda i: {k: v[i] for k, v in
-                                            batches.items()}, steps, seed)
+            tables, local_state, batches, steps, seed)
         # Keep the store's host reads (lookup_host / dump_model) on the
         # live tensors.
         self.store.tables = dict(tables)
@@ -558,9 +648,8 @@ class Trainer:
                 # Each step's batch is a view of the call's batches.
                 batches = plan.call_batches(args, c * T_call, steps)
                 tables, local_state, metrics = self._run_steps(
-                    tables, local_state,
-                    lambda i, b=batches: {k: v[i] for k, v in b.items()},
-                    steps, fold_seed(fold_seed(seed, e), c), c * T_call)
+                    tables, local_state, batches, steps,
+                    fold_seed(fold_seed(seed, e), c), c * T_call)
                 parts.append(metrics)
             metrics = _tree_stack(parts, torch.cat)
             all_metrics.append(metrics)
@@ -588,7 +677,10 @@ def _refuse(fn: str, **args) -> None:
 
 
 def _tree_map(fn, tree):
-    """``fn`` over the tensor leaves of nested dicts, tuples and lists."""
+    """``fn`` over the leaves of nested dicts, tuples and lists: tensors and
+    :class:`Blocks`."""
+    if isinstance(tree, Blocks):
+        return fn(tree)
     if isinstance(tree, Mapping):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

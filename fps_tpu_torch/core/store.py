@@ -1,24 +1,30 @@
 """The parameter store: tables, pull and push.
 
 Port of the untiered part of ``fps_tpu/core/store.py``. A table is one
-``(rows, dim)`` tensor in the JAX package's **owner-major cyclic** layout:
+``(rows, dim)`` array in the JAX package's **owner-major cyclic** layout:
 id ``i`` lives at physical row ``(i % S) * rps + i // S`` for ``S`` shards of
-``rps`` rows each. The layout helpers keep their ``num_shards`` argument so
-that the multi-device slices reuse them; :func:`pull` and :func:`push` run on
-a one-device mesh (``S == 1``) and raise on more.
+``rps`` rows each, shard ``s`` holding rows ``[s * rps, (s + 1) * rps)``. On
+the mesh a table is held as :class:`~fps_tpu_torch.parallel.mesh.Blocks`,
+one ``(rps, dim)`` block a position, replicated over the data axis.
 
-On one device the JAX package's collectives are identities: :func:`pull` is
-a row gather and :func:`push` a scatter-add (or a combine-then-fold) into
-the local block, through :mod:`fps_tpu_torch.ops`, so on the card both run
-on the port's hand-written kernels.
+:func:`pull` and :func:`push` take every position's block and every
+worker's ids at once (the single controller) and do what the JAX package's
+do under ``shard_map``, with the collectives of
+:mod:`fps_tpu_torch.parallel.collectives` in place of ``jax.lax``'s: each
+shard's gather and scatter-add run on its block through
+:mod:`fps_tpu_torch.ops`, so on the card on the port's hand-written
+kernels. On a one-position mesh every collective is the identity: a pull is
+one row gather and a push one scatter-add (or a combine-then-fold).
 
 ``TableSpec.hot_ids`` takes an int (the frequency-ranked head: the scalar
 tables' head-prefix route, and the hot/cold push split of wider tables
-through kernel K3) or ``"auto"`` (the whole table through K3 when it has
+through kernel K3) or ``"auto"`` (the whole shard through K3 when it has
 no more rows than :func:`fps_tpu_torch.ops.packed_crossover_rows` allows
-at its width, and through K2 otherwise). Not ported,
-and rejected when set: ``hot_tier``, ``cold_budget`` and
-``dense_collectives=True`` (ROADMAP.md Queue 1).
+at its width, and through K2 otherwise). ``TableSpec.dense_collectives``
+``True`` takes the dense route on a mesh of more than one position;
+``"auto"`` keeps the gathered route (the JAX package's size threshold was
+measured on a TPU's interconnect). Not ported, and rejected when set:
+``hot_tier`` and ``cold_budget`` (ROADMAP.md Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 
 from fps_tpu_torch import ops
 from fps_tpu_torch.core.rng import fold_seed, uniform_by_id
-from fps_tpu_torch.parallel.mesh import MULTI_DEVICE_ITEM, SHARD_AXIS, PSMesh
+from fps_tpu_torch.parallel import collectives
+from fps_tpu_torch.parallel.mesh import DATA_AXIS, SHARD_AXIS, Blocks, PSMesh
 
 Tensor = torch.Tensor
 
@@ -58,28 +65,85 @@ def phys_to_id(phys, num_shards: int, rps: int):
     return (phys % rps) * num_shards + phys // rps
 
 
-def _one_shard(fn: str, num_shards: int) -> None:
-    if num_shards != 1:
-        raise NotImplementedError(
-            f"{fn} over {num_shards} shards needs collectives: "
-            f"{MULTI_DEVICE_ITEM}")
+def _positions(x) -> tuple[bool, list]:
+    """``(one, seq)``: a lone tensor is the one position of a one-position
+    mesh; a sequence holds one tensor a position, in worker order."""
+    if isinstance(x, Tensor):
+        return True, [x]
+    return False, list(x)
+
+
+def _mesh_of(blocks: list[Tensor], num_shards: int) -> PSMesh:
+    """The mesh the blocks lie on: ``len(blocks) // num_shards`` data
+    replicas of ``num_shards`` shards, each position on its block's
+    device."""
+    W = len(blocks)
+    if num_shards < 1 or W % num_shards:
+        raise ValueError(f"{W} blocks do not make data replicas of "
+                         f"{num_shards} shards")
+    devs = [b.device for b in blocks]
+    grid = tuple(tuple(devs[d * num_shards:(d + 1) * num_shards])
+                 for d in range(W // num_shards))
+    return PSMesh({DATA_AXIS: W // num_shards, SHARD_AXIS: num_shards}, grid)
+
+
+def _result(one: bool, out: list):
+    return out[0] if one else out
 
 
 # ---------------------------------------------------------------------------
 # Pull / push.
 # ---------------------------------------------------------------------------
 
-def pull(local_shard: Tensor, ids: Tensor, *, num_shards: int,
-         hot_rows: int = 0, head_prefix: int = 0,
-         exact: bool = False) -> Tensor:
-    """Rows of the table for ``ids`` (``(B,)`` int32): ``(B, dim)``, zero rows
-    for padding (``-1``) and other out-of-range ids. Replaces the
-    reference's pull / ``onPullRecv`` / ``answerPull`` round trip.
-    ``hot_rows`` / ``head_prefix``: the head-prefix route of
-    :func:`fps_tpu_torch.ops.gather_rows`."""
-    _one_shard("pull", num_shards)
-    return ops.gather_rows(local_shard, ids, hot_rows=hot_rows,
-                           head_prefix=head_prefix, exact=exact)
+def pull(blocks, ids, *, num_shards: int, dense: bool = False,
+         hot_rows: int = 0, head_prefix: int = 0, exact: bool = False):
+    """Rows of the table for each worker's ``ids`` (``(B,)`` int32):
+    ``(B, dim)`` a worker, zero rows for padding (``-1``) and other
+    out-of-range ids. Replaces the reference's pull / ``onPullRecv`` /
+    ``answerPull`` round trip.
+
+    ``blocks`` are the table's ``(rps, dim)`` blocks and ``ids`` the
+    workers' ids, one a mesh position in worker order (position
+    ``w = d * S + s`` holds shard ``s``); a lone tensor for each is a
+    one-position mesh, and then the result is a tensor too, else a list a
+    worker.
+
+    The gathered route (the default): every shard sees the ids of its data
+    replica's workers (``all_gather``), gathers the rows it owns through
+    :func:`fps_tpu_torch.ops.gather_rows` (``hot_rows`` / ``head_prefix``:
+    its head-prefix route, which only a one-shard mesh keeps), and the
+    ``psum_scatter`` hands each worker its rows. ``dense``: the
+    replicate-on-read route, each worker gathering by physical row from the
+    all-gathered table.
+    """
+    one, blocks = _positions(blocks)
+    ids = _positions(ids)[1]
+    mesh = _mesh_of(blocks, num_shards)
+    S = num_shards
+    if dense:
+        full = collectives.all_gather(mesh, blocks, SHARD_AXIS)
+        rps = blocks[0].shape[0]
+        return _result(one, [ops.gather_rows(f, _dense_rows(i, S, rps),
+                                             exact=exact)
+                             for f, i in zip(full, ids)])
+    vals = []
+    for p, (blk, a) in enumerate(zip(blocks, collectives.all_gather(
+            mesh, ids, SHARD_AXIS))):
+        if S == 1:
+            # One shard owns every id at its own row: the gathered stream
+            # is its data replica's, the worker's own on a one-position
+            # mesh, where the head-prefix guarantee holds.
+            vals.append(ops.gather_rows(
+                blk, a, hot_rows=hot_rows,
+                head_prefix=head_prefix if len(blocks) == 1 else 0,
+                exact=exact))
+            continue
+        owned = (a % S) == p % S
+        v = ops.gather_rows(blk, torch.where(owned, a // S, 0),
+                            hot_rows=hot_rows, exact=exact)
+        vals.append(torch.where(owned[:, None], v, torch.zeros_like(v)))
+    # Exactly one shard contributed each row.
+    return _result(one, collectives.psum_scatter(mesh, vals, SHARD_AXIS))
 
 
 def pull_local(local_shard: Tensor, ids: Tensor, *, num_shards: int) -> Tensor:
@@ -88,19 +152,20 @@ def pull_local(local_shard: Tensor, ids: Tensor, *, num_shards: int) -> Tensor:
     return ops.gather_rows(local_shard, ids // num_shards)
 
 
-def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
-         num_shards: int,
+def push(blocks, ids, deltas, *, num_shards: int,
          apply_fn: Callable[[Tensor, Tensor], Tensor] | None = None,
          combine: str | Callable[[Tensor, Tensor], Tensor] = "sum",
-         hot_rows: int = 0, head_prefix: int = 0,
-         inplace: bool = False) -> Tensor:
-    """Fold ``deltas`` for ``ids`` into the table.
+         hot_rows: int = 0, head_prefix: int = 0, dense: bool = False,
+         inplace: bool = False):
+    """Fold every worker's ``deltas`` for its ``ids`` into the table.
 
     Args:
-      local_shard: the ``(rps, dim)`` table block.
-      ids: ``(B,)`` int32 ids. Negative ids are dropped entirely (``-1``
-        marks padding), also for non-additive folds.
-      deltas: ``(B, dim)``.
+      blocks: the table's ``(rps, dim)`` blocks, one a mesh position in
+        worker order (see :func:`pull`); a lone tensor is a one-position
+        mesh.
+      ids: each worker's ``(B,)`` int32 ids. Negative ids are dropped
+        entirely (``-1`` marks padding), also for non-additive folds.
+      deltas: each worker's ``(B, dim)``.
       apply_fn: ``(current_rows, combined) -> new_rows``, applied only to
         rows with at least one push; ``None`` is addition (the reference's
         ``paramUpdate = _ + _``).
@@ -118,18 +183,87 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
         the tail), for the additive fold and for the sum-and-count scatter
         of the mean, callable and ``apply_fn`` folds alike.
       head_prefix: count of leading ids guaranteed in ``[0, hot_rows) ∪
-        {-1}``.
-      inplace: update ``local_shard`` itself (what ``TrainerConfig.donate``
-        asks for) instead of returning a new tensor.
+        {-1}``; only a one-position mesh keeps it (the gathered stream is
+        then the worker's own).
+      dense: the dense route of the additive fold (other folds keep the
+        gathered route): each worker scatter-adds its own pushes into a
+        zeros buffer of the whole physical table, an ``all_to_all`` hands
+        each shard its window from every peer, and the windows are summed
+        in shard order, then over the data replicas in replica order.
+      inplace: update the blocks themselves (what ``TrainerConfig.donate``
+        asks for) instead of returning new tensors.
+
+    The gathered route gathers the pushes over the data axis, then over the
+    shard axis, as the JAX package does, so the stream every shard folds
+    runs shard-major: position ``s * (D * B) + d * B + b`` holds worker
+    ``(d, s)``'s push ``b``. The scatter-add combines duplicates in stream
+    order, so this order is what keeps the float32 sums the JAX package's.
+    Every data replica of a shard folds the same stream, so the replicas
+    stay bit-equal.
 
     Returns:
-      The updated ``(rps, dim)`` block.
+      The updated blocks (a tensor for a lone tensor, else a list).
     """
-    _one_shard("push", num_shards)
     if not callable(combine) and combine not in ("sum", "mean", "max", "min"):
         raise ValueError(f"unknown combine mode {combine!r}")
+    one, blocks = _positions(blocks)
+    ids, deltas = _positions(ids)[1], _positions(deltas)[1]
+    mesh = _mesh_of(blocks, num_shards)
+    S = num_shards
+    if dense and apply_fn is None and combine == "sum":
+        return _result(one, _dense_push(mesh, blocks, ids, deltas, S,
+                                        inplace))
+    gids = collectives.all_gather(
+        mesh, collectives.all_gather(mesh, ids, DATA_AXIS), SHARD_AXIS)
+    gdeltas = collectives.all_gather(
+        mesh, collectives.all_gather(mesh, deltas, DATA_AXIS), SHARD_AXIS)
+    hp = head_prefix if len(blocks) == 1 else 0
+    return _result(one, [
+        _fold(blk, a, dl, shard=p % S, num_shards=S, apply_fn=apply_fn,
+              combine=combine, hot_rows=hot_rows, head_prefix=hp,
+              inplace=inplace)
+        for p, (blk, a, dl) in enumerate(zip(blocks, gids, gdeltas))])
+
+
+def _dense_rows(ids: Tensor, S: int, rps: int) -> Tensor:
+    """Physical rows of ``ids`` in the whole table, ``-1`` (a zero row, a
+    dropped push) for an id outside ``[0, S * rps)``, as on the gathered
+    route. (The JAX package's dense route drops only negative ids:
+    id_to_phys's floor-mod would wrap them onto a live row. An id past the
+    table lands there on another shard's row.)"""
+    ok = (ids >= 0) & (ids < S * rps)
+    return torch.where(ok, id_to_phys(ids, S, rps), -1).to(torch.int32)
+
+
+def _dense_push(mesh: PSMesh, blocks, ids, deltas, S: int, inplace: bool):
+    """The dense route of :func:`push`: never a reduction whose order a
+    library picks, so every replica of a shard sums the same way."""
+    rps, dim = blocks[0].shape
+    bufs = []
+    for blk, i, dl in zip(blocks, ids, deltas):
+        bufs.append(ops.scatter_add_(
+            torch.zeros((rps * S, dim), dtype=blk.dtype, device=blk.device),
+            _dense_rows(i, S, rps), dl.to(blk.dtype).contiguous()
+        ).reshape(S, rps, dim))
+    mine = []
+    for parts in collectives.all_to_all(mesh, bufs, SHARD_AXIS):
+        acc = parts[0]
+        for j in range(1, S):  # the shard peers, in index order
+            acc = acc + parts[j]
+        mine.append(acc)
+    mine = collectives.psum(mesh, mine, DATA_AXIS)
+    return [blk.add_(m) if inplace else blk + m
+            for blk, m in zip(blocks, mine)]
+
+
+def _fold(local_shard: Tensor, ids: Tensor, deltas: Tensor, *, shard: int,
+          num_shards: int, apply_fn, combine, hot_rows: int,
+          head_prefix: int, inplace: bool) -> Tensor:
+    """Shard ``shard``'s fold of the gathered pushes into its block."""
     rps = local_shard.shape[0]
     owned = ids >= 0
+    if num_shards > 1:
+        owned = owned & ((ids % num_shards) == shard)
     # Dropped rows get an out-of-range index, which the scatter drops.
     local_idx = torch.where(owned, ids // num_shards, rps).to(torch.int32)
 
@@ -153,7 +287,9 @@ def push(local_shard: Tensor, ids: Tensor, deltas: Tensor, *,
                              torch.full_like(filled, fill))
         target = torch.full((rps + 1, dim + 1), fill, dtype=acc_dt,
                             device=local_shard.device)
-        idx = local_idx.to(torch.int64)[:, None].expand(-1, dim + 1)
+        # Ids past the block land on row rps too.
+        idx = torch.clamp(local_idx.to(torch.int64), max=rps)[:, None].expand(
+            -1, dim + 1)
         ext = target.scatter_reduce_(
             0, idx, filled, reduce="amax" if combine == "max" else "amin")
         ext = ext[:rps]
@@ -207,11 +343,13 @@ class TableSpec:
     H100 sweep against K2 with its radix sort: 16,384 rows at up to 10
     columns, 8,192 at up to 32, 1,024 at up to 100, 512 at up to 200, none
     wider), and through K2 otherwise; ``Trainer`` resolves it, and raises ``ValueError``
-    on any other string. ``hot_tier``, ``cold_budget`` and
-    ``dense_collectives=True`` select routes this port does not have yet;
-    setting them raises. ``dense_collectives`` ``"auto"`` and ``False`` both
-    mean the gathered route, which is what the JAX package takes on a
-    one-device mesh.
+    on any other string. ``dense_collectives`` is the route of the table's
+    pulls and additive pushes on a mesh of more than one position: ``True``
+    the dense route, ``"auto"`` and ``False`` the gathered one (the JAX
+    package's ``"auto"`` goes dense below a table size measured on a TPU;
+    on a one-position mesh both packages take the gathered route).
+    ``hot_tier`` and ``cold_budget`` select routes this port does not have
+    yet; setting them raises.
     """
 
     name: str
@@ -230,15 +368,18 @@ class TableSpec:
             raise ValueError(f"TableSpec.hot_ids={self.hot_ids!r} for table "
                              f"{self.name!r}: expected an int >= 0 or "
                              "'auto'")
+        if self.dense_collectives not in (True, False, "auto"):
+            raise ValueError(
+                f"TableSpec.dense_collectives={self.dense_collectives!r} for "
+                f"table {self.name!r}: expected a bool or 'auto'")
         unported = {"hot_tier": self.hot_tier != 0,
-                    "cold_budget": self.cold_budget != 0,
-                    "dense_collectives": self.dense_collectives is True}
+                    "cold_budget": self.cold_budget != 0}
         for field, set_ in unported.items():
             if set_:
                 raise NotImplementedError(
                     f"TableSpec.{field}={getattr(self, field)!r} for table "
                     f"{self.name!r}: this route is not ported yet "
-                    "(ROADMAP.md Queue 1)")
+                    "(ROADMAP.md Queue 1 item 7b)")
 
     def zeros_init(self) -> "TableSpec":
         return dataclasses.replace(
@@ -260,12 +401,16 @@ def ranged_uniform_init(min_val: float, max_val: float, dim: int,
 
 def make_table_values(seed: int, num_ids: int, dim: int, num_shards: int,
                       init_fn: Callable[[int, Tensor], Tensor] | None = None,
-                      dtype=torch.float32, device=None) -> Tensor:
+                      dtype=torch.float32, device=None,
+                      shard: int | None = None) -> Tensor:
     """A full ``(rps * num_shards, dim)`` table in owner-major layout on
-    ``device``. Padding rows get values as if they were ids too, so every
-    real id's row is the same at any shard count."""
+    ``device``, or only shard ``shard``'s ``(rps, dim)`` block of it.
+    Padding rows get values as if they were ids too, so every real id's row
+    is the same at any shard count."""
     rps = rows_per_shard(num_ids, num_shards)
-    phys = torch.arange(rps * num_shards, dtype=torch.int64, device=device)
+    lo, hi = (0, rps * num_shards) if shard is None else (
+        shard * rps, (shard + 1) * rps)
+    phys = torch.arange(lo, hi, dtype=torch.int64, device=device)
     ids = phys_to_id(phys, num_shards, rps)
     fn = init_fn or ranged_uniform_init(-0.01, 0.01, dim, dtype)
     return fn(seed, ids).to(dtype)
@@ -279,10 +424,13 @@ def _stable_hash(s: str) -> int:
 
 
 class ParamStore:
-    """Creates and tracks the parameter tables on the mesh's device.
+    """Creates and tracks the parameter tables on the mesh.
 
-    ``tables`` is the live ``{name: tensor}`` dict; the trainer keeps it
-    pointed at the newest tensors after every chunk.
+    ``tables`` is the live ``{name: Blocks}`` dict, each table one
+    ``(rps, dim)`` block a mesh position (:class:`~fps_tpu_torch.parallel.
+    mesh.Blocks`, replicated over the data axis); the trainer keeps it
+    pointed at the newest blocks after every chunk. :meth:`table` reads a
+    whole table, :meth:`put` writes one.
     """
 
     def __init__(self, mesh: PSMesh,
@@ -292,22 +440,46 @@ class ParamStore:
         self.mesh = mesh
         self.specs = dict(specs)
         self.num_shards = mesh.shape[SHARD_AXIS]
-        self.tables: dict[str, Tensor] = {}
+        self.tables: dict[str, Blocks] = {}
 
-    def init(self, seed: int) -> dict[str, Tensor]:
+    def init(self, seed: int) -> dict[str, Blocks]:
         """Make every table from ``seed`` (each table from its own
-        sub-seed, keyed by its name)."""
+        sub-seed, keyed by its name): each position makes its shard's block
+        from the id-seeded initializer, on its own device."""
+        S = self.num_shards
         for name, spec in self.specs.items():
-            self.tables[name] = make_table_values(
-                fold_seed(seed, _stable_hash(name)), spec.num_ids, spec.dim,
-                self.num_shards, spec.init_fn, spec.dtype, self.mesh.device)
+            sub = fold_seed(seed, _stable_hash(name))
+            self.tables[name] = Blocks(
+                [make_table_values(sub, spec.num_ids, spec.dim, S,
+                                   spec.init_fn, spec.dtype, dev,
+                                   shard=p % S)
+                 for p, dev in enumerate(self.mesh.positions)],
+                replicas=self.mesh.shape[DATA_AXIS])
         return self.tables
+
+    def table(self, name: str) -> Tensor:
+        """The whole ``(S * rps, dim)`` physical table on the mesh's home
+        device: on one shard the live block itself (no copy), else the
+        shards of data replica 0 joined."""
+        parts = self.tables[name].distinct
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(collectives.gather_home(self.mesh, parts))
+
+    def put(self, name: str, full: Tensor) -> Blocks:
+        """Set table ``name`` from its whole ``(S * rps, dim)`` physical
+        table: shard ``s``'s rows go to every position ``(d, s)``."""
+        self.tables[name] = Blocks(
+            collectives.replicate(
+                self.mesh, torch.chunk(full, self.num_shards)),
+            replicas=self.mesh.shape[DATA_AXIS])
+        return self.tables[name]
 
     def lookup_host(self, name: str, ids: np.ndarray) -> np.ndarray:
         """Host (numpy) read of the current values of ``ids``."""
         spec = self.specs[name]
         rps = rows_per_shard(spec.num_ids, self.num_shards)
-        table = self.tables[name].detach().cpu().numpy()
+        table = self.tables[name].numpy()
         return table[np.asarray(id_to_phys(np.asarray(ids), self.num_shards,
                                            rps))]
 

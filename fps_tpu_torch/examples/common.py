@@ -10,6 +10,10 @@ chunk in numpy and copies it over (the unbounded-stream shape).
 ``--prefetch N`` assembles and places chunks N ahead on a worker thread
 (``TrainerConfig.prefetch``; ``IALSSolver.prefetch`` in the iALS example).
 
+``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
+examples: by default over every visible CUDA device, or with every position
+on ``--device`` (``--device cpu --num-shards 4``: four shards on the CPU).
+
 ``--profile DIR`` traces one chunk (the third, past warm-up) with
 ``torch.profiler`` on the card, writes ``DIR/trace.json`` and emits a
 ``"profile"`` event: the device's busy time, launches and kernels per step
@@ -36,6 +40,11 @@ def emit(record: dict) -> None:
 def base_parser(description: str) -> argparse.ArgumentParser:
     """The flags every example takes."""
     ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--num-shards", type=int, default=None,
+                    help="parameter-shard axis size (reference: "
+                         "psParallelism); default: all positions")
+    ap.add_argument("--num-data", type=int, default=1,
+                    help="replicated data-parallel axis size")
     ap.add_argument("--epochs", type=int, default=1)
     ap.add_argument("--local-batch", type=int, default=256,
                     help="examples per worker per step")
@@ -44,7 +53,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                     help="SSP staleness bound s (default: synchronous)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
+                    help="put every position of the mesh on this torch "
+                         "device (default: one position a visible CUDA "
+                         "device)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace the third chunk with torch.profiler into DIR")
     ap.add_argument("--ingest", default="device", choices=["device", "host"],
@@ -59,6 +70,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "thread; 0 = synchronous host loop. The tables are "
                          "the same bits either way")
     return ap
+
+
+def make_mesh(args):
+    """The ``(data, shard)`` mesh of ``--num-shards`` / ``--num-data``: over
+    every visible CUDA device, or every position on ``--device``."""
+    from fps_tpu_torch.parallel.mesh import make_ps_mesh
+
+    return make_ps_mesh(num_shards=args.num_shards, num_data=args.num_data,
+                        device=args.device)
 
 
 def apply_host_pipeline(args, trainer):

@@ -22,7 +22,12 @@ import time
 
 import numpy as np
 
-from fps_tpu_torch.examples.common import base_parser, emit, make_epoch_source
+from fps_tpu_torch.examples.common import (
+    base_parser,
+    emit,
+    make_epoch_source,
+    make_mesh,
+)
 
 
 def main(argv=None) -> int:
@@ -44,7 +49,6 @@ def main(argv=None) -> int:
         ap.error("--profile: the iALS example has no chunk loop to trace")
 
     from fps_tpu_torch.models.ials import IALSConfig, IALSSolver, recall_at_k
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh
     from fps_tpu_torch.utils.datasets import (
         load_movielens,
         synthetic_implicit,
@@ -60,7 +64,7 @@ def main(argv=None) -> int:
                                   seed=args.seed)
     train, test = train_test_split(data, test_frac=0.1, seed=args.seed + 1)
 
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     emit({"event": "start", "workload": "ials", "num_users": nu,
           "num_items": ni, "interactions": len(train["user"]),
           "ingest": args.ingest, "mesh": dict(mesh.shape),

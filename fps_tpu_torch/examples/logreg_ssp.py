@@ -2,7 +2,8 @@
 style).
 
 Port of ``fps_tpu/examples/logreg_ssp.py`` with the flags the port
-supports: device-resident or host ingest (``--ingest``), one device.
+supports: device-resident or host ingest (``--ingest``), the mesh flags
+(``--num-shards``, ``--num-data``).
 ``--sync-every s`` (default 8: this job exists to exercise SSP) bounds how
 stale a step's weights may be. Prints one JSON line per event, ending in a
 ``"done"`` event with the held-out ``test_accuracy``.
@@ -30,6 +31,7 @@ from fps_tpu_torch.examples.common import (
     base_parser,
     emit,
     make_chunks,
+    make_mesh,
     profiler,
 )
 
@@ -60,7 +62,6 @@ def main(argv=None) -> int:
         logistic_regression,
         predict_proba_host,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh
     from fps_tpu_torch.utils.datasets import (
         load_sparse,
         sniff_sparse_format,
@@ -68,7 +69,7 @@ def main(argv=None) -> int:
         train_test_split,
     )
 
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     dense = args.dense_features
     if args.input:
         fmt = args.input_format

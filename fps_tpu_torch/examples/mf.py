@@ -1,7 +1,8 @@
 """Online matrix factorization on the PyTorch port (MovieLens-style ratings).
 
 Port of ``fps_tpu/examples/mf.py`` with the flags the port supports:
-device-resident or host ingest (``--ingest``), one device, sync or SSP.
+device-resident or host ingest (``--ingest``), the mesh flags
+(``--num-shards``, ``--num-data``), sync or SSP.
 Prints one JSON line per event, ending in a ``"done"`` event with the
 held-out ``test_rmse``. ``--topk K --topk-every N`` ranks the top-K items of
 the first users of every N-th step's batch inside the training loop (a step
@@ -29,6 +30,7 @@ from fps_tpu_torch.examples.common import (
     base_parser,
     emit,
     make_chunks,
+    make_mesh,
     profiler,
 )
 
@@ -66,10 +68,10 @@ def main(argv=None) -> int:
         predict_host,
         rmse,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh, num_workers_of
+    from fps_tpu_torch.parallel.mesh import num_workers_of
     from fps_tpu_torch.utils.datasets import load_movielens, train_test_split
 
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     data, nu, ni = load_movielens(args.input, args.scale)
     train, test = train_test_split(data, test_frac=0.1, seed=args.seed + 1)
     W = num_workers_of(mesh)
@@ -127,7 +129,7 @@ def main(argv=None) -> int:
         )
 
         users = np.unique(test["user"])[:8]
-        q = mf_user_vectors(local_state.cpu().numpy(), W, users)
+        q = mf_user_vectors(local_state.numpy(), W, users)
         ids, scores = recommend_topk(store, ITEM_TABLE, q, args.topk)
         for u, row_i, row_s in zip(users, ids, scores):
             emit({"event": "topk", "user": int(u), "items": row_i.tolist(),

@@ -2,8 +2,8 @@
 examples).
 
 Port of ``fps_tpu/examples/passive_aggressive.py`` with the flags the port
-supports: device-resident or host ingest (``--ingest``), one device, sync or
-SSP. ``--num-classes 2`` (the default) runs the binary model, ``> 2`` the
+supports: device-resident or host ingest (``--ingest``), the mesh flags
+(``--num-shards``, ``--num-data``), sync or SSP. ``--num-classes 2`` (the default) runs the binary model, ``> 2`` the
 multiclass one. Prints one JSON line per event, ending in a ``"done"`` event
 with the held-out ``test_accuracy``.
 
@@ -29,6 +29,7 @@ from fps_tpu_torch.examples.common import (
     base_parser,
     emit,
     make_chunks,
+    make_mesh,
     profiler,
 )
 
@@ -58,7 +59,6 @@ def main(argv=None) -> int:
         passive_aggressive,
         predict_host,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh
     from fps_tpu_torch.utils.datasets import (
         head_sort_slots,
         load_sparse,
@@ -68,7 +68,7 @@ def main(argv=None) -> int:
         train_test_split,
     )
 
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     if args.input:
         # Binary {-1, +1}. svmlight: the feature space comes from the file;
         # criteo: the hashed space size is --num-features.

@@ -25,6 +25,7 @@ from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
     base_parser,
     emit,
+    make_mesh,
     profiler,
 )
 
@@ -53,10 +54,10 @@ def main(argv=None) -> int:
 
     from fps_tpu_torch.core.ingest import stream_chunks
     from fps_tpu_torch.models.matrix_factorization import MFConfig, online_mf
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh, num_workers_of
+    from fps_tpu_torch.parallel.mesh import num_workers_of
     from fps_tpu_torch.utils.datasets import streaming_rating_batches
 
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     W = num_workers_of(mesh)
     emit({"event": "start", "workload": "streaming_mf",
           "mesh": dict(mesh.shape), "device": str(mesh.device)})

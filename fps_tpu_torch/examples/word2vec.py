@@ -1,7 +1,8 @@
 """word2vec SGNS on the PyTorch port (text8-style token stream).
 
 Port of ``fps_tpu/examples/word2vec.py`` with the flags the port supports:
-one device, sync or SSP, ``--ingest device`` (the token stream resident on
+one position of the mesh (ROADMAP.md Queue 1 item 4c), sync or SSP,
+``--ingest device`` (the token stream resident on
 the device, batches built there by ``Word2VecDevicePlan``, trained through
 ``run_indexed``; ``--mode block`` by default, or ``pairs``) or ``--ingest
 host`` (pair chunks built in numpy by ``skipgram_chunks`` and copied over,
@@ -29,6 +30,7 @@ from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
     base_parser,
     emit,
+    make_mesh,
     profiler,
 )
 
@@ -71,12 +73,12 @@ def main(argv=None) -> int:
         word2vec,
         word2vec_block,
     )
-    from fps_tpu_torch.parallel.mesh import make_ps_mesh, num_workers_of
+    from fps_tpu_torch.parallel.mesh import num_workers_of
     from fps_tpu_torch.utils.datasets import load_text8
 
     tokens, vocab, uni = load_text8(args.input, args.vocab_size,
                                     args.num_tokens, seed=args.seed)
-    mesh = make_ps_mesh(device=args.device)
+    mesh = make_mesh(args)
     W = num_workers_of(mesh)
     emit({"event": "start", "workload": "word2vec", "mode": mode,
           "ingest": args.ingest, "vocab_size": vocab, "tokens": len(tokens),

@@ -51,7 +51,12 @@ from fps_tpu_torch.core.store import (
     ranged_uniform_init,
     rows_per_shard,
 )
-from fps_tpu_torch.parallel.mesh import SHARD_AXIS, PSMesh, num_workers_of
+from fps_tpu_torch.parallel.mesh import (
+    SHARD_AXIS,
+    SHARDED_STORE_ITEM,
+    PSMesh,
+    num_workers_of,
+)
 
 Tensor = torch.Tensor
 
@@ -89,6 +94,10 @@ class IALSSolver:
         # Workers are every device: the interaction stream splits over both
         # mesh axes.
         self.num_workers = num_workers_of(mesh)
+        if self.num_workers != 1:
+            raise NotImplementedError(
+                f"IALSSolver on a {dict(mesh.shape)} mesh: the port solves "
+                f"on one position; several are {SHARDED_STORE_ITEM}")
         init = ranged_uniform_init(-cfg.init_scale, cfg.init_scale, cfg.rank,
                                    cfg.dtype)
         self.store = ParamStore(mesh, [
@@ -186,7 +195,7 @@ class IALSSolver:
             raise ValueError(
                 f"IALSSolver.prefetch must be >= 0, got {self.prefetch}")
 
-        fixed = self.store.tables[fixed_name]
+        fixed = self.store.table(fixed_name)
         gram = self._gram(fixed, fixed_n)
         rows = rows_per_shard(solve_n, self.num_shards) * self.num_shards
         A = torch.zeros((rows, cfg.rank * cfg.rank), dtype=cfg.dtype,
@@ -210,7 +219,7 @@ class IALSSolver:
         finally:
             if pf is not None:
                 pf.close()
-        self.store.tables[solve_name] = self._solve(gram, A, b, solve_n)
+        self.store.put(solve_name, self._solve(gram, A, b, solve_n))
 
     def epoch(self, make_chunks) -> None:
         """One full ALS epoch. ``make_chunks()`` returns a fresh chunk

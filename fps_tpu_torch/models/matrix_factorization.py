@@ -32,6 +32,7 @@ from fps_tpu_torch.core.store import (
     pull_local,
     ranged_uniform_init,
 )
+from fps_tpu_torch.parallel.mesh import Blocks
 
 Tensor = torch.Tensor
 
@@ -82,8 +83,8 @@ class MatrixFactorizationWorker(WorkerLogic):
         """User factors in logical user order (padding stripped)."""
         from fps_tpu_torch.models.recommendation import mf_user_vectors
 
-        return mf_user_vectors(local_state.detach().cpu().numpy(),
-                               self.num_workers, np.arange(self.cfg.num_users))
+        return mf_user_vectors(_host(local_state), self.num_workers,
+                               np.arange(self.cfg.num_users))
 
     def import_local_state(self, leaves, num_workers):
         (logical,) = leaves
@@ -219,13 +220,22 @@ def online_mf(mesh, cfg: MFConfig, *, sync_every: int | None = None,
 def predict_host(store: ParamStore, user_factors_global, num_workers: int,
                  users: np.ndarray, items: np.ndarray) -> np.ndarray:
     """Host-side predictions from the live tables (for eval / RMSE)."""
-    if isinstance(user_factors_global, Tensor):
-        user_factors_global = user_factors_global.detach().cpu().numpy()
+    user_factors_global = _host(user_factors_global)
     rps = rows_per_shard_global(user_factors_global, num_workers)
     phys = (users % num_workers) * rps + users // num_workers
     p = np.asarray(user_factors_global)[phys]
     q = store.lookup_host(ITEM_TABLE, items)
     return np.sum(p * q, axis=-1)
+
+
+def _host(x) -> np.ndarray:
+    """The global array of a tensor, :class:`Blocks` (the trainer's local
+    state) or host array, on the host."""
+    if isinstance(x, Blocks):
+        return x.numpy()
+    if isinstance(x, Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def rows_per_shard_global(table, num_shards: int) -> int:

@@ -11,7 +11,8 @@ The JAX package scores each shard's rows (``(B, dim) @ (rps, dim)^T``),
 takes a local top-``(k + E)`` (``E`` the exclusion capacity, so exclusions
 never eat into the true top-k), gathers the candidates over the shards,
 masks the excluded ids and merges with a final top-k. The port keeps the
-same two stages on its one-device mesh (the gather is then the identity),
+same two stages on one position of the mesh (the gather is then the
+identity; a sharded item table is ROADMAP.md Queue 1 item 4c),
 with the scores from ``torch.matmul`` (the JAX package computes them outside
 any Pallas kernel too).
 
@@ -26,10 +27,18 @@ import numpy as np
 import torch
 
 from fps_tpu_torch.core.store import ParamStore, phys_to_id, pull_local
+from fps_tpu_torch.parallel.mesh import SHARDED_STORE_ITEM, num_workers_of
 
 Tensor = torch.Tensor
 
 NEG_INF = float(np.float32(-3.0e38))
+
+
+def _one_position(store: ParamStore, fn: str) -> None:
+    if num_workers_of(store.mesh) != 1:
+        raise NotImplementedError(
+            f"{fn} on a {dict(store.mesh.shape)} mesh: the port ranks a "
+            f"table on one position; several are {SHARDED_STORE_ITEM}")
 
 
 def _topk_rows(scores: Tensor, n: int) -> tuple[Tensor, Tensor]:
@@ -76,6 +85,7 @@ def build_topk_fn(store: ParamStore, table: str, k: int,
     slots; ignored when ``exclude_capacity`` is 0). Returns ``ids (B, k)``
     int32 and ``scores (B, k)``, best first.
     """
+    _one_position(store, "build_topk_fn")
     spec = store.specs[table]
     num_shards = store.num_shards
     cand = k + exclude_capacity
@@ -108,7 +118,7 @@ def recommend_topk(store: ParamStore, table: str, queries: np.ndarray, k: int,
     ex = torch.as_tensor(np.asarray(
         exclude if exclude is not None else np.full((B, 1), -1),
         np.int32)).to(device)
-    ids, scores = fn(store.tables, q, ex)
+    ids, scores = fn({table: store.table(table)}, q, ex)
     return ids.cpu().numpy(), scores.cpu().numpy()
 
 
@@ -126,6 +136,7 @@ def make_online_topk_tap(store: ParamStore, table: str, k: int, *,
     e.g. the first q users of the batch with their local factor rows
     (:func:`mf_topk_query_fn`).
     """
+    _one_position(store, "make_online_topk_tap")
     num_shards = store.num_shards
     num_ids = store.specs[table].num_ids
 

@@ -49,7 +49,7 @@ from fps_tpu_torch.core.rng import (
     uniform_by_counter,
 )
 from fps_tpu_torch.core.store import ParamStore, TableSpec, ranged_uniform_init
-from fps_tpu_torch.parallel.mesh import MULTI_DEVICE_ITEM, PSMesh
+from fps_tpu_torch.parallel.mesh import SHARDED_STORE_ITEM, PSMesh, num_workers_of
 
 Tensor = torch.Tensor
 
@@ -347,6 +347,10 @@ def make_store(mesh: PSMesh, cfg: W2VConfig) -> ParamStore:
 def _make_trainer(mesh, cfg: W2VConfig, worker, *, sync_every, donate,
                   max_steps_per_call, push_delay=0, step_tap=None,
                   guard=None):
+    if num_workers_of(mesh) != 1:
+        raise NotImplementedError(
+            f"word2vec on a {dict(mesh.shape)} mesh: the port runs it on "
+            f"one position; several are {SHARDED_STORE_ITEM}")
     if push_delay >= 16:
         # The JAX package's measured guardrail (docs/STALENESS.md, finding
         # #5): its staleness sweep held SGNS partner recovery at 0.675-0.700
@@ -660,7 +664,7 @@ class Word2VecDevicePlan:
         if num_workers != 1:
             raise NotImplementedError(
                 f"Word2VecDevicePlan(num_workers={num_workers}): the port "
-                f"runs one worker; several are {MULTI_DEVICE_ITEM}")
+                f"runs one worker; several are {SHARDED_STORE_ITEM}")
         self.cfg = cfg
         self.mode = mode
         self.num_workers = num_workers

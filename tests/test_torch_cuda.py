@@ -1276,8 +1276,9 @@ def test_side_stream_placement_with_the_compute_stream_held(dev):
     got = _held_mf_stream(dev, 1, chunks)
     assert _no_prefetch_threads()
     for k in want[0]:
-        assert torch.equal(got[0][k], want[0][k]), k
-    assert torch.equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0][k].numpy(), want[0][k].numpy(),
+                                      k)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
     for g, w in zip(got[2], want[2]):
         for k in ("se", "n"):
             np.testing.assert_array_equal(g[k], w[k])
@@ -1354,8 +1355,9 @@ def test_device_resident_source_waits_for_the_compute_stream(dev, compute):
     want = _device_source_stream(dev, 0, compute)
     assert _no_prefetch_threads()
     for k in want[0]:
-        assert torch.equal(got[0][k], want[0][k]), k
-    assert torch.equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0][k].numpy(), want[0][k].numpy(),
+                                      k)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
     assert len(got[2]) == len(want[2])
     for g, w in zip(got[2], want[2]):
         for k in ("se", "n"):

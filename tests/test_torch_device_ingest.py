@@ -341,8 +341,9 @@ def test_run_indexed_resumes_from_start_epoch():
     tr, _, t, l, plan = _indexed()
     t, l, m0 = tr.run_indexed(t, l, plan, 3, epochs=1)
     t, l, m1 = tr.run_indexed(t, l, plan, 3, epochs=1, start_epoch=1)
-    assert torch.equal(t[ITEM_TABLE], t_all[ITEM_TABLE])
-    assert torch.equal(l, l_all)
+    np.testing.assert_array_equal(t[ITEM_TABLE].numpy(),
+                                  t_all[ITEM_TABLE].numpy())
+    np.testing.assert_array_equal(l.numpy(), l_all.numpy())
     np.testing.assert_array_equal(m1[0]["se"], m_all[1]["se"])
 
 

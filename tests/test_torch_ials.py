@@ -123,7 +123,7 @@ def test_accumulate_and_half_epoch_match_jax_and_dense_oracle(solve):
                 "rating": c["rating"], "weight": c["weight"]}
         jA, jb = acc(js.store.tables[fixed], jA, jb,
                      {k: jnp.asarray(v) for k, v in cols.items()})
-        ts._accumulate(ts.store.tables[fixed], tA, tb,
+        ts._accumulate(ts.store.table(fixed), tA, tb,
                        {k: torch.as_tensor(v) for k, v in cols.items()})
     for got, jgot, exact, mag in ((tA, jA, A64, magA), (tb, jb, b64, magb)):
         tol = (cnt + 3)[:, None] * EPS32 * mag
@@ -235,14 +235,14 @@ def test_init_is_per_id_and_in_range():
                                                init_scale=0.05))
     tables = solver.init(7)
     for name, n in ((tials.USER_TABLE, 50), (tials.ITEM_TABLE, 30)):
-        t = tables[name]
+        (t,) = tables[name]  # the one position's block
         assert t.shape == (n, 4) and t.dtype == torch.float32
         assert float(t.abs().max()) < 0.05
     again = tials.IALSSolver(make_ps_mesh(device="cpu"),
                              tials.IALSConfig(50, 30, rank=4,
                                               init_scale=0.05)).init(7)
     for name in tables:
-        assert torch.equal(tables[name], again[name])
+        assert torch.equal(tables[name][0], again[name][0])
 
 
 def test_interaction_chunks_and_data_equal_jax():

@@ -147,8 +147,9 @@ def test_port_mf_deterministic():
     r1 = _train_port(epochs=1)
     r2 = _train_port(epochs=1)
     assert r1[0] == r2[0]
-    assert torch.equal(r1[2][ITEM_TABLE], r2[2][ITEM_TABLE])
-    assert torch.equal(r1[3], r2[3])
+    np.testing.assert_array_equal(r1[2][ITEM_TABLE].numpy(),
+                                  r2[2][ITEM_TABLE].numpy())
+    np.testing.assert_array_equal(r1[3].numpy(), r2[3].numpy())
 
 
 @pytest.mark.parametrize("donate", [True, False])
@@ -156,14 +157,16 @@ def test_donate_updates_tables_in_place_or_not(donate):
     trainer, _ = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW),
                            donate=donate, combine="mean")
     tables, local_state = trainer.init_state(0)
-    before = tables[ITEM_TABLE].clone()
+    (block,) = tables[ITEM_TABLE]  # the one position's block
+    before = block.clone()
     data = tdatasets.synthetic_ratings(NU, NI, 500, seed=1)
     chunk = next(tingest.epoch_chunks(data, num_workers=1, local_batch=32,
                                       steps_per_chunk=4, route_key="user"))
     new_tables, _, _ = trainer.run_chunk(tables, local_state, chunk, 0)
-    assert not torch.equal(new_tables[ITEM_TABLE], before)
-    assert (new_tables[ITEM_TABLE] is tables[ITEM_TABLE]) == donate
-    assert torch.equal(tables[ITEM_TABLE], before) == (not donate)
+    (new_block,) = new_tables[ITEM_TABLE]
+    assert not torch.equal(new_block, before)
+    assert (new_block is block) == donate
+    assert torch.equal(block, before) == (not donate)
 
 
 @pytest.mark.parametrize("kw", [
@@ -242,8 +245,9 @@ def test_negative_sampling_layout():
     assert int(items.min()) >= 0 and int(items.max()) < NI
     ids = logic.pull_ids(prepared)["item_factors"]
     assert torch.equal(ids, items.reshape(-1))
-    pulled = {"item_factors": tables["item_factors"][ids]}
-    out = logic.step(prepared, pulled, local_state, gen)
+    # Worker 0's blocks: the one position's.
+    pulled = {"item_factors": tables["item_factors"][0][ids]}
+    out = logic.step(prepared, pulled, local_state[0], gen)
     push_ids, deltas = out.pushes["item_factors"]
     assert push_ids.shape == (B * 4,) and deltas.shape == (B * 4, RANK)
     # Padding examples push -1 in every column; live ones their items.
@@ -271,8 +275,8 @@ def test_touched_local_rows_match_jax():
 def test_convert_checks_shapes_and_dtypes():
     trainer, store = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW))
     good = np.zeros((NI, RANK), np.float32)
-    assert tables_from_jax(store, {ITEM_TABLE: good})[ITEM_TABLE].shape == (
-        NI, RANK)
+    assert tables_from_jax(store, {ITEM_TABLE: good})[
+        ITEM_TABLE].numpy().shape == (NI, RANK)
     with pytest.raises(ValueError, match="shape"):
         tables_from_jax(store, {ITEM_TABLE: good[:-1]})
     with pytest.raises(ValueError, match="dtype"):
@@ -281,7 +285,7 @@ def test_convert_checks_shapes_and_dtypes():
         tables_from_jax(store, {"other": good})
     users = np.zeros((NU, RANK), np.float32)
     assert local_state_from_jax(trainer.logic, users,
-                                device="cpu").shape == (NU, RANK)
+                                device="cpu").numpy().shape == (NU, RANK)
     with pytest.raises(ValueError, match="shape"):
         local_state_from_jax(trainer.logic, users[:, :2], device="cpu")
 

@@ -143,24 +143,26 @@ def test_param_store_init_lookup_dump():
                             init_fn=tstore.ranged_uniform_init(0, 1, 3))
     store = tstore.ParamStore(mesh, [spec])
     tables = store.init(5)
-    assert tables["t"].shape == (9, 3) and tables["t"].device.type == "cpu"
+    (block,) = tables["t"]
+    assert block.shape == (9, 3) and block.device.type == "cpu"
+    # One position: the whole table is the block itself.
+    assert store.table("t") is block
     ids, vals = store.dump_model("t")
     np.testing.assert_array_equal(vals, tables["t"].numpy())
     np.testing.assert_array_equal(store.lookup_host("t", np.array([4, 0])),
                                   vals[[4, 0]])
     zeros = tstore.ParamStore(mesh, [spec.zeros_init()]).init(5)["t"]
-    assert not zeros.any()
+    assert not zeros.numpy().any()
 
 
 @pytest.mark.parametrize("make", [
     lambda: tstore.TableSpec("t", 4, 2, hot_tier=2),
     lambda: tstore.TableSpec("t", 4, 2, cold_budget=8),
-    lambda: tstore.TableSpec("t", 4, 2, dense_collectives=True),
     lambda: TrainerConfig(guard="mask"),
     lambda: TrainerConfig(hot_sync_every=2),
     lambda: TrainerConfig(auto_tier=True),
     lambda: ServerLogic(hot_fold="adagrad"),
-], ids=["hot_tier", "cold_budget", "dense", "guard", "hot_sync_every",
+], ids=["hot_tier", "cold_budget", "guard", "hot_sync_every",
         "auto_tier", "hot_fold"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -255,6 +257,9 @@ def test_hot_push_matches_jax(combine, apply_fn, hot):
 
 def test_ported_defaults_construct():
     tstore.TableSpec("t", 4, 2, dense_collectives=False)
+    tstore.TableSpec("t", 4, 2, dense_collectives=True)
+    with pytest.raises(ValueError, match="dense_collectives"):
+        tstore.TableSpec("t", 4, 2, dense_collectives="yes")
     assert tstore.TableSpec("t", 4, 1, hot_ids=2).hot_ids == 2
     with pytest.raises(ValueError, match="hot_ids"):
         tstore.TableSpec("t", 4, 1, hot_ids=-1)
@@ -270,8 +275,14 @@ def test_make_ps_mesh_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("num_shards,num_data", [(2, 1), (1, 2), (4, 2)])
 def test_make_ps_mesh_one_device_only(num_shards, num_data):
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        tmesh.make_ps_mesh(num_shards, num_data, device="cpu")
+    """``device=`` puts every position of the mesh on that one device."""
+    mesh = tmesh.make_ps_mesh(num_shards, num_data, device="cpu")
+    assert dict(mesh.shape) == {tmesh.DATA_AXIS: num_data,
+                                tmesh.SHARD_AXIS: num_shards}
+    assert len(mesh.devices) == num_data
+    assert {len(row) for row in mesh.devices} == {num_shards}
+    assert set(mesh.positions) == {torch.device("cpu")}
+    assert tmesh.num_workers_of(mesh) == num_shards * num_data
 
 
 def test_make_ps_mesh_cpu_and_default_shape():
@@ -283,12 +294,25 @@ def test_make_ps_mesh_cpu_and_default_shape():
         assert tmesh.default_mesh_shape(n) == jmesh.default_mesh_shape(n)
 
 
-def test_pull_push_over_several_shards_raise():
-    t, i, d = _t(*_inputs(6, 2, 4, seed=3))
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        tstore.pull(t, i, num_shards=2)
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        tstore.push(t, i, d, num_shards=2)
+def test_pull_push_over_several_shards():
+    """Two shards, two workers: each worker reads its ids' rows, and both
+    workers' pushes land on the shard that owns each id."""
+    table, ids, deltas = _inputs(6, 2, 8, seed=3)
+    t, i, d = _t(table, ids, deltas)
+    blocks = list(torch.chunk(t, 2))  # rows 0-2: even ids; 3-5: odd ids
+    pulled = tstore.pull(blocks, [i[:4], i[4:]], num_shards=2)
+    phys = tstore.id_to_phys(ids, 2, 3)
+    keep = (ids >= 0) & (ids < 6)
+    want = np.where(keep[:, None], table[np.where(keep, phys, 0)], 0)
+    np.testing.assert_array_equal(torch.cat(pulled).numpy(), want)
+    pushed = tstore.push(blocks, [i[:4], i[4:]], [d[:4], d[4:]],
+                         num_shards=2)
+    ref = table.astype(np.float64)
+    np.add.at(ref, phys[keep], deltas[keep])
+    np.testing.assert_allclose(torch.cat(pushed).numpy(), ref, rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="blocks"):
+        tstore.pull(blocks[:1] * 3, [i] * 3, num_shards=2)
 
 
 @pytest.fixture

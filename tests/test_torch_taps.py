@@ -550,5 +550,6 @@ def test_combinators_keep_the_inner_workers_draws():
         tables, _, m = trainer.run_indexed(tables, ls, plan, 1)
         runs.append((tables, m))
     for name in runs[0][0]:
-        assert torch.equal(runs[0][0][name], runs[1][0][name])
+        np.testing.assert_array_equal(runs[0][0][name].numpy(),
+                                      runs[1][0][name].numpy())
     np.testing.assert_array_equal(runs[0][1][0]["loss"], runs[1][1][0]["loss"])

@@ -337,10 +337,11 @@ def test_tables_from_jax_carries_both_w2v_tables():
     got = tables_from_jax(tstore, {k: np.asarray(v)
                                    for k, v in jtables.items()})
     assert set(got) == {tw2v.IN_TABLE, tw2v.OUT_TABLE}
-    for name, t in got.items():
+    for name, blocks in got.items():
+        (t,) = blocks  # the one position's block
         assert t.shape == (V, DIM) and t.dtype == torch.float32
         np.testing.assert_array_equal(t.numpy(), np.asarray(jtables[name]))
-    assert not got[tw2v.OUT_TABLE].any()
+    assert not got[tw2v.OUT_TABLE].numpy().any()
     with pytest.raises(ValueError, match="shape"):
         tables_from_jax(tstore, {tw2v.IN_TABLE: np.zeros((V, DIM + 1),
                                                          np.float32),
@@ -348,9 +349,10 @@ def test_tables_from_jax_carries_both_w2v_tables():
                                                           np.float32)})
     # The port's own init: IN uniform in [-0.5/dim, 0.5/dim), OUT zeros.
     tables, _ = ttrainer.init_state(3)
-    assert float(tables[tw2v.IN_TABLE].abs().max()) <= 0.5 / DIM
-    assert float(tables[tw2v.IN_TABLE].std()) > 0.1 / DIM
-    assert not tables[tw2v.OUT_TABLE].any()
+    (tin,), (tout,) = tables[tw2v.IN_TABLE], tables[tw2v.OUT_TABLE]
+    assert float(tin.abs().max()) <= 0.5 / DIM
+    assert float(tin.std()) > 0.1 / DIM
+    assert not tout.any()
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +515,7 @@ def test_plan_refuses_what_the_port_does_not_run():
     cfg = tw2v.W2VConfig(vocab_size=97, subsample_t=None)
     with pytest.raises(ValueError, match="mode"):
         _plan(tokens, uni, cfg, mode="triples")
-    with pytest.raises(NotImplementedError, match="NCCL"):
+    with pytest.raises(NotImplementedError, match="item 4c"):
         tw2v.Word2VecDevicePlan(tokens, uni, cfg, make_ps_mesh(device="cpu"),
                                 num_workers=2)
 
