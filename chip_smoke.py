@@ -139,10 +139,25 @@ on the card, raising on the first failure:
    positions are all ``cuda:0``, whose RMSE must fall with K1 2 and K2 2
    a position a step and whose data replicas must be bit-equal; binary
    PA-I at (1, 4), K5 and K4 once a position a step, mistakes below 0.5;
+   the word2vec block worker at phase 4's width on its corpus, a block of
+   8,192 tokens a worker a step, through ``Word2VecDevicePlan(num_workers=
+   W)`` and ``run_indexed``: one sync epoch at (1, 4) after two warm-up
+   epochs, then one SSP epoch (s = 4) at (2, 2) from where it ended, K1 2
+   and K2 2 a position a step, the loss falling as phase 4's and the (2, 2)
+   replicas bit-equal; iALS at phase 4's width at (1, 4), phase 4's chunks
+   cut over the workers, epochs until recall@20 reaches 0.35 (at most 8),
+   K1 1 and K2 2 a position a half-step; MF with the online top-k tap at
+   (1, 4) (phase 4's settings, the batch split over the workers, K1 3 and
+   K2 2 a position a step), every worker's ids on every tapped step equal
+   to a float64 brute force of that step's live table in the merge's pool
+   order; ``recommend_topk`` of 64 users over the resulting 4 shards of
+   the ML-20M item table, ids equal to the brute force;
    the dense against the gathered push of one MF item push at 4 shards,
-   within the float32 summation bound; small MF jobs on both meshes, card
-   against CPU within 1e-5 of the largest value. It prints each run's ms
-   a step and launches a step. The positions share one card, so these
+   within the float32 summation bound; small MF, word2vec (with the sketch
+   tap), iALS and top-k jobs on both meshes, card against CPU (MF and
+   word2vec tables within 1e-5 of the largest value, iALS factors within
+   1e-4, sketch sums and top-k ids and scores equal). It prints each run's
+   ms a step and launches a step. The positions share one card, so these
    times measure the single controller's launches, not scaling;
 8. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
@@ -1312,7 +1327,7 @@ def paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, card):
         runs.append(run_indexed_path(
             torch, fps, kernels, f"MF {mode}, hot_items, run_indexed",
             trainer, data, "user", BATCH, 2, split, falling_rmse, card, 64))
-    runs.append(mf_topk_path(torch, fps, kernels, data, card))
+    runs.append(mf_topk_path(torch, fps, kernels, data, card)[0])
     mf_data = data
     del data
     # 20-class PA-I with hot_features = 2,048 (the multiclass table takes
@@ -1778,27 +1793,18 @@ def sketch_kernel_case(torch, fps, kernels, cases, tokens, uni, dev):
         cases["k4_inputs"]))
 
 
-def ials_path(torch, fps, kernels, train, test, chunks, card):
-    """Phase 4, iALS as bench.py run_ials trains it: the chunks uploaded
-    once (set-up), a warm-up epoch on throwaway state, then epochs from
-    fresh factors until recall@20 on the first 2,000 held-out pairs reaches
-    0.35 (at most 8), the launch counters at 0 just before them and read
-    just after: K1 1 and K2 2 a step. Then, on the trained state, the
-    parts of a half-epoch timed apart (CUDA events, the card held: the
-    Gramian, one accumulate step, the solve; one step's host time too) and
-    one traced epoch for the device's busy share."""
-    from fps_tpu_torch.models.ials import ITEM_TABLE, recall_at_k
+def ials_to_target(torch, kernels, label, solver, dev_chunks, train, test,
+                   card):
+    """A warm-up epoch on throwaway state, then epochs from fresh factors
+    until recall@20 on the first 2,000 held-out pairs reaches 0.35 (at most
+    8), the launch counters at 0 just before them and read just after: K1
+    once and K2 twice a position a half-step (each shard's pull of the
+    fixed side; each position's ``A`` and ``b`` pushes). Returns ``(summary,
+    epoch)``, ``epoch()`` running one more epoch of the chunks."""
+    from fps_tpu_torch.models.ials import recall_at_k
 
-    mesh = fps.make_ps_mesh()
-    solver = fps.IALSSolver(mesh, fps.IALSConfig(
-        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
-        alpha=40.0, reg=0.1))
-    t0 = time.perf_counter()
-    dev_chunks = [{k: torch.from_numpy(v).to(mesh.device)
-                   for k, v in c.items()} for c in chunks]
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
-    half_steps = sum(c["weight"].shape[0] for c in chunks)
+    P = len(solver.mesh.positions)
+    half_steps = sum(c["weight"].shape[0] for c in dev_chunks)
 
     def epoch():
         solver.epoch(lambda: iter(dev_chunks))
@@ -1821,21 +1827,59 @@ def ials_path(torch, fps, kernels, train, test, chunks, card):
             break
     launched = kernels.launch_counts()
     steps = 2 * half_steps * len(epoch_s)
-    check_launches("iALS", launched, {"gather_rows": 1, "scatter_add": 2},
+    check_launches(label, launched, {"gather_rows": P, "scatter_add": 2 * P},
                    steps)
-    check_finite(torch, "iALS", solver.store.tables, None)
+    check_finite(torch, label, solver.store.tables, None)
     if not recalls[-1] >= IALS_TARGET:
-        raise AssertionError(f"iALS recall@20 by epoch {recalls}: {IALS_TARGET}"
-                             f" not reached in {IALS_MAX_EPOCHS} epochs")
+        raise AssertionError(f"{label}: recall@20 by epoch {recalls}: "
+                             f"{IALS_TARGET} not reached in "
+                             f"{IALS_MAX_EPOCHS} epochs")
+    n = len(train["user"])
+    summary = {
+        "path": label, "epochs": len(epoch_s),
+        "steps_per_epoch": 2 * half_steps, "interactions": n,
+        "epoch_seconds": epoch_s, "recall_at_20_by_epoch": recalls,
+        "target": IALS_TARGET, "seconds_to_target": sum(epoch_s),
+        "interactions_per_s": [n / e for e in epoch_s],
+        "ms_per_step": sum(epoch_s) / steps * 1e3,
+        "steady_ms_per_step": epoch_s[-1] / (2 * half_steps) * 1e3,
+        "launches": launched,
+        "launches_per_step": {k: v / steps for k, v in launched.items()
+                              if v},
+        "mesh": dict(solver.mesh.shape), "card": card}
+    return summary, epoch
 
-    # The parts of the user half on the trained state.
-    fixed = solver.store.table(ITEM_TABLE)
+
+def ials_path(torch, fps, kernels, train, test, chunks, card):
+    """Phase 4, iALS as bench.py run_ials trains it: the chunks uploaded
+    once (set-up), then :func:`ials_to_target` on one position (K1 1 and K2
+    2 a step). Then, on the trained state, the parts of a half-epoch timed
+    apart (CUDA events, the card held: the Gramian, one accumulate step,
+    the solve; one step's host time too) and one traced epoch for the
+    device's busy share."""
+    from fps_tpu_torch.models.ials import ITEM_TABLE
+
+    mesh = fps.make_ps_mesh()
+    solver = fps.IALSSolver(mesh, fps.IALSConfig(
+        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
+        alpha=40.0, reg=0.1))
+    t0 = time.perf_counter()
+    dev_chunks = [{k: torch.from_numpy(v).to(mesh.device)
+                   for k, v in c.items()} for c in chunks]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    summary, epoch = ials_to_target(torch, kernels, "iALS, bench.py run_ials",
+                                    solver, dev_chunks, train, test, card)
+
+    # The parts of the user half on the trained state (one position: one
+    # block each).
+    fixed = list(solver.store.tables[ITEM_TABLE])
     gram = solver._gram(fixed, IALS_ITEMS)
-    A = torch.zeros((IALS_USERS, IALS_RANK * IALS_RANK), device=mesh.device)
-    b = torch.zeros((IALS_USERS, IALS_RANK), device=mesh.device)
+    A = [torch.zeros((IALS_USERS, IALS_RANK * IALS_RANK), device=mesh.device)]
+    b = [torch.zeros((IALS_USERS, IALS_RANK), device=mesh.device)]
     c0 = dev_chunks[0]
-    step = {"solve_ids": c0["user"][:1], "fixed_ids": c0["item"][:1],
-            "rating": c0["rating"][:1], "weight": c0["weight"][:1]}
+    step = [{"solve_ids": c0["user"][:1], "fixed_ids": c0["item"][:1],
+             "rating": c0["rating"][:1], "weight": c0["weight"][:1]}]
     parts = {
         "gram_ms": time_ms(torch, lambda _: solver._gram(fixed, IALS_ITEMS)),
         "step_ms": time_ms(torch, lambda _: solver._accumulate(fixed, A, b,
@@ -1845,20 +1889,11 @@ def ials_path(torch, fps, kernels, train, test, chunks, card):
         "solve_ms": time_ms(torch, lambda _: solver._solve(gram, A, b,
                                                            IALS_USERS)),
     }
-    n = len(train["user"])
-    summary = {
-        "path": "iALS, bench.py run_ials", "epochs": len(epoch_s),
-        "steps_per_epoch": 2 * half_steps, "interactions": n,
-        "upload_seconds": upload_s, "epoch_seconds": epoch_s,
-        "recall_at_20_by_epoch": recalls, "target": IALS_TARGET,
-        "seconds_to_target": sum(epoch_s),
-        "interactions_per_s": [n / e for e in epoch_s],
-        "ms_per_step": sum(epoch_s) / steps * 1e3,
-        "steady_ms_per_step": epoch_s[-1] / (2 * half_steps) * 1e3,
-        "parts_held": parts, "launches": launched, "card": card}
+    summary = dict(summary, upload_seconds=upload_s, parts_held=parts)
     log("path iALS: " + json.dumps(summary))
-    traced = traced_ials_epoch(torch, solver, epoch, 2 * half_steps,
-                               epoch_s[-1], card)
+    traced = traced_ials_epoch(torch, solver, epoch,
+                               summary["steps_per_epoch"],
+                               summary["epoch_seconds"][-1], card)
     return summary, traced
 
 
@@ -1945,42 +1980,69 @@ def w2v_sketch_path(torch, fps, kernels, tokens, uni, card):
     return summary
 
 
-def mf_topk_path(torch, fps, kernels, data, card):
-    """Phase 4, MF at ML-20M width with ``make_online_topk_tap`` (k 10, the
-    first 2 users of every 4th step): one ``run_chunk`` of 17 steps from
-    fresh tables, the launch counters at 0 just before and read just after
-    (K1 3 a step: the item pull, the user rows, the tap's query rows; K2 2).
-    On every tapped step the ids must equal a float64 brute-force ranking,
-    by (-score, id), of that step's live item table (copied by a checking
-    tap around the port's) for those users; the other steps emit -1. Then
-    the same chunk again with the port's tap alone, timed (steady ms a
-    step)."""
+def pool_order_topk(scores, k, S):
+    """The float64 ranking in the order of the top-k merge's shard-major
+    pool: by score, ties by shard (``id % S``), then by row within the
+    shard (``id // S``); on one shard, by (-score, id)."""
+    ids = np.arange(scores.shape[1])
+    return np.stack([np.lexsort((ids // S, ids % S, -r))[:k]
+                     for r in scores])
+
+
+def logical_rows(blocks, S):
+    """A table's logical rows (``num_ids`` rows, padding dropped: the
+    caller slices) from replica 0's ``S`` blocks, on the host, float64."""
+    from fps_tpu_torch.core.store import id_to_phys
+
+    full = np.concatenate([b.cpu().numpy() for b in blocks[:S]]).astype(
+        np.float64)
+    rps = full.shape[0] // S
+    return full[np.asarray(id_to_phys(np.arange(full.shape[0]), S, rps))]
+
+
+def mf_topk_path(torch, fps, kernels, data, card, mesh=None):
+    """MF at ML-20M width with ``make_online_topk_tap`` (k 10, the first 2
+    users of every 4th step, every worker): one ``run_chunk`` of 17 steps
+    from fresh tables on ``mesh`` (default: one position; phase 4), the
+    global batch of 32,768 split over the workers, the launch counters at 0
+    just before and read just after (K1 3 a position a step: the item pull,
+    the user rows, the tap's query rows; K2 2). On every tapped step each
+    worker's ids must equal a float64 brute-force ranking, in the merge's
+    pool order (:func:`pool_order_topk`), of that step's live item table
+    (copied by a checking collective tap around the port's) for its users;
+    the other steps emit -1. Then the same chunk again with the port's tap
+    alone, timed (steady ms a step). Returns ``(summary, store,
+    local_state)``."""
     import dataclasses
 
     from fps_tpu_torch.core.ingest import epoch_chunks
     from fps_tpu_torch.models import recommendation as rec
 
-    mesh = fps.make_ps_mesh()
+    mesh = mesh or fps.make_ps_mesh()
+    W, S = fps.num_workers_of(mesh), mesh.shape["shard"]
     cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
                        rank=RANK, learning_rate=0.1, reg=0.01)
     trainer, store = fps.online_mf(mesh, cfg, combine="mean")
     topk = rec.make_online_topk_tap(store, "item_factors", TOPK_K,
                                     every=TOPK_EVERY,
                                     query_fn=rec.mf_topk_query_fn(
-                                        1, TOPK_QUERIES))
+                                        W, TOPK_QUERIES))
     seen = {}
 
-    def tap(tables, batch, local_state, t):
+    def tap(tables, batches, local_states, t):
         if t % TOPK_EVERY == 0:
-            seen[t] = (tables["item_factors"].clone(), local_state.clone())
-        return topk(tables, batch, local_state, t)
+            seen[t] = ([b.clone() for b in tables["item_factors"]],
+                       torch.cat(list(local_states)).clone())
+        return topk(tables, batches, local_states, t)
 
+    tap.collective = True
     trainer.config = dataclasses.replace(trainer.config, step_tap=tap)
-    chunk = next(epoch_chunks(data, num_workers=1, local_batch=BATCH,
+    chunk = next(epoch_chunks(data, num_workers=W, local_batch=BATCH // W,
                               steps_per_chunk=TOPK_STEPS, route_key="user",
                               seed=0))
     tables, local_state = trainer.init_state(0)
-    label = "MF sync, online top-k tap, run_chunk"
+    label = "MF sync, online top-k tap, run_chunk" + (
+        f", mesh {mesh.shape['data']}x{S}" if W > 1 else "")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1988,42 +2050,52 @@ def mf_topk_path(torch, fps, kernels, data, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launched = kernels.launch_counts()
-    check_launches(label, launched, {"gather_rows": 3, "scatter_add": 2},
-                   TOPK_STEPS)
+    check_launches(label, launched, {"gather_rows": 3 * W,
+                                     "scatter_add": 2 * W}, TOPK_STEPS)
     check_finite(torch, label, tables, local_state)
-    ids = m["tap"]["topk_ids"][:, 0].cpu().numpy()
-    users = m["tap"]["topk_query"][:, 0].cpu().numpy()
-    scores = m["tap"]["topk_scores"][:, 0].cpu().numpy()
+    ids = m["tap"]["topk_ids"].cpu().numpy()  # (T, W, q, k)
+    users = m["tap"]["topk_query"].cpu().numpy()  # (T, W, q)
+    scores = m["tap"]["topk_scores"].cpu().numpy()
+    checked = 0
     for t in range(TOPK_STEPS):
         if t not in seen:
             if not ((ids[t] == -1).all() and (users[t] == -1).all()):
                 raise AssertionError(f"{label}: step {t} is not tapped but "
                                      "emitted ids")
             continue
-        items, user_rows = (x.cpu().numpy().astype(np.float64)
-                            for x in seen[t])
-        valid = users[t] >= 0
-        full = user_rows[users[t][valid]] @ items.T
-        want = np.argsort(-full, axis=1, kind="stable")[:, :TOPK_K]
-        if not valid.any() or not np.array_equal(ids[t][valid], want):
-            raise AssertionError(f"{label}: step {t} ids {ids[t]} != brute "
-                                 f"force {want}")
-        if not (np.diff(scores[t][valid], axis=1) <= 0).all():
-            raise AssertionError(f"{label}: step {t} scores not descending")
+        item_blocks, user_rows = seen[t]
+        items = logical_rows(item_blocks, S)[:ML20M_ITEMS]
+        user_rows = user_rows.cpu().numpy().astype(np.float64)
+        for w in range(W):
+            valid = users[t, w] >= 0
+            q = rec.mf_user_vectors(user_rows, W, users[t, w][valid])
+            want = pool_order_topk(q @ items.T, TOPK_K, S)
+            if not valid.any() or not np.array_equal(ids[t, w][valid],
+                                                      want):
+                raise AssertionError(f"{label}: step {t} worker {w} ids "
+                                     f"{ids[t, w]} != brute force {want}")
+            if not (np.diff(scores[t, w][valid], axis=1) <= 0).all():
+                raise AssertionError(f"{label}: step {t} scores not "
+                                     "descending")
+            checked += int(valid.sum())
     trainer.config = dataclasses.replace(trainer.config, step_tap=topk)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.run_chunk(tables, local_state, chunk, 2)
+    tables, local_state, _ = trainer.run_chunk(tables, local_state, chunk, 2)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
     summary = {"path": label, "steps": TOPK_STEPS,
                "checked_call_seconds": elapsed,
+               "ms_per_step": elapsed / TOPK_STEPS * 1e3,
                "steady_ms_per_step": steady / TOPK_STEPS * 1e3,
                "tapped_steps": sorted(seen), "k": TOPK_K,
-               "queries_per_step": TOPK_QUERIES, "launches": launched,
-               "card": card}
+               "queries_per_step": TOPK_QUERIES * W,
+               "queries_checked": checked, "launches": launched,
+               "launches_per_step": {k: v / TOPK_STEPS
+                                     for k, v in launched.items() if v},
+               "mesh": dict(mesh.shape), "card": card}
     log(f"path {label}: " + json.dumps(summary))
-    return summary
+    return summary, store, local_state
 
 
 def taps_card_vs_cpu(torch, fps):
@@ -2713,7 +2785,8 @@ def dense_vs_gathered(torch, fps, kernels, card):
     return res
 
 
-def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card):
+def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, w2v_tokens,
+               w2v_uni, ials_train, ials_test, ials_chunks, card):
     """The sharded mesh on the one card, every launch counter at 0 just
     before each run and read just after: MF at ML-20M width
     (``load_movielens(None, "20m")``'s data, phase 4's rank, the global
@@ -2723,10 +2796,13 @@ def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card):
     step: the shard's gather and the worker's user gather, the shard's
     count-column scatter and the worker's user scatter), the data replicas
     bit-equal; binary PA-I at (1, 4) (K5 and K4 once a position a step: no
-    mesh of more than one position keeps the head prefix); the dense
-    against the gathered push at 4 shards; and small MF jobs on both
-    meshes, card against CPU. The positions share one card: the times
-    measure what the single controller's launches cost, not scaling."""
+    mesh of more than one position keeps the head prefix); word2vec at
+    (1, 4) and (2, 2) (:func:`w2v_mesh_runs`), iALS at (1, 4)
+    (:func:`ials_mesh_run`), MF with the online top-k tap at (1, 4) and
+    ``recommend_topk`` over its item table; the dense against the gathered
+    push at 4 shards; and small jobs of every family on both meshes, card
+    against CPU. The positions share one card: the times measure what the
+    single controller's launches cost, not scaling."""
     from fps_tpu_torch.core.ingest import multi_epoch_chunks
 
     runs = []
@@ -2756,8 +2832,18 @@ def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card):
                                 steps_per_chunk=7, seed=1)),
         {"gather_rows_dim1": 4, "scatter_add_dim1": 4},
         below("mistakes", 0.5), card))
+    runs += w2v_mesh_runs(torch, fps, kernels, w2v_tokens, w2v_uni, card)
+    runs.append(ials_mesh_run(torch, fps, kernels, ials_train, ials_test,
+                              ials_chunks, card))
+    topk, store, local_state = mf_topk_path(
+        torch, fps, kernels, mf_data, card,
+        mesh=fps.make_ps_mesh(4, 1, device="cuda:0"))
+    runs.append(topk)
+    recommend = recommend_topk_check(torch, fps, kernels, store, local_state,
+                                     card)
     dense = dense_vs_gathered(torch, fps, kernels, card)
-    worst = mesh_card_vs_cpu(torch, fps, MESH_SHAPES)
+    worst = dict(mesh_card_vs_cpu(torch, fps, MESH_SHAPES),
+                 **mesh_models_card_vs_cpu(torch, fps, MESH_SHAPES))
     steps = {r["path"]: {"ms_per_step": r["ms_per_step"],
                          "steady_ms_per_step": r["steady_ms_per_step"],
                          "launches_per_step": r["launches_per_step"]}
@@ -2767,7 +2853,191 @@ def mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card):
             f"step (steady), launches a step {entry['launches_per_step']} "
             f"({card})")
     return {"runs": runs, "per_step": steps, "dense_vs_gathered": dense,
-            "card_vs_cpu": worst, "card": card}
+            "recommend_topk": recommend, "card_vs_cpu": worst, "card": card}
+
+
+def reshard(torch, src, dst):
+    """``dst``'s tables set to ``src``'s (their logical rows, through the
+    host): the owner-major layout depends on the shard count."""
+    from fps_tpu_torch.core.store import id_to_phys, padded_rows
+
+    for name, spec in dst.specs.items():
+        S = dst.num_shards
+        full = np.zeros((padded_rows(spec.num_ids, S), spec.dim), np.float32)
+        ids = np.arange(spec.num_ids)
+        full[np.asarray(id_to_phys(ids, S, full.shape[0] // S))] = \
+            src.lookup_host(name, ids)
+        dst.put(name, torch.from_numpy(full).to(dst.mesh.device))
+    return dict(dst.tables)
+
+
+def w2v_mesh_runs(torch, fps, kernels, tokens, uni, card):
+    """Phase 7, word2vec's block worker at phase 4's text8 width on the
+    phase's corpus, through ``Word2VecDevicePlan(num_workers=W)`` and
+    ``run_indexed``, every worker a block of 8,192 tokens a step: at (1, 4)
+    two warm-up epochs from fresh tables (SGNS from a zero OUT table moves
+    the loss a pair by about 1e-5 an epoch at first, phase 4's reading),
+    then one sync epoch; at (2, 2) one
+    SSP epoch (s = 4) from where (1, 4) ended (the tables laid out again for
+    two shards). Counters at 0 just before each counted epoch, read just
+    after: K1 2 and K2 2 a position a step; the loss falls as
+    :func:`w2v_learns` requires, the (2, 2) data replicas bit-equal."""
+    cfg = w2v_config(fps)
+    runs, src = [], None
+    for (D, S), sync_every in (((1, 4), None), ((2, 2), 4)):
+        W = D * S
+        mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+        trainer, store = fps.word2vec_block(mesh, cfg, uni, W2V_BLOCK,
+                                            sync_every=sync_every,
+                                            max_steps_per_call=256)
+        plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh, num_workers=W,
+                                      block_len=W2V_BLOCK, seed=1,
+                                      sync_every=sync_every, mode="block")
+        if src is None:
+            tables, local = trainer.init_state(0)
+            tables, local, _ = trainer.run_indexed(tables, local, plan, 0,
+                                                   start_epoch=1, epochs=2)
+            state = (tables, local)
+        else:
+            state = (reshard(torch, src, store), ())
+        mode = "sync" if sync_every is None else f"ssp(sync_every={sync_every})"
+        summary, (tables, local) = run_w2v(
+            torch, kernels, f"w2v block {mode}, mesh {D}x{S}, run_indexed",
+            trainer, plan, 1, {"gather_rows": 2 * W, "scatter_add": 2 * W},
+            len(tokens), card, state)
+        summary = dict(summary, mesh=dict(mesh.shape),
+                       state=replicas_equal(torch, mesh)(tables, local),
+                       launches_per_step={
+                           k: v / summary["steps_run"]
+                           for k, v in summary["launches"].items() if v})
+        runs.append(summary)
+        src = store
+    return runs
+
+
+def ials_mesh_run(torch, fps, kernels, train, test, chunks, card):
+    """Phase 7, iALS at bench.py run_ials's width on a (1, 4) mesh: phase
+    4's chunks (a global batch of 65,536 a step), each step's columns cut
+    over the 4 workers, :func:`ials_to_target` (K1 1 and K2 2 a position a
+    half-step)."""
+    mesh = fps.make_ps_mesh(4, 1, device="cuda:0")
+    solver = fps.IALSSolver(mesh, fps.IALSConfig(
+        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
+        alpha=40.0, reg=0.1))
+    dev_chunks = [{k: torch.from_numpy(v).to(mesh.device)
+                   for k, v in c.items()} for c in chunks]
+    summary, _ = ials_to_target(torch, kernels, "iALS, bench.py run_ials, "
+                                "mesh 1x4", solver, dev_chunks, train, test,
+                                card)
+    log("path iALS, mesh 1x4: " + json.dumps(summary))
+    return summary
+
+
+def recommend_topk_check(torch, fps, kernels, store, local_state, card):
+    """``recommend_topk`` for the first 64 users' factors against the
+    store's item table (4 shards of ML-20M's after the top-k path's MF):
+    ids equal to the float64 brute force in the merge's pool order; the
+    call's time (host clock around it, synchronised), median of 10."""
+    from fps_tpu_torch.models import recommendation as rec
+
+    W, S = fps.num_workers_of(store.mesh), store.num_shards
+    users = np.arange(64)
+    q = rec.mf_user_vectors(local_state.numpy(), W, users)
+    items = logical_rows(list(store.tables["item_factors"]), S)[:ML20M_ITEMS]
+    want = pool_order_topk(q.astype(np.float64) @ items.T, TOPK_K, S)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        ids, scores = rec.recommend_topk(store, "item_factors", q, TOPK_K)
+        times.append(time.perf_counter() - t0)
+    if not np.array_equal(ids, want):
+        raise AssertionError(f"recommend_topk at {S} shards: ids != brute "
+                             "force")
+    out = {"path": f"recommend_topk, {len(users)} queries, {S} shards",
+           "queries": len(users), "k": TOPK_K, "ids_equal_brute_force": True,
+           "call_ms": float(np.median(times)) * 1e3,
+           "launches": kernels.launch_counts(),
+           "mesh": dict(store.mesh.shape), "card": card}
+    log("recommend_topk on the mesh: " + json.dumps(out))
+    return out
+
+
+def mesh_models_card_vs_cpu(torch, fps, shapes):
+    """Small jobs on each mesh, on the card and on the CPU from the same
+    state: the w2v block worker with the sketch tap (:func:`w2v_card_vs_cpu_
+    jobs`'s corpus, blocks of 256 a worker, 2 epochs; tables within 1e-5 of
+    their largest value, tap sums bit for bit), iALS (2,000 users, 1,000
+    items, rank 16, 2 epochs; factors within 1e-4) and ``recommend_topk``
+    over a small-integer table (exact scores: ids and scores equal)."""
+    from fps_tpu_torch.models import recommendation as rec
+    from fps_tpu_torch.models import word2vec as w2v
+    from fps_tpu_torch.models.ials import interaction_chunks
+    from fps_tpu_torch.utils import datasets as ds
+
+    tokens, vocab, uni = ds.load_text8(None, 2000, 60_000, seed=4)
+    cfg = fps.W2VConfig(vocab_size=vocab, dim=32, subsample_t=1e-3,
+                        learning_rate=0.1)
+    probe = np.argsort(-uni)[:SKETCH_PROBES].astype(np.int32)
+    idata = ds.synthetic_implicit(2000, 1000, 20, rank=4, seed=0)
+    rng = np.random.default_rng(2)
+    items = rng.integers(-3, 4, (1000, 8)).astype(np.float32)
+    queries = rng.integers(-2, 3, (64, 8)).astype(np.float32)
+    worst = {}
+    for D, S in shapes:
+        W = D * S
+        out = {}
+        for device in ("cpu", "cuda:0"):
+            mesh = fps.make_ps_mesh(S, D, device=device)
+            trainer, _ = fps.word2vec_block(
+                mesh, cfg, uni, 256, max_steps_per_call=16,
+                step_tap=w2v.cooccurrence_sketch_tap(sketch_spec(), probe))
+            tables, local = trainer.init_state(7)
+            plan = fps.Word2VecDevicePlan(tokens, uni, cfg, mesh,
+                                          num_workers=W, block_len=256,
+                                          seed=5, mode="block")
+            tables, _, metrics = trainer.run_indexed(tables, local, plan, 6,
+                                                     epochs=2)
+            solver = fps.IALSSolver(mesh, fps.IALSConfig(2000, 1000,
+                                                         rank=IALS_RANK))
+            solver.init(7)
+            chunks = list(interaction_chunks(idata, num_workers=W,
+                                             local_batch=4096 // W,
+                                             steps_per_chunk=4, seed=0))
+            for _ in range(2):
+                solver.epoch(lambda: iter(chunks))
+            store = fps.ParamStore(mesh, [fps.TableSpec("items", 1000, 8)])
+            store.put("items", torch.from_numpy(np.concatenate(
+                [items[s::S] for s in range(S)])).to(mesh.device))
+            out[device] = (on_host(torch, tables),
+                           w2v.accumulate_sketch_taps(metrics),
+                           solver.factors(),
+                           rec.recommend_topk(store, "items", queries, 10))
+        cpu, card = out["cpu"], out["cuda:0"]
+        job = f"{D}x{S}"
+        worst[f"w2v block, sketch tap {job}"] = max(
+            float((cpu[0][k] - card[0][k]).abs().max())
+            / max(1.0, float(cpu[0][k].abs().max())) for k in cpu[0])
+        if not np.array_equal(cpu[1], card[1]):
+            raise AssertionError(f"card vs CPU, w2v sketch tap {job}: the "
+                                 "tap sums differ")
+        worst[f"iALS {job}"] = max(
+            float(np.abs(c - g).max() / np.abs(c).max())
+            for c, g in zip(cpu[2], card[2]))
+        for c, g in zip(cpu[3], card[3]):
+            if not np.array_equal(c, g):
+                raise AssertionError(f"card vs CPU, recommend_topk {job}: "
+                                     "ids or scores differ")
+    log("card vs CPU, word2vec, iALS and top-k on the mesh: "
+        + json.dumps(worst))
+    for job, diff in worst.items():
+        tol = 1e-4 if job.startswith("iALS") else 1e-5
+        if not diff <= tol:
+            raise AssertionError(f"card vs CPU, {job}: {diff} of the largest "
+                                 f"value > {tol}")
+    return dict(worst, w2v_sketch_tap_sums_bit_equal=True,
+                recommend_topk_equal=True)
 
 
 def path_sums(cases, path, copy=False):
@@ -2872,7 +3142,6 @@ def main() -> int:
     ials_run, traced_ials = ials_path(torch, fps, kernels, ials_train,
                                       ials_test, ials_chunks, card)
     w2v_runs.append(ials_run)
-    del ials_chunks
     runs, traced, mf_data = paths_phase(torch, fps, kernels, pa_data, pa_q,
                                         mc_data, lr_data, card)
     runs += w2v_runs
@@ -2896,8 +3165,10 @@ def main() -> int:
                               ials_train, ials_test, runs, card)
 
     # 7. The sharded mesh, counters at 0 before each run.
-    mesh = mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q, card)
-    del mf_data
+    mesh = mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
+                      w2v_tokens, w2v_uni, ials_train, ials_test, ials_chunks,
+                      card)
+    del mf_data, ials_chunks
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]

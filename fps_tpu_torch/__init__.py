@@ -13,8 +13,9 @@ hand-written kernels (``fps_tpu_torch/ops/csrc``: row gather and scatter-add
 for wide tables, the head scatter-add of the hot/cold push split, scalar
 gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
 PyTorch versions. iALS (``IALSSolver``) drives its own loop of
-normal-equation solves over the same store and kernels (on one position;
-word2vec and top-k too).
+normal-equation solves over the same store and kernels, and top-k retrieval
+(``models.recommendation``) ranks a sharded table where it lies; every
+model family runs on any mesh.
 
 Entry points run on the visible CUDA devices unless ``device="cpu"`` is
 passed to :func:`make_ps_mesh`; without CUDA and without a device they

@@ -111,9 +111,16 @@ class TrainerConfig:
     (:meth:`Trainer.run_indexed`). The metrics gain a ``"tap"`` entry whose
     leaves are ``(T, W, ...)``: steps, then workers, as the JAX package
     gathers them (the tap runs on each worker's blocks of the tables, raw
-    batch and local state, as under the JAX package's ``shard_map``). The
-    worker's
-    out channel must be a dict without a ``"tap"`` key.
+    batch and local state, as under the JAX package's ``shard_map``). A tap
+    with the attribute ``collective = True`` reaches every position at
+    once, as a JAX tap reaches the others through ``jax.lax`` collectives:
+    it is called once a step as ``tap(tables, batches, local_states, t)``,
+    ``tables`` mapping each name to its blocks, one a position, and
+    ``batches`` / ``local_states`` one a worker, and it returns one pytree a
+    worker; it moves data between positions only through
+    :mod:`fps_tpu_torch.parallel.collectives`
+    (:func:`~fps_tpu_torch.models.recommendation.make_online_topk_tap` is
+    one). The worker's out channel must be a dict without a ``"tap"`` key.
 
     ``donate``: as in the JAX package, the caller hands its tables over to
     the call. Here that means the tables are updated **in place**: the
@@ -329,8 +336,9 @@ class Trainer:
 
     def _run_tap(self, out, tables, batches, states, t: int):
         """``out`` with the step tap's outputs under ``"tap"``: the tap runs
-        on each worker's blocks, raw batch and local state, and its leaves
-        gain the worker axis ``W`` on the home device."""
+        on each worker's blocks, raw batch and local state (a collective tap:
+        once, on all of them), and its leaves gain the worker axis ``W`` on
+        the home device."""
         tap = self.config.step_tap
         if tap is None:
             return out
@@ -342,8 +350,12 @@ class Trainer:
             raise ValueError(
                 "the worker's out channel already has a 'tap' key; it would "
                 "be clobbered by the step_tap output")
-        tapped = [tap({name: tb[w] for name, tb in tables.items()}, b, s, t)
-                  for w, (b, s) in enumerate(zip(batches, states))]
+        if getattr(tap, "collective", False):
+            tapped = tap(tables, batches, states, t)
+        else:
+            tapped = [tap({name: tb[w] for name, tb in tables.items()}, b, s,
+                          t)
+                      for w, (b, s) in enumerate(zip(batches, states))]
         return dict(out, tap=_tree_stack(tapped, lambda xs: torch.stack(
             collectives.gather_home(self.mesh, xs))))
 

@@ -1,7 +1,9 @@
 """Implicit-feedback iALS on the PyTorch port.
 
-Port of ``fps_tpu/examples/ials.py`` with the flags the port supports: one
-device, ``--ingest device`` (the interactions resident on the device, each
+Port of ``fps_tpu/examples/ials.py`` with the flags the port supports: the
+tables sharded over ``--num-shards`` positions (``--num-data`` is held at 1,
+as in the JAX package's example; the solver itself takes a data axis),
+``--ingest device`` (the interactions resident on the device, each
 chunk built there) or ``--ingest host`` (numpy chunks copied over);
 ``--prefetch N`` assembles and places them N chunks ahead on a worker
 thread.
@@ -45,6 +47,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reg", type=float, default=0.1)
     ap.add_argument("--topk", type=int, default=10)
     args = ap.parse_args(argv)
+    args.num_data = 1  # the solver takes a data axis; the example shards
     if args.profile:
         ap.error("--profile: the iALS example has no chunk loop to trace")
 

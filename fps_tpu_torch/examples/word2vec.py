@@ -1,8 +1,8 @@
 """word2vec SGNS on the PyTorch port (text8-style token stream).
 
 Port of ``fps_tpu/examples/word2vec.py`` with the flags the port supports:
-one position of the mesh (ROADMAP.md Queue 1 item 4c), sync or SSP,
-``--ingest device`` (the token stream resident on
+any mesh (``--num-shards`` / ``--num-data``; every position a worker with a
+block of its own each step), sync or SSP, ``--ingest device`` (the token stream resident on
 the device, batches built there by ``Word2VecDevicePlan``, trained through
 ``run_indexed``; ``--mode block`` by default, or ``pairs``) or ``--ingest
 host`` (pair chunks built in numpy by ``skipgram_chunks`` and copied over,
@@ -15,8 +15,9 @@ nearest neighbours of a few frequent words.
 
     python -m fps_tpu_torch.examples.word2vec --local-batch 81920
     python -m fps_tpu_torch.examples.word2vec --device cpu --num-tokens 200000 --dim 32
+    python -m fps_tpu_torch.examples.word2vec --device cpu --num-shards 4 --num-tokens 200000 --dim 32 --local-batch 20480
 
-``--local-batch`` is the pairs a step: the device plan's block is
+``--local-batch`` is the pairs a worker a step: the device plan's block is
 ``local_batch / (2 * window)`` tokens (81,920 pairs: blocks of 8,192).
 """
 

@@ -8,20 +8,29 @@ solves, for every id of the other side,
     (G + alpha * sum_i r_ui * y_i y_i^T + reg * I) x_u = sum_i (1 + alpha * r_ui) y_i
 
 with ``G = Y^T Y`` the Gramian over every row of the fixed side. Three
-parts, as in the JAX package:
+parts, as in the JAX package, each on every position of the mesh:
 
-1. **Gramian**: ``Y^T Y`` over the valid rows (``torch.matmul``; the JAX
-   package computes it outside any Pallas kernel too).
-2. **Accumulate**: a Python loop over a chunk's steps: :func:`~fps_tpu_torch.
-   core.store.pull` of the fixed side's rows (kernel K1 on the card), the
-   ``alpha * r * y y^T`` and ``(1 + alpha * r) * y`` blocks, and two
+1. **Gramian**: each shard's ``Y_s^T Y_s`` over its block's valid rows
+   (``torch.matmul``; the JAX package computes it outside any Pallas kernel
+   too), summed over the shard axis in shard order
+   (:func:`fps_tpu_torch.parallel.collectives.psum`): every position holds
+   ``G``, and the table never moves.
+2. **Accumulate**: a Python loop over a chunk's steps, the chunk's ``(T,
+   B)`` columns cut over every worker (both mesh axes): the collective
+   :func:`~fps_tpu_torch.core.store.pull` of the fixed side's rows (kernel
+   K1 on the card, once a shard), the ``alpha * r * y y^T`` and ``(1 +
+   alpha * r) * y`` blocks, and two collective
    :func:`~fps_tpu_torch.core.store.push` calls into the ``A`` and ``b``
    accumulator tables keyed by the solved side's id (``combine="sum"``, in
-   place: kernel K2, at ``D = rank * rank`` and ``D = rank``). Weight-0
+   place: kernel K2, at ``D = rank * rank`` and ``D = rank``, once a
+   position). The pushes gather over the data axis too, so each data
+   replica's accumulators fold every worker's contributions once. Weight-0
    padding pushes id ``-1``. The normal equations are one more table of the
-   parameter server.
-3. **Solve**: one batched ``torch.linalg.solve`` (LU, as ``jnp.linalg.solve``)
-   of ``G + A + reg * I``; padding rows are zeroed.
+   parameter server, laid out as the factor table they solve.
+3. **Solve**: each position solves its own block, one batched
+   ``torch.linalg.solve`` (LU, as ``jnp.linalg.solve``) of ``G + A + reg *
+   I``; padding rows are zeroed, and the solved blocks are the store's new
+   table.
 
 ``IALSSolver.prefetch > 0`` assembles and places a half-epoch's chunks that
 many chunks ahead on a worker thread
@@ -51,9 +60,11 @@ from fps_tpu_torch.core.store import (
     ranged_uniform_init,
     rows_per_shard,
 )
+from fps_tpu_torch.parallel import collectives
 from fps_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     SHARD_AXIS,
-    SHARDED_STORE_ITEM,
+    Blocks,
     PSMesh,
     num_workers_of,
 )
@@ -91,13 +102,10 @@ class IALSSolver:
         self.device = mesh.device
         self.cfg = cfg
         self.num_shards = mesh.shape[SHARD_AXIS]
-        # Workers are every device: the interaction stream splits over both
-        # mesh axes.
+        self.num_data = mesh.shape[DATA_AXIS]
+        # Workers are every position: the interaction stream splits over
+        # both mesh axes.
         self.num_workers = num_workers_of(mesh)
-        if self.num_workers != 1:
-            raise NotImplementedError(
-                f"IALSSolver on a {dict(mesh.shape)} mesh: the port solves "
-                f"on one position; several are {SHARDED_STORE_ITEM}")
         init = ranged_uniform_init(-cfg.init_scale, cfg.init_scale, cfg.rank,
                                    cfg.dtype)
         self.store = ParamStore(mesh, [
@@ -119,54 +127,69 @@ class IALSSolver:
 
     # -- the three parts ----------------------------------------------------
 
-    def _valid(self, num_ids: int, rows: int) -> Tensor:
-        """``(rows,)`` bool: the physical row holds a real id."""
-        rps = rows_per_shard(num_ids, self.num_shards)
-        phys = torch.arange(rows, device=self.device)
+    def _valid(self, num_ids: int, rps: int, shard: int,
+               device: torch.device) -> Tensor:
+        """``(rps,)`` bool: each row of shard ``shard``'s block holds a real
+        id (the JAX package's ``_valid_mask``)."""
+        phys = shard * rps + torch.arange(rps, device=device)
         return phys_to_id(phys, self.num_shards, rps) < num_ids
 
-    def _gram(self, table: Tensor, num_ids: int) -> Tensor:
-        """``(k, k)`` Gramian of the table's valid rows."""
-        rows = torch.where(self._valid(num_ids, table.shape[0])[:, None],
-                           table, torch.zeros((), dtype=table.dtype,
-                                              device=table.device))
-        return rows.T @ rows
+    def _gram(self, fixed, num_ids: int) -> list[Tensor]:
+        """The ``(k, k)`` Gramian of the fixed table's valid rows on every
+        position (``fixed``: the table's blocks, one a position): each
+        shard's own, summed over the shard axis."""
+        parts = []
+        for p, blk in enumerate(fixed):
+            valid = self._valid(num_ids, blk.shape[0], p % self.num_shards,
+                                blk.device)
+            rows = torch.where(valid[:, None], blk,
+                               torch.zeros((), dtype=blk.dtype,
+                                           device=blk.device))
+            parts.append(rows.T @ rows)
+        return collectives.psum(self.mesh, parts, SHARD_AXIS)
 
-    def _accumulate(self, fixed: Tensor, A: Tensor, b: Tensor,
-                    chunk: dict[str, Tensor]) -> None:
+    def _accumulate(self, fixed, A, b, chunk) -> None:
         """Fold one chunk's ``(T, B)`` interactions into ``A`` and ``b`` in
-        place, one step (a pull and two pushes) at a time."""
+        place, one step (a pull and two pushes) at a time.
+
+        ``fixed``, ``A`` and ``b`` are blocks, one a position, and ``chunk``
+        each worker's columns (:meth:`half_epoch` cuts them)."""
         cfg = self.cfg
         k = cfg.rank
-        for t in range(chunk["solve_ids"].shape[0]):
-            solve_ids = chunk["solve_ids"][t].to(torch.int32)
-            fixed_ids = chunk["fixed_ids"][t].to(torch.int32)
-            r = chunk["rating"][t].to(cfg.dtype)
-            w = chunk["weight"][t].to(cfg.dtype)
+        S = self.num_shards
+        for t in range(chunk[0]["solve_ids"].shape[0]):
+            fixed_ids = [c["fixed_ids"][t].to(torch.int32) for c in chunk]
+            ys = pull(fixed, fixed_ids, num_shards=S)
+            ids, outers, vecs = [], [], []
+            for c, y in zip(chunk, ys):
+                r = c["rating"][t].to(cfg.dtype)
+                w = c["weight"][t].to(cfg.dtype)
+                cr = cfg.alpha * r * w  # confidence minus 1, masked
+                outer = cr[:, None, None] * y[:, :, None] * y[:, None, :]
+                outers.append(outer.reshape(-1, k * k))
+                vecs.append(((1.0 + cfg.alpha * r) * w)[:, None] * y)
+                ids.append(torch.where(
+                    w > 0, c["solve_ids"][t].to(torch.int32), -1))
+            push(A, ids, outers, num_shards=S, inplace=True)
+            push(b, ids, vecs, num_shards=S, inplace=True)
 
-            y = pull(fixed, fixed_ids, num_shards=self.num_shards)
-            cr = cfg.alpha * r * w  # confidence minus 1, masked
-            outer = cr[:, None, None] * y[:, :, None] * y[:, None, :]
-            vec = ((1.0 + cfg.alpha * r) * w)[:, None] * y
-
-            ids = torch.where(w > 0, solve_ids, -1)
-            push(A, ids, outer.reshape(-1, k * k), num_shards=self.num_shards,
-                 inplace=True)
-            push(b, ids, vec, num_shards=self.num_shards, inplace=True)
-
-    def _solve(self, gram: Tensor, A: Tensor, b: Tensor,
-               num_ids: int) -> Tensor:
-        """The solved ``(rows, k)`` factor table; padding rows zero."""
+    def _solve(self, gram, A, b, num_ids: int) -> list[Tensor]:
+        """The solved ``(rps, k)`` block of each position (its Gramian and
+        accumulator blocks in); padding rows zero."""
         cfg = self.cfg
         k = cfg.rank
-        lhs = gram[None] + A.reshape(-1, k, k)
-        lhs = lhs + cfg.reg * torch.eye(k, dtype=cfg.dtype,
-                                        device=self.device)[None]
-        x = torch.linalg.solve(lhs, b[:, :, None])[:, :, 0]
-        valid = self._valid(num_ids, x.shape[0])
-        return torch.where(valid[:, None], x,
-                           torch.zeros((), dtype=x.dtype,
-                                       device=x.device)).to(cfg.dtype)
+        out = []
+        for p, (g, a, v) in enumerate(zip(gram, A, b)):
+            lhs = g[None] + a.reshape(-1, k, k)
+            lhs = lhs + cfg.reg * torch.eye(k, dtype=cfg.dtype,
+                                            device=a.device)[None]
+            x = torch.linalg.solve(lhs, v[:, :, None])[:, :, 0]
+            valid = self._valid(num_ids, x.shape[0], p % self.num_shards,
+                                x.device)
+            out.append(torch.where(valid[:, None], x,
+                                   torch.zeros((), dtype=x.dtype,
+                                               device=x.device)).to(cfg.dtype))
+        return out
 
     # -- half-epoch ----------------------------------------------------------
 
@@ -176,9 +199,12 @@ class IALSSolver:
         ``chunks`` yield dicts of ``(T, B)`` columns ``user``, ``item``,
         ``rating`` and ``weight``: host arrays (as
         :func:`fps_tpu_torch.core.ingest.epoch_chunks` makes them), which
-        are copied over, or tensors already on the solver's device (as
+        are copied over, or tensors already on the mesh's home device (as
         :func:`fps_tpu_torch.core.device_ingest.device_epoch_chunks` makes
-        them), which are used as they are, with no host round trip.
+        them), which are used as they are, with no host round trip. ``B``
+        is the global batch, a multiple of ``num_workers`` (every position
+        of the mesh), worker ``w`` taking columns ``[w * B / W, (w + 1) *
+        B / W)``.
         """
         cfg = self.cfg
         if solve == "user":
@@ -195,12 +221,14 @@ class IALSSolver:
             raise ValueError(
                 f"IALSSolver.prefetch must be >= 0, got {self.prefetch}")
 
-        fixed = self.store.table(fixed_name)
+        mesh = self.mesh
+        fixed = list(self.store.tables[fixed_name])
         gram = self._gram(fixed, fixed_n)
-        rows = rows_per_shard(solve_n, self.num_shards) * self.num_shards
-        A = torch.zeros((rows, cfg.rank * cfg.rank), dtype=cfg.dtype,
-                        device=self.device)
-        b = torch.zeros((rows, cfg.rank), dtype=cfg.dtype, device=self.device)
+        rps = rows_per_shard(solve_n, self.num_shards)
+        A = [torch.zeros((rps, cfg.rank * cfg.rank), dtype=cfg.dtype,
+                         device=dev) for dev in mesh.positions]
+        b = [torch.zeros((rps, cfg.rank), dtype=cfg.dtype, device=dev)
+             for dev in mesh.positions]
 
         def place(chunk):
             return place_columns({
@@ -214,12 +242,20 @@ class IALSSolver:
                               device=self.device) if self.prefetch else None)
         try:
             for placed in pf if pf is not None else map(place, chunks):
-                self._accumulate(fixed, A, b,
-                                 placed_batches(placed, self.device))
+                # Worker w takes columns [w * B, (w + 1) * B) of the (T,
+                # W * B) chunk, on its device (the JAX package's P(None,
+                # ('data', 'shard'))).
+                cols = {k: collectives.scatter_workers(mesh, v, 1)
+                        for k, v in placed_batches(placed,
+                                                   self.device).items()}
+                self._accumulate(fixed, A, b, [
+                    {k: v[w] for k, v in cols.items()}
+                    for w in range(self.num_workers)])
         finally:
             if pf is not None:
                 pf.close()
-        self.store.put(solve_name, self._solve(gram, A, b, solve_n))
+        self.store.tables[solve_name] = Blocks(
+            self._solve(gram, A, b, solve_n), replicas=self.num_data)
 
     def epoch(self, make_chunks) -> None:
         """One full ALS epoch. ``make_chunks()`` returns a fresh chunk

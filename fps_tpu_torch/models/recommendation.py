@@ -7,18 +7,21 @@ for given query vectors, :func:`make_online_topk_tap` does so inside the
 training loop as a ``TrainerConfig.step_tap``, and :func:`mf_user_vectors`
 reads MF's worker-local user factors.
 
-The JAX package scores each shard's rows (``(B, dim) @ (rps, dim)^T``),
-takes a local top-``(k + E)`` (``E`` the exclusion capacity, so exclusions
-never eat into the true top-k), gathers the candidates over the shards,
-masks the excluded ids and merges with a final top-k. The port keeps the
-same two stages on one position of the mesh (the gather is then the
-identity; a sharded item table is ROADMAP.md Queue 1 item 4c),
-with the scores from ``torch.matmul`` (the JAX package computes them outside
-any Pallas kernel too).
+Each shard scores the queries against its own rows (``(B, dim) @ (rps,
+dim)^T``) and takes a local top-``(k + E)`` (``E`` the exclusion capacity,
+so exclusions never eat into the true top-k) with the rows' logical ids;
+the candidates are all-gathered over the shard axis, in shard order, the
+excluded ids masked, and a final top-k merges them, as in the JAX package.
+The table never moves: only queries and candidates cross positions, through
+:mod:`fps_tpu_torch.parallel.collectives`. The scores come from
+``torch.matmul`` (the JAX package computes them outside any Pallas kernel
+too).
 
 Ties: ``lax.top_k`` puts the lower index first; ``torch.topk`` promises no
 order among equal values. Both stages here rank by ``(-score, index)``: a
-stable descending sort, so the ids equal the JAX package's, ties included.
+stable descending sort, so a shard's candidates tie by physical row and the
+merge ties by position in the shard-major pool, as the JAX package's do,
+and the ids equal its ids, ties included.
 """
 
 from __future__ import annotations
@@ -27,18 +30,12 @@ import numpy as np
 import torch
 
 from fps_tpu_torch.core.store import ParamStore, phys_to_id, pull_local
-from fps_tpu_torch.parallel.mesh import SHARDED_STORE_ITEM, num_workers_of
+from fps_tpu_torch.parallel import collectives
+from fps_tpu_torch.parallel.mesh import SHARD_AXIS
 
 Tensor = torch.Tensor
 
 NEG_INF = float(np.float32(-3.0e38))
-
-
-def _one_position(store: ParamStore, fn: str) -> None:
-    if num_workers_of(store.mesh) != 1:
-        raise NotImplementedError(
-            f"{fn} on a {dict(store.mesh.shape)} mesh: the port ranks a "
-            f"table on one position; several are {SHARDED_STORE_ITEM}")
 
 
 def _topk_rows(scores: Tensor, n: int) -> tuple[Tensor, Tensor]:
@@ -48,12 +45,14 @@ def _topk_rows(scores: Tensor, n: int) -> tuple[Tensor, Tensor]:
     return vals[:, :n], cols[:, :n]
 
 
-def _score_and_local_topk(local: Tensor, queries: Tensor, *, num_shards: int,
-                          num_ids: int, n: int) -> tuple[Tensor, Tensor]:
-    """Score ``queries`` against the table's rows, mask padding rows and take
-    the top ``n`` with their logical ids."""
+def _score_and_local_topk(local: Tensor, queries: Tensor, *, shard: int,
+                          num_shards: int, num_ids: int,
+                          n: int) -> tuple[Tensor, Tensor]:
+    """Score ``queries`` against shard ``shard``'s rows, mask padding rows
+    and take the top ``n`` with their logical ids."""
     rps = local.shape[0]
-    phys = torch.arange(rps, dtype=torch.int32, device=local.device)
+    phys = shard * rps + torch.arange(rps, dtype=torch.int32,
+                                      device=local.device)
     ids = phys_to_id(phys, num_shards, rps)
     scores = queries.to(torch.float32) @ local.to(torch.float32).T
     scores = torch.where((ids < num_ids)[None, :], scores,
@@ -80,20 +79,31 @@ def build_topk_fn(store: ParamStore, table: str, k: int,
     """``fn(tables, queries, exclude) -> (ids, scores)``: top-k ranking of
     ``table``'s rows.
 
-    ``queries`` are ``(B, dim)`` float vectors on the store's device,
-    ``exclude`` ``(B, exclude_capacity)`` int ids to mask (``-1`` for unused
-    slots; ignored when ``exclude_capacity`` is 0). Returns ``ids (B, k)``
-    int32 and ``scores (B, k)``, best first.
+    ``tables[table]`` is the table's blocks, one a mesh position;
+    ``queries`` are ``(B, dim)`` float vectors
+    and ``exclude`` ``(B, exclude_capacity)`` int ids to mask (``-1`` for
+    unused slots; ignored when ``exclude_capacity`` is 0), both on the
+    mesh's home device and replicated to every position (the JAX package's
+    ``P()``). Every position scores its block; the shard axis all-gathers
+    the candidates; position 0's pool is merged (every position's holds the
+    same). Returns ``ids (B, k)`` int32 and ``scores (B, k)``, best first,
+    on the home device.
     """
-    _one_position(store, "build_topk_fn")
+    mesh = store.mesh
     spec = store.specs[table]
-    num_shards = store.num_shards
+    S = store.num_shards
     cand = k + exclude_capacity
 
     def fn(tables, queries, exclude):
-        top_s, top_ids = _score_and_local_topk(
-            tables[table], queries, num_shards=num_shards,
-            num_ids=spec.num_ids, n=cand)
+        cands = [_score_and_local_topk(blk, q, shard=p % S, num_shards=S,
+                                       num_ids=spec.num_ids, n=cand)
+                 for p, (blk, q) in enumerate(zip(
+                     tables[table], collectives.broadcast(mesh, queries)))]
+        # (B, S * n): the shards' candidates side by side, in shard order.
+        top_s = collectives.all_gather(mesh, [c[0] for c in cands],
+                                       SHARD_AXIS, dim=1)[0]
+        top_ids = collectives.all_gather(mesh, [c[1] for c in cands],
+                                         SHARD_AXIS, dim=1)[0]
         if exclude_capacity:
             hit = torch.any(top_ids[:, :, None] == exclude[:, None, :], dim=-1)
             top_s = torch.where(hit, torch.tensor(NEG_INF,
@@ -118,45 +128,82 @@ def recommend_topk(store: ParamStore, table: str, queries: np.ndarray, k: int,
     ex = torch.as_tensor(np.asarray(
         exclude if exclude is not None else np.full((B, 1), -1),
         np.int32)).to(device)
-    ids, scores = fn({table: store.table(table)}, q, ex)
+    ids, scores = fn(store.tables, q, ex)
     return ids.cpu().numpy(), scores.cpu().numpy()
+
+
+def _topk_local_queries(mesh, blocks, queries, *, num_shards: int,
+                        num_ids: int, k: int) -> list[tuple[Tensor, Tensor]]:
+    """Each worker's top-``k`` for its own ``(q, dim)`` queries (one a
+    position): the shard axis all-gathers the queries, every shard scores
+    all of its data replica's against its own rows, the candidates are
+    all-gathered back, and each worker merges the slice that belongs to its
+    queries, ``(q, S * n)`` in shard order. The table never moves."""
+    S = num_shards
+    q = queries[0].shape[0]
+    every = collectives.all_gather(mesh, queries, SHARD_AXIS)  # (S * q, dim)
+    cands = [_score_and_local_topk(blk, qs, shard=p % S, num_shards=S,
+                                   num_ids=num_ids, n=k)
+             for p, (blk, qs) in enumerate(zip(blocks, every))]
+    out = []
+    for p, (all_s, all_i) in enumerate(zip(*(
+            collectives.all_gather(mesh, [c[j][None] for c in cands],
+                                   SHARD_AXIS) for j in (0, 1)))):
+        # (S, S * q, n): shard j's candidates for every query of the group;
+        # this worker's are rows [s * q, (s + 1) * q) of each.
+        s = p % S
+        mine_s, mine_i = (x[:, s * q:(s + 1) * q].transpose(0, 1).reshape(
+            q, -1) for x in (all_s, all_i))
+        out.append(_merge_topk(mine_s, mine_i, k))
+    return out
 
 
 def make_online_topk_tap(store: ParamStore, table: str, k: int, *,
                          every: int, query_fn):
     """A ``TrainerConfig.step_tap`` emitting top-k inside the training loop.
 
-    Every ``every`` steps (``t % every == 0``) the worker ranks
+    Every ``every`` steps (``t % every == 0``) each worker ranks
     ``query_fn``'s queries against the live table; the results ride the
     metrics under ``"tap"`` (leaves ``(T, W, q)`` and ``(T, W, q, k)``).
     Other steps emit ``-1`` ids and query ids and ``NEG_INF`` scores, and
     rank nothing.
 
+    The tap is collective (``tap.collective``): the driver calls it once a
+    step with every position's blocks and every worker's batch and local
+    state, and the shards score each other's workers' queries
+    (:func:`_topk_local_queries`), as the JAX package's tap does through its
+    all-gathers over the shard axis.
+
     ``query_fn(batch, local_state) -> (query_ids (q,), queries (q, dim))``,
     e.g. the first q users of the batch with their local factor rows
     (:func:`mf_topk_query_fn`).
     """
-    _one_position(store, "make_online_topk_tap")
+    mesh = store.mesh
     num_shards = store.num_shards
     num_ids = store.specs[table].num_ids
 
-    def tap(tables, batch, local_state, t):
-        qids, queries = query_fn(batch, local_state)
-        q = queries.shape[0]
-        dev = queries.device
+    def tap(tables, batches, local_states, t):
+        asked = [query_fn(b, s) for b, s in zip(batches, local_states)]
         if t % every == 0:
-            top_s, top_ids = _score_and_local_topk(
-                tables[table], queries, num_shards=num_shards,
-                num_ids=num_ids, n=k)
-            ids, scores = _merge_topk(top_s, top_ids, k)
-            qids = qids.to(torch.int32)
-        else:
-            ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
-            scores = torch.full((q, k), NEG_INF, dtype=torch.float32,
-                                device=dev)
-            qids = torch.full((q,), -1, dtype=torch.int32, device=dev)
-        return {"topk_query": qids, "topk_ids": ids, "topk_scores": scores}
+            ranked = _topk_local_queries(
+                mesh, tables[table], [qv for _, qv in asked],
+                num_shards=num_shards, num_ids=num_ids, k=k)
+            return [{"topk_query": qids.to(torch.int32), "topk_ids": ids,
+                     "topk_scores": scores}
+                    for (qids, _), (ids, scores) in zip(asked, ranked)]
+        out = []
+        for _, queries in asked:
+            q, dev = queries.shape[0], queries.device
+            out.append({
+                "topk_query": torch.full((q,), -1, dtype=torch.int32,
+                                         device=dev),
+                "topk_ids": torch.full((q, k), -1, dtype=torch.int32,
+                                       device=dev),
+                "topk_scores": torch.full((q, k), NEG_INF,
+                                          dtype=torch.float32, device=dev)})
+        return out
 
+    tap.collective = True
     return tap
 
 

@@ -49,7 +49,7 @@ from fps_tpu_torch.core.rng import (
     uniform_by_counter,
 )
 from fps_tpu_torch.core.store import ParamStore, TableSpec, ranged_uniform_init
-from fps_tpu_torch.parallel.mesh import SHARDED_STORE_ITEM, PSMesh, num_workers_of
+from fps_tpu_torch.parallel.mesh import PSMesh
 
 Tensor = torch.Tensor
 
@@ -347,10 +347,6 @@ def make_store(mesh: PSMesh, cfg: W2VConfig) -> ParamStore:
 def _make_trainer(mesh, cfg: W2VConfig, worker, *, sync_every, donate,
                   max_steps_per_call, push_delay=0, step_tap=None,
                   guard=None):
-    if num_workers_of(mesh) != 1:
-        raise NotImplementedError(
-            f"word2vec on a {dict(mesh.shape)} mesh: the port runs it on "
-            f"one position; several are {SHARDED_STORE_ITEM}")
     if push_delay >= 16:
         # The JAX package's measured guardrail (docs/STALENESS.md, finding
         # #5): its staleness sweep held SGNS partner recovery at 0.675-0.700
@@ -661,10 +657,6 @@ class Word2VecDevicePlan:
                  sync_every: int | None = None, mode: str = "pairs"):
         if mode not in ("pairs", "block"):
             raise ValueError(f"unknown mode {mode!r}")
-        if num_workers != 1:
-            raise NotImplementedError(
-                f"Word2VecDevicePlan(num_workers={num_workers}): the port "
-                f"runs one worker; several are {SHARDED_STORE_ITEM}")
         self.cfg = cfg
         self.mode = mode
         self.num_workers = num_workers
@@ -714,44 +706,57 @@ class Word2VecDevicePlan:
                 "half_seed": fold_seed(ekey, 1)}
 
     def _halves(self, args: dict, base: Tensor) -> Tensor:
-        """``(steps, block_len)`` int32 half-windows in ``[1, window]`` for
-        the blocks starting at compacted positions ``base``."""
-        pos = base[:, None] + self._span[:self.block_len]
+        """``base.shape + (block_len,)`` int32 half-windows in ``[1,
+        window]`` for the blocks starting at compacted positions ``base``."""
+        pos = base[..., None] + self._span[:self.block_len]
         return randint_by_counter(args["half_seed"], pos, 1,
                                   self.cfg.window + 1).to(torch.int32)
 
     def call_batches(self, args: dict, start: int,
                      steps: int) -> dict[str, Tensor]:
         """The batches of steps ``[start, start + steps)``, each column a
-        tensor with a leading step axis: ``block (steps, L+W)``, ``half
-        (steps, L)``, ``valid_len (steps,)`` in block mode; ``center``,
-        ``context`` and ``weight``, each ``(steps, 2 * window * L)``, in
-        pairs mode (for each ``d`` in ``1..window``: the centers ``i`` then
-        ``i + d``, contexts swapped)."""
+        tensor with a leading step axis, the ``W`` workers' columns side by
+        side (``Trainer`` cuts them; :meth:`local_batch_at` takes one).
+        Worker ``w``'s step ``t`` reads the block at compacted position
+        ``(t * W + w) * L``, as in the JAX package. Block mode: ``block
+        (steps, W * (L+W))``, ``half (steps, W * L)`` and ``valid_len``
+        (``(steps,)`` for one worker, ``(steps, W)`` for several). Pairs
+        mode: ``center``, ``context`` and ``weight``, each ``(steps, W * 2 *
+        window * L)``, a worker's ``2 * window * L`` pairs being, for each
+        ``d`` in ``1..window``, the centers ``i`` then ``i + d``, contexts
+        swapped."""
         L, W = self.block_len, self.cfg.window
+        nw = self.num_workers
         t = torch.arange(start, start + steps, device=self.device)
-        base = t * (self.num_workers * L)
+        w = torch.arange(nw, device=self.device)
+        base = (t[:, None] * nw + w) * L  # (steps, nw)
         # Steps past the epoch read clamped slots at weight 0.
-        idx = torch.clamp(base[:, None] + self._span, max=self._buf_len - 1)
-        block = args["compacted"][idx]  # (steps, L+W)
-        half = self._halves(args, base)
+        idx = torch.clamp(base[..., None] + self._span, max=self._buf_len - 1)
+        block = args["compacted"][idx]  # (steps, nw, L+W)
+        half = self._halves(args, base)  # (steps, nw, L)
         if self.mode == "block":
-            return {"block": block, "half": half,
-                    "valid_len": torch.clamp(args["kept"] - base, 0, L + W)}
-        room = args["kept"] - base[:, None] - self._span[:L]  # kept - pos
+            vlen = torch.clamp(args["kept"] - base, 0, L + W)
+            return {"block": block.reshape(steps, -1),
+                    "half": half.reshape(steps, -1),
+                    "valid_len": vlen[:, 0] if nw == 1 else vlen}
+        room = args["kept"] - base[..., None] - self._span[:L]  # kept - pos
         centers, contexts, valids = [], [], []
         for d in range(1, W + 1):
-            c, x = block[:, :L], block[:, d:L + d]
+            c, x = block[..., :L], block[..., d:L + d]
             ok = (half >= d) & (room > d)
             centers += [c, x]
             contexts += [x, c]
             valids += [ok, ok]
-        return {"center": torch.cat(centers, 1),
-                "context": torch.cat(contexts, 1),
-                "weight": torch.cat(valids, 1).to(torch.float32)}
+        return {"center": torch.cat(centers, -1).reshape(steps, -1),
+                "context": torch.cat(contexts, -1).reshape(steps, -1),
+                "weight": torch.cat(valids, -1).to(torch.float32).reshape(
+                    steps, -1)}
 
     def local_batch_at(self, args: dict, w: int, t: int) -> dict[str, Tensor]:
         """Worker ``w``'s step-``t`` batch (the JAX package's accessor)."""
-        if w != 0:
-            raise ValueError(f"worker {w} of a one-worker plan")
-        return {k: v[0] for k, v in self.call_batches(args, t, 1).items()}
+        if not 0 <= w < self.num_workers:
+            raise ValueError(f"worker {w} of a {self.num_workers}-worker "
+                             "plan")
+        return {k: v[0].reshape(self.num_workers, -1)[w].reshape(
+                    () if k == "valid_len" else -1)
+                for k, v in self.call_batches(args, t, 1).items()}

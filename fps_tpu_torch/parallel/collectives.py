@@ -60,10 +60,10 @@ def _check(mesh: PSMesh, xs: Sequence) -> None:
 
 
 def all_gather(mesh: PSMesh, xs: Sequence[Tensor], axis: str, *,
-               copy: bool = False) -> list[Tensor]:
-    """``lax.all_gather(x, axis, tiled=True)``: each position receives its
-    group's tensors joined along dim 0 in index order. ``copy=True`` gives
-    new memory on an axis of size 1 too."""
+               dim: int = 0, copy: bool = False) -> list[Tensor]:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: each position
+    receives its group's tensors joined along ``dim`` in index order.
+    ``copy=True`` gives new memory on an axis of size 1 too."""
     _check(mesh, xs)
     out = [None] * len(xs)
     for g in groups(mesh, axis):
@@ -72,7 +72,7 @@ def all_gather(mesh: PSMesh, xs: Sequence[Tensor], axis: str, *,
             if len(g) == 1:
                 out[p] = xs[p].clone() if copy else xs[p]
             else:
-                out[p] = torch.cat([_to(xs[q], dev) for q in g])
+                out[p] = torch.cat([_to(xs[q], dev) for q in g], dim)
     return out
 
 
@@ -143,6 +143,13 @@ def replicate(mesh: PSMesh, pieces: Sequence[Tensor]) -> list[Tensor]:
     copy = mesh.shape[DATA_AXIS] > 1
     return [pieces[p % S].to(dev, non_blocking=True, copy=copy)
             for p, dev in enumerate(mesh.positions)]
+
+
+def broadcast(mesh: PSMesh, x: Tensor) -> list[Tensor]:
+    """``x`` (on the home device) on every position: an input the JAX
+    package places replicated (``P()``). Positions on ``x``'s device share
+    it."""
+    return [_to(x, dev) for dev in mesh.positions]
 
 
 def gather_home(mesh: PSMesh, xs: Sequence[Tensor]) -> list[Tensor]:

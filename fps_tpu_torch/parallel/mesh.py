@@ -13,7 +13,10 @@ worker index) runs on ``mesh.devices[d][s]``; positions may name the same
 device, which is how the tests run an 8-position mesh on the CPU and how a
 host with one card runs a ``(1, 4)`` mesh. What lives on the mesh is held as
 :class:`Blocks`, one tensor a position. Data moves between positions only
-through :mod:`fps_tpu_torch.parallel.collectives`.
+through :mod:`fps_tpu_torch.parallel.collectives`. Every model family of the
+port runs on a mesh of any shape: MF, PA and logistic regression through the
+``Trainer``, word2vec through it and ``Word2VecDevicePlan``, iALS through its
+own solver and top-k retrieval where the table lies.
 
 A mesh over several processes (``torch.distributed``) is ROADMAP.md Queue 1
 item 4b.
@@ -30,10 +33,6 @@ import torch
 
 DATA_AXIS = "data"
 SHARD_AXIS = "shard"
-
-# What does not run on a mesh of more than one position yet.
-SHARDED_STORE_ITEM = ("ROADMAP.md Queue 1 item 4c: word2vec, iALS and top-k "
-                      "over a sharded store")
 
 
 @dataclasses.dataclass(frozen=True)

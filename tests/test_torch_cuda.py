@@ -1211,7 +1211,8 @@ def test_sketches_and_top_k_on_the_card_equal_the_cpus(dev):
     ranked = []
     for where in (dev, cpu):
         s, i = trec._score_and_local_topk(table.to(where), q.to(where),
-                                          num_shards=1, num_ids=100, n=30)
+                                          shard=0, num_shards=1, num_ids=100,
+                                          n=30)
         ranked.append((s.cpu(), i.cpu()))
     assert torch.equal(ranked[0][1], ranked[1][1])
     assert torch.equal(ranked[0][0], ranked[1][0])

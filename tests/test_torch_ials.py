@@ -7,7 +7,14 @@ the port on ``device="cpu"`` (the kernels' plain versions). Held to both:
 the ``A`` and ``b`` accumulators of one accumulate pass, and the solved
 factors of one half-epoch, one epoch and two, and the dense float64 oracle
 of ``tests/test_ials.py``. Also here: the host metrics on the same factors,
-device-resident chunks, ``prefetch`` and the example CLI.
+device-resident chunks, ``prefetch`` and the example CLI; and the sharded
+store, each solver on a mesh of the same shape (the JAX package's on the
+test process's virtual CPU devices): half-epochs at 4 and 8 shards against
+the JAX package and the dense oracle, the Gramian's sum over the shards,
+``(2, 4)`` against ``(1, 8)`` (the JAX package's
+``test_full_mesh_matches_shard_only_mesh``) with bit-equal data replicas,
+``prefetch`` and device-resident chunks on the mesh, the example on four
+shards.
 
 Tolerances, stated: the accumulators are float32 sums of the same terms in
 another order, so each lies within ``(k + 3) * eps32 * sum|terms|`` of the
@@ -33,6 +40,7 @@ from fps_tpu.parallel.mesh import make_ps_mesh as jmake_ps_mesh
 from fps_tpu.utils import datasets as jdatasets
 
 from fps_tpu_torch.convert import tables_from_jax
+from fps_tpu_torch.core import store as tstore
 from fps_tpu_torch.models import ials as tials
 from fps_tpu_torch.parallel.mesh import make_ps_mesh
 from fps_tpu_torch.utils import datasets as tdatasets
@@ -123,8 +131,8 @@ def test_accumulate_and_half_epoch_match_jax_and_dense_oracle(solve):
                 "rating": c["rating"], "weight": c["weight"]}
         jA, jb = acc(js.store.tables[fixed], jA, jb,
                      {k: jnp.asarray(v) for k, v in cols.items()})
-        ts._accumulate(ts.store.table(fixed), tA, tb,
-                       {k: torch.as_tensor(v) for k, v in cols.items()})
+        ts._accumulate(list(ts.store.tables[fixed]), [tA], [tb],
+                       [{k: torch.as_tensor(v) for k, v in cols.items()}])
     for got, jgot, exact, mag in ((tA, jA, A64, magA), (tb, jb, b64, magb)):
         tol = (cnt + 3)[:, None] * EPS32 * mag
         for name, val in (("port", got.numpy()), ("jax", np.asarray(jgot))):
@@ -312,3 +320,171 @@ def test_example_cli(ingest):
     assert done["event"] == "done"
     # Chance is 10 / 200 = 0.05.
     assert done["recall_at_10"] > 0.15, done
+
+
+# ---------------------------------------------------------------------------
+# The sharded store: the JAX package's mesh of the same shape.
+# ---------------------------------------------------------------------------
+
+def _mesh_pair(D, S, nu=NU, ni=NI, rank=RANK, **kw):
+    """A JAX solver and a port solver on ``(D, S)`` meshes (the JAX one on
+    the test process's virtual CPU devices), from the same tables."""
+    kw = {**CFG, **kw}
+    mesh = jmake_ps_mesh(num_shards=S, num_data=D,
+                         devices=jax.devices()[:D * S])
+    js = jials.IALSSolver(mesh, jials.IALSConfig(nu, ni, rank=rank, **kw))
+    js.init(jax.random.key(0))
+    ts = tials.IALSSolver(make_ps_mesh(S, D, device="cpu"),
+                          tials.IALSConfig(nu, ni, rank=rank, **kw))
+    ts.store.tables = tables_from_jax(
+        ts.store, {n: np.asarray(v) for n, v in js.store.tables.items()})
+    return js, ts
+
+
+def _replicas_equal(solver):
+    D, S = solver.num_data, solver.num_shards
+    for blocks in solver.store.tables.values():
+        for p in range(S, D * S):
+            assert torch.equal(blocks[p], blocks[p % S])
+
+
+@pytest.mark.parametrize("solve", ["user", "item"])
+@pytest.mark.parametrize("S", [4, 8])
+def test_half_epoch_on_shards_matches_jax_and_dense_oracle(S, solve):
+    """A half-epoch at ``(1, S)``: each shard's Gramian summed over the
+    shards, the chunk cut over the workers, each shard's solve of its own
+    block. 37 users and 29 items leave padding rows at 4 and 8 shards; the
+    padding rows of the solved blocks are zero."""
+    js, ts = _mesh_pair(1, S)
+    data = _data(seed=S)
+    chunks = list(jials.interaction_chunks(
+        data, num_workers=S, local_batch=4, steps_per_chunk=3, seed=1))
+    U0, V0 = (x.astype(np.float64) for x in js.factors())
+    if solve == "user":
+        want = _dense_half_epoch(U0, V0, data["user"], data["item"],
+                                 data["rating"], CFG["alpha"], CFG["reg"],
+                                 NU)[0]
+    else:
+        want = _dense_half_epoch(V0, U0, data["item"], data["user"],
+                                 data["rating"], CFG["alpha"], CFG["reg"],
+                                 NI)[0]
+    js.half_epoch(solve, chunks)
+    ts.half_epoch(solve, chunks)
+    side = 0 if solve == "user" else 1
+    got = ts.factors()[side]
+    _close(got, js.factors()[side])
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+    name = tials.USER_TABLE if solve == "user" else tials.ITEM_TABLE
+    blocks = ts.store.tables[name]
+    assert len(blocks) == S and blocks[0].shape == (-(-want.shape[0] // S),
+                                                    RANK)
+    full = blocks.numpy()
+    np.testing.assert_array_equal(full[np.asarray(
+        tstore.phys_to_id(np.arange(len(full)), S, blocks[0].shape[0]))
+        >= want.shape[0]], 0)
+
+
+def test_gramian_is_the_shards_own_summed_in_shard_order():
+    """Every position holds the Gramian of the whole table's valid rows,
+    each the fold of the shards' own in shard order (the same bits on every
+    position), within float32 rounding of the one-block Gramian."""
+    _, ts = _mesh_pair(2, 4)
+    blocks = list(ts.store.tables[tials.ITEM_TABLE])
+    grams = ts._gram(blocks, NI)
+    assert len(grams) == 8
+    for g in grams[1:]:
+        assert torch.equal(g, grams[0])
+    full = ts.store.tables[tials.ITEM_TABLE].numpy()
+    rows = full[np.asarray(tstore.phys_to_id(np.arange(len(full)), 4,
+                                             blocks[0].shape[0])) < NI]
+    np.testing.assert_allclose(grams[0].numpy(), rows.T @ rows, rtol=1e-5,
+                               atol=1e-9)
+
+
+def test_full_mesh_matches_shard_only_mesh_and_jax():
+    """``tests/test_ials.py``'s ``test_full_mesh_matches_shard_only_mesh`` on
+    the port: two epochs at ``(2, 4)`` (the stream over every worker, the
+    pushes gathered over the data axis too) solve the factors of ``(1, 8)``
+    within its tolerance, each within 1e-4 of the JAX package's at its own
+    shape, and the data replicas stay bit-equal."""
+    nu, ni, rank = 24, 18, 4
+    data = jdatasets.synthetic_implicit(nu, ni, 9, rank=2, seed=6)
+    out = {}
+    for D, S in ((1, 8), (2, 4)):
+        js, ts = _mesh_pair(D, S, nu, ni, rank)
+        assert ts.num_workers == 8
+        chunks = list(jials.interaction_chunks(
+            data, num_workers=8, local_batch=4, steps_per_chunk=2, seed=0))
+        for _ in range(2):
+            js.epoch(lambda: iter(chunks))
+            ts.epoch(lambda: iter(chunks))
+        for got, want in zip(ts.factors(), js.factors()):
+            _close(got, want)
+        _replicas_equal(ts)
+        out[D, S] = ts.factors()
+    for a, b in zip(out[1, 8], out[2, 4]):
+        np.testing.assert_allclose(a, b, rtol=5e-4, atol=5e-5)
+
+
+def test_prefetch_on_the_mesh_is_bit_identical():
+    """``prefetch = 2`` at ``(2, 4)``: the chunks are placed on the pipeline's
+    thread and cut over the workers on the driver's; two epochs give the
+    factors of ``prefetch = 0`` bit for bit, and the JAX package's with
+    ``prefetch = 2`` within 1e-4."""
+    data = _data(seed=5)
+    chunks = list(jials.interaction_chunks(
+        data, num_workers=8, local_batch=4, steps_per_chunk=3, seed=2))
+    factors = {}
+    for depth in (0, 2):
+        js, ts = _mesh_pair(2, 4)
+        ts.prefetch = js.prefetch = depth
+        for _ in range(2):
+            ts.epoch(lambda: iter(chunks))
+            js.epoch(lambda: iter(chunks))
+        factors[depth] = ts.factors()
+        for got, want in zip(ts.factors(), js.factors()):
+            _close(got, want)
+    for got, want in zip(factors[2], factors[0]):
+        np.testing.assert_array_equal(got, want)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("fps-prefetch")]
+
+
+def test_device_resident_chunks_on_the_mesh_match_jax():
+    """``device_epoch_chunks`` on the mesh's home device, cut over 4
+    workers by the solver; the JAX solver gets the same chunks in numpy."""
+    from fps_tpu_torch.core.device_ingest import (
+        DeviceDataset,
+        device_epoch_chunks,
+    )
+
+    js, ts = _mesh_pair(1, 4)
+    data = _data(seed=3)
+    chunks = list(device_epoch_chunks(DeviceDataset(ts.mesh, data),
+                                      num_workers=4, local_batch=4,
+                                      steps_per_chunk=3, seed=4))
+    host = [{k: v.numpy() for k, v in c.items()} for c in chunks]
+    ts.epoch(lambda: iter(chunks))
+    js.epoch(lambda: iter(host))
+    for got, want in zip(ts.factors(), js.factors()):
+        _close(got, want)
+
+
+def test_example_cli_on_four_shards_keeps_one_data_replica():
+    """``--num-shards 4 --num-data 2``: the example keeps ``num_data = 1``,
+    as the JAX package's does, and learns as on one position."""
+    from fps_tpu_torch.examples import ials
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ials.main(["--device", "cpu", "--num-shards", "4",
+                        "--num-data", "2", "--num-users", "300",
+                        "--num-items", "200", "--per-user", "20",
+                        "--rank", "8", "--local-batch", "128",
+                        "--steps-per-chunk", "4", "--epochs", "3"])
+    events = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert rc == 0
+    assert events[0]["mesh"] == {"data": 1, "shard": 4}
+    losses = [e["weighted_loss"] for e in events if e["event"] == "epoch"]
+    assert losses[-1] < losses[0]
+    assert events[-1]["recall_at_10"] > 0.15, events[-1]

@@ -187,6 +187,30 @@ def test_pull_matches_jax_bit_for_bit(D, S):
     np.testing.assert_array_equal(torch.cat(got).numpy(), want)
 
 
+@pytest.mark.parametrize("D,S", SHAPES)
+def test_all_gather_along_dim_1_and_broadcast_match_jax(D, S):
+    """``all_gather(..., dim=1)``, which the top-k merge uses for its
+    candidates, against ``lax.all_gather(x, 'shard', axis=1, tiled=True)``;
+    ``broadcast`` puts the home device's tensor on every position (the JAX
+    package's replicated ``P()``)."""
+    x = np.random.default_rng(S).normal(0, 1, (3, D * S * 2)).astype(
+        np.float32)
+    run = jax.shard_map(
+        lambda a: jax.lax.all_gather(a, jmesh.SHARD_AXIS, axis=1, tiled=True),
+        mesh=_jmesh(D, S),
+        in_specs=P(None, (jmesh.DATA_AXIS, jmesh.SHARD_AXIS)),
+        out_specs=P(None, (jmesh.DATA_AXIS, jmesh.SHARD_AXIS)),
+        check_vma=False)
+    want = np.asarray(jax.jit(run)(jnp.asarray(x)))
+    mesh = _tmesh(D, S)
+    got = collectives.all_gather(mesh, list(torch.chunk(
+        torch.from_numpy(x), D * S, 1)), tmesh.SHARD_AXIS, dim=1)
+    np.testing.assert_array_equal(torch.cat(got, 1).numpy(), want)
+    home = torch.from_numpy(x)
+    assert all(torch.equal(b, home) and b.device == dev for b, dev in zip(
+        collectives.broadcast(mesh, home), mesh.positions))
+
+
 def _callable_combine(summed, counts):
     return summed / (counts[:, None] + 1.0)
 
@@ -502,57 +526,6 @@ def test_logreg_matches_jax_at_eight_shards(optimizer):
                                           sync_every=2)
     _sparse_parity(jtrainer, ttrainer, store, data, chunks_n=3,
                    local_batch=32, sync_every=2)
-
-
-# ---------------------------------------------------------------------------
-# 9. What waits for ROADMAP.md Queue 1 item 4c.
-# ---------------------------------------------------------------------------
-
-def _refuse_word2vec():
-    from fps_tpu_torch.models import word2vec as tw2v
-
-    cfg = tw2v.W2VConfig(vocab_size=20, dim=4)
-    tw2v.word2vec(_tmesh(1, 2), cfg, np.ones(20))
-
-
-def _refuse_word2vec_plan():
-    from fps_tpu_torch.models import word2vec as tw2v
-
-    cfg = tw2v.W2VConfig(vocab_size=20, dim=4, subsample_t=None)
-    tw2v.Word2VecDevicePlan(np.arange(200) % 20, np.ones(20), cfg,
-                            _tmesh(1, 1), num_workers=4)
-
-
-def _refuse_ials():
-    from fps_tpu_torch.models import ials
-
-    ials.IALSSolver(_tmesh(2, 2), ials.IALSConfig(10, 10, rank=2))
-
-
-def _refuse_topk_tap():
-    from fps_tpu_torch.models import recommendation as rec
-
-    _, store = online_mf(_tmesh(1, 4), MFConfig(num_users=8, num_items=8))
-    rec.make_online_topk_tap(store, "item_factors", 3, every=1,
-                             query_fn=rec.mf_topk_query_fn(4, 2))
-
-
-def _refuse_recommend_topk():
-    from fps_tpu_torch.models import recommendation as rec
-
-    _, store = online_mf(_tmesh(1, 4), MFConfig(num_users=8, num_items=8))
-    store.init(0)
-    rec.recommend_topk(store, "item_factors", np.zeros((1, 10), np.float32),
-                       3)
-
-
-@pytest.mark.parametrize("refused", [
-    _refuse_word2vec, _refuse_word2vec_plan, _refuse_ials, _refuse_topk_tap,
-    _refuse_recommend_topk],
-    ids=["word2vec", "word2vec_plan", "ials", "topk_tap", "recommend_topk"])
-def test_sharded_store_models_refuse_naming_item_4c(refused):
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        refused()
 
 
 # ---------------------------------------------------------------------------

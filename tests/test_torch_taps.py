@@ -17,6 +17,11 @@ JAX package's, on the CPU.
 * ``recommend_topk`` and the online top-k tap with exact ties, exclusions
   and k larger than the candidates: ids equal the JAX package's and a
   brute-force ranking by (-score, id) (oracle ``tests/test_recommendation.py``).
+  On the sharded mesh, ``(1, 8)`` and ``(2, 4)`` against the JAX package's:
+  ``recommend_topk`` with ties (across shards, by position in the
+  shard-major pool), exclusions and ``k`` above the pool; the collective
+  online tap; the driver's contract for collective taps; the MF example's
+  ``--topk`` on four shards.
 * ``clip_pushes``, ``scale_pushes`` and ``tap_outputs`` (oracle
   ``tests/test_streaming.py::test_combinators``): pushes and metrics equal
   the JAX package's within float32 rounding.
@@ -553,3 +558,227 @@ def test_combinators_keep_the_inner_workers_draws():
         np.testing.assert_array_equal(runs[0][0][name].numpy(),
                                       runs[1][0][name].numpy())
     np.testing.assert_array_equal(runs[0][1][0]["loss"], runs[1][1][0]["loss"])
+
+
+# ---------------------------------------------------------------------------
+# Top-k retrieval over a sharded table: the JAX package's mesh of the same
+# shape.
+# ---------------------------------------------------------------------------
+
+MESHES = [(1, 8), (2, 4)]  # (data, shard)
+
+
+def _jmesh_of(D, S):
+    return jmake_ps_mesh(num_shards=S, num_data=D,
+                         devices=jax.devices()[:D * S])
+
+
+def _topk_mesh_stores(D, S, num_ids, dim, seed):
+    """:func:`_topk_stores` on ``(D, S)`` meshes: the same small-integer
+    table (every row twice, so ties are real), sharded."""
+    rng = np.random.default_rng(seed)
+    half = rng.integers(-3, 4, (-(-num_ids // 2), dim)).astype(np.float32)
+    logical = np.concatenate([half, half])[:num_ids]
+
+    def jinit(key, ids):
+        return jnp.take(jnp.asarray(logical), jnp.minimum(ids, num_ids - 1),
+                        axis=0)
+
+    jstore = JParamStore(_jmesh_of(D, S), [JTableSpec("items", num_ids, dim,
+                                                      jinit)])
+    jstore.init(jax.random.key(0))
+    tstore = ParamStore(make_ps_mesh(S, D, device="cpu"),
+                        [TableSpec("items", num_ids, dim)])
+    tstore.tables = tables_from_jax(tstore, {"items": np.asarray(
+        jstore.tables["items"])})
+    return jstore, tstore, logical
+
+
+def _brute_sharded(q, logical, k, S, exclude=None):
+    """The float64 ranking in the order the shard-major pool gives: by
+    score, then ties by shard (``id % S``), then by row within the shard
+    (``id // S``), as ``lax.top_k`` orders the JAX package's pool."""
+    s = q.astype(np.float64) @ logical.T.astype(np.float64)
+    if exclude is not None:
+        for row, ex in enumerate(exclude):
+            s[row, ex[ex >= 0]] = -np.inf
+    ids = np.arange(logical.shape[0])
+    return np.stack([np.lexsort((ids // S, ids % S, -r))[:k] for r in s])
+
+
+@pytest.mark.parametrize("num_ids,k,E", [(57, 5, 0), (40, 4, 3), (6, 10, 0)],
+                         ids=["plain", "exclusions", "k_above_pool"])
+@pytest.mark.parametrize("D,S", MESHES)
+def test_recommend_topk_on_the_mesh_matches_jax_with_ties(D, S, num_ids, k,
+                                                          E):
+    """Each shard ranks its own block, the candidates are all-gathered in
+    shard order, exclusions masked, and the pool merged: ids equal the JAX
+    package's, ties included (by position in the pool, not by id: ties
+    across shards go to the lower shard), and the float64 ranking in that
+    order; scores equal. Where ``k`` exceeds the pool (6 items on 8 or 4
+    shards, 16 or 8 candidates), the slots past the real items hold
+    ``NEG_INF``."""
+    dim, B = 3, 9
+    jstore, tstore, logical = _topk_mesh_stores(D, S, num_ids, dim,
+                                                seed=num_ids + S)
+    rng = np.random.default_rng(1)
+    q = rng.integers(-2, 3, (B, dim)).astype(np.float32)
+    exclude = None
+    if E:
+        exclude = _brute_sharded(q, logical, E, S).astype(np.int32)
+        exclude[0, -1] = -1
+    ids, scores = trec.recommend_topk(tstore, "items", q, k, exclude=exclude)
+    jids, jscores = jrec.recommend_topk(jstore, "items", q, k,
+                                        exclude=exclude)
+    np.testing.assert_array_equal(ids, np.asarray(jids))
+    np.testing.assert_array_equal(scores, np.asarray(jscores))
+    real = min(k, num_ids)
+    np.testing.assert_array_equal(
+        ids[:, :real], _brute_sharded(q, logical, real, S, exclude))
+    assert (scores[:, real:] == trec.NEG_INF).all()
+    if exclude is not None:
+        assert not any(np.isin(row, ex[ex >= 0]).any()
+                       for row, ex in zip(ids, exclude))
+
+
+def _mf_mesh_pair(D, S, num_items, k, every, Q):
+    """JAX and port MF trainers on ``(D, S)`` meshes at lr 0 (frozen
+    tables), from the same state, each with its package's online top-k
+    tap."""
+    cfg = dict(num_users=NU, num_items=num_items, rank=RANK,
+               learning_rate=0.0, reg=0.0)
+    W = D * S
+    jtr, jstore = jmf.online_mf(_jmesh_of(D, S), jmf.MFConfig(**cfg),
+                                donate=False)
+    ttr, tstore = tmf.online_mf(make_ps_mesh(S, D, device="cpu"),
+                                tmf.MFConfig(**cfg), donate=False)
+    jtr.config = dataclasses.replace(jtr.config, step_tap=(
+        jrec.make_online_topk_tap(jstore, ITEM, k, every=every,
+                                  query_fn=jrec.mf_topk_query_fn(W, Q))))
+    ttr.config = dataclasses.replace(ttr.config, step_tap=(
+        trec.make_online_topk_tap(tstore, ITEM, k, every=every,
+                                  query_fn=trec.mf_topk_query_fn(W, Q))))
+    jtables, jlocal = jtr.init_state(jax.random.key(0))
+    ttables = tables_from_jax(tstore, {n: np.asarray(v)
+                                       for n, v in jtables.items()})
+    tlocal = local_state_from_jax(ttr.logic, np.asarray(jlocal),
+                                  mesh=ttr.mesh)
+    return (jtr, jtables, jlocal), (ttr, tstore, ttables, tlocal)
+
+
+@pytest.mark.parametrize("num_items,k,every", [(29, 5, 2), (6, 10, 1)])
+@pytest.mark.parametrize("D,S", MESHES)
+def test_online_topk_tap_on_the_mesh_matches_jax_and_bruteforce(
+        D, S, num_items, k, every):
+    """The collective tap on a ``(D, S)`` mesh: each worker's queries (its
+    first users, its own local rows) are all-gathered over the shards, every
+    shard ranks them against its own rows, and each worker merges its
+    slice. Leaves ``(T, W, q, k)``; ids and query ids equal the JAX tap's;
+    on tapped steps the ids of the real items are the float64 ranking of the
+    live table in the pool's order, past them ``NEG_INF``; other steps emit
+    -1 and ``NEG_INF``."""
+    W, Q, T = D * S, 3, 4
+    (jtr, jt, jl), (ttr, tstore, tt, tl) = _mf_mesh_pair(D, S, num_items, k,
+                                                         every, Q)
+    data = jdatasets.synthetic_ratings(NU, num_items, 8 * T * W, seed=0)
+    chunk = next(jingest.epoch_chunks(data, num_workers=W, local_batch=8,
+                                      steps_per_chunk=T, route_key="user"))
+    _, _, jm = jtr.run_chunk(jt, jl, chunk, jax.random.key(1))
+    _, tl, tm = ttr.run_chunk(tt, tl, chunk, 1)
+    tap = _to_host(tm)["tap"]
+    assert tap["topk_ids"].shape == (T, W, Q, k)
+    for key in ("topk_query", "topk_ids"):
+        np.testing.assert_array_equal(tap[key], np.asarray(jm["tap"][key]))
+    items = tstore.lookup_host(ITEM, np.arange(num_items))
+    # Scores: float32 dot products of RANK terms in another order, each
+    # within RANK * eps32 * sum|terms| of the exact one.
+    scale = float((np.abs(tl.numpy()) @ np.abs(items).T).max())
+    np.testing.assert_allclose(tap["topk_scores"],
+                               np.asarray(jm["tap"]["topk_scores"]), rtol=0,
+                               atol=2 * RANK * np.finfo(np.float32).eps
+                               * scale)
+    real = min(k, num_items)
+    checked = 0
+    for t in range(T):
+        users = tap["topk_query"][t]
+        if t % every:
+            assert (users == -1).all() and (tap["topk_ids"][t] == -1).all()
+            assert (tap["topk_scores"][t] == trec.NEG_INF).all()
+            continue
+        for w in range(W):
+            valid = users[w] >= 0
+            q = trec.mf_user_vectors(tl.numpy(), W, users[w][valid])
+            np.testing.assert_array_equal(
+                tap["topk_ids"][t, w][valid][:, :real],
+                _brute_sharded(q, items, real, S))
+            assert (tap["topk_scores"][t, w][:, real:] == trec.NEG_INF).all()
+            checked += int(valid.sum())
+    assert checked > 0
+
+
+def test_collective_tap_sees_every_position_once_a_step():
+    """A tap with ``collective = True`` is called once a step with every
+    position's blocks and every worker's batch and local state, and returns
+    one output a worker; a per-worker tap beside it is called ``W`` times a
+    step with its worker's blocks."""
+    calls = []
+
+    def ctap(tables, batches, local_states, t):
+        calls.append(("collective", t, len(tables[ITEM]), len(batches),
+                      len(local_states)))
+        return [{"w": torch.tensor(w), "rows": blk.shape[0]
+                 and torch.tensor(blk.shape[0])}
+                for w, blk in enumerate(tables[ITEM])]
+
+    ctap.collective = True
+
+    def wtap(tables, batch, local_state, t):
+        calls.append(("worker", t, tables[ITEM].shape[0]))
+        return {"w": torch.tensor(0)}
+
+    for tap, expect in ((ctap, "collective"), (wtap, "worker")):
+        calls.clear()
+        ttr, _ = tmf.online_mf(make_ps_mesh(4, 2, device="cpu"),
+                               tmf.MFConfig(num_users=NU, num_items=NI,
+                                            rank=RANK))
+        ttr.config = dataclasses.replace(ttr.config, step_tap=tap)
+        tables, local = ttr.init_state(0)
+        data = jdatasets.synthetic_ratings(NU, NI, 8 * 2 * 8, seed=0)
+        chunk = next(jingest.epoch_chunks(data, num_workers=8, local_batch=8,
+                                          steps_per_chunk=2,
+                                          route_key="user"))
+        _, _, m = ttr.run_chunk(tables, local, chunk, 0)
+        assert m["tap"]["w"].shape == (2, 8)
+        if expect == "collective":
+            assert calls == [("collective", t, 8, 8, 8) for t in range(2)]
+            np.testing.assert_array_equal(m["tap"]["w"].numpy(),
+                                          np.tile(np.arange(8), (2, 1)))
+            assert (m["tap"]["rows"].numpy() == NI // 4).all()
+        else:
+            assert calls == [("worker", t, NI // 4) for t in range(2)
+                             for _ in range(8)]
+
+
+def test_mf_example_topk_on_four_shards():
+    import contextlib
+    import io
+    import json
+
+    from fps_tpu_torch.examples import mf
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mf.main(["--device", "cpu", "--scale", "100k", "--num-shards",
+                      "4", "--local-batch", "512", "--topk", "5",
+                      "--topk-every", "4"])
+    assert rc == 0
+    events = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert events[0]["mesh"] == {"data": 1, "shard": 4}
+    online = [e for e in events if e["event"] == "topk_online"]
+    assert online and all(e["step"] % 4 == 0 for e in online)
+    # Two queries a worker, four workers.
+    assert all(len(e["users"]) == 8 for e in online)
+    assert all(len(row) == 5 and min(row) >= 0 for e in online
+               for row in e["items"])
+    after = [e for e in events if e["event"] == "topk"]
+    assert len(after) == 8 and all(len(e["items"]) == 5 for e in after)

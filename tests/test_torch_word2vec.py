@@ -232,9 +232,10 @@ def _port_plan_class(draws):
             return slice(e + start, e + start + steps)
 
         def _halves(self, args, base):
-            t = int(base[0]) // self.block_len
+            # base: (steps, 1), the one worker's block starts.
+            t = int(base[0, 0]) // self.block_len
             return torch.from_numpy(
-                draws.half[self._rows(args, t, len(base))])
+                draws.half[self._rows(args, t, len(base))])[:, None]
 
         def call_batches(self, args, start, steps):
             return dict(super().call_batches(args, start, steps),
@@ -515,9 +516,21 @@ def test_plan_refuses_what_the_port_does_not_run():
     cfg = tw2v.W2VConfig(vocab_size=97, subsample_t=None)
     with pytest.raises(ValueError, match="mode"):
         _plan(tokens, uni, cfg, mode="triples")
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        tw2v.Word2VecDevicePlan(tokens, uni, cfg, make_ps_mesh(device="cpu"),
-                                num_workers=2)
+    # Several workers: sized and cut as the JAX package's plan (worker 1's
+    # first block starts at compacted position L).
+    plan = tw2v.Word2VecDevicePlan(tokens, uni, cfg,
+                                   make_ps_mesh(2, device="cpu"),
+                                   num_workers=2, block_len=16, mode="block")
+    jplan = jw2v.Word2VecDevicePlan(
+        tokens, uni, jw2v.W2VConfig(vocab_size=97, subsample_t=None),
+        _jmesh(), num_workers=2, block_len=16, mode="block")
+    assert (plan.steps_per_epoch, plan._buf_len) == (jplan.steps_per_epoch,
+                                                     jplan._buf_len)
+    got = plan.local_batch_at(plan.epoch_args(0), 1, 0)
+    want = jplan.local_batch_at(jplan.epoch_args(0), 1, 0)
+    for k in ("block", "valid_len"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    np.testing.assert_array_equal(got["block"].numpy()[:16], tokens[16:32])
 
 
 def test_skipgram_chunks_match_jax_and_keep_static_shapes():
