@@ -159,7 +159,26 @@ on the card, raising on the first failure:
    1e-4, sketch sums and top-k ids and scores equal). It prints each run's
    ms a step and launches a step. The positions share one card, so these
    times measure the single controller's launches, not scaling;
-8. prints one JSON line describing every ported kernel, then, as the last
+8. drives the mesh over several processes (``torch.distributed``), every
+   position on ``cuda:0``, the ranks spawned from this script
+   (``--phase8-rank``) after the kernels were built, with their files in
+   a temporary directory, every launch counter at 0 just before each run
+   in every rank and read just after: one NCCL rank at world size 1, MF
+   at ML-20M width at (1, 4), one ``run_indexed`` call of 64 steps; two
+   gloo ranks of 2 positions each, MF one sync epoch at (1, 4) and one SSP
+   epoch (s = 4) at (2, 2), binary PA-I one epoch at (1, 4), the word2vec
+   block worker one ``run_indexed`` call of 32 steps at (1, 4), iALS one
+   epoch at (1, 4), each rank after one uncounted MF call of 64 steps
+   (its first use of each kernel and exchange). Every job's tables, local
+   state and metrics on every rank must equal, bit for bit, the same job
+   run by this process alone on a mesh of the same shape, with K1 2 and
+   K2 2 (MF, w2v), K5 1 and K4 1 (PA), K1 1 and K2 2 a half-step (iALS) a
+   position a step; a rank
+   that exits non-zero or hangs fails the phase, and every rank left is
+   killed. It prints each job's ms a step and the share of it in
+   cross-process exchange; two ranks share one card through host
+   staging, so these times measure that, not scaling;
+9. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -3040,6 +3059,360 @@ def mesh_models_card_vs_cpu(torch, fps, shapes):
                 recommend_topk_equal=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the mesh over several processes (torch.distributed).
+# ---------------------------------------------------------------------------
+
+# Each rank's collective timeout and the longest phase 8 waits on a rank
+# (seconds); the depth of the NCCL rank's MF call and of the w2v call.
+P8_TIMEOUT_S, P8_WAIT_S = 120, 300
+P8_MF_STEPS, P8_W2V_STEPS = 64, 32
+# Where every position of the phase lives, and the backend of its one rank.
+P8_DEVICE, P8_ONE_RANK_BACKEND = "cuda:0", "nccl"
+# The gloo ranks' jobs, in order (p8_job).
+P8_GLOO_JOBS = ("mf_sync_1x4", "mf_ssp_2x2", "pa_1x4", "w2v_1x4",
+                "ials_1x4")
+
+
+def p8_save(where, mf_data, pa_data, tokens, uni, ials_chunks):
+    """The phase's inputs, made once in the parent, for the ranks."""
+    arrays = {f"mf_{k}": mf_data[k] for k in ("user", "item", "rating")}
+    arrays.update({f"pa_{k}": v for k, v in pa_data.items()})
+    arrays.update(w2v_tokens=tokens, w2v_uni=uni)
+    for i, c in enumerate(ials_chunks):
+        arrays.update({f"ials{i}_{k}": v for k, v in c.items()})
+    np.savez(os.path.join(where, "data.npz"), **arrays)
+
+
+def p8_load(where):
+    with np.load(os.path.join(where, "data.npz")) as z:
+        d = {k: z[k] for k in z.files}
+    ials = {}
+    for k, v in d.items():
+        if k.startswith("ials"):
+            i, col = k[4:].split("_", 1)
+            ials.setdefault(int(i), {})[col] = v
+    return {"mf": {k: d[f"mf_{k}"] for k in ("user", "item", "rating")},
+            "pa": {k[3:]: v for k, v in d.items() if k.startswith("pa_")},
+            "tokens": d["w2v_tokens"], "uni": d["w2v_uni"],
+            "ials": [ials[i] for i in sorted(ials)]}
+
+
+def p8_trained(result):
+    """``read()`` of a trainer's result: every table, the local state and
+    the metrics on the host (collectives over several processes)."""
+    tables, local, metrics = result
+
+    def read():
+        out = {f"table/{k}": v.numpy() for k, v in tables.items()}
+        if not isinstance(local, tuple):
+            out["local"] = local.numpy()
+        for k in metrics[0]:
+            out[f"metrics/{k}"] = np.concatenate([m[k] for m in metrics])
+        return out
+    return read
+
+
+def p8_job(torch, fps, job, mesh_of, data):
+    """``(label, mesh, run, steps, per_step)``: ``run()`` trains from fresh
+    state and returns ``read()``; ``per_step`` is each kernel's launches a
+    position a step."""
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    mf_cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                          rank=RANK, learning_rate=0.1, reg=0.01)
+    if job.startswith("mf"):
+        (D, S), sync_every, steps = {
+            "mf_call_1x4": ((1, 4), None, P8_MF_STEPS),
+            "mf_sync_1x4": ((1, 4), None, None),
+            "mf_ssp_2x2": ((2, 2), 4, None)}[job]
+        mesh = mesh_of(D, S)
+        trainer, _ = fps.online_mf(mesh, mf_cfg, sync_every=sync_every,
+                                   combine="mean", max_steps_per_call=64)
+        plan = fps.DeviceEpochPlan(
+            fps.DeviceDataset(mesh, data["mf"]), num_workers=D * S,
+            local_batch=BATCH // (D * S), route_key="user", seed=0,
+            sync_every=sync_every)
+        if steps:  # depth cut: the epoch's first call
+            plan.steps_per_epoch = steps
+        state = trainer.init_state(0)
+        mode = "sync" if sync_every is None else f"SSP (s = {sync_every})"
+        return (f"MF {mode}, mesh {D}x{S}, run_indexed", mesh,
+                lambda: p8_trained(trainer.run_indexed(*state, plan, 1)),
+                plan.steps_per_epoch, {"gather_rows": 2, "scatter_add": 2})
+    if job == "pa_1x4":
+        mesh = mesh_of(1, 4)
+        pa_data = dict(data["pa"])
+        q = int(pa_data.pop("head_prefix_cols"))
+        trainer, _ = fps.passive_aggressive(mesh, fps.PAConfig(
+            num_features=PA_NF, variant="PA-I", C=1.0, hot_features=PA_HEAD,
+            head_prefix_cols=q))
+        chunks = list(epoch_chunks(pa_data, num_workers=4,
+                                   local_batch=SPARSE_BATCH // 4,
+                                   steps_per_chunk=7, seed=1))
+        state = trainer.init_state(0)
+        return ("PA-I binary, mesh 1x4, fit_stream", mesh,
+                lambda: p8_trained(trainer.fit_stream(*state, chunks, 1)),
+                sum(c["weight"].shape[0] for c in chunks),
+                {"gather_rows_dim1": 1, "scatter_add_dim1": 1})
+    if job == "w2v_1x4":
+        mesh = mesh_of(1, 4)
+        cfg = w2v_config(fps)
+        trainer, _ = fps.word2vec_block(mesh, cfg, data["uni"], W2V_BLOCK,
+                                        max_steps_per_call=P8_W2V_STEPS)
+        plan = fps.Word2VecDevicePlan(data["tokens"], data["uni"], cfg, mesh,
+                                      num_workers=4, block_len=W2V_BLOCK,
+                                      seed=1, mode="block")
+        plan.steps_per_epoch = P8_W2V_STEPS  # depth cut: one call
+        state = trainer.init_state(0)
+        return ("w2v block, mesh 1x4, run_indexed", mesh,
+                lambda: p8_trained(trainer.run_indexed(*state, plan, 0)),
+                P8_W2V_STEPS, {"gather_rows": 2, "scatter_add": 2})
+    assert job == "ials_1x4", job
+    mesh = mesh_of(1, 4)
+    solver = fps.IALSSolver(mesh, fps.IALSConfig(
+        num_users=IALS_USERS, num_items=IALS_ITEMS, rank=IALS_RANK,
+        alpha=40.0, reg=0.1))
+    solver.init(0)
+
+    def run():
+        solver.epoch(lambda: iter(data["ials"]))
+        return lambda: dict(zip(("users", "items"), solver.factors()))
+    return ("iALS, mesh 1x4, one epoch", mesh, run,
+            2 * sum(c["weight"].shape[0] for c in data["ials"]),
+            {"gather_rows": 1, "scatter_add": 2})
+
+
+def p8_run(torch, fps, kernels, job, mesh_of, data, spent):
+    """One job, the launch counters at 0 just before and read just after:
+    its arrays and its stats (``spent[0]``: seconds in cross-process
+    exchange, where the rank counts them)."""
+    label, mesh, run, steps, per_step = p8_job(torch, fps, job, mesh_of,
+                                                data)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    spent[0] = 0.0
+    t0 = time.perf_counter()
+    read = run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    exchange_s = spent[0]
+    own = len(mesh.local)
+    check_launches(label, launched, {k: v * own for k, v in per_step.items()},
+                   steps)
+    arrays = read()
+    for k, v in arrays.items():
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise AssertionError(f"{label}: {k} has non-finite values")
+    return arrays, {"path": label, "steps": steps, "seconds": elapsed,
+                    "ms_per_step": elapsed / steps * 1e3,
+                    "exchange_seconds": exchange_s,
+                    "exchange_share": exchange_s / elapsed,
+                    "launches": launched, "positions": own,
+                    "mesh": dict(mesh.shape)}
+
+
+def p8_timed_exchange(torch, collectives, sync: bool):
+    """Seconds spent in the collectives' exchanges between processes (the
+    packing, staging and the library call): ``[seconds]``. With ``sync``
+    (gloo, whose staged copies wait for the card anyway) the card's queue
+    is drained first, so the wait for earlier kernels is not counted."""
+    spent = [0.0]
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return wrapper
+    collectives._gather = timed(collectives._gather)
+    collectives._pieces = timed(collectives._pieces)
+    return spent
+
+
+def p8_rank(argv) -> int:
+    """A phase 8 rank: ``--phase8-rank <rank> <world> <backend> <dir> <tag>
+    <job,...>``. Joins the group, runs an uncounted MF call, then the jobs
+    on meshes of its share of positions on ``P8_DEVICE``, and writes each
+    job's arrays and the stats."""
+    import datetime
+
+    import torch
+
+    import fps_tpu_torch as fps
+    from fps_tpu_torch.ops import _build, kernels
+    from fps_tpu_torch.parallel import collectives
+    from fps_tpu_torch.parallel import mesh as tmesh
+
+    rank, world, backend, where, tag, jobs = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4],
+        argv[5].split(","))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()  # built by the parent: this loads it
+    tmesh.init_distributed(f"file://{where}/store_{tag}", world, rank,
+                           backend=backend, device=P8_DEVICE,
+                           timeout=datetime.timedelta(seconds=P8_TIMEOUT_S))
+    try:
+        data = p8_load(where)
+        spent = p8_timed_exchange(torch, collectives, backend == "gloo")
+
+        def mesh_of(D, S):
+            return fps.make_ps_mesh(S, D, device=P8_DEVICE)
+
+        # A fresh process's first call also pays for its first use of each
+        # kernel and of the exchange: one MF call first, not counted.
+        p8_run(torch, fps, kernels, "mf_call_1x4", mesh_of, data, spent)
+        stats = {}
+        for job in jobs:
+            arrays, stats[job] = p8_run(torch, fps, kernels, job, mesh_of,
+                                        data, spent)
+            np.savez(os.path.join(where, f"{tag}_{job}_rank{rank}.npz"),
+                     **arrays)
+        with open(os.path.join(where, f"{tag}_rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        tmesh.shutdown_distributed()
+    return 0
+
+
+def p8_spawn(where, tag, world, backend, jobs):
+    """``world`` ranks of this script, logs to files (never pipes)."""
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(where, f"{tag}_log{rank}"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase8-rank",
+                 str(rank), str(world), backend, where, tag, ",".join(jobs)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def p8_wait(where, tag, procs):
+    """Every rank's exit, or a failure naming the rank: a rank that exits
+    non-zero or outlives ``P8_WAIT_S`` fails the phase; every rank still
+    alive is killed on the way out."""
+    t_end = time.monotonic() + P8_WAIT_S
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(os.path.join(where, f"{tag}_log{rank}")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(
+                    f"phase 8 {tag}: rank {rank} "
+                    f"{'hung' if rc is None else f'exited {rc}'}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def p8_compare(where, tag, world, job, want):
+    """Every rank's arrays of ``job`` against the one process's, bit for
+    bit."""
+    for rank in range(world):
+        with np.load(os.path.join(where, f"{tag}_{job}_rank{rank}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"phase 8 {tag} {job}, rank {rank}: arrays "
+                                 f"{sorted(got)} != {sorted(want)}")
+        for k, v in want.items():
+            if not np.array_equal(got[k], v):
+                raise AssertionError(
+                    f"phase 8 {tag} {job}, rank {rank}: {k} differs from "
+                    "the one process's by up to "
+                    f"{float(np.abs(got[k].astype(np.float64) - v).max())}")
+
+
+def process_phase(torch, fps, kernels, mf_data, pa_data, pa_q, tokens, uni,
+                  ials_chunks, card):
+    """Phase 8: the mesh over several processes on ``torch.distributed``,
+    every position on ``cuda:0``. (a) One NCCL rank at world size 1: MF at
+    ML-20M width at (1, 4), one ``run_indexed`` call of 64 steps. (b) Two
+    gloo ranks of 2 positions each (NCCL takes one rank a card; gloo's
+    exchanges stage through pinned host memory): MF one sync epoch at
+    (1, 4) and one SSP epoch (s = 4) at (2, 2), binary PA-I one epoch at
+    (1, 4), the w2v block worker one ``run_indexed`` call of 32 steps at
+    (1, 4), iALS one epoch at (1, 4). Every job's tables, local state and
+    metrics on every rank equal, bit for bit, the same job run by this
+    process alone on a mesh of the same shape (no ``init_distributed``),
+    and every rank counts each kernel's launches a position a step as phase
+    7 does. The two ranks share one card through host staging: their times
+    measure that, not scaling."""
+    import shutil
+    import tempfile
+
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase8_")
+    try:
+        p8_save(where, mf_data, dict(pa_data, head_prefix_cols=np.int64(pa_q)),
+                tokens, uni, ials_chunks)
+        data = p8_load(where)
+        one = {}
+        for job in ("mf_call_1x4",) + P8_GLOO_JOBS:
+            one[job] = p8_run(
+                torch, fps, kernels, job,
+                lambda D, S: fps.make_ps_mesh(S, D, device=P8_DEVICE), data,
+                [0.0])
+        del data
+        results = {}
+        for tag, world, backend, jobs in (
+                ("a", 1, P8_ONE_RANK_BACKEND, ("mf_call_1x4",)),
+                ("b", 2, "gloo", P8_GLOO_JOBS)):
+            t0 = time.perf_counter()
+            p8_wait(where, tag, p8_spawn(where, tag, world, backend, jobs))
+            wall = time.perf_counter() - t0
+            stats = []
+            for rank in range(world):
+                with open(os.path.join(where, f"{tag}_rank{rank}.json")) as f:
+                    stats.append(json.load(f))
+            for job in jobs:
+                p8_compare(where, tag, world, job, one[job][0])
+                ranks = [s[job] for s in stats]
+                base = one[job][1]
+                launched = {k: sum(r["launches"][k] for r in ranks)
+                            for k in kernels.WRAPPERS}
+                W = sum(r["positions"] for r in ranks)
+                res = {
+                    "path": f"{base['path']}, {world} {backend} rank"
+                            f"{'s' if world > 1 else ''}",
+                    "backend": backend, "ranks": world, "mesh": base["mesh"],
+                    "steps": base["steps"],
+                    "ms_per_step": max(r["ms_per_step"] for r in ranks),
+                    "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+                    "exchange_share_by_rank": [r["exchange_share"]
+                                               for r in ranks],
+                    "one_process_ms_per_step": base["ms_per_step"],
+                    "launches": launched,
+                    "launches_per_position_per_step": {
+                        k: v / (W * base["steps"])
+                        for k, v in launched.items() if v},
+                    "bit_equal_to_one_process": True, "card": card}
+                results[f"{tag}/{job}"] = res
+                log(f"phase 8, {res['path']}: {res['ms_per_step']:.3f} ms a "
+                    f"step (one process: {res['one_process_ms_per_step']:.3f}"
+                    "), cross-process exchange "
+                    f"{max(res['exchange_share_by_rank']):.1%} of it; "
+                    "launches a position a step "
+                    f"{res['launches_per_position_per_step']}; bit-equal to "
+                    f"one process ({card})")
+            log(f"phase 8 {tag}: {world} {backend} rank(s) done in "
+                f"{wall:.1f} s")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return {"runs": list(results.values()), "card": card,
+            "note": "every position on one card; two ranks share it through "
+                    "host staging: not scaling"}
+
+
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
     own = [c for c in cases if c["path"] == path]
@@ -3168,12 +3541,17 @@ def main() -> int:
     mesh = mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
                       w2v_tokens, w2v_uni, ials_train, ials_test, ials_chunks,
                       card)
+    # 8. The mesh over several processes, counters at 0 before each run in
+    # every rank.
+    processes = process_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
+                              w2v_tokens, w2v_uni, ials_chunks, card)
     del mf_data, ials_chunks
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
     runs += pipeline.pop("push_delay_runs")
     runs += mesh["runs"]
+    runs += processes["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -3285,6 +3663,7 @@ def main() -> int:
         "host_pipeline_and_push_delay": pipeline,
         "card_vs_cpu_ials_and_sketch_tap": taps_worst,
         "sharded_mesh": {k: v for k, v in mesh.items() if k != "runs"},
+        "processes": processes,
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)
@@ -3296,4 +3675,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase8-rank"]:
+        sys.exit(p8_rank(sys.argv[2:]))
     sys.exit(main())

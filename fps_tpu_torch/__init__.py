@@ -2,7 +2,9 @@
 
 A second package beside ``fps_tpu`` (the JAX reference, which it never
 imports). It runs on a ``(data, shard)`` mesh driven by one process (each
-position a device, positions may share one), in sync and SSP modes:
+position a device, positions may share one) or shared by several
+(``init_distributed`` first, each process driving its own positions), in
+sync and SSP modes:
 ``make_ps_mesh`` →
 a model constructor (``online_mf``, ``passive_aggressive``,
 ``logistic_regression``, ``word2vec``, ``word2vec_block``) →
@@ -57,6 +59,7 @@ from fps_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
     Blocks,
     default_mesh_shape,
+    init_distributed,
     make_ps_mesh,
     num_workers_of,
 )
@@ -66,7 +69,8 @@ __all__ = [
     "IALSConfig", "IALSSolver", "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
     "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
     "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",
-    "default_mesh_shape", "device_epoch_chunks", "logistic_regression",
+    "default_mesh_shape", "device_epoch_chunks", "init_distributed",
+    "logistic_regression",
     "make_ps_mesh", "num_workers_of", "online_mf", "passive_aggressive",
     "pull", "push", "word2vec", "word2vec_block",
 ]

@@ -7,9 +7,11 @@ arrays: the global arrays, tables in their owner-major physical layout) and
 hand them to :func:`tables_from_jax` / :func:`local_state_from_jax`, which
 cut them into the port's blocks, one a mesh position
 (:class:`~fps_tpu_torch.parallel.mesh.Blocks`). Shapes and dtypes are
-checked against the port's own; a mismatch raises. :func:`to_numpy` is the
-way back, for comparisons: a table's blocks give the JAX package's global
-physical table, the local state's the global local state.
+checked against the port's own; a mismatch raises. Over several processes
+every process passes the same global arrays and takes its own positions'
+pieces. :func:`to_numpy` is the way back, for comparisons: a table's blocks
+give the JAX package's global physical table, the local state's the global
+local state (a collective over several processes).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from fps_tpu_torch.core.api import WorkerLogic
 from fps_tpu_torch.core.store import ParamStore, padded_rows
-from fps_tpu_torch.parallel.mesh import DATA_AXIS, Blocks
+from fps_tpu_torch.parallel.mesh import DATA_AXIS, Blocks, num_workers_of
 
 _META = torch.device("meta")
 
@@ -48,6 +50,9 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
     mesh = store.mesh
     positions = (mesh.positions if device is None
                  else [torch.device(device)] * len(mesh.positions))
+    if device is not None and mesh.procs is not None:
+        raise ValueError("tables_from_jax: device= is for a mesh of one "
+                         "process")
     S = store.num_shards
     out = {}
     for name, spec in store.specs.items():
@@ -57,8 +62,8 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
         shards = np.split(array, S)
         out[name] = Blocks([torch.from_numpy(np.array(shards[p % S],
                                                       copy=True)).to(dev)
-                            for p, dev in enumerate(positions)],
-                           replicas=mesh.shape[DATA_AXIS])
+                            for p, dev in zip(mesh.local, positions)],
+                           replicas=mesh.shape[DATA_AXIS], mesh=mesh)
     return out
 
 
@@ -67,24 +72,27 @@ def local_state_from_jax(logic: WorkerLogic, array: np.ndarray, *,
                          mesh=None) -> Blocks:
     """The JAX package's worker-local state (one global array, sharded over
     the workers on axis 0) as the port's blocks, worker ``w``'s rows
-    ``[w * n, (w + 1) * n)`` on its position's device (``mesh``), or on
-    ``device`` for each of ``num_workers`` workers. The expected shape and
-    dtype are those of ``logic.init_local_state`` for that many workers."""
+    ``[w * n, (w + 1) * n)`` on its position's device (``mesh``; this
+    process's workers), or on ``device`` for each of ``num_workers``
+    workers. The expected shape and dtype are those of
+    ``logic.init_local_state`` for that many workers."""
     if mesh is not None:
-        positions = list(mesh.positions)
+        positions, own = list(mesh.positions), list(mesh.local)
+        num_workers = num_workers_of(mesh)
     elif device is not None:
         positions = [torch.device(device)] * num_workers
+        own = list(range(num_workers))
     else:
         raise ValueError("local_state_from_jax: pass mesh or device")
-    like = logic.init_local_state(0, len(positions), _META)
+    like = logic.init_local_state(0, num_workers, _META)
     if not isinstance(like, torch.Tensor):
         raise TypeError(f"{type(logic).__name__}'s local state is not one "
                         "tensor")
     array = np.asarray(array)
     _check_array("local state", array, like.shape, like.dtype)
-    return Blocks([torch.from_numpy(np.array(part, copy=True)).to(dev)
-                   for part, dev in zip(np.split(array, len(positions)),
-                                        positions)])
+    parts = np.split(array, num_workers)
+    return Blocks([torch.from_numpy(np.array(parts[w], copy=True)).to(dev)
+                   for w, dev in zip(own, positions)], mesh=mesh)
 
 
 def to_numpy(x: Any):

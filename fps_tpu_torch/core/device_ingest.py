@@ -30,6 +30,11 @@ Two consumers, one geometry (:class:`DeviceEpochPlan`):
 ``Trainer.fit_stream``, and ``Trainer.run_indexed`` reads each step's batch
 from :meth:`DeviceEpochPlan.call_batches` (``call_rows``, then ``gather``).
 
+Over several processes every process holds the dataset on its home device
+and computes the same queues; ``call_batches`` builds the rows of its own
+workers only, and the chunks stay global (``run_chunk`` places its own
+workers' columns).
+
 Coverage contract (every shuffle): every example exactly once per epoch.
 """
 
@@ -51,7 +56,7 @@ _GRID_ROWS_MAX = 1 << 12
 
 
 class DeviceDataset:
-    """A columnar dataset resident on the mesh's device.
+    """A columnar dataset resident on the mesh's (home) device.
 
     Columns are equal-length arrays; each is kept with one zero row appended
     (row ``n``), which the plan reads for the padding positions that the JAX
@@ -191,6 +196,13 @@ class DeviceEpochPlan:
             dev)[:, None]
         self._w_t = torch.arange(num_workers, dtype=torch.int64,
                                  device=dev)[:, None]
+        # The workers whose rows call_batches builds: this process's.
+        mesh = dataset.mesh
+        self._own = ((0, num_workers) if mesh.procs is None
+                     else (mesh.local[0], mesh.local[-1] + 1))
+        if mesh.procs is not None and num_workers != len(mesh.slot):
+            raise ValueError(f"a plan of {num_workers} workers on a mesh of "
+                             f"{len(mesh.slot)} positions over processes")
         self._b_t = torch.arange(local_batch, dtype=torch.int64, device=dev)
 
     def calls_per_epoch(self, steps_per_call: int) -> int:
@@ -231,20 +243,25 @@ class DeviceEpochPlan:
         return {"off_w": torch.from_numpy(off_w).to(dev)[:, None],
                 "perm": perm}
 
-    def call_rows(self, args: dict, start: int, steps: int):
+    def call_rows(self, args: dict, start: int, steps: int,
+                  workers: tuple[int, int] | None = None):
         """Example rows and weights of steps ``[start, start + steps)``:
-        ``(rows, weight)``, each ``(steps, num_workers * local_batch)``,
+        ``(rows, weight)``, each ``(steps, n * local_batch)`` for the ``n``
+        workers ``[lo, hi)`` of ``workers`` (default: every worker),
         worker-major; ``rows`` index the dataset's columns (``n`` is the
         zero row), ``weight`` is 1.0 for a real example and 0.0 for
         padding."""
         ts = torch.arange(start, start + steps, dtype=torch.int64,
                           device=self._b_t.device)
         B, r, maxq = self.local_batch, self.grid_r, self.maxq
-        w, cnt, c, m = self._w_t, self._counts_t, self._c_t, self._m_t
+        lo, hi = workers or (0, self.num_workers)
+        w, cnt, c, m = (x[lo:hi] for x in (
+            self._w_t, self._counts_t, self._c_t, self._m_t))
+        off_w = args["off_w"][lo:hi]
 
         def qpos_of(pos):
             x = (pos % r) * c + pos // r  # bijection on [0, m)
-            q = x + args["off_w"]
+            q = x + off_w
             return torch.where(q >= m, q - m, q)
 
         pos = ts[:, None, None] * B + self._b_t  # (T, 1, B) + (W, 1) below
@@ -272,7 +289,7 @@ class DeviceEpochPlan:
                 self.dataset.n)
         else:
             rows = self._queues[w * maxq + qpos.clamp(0, maxq - 1)]
-        shape = (steps, self.num_workers * B)
+        shape = (steps, (hi - lo) * B)
         return rows.reshape(shape), valid.to(torch.float32).reshape(shape)
 
     def gather(self, rows: Tensor, weight: Tensor) -> dict[str, Tensor]:
@@ -285,9 +302,10 @@ class DeviceEpochPlan:
                      steps: int) -> dict[str, Tensor]:
         """The batches of steps ``[start, start + steps)``, what
         ``Trainer.run_indexed`` reads: every column and the ``weight`` mask,
-        each ``(steps, num_workers * local_batch, ...)``; one index-select
-        per column."""
-        return self.gather(*self.call_rows(args, start, steps))
+        each ``(steps, n * local_batch, ...)`` for this process's ``n``
+        workers (every worker on one process); one index-select per
+        column."""
+        return self.gather(*self.call_rows(args, start, steps, self._own))
 
     def local_batch_at(self, args: dict, w: int, t: int) -> dict[str, Tensor]:
         """Worker ``w``'s step-``t`` batch: dict of ``(local_batch, ...)``

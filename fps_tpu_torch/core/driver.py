@@ -10,14 +10,19 @@ launches the port's kernels on the card (CUDA graphs over a chunk are later
 work).
 
 On a mesh of ``W`` positions one process drives every worker (a single
-controller): worker ``w`` takes columns ``[w * B, (w + 1) * B)`` of each
-``(steps, W * B)`` batch, draws from ``fold_seed(seed, w)`` and holds its
+controller), or, over several processes, each process its own workers
+(``mesh.local``): worker ``w`` takes columns ``[w * B, (w + 1) * B)`` of
+each ``(steps, W * B)`` batch, draws from ``fold_seed(seed, w)`` (``w``
+global, so a draw does not depend on the process count) and holds its
 block of the local state; every worker pulls as the step begins, then one
 collective push a table lands all the workers' deltas
 (:mod:`fps_tpu_torch.core.store`), and the metrics are summed over the
-shards, then over the data replicas. Tables and local-state leaves are
-:class:`~fps_tpu_torch.parallel.mesh.Blocks`, one block a position. A
-one-position mesh runs the same code with ``W = 1``.
+shards, then over the data replicas (every process gets the same sums).
+Tables and local-state leaves are
+:class:`~fps_tpu_torch.parallel.mesh.Blocks`, one block a position (this
+process's). A one-position mesh runs the same code with ``W = 1``. Over
+several processes every process runs the same calls with the same
+arguments (the same chunk iterator, the same plan).
 
 * **sync**: every step pulls from the live tables and its pushes land before
   the next step.
@@ -210,7 +215,8 @@ class Trainer:
         :class:`~fps_tpu_torch.parallel.mesh.Blocks` of the mesh's
         positions, each local-state leaf the ``Blocks`` of the workers'
         rows of the global leaf that ``init_local_state`` makes (the JAX
-        package shards it over the workers on axis 0)."""
+        package shards it over the workers on axis 0; over several
+        processes, this process's workers' rows)."""
         tables = self.store.init(fold_seed(seed, 0))
         local_state = self.logic.init_local_state(
             fold_seed(seed, 1), self.num_workers, self.device)
@@ -218,25 +224,27 @@ class Trainer:
 
     def _worker_blocks(self, leaf) -> Blocks:
         """A local-state leaf as the workers' blocks: a global tensor is cut
-        into ``W`` equal pieces on axis 0."""
+        into ``W`` equal pieces on axis 0, this process's workers' kept."""
         if isinstance(leaf, Blocks):
             return leaf
-        return Blocks(collectives.scatter_workers(self.mesh, leaf))
+        return Blocks(collectives.scatter_workers(self.mesh, leaf),
+                      mesh=self.mesh)
 
     def _worker_states(self, local_state) -> list:
-        """Each worker's local state (its block of every leaf)."""
+        """Each of this process's workers' local state (its block of every
+        leaf)."""
         blocks = _tree_map(self._worker_blocks, local_state)
-        return [_tree_map(lambda b, w=w: b[w], blocks)
-                for w in range(self.num_workers)]
+        return [_tree_map(lambda b, i=i: b[i], blocks)
+                for i in range(len(self.mesh.local))]
 
     def _worker_batches(self, batches: Mapping[str, Tensor]) -> list[dict]:
-        """Each worker's columns of a call's batches: ``(steps, W * B, ...)``
-        columns cut on axis 1, worker ``w`` taking ``[w * B, (w + 1) * B)``,
-        on its device."""
-        cut = {k: collectives.scatter_workers(self.mesh, v, 1)
+        """Each of this process's workers' columns of a call's batches:
+        ``(steps, n * B, ...)`` columns of its ``n`` workers (every worker's
+        on one process) cut on axis 1 in worker order, on its device."""
+        cut = {k: collectives.scatter_local(self.mesh, v, 1)
                for k, v in batches.items()}
-        return [{k: v[w] for k, v in cut.items()}
-                for w in range(self.num_workers)]
+        return [{k: v[i] for k, v in cut.items()}
+                for i in range(len(self.mesh.local))]
 
     # -- one step ---------------------------------------------------------
 
@@ -292,18 +300,18 @@ class Trainer:
         ``snapshot`` when given) and run the worker step; return the
         workers' pushes unapplied, the head-prefix guarantee for them, the
         new local states and the step's outputs (one a worker)."""
-        W = self.num_workers
         batches = [self.logic.prepare(b, k) for b, k in zip(batches, keys)]
         hp = self._head_prefix(batches[0])
         ids = [self.logic.pull_ids(b) for b in batches]
-        pulled = [{} for _ in range(W)]
+        pulled = [{} for _ in batches]
         for name in ids[0]:
             tids = [i[name] for i in ids]
             route = dict(hot_rows=self._hot_rows(name),
                          head_prefix=hp.get(name, 0))
             if snapshot is None:
                 vals = pull(tables[name], tids, num_shards=self.num_shards,
-                            dense=self._dense(name), **route)
+                            dense=self._dense(name), mesh=self.mesh,
+                            **route)
             else:
                 rps = tables[name][0].shape[0]
                 # -1 padding stays -1 (a zero row): the floor-mod of
@@ -313,8 +321,8 @@ class Trainer:
                     snap, torch.where(t >= 0, id_to_phys(
                         t, self.num_shards, rps), -1), **route)
                     for snap, t in zip(snapshot[name], tids)]
-            for w in range(W):
-                pulled[w][name] = vals[w]
+            for p, v in zip(pulled, vals):
+                p[name] = v
         outs = [self.logic.step(b, p, s, k)
                 for b, p, s, k in zip(batches, pulled, states, keys)]
         return ([o.pushes for o in outs], hp, [o.local_state for o in outs],
@@ -331,14 +339,15 @@ class Trainer:
                 apply_fn=sl.apply_fn, combine=sl.combine,
                 hot_rows=self._hot_rows(name),
                 head_prefix=head_prefix.get(name, 0),
-                dense=self._dense(name), inplace=self.config.donate)
+                dense=self._dense(name), inplace=self.config.donate,
+                mesh=self.mesh)
         return new_tables
 
     def _run_tap(self, out, tables, batches, states, t: int):
         """``out`` with the step tap's outputs under ``"tap"``: the tap runs
         on each worker's blocks, raw batch and local state (a collective tap:
-        once, on all of them), and its leaves gain the worker axis ``W`` on
-        the home device."""
+        once, on all of this process's), and its leaves gain the worker axis
+        ``W`` on the home device (every worker's, in every process)."""
         tap = self.config.step_tap
         if tap is None:
             return out
@@ -353,9 +362,9 @@ class Trainer:
         if getattr(tap, "collective", False):
             tapped = tap(tables, batches, states, t)
         else:
-            tapped = [tap({name: tb[w] for name, tb in tables.items()}, b, s,
+            tapped = [tap({name: tb[i] for name, tb in tables.items()}, b, s,
                           t)
-                      for w, (b, s) in enumerate(zip(batches, states))]
+                      for i, (b, s) in enumerate(zip(batches, states))]
         return dict(out, tap=_tree_stack(tapped, lambda xs: torch.stack(
             collectives.gather_home(self.mesh, xs))))
 
@@ -370,20 +379,22 @@ class Trainer:
         while len(in_flight) > self.config.push_delay:
             tables = self._apply_pushes(tables, *in_flight.popleft())
         # Metrics summed over the shards, then the data replicas.
-        out = _tree_stack(out, lambda xs: collectives.sum_home(self.mesh, xs))
+        out = _sum_metrics(self.mesh, out)
         outs.append(self._run_tap(out, tables, batches, states, t))
         return tables, states
 
     def _run_steps(self, tables, local_state, batches, num_steps: int,
                    seed: int, t0: int = 0):
         """Run ``num_steps`` steps over ``batches`` (columns with leading
-        dims ``(num_steps, W * B)``, on the home device); the step tap sees
+        dims ``(num_steps, n * B)``, this process's ``n`` workers' columns,
+        on the home device); the step tap sees
         step ``i`` as step ``t0 + i``. Sync: one step after the other. SSP:
         rounds of ``sync_every`` steps, each round's pulls from a snapshot
         of the tables (each position's all-gathered physical table) taken
         as the round begins. Worker ``w`` draws from one ``torch.Generator``
         seeded by ``fold_seed(seed, w)``, or, when it is ``step_seeded``,
-        from step ``i``'s seed ``fold_seed(fold_seed(seed, w), i)``.
+        from step ``i``'s seed ``fold_seed(fold_seed(seed, w), i)``, ``w``
+        the global worker index.
         Returns ``(tables, local_state, metrics)`` with ``(num_steps,)``
         device tensors on the home device, summed over the workers (the
         tap's leaves ``(num_steps, W, ...)``).
@@ -402,7 +413,7 @@ class Trainer:
         tables = {name: list(tb) for name, tb in tables.items()}
         states = self._worker_states(local_state)
         per_worker = self._worker_batches(batches)
-        seeds = [fold_seed(seed, w) for w in range(self.num_workers)]
+        seeds = [fold_seed(seed, w) for w in mesh.local]
         if self.logic.step_seeded:
             def key(i):
                 return [fold_seed(sw, i) for sw in seeds]
@@ -440,8 +451,9 @@ class Trainer:
         while in_flight:  # the end of the call: deliver what is in flight
             tables = self._apply_pushes(tables, *in_flight.popleft())
         D = mesh.shape[DATA_AXIS]
-        tables = {name: Blocks(tb, replicas=D) for name, tb in tables.items()}
-        local_state = _tree_stack(states, Blocks)
+        tables = {name: Blocks(tb, replicas=D, mesh=mesh)
+                  for name, tb in tables.items()}
+        local_state = _tree_stack(states, lambda xs: Blocks(xs, mesh=mesh))
         return tables, local_state, _tree_stack(outs, torch.stack)
 
     # -- chunks -----------------------------------------------------------
@@ -456,7 +468,10 @@ class Trainer:
           local_state: the worker-local state.
           batches: dict of host arrays (or tensors) with leading dims
             ``(T, B)`` (sync) or ``(R, s, B)`` (SSP); ``B`` is the global
-            batch, worker-major. Tensors already on the trainer's device
+            batch, worker-major (over several processes every process passes
+            the same chunk and places its own workers' columns, the JAX
+            package's ``host_to_sharded`` contract). Tensors already on the
+            trainer's device
             (:func:`~fps_tpu_torch.core.device_ingest.device_epoch_chunks`)
             are used as they are, with no copy. A
             :class:`~fps_tpu_torch.core.prefetch.PlacedChunk` (the
@@ -499,8 +514,11 @@ class Trainer:
         """Place one chunk's columns on the trainer's device: the placement
         that :meth:`run_chunk` and the pipeline's worker thread both run, so
         prefetch on and off give the same device inputs by construction
-        (:func:`~fps_tpu_torch.core.prefetch.place_columns`)."""
-        return place_columns(batches, self.device)
+        (:func:`~fps_tpu_torch.core.prefetch.place_columns`). Over several
+        processes only this process's workers' columns are placed."""
+        dim = 1 if self.config.sync_every is None else 2
+        return place_columns(
+            collectives.own_columns(self.mesh, batches, dim), self.device)
 
     def fit_stream(self, tables, local_state, chunks: Iterable[Mapping],
                    seed: int, metrics_reduce=None, checkpointer=None,
@@ -614,8 +632,9 @@ class Trainer:
         config: a :class:`~fps_tpu_torch.core.device_ingest.DeviceEpochPlan`
         or a :class:`~fps_tpu_torch.models.word2vec.Word2VecDevicePlan`.
         Both give ``steps_per_epoch``, ``epoch_args(e)`` and
-        ``call_batches(args, start, steps)``: the batches of a call's steps,
-        one device tensor a column with a leading step axis, built on the
+        ``call_batches(args, start, steps)``: the batches of a call's steps
+        for this process's workers (every worker's on one process), one
+        device tensor a column with a leading step axis, built on the
         device (no host copy). Each epoch runs in calls of
         :meth:`_indexed_call_steps` steps; call ``c`` of epoch ``e`` draws
         from seed ``fold_seed(fold_seed(seed, e), c)``. The last call runs
@@ -710,6 +729,19 @@ def _tree_stack(trees: list, join):
         return type(first)(_tree_stack(list(z), join)
                            for z in zip(*trees))
     return join(trees)
+
+
+def _sum_metrics(mesh: PSMesh, outs: list):
+    """The workers' step outputs (one tree a worker of this process) as one
+    tree, each leaf summed over every worker in the mesh's order
+    (:func:`~fps_tpu_torch.parallel.collectives.sum_home`); over several
+    processes every leaf travels in one exchange."""
+    if mesh.procs is None:
+        return _tree_stack(outs, lambda xs: collectives.sum_home(mesh, xs))
+    leaves = []
+    _tree_stack(outs, leaves.append)
+    sums = iter(collectives.sum_home_each(mesh, leaves))
+    return _tree_stack(outs, lambda xs: next(sums))
 
 
 def _to_host(metrics: Mapping[str, Any]) -> dict[str, Any]:

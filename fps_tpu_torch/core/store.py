@@ -73,10 +73,18 @@ def _positions(x) -> tuple[bool, list]:
     return False, list(x)
 
 
-def _mesh_of(blocks: list[Tensor], num_shards: int) -> PSMesh:
-    """The mesh the blocks lie on: ``len(blocks) // num_shards`` data
-    replicas of ``num_shards`` shards, each position on its block's
-    device."""
+def _mesh_of(blocks: list[Tensor], num_shards: int,
+             mesh: PSMesh | None = None) -> PSMesh:
+    """The mesh the blocks lie on: ``mesh`` when given (its process's
+    blocks), else one process's ``len(blocks) // num_shards`` data replicas
+    of ``num_shards`` shards, each position on its block's device."""
+    if mesh is not None:
+        if len(blocks) != len(mesh.local) or mesh.shape[
+                SHARD_AXIS] != num_shards:
+            raise ValueError(f"{len(blocks)} blocks of {num_shards} shards "
+                             f"on a mesh {dict(mesh.shape)} of "
+                             f"{len(mesh.local)} own positions")
+        return mesh
     W = len(blocks)
     if num_shards < 1 or W % num_shards:
         raise ValueError(f"{W} blocks do not make data replicas of "
@@ -96,7 +104,8 @@ def _result(one: bool, out: list):
 # ---------------------------------------------------------------------------
 
 def pull(blocks, ids, *, num_shards: int, dense: bool = False,
-         hot_rows: int = 0, head_prefix: int = 0, exact: bool = False):
+         hot_rows: int = 0, head_prefix: int = 0, exact: bool = False,
+         mesh: PSMesh | None = None):
     """Rows of the table for each worker's ``ids`` (``(B,)`` int32):
     ``(B, dim)`` a worker, zero rows for padding (``-1``) and other
     out-of-range ids. Replaces the reference's pull / ``onPullRecv`` /
@@ -115,10 +124,15 @@ def pull(blocks, ids, *, num_shards: int, dense: bool = False,
     ``psum_scatter`` hands each worker its rows. ``dense``: the
     replicate-on-read route, each worker gathering by physical row from the
     all-gathered table.
+
+    ``mesh``: the mesh of the blocks, which must be given when it spans
+    several processes (then ``blocks`` and ``ids`` are this process's
+    positions' and so is the result); by default the blocks are every
+    position's, on one process.
     """
     one, blocks = _positions(blocks)
     ids = _positions(ids)[1]
-    mesh = _mesh_of(blocks, num_shards)
+    mesh = _mesh_of(blocks, num_shards, mesh)
     S = num_shards
     if dense:
         full = collectives.all_gather(mesh, blocks, SHARD_AXIS)
@@ -127,15 +141,15 @@ def pull(blocks, ids, *, num_shards: int, dense: bool = False,
                                              exact=exact)
                              for f, i in zip(full, ids)])
     vals = []
-    for p, (blk, a) in enumerate(zip(blocks, collectives.all_gather(
-            mesh, ids, SHARD_AXIS))):
+    for p, blk, a in zip(mesh.local, blocks, collectives.all_gather(
+            mesh, ids, SHARD_AXIS)):
         if S == 1:
             # One shard owns every id at its own row: the gathered stream
             # is its data replica's, the worker's own on a one-position
             # mesh, where the head-prefix guarantee holds.
             vals.append(ops.gather_rows(
                 blk, a, hot_rows=hot_rows,
-                head_prefix=head_prefix if len(blocks) == 1 else 0,
+                head_prefix=head_prefix if len(mesh.slot) == 1 else 0,
                 exact=exact))
             continue
         owned = (a % S) == p % S
@@ -156,7 +170,7 @@ def push(blocks, ids, deltas, *, num_shards: int,
          apply_fn: Callable[[Tensor, Tensor], Tensor] | None = None,
          combine: str | Callable[[Tensor, Tensor], Tensor] = "sum",
          hot_rows: int = 0, head_prefix: int = 0, dense: bool = False,
-         inplace: bool = False):
+         inplace: bool = False, mesh: PSMesh | None = None):
     """Fold every worker's ``deltas`` for its ``ids`` into the table.
 
     Args:
@@ -192,6 +206,7 @@ def push(blocks, ids, deltas, *, num_shards: int,
         in shard order, then over the data replicas in replica order.
       inplace: update the blocks themselves (what ``TrainerConfig.donate``
         asks for) instead of returning new tensors.
+      mesh: the mesh of the blocks, as in :func:`pull`.
 
     The gathered route gathers the pushes over the data axis, then over the
     shard axis, as the JAX package does, so the stream every shard folds
@@ -208,7 +223,7 @@ def push(blocks, ids, deltas, *, num_shards: int,
         raise ValueError(f"unknown combine mode {combine!r}")
     one, blocks = _positions(blocks)
     ids, deltas = _positions(ids)[1], _positions(deltas)[1]
-    mesh = _mesh_of(blocks, num_shards)
+    mesh = _mesh_of(blocks, num_shards, mesh)
     S = num_shards
     if dense and apply_fn is None and combine == "sum":
         return _result(one, _dense_push(mesh, blocks, ids, deltas, S,
@@ -217,12 +232,12 @@ def push(blocks, ids, deltas, *, num_shards: int,
         mesh, collectives.all_gather(mesh, ids, DATA_AXIS), SHARD_AXIS)
     gdeltas = collectives.all_gather(
         mesh, collectives.all_gather(mesh, deltas, DATA_AXIS), SHARD_AXIS)
-    hp = head_prefix if len(blocks) == 1 else 0
+    hp = head_prefix if len(mesh.slot) == 1 else 0
     return _result(one, [
         _fold(blk, a, dl, shard=p % S, num_shards=S, apply_fn=apply_fn,
               combine=combine, hot_rows=hot_rows, head_prefix=hp,
               inplace=inplace)
-        for p, (blk, a, dl) in enumerate(zip(blocks, gids, gdeltas))])
+        for p, blk, a, dl in zip(mesh.local, blocks, gids, gdeltas)])
 
 
 def _dense_rows(ids: Tensor, S: int, rps: int) -> Tensor:
@@ -428,9 +443,12 @@ class ParamStore:
 
     ``tables`` is the live ``{name: Blocks}`` dict, each table one
     ``(rps, dim)`` block a mesh position (:class:`~fps_tpu_torch.parallel.
-    mesh.Blocks`, replicated over the data axis); the trainer keeps it
-    pointed at the newest blocks after every chunk. :meth:`table` reads a
-    whole table, :meth:`put` writes one.
+    mesh.Blocks`, replicated over the data axis; over several processes
+    this process's positions' blocks); the trainer keeps it pointed at the
+    newest blocks after every chunk. :meth:`table` reads a whole table,
+    :meth:`put` writes one. Over several processes :meth:`table`,
+    :meth:`lookup_host` and :meth:`dump_model` are collectives: every
+    process calls them, and each gets the whole result.
     """
 
     def __init__(self, mesh: PSMesh,
@@ -444,27 +462,28 @@ class ParamStore:
 
     def init(self, seed: int) -> dict[str, Blocks]:
         """Make every table from ``seed`` (each table from its own
-        sub-seed, keyed by its name): each position makes its shard's block
-        from the id-seeded initializer, on its own device."""
-        S = self.num_shards
+        sub-seed, keyed by its name): each of this process's positions makes
+        its shard's block from the id-seeded initializer, on its own
+        device."""
+        S, mesh = self.num_shards, self.mesh
         for name, spec in self.specs.items():
             sub = fold_seed(seed, _stable_hash(name))
             self.tables[name] = Blocks(
                 [make_table_values(sub, spec.num_ids, spec.dim, S,
                                    spec.init_fn, spec.dtype, dev,
                                    shard=p % S)
-                 for p, dev in enumerate(self.mesh.positions)],
-                replicas=self.mesh.shape[DATA_AXIS])
+                 for p, dev in zip(mesh.local, mesh.positions)],
+                replicas=mesh.shape[DATA_AXIS], mesh=mesh)
         return self.tables
 
     def table(self, name: str) -> Tensor:
         """The whole ``(S * rps, dim)`` physical table on the mesh's home
-        device: on one shard the live block itself (no copy), else the
-        shards of data replica 0 joined."""
+        device: on one process and one shard the live block itself (no
+        copy), else the shards of data replica 0 joined."""
         parts = self.tables[name].distinct
         if len(parts) == 1:
             return parts[0]
-        return torch.cat(collectives.gather_home(self.mesh, parts))
+        return torch.cat(collectives.home(self.mesh, parts))
 
     def put(self, name: str, full: Tensor) -> Blocks:
         """Set table ``name`` from its whole ``(S * rps, dim)`` physical
@@ -472,7 +491,7 @@ class ParamStore:
         self.tables[name] = Blocks(
             collectives.replicate(
                 self.mesh, torch.chunk(full, self.num_shards)),
-            replicas=self.mesh.shape[DATA_AXIS])
+            replicas=self.mesh.shape[DATA_AXIS], mesh=self.mesh)
         return self.tables[name]
 
     def lookup_host(self, name: str, ids: np.ndarray) -> np.ndarray:

@@ -139,7 +139,7 @@ class IALSSolver:
         position (``fixed``: the table's blocks, one a position): each
         shard's own, summed over the shard axis."""
         parts = []
-        for p, blk in enumerate(fixed):
+        for p, blk in zip(self.mesh.local, fixed):
             valid = self._valid(num_ids, blk.shape[0], p % self.num_shards,
                                 blk.device)
             rows = torch.where(valid[:, None], blk,
@@ -156,10 +156,10 @@ class IALSSolver:
         each worker's columns (:meth:`half_epoch` cuts them)."""
         cfg = self.cfg
         k = cfg.rank
-        S = self.num_shards
+        S, mesh = self.num_shards, self.mesh
         for t in range(chunk[0]["solve_ids"].shape[0]):
             fixed_ids = [c["fixed_ids"][t].to(torch.int32) for c in chunk]
-            ys = pull(fixed, fixed_ids, num_shards=S)
+            ys = pull(fixed, fixed_ids, num_shards=S, mesh=mesh)
             ids, outers, vecs = [], [], []
             for c, y in zip(chunk, ys):
                 r = c["rating"][t].to(cfg.dtype)
@@ -170,8 +170,8 @@ class IALSSolver:
                 vecs.append(((1.0 + cfg.alpha * r) * w)[:, None] * y)
                 ids.append(torch.where(
                     w > 0, c["solve_ids"][t].to(torch.int32), -1))
-            push(A, ids, outers, num_shards=S, inplace=True)
-            push(b, ids, vecs, num_shards=S, inplace=True)
+            push(A, ids, outers, num_shards=S, inplace=True, mesh=mesh)
+            push(b, ids, vecs, num_shards=S, inplace=True, mesh=mesh)
 
     def _solve(self, gram, A, b, num_ids: int) -> list[Tensor]:
         """The solved ``(rps, k)`` block of each position (its Gramian and
@@ -179,7 +179,7 @@ class IALSSolver:
         cfg = self.cfg
         k = cfg.rank
         out = []
-        for p, (g, a, v) in enumerate(zip(gram, A, b)):
+        for p, g, a, v in zip(self.mesh.local, gram, A, b):
             lhs = g[None] + a.reshape(-1, k, k)
             lhs = lhs + cfg.reg * torch.eye(k, dtype=cfg.dtype,
                                             device=a.device)[None]
@@ -204,7 +204,8 @@ class IALSSolver:
         them), which are used as they are, with no host round trip. ``B``
         is the global batch, a multiple of ``num_workers`` (every position
         of the mesh), worker ``w`` taking columns ``[w * B / W, (w + 1) *
-        B / W)``.
+        B / W)``. Over several processes every process passes the same
+        chunks and places its own workers' columns.
         """
         cfg = self.cfg
         if solve == "user":
@@ -231,12 +232,12 @@ class IALSSolver:
              for dev in mesh.positions]
 
         def place(chunk):
-            return place_columns({
+            return place_columns(collectives.own_columns(mesh, {
                 "solve_ids": chunk[solve_col],
                 "fixed_ids": chunk[fixed_col],
                 "rating": chunk["rating"],
                 "weight": chunk["weight"],
-            }, self.device)
+            }, 1), self.device)
 
         pf = (ChunkPrefetcher(chunks, place, depth=self.prefetch,
                               device=self.device) if self.prefetch else None)
@@ -244,18 +245,19 @@ class IALSSolver:
             for placed in pf if pf is not None else map(place, chunks):
                 # Worker w takes columns [w * B, (w + 1) * B) of the (T,
                 # W * B) chunk, on its device (the JAX package's P(None,
-                # ('data', 'shard'))).
-                cols = {k: collectives.scatter_workers(mesh, v, 1)
+                # ('data', 'shard'))); the process placed its own workers'.
+                cols = {k: collectives.scatter_local(mesh, v, 1)
                         for k, v in placed_batches(placed,
                                                    self.device).items()}
                 self._accumulate(fixed, A, b, [
-                    {k: v[w] for k, v in cols.items()}
-                    for w in range(self.num_workers)])
+                    {k: v[i] for k, v in cols.items()}
+                    for i in range(len(mesh.local))])
         finally:
             if pf is not None:
                 pf.close()
         self.store.tables[solve_name] = Blocks(
-            self._solve(gram, A, b, solve_n), replicas=self.num_data)
+            self._solve(gram, A, b, solve_n), replicas=self.num_data,
+            mesh=mesh)
 
     def epoch(self, make_chunks) -> None:
         """One full ALS epoch. ``make_chunks()`` returns a fresh chunk

@@ -85,8 +85,8 @@ def build_topk_fn(store: ParamStore, table: str, k: int,
     unused slots; ignored when ``exclude_capacity`` is 0), both on the
     mesh's home device and replicated to every position (the JAX package's
     ``P()``). Every position scores its block; the shard axis all-gathers
-    the candidates; position 0's pool is merged (every position's holds the
-    same). Returns ``ids (B, k)`` int32 and ``scores (B, k)``, best first,
+    the candidates; the process's first position's pool is merged (every
+    position's holds the same). Returns ``ids (B, k)`` int32 and ``scores (B, k)``, best first,
     on the home device.
     """
     mesh = store.mesh
@@ -97,8 +97,8 @@ def build_topk_fn(store: ParamStore, table: str, k: int,
     def fn(tables, queries, exclude):
         cands = [_score_and_local_topk(blk, q, shard=p % S, num_shards=S,
                                        num_ids=spec.num_ids, n=cand)
-                 for p, (blk, q) in enumerate(zip(
-                     tables[table], collectives.broadcast(mesh, queries)))]
+                 for p, blk, q in zip(mesh.local, tables[table],
+                                      collectives.broadcast(mesh, queries))]
         # (B, S * n): the shards' candidates side by side, in shard order.
         top_s = collectives.all_gather(mesh, [c[0] for c in cands],
                                        SHARD_AXIS, dim=1)[0]
@@ -119,7 +119,8 @@ def recommend_topk(store: ParamStore, table: str, queries: np.ndarray, k: int,
     """Rank ``table``'s rows for ``queries`` (host ``(B, dim)``) on the
     store's live tables; ``exclude`` an optional ``(B, E)`` int array of ids
     to mask per query (``-1`` unused). Returns ``(ids, scores)`` as numpy
-    arrays."""
+    arrays. Over several processes a collective: every process calls it
+    with the same queries and gets the result."""
     B = len(queries)
     E = 0 if exclude is None else int(np.asarray(exclude).shape[1])
     device = store.mesh.device
@@ -144,11 +145,11 @@ def _topk_local_queries(mesh, blocks, queries, *, num_shards: int,
     every = collectives.all_gather(mesh, queries, SHARD_AXIS)  # (S * q, dim)
     cands = [_score_and_local_topk(blk, qs, shard=p % S, num_shards=S,
                                    num_ids=num_ids, n=k)
-             for p, (blk, qs) in enumerate(zip(blocks, every))]
+             for p, blk, qs in zip(mesh.local, blocks, every)]
     out = []
-    for p, (all_s, all_i) in enumerate(zip(*(
+    for p, all_s, all_i in zip(mesh.local, *(
             collectives.all_gather(mesh, [c[j][None] for c in cands],
-                                   SHARD_AXIS) for j in (0, 1)))):
+                                   SHARD_AXIS) for j in (0, 1))):
         # (S, S * q, n): shard j's candidates for every query of the group;
         # this worker's are rows [s * q, (s + 1) * q) of each.
         s = p % S

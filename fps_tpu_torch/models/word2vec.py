@@ -666,6 +666,12 @@ class Word2VecDevicePlan:
         self.sync_every = sync_every
         self.num_tokens = int(len(dataset_tokens))
         self.device = mesh.device
+        # The workers whose blocks call_batches builds: this process's.
+        self._own = ((0, num_workers) if mesh.procs is None
+                     else (mesh.local[0], mesh.local[-1] + 1))
+        if mesh.procs is not None and num_workers != len(mesh.slot):
+            raise ValueError(f"a plan of {num_workers} workers on a mesh of "
+                             f"{len(mesh.slot)} positions over processes")
 
         tokens = np.asarray(dataset_tokens, np.int32)
         keep_p = _keep_probs(cfg, unigram_counts)
@@ -715,12 +721,13 @@ class Word2VecDevicePlan:
     def call_batches(self, args: dict, start: int,
                      steps: int) -> dict[str, Tensor]:
         """The batches of steps ``[start, start + steps)``, each column a
-        tensor with a leading step axis, the ``W`` workers' columns side by
-        side (``Trainer`` cuts them; :meth:`local_batch_at` takes one).
+        tensor with a leading step axis, the columns of this process's
+        workers (every worker's on one process) side by side (``Trainer``
+        cuts them; :meth:`local_batch_at` takes one).
         Worker ``w``'s step ``t`` reads the block at compacted position
         ``(t * W + w) * L``, as in the JAX package. Block mode: ``block
         (steps, W * (L+W))``, ``half (steps, W * L)`` and ``valid_len``
-        (``(steps,)`` for one worker, ``(steps, W)`` for several). Pairs
+        (``(steps,)`` for a plan of one worker, else ``(steps, W)``). Pairs
         mode: ``center``, ``context`` and ``weight``, each ``(steps, W * 2 *
         window * L)``, a worker's ``2 * window * L`` pairs being, for each
         ``d`` in ``1..window``, the centers ``i`` then ``i + d``, contexts
@@ -728,8 +735,8 @@ class Word2VecDevicePlan:
         L, W = self.block_len, self.cfg.window
         nw = self.num_workers
         t = torch.arange(start, start + steps, device=self.device)
-        w = torch.arange(nw, device=self.device)
-        base = (t[:, None] * nw + w) * L  # (steps, nw)
+        w = torch.arange(*self._own, device=self.device)
+        base = (t[:, None] * nw + w) * L  # (steps, own workers)
         # Steps past the epoch read clamped slots at weight 0.
         idx = torch.clamp(base[..., None] + self._span, max=self._buf_len - 1)
         block = args["compacted"][idx]  # (steps, nw, L+W)
@@ -753,10 +760,12 @@ class Word2VecDevicePlan:
                     steps, -1)}
 
     def local_batch_at(self, args: dict, w: int, t: int) -> dict[str, Tensor]:
-        """Worker ``w``'s step-``t`` batch (the JAX package's accessor)."""
-        if not 0 <= w < self.num_workers:
+        """Worker ``w``'s step-``t`` batch (the JAX package's accessor; over
+        several processes, one of this process's workers)."""
+        lo, hi = self._own
+        if not lo <= w < hi:
             raise ValueError(f"worker {w} of a {self.num_workers}-worker "
-                             "plan")
-        return {k: v[0].reshape(self.num_workers, -1)[w].reshape(
+                             f"plan (this process's: [{lo}, {hi}))")
+        return {k: v[0].reshape(hi - lo, -1)[w - lo].reshape(
                     () if k == "valid_len" else -1)
                 for k, v in self.call_batches(args, t, 1).items()}

@@ -308,7 +308,10 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.core.ingest, fps_tpu_torch.core.rng\n"
         "import fps_tpu_torch.core.store, fps_tpu_torch.ops\n"
         "import fps_tpu_torch.ops._build, fps_tpu_torch.ops.kernels\n"
+        "import torch.distributed\n"
         "import fps_tpu_torch.parallel.mesh, fps_tpu_torch.utils.datasets\n"
+        "import fps_tpu_torch.parallel.collectives\n"
+        "from fps_tpu_torch.parallel.mesh import init_distributed\n"
         "import fps_tpu_torch.utils.trace_summary\n"
         "import fps_tpu_torch.models.matrix_factorization\n"
         "import fps_tpu_torch.models.recommendation\n"
