@@ -734,10 +734,8 @@ def _tree_stack(trees: list, join):
 def _sum_metrics(mesh: PSMesh, outs: list):
     """The workers' step outputs (one tree a worker of this process) as one
     tree, each leaf summed over every worker in the mesh's order
-    (:func:`~fps_tpu_torch.parallel.collectives.sum_home`); over several
-    processes every leaf travels in one exchange."""
-    if mesh.procs is None:
-        return _tree_stack(outs, lambda xs: collectives.sum_home(mesh, xs))
+    (:func:`~fps_tpu_torch.parallel.collectives.sum_home_each`; over
+    several processes every leaf travels in one exchange)."""
     leaves = []
     _tree_stack(outs, leaves.append)
     sums = iter(collectives.sum_home_each(mesh, leaves))

@@ -27,13 +27,16 @@ order, as on one process. No reduction of the library (its all-reduce or
 reduce-scatter) is used: its order is the library's choice, and the
 fixed-order folds (the dense route's sums, the shard-major stream of a
 push) must hold. Tensors travel as bytes, so every dtype takes one path.
-:func:`gather_home` (behind :func:`sum_home`, :func:`sum_home_each` and
-:meth:`Blocks.distinct`) fetches every position's tensor over all
-processes, so every process sums the step's metrics in the
-same order and gets the same bits. On a gloo group a CUDA tensor is staged
-through pinned host memory (gloo's collectives take host tensors): every
-exchange above stages so on gloo, and none does on NCCL. The kernels run on
-the positions' devices either way.
+:func:`gather_home` (behind :func:`sum_home_each`) fetches every
+position's tensor over all processes, so every process sums the step's
+metrics in the same order and gets the same bits; :func:`gather_first`
+(behind :attr:`Blocks.distinct`) broadcasts a global array's first replica
+only. On a gloo group a CUDA tensor is staged through pinned host memory
+(gloo's collectives take host tensors): every exchange above stages so on
+gloo, and none does on NCCL. The kernels run on the positions' devices
+either way. A process holds all its positions on one device
+(:func:`~fps_tpu_torch.parallel.mesh.make_ps_mesh` refuses more), so its
+tensors travel joined in one buffer.
 
 An axis of size 1 returns each position's own tensor, with no copy.
 """
@@ -64,20 +67,12 @@ def groups(mesh: PSMesh, axis: str) -> list[list[int]]:
     return axis_groups(mesh.shape[DATA_AXIS], mesh.shape[SHARD_AXIS], axis)
 
 
-def _member(mesh: PSMesh, axis: str, p: int) -> tuple[list[int], int]:
+def _member(mesh: PSMesh, axis: str, p: int) -> tuple[tuple[int, ...], int]:
     """Position ``p``'s group along ``axis`` and its index in it."""
-    got = mesh.members.get((axis, p))
-    if got is None:
-        S = mesh.shape[SHARD_AXIS]
-        d, s = divmod(p, S)
-        if axis == SHARD_AXIS:
-            got = [d * S + j for j in range(S)], s
-        elif axis == DATA_AXIS:
-            got = [j * S + s for j in range(mesh.shape[DATA_AXIS])], d
-        else:
-            raise ValueError(f"unknown mesh axis {axis!r}")
-        mesh.members[axis, p] = got
-    return got
+    try:
+        return mesh.member[axis][p]
+    except KeyError:
+        raise ValueError(f"unknown mesh axis {axis!r}") from None
 
 
 def _fold(parts: Sequence[Tensor], device: torch.device) -> Tensor:
@@ -356,27 +351,44 @@ def gather_home(mesh: PSMesh, xs: Sequence[Tensor]) -> list[Tensor]:
     return [known[w] for w in range(len(mesh.slot))]
 
 
+def gather_first(mesh: PSMesh, xs: Sequence[Tensor], n: int) -> list[Tensor]:
+    """The tensors of positions ``[0, n)`` (``xs``: this process's, of one
+    shape and dtype), on the home device of every process of a mesh over
+    several processes: a collective, in which each process that holds some
+    of them broadcasts those, so each process receives each tensor once."""
+    _check(mesh, xs)
+    import torch.distributed as dist
+
+    procs, like = mesh.procs, xs[0]
+    staged, size = _staged(dist.group.WORLD, like), _nbytes(like)
+    out = []
+    for r in range(procs.world):
+        held = [w for w in procs.positions_of(r) if w < n]
+        if not held:
+            break
+        if r == procs.rank:
+            buf = _pack([xs[mesh.slot[w]] for w in held], staged)
+        else:
+            buf = _empty(len(held) * size, like, staged)
+        dist.broadcast(buf, src=r)
+        out += [_unpack(buf[i * size:(i + 1) * size], like, mesh.device)
+                for i in range(len(held))]
+    return out
+
+
 def _sum_in_order(mesh: PSMesh, every: Sequence[Tensor]) -> Tensor:
     """Each replica's shards folded in index order, then the replicas."""
     return _fold([_fold([every[p] for p in g], mesh.device)
                   for g in groups(mesh, SHARD_AXIS)], mesh.device)
 
 
-def sum_home(mesh: PSMesh, xs: Sequence[Tensor]) -> Tensor:
-    """``psum(psum(x, 'shard'), 'data')`` on the home device: each replica's
-    shards folded in index order, then the replicas. Over several processes
-    every process folds every position's tensor in that order."""
-    _check(mesh, xs)
-    if mesh.procs is None:
-        return _sum_in_order(mesh, xs)
-    return _sum_in_order(mesh, gather_home(mesh, xs))
-
-
 def sum_home_each(mesh: PSMesh, leaves: Sequence[Sequence[Tensor]]
                   ) -> list[Tensor]:
-    """:func:`sum_home` of each of ``leaves`` (each one tensor a position of
-    this process). Over several processes every position's leaves travel
-    in one exchange, joined as bytes."""
+    """``psum(psum(x, 'shard'), 'data')`` of each ``x`` of ``leaves`` (one
+    tensor a position of this process), on the home device: each replica's
+    shards folded in index order, then the replicas. Over several processes
+    every position's leaves travel in one exchange, joined as bytes, and
+    every process folds every position's in that order."""
     if mesh.procs is None:
         return [_sum_in_order(mesh, xs) for xs in leaves]
     if not leaves:

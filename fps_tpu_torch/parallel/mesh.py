@@ -76,6 +76,8 @@ class PSMesh:
     (over several processes, each position's device as its rank named it).
     ``local`` holds this process's positions (worker indices, ascending):
     every position on one process. ``procs`` is ``None`` on one process.
+    ``member[axis][w]`` is position ``w``'s group along ``axis`` (as
+    :func:`axis_groups` gives it) and its index in that group.
     """
 
     shape: Mapping[str, int]
@@ -94,8 +96,15 @@ class PSMesh:
         for i, w in enumerate(self.local):
             slot[w] = i
         object.__setattr__(self, "slot", tuple(slot))
-        # (axis, position) -> (its group, its index there), filled on use.
-        object.__setattr__(self, "members", {})
+        member = {}
+        for axis in (SHARD_AXIS, DATA_AXIS):
+            at = [None] * W
+            for g in axis_groups(self.shape[DATA_AXIS],
+                                 self.shape[SHARD_AXIS], axis):
+                for i, p in enumerate(g):
+                    at[p] = (tuple(g), i)
+            member[axis] = tuple(at)
+        object.__setattr__(self, "member", member)
 
     @property
     def device(self) -> torch.device:
@@ -131,13 +140,18 @@ def make_ps_mesh(num_shards: int | None = None, num_data: int = 1, *,
       num_data: size of the replicated data-parallel axis.
       devices: this process's torch devices, one a position, in row-major
         ``(data, shard)`` order; a device may repeat. Default: every visible
-        CUDA device, as the JAX package's default is ``jax.devices()``.
+        CUDA device, as the JAX package's default is ``jax.devices()``
+        (over several processes: the card :func:`init_distributed` made
+        current, with one position on it, or ``W / P`` where ``num_shards``
+        is given).
       device: put every position of this process on this one device
         (``"cpu"`` for the tests; ``"cuda:0"`` for several positions on one
         card). Then ``num_shards`` defaults to 1.
 
     After :func:`init_distributed` the shape is global and every process
-    passes its own devices (``device``: ``W / P`` positions on it): rank
+    passes its own devices (``device``: ``W / P`` positions on it), all of
+    them one device (the exchanges between processes join a process's
+    tensors in one buffer, and NCCL takes one card a process): rank
     ``r`` owns positions ``[r * W / P, (r + 1) * W / P)``. Every process must
     call it, with the same shape: it makes the process groups of the axes
     that cross processes, each process calling ``new_group`` for every group
@@ -148,8 +162,9 @@ def make_ps_mesh(num_shards: int | None = None, num_data: int = 1, *,
         available.
       ValueError: the devices do not divide by ``num_data``, or the shape
         does not cover them (the JAX package's words); over several
-        processes, the positions do not split evenly over the processes, or
-        a group would take unequal counts from them.
+        processes, the positions do not split evenly over the processes, a
+        group would take unequal counts from them, or a process names more
+        than one device.
     """
     if devices is not None and device is not None:
         raise ValueError("make_ps_mesh: pass devices or device, not both")
@@ -166,11 +181,27 @@ def make_ps_mesh(num_shards: int | None = None, num_data: int = 1, *,
             raise RuntimeError(
                 "make_ps_mesh: CUDA is not available and no device was "
                 "given; pass device='cpu' to run on the CPU")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        if world:
+            # One card a process, the one init_distributed made current.
+            per_rank = 1
+            if num_shards is not None:
+                n = num_data * num_shards
+                if n % world:
+                    raise ValueError(
+                        f"mesh of {n} positions over {world} processes")
+                per_rank = n // world
+            devices = [_device("cuda")] * per_rank
+        else:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
     devices = [_device(d) for d in devices]
     local = None
     if world:
+        if len(set(devices)) > 1:
+            raise ValueError(
+                "make_ps_mesh: over several processes a process holds its "
+                f"positions on one device, not on {len(set(devices))} "
+                f"({', '.join(sorted(map(str, set(devices))))})")
         devices, local = _global_devices(devices, world)
     n = len(devices)
     if num_shards is None:
@@ -371,13 +402,15 @@ class Blocks(tuple):
     def distinct(self) -> tuple:
         """The blocks that make the global array (no replicas). Over
         several processes a collective: every process gets them all, on
-        its home device."""
+        its home device, each sent once by the process that holds its
+        first replica."""
         if self.mesh is None:
             return tuple(self[:len(self) // self.replicas])
         from fps_tpu_torch.parallel import collectives
 
-        every = collectives.gather_home(self.mesh, list(self))
-        return tuple(every[:len(every) // self.replicas])
+        return tuple(collectives.gather_first(
+            self.mesh, list(self),
+            num_workers_of(self.mesh) // self.replicas))
 
     def numpy(self) -> np.ndarray:
         """The global array on the host (the JAX package's layout); a

@@ -407,7 +407,9 @@ def collectives_scenario(mesh_of, init, out):
                 mesh, mine(inp[f"a_{axis}"]), axis)
             res[f"psum_{axis}"] = collectives.psum(mesh, x, axis)
             res[f"psum_int_{axis}"] = collectives.psum(mesh, n, axis)
-        res["sum_home"] = [collectives.sum_home(mesh, x)] * len(own)
+        summed = collectives.sum_home_each(mesh, [x, n])
+        res["sum_home"] = [summed[0]] * len(own)
+        res["sum_home_int"] = [summed[1]] * len(own)
         res["gather_home"] = [torch.stack(collectives.gather_home(mesh, x))
                               ] * len(own)
         shards = np.split(inp["table"], S)

@@ -413,8 +413,10 @@ def test_collectives_cover_every_position_and_match_their_definition(run, D,
     for axis in (tmesh.SHARD_AXIS, tmesh.DATA_AXIS):
         for w in range(D * S):
             got = ranks[w // 4]
-            g, i = mpw.collectives._member(mpw.one_process_mesh(D, S), axis,
-                                           w)
+            d, s = divmod(w, S)
+            g, i = (([d * S + j for j in range(S)], s)
+                    if axis == tmesh.SHARD_AXIS else
+                    ([j * S + s for j in range(D)], d))
             pre = f"coll/{D}x{S}"
             np.testing.assert_array_equal(
                 got[f"{pre}/all_gather_{axis}/{w}"],
@@ -568,4 +570,16 @@ def test_uneven_layouts_are_refused_before_any_group_is_made():
     with pytest.raises(ValueError, match="whole data replicas"):
         tmesh._make_procs({tmesh.DATA_AXIS: 2, tmesh.SHARD_AXIS: 4}, 6, 2)
     # This process never joined a group: the ranks are subprocesses.
+    assert not dist.is_initialized()
+
+
+def test_a_process_on_more_than_one_device_is_refused(monkeypatch):
+    """Over processes a process holds its positions on one device (its
+    tensors travel joined in one buffer, and NCCL takes one card a
+    process): ``make_ps_mesh`` refuses more before any exchange."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(tmesh, "_world", lambda: 2)
+    with pytest.raises(ValueError, match="on one device, not on 2"):
+        tmesh.make_ps_mesh(4, 2, devices=["cpu", "cpu:1", "cpu", "cpu"])
     assert not dist.is_initialized()
