@@ -49,7 +49,11 @@ on the card, raising on the first failure:
    ``bench.py run_ials`` makes it (32,768 users, 16,384 Zipf-skewed items,
    rank 16, B = 65,536, the path's first step): the fixed side's pulls at
    D = 16 in both halves and the ``A`` (D = 256) and ``b`` (D = 16) pushes
-   keyed by users and by items. K4 at the word2vec sketch tap's stack (16
+   keyed by users and by items. K1, K2, K5 and K4 at the hot tier's
+   shapes from phase 9's first step: the replica pull, the reconcile's
+   gather of a shard's owned rows, the pending buffers' scatters (MF's
+   2,048 x 17 mean buffer, logistic regression's 2,048 x 1). K4 at the
+   word2vec sketch tap's stack (16
    probes x 5 x 1,024 = 81,920 rows, two row tiles, the 409,600 items of
    the block path's first step). K4's bucket pass by row tile,
    where its plan has one (the 1M-row logistic-regression table), must
@@ -168,7 +172,8 @@ on the card, raising on the first failure:
    gloo ranks of 2 positions each, MF one sync epoch at (1, 4) and one SSP
    epoch (s = 4) at (2, 2), binary PA-I one epoch at (1, 4), the word2vec
    block worker one ``run_indexed`` call of 32 steps at (1, 4), iALS one
-   epoch at (1, 4), each rank after one uncounted MF call of 64 steps
+   epoch at (1, 4), phase 9's ``head_compact`` arm at (1, 4) for 32 steps
+   (the hot tier), each rank after one uncounted MF call of 64 steps
    (its first use of each kernel and exchange). Every job's tables, local
    state and metrics on every rank must equal, bit for bit, the same job
    run by this process alone on a mesh of the same shape, with K1 2 and
@@ -178,7 +183,35 @@ on the card, raising on the first failure:
    killed. It prints each job's ms a step and the share of it in
    cross-process exchange; two ranks share one card through host
    staging, so these times measure that, not scaling;
-9. prints one JSON line describing every ported kernel, then, as the last
+9. drives the static hot tier (``TableSpec.hot_tier``, ``hot_sync_every``,
+   ``cold_budget``, ``ServerLogic.hot_fold``), every position on
+   ``cuda:0``, every launch counter at 0 just before each run and read just
+   after: ``bench.py run_tiered``'s five arms at its widths on a (2, 4)
+   mesh (online MF, 4,096 users and items, rank 16, lr 0.05, the mean
+   combine, windows of 4, local batch 1,024, chunks of 8 steps of
+   Zipf(1.05) ratings; ``off``, ``on`` (the whole item table replicated),
+   ``head`` (2,048 rows, the gathered route), ``head_compact`` (lanes of
+   256) and ``ssp`` (``head_compact`` at s = 2)), each from fresh state
+   after 2 warm-up chunks through ``fit_stream``: the train RMSE must
+   fall, the replica must equal the canonical head rows bit for bit after
+   every call, the hit counts must equal numpy's, ``cold_dropped`` must be
+   0 with every chunk certified, ``head_compact``'s tables must equal
+   ``head``'s bit for bit, and each arm must launch what the code gives (a
+   position a step: off K1 2, K2 2; on K1 2, K2 2; head K1 3, K2 3;
+   head_compact K1 4, K2 3; ssp K1 2, K2 3; and K1 once a position a
+   reconcile); it prints each arm's ms a step, examples/s, launches, the
+   exchanges a step and their bytes (the reconcile's apart from the
+   routes'), the hit rate and ``delta_sq``. Then phase 4's SSP logistic
+   regression at (1, 4) with a head of 2,048 and windows of 8 for one
+   epoch (K5 1 and K4 2 a position a step, K5 once a position a round;
+   log loss below 0.693); arm ``on`` with an Adagrad hot fold for 4
+   chunks (the RMSE falls, the fold state finite and sharded); and small
+   tiered jobs at (2, 4), card against CPU (MF ``head_compact`` sync and
+   SSP, logistic regression with a partial head, Adagrad and Adam folds,
+   the max combine; tables, replicas and fold states within 1e-5 of the
+   largest value). Phase 8 also runs the ``head_compact`` arm at (1, 4)
+   over its two gloo ranks for 32 steps, bit-equal to one process;
+10. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -411,7 +444,8 @@ def gather_breakdown(torch, inputs):
             "gather_rows_kernel")
         if launched != {want: 1}:
             raise AssertionError(f"{label}: traced launches a call "
-                                 f"{launched}, expected {{{want!r}: 1}}")
+                                 f"{launched}, expected {{{want!r}: 1}} "
+                                 f"(window records {TRACE_WINDOWS[-1]})")
         out[label] = {"device_us": us, "launches": launched,
                       "kernels_per_call": 1}
         log(f"gather breakdown, {label}, a call: " + json.dumps(out[label]))
@@ -501,12 +535,41 @@ def check_scatter(torch, label, kernel, plain, table, ids, deltas, path,
     return case
 
 
+# Every traced window's records (profiled): raw event count, device-side
+# records, host-side launch calls, whether the spin kernel was recorded, and
+# the kernels counted; the JSON line carries them.
+TRACE_WINDOWS = []
+# A window whose device-side records lack the spin kernel (the tracer lost
+# them; the host side shows the launches) is traced again, at most this
+# many times in all.
+PROFILE_ATTEMPTS = 3
+
+
+def window_records(torch, events, calls):
+    """What one traced window recorded: ``prof.events()``' count, its
+    device-side records (CUDA kernels, copies, memsets), the host's launch
+    calls, and whether the spin kernel that opens the window is among the
+    device records (the tracer's sentinel: a window without it lost its
+    device records, whatever the traced calls launched)."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    launches = [e for e in events if e.device_type != DeviceType.CUDA
+                and re.search(r"(cuda|cu)LaunchKernel", e.name)]
+    return {"events": len(events), "device_records": len(device),
+            "host_launch_calls": len(launches),
+            "spin_kernel": any("spin_kernel" in e.name for e in device),
+            "calls": calls}
+
+
 def profiled(torch, fn, calls=10):
     """Device µs and launches a call of each kernel of K2 and its sort
     (``radix_*``, ``rows_*``), of K3 (``packed_*``), of K4 (``dim1_*``) and
     of K1 and K5 (``gather_*``) over ``calls`` calls
     of ``fn``, from ``torch.profiler``: ``({name: µs}, {name:
-    launches})``."""
+    launches})``. Each window's records are kept in ``TRACE_WINDOWS``; a
+    window whose device records lack the spin kernel is traced again (at
+    most ``PROFILE_ATTEMPTS`` windows), and the last is counted."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -518,17 +581,25 @@ def profiled(torch, fn, calls=10):
     # the window opens, a spin kernel (not traced by name) runs first on the
     # card, and the host waits again after the card is done, before the
     # window closes.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            time.sleep(PROFILE_PAD_S)
-            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-            prof.step()
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
+                torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+                prof.step()
+        records = dict(window_records(torch, prof.events(), calls),
+                       attempt=attempt)
+        TRACE_WINDOWS.append(records)
+        if records["spin_kernel"]:
+            break
+        log("traced window without its spin kernel (device records lost), "
+            "tracing again: " + json.dumps(records))
     us, count = {}, {}
     for ev in prof.key_averages():
         name = re.search(r"\b(radix_\w+|rows_\w+|packed_\w+|dim1_\w+|"
@@ -539,9 +610,10 @@ def profiled(torch, fn, calls=10):
             getattr(ev, "device_time_total", 0)
             or getattr(ev, "cuda_time_total", 0)) / calls
         count[name[1]] = count.get(name[1], 0) + ev.count
+    records["kernels"] = dict(count)
     if any(n % calls for n in count.values()):
         raise AssertionError(f"kernel launches {count} over {calls} calls "
-                             "are not the same each call")
+                             f"are not the same each call ({records})")
     return us, {k: n // calls for k, n in count.items()}
 
 
@@ -3071,7 +3143,9 @@ P8_MF_STEPS, P8_W2V_STEPS = 64, 32
 P8_DEVICE, P8_ONE_RANK_BACKEND = "cuda:0", "nccl"
 # The gloo ranks' jobs, in order (p8_job).
 P8_GLOO_JOBS = ("mf_sync_1x4", "mf_ssp_2x2", "pa_1x4", "w2v_1x4",
-                "ials_1x4")
+                "ials_1x4", "tiered_1x4")
+# The hot tier's gloo job: phase 9's head_compact arm at (1, 4), 32 steps.
+P8_TIER_CHUNKS = 4
 
 
 def p8_save(where, mf_data, pa_data, tokens, uni, ials_chunks):
@@ -3107,8 +3181,9 @@ def p8_trained(result):
         out = {f"table/{k}": v.numpy() for k, v in tables.items()}
         if not isinstance(local, tuple):
             out["local"] = local.numpy()
-        for k in metrics[0]:
-            out[f"metrics/{k}"] = np.concatenate([m[k] for m in metrics])
+        flat = [flat_metrics(m) for m in metrics]
+        for k in flat[0]:
+            out[f"metrics/{k}"] = np.concatenate([m[k] for m in flat])
         return out
     return read
 
@@ -3168,6 +3243,20 @@ def p8_job(torch, fps, job, mesh_of, data):
         return ("w2v block, mesh 1x4, run_indexed", mesh,
                 lambda: p8_trained(trainer.run_indexed(*state, plan, 0)),
                 P8_W2V_STEPS, {"gather_rows": 2, "scatter_add": 2})
+    if job == "tiered_1x4":
+        from fps_tpu_torch.utils import datasets as ds
+
+        mesh = mesh_of(1, 4)
+        trainer, _ = tier_mf(fps, mesh, TIER_H, TIER_C, True, None)
+        chunks = tier_chunks(ds.zipf_ratings(
+            TIER_NU, TIER_NI, 4 * TIER_LOCAL * TIER_SPC * P8_TIER_CHUNKS,
+            seed=0), 4, None)[:P8_TIER_CHUNKS]
+        steps = sum(c["weight"].shape[0] for c in chunks)
+        state = trainer.init_state(0)
+        k1, k2 = TIER_LAUNCHES["head_compact"]
+        return ("MF tiered head_compact, mesh 1x4, fit_stream", mesh,
+                lambda: p8_trained(trainer.fit_stream(*state, chunks, 1)),
+                steps, {"gather_rows": k1 + 1 / TIER_E, "scatter_add": k2})
     assert job == "ials_1x4", job
     mesh = mesh_of(1, 4)
     solver = fps.IALSSolver(mesh, fps.IALSConfig(
@@ -3413,6 +3502,559 @@ def process_phase(torch, fps, kernels, mf_data, pa_data, pa_q, tokens, uni,
                     "host staging: not scaling"}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the static hot tier (TableSpec.hot_tier, hot_sync_every,
+# cold_budget, ServerLogic.hot_fold).
+# ---------------------------------------------------------------------------
+
+# bench.py run_tiered (:946-1180) at its own widths: online MF, 4,096 users
+# and items, rank 16, lr 0.05, mean combine, windows of 4 steps, local
+# batch 1,024, 8 steps a chunk, 12 chunks' worth of Zipf(1.05) ratings,
+# route_key "user", seed 5, a (2, 4) mesh (default_mesh_shape(8)).
+TIER_NU = TIER_NI = 4096
+TIER_RANK, TIER_LR, TIER_E = 16, 0.05, 4
+TIER_H, TIER_C, TIER_SSP = 2048, 256, 2
+TIER_LOCAL, TIER_SPC, TIER_CHUNKS, TIER_WARM = 1024, 8, 12, 2
+TIER_MESH = (2, 4)
+# (arm, hot_tier, cold_budget, gathered route, sync_every): run_tiered's.
+TIER_ARMS = (("off", 0, 0, False, None), ("on", TIER_NI, 0, False, None),
+             ("head", TIER_H, 0, True, None),
+             ("head_compact", TIER_H, TIER_C, True, None),
+             ("ssp", TIER_H, TIER_C, True, TIER_SSP))
+# Each arm's launches a position a step (K1, K2) and a position a
+# reconcile (K1: the owned rows' gather), read from the port's code: the
+# user factors' gather and scatter (1 each) in every arm; the item pull
+# (off: the gathered route's gather; on: the replica's; head: the
+# replica's and the cold route's; head_compact: the replica's, the lane's
+# and the lane's rows back to the batch; ssp: the snapshot's), the item
+# push (off, on: one scatter, into the table or the buffer; head,
+# head_compact, ssp: the cold push and the buffer's).
+TIER_LAUNCHES = {"off": (2, 2), "on": (2, 2), "head": (3, 3),
+                 "head_compact": (4, 3), "ssp": (2, 3)}
+# SSP logistic regression as phase 4 runs it (1M features, SGD, dense head
+# 13, s = 8), on a (1, 4) mesh with a head of 2,048 and windows of 8, one
+# epoch: K5 1 and K4 2 a position a step (the snapshot's read; the cold
+# push and the buffer's), K5 1 a position a round.
+TIER_LR_H, TIER_LR_E, TIER_LR_MESH = 2048, 8, (1, 4)
+TIER_FOLD_CHUNKS = 4
+# The hot fold's step: Adagrad scales each row's window step to about lr,
+# so lr is set to the size of a mean step here (the default, 1.0, is a
+# unit step a row).
+TIER_FOLD_LR = 0.01
+ITEM = "item_factors"
+
+
+def tier_kernel_cases(torch, kernels, cases, lr_data, dev):
+    """Phase 3 at the hot tier's shapes, from phase 9's first step of
+    worker 0: K1 the replica pull (the ``head`` arm's 2,048 x 16 replica,
+    the worker's 1,024 items with its cold slots -1) and the reconcile's
+    gather of a shard's owned rows (512 of the 2,048 x 16 step); K2 the
+    mean buffer's scatter (2,048 x 17 with the count column, the worker's
+    hot pushes); K5 the logistic-regression reconcile's gather (512 of
+    2,048 x 1) and K4 its buffer's scatter (2,048 x 1, the hot part of
+    the worker's first step, 4,096 examples of 39 ids)."""
+    from fps_tpu_torch.utils import datasets as ds
+
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    W, S = TIER_MESH[0] * TIER_MESH[1], TIER_MESH[1]
+    hl = -(-TIER_H // S)
+    own = np.arange(hl, dtype=np.int32) * S + 1  # shard 1's head rows
+    own = np.where(own < TIER_H, own, -1).astype(np.int32)
+    data = ds.zipf_ratings(TIER_NU, TIER_NI, W * TIER_LOCAL * TIER_SPC,
+                           seed=0)
+    item = tier_chunks(data, W, None)[0]["item"][0, :TIER_LOCAL]
+    hot = np.where(item < TIER_H, item, -1).astype(np.int32)
+    for label, rows, ids in (
+            (f"replica pull, {TIER_LOCAL} ids", TIER_H, hot),
+            (f"reconcile, a shard's {hl} owned rows", TIER_H, own)):
+        cases["gather_rows"].append(check_gather(
+            torch, kernels, f"K1 hot tier {rows} x {TIER_RANK}, {label}",
+            kernels.gather_rows_cuda, kernels.gather_rows_plain,
+            t(rng.normal(0, 0.1, (rows, TIER_RANK)).astype(np.float32)),
+            t(ids), "tier", collect=cases["gather_inputs"]))
+    deltas = rng.normal(0, 0.01, (TIER_LOCAL, TIER_RANK + 1)).astype(
+        np.float32)
+    deltas[:, -1] = hot >= 0  # the count column
+    cases["scatter_add"].append(check_scatter(
+        torch, f"K2 hot tier mean buffer {TIER_H} x {TIER_RANK + 1}, "
+        f"{TIER_LOCAL} pushes", kernels.scatter_add_cuda_,
+        kernels.scatter_add_plain,
+        torch.zeros((TIER_H, TIER_RANK + 1), device=dev), t(hot), t(deltas),
+        "tier", kernels, cases["k2_inputs"]))
+    lr_own = np.arange(-(-TIER_LR_H // 4), dtype=np.int32) * 4 + 1
+    cases["gather_rows_dim1"].append(check_gather(
+        torch, kernels, f"K5 hot tier logreg reconcile {TIER_LR_H} x 1, a "
+        f"shard's {lr_own.size} owned rows", kernels.gather_rows_dim1_cuda,
+        kernels.gather_rows_dim1_plain,
+        t(rng.normal(0, 0.1, (TIER_LR_H, 1)).astype(np.float32)),
+        t(lr_own), "tier_logreg", collect=cases["gather_inputs"]))
+    ids = lr_data["feat_ids"][:SPARSE_BATCH // 4].reshape(-1)
+    lr_hot = np.where(ids < TIER_LR_H, ids, -1).astype(np.int32)
+    cases["scatter_add_dim1"].append(check_k4(
+        torch, kernels, dev, f"K4 hot tier logreg buffer {TIER_LR_H} x 1, "
+        f"{lr_hot.size} pushes", torch.zeros((TIER_LR_H, 1), device=dev),
+        t(lr_hot), t(rng.normal(0, 0.01, (lr_hot.size, 1)).astype(
+            np.float32)), "tier_logreg", cases["k4_inputs"]))
+
+
+class ExchangeSpy:
+    """Counts the collectives a run calls (``parallel.collectives``' axis
+    collectives) and the bytes this process's positions hand to them (each
+    position's input tensors), split into the hot tier's reconcile (calls
+    made inside ``reconcile_hot``) and the routes (the cold pull and push,
+    the SSP snapshot). The step's metrics (``sum_home_each``) are not
+    counted. ``compact`` counts the driver's ``compact_cold`` calls."""
+
+    NAMES = ("all_gather", "psum_scatter", "all_to_all", "psum", "pmax",
+             "pmin")
+
+    def __init__(self):
+        self.calls = {"reconcile": 0, "routes": 0}
+        self.bytes = {"reconcile": 0, "routes": 0}
+        self.compact = 0
+        self._depth = 0
+        self._saved = []
+
+    def __enter__(self):
+        from fps_tpu_torch.core import driver
+        from fps_tpu_torch.parallel import collectives
+
+        def count(fn):
+            def spy(mesh, xs, axis, *a, **k):
+                kind = "reconcile" if self._depth else "routes"
+                self.calls[kind] += 1
+                self.bytes[kind] += sum(x.numel() * x.element_size()
+                                        for x in xs)
+                return fn(mesh, xs, axis, *a, **k)
+            return spy
+
+        def within(fn):
+            def spy(*a, **k):
+                self._depth += 1
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self._depth -= 1
+            return spy
+
+        def compacted(fn):
+            def spy(*a, **k):
+                self.compact += 1
+                return fn(*a, **k)
+            return spy
+
+        for name in self.NAMES:
+            self._patch(collectives, name, count)
+        self._patch(driver, "reconcile_hot", within)
+        self._patch(driver, "compact_cold", compacted)
+        return self
+
+    def _patch(self, module, name, wrap):
+        fn = getattr(module, name)
+        self._saved.append((module, name, fn))
+        setattr(module, name, wrap(fn))
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+
+def tier_mf(fps, mesh, H, C, gathered, sync_every, fold=None):
+    """run_tiered's MF trainer with the item table's tier set."""
+    import dataclasses
+
+    cfg = fps.MFConfig(num_users=TIER_NU, num_items=TIER_NI, rank=TIER_RANK,
+                       learning_rate=TIER_LR)
+    trainer, store = fps.online_mf(mesh, cfg, combine="mean",
+                                   sync_every=sync_every)
+    if H:
+        store.specs[ITEM] = dataclasses.replace(
+            store.specs[ITEM], hot_tier=H, cold_budget=C,
+            **({"dense_collectives": False} if gathered else {}))
+        trainer.config = dataclasses.replace(trainer.config,
+                                             hot_sync_every=TIER_E)
+    if fold is not None:
+        trainer.server_logic[ITEM] = dataclasses.replace(
+            trainer.server_logic[ITEM], hot_fold=fold)
+    return trainer, store
+
+
+def tier_chunks(data, W, sync_every):
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    return list(epoch_chunks(data, num_workers=W, local_batch=TIER_LOCAL,
+                             steps_per_chunk=TIER_SPC, route_key="user",
+                             sync_every=sync_every, seed=5))
+
+
+def boundary_check(torch, store, tables, name):
+    """After a call: every position's replica equals the canonical table's
+    head rows, bit for bit."""
+    from fps_tpu_torch.core.store import hot_key
+
+    rep = tables[hot_key(name)]
+    for r in rep[1:]:
+        if not torch.equal(r, rep[0]):
+            raise AssertionError(f"{name}: the replicas differ")
+    H = rep[0].shape[0]
+    want = store.lookup_host(name, np.arange(H))
+    if not np.array_equal(rep[0].cpu().numpy(), want):
+        raise AssertionError(f"{name}: the replica differs from the "
+                             "canonical head rows")
+
+
+def flat_metrics(metrics):
+    """A chunk's metrics with nested dicts as ``a/b/c`` keys."""
+    out = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}{k}/", v)
+        else:
+            out[prefix[:-1]] = np.asarray(x)
+    walk("", metrics)
+    return out
+
+
+def tier_run(torch, kernels, label, trainer, store, chunks, table, card,
+             per_step, reconcile_k, quality, warm=None):
+    """One tiered job through ``fit_stream`` from fresh state (after
+    ``warm`` chunks on fresh state, uncounted), the launch counters at 0
+    just before and read just after, the collectives counted by an
+    :class:`ExchangeSpy`, and the boundary invariant checked after every
+    call (outside the timed stretches). ``per_step``: each kernel's
+    launches a position a step; ``reconcile_k``: the kernel each reconcile
+    launches once a position. Returns ``(summary, tables, local_state,
+    host metrics)``."""
+    W = len(trainer.mesh.local)
+    if warm:
+        tables, local = trainer.init_state(0)
+        trainer.fit_stream(tables, local, warm, 9)
+    tables, local = trainer.init_state(0)
+    tiered = bool(trainer._hot_tier_map())
+    tables = trainer._attach_hot(tables)  # not timed, not counted
+    per_chunk, last, checks = [], [0.0], [0.0]
+
+    def on_chunk(i, m):
+        # A chunk's time runs from the end of the last chunk's check.
+        now = time.perf_counter()
+        per_chunk.append(now - last[0])
+        if tiered:
+            boundary_check(torch, store, trainer.store.tables, table)
+        last[0] = time.perf_counter()
+        checks[0] += last[0] - now
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with ExchangeSpy() as spy:
+        t0 = last[0] = time.perf_counter()
+        tables, local, metrics = trainer.fit_stream(tables, local, chunks, 1,
+                                                    on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0 - checks[0]
+    launched = kernels.launch_counts()
+    steps = sum(int(np.prod(c["weight"].shape[:-1])) for c in chunks)
+    s = trainer.config.sync_every
+    reconciles = 0
+    if tiered:
+        for c in chunks:
+            T = int(np.prod(c["weight"].shape[:-1]))
+            reconciles += T // s if s else -(-T // trainer.config.
+                                             hot_sync_every)
+    want = {k: v * W * steps for k, v in per_step.items()}
+    if reconcile_k:
+        want[reconcile_k] = want.get(reconcile_k, 0) + W * reconciles
+    for k in kernels.WRAPPERS:
+        if launched[k] != want.get(k, 0):
+            raise AssertionError(
+                f"{label}: {k} launched {launched[k]} times, expected "
+                f"{want.get(k, 0)} ({per_step} a position a step, "
+                f"{reconcile_k} once a position for each of {reconciles} "
+                f"reconciles, {W} positions, {steps} steps)")
+    check_finite(torch, label, tables, local)
+    checked = quality(metrics)
+    steady = per_chunk[1:] if len(per_chunk) > 1 else per_chunk
+    n = float(sum(m["n"].sum() for m in metrics))
+    summary = {
+        "path": label, "chunks": len(chunks), "steps": steps,
+        "examples": n, "seconds": elapsed, "examples_per_s": n / elapsed,
+        "ms_per_step": elapsed / steps * 1e3,
+        "steady_ms_per_step": float(np.median(steady))
+        / (steps // len(chunks)) * 1e3,
+        "launches": launched,
+        "launches_per_position_per_step": {
+            k: v / (W * steps) for k, v in launched.items() if v},
+        "reconciles": reconciles,
+        "exchanges_per_step": {k: v / steps for k, v in spy.calls.items()},
+        "exchange_bytes_per_step": {k: v / steps
+                                    for k, v in spy.bytes.items()},
+        "compact_cold_calls": spy.compact,
+        "mesh": dict(trainer.mesh.shape), "quality": checked, "card": card}
+    return summary, tables, local, metrics
+
+
+def hit_counts(chunks, H):
+    """numpy's hot and pulled ids a step over the chunks: ``(hot,
+    pulled)``, each a step's count over every worker."""
+    hot, pulled = [], []
+    for c in chunks:
+        item = c["item"].reshape(-1, c["item"].shape[-1])
+        hot.append(((item >= 0) & (item < H)).sum(1))
+        pulled.append((item >= 0).sum(1))
+    return np.concatenate(hot), np.concatenate(pulled)
+
+
+def tier_arms(torch, fps, kernels, card):
+    """Phase 9 (a): bench.py run_tiered's five arms on a (2, 4) mesh of the
+    card, each from fresh state after 2 warm-up chunks, through
+    ``fit_stream``."""
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    data = ds.zipf_ratings(TIER_NU, TIER_NI,
+                           W * TIER_LOCAL * TIER_SPC * TIER_CHUNKS, seed=0)
+    chunks = {s: tier_chunks(data, W, s) for s in (None, TIER_SSP)}
+    out, finals = {}, {}
+    for arm, H, C, gathered, s in TIER_ARMS:
+        trainer, store = tier_mf(fps, mesh, H, C, gathered, s)
+        k1, k2 = TIER_LAUNCHES[arm]
+        summary, tables, local, metrics = tier_run(
+            torch, kernels, f"MF tiered {arm}, mesh {D}x{S}, fit_stream",
+            trainer, store, chunks[s], ITEM, card,
+            per_step={"gather_rows": k1, "scatter_add": k2},
+            reconcile_k="gather_rows" if H else None, quality=falling_rmse,
+            warm=chunks[s][:TIER_WARM])
+        summary["arm"] = arm
+        hot = [flat_metrics(m) for m in metrics]
+        key = f"hot_tier/{ITEM}/"
+        if H and s is None:
+            want_hot, want_pulled = hit_counts(chunks[s], H)
+            got_hot = np.concatenate([m[key + "hot_rows"] for m in hot])
+            got_pulled = np.concatenate([m[key + "pulled_rows"]
+                                         for m in hot])
+            if not (np.array_equal(got_hot, want_hot)
+                    and np.array_equal(got_pulled, want_pulled)):
+                raise AssertionError(f"{arm}: hot_rows / pulled_rows differ "
+                                     "from numpy's counts")
+            summary["hit_rate"] = float(got_hot.sum() / got_pulled.sum())
+        if H:
+            summary["delta_sq_mean"] = float(np.mean(np.concatenate(
+                [m[key + "delta_sq"] for m in hot])))
+        if C:
+            dropped = sum(int(m[key + "cold_dropped"].sum()) for m in hot)
+            if dropped:
+                raise AssertionError(f"{arm}: cold_dropped {dropped} != 0")
+            steps = summary["steps"]
+            want = (2 if s is None else 1) * W * steps
+            if summary["compact_cold_calls"] != want:
+                raise AssertionError(
+                    f"{arm}: compact_cold called {summary['compact_cold_calls']}"
+                    f" times, expected {want}: a chunk did not certify")
+            summary["cold_dropped"] = dropped
+            summary["certified_chunks"] = len(chunks[s])
+        finals[arm] = {k: v.numpy() for k, v in tables.items()}
+        finals[arm]["local"] = local.numpy()
+        out[arm] = summary
+        log(f"phase 9, {arm}: {summary['steady_ms_per_step']:.3f} ms a step "
+            f"(steady), {summary['examples_per_s']:.0f} examples/s, launches "
+            f"a position a step {summary['launches_per_position_per_step']},"
+            f" exchanges a step {summary['exchanges_per_step']} "
+            f"({summary['exchange_bytes_per_step']} bytes), hit rate "
+            f"{summary.get('hit_rate')}, cold_dropped "
+            f"{summary.get('cold_dropped')}, delta_sq "
+            f"{summary.get('delta_sq_mean')} ({card})")
+    a, b = finals["head"], finals["head_compact"]
+    if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k])
+                                         for k in a):
+        raise AssertionError("head_compact's tables differ from head's")
+    log("phase 9: head_compact's tables, replica and local state equal "
+        "head's bit for bit")
+    return out
+
+
+def tier_logreg(torch, fps, kernels, lr_data, card):
+    """Phase 9 (b): SSP logistic regression as phase 4 runs it at (1, 4)
+    with a hot head of 2,048 and windows of 8, one epoch of phase 4's
+    data: K5 and K4 on the replica and its buffer."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+
+    D, S = TIER_LR_MESH
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.1,
+                           dense_features=LR_DENSE)
+    trainer, store = fps.logistic_regression(mesh, cfg, sync_every=8)
+    store.specs["weights"] = dataclasses.replace(store.specs["weights"],
+                                                 hot_tier=TIER_LR_H)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_LR_E)
+    chunks = list(multi_epoch_chunks(
+        lr_data, 1, num_workers=D * S, local_batch=SPARSE_BATCH // (D * S),
+        steps_per_chunk=16, sync_every=8, seed=1))
+    summary, _, _, _ = tier_run(
+        torch, kernels, f"logreg SSP SGD, dense head, hot tier, mesh {D}x{S}",
+        trainer, store, chunks, "weights", card,
+        per_step={"gather_rows_dim1": 1, "scatter_add_dim1": 2},
+        reconcile_k="gather_rows_dim1", quality=below("logloss", 0.693))
+    log(f"phase 9, logreg: {summary['steady_ms_per_step']:.3f} ms a step, "
+        f"launches a position a step "
+        f"{summary['launches_per_position_per_step']} ({card})")
+    return summary
+
+
+def tier_fold(torch, fps, kernels, card):
+    """Phase 9 (c): arm ``on`` with an Adagrad hot fold for 4 chunks: the
+    RMSE falls, the fold state is finite and sharded over the shard axis
+    (``hot_fold_state_shape``; data replicas equal, shards distinct)."""
+    from fps_tpu_torch.core.store import fold_key, hot_fold_state_shape
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    fold = fps.HotFold(kind="adagrad", lr=TIER_FOLD_LR)
+    trainer, store = tier_mf(fps, mesh, TIER_NI, 0, False, None, fold=fold)
+    data = ds.zipf_ratings(TIER_NU, TIER_NI,
+                           W * TIER_LOCAL * TIER_SPC * TIER_FOLD_CHUNKS,
+                           seed=1)
+    chunks = tier_chunks(data, W, None)[:TIER_FOLD_CHUNKS]
+    summary, tables, _, _ = tier_run(
+        torch, kernels, f"MF tiered on, Adagrad hot fold, mesh {D}x{S}",
+        trainer, store, chunks, ITEM, card,
+        per_step={"gather_rows": 2, "scatter_add": 2},
+        reconcile_k="gather_rows", quality=falling_rmse)
+    state = tables[fold_key(ITEM)]
+    rows, cols = hot_fold_state_shape(fold, TIER_NI, TIER_RANK, S)
+    if (state.numpy().shape != (rows, cols)
+            or any(b.shape != (rows // S, cols) for b in state)
+            or not all(torch.equal(state[p], state[p % S])
+                       for p in range(W))
+            or torch.equal(state[0], state[1])
+            or not bool(torch.isfinite(torch.cat(list(state))).all())):
+        raise AssertionError("the hot fold's state is not finite and "
+                             "sharded over the shard axis")
+    summary["fold_state"] = {"shape": [rows, cols], "block": [rows // S,
+                                                              cols],
+                             "finite": True, "sharded": True}
+    log(f"phase 9, hot fold: {json.dumps(summary['quality'])}, state "
+        f"{summary['fold_state']} ({card})")
+    return summary
+
+
+def tier_card_vs_cpu(torch, fps):
+    """Phase 9 (d): small tiered jobs at (2, 4) on the card and on the CPU
+    from the same tables and seeds: MF ``head_compact`` sync and SSP,
+    logistic regression with a partial head, Adagrad and Adam hot folds,
+    and the max combine; the largest difference of every table, replica,
+    fold state and the local state, relative to max(1, the largest
+    value)."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import epoch_chunks, per_worker_cold_counts
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mf = ds.zipf_ratings(300, 200, W * 64 * 4 * 3, seed=2)
+    lr = ds.synthetic_sparse_classification(W * 64 * 4 * 3, 2000, 8, seed=4,
+                                            noise=0.05)
+    lr["label"] = (lr["label"] > 0).astype(np.float32)
+
+    def mf_job(sync_every):
+        chunks = list(epoch_chunks(mf, num_workers=W, local_batch=64,
+                                   steps_per_chunk=4, route_key="user",
+                                   sync_every=sync_every, seed=5))
+        lane = max(int(per_worker_cold_counts(c["item"], W,
+                                              hot_head=100).max())
+                   for c in chunks)
+
+        def make(mesh):
+            trainer, store = fps.online_mf(mesh, fps.MFConfig(
+                num_users=300, num_items=200, rank=RANK, learning_rate=0.1),
+                combine="mean", sync_every=sync_every)
+            store.specs[ITEM] = dataclasses.replace(
+                store.specs[ITEM], hot_tier=100, cold_budget=lane,
+                dense_collectives=False)
+            trainer.config = dataclasses.replace(trainer.config,
+                                                 hot_sync_every=3)
+            return trainer
+        return make, chunks
+
+    def lr_job(H, combine="sum", fold=None):
+        chunks = list(epoch_chunks(lr, num_workers=W, local_batch=64,
+                                   steps_per_chunk=4, seed=3))
+
+        def make(mesh):
+            trainer, store = fps.logistic_regression(mesh, fps.LogRegConfig(
+                num_features=2000, learning_rate=0.5))
+            store.specs["weights"] = dataclasses.replace(
+                store.specs["weights"], hot_tier=H)
+            trainer.config = dataclasses.replace(trainer.config,
+                                                 hot_sync_every=3)
+            trainer.server_logic["weights"] = dataclasses.replace(
+                trainer.server_logic["weights"], combine=combine,
+                hot_fold=fold)
+            return trainer
+        return make, chunks
+
+    jobs = {"MF head_compact sync": mf_job(None),
+            "MF head_compact SSP": mf_job(2),
+            "logreg partial head": lr_job(512),
+            "logreg Adagrad hot fold": lr_job(2000, fold="adagrad"),
+            "logreg Adam hot fold": lr_job(2000, fold=fps.HotFold(
+                kind="adam", lr=0.01)),
+            "logreg max combine": lr_job(2000, combine="max")}
+    worst = {}
+    for job, (make, chunks) in jobs.items():
+        runs, state0 = {}, None
+        for device in ("cpu", "cuda:0"):
+            trainer = make(fps.make_ps_mesh(S, D, device=device))
+            if state0 is None:
+                state0 = trainer.init_state(7)
+            tables, local, _ = trainer.fit_stream(
+                on_device(torch, state0[0], device),
+                on_device(torch, state0[1], device), chunks, 2)
+            runs[device] = dict(on_host(torch, tables))
+            if not isinstance(local, tuple):
+                runs[device]["local_state"] = on_host(torch, local)
+        if sorted(runs["cpu"]) != sorted(runs["cuda:0"]):
+            raise AssertionError(f"card vs CPU, {job}: entries differ")
+        worst[job] = max(
+            float((want - runs["cuda:0"][k]).abs().max())
+            / max(1.0, float(want.abs().max()))
+            for k, want in runs["cpu"].items())
+    log("phase 9, card vs CPU: " + json.dumps(worst))
+    for job, diff in worst.items():
+        if not diff <= 1e-5:
+            raise AssertionError(f"card vs CPU, {job}: {diff} of the largest "
+                                 "value > 1e-5")
+    return worst
+
+
+def tier_phase(torch, fps, kernels, lr_data, card):
+    """Phase 9: the static hot tier on the card, every position on
+    ``cuda:0``, every launch counter at 0 just before each run and read
+    just after."""
+    t0 = time.perf_counter()
+    arms = tier_arms(torch, fps, kernels, card)
+    logreg = tier_logreg(torch, fps, kernels, lr_data, card)
+    fold = tier_fold(torch, fps, kernels, card)
+    worst = tier_card_vs_cpu(torch, fps)
+    seconds = time.perf_counter() - t0
+    log(f"phase 9 done in {seconds:.1f} s")
+    return {"runs": list(arms.values()) + [logreg, fold], "arms": arms,
+            "card_vs_cpu": worst, "seconds": seconds, "card": card}
+
+
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
     own = [c for c in cases if c["path"] == path]
@@ -3420,8 +4062,9 @@ def path_sums(cases, path, copy=False):
     out = {k: sum(c[k] for c in own) for k in keys + (["copy_ms"] if copy
                                                       else [])}
     if not copy:
-        out["sort_ms"] = sum(c["sort_ms"] for c in own)
-        out["torch_sort_ms"] = sum(c["torch_sort_ms"] for c in own)
+        # None: a K4 call with no bucket pass (one row tile) sorts nothing.
+        out["sort_ms"] = sum(c["sort_ms"] or 0.0 for c in own)
+        out["torch_sort_ms"] = sum(c["torch_sort_ms"] or 0.0 for c in own)
     out["shapes"] = [c["shape"] for c in own]
     return out
 
@@ -3499,6 +4142,7 @@ def main() -> int:
                      dev)
     ials_kernel_cases(torch, kernels, cases, ials_chunks, dev)
     sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
+    tier_kernel_cases(torch, kernels, cases, lr_data, dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
@@ -3546,12 +4190,15 @@ def main() -> int:
     processes = process_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
                               w2v_tokens, w2v_uni, ials_chunks, card)
     del mf_data, ials_chunks
+    # 9. The static hot tier, counters at 0 before each run.
+    tier = tier_phase(torch, fps, kernels, lr_data, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
     runs += pipeline.pop("push_delay_runs")
     runs += mesh["runs"]
     runs += processes["runs"]
+    runs += tier["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -3581,7 +4228,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 8. Summary lines. Each entry's times are per step of its first path
+    # 10. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -3626,10 +4273,13 @@ def main() -> int:
         dict(gather_entry("gather_rows", src + "gather_rows.cu",
                           pallas + ":513", "mf"),
              w2v_per_step=w2v_steps["gather_rows"],
-             ials_two_half_steps=ials_steps["gather_rows"]),
+             ials_two_half_steps=ials_steps["gather_rows"],
+             hot_tier_shapes=path_sums(cases["gather_rows"], "tier",
+                                       copy=True)),
         dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
                    "mf"), w2v_per_step=w2v_steps["scatter_add"],
              ials_two_half_steps=ials_steps["scatter_add"],
+             hot_tier_shapes=path_sums(cases["scatter_add"], "tier"),
              sort={"source": src + "radix_sort.cu",
                    "passes_by_shape": {label: b["sort_passes"]
                                        for label, b in breakdown.items()},
@@ -3640,8 +4290,10 @@ def main() -> int:
                        if c["path"] == "mf"),
                    "off_path": sort_cases},
              traced_by_shape=breakdown),
-        gather_entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
-                     pallas + ":429", "pa_binary"),
+        dict(gather_entry("gather_rows_dim1", src + "gather_rows_dim1.cu",
+                          pallas + ":429", "pa_binary"),
+             hot_tier_shapes=path_sums(cases["gather_rows_dim1"],
+                                       "tier_logreg", copy=True)),
         dict(entry("scatter_add_dim1", src + "scatter_add_dim1.cu",
                    pallas + ":338", "pa_binary"),
              bucket_pass={
@@ -3652,6 +4304,8 @@ def main() -> int:
                      for c in cases["scatter_add_dim1"]}},
              sketch_tap_per_step=path_sums(cases["scatter_add_dim1"],
                                            "w2v_sketch_tap"),
+             hot_tier_shapes=path_sums(cases["scatter_add_dim1"],
+                                       "tier_logreg"),
              traced_by_shape=k4_traced),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
                    pallas + ":178", "mf_hot"),
@@ -3664,6 +4318,16 @@ def main() -> int:
         "card_vs_cpu_ials_and_sketch_tap": taps_worst,
         "sharded_mesh": {k: v for k, v in mesh.items() if k != "runs"},
         "processes": processes,
+        "hot_tier": {k: v for k, v in tier.items() if k != "runs"},
+        "trace_windows": {
+            "windows": len(TRACE_WINDOWS),
+            "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),
+            "without_spin_kernel": [w for w in TRACE_WINDOWS
+                                    if not w["spin_kernel"]],
+            "device_records": [min(w["device_records"]
+                                   for w in TRACE_WINDOWS),
+                               max(w["device_records"]
+                                   for w in TRACE_WINDOWS)]},
         "pa_head_prefix_cols": pa_q,
         "seconds": time.perf_counter() - t_start, "card": card}
     log(card)

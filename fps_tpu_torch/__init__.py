@@ -17,7 +17,10 @@ gather and scatter-add for ``(R, 1)`` tables); on the CPU, on their plain
 PyTorch versions. iALS (``IALSSolver``) drives its own loop of
 normal-equation solves over the same store and kernels, and top-k retrieval
 (``models.recommendation``) ranks a sharded table where it lies; every
-model family runs on any mesh.
+model family runs on any mesh. A table may keep its frequency-ranked head
+replicated on every position (``TableSpec.hot_tier``, reconciled every
+``TrainerConfig.hot_sync_every`` steps, with ``HotFold`` server state and
+``cold_budget`` lanes for the cold tail).
 
 Entry points run on the visible CUDA devices unless ``device="cpu"`` is
 passed to :func:`make_ps_mesh`; without CUDA and without a device they
@@ -27,6 +30,7 @@ raise.
 from fps_tpu_torch.core.api import (
     ADDITIVE,
     MEAN_COMBINE,
+    HotFold,
     ServerLogic,
     StepOutput,
     WorkerLogic,
@@ -66,7 +70,7 @@ from fps_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "ADDITIVE", "Blocks", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
-    "IALSConfig", "IALSSolver", "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
+    "HotFold", "IALSConfig", "IALSSolver", "LogRegConfig", "MEAN_COMBINE", "MFConfig", "PAConfig", "ParamStore",
     "SHARD_AXIS", "ServerLogic", "StepOutput", "TableSpec", "Trainer",
     "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",
     "default_mesh_shape", "device_epoch_chunks", "init_distributed",

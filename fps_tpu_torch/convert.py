@@ -12,6 +12,12 @@ every process passes the same global arrays and takes its own positions'
 pieces. :func:`to_numpy` is the way back, for comparisons: a table's blocks
 give the JAX package's global physical table, the local state's the global
 local state (a collective over several processes).
+
+The hot tier's entries come across too, so a tiered run starts from the JAX
+package's state: a replica (``name::hot``, ``(H, dim)``) goes to every
+position, a hot fold's state (``name::fold``, or a snapshot's
+``fold::name``; ``(ceil(H / S) * S, cols)`` in reduce-scatter slice order)
+is cut into ``S`` slices, slice ``s`` on every position ``(d, s)``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,13 @@ import numpy as np
 import torch
 
 from fps_tpu_torch.core.api import WorkerLogic
-from fps_tpu_torch.core.store import ParamStore, padded_rows
+from fps_tpu_torch.core.store import (
+    ParamStore,
+    fold_key,
+    hot_key,
+    padded_rows,
+    split_tiering,
+)
 from fps_tpu_torch.parallel.mesh import DATA_AXIS, Blocks, num_workers_of
 
 _META = torch.device("meta")
@@ -43,10 +55,18 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
     ``(S * rps, dim)`` physical table) as the port's blocks on the store's
     mesh: shard ``s``'s rows on every position ``(d, s)``, each position
     its own copy. ``device``: every block there instead of its position's
-    device."""
+    device. The hot tier's replicas and fold states may come along (see
+    the module's docstring); their tables must be among the store's."""
+    arrays = {(fold_key(k[len("fold::"):]) if k.startswith("fold::")
+               else k): v for k, v in arrays.items()}
+    arrays, replicas, folds = split_tiering(arrays)
     if set(arrays) != set(store.specs):
         raise ValueError(f"tables {sorted(arrays)} != store tables "
                          f"{sorted(store.specs)}")
+    for name in list(replicas) + list(folds):
+        if name not in store.specs:
+            raise ValueError(f"hot tier entry of {name!r}, which is not a "
+                             "store table")
     mesh = store.mesh
     positions = (mesh.positions if device is None
                  else [torch.device(device)] * len(mesh.positions))
@@ -59,12 +79,33 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
         array = np.asarray(arrays[name])
         _check_array(f"table {name!r}", array,
                      (padded_rows(spec.num_ids, S), spec.dim), spec.dtype)
-        shards = np.split(array, S)
-        out[name] = Blocks([torch.from_numpy(np.array(shards[p % S],
-                                                      copy=True)).to(dev)
-                            for p, dev in zip(mesh.local, positions)],
-                           replicas=mesh.shape[DATA_AXIS], mesh=mesh)
+        out[name] = _sharded(array, S, mesh, positions)
+    for name, array in replicas.items():
+        spec = store.specs[name]
+        array = np.asarray(array)
+        _check_array(f"replica of {name!r}", array,
+                     (array.shape[0], spec.dim), spec.dtype)
+        out[hot_key(name)] = Blocks(
+            [torch.from_numpy(np.array(array, copy=True)).to(dev)
+             for dev in positions],
+            replicas=len(mesh.slot), mesh=mesh)
+    for name, array in folds.items():
+        array = np.asarray(array)
+        if array.ndim != 2 or array.shape[0] % S:
+            raise ValueError(f"fold state of {name!r}: shape {array.shape} "
+                             f"is not {S} equal slices")
+        out[fold_key(name)] = _sharded(array, S, mesh, positions)
     return out
+
+
+def _sharded(array: np.ndarray, S: int, mesh, positions) -> Blocks:
+    """``array`` cut into ``S`` slices, slice ``s`` on every position
+    ``(d, s)``, each position its own copy."""
+    shards = np.split(array, S)
+    return Blocks([torch.from_numpy(np.array(shards[p % S],
+                                             copy=True)).to(dev)
+                   for p, dev in zip(mesh.local, positions)],
+                  replicas=mesh.shape[DATA_AXIS], mesh=mesh)
 
 
 def local_state_from_jax(logic: WorkerLogic, array: np.ndarray, *,

@@ -12,9 +12,8 @@ Differences from the JAX package: random draws come from an explicit
 worker with ``step_seeded = True``, from an int seed of the step that the
 same hash turns into the same bits on every device
 (:func:`fps_tpu_torch.core.rng.counter_bits`); initial state is made from an
-integer seed on an explicit ``torch.device``.
-``HotFold`` (stateful hot-tier folds) belongs to the hot tier, which this
-port does not have yet.
+integer seed on an explicit ``torch.device``. :class:`HotFold` is the hot
+tier's stateful server fold (:mod:`fps_tpu_torch.core.store`).
 """
 
 from __future__ import annotations
@@ -72,6 +71,17 @@ class WorkerLogic:
         """Map table name -> ``(B,)`` int32 ids to pull for this batch."""
         raise NotImplementedError
 
+    def pulled_ids_host(self, chunk) -> Mapping[str, Any] | None:
+        """Optional host stream that certifies a chunk for the compacted
+        cold routes (``TableSpec.cold_budget``): ``{table: int id array}``
+        from the raw host chunk, its last axis the worker-major ids of a
+        step (``(T, B, k)`` columns flattened to ``(T, B * k)``), covering
+        every id the step pulls or pushes for that table. Padding may carry
+        any id; it is counted as the device's compaction sees it. ``None``
+        (the default): this logic's chunks cannot be certified, and take
+        the static cold routes."""
+        return None
+
     def head_prefix(self, batch) -> Mapping[str, int]:
         """Optional static guarantee: table name -> count of leading ids (in
         both :meth:`pull_ids` order and the step's push order) that lie in
@@ -104,6 +114,58 @@ class WorkerLogic:
 
 
 @dataclasses.dataclass(frozen=True)
+class HotFold:
+    """Stateful server fold on the hot tier: Adagrad or Adam state for the
+    replicated head, sharded over the shard axis.
+
+    The window's reconcile reduce-scatters the pending deltas, so each
+    position of a data replica applies a disjoint slice of the head
+    (:func:`fps_tpu_torch.core.store.reconcile_hot`); a ``HotFold`` turns the
+    slice's combined delta ``g`` (after the ``combine`` normalization) into
+    a scaled step:
+
+    * ``"adagrad"``: ``G += g * g; step = lr * g / (sqrt(G) + eps)``;
+    * ``"adam"``: lazy per-row Adam: a row untouched in a window keeps its
+      moments and its step count, a touched row updates ``m`` and ``v``
+      with bias correction by its own window count ``t``.
+
+    The state is never replicated and never part of the canonical table; at
+    a call's end the canonical table already holds the folded steps. It
+    needs the tier on with the whole table replicated (``hot_tier >=
+    num_ids``; a partial head would give head rows the scaled step and tail
+    rows the raw one), which the trainer checks.
+    """
+
+    kind: str  # "adagrad" | "adam"
+    lr: float = 1.0
+    eps: float = 1e-8
+    beta1: float = 0.9
+    beta2: float = 0.999
+
+    def __post_init__(self):
+        if self.kind not in ("adagrad", "adam"):
+            raise ValueError(
+                f"HotFold.kind {self.kind!r}: expected 'adagrad' or 'adam'")
+
+    def state_cols(self, dim: int) -> int:
+        """Columns of a row's state: Adagrad keeps ``G``; Adam ``(m, v, t)``
+        with the window count as a column."""
+        return dim if self.kind == "adagrad" else 2 * dim + 1
+
+
+def as_hot_fold(fold) -> HotFold | None:
+    """The ``ServerLogic.hot_fold`` shorthand made a :class:`HotFold`: a
+    string names the kind with the default hyperparameters; ``None`` passes
+    through."""
+    if fold is None or isinstance(fold, HotFold):
+        return fold
+    if isinstance(fold, str):
+        return HotFold(kind=fold)
+    raise TypeError("hot_fold must be a HotFold, a kind string, or None, "
+                    f"got {type(fold).__name__}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServerLogic:
     """Per-table server fold: the reference's ``SimplePSLogic`` plus its
     combining senders.
@@ -113,22 +175,20 @@ class ServerLogic:
     ``"mean"``, ``"max"``, ``"min"`` or a callable ``(summed, counts) ->
     combined`` (see :func:`fps_tpu_torch.core.store.push`).
 
-    ``hot_fold`` (optimizer state on the hot tier) is not ported: any value
-    but ``None`` raises ``NotImplementedError``.
+    ``hot_fold`` (a :class:`HotFold` or its kind string) adds Adagrad or
+    Adam state to the table's hot tier (see :class:`HotFold` for when it
+    may engage).
     """
 
     apply_fn: Callable[[Tensor, Tensor], Tensor] | None = None
     combine: str | Callable[[Tensor, Tensor], Tensor] = "sum"
-    hot_fold: Any = None
+    hot_fold: "HotFold | str | None" = None
 
     def __post_init__(self):
-        if self.hot_fold is not None:
-            raise NotImplementedError(
-                "ServerLogic.hot_fold needs the hot tier, which is not "
-                "ported yet (ROADMAP.md Queue 1, slice D)")
         if not callable(self.combine) and self.combine not in (
                 "sum", "mean", "max", "min"):
             raise ValueError(f"unknown combine mode {self.combine!r}")
+        as_hot_fold(self.hot_fold)  # TypeError / ValueError on a bad fold
 
 
 ADDITIVE = ServerLogic(apply_fn=None)

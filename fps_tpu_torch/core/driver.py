@@ -47,10 +47,21 @@ push; its outputs ride the metrics under ``"tap"``.
   (:mod:`fps_tpu_torch.core.prefetch`); the tables and metrics are the same
   bits either way.
 
+* **the static hot tier** (``TableSpec.hot_tier``, ``TrainerConfig.
+  hot_sync_every = E > 1``): a tiered table's hot reads come from its
+  replica, its hot pushes go to a pending buffer a position, and the
+  buffers are reconciled into the replica and the canonical table
+  (:func:`~fps_tpu_torch.core.store.reconcile_hot`) after every ``E``
+  steps counted from the call's first step and once more after the call's
+  ragged tail (sync), or at the end of every round, before the next
+  round's snapshot (SSP). Every call returns one canonical table, its
+  replica equal to its head rows. Each chunk of ``run_chunk`` is certified
+  for the ``cold_budget`` lanes at dispatch; ``run_indexed`` never packs.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP.md
-Queue 1 item that ports each: ``guard`` (item 8), ``hot_sync_every``
-(item 7b), ``auto_tier`` (item 7c); checkpoint hooks and rollback (item 8),
-telemetry and supervision (item 9).
+Queue 1 item that ports each: ``guard`` (item 8), ``auto_tier`` and the
+mapped tier (item 7c); checkpoint hooks and rollback (item 8), telemetry
+and supervision (item 9).
 """
 
 from __future__ import annotations
@@ -64,7 +75,8 @@ import numpy as np
 import torch
 
 from fps_tpu_torch import ops
-from fps_tpu_torch.core.api import ServerLogic, WorkerLogic
+from fps_tpu_torch.core.api import ServerLogic, WorkerLogic, as_hot_fold
+from fps_tpu_torch.core.ingest import per_worker_cold_counts
 from fps_tpu_torch.core.prefetch import (
     ChunkPrefetcher,
     PlacedChunk,
@@ -74,10 +86,20 @@ from fps_tpu_torch.core.prefetch import (
 from fps_tpu_torch.core.rng import fold_seed
 from fps_tpu_torch.core.store import (
     ParamStore,
+    accumulate_hot,
+    compact_cold,
+    fold_key,
+    hot_delta_init,
+    hot_fold_state_shape,
+    hot_key,
     id_to_phys,
     pull,
+    pull_hot,
     push,
+    reconcile_hot,
     rows_per_shard,
+    split_hot_push,
+    split_tiering,
 )
 from fps_tpu_torch.parallel import collectives
 from fps_tpu_torch.parallel.mesh import (
@@ -91,6 +113,9 @@ from fps_tpu_torch.parallel.mesh import (
 Tensor = torch.Tensor
 
 __all__ = ["TrainerConfig", "Trainer", "num_workers_of"]
+
+# The out channel's key for the hot tier's counters.
+HOT_TIER_KEY = "hot_tier"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,9 +173,13 @@ class TrainerConfig:
     draws from its own seed, as the JAX package's calls draw from their own
     key. ``run_chunk`` does not read it.
 
-    ``guard`` (ROADMAP.md Queue 1 item 8), ``hot_sync_every`` (item 7b) and
-    ``auto_tier`` (item 7c) are not ported; any value but the default
-    raises ``NotImplementedError``.
+    ``hot_sync_every``: the hot tier's window (``TableSpec.hot_tier``):
+    pending hot deltas are reconciled every this many steps of a sync call
+    (and at its end). 1, the default, is the exact mode: the untiered
+    program runs, bit for bit.
+
+    ``guard`` (ROADMAP.md Queue 1 item 8) and ``auto_tier`` (item 7c) are
+    not ported; any value but the default raises ``NotImplementedError``.
     """
 
     sync_every: int | None = None
@@ -169,8 +198,6 @@ class TrainerConfig:
     def __post_init__(self):
         unported = {
             "guard": (self.guard is not None, "item 8, slice E: durability"),
-            "hot_sync_every": (self.hot_sync_every != 1,
-                               "item 7b, slice D: the hot tier"),
             "auto_tier": (bool(self.auto_tier),
                           "item 7c, slice D: adaptive tiering")}
         for field, (set_, where) in unported.items():
@@ -207,6 +234,7 @@ class Trainer:
         self.config = config or TrainerConfig()
         self.num_shards = mesh.shape[SHARD_AXIS]
         self.num_workers = num_workers_of(mesh)
+        self._tier_warned: set[str] = set()
 
     # -- state ------------------------------------------------------------
 
@@ -246,7 +274,7 @@ class Trainer:
         return [{k: v[i] for k, v in cut.items()}
                 for i in range(len(self.mesh.local))]
 
-    # -- one step ---------------------------------------------------------
+    # -- routes -----------------------------------------------------------
 
     def _hot_rows(self, name: str) -> int:
         """Local hot-row count of a table's pull and push (the JAX package's
@@ -295,20 +323,218 @@ class Trainer:
                 out[name] = int(n)
         return out
 
-    def _compute_step(self, tables, snapshot, states, batches, keys):
+    # -- the static hot tier: resolution ----------------------------------
+
+    def _resolve_hot_tier(self, spec) -> int:
+        """The table's replicated head rows on this mesh under this config
+        (0: untiered; the JAX package's ``_resolve_hot_tier``).
+
+        The tier engages only where it can win and stay correct: a mesh of
+        more than one position, ``hot_sync_every > 1`` (1 is the exact mode,
+        the untiered program itself) and a ``"sum"``, ``"mean"``, ``"max"``
+        or ``"min"`` fold without ``apply_fn`` (the window's buffer holds
+        delta sums, with counts, or extrema, which commute with those
+        combines). A table with ``apply_fn`` or a callable combine keeps its
+        route, with one warning."""
+        H = spec.hot_tier
+        if not isinstance(H, int):
+            raise ValueError(
+                f"table {spec.name!r}: hot_tier={H!r}: expected an int")
+        if H < 0:
+            raise ValueError(f"table {spec.name!r}: hot_tier={H} must be "
+                             ">= 0")
+        if not H or self.num_workers == 1 or self.config.hot_sync_every <= 1:
+            self._check_hot_fold(spec, 0)
+            return 0
+        sl = self.server_logic[spec.name]
+        if sl.apply_fn is not None or not (
+                isinstance(sl.combine, str)
+                and sl.combine in ("sum", "mean", "max", "min")):
+            if spec.name not in self._tier_warned:
+                self._tier_warned.add(spec.name)
+                fold = ("apply_fn" if sl.apply_fn is not None
+                        else "a callable combine")
+                warnings.warn(
+                    f"table {spec.name!r}: hot_tier={H} requested but the "
+                    f"per-push server fold ({fold}) keeps the gathered "
+                    "route: windowed hot-delta accumulation commutes with "
+                    "the 'sum'/'mean'/'max'/'min' combines only, so the "
+                    "tier is disabled for this table (the untiered program "
+                    "runs)", stacklevel=3)
+            self._check_hot_fold(spec, 0)
+            return 0
+        H = min(H, spec.num_ids)
+        self._check_hot_fold(spec, H)
+        return H
+
+    def _check_hot_fold(self, spec, resolved_H: int) -> None:
+        """Raise where a stateful hot fold cannot engage (a silent drop to
+        plain addition would change the optimizer): it needs the tier on
+        with the whole table replicated (a partial head would give head rows
+        the scaled step and tail rows the raw one) and a ``"sum"`` or
+        ``"mean"`` combine (the fold takes the window's delta sum)."""
+        sl = self.server_logic[spec.name]
+        fold = as_hot_fold(sl.hot_fold)
+        if fold is None:
+            return
+        if not resolved_H:
+            raise ValueError(
+                f"table {spec.name!r}: hot_fold={fold.kind!r} requires the "
+                "hot tier to resolve ON (mesh of more than one position, "
+                "hot_tier > 0, hot_sync_every > 1, no apply_fn): a silently "
+                "ignored server optimizer would change training semantics")
+        if resolved_H < spec.num_ids:
+            raise ValueError(
+                f"table {spec.name!r}: hot_fold={fold.kind!r} with a "
+                f"PARTIAL head (H={resolved_H} < {spec.num_ids}): head rows "
+                "would take the adaptive step while cold-tail pushes fold "
+                "additively; set hot_tier >= num_ids (the fold's state is "
+                "sharded, so full replication does not replicate it)")
+        if sl.combine not in ("sum", "mean"):
+            raise ValueError(
+                f"table {spec.name!r}: hot_fold={fold.kind!r} needs a "
+                f"'sum'/'mean' combine (got {sl.combine!r}): the fold takes "
+                "the window's combined delta sum")
+
+    def _hot_tier_map(self) -> dict[str, int]:
+        """``{table: H}`` for every table the tier resolves on for; empty:
+        the untiered program."""
+        tier = {}
+        for name, spec in self.store.specs.items():
+            H = self._resolve_hot_tier(spec)
+            if H:
+                tier[name] = H
+        if tier and self.config.push_delay:
+            raise ValueError(
+                "hot_tier and push_delay cannot combine: delayed delivery "
+                "would re-order the windowed reconcile against the pushes "
+                f"in flight. Disable one (hot tier tables: {sorted(tier)})")
+        return tier
+
+    def _hot_fold_map(self) -> dict:
+        """``{table: HotFold}`` for the tiered tables with a stateful fold
+        (checked by :meth:`_check_hot_fold`)."""
+        out = {}
+        for name in self._hot_tier_map():
+            fold = as_hot_fold(self.server_logic[name].hot_fold)
+            if fold is not None:
+                out[name] = fold
+        return out
+
+    def _cold_compact_map(self) -> dict[str, int]:
+        """``{table: lane}`` for the tables on the compacted cold routes
+        (``TableSpec.cold_budget``): a partial head (``0 < H < num_ids``) on
+        the gathered route with a positive budget. Whether a chunk may take
+        them is :meth:`_certify_cold`'s call."""
+        out = {}
+        for name, H in sorted(self._hot_tier_map().items()):
+            spec = self.store.specs[name]
+            C = int(spec.cold_budget or 0)
+            if C <= 0 or H >= spec.num_ids or self._dense(name):
+                continue
+            out[name] = C
+        return out
+
+    def _certify_cold(self, host_ids) -> tuple[bool, list[str]]:
+        """``(fits, overflowed_tables)``: whether every ``(step, worker)``
+        slice of a chunk has no more cold ids than its table's lane.
+        ``host_ids`` is ``WorkerLogic.pulled_ids_host``'s dict, or ``None``
+        (uncertifiable: every compacted table overflows). Padding counts
+        like any id, as the device's compaction sees it."""
+        tier = self._hot_tier_map()
+        overflowed = []
+        for name, C in self._cold_compact_map().items():
+            arr = None if host_ids is None else host_ids.get(name)
+            if arr is None or int(per_worker_cold_counts(
+                    arr, self.num_workers,
+                    hot_head=tier[name]).max(initial=0)) > C:
+                overflowed.append(name)
+        return not overflowed, overflowed
+
+    def _host_cert_ids(self, chunk):
+        """The logic's certification stream for a chunk: ``None`` when no
+        table is compacted, or when the chunk already lies on a device
+        (its columns are tensors, which the host cannot read without a
+        wait)."""
+        if not self._cold_compact_map() or any(
+                isinstance(v, Tensor) for v in chunk.values()):
+            return None
+        return self.logic.pulled_ids_host(chunk)
+
+    def _attach_hot(self, tables):
+        """``tables`` with exactly the tier entries the resolution calls for:
+        each tiered table's replica (kept when live and of its size, else
+        derived from the canonical table by
+        :meth:`~fps_tpu_torch.core.store.ParamStore.head_replica`) and each
+        hot fold's state (kept when of its shape, else zeros, sharded over
+        the shard axis in slice order); stale entries are dropped, so a
+        tier turned off runs the untiered program again. Called at the
+        entry of ``run_chunk``, ``fit_stream`` and ``run_indexed``: the
+        replicas are valid at any call boundary, since every call ends in
+        a reconcile."""
+        tier = self._hot_tier_map()
+        folds = self._hot_fold_map()
+        canonical, replicas, states = split_tiering(tables)
+        if not tier and len(canonical) == len(tables):
+            return tables
+        S = self.num_shards
+        out = dict(canonical)
+        for name, v in replicas.items():
+            if name in tier and v[0].shape[0] == tier[name]:
+                out[hot_key(name)] = v
+        for name, v in states.items():
+            if name in folds:
+                rows, cols = hot_fold_state_shape(
+                    folds[name], tier[name], self.store.specs[name].dim, S)
+                if tuple(v[0].shape) == (rows // S, cols):
+                    out[fold_key(name)] = v
+        for name in sorted(tier):
+            if hot_key(name) not in out:
+                out[hot_key(name)] = self.store.head_replica(
+                    name, tier[name], out[name])
+        for name in sorted(folds):
+            if fold_key(name) not in out:
+                rows, cols = hot_fold_state_shape(
+                    folds[name], tier[name], self.store.specs[name].dim, S)
+                out[fold_key(name)] = Blocks(
+                    [torch.zeros((rows // S, cols), dtype=torch.float32,
+                                 device=dev)
+                     for dev in self.mesh.positions],
+                    replicas=self.mesh.shape[DATA_AXIS], mesh=self.mesh)
+        return out
+
+    # -- one step ---------------------------------------------------------
+
+    def _compute_step(self, tables, snapshot, states, batches, keys,
+                      tier=None):
         """Every worker's step: pull (from the live tables, or the SSP
         ``snapshot`` when given) and run the worker step; return the
         workers' pushes unapplied, the head-prefix guarantee for them, the
-        new local states and the step's outputs (one a worker)."""
+        new local states, the step's outputs (one a worker) and the hot
+        tier's pull counts (one dict a worker).
+
+        With ``tier`` (a :class:`_Tier`), a sync pull of a tiered table
+        reads ids ``< H`` from the position's replica and the cold residue
+        through the table's route with the hot slots masked to ``-1``
+        (packed into the ``cold_budget`` lane first, where the chunk
+        certified; the route is skipped when ``H`` covers the table). SSP
+        pulls read the round's snapshot, whose head rows the reconcile
+        before it already made the replica's."""
         batches = [self.logic.prepare(b, k) for b, k in zip(batches, keys)]
         hp = self._head_prefix(batches[0])
         ids = [self.logic.pull_ids(b) for b in batches]
         pulled = [{} for _ in batches]
+        counts = [{} for _ in batches]
+        heads = tier.heads if tier is not None else {}
         for name in ids[0]:
             tids = [i[name] for i in ids]
             route = dict(hot_rows=self._hot_rows(name),
                          head_prefix=hp.get(name, 0))
-            if snapshot is None:
+            H = heads.get(name, 0)
+            if snapshot is None and H:
+                vals = self._pull_tiered(tables, tier, name, H, tids,
+                                         counts)
+            elif snapshot is None:
                 vals = pull(tables[name], tids, num_shards=self.num_shards,
                             dense=self._dense(name), mesh=self.mesh,
                             **route)
@@ -326,7 +552,44 @@ class Trainer:
         outs = [self.logic.step(b, p, s, k)
                 for b, p, s, k in zip(batches, pulled, states, keys)]
         return ([o.pushes for o in outs], hp, [o.local_state for o in outs],
-                [o.out for o in outs])
+                [o.out for o in outs], counts)
+
+    def _pull_tiered(self, tables, tier, name: str, H: int, tids, counts):
+        """A sync pull of tiered table ``name``: every worker's rows, its
+        counts (``hot_rows``, ``pulled_rows``, ``cold_dropped`` on a
+        compacted table) added to ``counts``."""
+        live = [torch.sum(t >= 0, dtype=torch.int32) for t in tids]
+        reps = tier.replicas[name]
+        if H >= self.store.specs[name].num_ids:
+            # The whole table is replicated: no collective route at all.
+            for c, n in zip(counts, live):
+                c[name] = {"hot_rows": n, "pulled_rows": n}
+            return [ops.gather_rows(r, t) for r, t in zip(reps, tids)]
+        hots = [pull_hot(r, t, hot_ids=H) for r, t in zip(reps, tids)]
+        cold = [torch.where(m, -1, t).to(t.dtype)
+                for (_, m), t in zip(hots, tids)]
+        for c, (_, m), n in zip(counts, hots, live):
+            c[name] = {"hot_rows": torch.sum(m, dtype=torch.int32),
+                       "pulled_rows": n}
+        if name in tier.compact:
+            # The cold residue packed into the certified lane, pulled, and
+            # its rows scattered back to their batch positions (masked and
+            # dropped slots read zero rows).
+            lanes = [compact_cold(t, None, budget=tier.compact[name])
+                     for t in cold]
+            lane_vals = pull(tables[name], [ln[0] for ln in lanes],
+                             num_shards=self.num_shards, dense=False,
+                             hot_rows=self._hot_rows(name), mesh=self.mesh)
+            vals = [ops.gather_rows(v, ln[2])
+                    for v, ln in zip(lane_vals, lanes)]
+            for c, ln in zip(counts, lanes):
+                c[name]["cold_dropped"] = ln[3]
+        else:
+            vals = pull(tables[name], cold, num_shards=self.num_shards,
+                        dense=self._dense(name),
+                        hot_rows=self._hot_rows(name), mesh=self.mesh)
+        return [torch.where(m[:, None], hv, v)
+                for (hv, m), v in zip(hots, vals)]
 
     def _apply_pushes(self, tables, pushes, head_prefix):
         """One collective push a table lands every worker's deltas."""
@@ -342,6 +605,101 @@ class Trainer:
                 dense=self._dense(name), inplace=self.config.donate,
                 mesh=self.mesh)
         return new_tables
+
+    def _apply_hot_split(self, tables, tier, pushes, head_prefix):
+        """Split each tiered table's pushes on ``id < H``: the cold part
+        goes through the table's routes (packed into the lane where the
+        chunk certified; none when ``H`` covers the table), the hot part
+        into the positions' pending buffers (:func:`~fps_tpu_torch.core.
+        store.accumulate_hot`, in place). Returns the new tables and the
+        lanes' overflow counts, a list a worker by table."""
+        cold = [{} for _ in pushes]
+        dropped = {}
+        for name in pushes[0]:
+            per = [p[name] for p in pushes]
+            H = tier.heads.get(name, 0)
+            if not H:
+                for c, x in zip(cold, per):
+                    c[name] = x
+                continue
+            if H >= self.store.specs[name].num_ids:
+                hots = per  # no cold residue to push
+            else:
+                parts = [split_hot_push(i, d, hot_ids=H) for i, d in per]
+                hots = [h for _, h in parts]
+                rest = [c for c, _ in parts]
+                if name in tier.compact:
+                    lanes = [compact_cold(i, d, budget=tier.compact[name])
+                             for i, d in rest]
+                    rest = [(ln[0], ln[1]) for ln in lanes]
+                    dropped[name] = [ln[3] for ln in lanes]
+                for c, x in zip(cold, rest):
+                    c[name] = x
+            sl = self.server_logic[name]
+            fold = as_hot_fold(sl.hot_fold)
+            tier.deltas[name] = [
+                accumulate_hot(buf, i, d, combine=sl.combine, fold=fold)
+                for buf, (i, d) in zip(tier.deltas[name], hots)]
+        if cold[0]:
+            tables = self._apply_pushes(tables, cold, head_prefix)
+        return tables, dropped
+
+    def _reconcile(self, tables, tier):
+        """The window's end: every tiered table's pending buffers folded
+        into its replicas and canonical head rows, its fold state advanced
+        and its buffers reset (:func:`~fps_tpu_torch.core.store.
+        reconcile_hot`)."""
+        tables = dict(tables)
+        for name in sorted(tier.heads):
+            sl = self.server_logic[name]
+            (tables[name], tier.replicas[name], tier.deltas[name],
+             fstate) = reconcile_hot(
+                tables[name], tier.replicas[name], tier.deltas[name],
+                num_shards=self.num_shards, combine=sl.combine,
+                fold=as_hot_fold(sl.hot_fold),
+                fold_states=tier.folds.get(name),
+                inplace=self.config.donate, mesh=self.mesh)
+            if fstate is not None:
+                tier.folds[name] = fstate
+        return tables
+
+    def _mount_hot_channel(self, outs, counts, dropped, tier):
+        """Each worker's out channel with the tier's counters under
+        ``"hot_tier"``: a dict a tiered table of its pull counts (sync),
+        ``cold_dropped`` on a compacted table (the lanes' overflow; 0 for a
+        certified chunk) and ``delta_sq``, the sum of the position's pending
+        deltas squared (the staleness gauge). Summed over the workers with
+        the other metrics."""
+        mounted = []
+        for w, out in enumerate(outs):
+            if not isinstance(out, dict):
+                raise TypeError(
+                    "TableSpec.hot_tier requires the worker's out channel to "
+                    "be a dict so the hot-tier counters can ride it (got "
+                    f"{type(out).__name__})")
+            if HOT_TIER_KEY in out:
+                raise ValueError(
+                    "the worker's out channel already has a 'hot_tier' key; "
+                    "it would collide with the tier's counters")
+            chan = {}
+            for name in sorted(tier.heads):
+                c = dict(counts[w].get(name, {}))
+                if name in dropped:
+                    c["cold_dropped"] = (c["cold_dropped"] + dropped[name][w]
+                                         if "cold_dropped" in c
+                                         else dropped[name][w])
+                buf = tier.deltas[name][w]
+                dim = tier.replicas[name][w].shape[1]
+                vals = buf[:, :dim].to(torch.float32)
+                if self.server_logic[name].combine in ("max", "min"):
+                    # The extremum buffer holds the sentinel on untouched
+                    # rows; only touched rows carry real magnitudes.
+                    vals = torch.where((buf[:, dim].abs() <= 1.0)[:, None],
+                                       vals, torch.zeros_like(vals))
+                c["delta_sq"] = torch.sum(vals * vals)
+                chan[name] = c
+            mounted.append(dict(out, **{HOT_TIER_KEY: chan}))
+        return mounted
 
     def _run_tap(self, out, tables, batches, states, t: int):
         """``out`` with the step tap's outputs under ``"tap"``: the tap runs
@@ -369,22 +727,27 @@ class Trainer:
             collectives.gather_home(self.mesh, xs))))
 
     def _step(self, tables, snapshot, states, batches, keys, t, outs,
-              in_flight):
-        pushes, hp, states, out = self._compute_step(
-            tables, snapshot, states, batches, keys)
-        # This step's pushes go in flight, with the head-prefix guarantee of
-        # the batch that made them; the pushes of push_delay steps ago land
-        # (at push_delay = 0, this step's own).
-        in_flight.append((pushes, hp))
-        while len(in_flight) > self.config.push_delay:
-            tables = self._apply_pushes(tables, *in_flight.popleft())
+              in_flight, tier=None):
+        pushes, hp, states, out, counts = self._compute_step(
+            tables, snapshot, states, batches, keys, tier)
+        if tier is not None:
+            # push_delay is 0 with the tier on (_hot_tier_map).
+            tables, dropped = self._apply_hot_split(tables, tier, pushes, hp)
+            out = self._mount_hot_channel(out, counts, dropped, tier)
+        else:
+            # This step's pushes go in flight, with the head-prefix
+            # guarantee of the batch that made them; the pushes of
+            # push_delay steps ago land (at push_delay = 0, this step's own).
+            in_flight.append((pushes, hp))
+            while len(in_flight) > self.config.push_delay:
+                tables = self._apply_pushes(tables, *in_flight.popleft())
         # Metrics summed over the shards, then the data replicas.
         out = _sum_metrics(self.mesh, out)
         outs.append(self._run_tap(out, tables, batches, states, t))
         return tables, states
 
     def _run_steps(self, tables, local_state, batches, num_steps: int,
-                   seed: int, t0: int = 0):
+                   seed: int, t0: int = 0, compact=None):
         """Run ``num_steps`` steps over ``batches`` (columns with leading
         dims ``(num_steps, n * B)``, this process's ``n`` workers' columns,
         on the home device); the step tap sees
@@ -408,9 +771,25 @@ class Trainer:
         launches at ``d = 0``. A queued push holds the worker's own tensors
         (ids from the batch, freshly computed deltas), which no later step
         rewrites.
+
+        With tiered tables (``tables`` as :meth:`_attach_hot` made them)
+        every position starts the call with fresh pending buffers, which
+        are reconciled after steps ``E - 1, 2E - 1, ...`` and after the
+        last step (sync, ``E = hot_sync_every``), or after every round
+        (SSP). ``compact``: ``{table: lane}`` of the tables whose cold
+        routes this call packs (a certified chunk).
         """
         mesh = self.mesh
-        tables = {name: list(tb) for name, tb in tables.items()}
+        canonical, replicas, folds = split_tiering(tables)
+        tables = {name: list(tb) for name, tb in canonical.items()}
+        tier = None
+        heads = self._hot_tier_map()
+        if heads:
+            tier = _Tier(
+                heads=heads, compact=dict(compact or {}),
+                replicas={n: list(replicas[n]) for n in heads},
+                deltas=self._init_hot_deltas(tables, heads),
+                folds={n: list(folds[n]) for n in self._hot_fold_map()})
         states = self._worker_states(local_state)
         per_worker = self._worker_batches(batches)
         seeds = [fold_seed(seed, w) for w in mesh.local]
@@ -433,10 +812,16 @@ class Trainer:
         in_flight = collections.deque()
         s = self.config.sync_every
         if s is None:
+            E = self.config.hot_sync_every
             for i in range(num_steps):
                 tables, states = self._step(
                     tables, None, states, batch_at(i), key(i), t0 + i,
-                    outs, in_flight)
+                    outs, in_flight, tier)
+                # A window ends every E steps from the call's first, and
+                # the call ends with its ragged tail's.
+                if tier is not None and ((i + 1) % E == 0
+                                         or i == num_steps - 1):
+                    tables = self._reconcile(tables, tier)
         else:
             for r in range(num_steps // s):
                 # The round's reads see the tables as the round begins: a
@@ -447,14 +832,38 @@ class Trainer:
                 for j in range(r * s, (r + 1) * s):
                     tables, states = self._step(
                         tables, snapshot, states, batch_at(j), key(j),
-                        t0 + j, outs, in_flight)
+                        t0 + j, outs, in_flight, tier)
+                if tier is not None:
+                    # Before the next round's snapshot, which must see the
+                    # reconciled head rows.
+                    tables = self._reconcile(tables, tier)
         while in_flight:  # the end of the call: deliver what is in flight
             tables = self._apply_pushes(tables, *in_flight.popleft())
         D = mesh.shape[DATA_AXIS]
         tables = {name: Blocks(tb, replicas=D, mesh=mesh)
                   for name, tb in tables.items()}
+        if tier is not None:
+            for name in sorted(tier.heads):
+                tables[hot_key(name)] = Blocks(
+                    tier.replicas[name], replicas=len(mesh.slot), mesh=mesh)
+            for name in sorted(tier.folds):
+                tables[fold_key(name)] = Blocks(tier.folds[name],
+                                                replicas=D, mesh=mesh)
         local_state = _tree_stack(states, lambda xs: Blocks(xs, mesh=mesh))
         return tables, local_state, _tree_stack(outs, torch.stack)
+
+    def _init_hot_deltas(self, tables, heads) -> dict[str, list]:
+        """Fresh pending-delta buffers, one a position, for every tiered
+        table: made as a call begins and reconciled before it returns."""
+        out = {}
+        for name, H in heads.items():
+            sl = self.server_logic[name]
+            blk = tables[name][0]
+            out[name] = [hot_delta_init(
+                H, blk.shape[1], blk.dtype, combine=sl.combine,
+                fold=as_hot_fold(sl.hot_fold), device=dev)
+                for dev in self.mesh.positions]
+        return out
 
     # -- chunks -----------------------------------------------------------
 
@@ -476,7 +885,11 @@ class Trainer:
             are used as they are, with no copy. A
             :class:`~fps_tpu_torch.core.prefetch.PlacedChunk` (the
             pipeline's) is already placed: its copies are waited for on the
-            current stream, not made again.
+            current stream, not made again. Where a table takes the
+            compacted cold routes, the chunk is certified here: a host chunk
+            through ``WorkerLogic.pulled_ids_host``, a ``PlacedChunk``
+            through its ``host_ids``; a chunk already on the device cannot
+            be certified and takes the static routes.
           seed: seed of this chunk's ``torch.Generator`` (for ``prepare`` /
             ``step`` draws, e.g. negative sampling).
           timer, recorder: the JAX package's phase timer and recorder
@@ -489,6 +902,17 @@ class Trainer:
         """
         _refuse("run_chunk", timer=(timer, "item 9, slice F"),
                 recorder=(recorder, "item 9, slice F"))
+        tables = self._attach_hot(tables)
+        compact = self._cold_compact_map()
+        if compact:
+            # The chunk takes the compacted lanes only where it certifies;
+            # an overflowing chunk takes the static routes, the same bits
+            # as cold_budget = 0.
+            fits, _ = self._certify_cold(
+                batches.host_ids if isinstance(batches, PlacedChunk)
+                else self._host_cert_ids(batches))
+            if not fits:
+                compact = {}
         if not isinstance(batches, PlacedChunk):
             batches = self._place_chunk(batches)
         batches = placed_batches(batches, self.device)
@@ -504,7 +928,7 @@ class Trainer:
             batches = {k: v.reshape((steps,) + v.shape[2:])
                        for k, v in batches.items()}
         tables, local_state, metrics = self._run_steps(
-            tables, local_state, batches, steps, seed)
+            tables, local_state, batches, steps, seed, compact=compact)
         # Keep the store's host reads (lookup_host / dump_model) on the
         # live tensors.
         self.store.tables = dict(tables)
@@ -519,6 +943,14 @@ class Trainer:
         dim = 1 if self.config.sync_every is None else 2
         return place_columns(
             collectives.own_columns(self.mesh, batches, dim), self.device)
+
+    def _place_for_prefetch(self, batches) -> PlacedChunk:
+        """The pipeline's placement: :meth:`_place_chunk`, with the chunk's
+        certification stream kept beside it (``PlacedChunk.host_ids``) for
+        :meth:`run_chunk` to certify at dispatch."""
+        placed = self._place_chunk(batches)
+        placed.host_ids = self._host_cert_ids(batches)
+        return placed
 
     def fit_stream(self, tables, local_state, chunks: Iterable[Mapping],
                    seed: int, metrics_reduce=None, checkpointer=None,
@@ -571,11 +1003,13 @@ class Trainer:
         if cfg.metrics_drain_every < 0:
             raise ValueError("TrainerConfig.metrics_drain_every must be >= "
                              f"0, got {cfg.metrics_drain_every}")
+        # The tier's entries at the stream's entry; run_chunk keeps them.
+        tables = self._attach_hot(tables)
         it = iter(chunks)
         pf = None
         if cfg.prefetch:
             it = pf = ChunkPrefetcher(
-                it, self._place_chunk, depth=cfg.prefetch,
+                it, self._place_for_prefetch, depth=cfg.prefetch,
                 max_depth=cfg.prefetch_max or None, start_index=start_step,
                 device=self.device)
         all_metrics = []
@@ -669,6 +1103,9 @@ class Trainer:
         T = plan.steps_per_epoch
         T_call = self._indexed_call_steps(plan)
         n_calls = -(-T // T_call)
+        # The tier's entries at the run's entry; each call keeps them and
+        # never packs its cold routes (its batches are on the device).
+        tables = self._attach_hot(tables)
         all_metrics = []
         for e in range(start_epoch, start_epoch + epochs):
             args = plan.epoch_args(e)
@@ -694,6 +1131,20 @@ class Trainer:
         if on_epoch is None and as_numpy:
             all_metrics = [_to_host(m) for m in all_metrics]
         return tables, local_state, all_metrics
+
+
+@dataclasses.dataclass
+class _Tier:
+    """One call's hot-tier state, this process's positions' lists:
+    ``heads`` ``{table: H}``, ``compact`` ``{table: lane}`` (the compacted
+    tables of a certified chunk), each tiered table's ``replicas`` and
+    pending ``deltas``, and each hot fold's state slices (``folds``)."""
+
+    heads: dict
+    compact: dict
+    replicas: dict
+    deltas: dict
+    folds: dict
 
 
 def _refuse(fn: str, **args) -> None:

@@ -1,7 +1,7 @@
 """Host-side streaming ingest: fixed-shape chunks of examples, in numpy.
 
-A copy of ``_to_ssp_shape``, ``epoch_chunks``, ``multi_epoch_chunks`` and
-``stream_chunks`` from ``fps_tpu/core/ingest.py``, kept in the port so that it
+A copy of ``per_worker_cold_counts``, ``_to_ssp_shape``, ``epoch_chunks``,
+``multi_epoch_chunks`` and ``stream_chunks`` from ``fps_tpu/core/ingest.py``, kept in the port so that it
 never imports the JAX package (whose ``__init__`` imports jax). The chunks are
 the same, array for array, as the JAX package's; the trainer moves each one
 to the device once.
@@ -21,6 +21,28 @@ from __future__ import annotations
 from typing import Iterator, Mapping
 
 import numpy as np
+
+
+def per_worker_cold_counts(ids: np.ndarray, num_workers: int, *,
+                           hot_head: int = 0) -> np.ndarray:
+    """Cold-id counts of one chunk's id column, a ``(steps, num_workers)``
+    int array: the host half of the compacted cold route's certification
+    (``TableSpec.cold_budget``).
+
+    ``ids``' last axis is the global batch (worker-major, ``W *
+    local_batch``), its leading axes the chunk's step dims. An id is cold
+    when it is ``>= hot_head`` (the static frequency-ranked head); negative
+    ids never count (the ``-1`` padding), every other id counts, as the
+    device's compaction sees it. The certifier compares the maximum with
+    the lane's budget. (The JAX package's ``hot_member`` form belongs to
+    the mapped tier, which is not ported.)"""
+    a = np.asarray(ids)
+    B = a.shape[-1]
+    if B % num_workers:
+        raise ValueError(
+            f"batch dim {B} not divisible by num_workers={num_workers}")
+    per_worker = a.reshape(-1, num_workers, B // num_workers)
+    return (per_worker >= hot_head).sum(axis=-1)
 
 
 def _to_ssp_shape(chunk: dict, sync_every: int) -> dict:

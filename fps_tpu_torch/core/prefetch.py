@@ -84,7 +84,7 @@ def _chunk_nbytes(item) -> int:
     placed chunk's device footprint tracks its host footprint, and an
     overestimate only makes the veto stricter)."""
     if isinstance(item, PlacedChunk):
-        return _chunk_nbytes(item.batches)
+        return _chunk_nbytes(item.batches) + _chunk_nbytes(item.host_ids)
     if isinstance(item, dict):
         return sum(_chunk_nbytes(v) for v in item.values())
     if isinstance(item, (list, tuple)):
@@ -103,13 +103,21 @@ class PlacedChunk:
     placed again. ``ready`` is the CUDA event recorded after the chunk's
     copies (``None`` off the card): a consumer waits on it before reading
     ``batches``, through :func:`placed_batches`.
+
+    ``host_ids`` optionally carries the raw host id columns that the
+    compacted cold routes' certifier reads
+    (``WorkerLogic.pulled_ids_host``): the pipeline's worker thread computes
+    them beside the placement, and ``Trainer.run_chunk`` certifies the chunk
+    against them at dispatch. References to the source chunk's columns, not
+    copies.
     """
 
-    __slots__ = ("batches", "ready")
+    __slots__ = ("batches", "ready", "host_ids")
 
-    def __init__(self, batches, ready=None):
+    def __init__(self, batches, ready=None, host_ids=None):
         self.batches = batches
         self.ready = ready
+        self.host_ids = host_ids
 
 
 def place_columns(columns: Mapping, device: torch.device) -> PlacedChunk:

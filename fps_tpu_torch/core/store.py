@@ -23,8 +23,26 @@ no more rows than :func:`fps_tpu_torch.ops.packed_crossover_rows` allows
 at its width, and through K2 otherwise). ``TableSpec.dense_collectives``
 ``True`` takes the dense route on a mesh of more than one position;
 ``"auto"`` keeps the gathered route (the JAX package's size threshold was
-measured on a TPU's interconnect). Not ported, and rejected when set:
-``hot_tier`` and ``cold_budget`` (ROADMAP.md Queue 1 item 7b).
+measured on a TPU's interconnect).
+
+**The static hot tier** (``TableSpec.hot_tier = H``, the NuPS design of a
+replicated head and a sharded tail). A tiered table also keeps its leading
+``H`` ids as an ``(H, dim)`` replica on every position (the tables dict's
+``hot_key(name)`` entry) and, inside a call, a pending-delta buffer a
+position. :func:`pull_hot` serves ``id < H`` from the replica with no
+collective; the cold residue takes the table's routes with the hot slots
+masked to ``-1`` (or packed into a ``cold_budget`` lane by
+:func:`compact_cold`). :func:`accumulate_hot` folds the hot pushes into the
+buffer, and :func:`reconcile_hot` folds the buffers into the replica and the
+owners' head rows of the canonical table every
+``TrainerConfig.hot_sync_every`` steps and at the end of every call, so at
+a call's boundary the replica equals the canonical head rows bit for bit.
+The reconcile is a reduce-scatter over the shard axis, a sum over the data
+axis, an optional :class:`~fps_tpu_torch.core.api.HotFold` on the owned
+slice (its state the ``fold_key(name)`` entry, sharded) and an all-gather,
+all through the fixed-order folds of
+:mod:`fps_tpu_torch.parallel.collectives`. The mapped (adaptive) tier is not
+ported (ROADMAP.md Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -97,6 +115,337 @@ def _mesh_of(blocks: list[Tensor], num_shards: int,
 
 def _result(one: bool, out: list):
     return out[0] if one else out
+
+
+# ---------------------------------------------------------------------------
+# The static hot tier: a replicated head, pending deltas, the reconcile.
+# ---------------------------------------------------------------------------
+
+# The tier's entries ride the tables dict beside the tables they serve,
+# under reserved suffixes: the replica (every position's copy) and the hot
+# fold's state (sharded over the shard axis). The canonical tables are the
+# keys without a suffix.
+HOT_KEY_SUFFIX = "::hot"
+FOLD_KEY_SUFFIX = "::fold"
+AUX_KEY_SUFFIXES = (HOT_KEY_SUFFIX, FOLD_KEY_SUFFIX)
+
+
+def hot_key(name: str) -> str:
+    """Tables-dict key of ``name``'s replicated head."""
+    return name + HOT_KEY_SUFFIX
+
+
+def fold_key(name: str) -> str:
+    """Tables-dict key of ``name``'s sharded hot-fold state."""
+    return name + FOLD_KEY_SUFFIX
+
+
+def is_hot_key(key: str) -> bool:
+    return key.endswith(HOT_KEY_SUFFIX)
+
+
+def is_aux_key(key: str) -> bool:
+    """Whether ``key`` is a tier entry (a replica or a fold state)."""
+    return any(key.endswith(s) for s in AUX_KEY_SUFFIXES)
+
+
+def hot_base(key: str) -> str:
+    """Inverse of :func:`hot_key`."""
+    return key[: -len(HOT_KEY_SUFFIX)]
+
+
+def split_tiering(tables: Mapping[str, Any]) -> tuple[dict, dict, dict]:
+    """``(canonical, replicas, folds)`` of a tables dict, the tier's entries
+    keyed by their table's name."""
+    canonical, hot, folds = {}, {}, {}
+    for k, v in tables.items():
+        if k.endswith(HOT_KEY_SUFFIX):
+            hot[k[: -len(HOT_KEY_SUFFIX)]] = v
+        elif k.endswith(FOLD_KEY_SUFFIX):
+            folds[k[: -len(FOLD_KEY_SUFFIX)]] = v
+        else:
+            canonical[k] = v
+    return canonical, hot, folds
+
+
+def pull_hot(replica: Tensor, ids: Tensor, *,
+             hot_ids: int) -> tuple[Tensor, Tensor]:
+    """``(values, hot_mask)``: the replica's rows for ``id < hot_ids`` and
+    zero rows elsewhere (the other slots are gathered as ``-1``), so the
+    caller can ``where`` them against the cold route's rows, which are zero
+    on the hot slots. One gather (K1, or K5 on a scalar table), no
+    collective."""
+    hot = (ids >= 0) & (ids < hot_ids)
+    return ops.gather_rows(replica, torch.where(hot, ids, -1)), hot
+
+
+def split_hot_push(ids: Tensor, deltas: Tensor, *, hot_ids: int
+                   ) -> tuple[tuple[Tensor, Tensor], tuple[Tensor, Tensor]]:
+    """``((cold_ids, cold_deltas), (hot_ids, hot_deltas))`` of one push on
+    ``id < hot_ids``, each with the other tier's slots masked to ``-1`` and
+    zero deltas (the store drops ``-1``)."""
+    hot = (ids >= 0) & (ids < hot_ids)
+    zero = torch.zeros((), dtype=deltas.dtype, device=deltas.device)
+    cold = (torch.where(hot, -1, ids).to(ids.dtype),
+            torch.where(hot[:, None], zero, deltas))
+    hots = (torch.where(hot, ids, -1).to(ids.dtype),
+            torch.where(hot[:, None], deltas, zero))
+    return cold, hots
+
+
+def delta_counted(combine: str, fold) -> bool:
+    """Whether a pending-delta buffer carries the push-count column: the
+    ``"mean"`` combine needs it to normalize, a stateful fold to apply to
+    touched rows only."""
+    return combine == "mean" or fold is not None
+
+
+def compact_cold(ids: Tensor, deltas: Tensor | None, *, budget: int
+                 ) -> tuple[Tensor, Tensor | None, Tensor, Tensor]:
+    """Pack a masked cold-id stream into a ``(budget,)`` lane.
+
+    ``ids`` is a ``(B,)`` stream whose hot and padding slots are ``-1``;
+    its live entries are packed in order (cumsum positions) into the lane,
+    padded with ``-1``, so the collective routes carry the lane, not the
+    batch. Live entries past the budget are dropped (their pulls read zero
+    rows): the trainer dispatches the compacted route only for chunks its
+    host certifier proved to fit, and the overflow count is the device's
+    net.
+
+    Returns ``(lane_ids, lane_deltas, pos, overflowed)``: ``pos`` maps each
+    slot of the batch to its lane position (``-1``: masked or dropped), for
+    scattering the lane's pulled rows back; ``overflowed`` is the count of
+    dropped live entries (an int32 scalar tensor).
+    """
+    live = ids >= 0
+    pos = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.where(live & (pos < budget), pos, -1)
+    # Masked and dropped slots land on an extra last row, cut off after.
+    safe = torch.where(pos >= 0, pos, budget).to(torch.int64)
+    lane_ids = torch.full((budget + 1,), -1, dtype=ids.dtype,
+                          device=ids.device).index_copy_(
+        0, safe, ids)[:budget]
+    lane_deltas = None
+    if deltas is not None:
+        lane_deltas = torch.zeros(
+            (budget + 1,) + tuple(deltas.shape[1:]), dtype=deltas.dtype,
+            device=deltas.device).index_copy_(0, safe, deltas)[:budget]
+    overflowed = torch.clamp(live.sum(dtype=torch.int32) - budget, min=0)
+    return lane_ids, lane_deltas, pos, overflowed
+
+
+def _extremum_fill(combine: str, dtype) -> float:
+    lim = torch.finfo(dtype).max
+    return -lim if combine == "max" else lim
+
+
+def hot_delta_init(hot_rows: int, dim: int, dtype, *, combine: str = "sum",
+                   fold=None, device=None) -> Tensor:
+    """A fresh pending-delta buffer of one tiered table on ``device``.
+
+    It accumulates in at least float32. ``"mean"`` (and any stateful fold)
+    appends a push-count column; ``"max"`` / ``"min"`` keep an elementwise
+    extremum, filled with the extremal sentinel, with a touched-indicator
+    column (the extremum push's one-scatter form)."""
+    acc_dt = torch.promote_types(dtype, torch.float32)
+    if combine in ("max", "min"):
+        return torch.full((hot_rows, dim + 1),
+                          _extremum_fill(combine, acc_dt), dtype=acc_dt,
+                          device=device)
+    cols = dim + (1 if delta_counted(combine, fold) else 0)
+    return torch.zeros((hot_rows, cols), dtype=acc_dt, device=device)
+
+
+def _reset_delta(delta_buf: Tensor, combine: str) -> Tensor:
+    """The window's end: a buffer of zeros, or of the extremal sentinel for
+    ``"max"`` / ``"min"``."""
+    if combine in ("max", "min"):
+        return torch.full_like(delta_buf,
+                               _extremum_fill(combine, delta_buf.dtype))
+    return torch.zeros_like(delta_buf)
+
+
+def accumulate_hot(delta_buf: Tensor, hot_ids_arr: Tensor,
+                   hot_deltas: Tensor, *, combine: str = "sum",
+                   fold=None) -> Tensor:
+    """Fold one step's hot pushes (from :func:`split_hot_push`: cold slots
+    ``-1`` with zero deltas) into the pending buffer, in place; returns it.
+
+    The additive combines scatter-add through :func:`fps_tpu_torch.ops.
+    scatter_add_` (K2, or K4 on a scalar buffer), the count riding as an
+    appended column where the buffer has one. ``"max"`` / ``"min"`` take
+    ``scatter_reduce_`` with the touched indicator as an appended ones
+    column; a masked slot carries the sentinel, which changes no row.
+    Purely local: the collectives run once a window, in
+    :func:`reconcile_hot`."""
+    vals = hot_deltas.to(delta_buf.dtype)
+    live = (hot_ids_arr >= 0) & (hot_ids_arr < delta_buf.shape[0])
+    if combine in ("max", "min"):
+        filled = torch.cat([vals, torch.ones_like(vals[:, :1])], 1)
+        filled = torch.where(live[:, None], filled, torch.full_like(
+            filled, _extremum_fill(combine, delta_buf.dtype)))
+        idx = torch.where(live, hot_ids_arr, 0).to(torch.int64)
+        return delta_buf.scatter_reduce_(
+            0, idx[:, None].expand(-1, delta_buf.shape[1]), filled,
+            reduce="amax" if combine == "max" else "amin")
+    if delta_counted(combine, fold):
+        vals = torch.cat([vals, (hot_ids_arr >= 0).to(vals.dtype)[:, None]],
+                         1)
+    return ops.scatter_add_(delta_buf, hot_ids_arr.to(torch.int32),
+                            vals.contiguous())
+
+
+def hot_fold_state_shape(fold, H: int, dim: int,
+                         num_shards: int) -> tuple[int, int]:
+    """The global shape of a table's hot-fold state: ``ceil(H / S)`` rows a
+    shard in reduce-scatter slice order (slice ``s`` holds head rows
+    ``[s * Hs, (s + 1) * Hs)``), by
+    :meth:`~fps_tpu_torch.core.api.HotFold.state_cols` columns."""
+    Hs = rows_per_shard(H, num_shards)
+    return (Hs * num_shards, fold.state_cols(dim))
+
+
+def apply_hot_fold(fold, state: Tensor, g: Tensor,
+                   counts: Tensor) -> tuple[Tensor, Tensor]:
+    """``(step, new_state)``: a stateful fold on the owned slice.
+
+    ``g`` is the window's combined delta of this position's slice of the
+    head (after the ``combine`` normalization), ``counts`` its rows' push
+    counts, ``state`` the position's slice of the fold state. Rows with no
+    push this window keep their state and take a zero step."""
+    dt = g.dtype
+    t1 = (counts > 0)[:, None]
+    zero = torch.zeros((), dtype=dt, device=g.device)
+    if fold.kind == "adagrad":
+        G = state + torch.where(t1, g * g, zero).to(state.dtype)
+        step = torch.where(
+            t1, fold.lr * g / (_sqrt(G).to(dt) + fold.eps), zero)
+        return step, G
+    dim = g.shape[1]
+    m, v, t = state[:, :dim], state[:, dim:2 * dim], state[:, 2 * dim]
+    t_new = t + (counts > 0).to(state.dtype)
+    m_new = torch.where(t1, fold.beta1 * m + (1.0 - fold.beta1) * g, m)
+    v_new = torch.where(t1, fold.beta2 * v + (1.0 - fold.beta2) * g * g, v)
+    tc = torch.clamp(t_new, min=1.0)
+    mhat = m_new / (1.0 - _pow(fold.beta1, tc))[:, None]
+    vhat = v_new / (1.0 - _pow(fold.beta2, tc))[:, None]
+    step = torch.where(t1, fold.lr * mhat.to(dt)
+                       / (_sqrt(vhat).to(dt) + fold.eps), zero)
+    return step, torch.cat([m_new, v_new, t_new[:, None]], 1)
+
+
+def _pow(base: float, t: Tensor) -> Tensor:
+    """``base ** t`` in ``t``'s dtype, ``base`` rounded to it first (as the
+    JAX package's ``fold.beta1 ** tc`` takes it): taken in float64 and
+    rounded once, as :func:`_sqrt` is."""
+    b = torch.tensor(base, dtype=t.dtype).to(torch.float64)
+    return torch.pow(b.to(t.device), t.to(torch.float64)).to(t.dtype)
+
+
+def _sqrt(x: Tensor) -> Tensor:
+    """``sqrt(x)`` correctly rounded on every device: taken in float64 and
+    rounded once. On the CPU, ``torch.sqrt`` of float32 is not correctly
+    rounded (measured: 1 ulp off on about 0.6 % of the elements) and its
+    result has differed between two calls on the same input, which would
+    break the replicas' bit-equality, since each data replica folds its
+    own slice. (A float32 square root taken in float64 and rounded once is
+    the correctly rounded one.)"""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def _reconcile_combine(mesh: PSMesh, replicas, bufs, *, num_shards: int,
+                       combine: str, fold=None, fold_states=None):
+    """The window's combined step from every position's pending buffer
+    (this process's positions' lists in, lists out).
+
+    1. Each buffer is padded to ``ceil(H / S) * S`` rows and reduce-scattered
+       over the shard axis: position ``(d, s)`` receives the summed slice of
+       head rows ``[s * Hs, (s + 1) * Hs)``;
+    2. the slices are summed over the data axis;
+    3. ``"mean"`` normalizes by the count column;
+    4. a :class:`~fps_tpu_torch.core.api.HotFold` turns the slice into its
+       step against the position's slice of the fold state;
+    5. the slices are all-gathered, so every position holds the same step.
+
+    ``"max"`` / ``"min"`` take a full-head ``pmax`` / ``pmin`` over the shard
+    axis, then the data axis, and carry no fold state.
+
+    Returns ``(combined, fold_states)``: the ``(H, dim)`` step a position.
+    """
+    H, dim = replicas[0].shape
+    D = mesh.shape[DATA_AXIS]
+    if combine in ("max", "min"):
+        red = collectives.pmax if combine == "max" else collectives.pmin
+        g = red(mesh, bufs, SHARD_AXIS)
+        if D > 1:
+            g = red(mesh, g, DATA_AXIS)
+        zero = torch.zeros((), dtype=replicas[0].dtype)
+        # Touched rows carry indicator 1.0; untouched the sentinel.
+        return [torch.where((x[:, dim].abs() <= 1.0)[:, None],
+                            x[:, :dim].to(r.dtype), zero.to(r.device))
+                for x, r in zip(g, replicas)], fold_states
+    Hs = rows_per_shard(H, num_shards)
+    pad = Hs * num_shards - H
+    if pad:
+        bufs = [torch.cat([b, b.new_zeros((pad, b.shape[1]))]) for b in bufs]
+    sl = collectives.psum_scatter(mesh, bufs, SHARD_AXIS)
+    if D > 1:
+        sl = collectives.psum(mesh, sl, DATA_AXIS)
+    steps, states = [], []
+    for i, x in enumerate(sl):
+        counts = x[:, dim] if x.shape[1] > dim else None
+        g = x[:, :dim]
+        if combine == "mean":
+            g = g * (1.0 / torch.clamp(counts, min=1.0))[:, None]
+        if fold is not None:
+            g, st = apply_hot_fold(fold, fold_states[i], g, counts)
+            states.append(st)
+        steps.append(g.to(replicas[i].dtype))
+    full = collectives.all_gather(mesh, steps, SHARD_AXIS)
+    return ([f[:H] if pad else f for f in full],
+            states if fold is not None else fold_states)
+
+
+def reconcile_hot(cold_blocks, replicas, bufs, *, num_shards: int,
+                  combine: str = "sum", fold=None, fold_states=None,
+                  inplace: bool = False, mesh: PSMesh | None = None):
+    """The window's reconcile of one tiered table: fold every position's
+    pending buffer into the replicas and into the owners' head rows of the
+    canonical table.
+
+    ``cold_blocks``, ``replicas``, ``bufs`` and ``fold_states`` hold one
+    tensor a position (this process's, in worker order; ``mesh`` as in
+    :func:`pull`). The combined step (:func:`_reconcile_combine`: the
+    reduce-scatter, the sum over the data axis, the normalization, the
+    fold, the all-gather) is added to every replica, which stays the same
+    bits on every position, and to the canonical shard: global id ``h``
+    lives on shard ``h % S`` at local row ``h // S``, so shard ``s``'s head
+    ids are its local rows ``[0, ceil(H / S))``, gathered from the step
+    (K1, or K5 on a scalar table; a row past ``H`` gathers ``-1``, a zero
+    row). ``inplace`` updates the blocks and replicas themselves.
+
+    Returns ``(cold_blocks, replicas, fresh_bufs, fold_states)``.
+    """
+    mesh = _mesh_of(list(cold_blocks), num_shards, mesh)
+    S = num_shards
+    combined, fold_states = _reconcile_combine(
+        mesh, replicas, bufs, num_shards=S, combine=combine, fold=fold,
+        fold_states=fold_states)
+    H = replicas[0].shape[0]
+    hl = -(-H // S)  # local head rows on every shard
+    new_cold, new_rep = [], []
+    for p, blk, rep, comb in zip(mesh.local, cold_blocks, replicas,
+                                 combined):
+        gids = (torch.arange(hl, dtype=torch.int32, device=blk.device) * S
+                + p % S)
+        mine = ops.gather_rows(comb, torch.where(gids < H, gids, -1))
+        if not inplace:
+            blk, rep = blk.clone(), rep.clone()
+        blk[:hl] += mine.to(blk.dtype)
+        new_cold.append(blk)
+        new_rep.append(rep.add_(comb))
+    return (new_cold, new_rep, [_reset_delta(b, combine) for b in bufs],
+            fold_states)
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +712,19 @@ class TableSpec:
     the dense route, ``"auto"`` and ``False`` the gathered one (the JAX
     package's ``"auto"`` goes dense below a table size measured on a TPU;
     on a one-position mesh both packages take the gathered route).
-    ``hot_tier`` and ``cold_budget`` select routes this port does not have
-    yet; setting them raises.
+
+    ``hot_tier = H > 0`` replicates the leading ``H`` global ids on every
+    position (the static hot tier, see the module's docstring; ids
+    frequency-ranked, hottest first; ``H >= num_ids`` replicates the whole
+    table and leaves it no pull or push exchange). It engages only where the
+    ``Trainer`` resolves it on: a mesh of more than one position,
+    ``TrainerConfig.hot_sync_every > 1`` and a ``"sum"``, ``"mean"``,
+    ``"max"`` or ``"min"`` server fold without ``apply_fn``; otherwise the
+    untiered program runs. ``cold_budget = C > 0``, with a partial head on
+    the gathered route, packs each worker's cold ids of a step into a lane
+    of ``C`` before the collectives, for the chunks the trainer's host
+    certifier proves to fit (the others take the static route, the same
+    bits). The trainer checks both values.
     """
 
     name: str
@@ -387,14 +747,6 @@ class TableSpec:
             raise ValueError(
                 f"TableSpec.dense_collectives={self.dense_collectives!r} for "
                 f"table {self.name!r}: expected a bool or 'auto'")
-        unported = {"hot_tier": self.hot_tier != 0,
-                    "cold_budget": self.cold_budget != 0}
-        for field, set_ in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"TableSpec.{field}={getattr(self, field)!r} for table "
-                    f"{self.name!r}: this route is not ported yet "
-                    "(ROADMAP.md Queue 1 item 7b)")
 
     def zeros_init(self) -> "TableSpec":
         return dataclasses.replace(
@@ -464,8 +816,12 @@ class ParamStore:
         """Make every table from ``seed`` (each table from its own
         sub-seed, keyed by its name): each of this process's positions makes
         its shard's block from the id-seeded initializer, on its own
-        device."""
+        device. The tables are the canonical ones only: a hot tier's entries
+        from an earlier run are dropped, so the trainer derives them from
+        the fresh tables (the JAX package's ``init`` keeps them, and a run
+        from its fresh state then starts from the old run's replica)."""
         S, mesh = self.num_shards, self.mesh
+        self.tables = {}
         for name, spec in self.specs.items():
             sub = fold_seed(seed, _stable_hash(name))
             self.tables[name] = Blocks(
@@ -484,6 +840,28 @@ class ParamStore:
         if len(parts) == 1:
             return parts[0]
         return torch.cat(collectives.home(self.mesh, parts))
+
+    def head_replica(self, name: str, hot_rows: int,
+                     table: Blocks | None = None) -> Blocks:
+        """The ``(hot_rows, dim)`` replica of ``name``'s leading ids on every
+        position of this process (one copy a position), derived from the
+        canonical table (``table``, default the live one): each shard's
+        head rows ``[0, ceil(H / S))`` are all-gathered over the shard axis
+        and put in id order. A copy, so it is the canonical head rows' bits;
+        over several processes a collective."""
+        spec = self.specs[name]
+        if not 0 < hot_rows <= spec.num_ids:
+            raise ValueError(f"table {name!r}: hot_rows={hot_rows} outside "
+                             f"(0, {spec.num_ids}]")
+        blocks = list(self.tables[name] if table is None else table)
+        S = self.num_shards
+        hl = rows_per_shard(hot_rows, S)
+        heads = collectives.all_gather(self.mesh, [b[:hl] for b in blocks],
+                                       SHARD_AXIS)
+        # Shard s's head row j (global id j * S + s) sits at row s * hl + j.
+        rows = id_to_phys(torch.arange(hot_rows, dtype=torch.int64), S, hl)
+        return Blocks([h.index_select(0, rows.to(h.device)) for h in heads],
+                      replicas=len(self.mesh.slot), mesh=self.mesh)
 
     def put(self, name: str, full: Tensor) -> Blocks:
         """Set table ``name`` from its whole ``(S * rps, dim)`` physical

@@ -10,6 +10,11 @@ chunk in numpy and copies it over (the unbounded-stream shape).
 ``--prefetch N`` assembles and places chunks N ahead on a worker thread
 (``TrainerConfig.prefetch``; ``IALSSolver.prefetch`` in the iALS example).
 
+``--hot-tier H``, ``--hot-sync-every E``, ``--cold-budget C`` and
+``--hot-fold KIND`` set the static hot tier on every table of the job
+(:func:`apply_hot_tier`, which emits a ``"hot_tier"`` event);
+``--auto-tier`` (adaptive tiering) is not ported and raises.
+
 ``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
 examples: by default over every visible CUDA device, or with every position
 on ``--device`` (``--device cpu --num-shards 4``: four shards on the CPU).
@@ -69,6 +74,33 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "placement run up to N chunks ahead on a worker "
                          "thread; 0 = synchronous host loop. The tables are "
                          "the same bits either way")
+    ap.add_argument("--hot-tier", type=int, default=0, metavar="H",
+                    help="the static hot tier (TableSpec.hot_tier): "
+                         "replicate the leading H ids of every table on "
+                         "every position; hot reads need no collective, hot "
+                         "pushes reconcile every --hot-sync-every steps. Ids "
+                         "must be frequency-ranked. Engages on meshes of "
+                         "more than one position with --hot-sync-every > 1 "
+                         "and a sum/mean/max/min fold; otherwise the "
+                         "untiered program runs")
+    ap.add_argument("--hot-sync-every", type=int, default=1, metavar="E",
+                    help="the hot tier's reconcile window in steps "
+                         "(TrainerConfig.hot_sync_every); 1 (default) is "
+                         "the exact mode, bit-equal to the untiered run")
+    ap.add_argument("--cold-budget", type=int, default=0, metavar="C",
+                    help="with a partial hot head on the gathered route, "
+                         "pack each worker's cold ids of a step into a lane "
+                         "of C (TableSpec.cold_budget) for the chunks the "
+                         "host certifies; the others take the static "
+                         "route, the same bits; 0 = static cold routes")
+    ap.add_argument("--hot-fold", default=None, choices=["adagrad", "adam"],
+                    help="a stateful server optimizer on the hot tier "
+                         "(ServerLogic.hot_fold), its state sharded over "
+                         "the shard axis; needs --hot-tier >= num_ids and "
+                         "--hot-sync-every > 1")
+    ap.add_argument("--auto-tier", action="store_true",
+                    help="adaptive tiering (TrainerConfig.auto_tier): not "
+                         "ported yet (ROADMAP.md Queue 1 item 7c); raises")
     return ap
 
 
@@ -89,6 +121,55 @@ def apply_host_pipeline(args, trainer):
     if args.prefetch:
         trainer.config = dataclasses.replace(trainer.config,
                                              prefetch=args.prefetch)
+    return trainer
+
+
+def apply_hot_tier(args, trainer, store=None):
+    """Fold ``--hot-tier`` / ``--hot-sync-every`` / ``--cold-budget`` /
+    ``--hot-fold`` / ``--auto-tier`` into the trainer's table specs, server
+    logic and config, before its first call, and emit a ``"hot_tier"``
+    event naming the tables the tier resolves on for. ``trainer=None`` (the
+    iALS example, which has no pull and push trainer) reports the flags as
+    ignored."""
+    H, E = args.hot_tier, args.hot_sync_every
+    cold, fold, auto = args.cold_budget, args.hot_fold, args.auto_tier
+    if E < 1:
+        raise SystemExit(f"--hot-sync-every must be >= 1, got {E}")
+    if H < 0:
+        raise SystemExit(f"--hot-tier must be >= 0, got {H}")
+    if cold < 0:
+        raise SystemExit(f"--cold-budget must be >= 0, got {cold}")
+    if cold and not (H or auto):
+        raise SystemExit("--cold-budget needs a hot tier: pass --hot-tier H "
+                         "(a partial head)")
+    if fold and not H:
+        raise SystemExit("--hot-fold needs --hot-tier (the whole table: H >= "
+                         "num_ids) and --hot-sync-every > 1")
+    if not H and E == 1 and not auto:
+        return trainer
+    if trainer is None:
+        emit({"event": "hot_tier_ignored",
+              "reason": "this workload has no pull/push trainer (iALS "
+                        "half-epoch solves)"})
+        return None
+    store = store or trainer.store
+    if H:
+        for name, spec in store.specs.items():
+            store.specs[name] = dataclasses.replace(
+                spec, hot_tier=min(H, spec.num_ids), cold_budget=cold)
+    if fold:
+        for name, sl in trainer.server_logic.items():
+            trainer.server_logic[name] = dataclasses.replace(sl,
+                                                             hot_fold=fold)
+    # auto_tier=True raises NotImplementedError (item 7c).
+    trainer.config = dataclasses.replace(trainer.config, hot_sync_every=E,
+                                         auto_tier=auto)
+    tiered = sorted(trainer._hot_tier_map())  # also checks push_delay
+    emit({"event": "hot_tier", "hot_tier": H, "hot_sync_every": E,
+          "auto_tier": auto, "tiered_tables": tiered,
+          "cold_budget": cold, "hot_fold": fold,
+          "compacted_tables": sorted(trainer._cold_compact_map()),
+          "exact_mode": E == 1 or not tiered})
     return trainer
 
 

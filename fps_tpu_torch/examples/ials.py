@@ -25,6 +25,7 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    apply_hot_tier,
     base_parser,
     emit,
     make_epoch_source,
@@ -73,6 +74,7 @@ def main(argv=None) -> int:
           "ingest": args.ingest, "mesh": dict(mesh.shape),
           "device": str(mesh.device)})
 
+    apply_hot_tier(args, None)  # no pull/push trainer to tier
     solver = IALSSolver(mesh, IALSConfig(num_users=nu, num_items=ni,
                                          rank=args.rank, alpha=args.alpha,
                                          reg=args.reg))

@@ -27,6 +27,7 @@ import numpy as np
 
 from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
+    apply_hot_tier,
     base_parser,
     emit,
     make_chunks,
@@ -86,6 +87,7 @@ def main(argv=None) -> int:
     trainer, store = online_mf(mesh, cfg, sync_every=args.sync_every,
                                combine=args.combine)
     apply_host_pipeline(args, trainer)
+    apply_hot_tier(args, trainer)
     if args.topk_every:
         from fps_tpu_torch.models.recommendation import (
             make_online_topk_tap,

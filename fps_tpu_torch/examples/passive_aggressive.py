@@ -26,6 +26,7 @@ import numpy as np
 
 from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
+    apply_hot_tier,
     base_parser,
     emit,
     make_chunks,
@@ -107,6 +108,7 @@ def main(argv=None) -> int:
     trainer, store = passive_aggressive(mesh, cfg,
                                         sync_every=args.sync_every)
     apply_host_pipeline(args, trainer)
+    apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
     chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)

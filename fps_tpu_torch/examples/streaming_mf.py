@@ -23,6 +23,7 @@ import numpy as np
 
 from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
+    apply_hot_tier,
     base_parser,
     emit,
     make_mesh,
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
                    rank=args.rank, learning_rate=args.learning_rate)
     trainer, _ = online_mf(mesh, cfg, sync_every=args.sync_every)
     apply_host_pipeline(args, trainer)
+    apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
 
     source = streaming_rating_batches(

@@ -29,6 +29,7 @@ import numpy as np
 
 from fps_tpu_torch.examples.common import (
     apply_host_pipeline,
+    apply_hot_tier,
     base_parser,
     emit,
     make_mesh,
@@ -105,6 +106,7 @@ def main(argv=None) -> int:
         trainer, store = word2vec(mesh, cfg, uni, sync_every=args.sync_every,
                                   max_steps_per_call=256, step_tap=step_tap)
     apply_host_pipeline(args, trainer)
+    apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
 
     prof, prof_step = profiler(args, mesh.device)

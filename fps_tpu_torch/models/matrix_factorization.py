@@ -116,6 +116,16 @@ class MatrixFactorizationWorker(WorkerLogic):
             return {ITEM_TABLE: batch["all_items"].reshape(-1)}
         return {ITEM_TABLE: batch["item"].to(torch.int32)}
 
+    def pulled_ids_host(self, chunk):
+        """The cold routes' certification stream (``TableSpec.cold_budget``):
+        the raw item column covers every id a step pulls and pushes (pushes
+        mask padding to ``-1``, so certifying on the pulls is conservative).
+        With negative sampling the ids are drawn on the device in
+        :meth:`prepare`, so the chunks cannot be certified."""
+        if self.cfg.negative_samples:
+            return None
+        return {ITEM_TABLE: chunk["item"]}
+
     def touched_local_rows(self, batch):
         """The local user rows :meth:`step` scatters into (``-1`` for
         padding examples); the user table is the only leaf."""

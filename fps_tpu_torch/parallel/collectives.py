@@ -1,20 +1,20 @@
 """The collectives of the mesh.
 
 What ``jax.lax`` gives the JAX package inside ``shard_map`` (``all_gather``,
-``psum_scatter``, ``all_to_all``, ``psum``) over a mesh axis, here over
-tensors held one a position (a sequence in worker order ``w = d * S + s``,
-this process's positions only, see
+``psum_scatter``, ``all_to_all``, ``psum``, ``pmax``, ``pmin``) over a mesh
+axis, here over tensors held one a position (a sequence in worker order
+``w = d * S + s``, this process's positions only, see
 :class:`~fps_tpu_torch.parallel.mesh.PSMesh`). Each returns one result a
 position of this process, on that position's device. Besides them: the moves
 between the process's home device and its positions (a batch's columns out
 to the workers, the step's metrics and tap outputs back).
 
-Every sum is a left fold in index order, on the receiving position's device,
-so its float32 rounding does not depend on where the positions run, and
-every replica of a sum is the same bits. Within a process data moves with
-``Tensor.to(device, non_blocking=True)``, a no-op where the devices are the
-same. This module is the only one in the port that moves data between
-positions.
+Every sum (and every maximum and minimum) is a left fold in index order,
+on the receiving position's device, so its float32 rounding does not depend
+on where the positions run, and every replica of a sum is the same bits.
+Within a process data moves with ``Tensor.to(device, non_blocking=True)``,
+a no-op where the devices are the same. This module is the only one in the
+port that moves data between positions.
 
 **Across processes.** A group that lies inside the process works as on one
 process. Where an axis's groups cross processes, the process first fetches
@@ -75,11 +75,13 @@ def _member(mesh: PSMesh, axis: str, p: int) -> tuple[tuple[int, ...], int]:
         raise ValueError(f"unknown mesh axis {axis!r}") from None
 
 
-def _fold(parts: Sequence[Tensor], device: torch.device) -> Tensor:
-    """``parts[0] + parts[1] + ...`` in that order, on ``device``."""
+def _fold(parts: Sequence[Tensor], device: torch.device,
+          op: Callable[[Tensor, Tensor], Tensor] = torch.add) -> Tensor:
+    """``op(op(parts[0], parts[1]), ...)`` in that order, on ``device``
+    (by default ``parts[0] + parts[1] + ...``)."""
     acc = _to(parts[0], device)
     for p in parts[1:]:
-        acc = acc + _to(p, device)
+        acc = op(acc, _to(p, device))
     return acc
 
 
@@ -261,12 +263,31 @@ def all_to_all(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
     return out
 
 
-def psum(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
-    """``lax.psum(x, axis)``: each position receives its group's sum."""
+def _reduce(mesh: PSMesh, xs: Sequence[Tensor], axis: str,
+            op: Callable[[Tensor, Tensor], Tensor]) -> list[Tensor]:
+    """Each position receives its group's tensors folded by ``op`` in index
+    order."""
     _check(mesh, xs)
     known = _known(mesh, xs, axis)
-    return [_fold([known[q] for q in _member(mesh, axis, p)[0]], dev)
+    return [_fold([known[q] for q in _member(mesh, axis, p)[0]], dev, op)
             for p, dev in zip(mesh.local, mesh.positions)]
+
+
+def psum(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
+    """``lax.psum(x, axis)``: each position receives its group's sum."""
+    return _reduce(mesh, xs, axis, torch.add)
+
+
+def pmax(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
+    """``lax.pmax(x, axis)``: each position receives its group's
+    elementwise maximum."""
+    return _reduce(mesh, xs, axis, torch.maximum)
+
+
+def pmin(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
+    """``lax.pmin(x, axis)``: each position receives its group's
+    elementwise minimum."""
+    return _reduce(mesh, xs, axis, torch.minimum)
 
 
 # ---------------------------------------------------------------------------

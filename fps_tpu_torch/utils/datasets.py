@@ -2,7 +2,8 @@
 
 A copy of ``fps_tpu/utils/datasets.py`` for the ported workloads:
 MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``, and
-the unbounded ``streaming_rating_batches``), implicit feedback for iALS
+the unbounded ``streaming_rating_batches``; ``zipf_ratings``, the hot-tier
+bench's Zipf-skewed item stream from ``bench.py``), implicit feedback for iALS
 (``synthetic_implicit``), sparse
 classification for passive-aggressive and logistic regression
 (``synthetic_sparse_classification``, ``synthetic_sparse_multiclass``,
@@ -53,6 +54,23 @@ def synthetic_ratings(
         "rating": ratings.astype(dtype),
     }
 
+
+
+def zipf_ratings(num_users, num_items, n, *, alpha=1.05, rank=3, seed=0):
+    """Planted low-rank ratings whose item stream is Zipf(``alpha``)-skewed
+    with frequency-ranked ids (hottest first, the head convention of the
+    hot tier): a copy of ``bench.py``'s ``_zipf_ratings``, the same arrays
+    from the same seed."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, num_items + 1) ** alpha
+    p /= p.sum()
+    user = rng.integers(0, num_users, n).astype(np.int32)
+    item = rng.choice(num_items, size=n, p=p).astype(np.int32)
+    uf = rng.normal(0, 1.0 / rank ** 0.5, (num_users, rank))
+    vf = rng.normal(0, 1.0 / rank ** 0.5, (num_items, rank))
+    rating = ((uf[user] * vf[item]).sum(1)
+              + rng.normal(0, 0.1, n)).astype(np.float32)
+    return {"user": user, "item": item, "rating": rating}
 
 
 def load_movielens(path: str | None = None, scale: str = "100k"):

@@ -19,12 +19,17 @@ Bundles: ``d2s4`` (the four collectives, a pull and pushes at (2, 4),
 sync and ``fit_stream`` SSP) and ``d1s8`` (at (1, 8), the shard axis across
 the ranks: MF through ``run_indexed``, binary PA-I, SSP logistic regression,
 the word2vec block worker, an iALS epoch, MF with the collective online
-top-k tap and ``recommend_topk``); ``dies`` (rank 1 exits once the mesh is
-built, and rank 0's next collective must fail within the timeout).
+top-k tap and ``recommend_topk``); ``tiered`` (the static hot tier at
+(1, 4) and (2, 4): MF with a partial head and its certified cold lanes,
+sync and SSP, and logistic regression with a partial head, and with the
+whole table and an Adagrad hot fold; from the port's own initial state);
+``dies`` (rank 1 exits once the mesh is built, and rank 0's next
+collective must fail within the timeout).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
@@ -61,7 +66,9 @@ from fps_tpu_torch.utils import datasets as ds  # noqa: E402
 BUNDLES = {"d2s4": ("collectives", "mf_indexed_d2s4", "mf_host_sync",
                     "mf_host_ssp"),
            "d1s8": ("mf_indexed_d1s8", "pa", "logreg", "w2v", "ials",
-                    "topk")}
+                    "topk"),
+           "tiered": ("tiered_mf_d1s4", "tiered_mf_d2s4_ssp",
+                      "tiered_lr_d1s4", "tiered_lr_d2s4_fold")}
 COLLECTIVE_SHAPES = [(2, 4), (1, 8), (4, 2)]
 
 # The JAX reference's recipe (tests/test_multiprocess.py).
@@ -431,12 +438,87 @@ def collectives_scenario(mesh_of, init, out):
                 out[f"coll/{D}x{S}/{op}/{w}"] = t.numpy()
 
 
+# The hot tier's scenarios: MF's item table with a partial head of 12 of 31
+# items and the lane its chunks need, logreg's table with a head of 64 of
+# 400 features (or all of them, with the fold).
+TIER_MF_H, TIER_LR_H, TIER_E = 12, 64, 3
+
+
+def _tiered_mf(mesh_of, out, name, D, S, sync_every=None):
+    mesh = mesh_of(D, S)
+    W = D * S
+    trainer, store = online_mf(mesh, MFConfig(**MF_CFG), combine="mean",
+                               sync_every=sync_every)
+    chunks = list(multi_epoch_chunks(
+        mf_data(), 2, num_workers=W, local_batch=32, steps_per_chunk=4,
+        route_key="user", sync_every=sync_every, seed=5))
+    from fps_tpu_torch.core.ingest import per_worker_cold_counts
+
+    lane = max(int(per_worker_cold_counts(c["item"], W,
+                                          hot_head=TIER_MF_H).max())
+               for c in chunks)
+    store.specs["item_factors"] = dataclasses.replace(
+        store.specs["item_factors"], hot_tier=TIER_MF_H, cold_budget=lane,
+        dense_collectives=False)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E)
+    tables, local = trainer.init_state(0)
+    tables, local, metrics = trainer.fit_stream(tables, local, chunks, 1)
+    _record(out, name, tables, local, metrics_of(metrics))
+
+
+def tiered_mf_d1s4(mesh_of, init, out):
+    _tiered_mf(mesh_of, out, "tiered_mf_d1s4", 1, 4)
+
+
+def tiered_mf_d2s4_ssp(mesh_of, init, out):
+    _tiered_mf(mesh_of, out, "tiered_mf_d2s4_ssp", 2, 4, sync_every=2)
+
+
+def _tiered_lr(mesh_of, out, name, D, S, H, fold=None):
+    trainer, store = logistic_regression(mesh_of(D, S),
+                                         LogRegConfig(**LR_KW))
+    store.specs["weights"] = dataclasses.replace(store.specs["weights"],
+                                                 hot_tier=H)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E)
+    if fold:
+        trainer.server_logic["weights"] = dataclasses.replace(
+            trainer.server_logic["weights"], hot_fold=fold)
+    chunks = list(epoch_chunks(lr_data(), num_workers=D * S, local_batch=16,
+                               steps_per_chunk=4, seed=3))[:3]
+    tables, _ = trainer.init_state(0)
+    local, metrics = (), []
+    for i, chunk in enumerate(chunks):
+        tables, local, m = trainer.run_chunk(tables, local, chunk, i)
+        metrics.append(_host_tree(m))
+    _record(out, name, tables, local, metrics_of(metrics))
+
+
+def _host_tree(m):
+    if isinstance(m, dict):
+        return {k: _host_tree(v) for k, v in m.items()}
+    return m.numpy()
+
+
+def tiered_lr_d1s4(mesh_of, init, out):
+    _tiered_lr(mesh_of, out, "tiered_lr_d1s4", 1, 4, TIER_LR_H)
+
+
+def tiered_lr_d2s4_fold(mesh_of, init, out):
+    _tiered_lr(mesh_of, out, "tiered_lr_d2s4_fold", 2, 4, LR_NF,
+               fold="adagrad")
+
+
 SCENARIOS = {"collectives": collectives_scenario,
              "mf_indexed_d2s4": mf_indexed_d2s4,
              "mf_indexed_d1s8": mf_indexed_d1s8,
              "mf_host_sync": mf_host_sync, "mf_host_ssp": mf_host_ssp,
              "pa": pa, "logreg": logreg, "w2v": w2v, "ials": ials,
-             "topk": topk}
+             "topk": topk, "tiered_mf_d1s4": tiered_mf_d1s4,
+             "tiered_mf_d2s4_ssp": tiered_mf_d2s4_ssp,
+             "tiered_lr_d1s4": tiered_lr_d1s4,
+             "tiered_lr_d2s4_fold": tiered_lr_d2s4_fold}
 
 
 def run_bundle(bundle: str, mesh_of, init) -> dict:

@@ -1363,3 +1363,125 @@ def test_device_resident_source_waits_for_the_compute_stream(dev, compute):
     for g, w in zip(got[2], want[2]):
         for k in ("se", "n"):
             np.testing.assert_array_equal(g[k], w[k])
+
+
+# ---------------------------------------------------------------------------
+# The static hot tier on the card (chip_smoke.py phase 9 (a), small).
+# ---------------------------------------------------------------------------
+
+TIER_NU, TIER_NI, TIER_H, TIER_E = 512, 512, 256, 4
+
+
+def _tier_mf(H, C, sync_every=None):
+    import dataclasses
+
+    import fps_tpu_torch as fps
+
+    mesh = fps.make_ps_mesh(4, 2, device="cuda:0")
+    trainer, store = fps.online_mf(mesh, fps.MFConfig(
+        num_users=TIER_NU, num_items=TIER_NI, rank=16, learning_rate=0.05),
+        combine="mean", sync_every=sync_every)
+    if H:
+        store.specs["item_factors"] = dataclasses.replace(
+            store.specs["item_factors"], hot_tier=H, cold_budget=C,
+            dense_collectives=False)
+        trainer.config = dataclasses.replace(trainer.config,
+                                             hot_sync_every=TIER_E)
+    return trainer, store
+
+
+def _tier_chunks(sync_every=None):
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.utils.datasets import zipf_ratings
+
+    data = zipf_ratings(TIER_NU, TIER_NI, 8 * 128 * 8 * 3, seed=0)
+    return list(epoch_chunks(data, num_workers=8, local_batch=128,
+                             steps_per_chunk=8, route_key="user",
+                             sync_every=sync_every, seed=5))[:3]
+
+
+def _tier_fit(trainer, chunks):
+    tables, local = trainer.init_state(0)
+    kernels.reset_launch_counts()
+    tables, local, metrics = trainer.fit_stream(tables, local, chunks, 1)
+    torch.cuda.synchronize()
+    return tables, local, metrics, kernels.launch_counts()
+
+
+@pytest.mark.parametrize("arm,H,C,k1,k2", [
+    ("off", 0, 0, 2, 2), ("on", TIER_NI, 0, 2, 2), ("head", TIER_H, 0, 3, 3),
+    ("head_compact", TIER_H, 128, 4, 3)])
+def test_tiered_mf_launches_and_boundary_on_the_card(dev, arm, H, C, k1, k2):
+    """Each arm launches what the code gives, a position a step (K1 once
+    more a position a reconcile), the replica equals the canonical head
+    rows bit for bit, and the hit counts equal numpy's."""
+    trainer, store = _tier_mf(H, C)
+    chunks = _tier_chunks()
+    tables, _, metrics, launched = _tier_fit(trainer, chunks)
+    steps = sum(c["item"].shape[0] for c in chunks)
+    reconciles = sum(-(-c["item"].shape[0] // TIER_E)
+                     for c in chunks) if H else 0
+    assert launched["gather_rows"] == 8 * (k1 * steps + reconciles)
+    assert launched["scatter_add"] == 8 * k2 * steps
+    assert launched["scatter_add_packed"] == 0
+    if not H:
+        return
+    rep = tables["item_factors::hot"]
+    np.testing.assert_array_equal(
+        rep.numpy(), store.lookup_host("item_factors", np.arange(H)))
+    assert all(torch.equal(r, rep[0]) for r in rep)
+    item = np.concatenate([c["item"] for c in chunks])
+    got = np.concatenate([m["hot_tier"]["item_factors"]["hot_rows"]
+                          for m in metrics])
+    np.testing.assert_array_equal(got, ((item >= 0) & (item < H)).sum(1))
+
+
+@pytest.mark.parametrize("sync_every", [None, 2], ids=["sync", "ssp"])
+def test_compacted_lanes_equal_the_static_route_on_the_card(dev,
+                                                            sync_every):
+    """K2 sums each row's pushes in an order set by sorted positions, where
+    dropped ids come last: packing the cold pushes into the lane leaves
+    the live pushes' sorted positions as they were, so the compacted run
+    is the static run's bits on the card too."""
+    chunks = _tier_chunks(sync_every)
+    runs = [_tier_fit(_tier_mf(TIER_H, C, sync_every)[0], chunks)
+            for C in (0, 128)]
+    for k in runs[0][0]:
+        np.testing.assert_array_equal(runs[1][0][k].numpy(),
+                                      runs[0][0][k].numpy(), k)
+    np.testing.assert_array_equal(runs[1][1].numpy(), runs[0][1].numpy())
+    for a, b in zip(runs[0][2], runs[1][2]):
+        np.testing.assert_array_equal(a["se"], b["se"])
+    assert all(not m["hot_tier"]["item_factors"]["cold_dropped"].any()
+               for m in runs[1][2])
+
+
+def test_tiered_logreg_runs_k5_and_k4_on_the_replica(dev):
+    """SSP logistic regression with a partial head at (1, 4): K5 reads
+    the snapshot (and the reconcile's owned rows), K4 folds the cold push
+    and the pending buffer."""
+    import dataclasses
+
+    import fps_tpu_torch as fps
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.utils.datasets import synthetic_sparse_classification
+
+    data = synthetic_sparse_classification(4 * 256 * 8 * 2, 20_000, 16,
+                                           seed=1, noise=0.05)
+    data["label"] = (data["label"] > 0).astype(np.float32)
+    mesh = fps.make_ps_mesh(4, 1, device="cuda:0")
+    trainer, store = fps.logistic_regression(mesh, fps.LogRegConfig(
+        num_features=20_000, learning_rate=0.5), sync_every=4)
+    store.specs["weights"] = dataclasses.replace(store.specs["weights"],
+                                                 hot_tier=1024)
+    trainer.config = dataclasses.replace(trainer.config, hot_sync_every=4)
+    chunks = list(epoch_chunks(data, num_workers=4, local_batch=256,
+                               steps_per_chunk=8, sync_every=4, seed=2))
+    tables, _, _, launched = _tier_fit(trainer, chunks)
+    steps = sum(c["weight"].shape[0] * 4 for c in chunks)
+    assert launched["gather_rows_dim1"] == 4 * (steps + steps // 4)
+    assert launched["scatter_add_dim1"] == 4 * 2 * steps
+    assert launched["gather_rows"] == launched["scatter_add"] == 0
+    np.testing.assert_array_equal(
+        tables["weights::hot"].numpy(),
+        store.lookup_host("weights", np.arange(1024)))

@@ -37,6 +37,16 @@ from fps_tpu_torch.models.matrix_factorization import ITEM_TABLE
 LOCAL_BATCH = 16
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jmesh():
     return jmake_ps_mesh(num_shards=1, num_data=1, devices=jax.devices()[:1])
 

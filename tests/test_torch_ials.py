@@ -50,6 +50,16 @@ NU, NI, RANK = 37, 29, 5
 CFG = dict(alpha=5.0, reg=0.3)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(nu=NU, ni=NI, rank=RANK, **kw):
     """A JAX solver and a port solver from the same tables."""
     kw = {**CFG, **kw}

@@ -19,6 +19,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from fps_tpu.core import ingest as jingest
 from fps_tpu.models.logistic_regression import LogRegConfig as JLogRegConfig
@@ -41,6 +42,16 @@ from fps_tpu_torch.models.logistic_regression import (
 from fps_tpu_torch.utils import datasets as tdatasets
 
 NF, NNZ = 400, 8
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _data(n=6000, nf=NF, nnz=NNZ, seed=7, dense=0):

@@ -60,6 +60,16 @@ EPS = np.finfo(np.float32).eps
 NUM_IDS, DIM, B = 61, 3, 12  # 61 ids: padding rows at every S > 1
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jmesh(D, S):
     return jmesh.make_ps_mesh(num_shards=S, num_data=D,
                               devices=jax.devices()[:D * S])

@@ -54,6 +54,16 @@ CFG_KW = dict(vocab_size=V, dim=DIM, window=WIN, negatives=NEG,
               learning_rate=0.05, subsample_t=None)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jmesh(D, S):
     return jmesh.make_ps_mesh(num_shards=S, num_data=D,
                               devices=jax.devices()[:D * S])

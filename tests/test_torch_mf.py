@@ -43,6 +43,16 @@ MF_KW = dict(num_users=NU, num_items=NI, rank=RANK, learning_rate=0.08,
              reg=0.005)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def pallas_backend():
     prev = jops.get_backend()

@@ -77,6 +77,16 @@ EPS32 = float(np.finfo(np.float32).eps)
 RANK_TIMEOUT_S = 150
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jmesh(D, S):
     return jmesh.make_ps_mesh(num_shards=S, num_data=D,
                               devices=jax.devices()[:D * S])
@@ -126,6 +136,8 @@ def _jax_init(bundle):
     numpy arrays under the worker's keys."""
     key = jax.random.key(0)
     init = {}
+    if bundle == "tiered":
+        return init  # the scenarios start from the port's own state
     for D, S in ((2, 4),) if bundle == "d2s4" else ((1, 8),):
         tables, local = _mf_trainer(D, S)[0].init_state(key)
         init[f"mf{D}{S}/item_factors"] = np.asarray(tables["item_factors"])
@@ -223,8 +235,12 @@ def _jax_w2v_plan_class(draws):
 
 
 def _jax_runs(bundle, init):
-    """The JAX package's one-process run of every scenario of ``bundle``."""
+    """The JAX package's one-process run of every scenario of ``bundle``
+    (none for ``tiered``: ``tests/test_torch_hot_tier.py`` holds the tier
+    against the JAX package)."""
     ref = {}
+    if bundle == "tiered":
+        return ref
     if bundle == "d2s4":
         for kind in ("indexed", "host_sync", "host_ssp"):
             ref[f"mf_{kind}"] = _jax_mf(2, 4, init, kind)
@@ -397,6 +413,35 @@ def test_two_ranks_equal_one_process_bit_for_bit(run, bundle):
                      {"mf_indexed_d1s8", "pa", "logreg", "w2v", "ials",
                       "topk"})
     assert checked == len(one) and checked > 20
+
+
+def test_tiered_two_ranks_equal_one_process_bit_for_bit(run):
+    """The static hot tier over two ranks (the ``tiered`` bundle): at (1, 4)
+    the shard axis crosses the ranks (the replica's derivation and the
+    reconcile's reduce-scatter and all-gather), at (2, 4) the data axis (the
+    reconcile's sum). Every table, replica, fold state, local state and
+    metric equals one process's bit for bit, on both ranks, and each
+    replica is its table's head rows."""
+    ranks, one, _ = run("tiered")
+    assert {k.split("/")[0] for k in one} == set(mpw.BUNDLES["tiered"])
+    for key, want in one.items():
+        np.testing.assert_array_equal(ranks[0][key], want, key)
+        np.testing.assert_array_equal(ranks[1][key], want, key)
+    for name, table, H in (("tiered_mf_d1s4", "item_factors", mpw.TIER_MF_H),
+                           ("tiered_mf_d2s4_ssp", "item_factors",
+                            mpw.TIER_MF_H),
+                           ("tiered_lr_d1s4", "weights", mpw.TIER_LR_H),
+                           ("tiered_lr_d2s4_fold", "weights", mpw.LR_NF)):
+        full = one[f"{name}/table/{table}"]
+        S = 4
+        rps = full.shape[0] // S
+        ids = np.arange(H)
+        np.testing.assert_array_equal(
+            one[f"{name}/table/{table}::hot"],
+            full[(ids % S) * rps + ids // S], name)
+    assert "tiered_lr_d2s4_fold/table/weights::fold" in one
+    assert one["tiered_mf_d1s4/metrics/hot_tier/item_factors/cold_dropped"
+               ].sum() == 0
 
 
 @pytest.mark.parametrize("D,S", mpw.COLLECTIVE_SHAPES)

@@ -35,6 +35,16 @@ CASES = [(64, 8, 100), (57, 5, 40), (130, 3, 513), (300, 10, 2000),
          (300, 11, 2000)]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(R, D, B, seed):
     rng = np.random.default_rng(seed)
     table = rng.normal(0, 1, (R, D)).astype(np.float32)

@@ -40,6 +40,16 @@ from fps_tpu_torch.utils import datasets as tdatasets
 NF, NNZ, H = 500, 10, 64
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(params=["auto", "pallas"])
 def backend(request):
     prev = jops.get_backend()

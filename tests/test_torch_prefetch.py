@@ -61,6 +61,16 @@ MODULES = ["fps_tpu.core.prefetch", "fps_tpu_torch.core.prefetch"]
 JOIN_S = 20.0  # bound on every wait for a thread
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Rec:
     """Duck-typed recorder and timer: the gauges, counters and phase
     seconds the prefetcher reports (``.set``, ``.inc``, ``.add``)."""
@@ -574,9 +584,8 @@ def test_driver_methods_have_the_reference_parameters_in_order(method):
 
 @pytest.mark.parametrize("make,item", [
     (lambda: TrainerConfig(guard="observe"), "item 8"),
-    (lambda: TrainerConfig(hot_sync_every=4), "item 7b"),
     (lambda: TrainerConfig(auto_tier=True), "item 7c"),
-], ids=["guard", "hot_sync_every", "auto_tier"])
+], ids=["guard", "auto_tier"])
 def test_unported_config_values_raise_naming_their_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()

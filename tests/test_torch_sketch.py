@@ -25,6 +25,16 @@ EDGE_IDS = np.array([-2**31, -2**31 + 1, -123456789, -5, -1, 0, 1, 2, 7,
                     np.int32)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ids(seed, n=3000, lo=-3, hi=700):
     rng = np.random.default_rng(seed)
     ids = rng.integers(lo, hi, n).astype(np.int32)

@@ -28,6 +28,16 @@ SORT_CASES = [(26_744, 3000, 0), (138_493, 3000, 1), (47_236, 5000, 2),
               (100, 1, 10), (100, 0, 11)]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ids(R, B, seed):
     rng = np.random.default_rng(seed)
     ids = (rng.zipf(1.3, B) % max(R, 1)).astype(np.int64)

@@ -14,11 +14,22 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from fps_tpu.utils import datasets as jdatasets
 
 from fps_tpu_torch.examples import streaming_mf
 from fps_tpu_torch.utils import datasets as tdatasets
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run(argv):

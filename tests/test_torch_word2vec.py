@@ -49,6 +49,16 @@ CFG_KW = dict(vocab_size=V, dim=DIM, window=WIN, negatives=NEG,
               learning_rate=0.05, subsample_t=None)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the files run beside others under xdist, and
+    the small tensors here gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def pallas_backend():
     prev = jops.get_backend()
