@@ -52,8 +52,13 @@ on the card, raising on the first failure:
    keyed by users and by items. K1, K2, K5 and K4 at the hot tier's
    shapes from phase 9's first step: the replica pull, the reconcile's
    gather of a shard's owned rows, the pending buffers' scatters (MF's
-   2,048 x 17 mean buffer, logistic regression's 2,048 x 1). K4 at the
-   word2vec sketch tap's stack (16
+   2,048 x 17 mean buffer, logistic regression's 2,048 x 1). K1, K2 and K4
+   at the adaptive tier's shapes from phase 10's stream after the
+   rotation: the slot-addressed replica pull (512 x 16, 1,024 slots), the
+   re-split's gather of a shard's owned rows (its 1,024 x 16 block, 512
+   ids), the mapped reconcile's scatter into them (128 owned of 512, D =
+   16), the tracker's window (4 x 2,048 = 8,192 rows, 4,096 pushes). K4 at
+   the word2vec sketch tap's stack (16
    probes x 5 x 1,024 = 81,920 rows, two row tiles, the 409,600 items of
    the block path's first step). K4's bucket pass by row tile,
    where its plan has one (the 1M-row logistic-regression table), must
@@ -173,7 +178,8 @@ on the card, raising on the first failure:
    epoch (s = 4) at (2, 2), binary PA-I one epoch at (1, 4), the word2vec
    block worker one ``run_indexed`` call of 32 steps at (1, 4), iALS one
    epoch at (1, 4), phase 9's ``head_compact`` arm at (1, 4) for 32 steps
-   (the hot tier), each rank after one uncounted MF call of 64 steps
+   (the hot tier), phase 10's recovery arm at (1, 4) for 32 steps with a
+   re-rank at every chunk (the adaptive tier), each rank after one uncounted MF call of 64 steps
    (its first use of each kernel and exchange). Every job's tables, local
    state and metrics on every rank must equal, bit for bit, the same job
    run by this process alone on a mesh of the same shape, with K1 2 and
@@ -211,7 +217,36 @@ on the card, raising on the first failure:
    the max combine; tables, replicas and fold states within 1e-5 of the
    largest value). Phase 8 also runs the ``head_compact`` arm at (1, 4)
    over its two gloo ranks for 32 steps, bit-equal to one process;
-10. prints one JSON line describing every ported kernel, then, as the last
+10. drives the adaptive tier (``Trainer.retierer``,
+   ``TrainerConfig.auto_tier``), every position on ``cuda:0``, every
+   launch counter at 0 just before each run and read after every chunk:
+   ``bench.py run_tiered_drift`` at its widths on a (2, 4) mesh (phase 9's
+   MF on its drifting stream: Zipf(1.2) items whose ranking rotates at
+   chunk 6 of 12, in stream order): ``oracle`` (the whole item table
+   replicated), ``stale`` (the head 512) and ``adaptive`` (``auto_tier``,
+   its plan landed in a warm-up of 6 chunks, printed), each from fresh
+   state after 6 warm-up chunks; then the recovery pair, the head 512 with
+   and without ``Retierer(check_every=2, churn_threshold=0.1)``, over both
+   halves of the stream. Each arm's train RMSE must fall within each half
+   (the rotation lifts it), the replica must equal the canonical rows of
+   the current hot ids bit for bit after every chunk, and every chunk must
+   launch what the code gives (a position a step: oracle K1 2, K2 2;
+   stale K1 3, K2 3; the mapped head K1 3, K2 3, K4 1; a reconcile K1 once
+   a position, K2 on the mapped head), the same before and after each
+   re-rank; the retierer must re-rank, and its hit rate after the
+   rotation must lie above the static head's. It prints each arm's ms a
+   step, examples/s, train RMSE, launches a step, hit rate and the
+   exchanges a step with their bytes (the reconcile's, the tracking
+   merge's, the re-split's and the routes' apart). The mapped tier on the
+   identity ranking (a retierer that never checks) must equal the static
+   tier's tables, replica, local state and metrics bit for bit, and the
+   window after one chunk a host count-min of its ids bit for bit. Small
+   jobs at (2, 4) with a re-rank at every chunk (logistic regression with
+   a mapped head of 256 of 2,000, sync and SSP; MF with a mapped head and
+   its lanes) on the card and on the CPU: the same hot ids, the slot
+   maps, ids and windows equal, the rest within 1e-5 of the largest
+   value;
+11. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -3143,8 +3178,10 @@ P8_MF_STEPS, P8_W2V_STEPS = 64, 32
 P8_DEVICE, P8_ONE_RANK_BACKEND = "cuda:0", "nccl"
 # The gloo ranks' jobs, in order (p8_job).
 P8_GLOO_JOBS = ("mf_sync_1x4", "mf_ssp_2x2", "pa_1x4", "w2v_1x4",
-                "ials_1x4", "tiered_1x4")
-# The hot tier's gloo job: phase 9's head_compact arm at (1, 4), 32 steps.
+                "ials_1x4", "tiered_1x4", "mapped_1x4")
+# The hot tier's gloo job: phase 9's head_compact arm at (1, 4), 32 steps;
+# the adaptive tier's: phase 10's recovery arm at (1, 4) on the first 32
+# steps of its stream, re-ranked at every chunk.
 P8_TIER_CHUNKS = 4
 
 
@@ -3191,7 +3228,7 @@ def p8_trained(result):
 def p8_job(torch, fps, job, mesh_of, data):
     """``(label, mesh, run, steps, per_step)``: ``run()`` trains from fresh
     state and returns ``read()``; ``per_step`` is each kernel's launches a
-    position a step."""
+    position a step (or a function that gives them after the run)."""
     from fps_tpu_torch.core.ingest import epoch_chunks
 
     mf_cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
@@ -3257,6 +3294,34 @@ def p8_job(torch, fps, job, mesh_of, data):
         return ("MF tiered head_compact, mesh 1x4, fit_stream", mesh,
                 lambda: p8_trained(trainer.fit_stream(*state, chunks, 1)),
                 steps, {"gather_rows": k1 + 1 / TIER_E, "scatter_add": k2})
+    if job == "mapped_1x4":
+        from fps_tpu_torch.tiering import Retierer
+
+        mesh = mesh_of(1, 4)
+        trainer, _ = drift_mf(fps, mesh, "recovery")
+        trainer.retierer = rt = Retierer(check_every=1,
+                                         churn_threshold=-1.0)
+        chunks = drift_chunks(drift_data(4, P8_TIER_CHUNKS),
+                              4)[:P8_TIER_CHUNKS]
+        steps = sum(c["weight"].shape[0] for c in chunks)
+        state = trainer.init_state(0)
+
+        def per_step():
+            # K1 once a position for the entry's re-split and each re-rank.
+            k1, k2 = DRIFT_LAUNCHES["mapped"][0], 1 / TIER_E
+            return {"gather_rows": k1["gather_rows"]
+                    + (1 + rt.re_ranks) / steps,
+                    "scatter_add": k1["scatter_add"] + k2,
+                    "scatter_add_dim1": k1["scatter_add_dim1"]}
+
+        def run():
+            out = p8_trained(trainer.fit_stream(*state, chunks, 1))
+            if not rt.re_ranks:
+                raise AssertionError("mapped_1x4: nothing re-ranked")
+            return lambda: dict(out(), hot_ids=rt.hot_ids_for(
+                ITEM, DRIFT_H), re_ranks=np.array(rt.re_ranks))
+        return ("MF mapped head, re-ranked, mesh 1x4, fit_stream", mesh,
+                run, steps, per_step)
     assert job == "ials_1x4", job
     mesh = mesh_of(1, 4)
     solver = fps.IALSSolver(mesh, fps.IALSConfig(
@@ -3288,6 +3353,8 @@ def p8_run(torch, fps, kernels, job, mesh_of, data, spent):
     launched = kernels.launch_counts()
     exchange_s = spent[0]
     own = len(mesh.local)
+    if callable(per_step):  # counts only the run knows
+        per_step = per_step()
     check_launches(label, launched, {k: v * own for k, v in per_step.items()},
                    steps)
     arrays = read()
@@ -3605,41 +3672,48 @@ class ExchangeSpy:
     """Counts the collectives a run calls (``parallel.collectives``' axis
     collectives) and the bytes this process's positions hand to them (each
     position's input tensors), split into the hot tier's reconcile (calls
-    made inside ``reconcile_hot``) and the routes (the cold pull and push,
-    the SSP snapshot). The step's metrics (``sum_home_each``) are not
-    counted. ``compact`` counts the driver's ``compact_cold`` calls."""
+    made inside ``reconcile_hot`` or ``reconcile_hot_mapped``), the
+    adaptive tier's tracking (the windows' merge, ``merge_windows``), its
+    re-splits (``ParamStore.rows_replica`` and ``head_replica``, at the
+    boundaries) and the routes (the cold pull and push, the SSP snapshot).
+    The step's metrics (``sum_home_each``) are not counted. ``compact``
+    counts the driver's ``compact_cold`` calls."""
 
     NAMES = ("all_gather", "psum_scatter", "all_to_all", "psum", "pmax",
              "pmin")
+    KINDS = ("reconcile", "tracking", "resplit", "routes")
 
     def __init__(self):
-        self.calls = {"reconcile": 0, "routes": 0}
-        self.bytes = {"reconcile": 0, "routes": 0}
+        self.calls = {k: 0 for k in self.KINDS}
+        self.bytes = {k: 0 for k in self.KINDS}
         self.compact = 0
-        self._depth = 0
+        self._within = []
         self._saved = []
 
     def __enter__(self):
         from fps_tpu_torch.core import driver
+        from fps_tpu_torch.core.store import ParamStore
         from fps_tpu_torch.parallel import collectives
 
         def count(fn):
             def spy(mesh, xs, axis, *a, **k):
-                kind = "reconcile" if self._depth else "routes"
+                kind = self._within[-1] if self._within else "routes"
                 self.calls[kind] += 1
                 self.bytes[kind] += sum(x.numel() * x.element_size()
                                         for x in xs)
                 return fn(mesh, xs, axis, *a, **k)
             return spy
 
-        def within(fn):
-            def spy(*a, **k):
-                self._depth += 1
-                try:
-                    return fn(*a, **k)
-                finally:
-                    self._depth -= 1
-            return spy
+        def within(kind):
+            def wrap(fn):
+                def spy(*a, **k):
+                    self._within.append(kind)
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        self._within.pop()
+                return spy
+            return wrap
 
         def compacted(fn):
             def spy(*a, **k):
@@ -3649,7 +3723,11 @@ class ExchangeSpy:
 
         for name in self.NAMES:
             self._patch(collectives, name, count)
-        self._patch(driver, "reconcile_hot", within)
+        for name in ("reconcile_hot", "reconcile_hot_mapped"):
+            self._patch(driver, name, within("reconcile"))
+        self._patch(driver, "merge_windows", within("tracking"))
+        for name in ("rows_replica", "head_replica"):
+            self._patch(ParamStore, name, within("resplit"))
         self._patch(driver, "compact_cold", compacted)
         return self
 
@@ -4055,6 +4133,552 @@ def tier_phase(torch, fps, kernels, lr_data, card):
             "card_vs_cpu": worst, "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the adaptive tier (Trainer.retierer, TrainerConfig.auto_tier).
+# ---------------------------------------------------------------------------
+
+# bench.py run_tiered_drift (:1182-1370) at its own widths: phase 9's MF (4,096
+# users and items, rank 16, lr 0.05, the mean combine, windows of 4, local
+# batch 1,024, chunks of 8 steps, a (2, 4) mesh) on its drifting stream
+# (_drifting_zipf_ratings: Zipf(1.2) items whose ranking rotates at chunk 6
+# of 12, seed 0, chunked in stream order); every arm warmed up on 6 chunks
+# from fresh state before its run, as the bench does; the stale head 512.
+DRIFT_CHUNKS, DRIFT_WARM, DRIFT_H = 12, 6, 512
+# The recovery pair's retierer, the bench's: a check every 2 chunks, a
+# re-rank past a churn of 0.1.
+DRIFT_CHECK, DRIFT_CHURN = 2, 0.1
+# Each arm's launches a position a step (K1, K2, K4) and the kernel each
+# reconcile launches once a position, read from the port's code: the user
+# factors' gather and scatter in every arm; oracle (the whole item table
+# replicated): the replica's gather, the buffer's scatter, the reconcile's
+# gather of the owned head rows (K1); stale: also the cold route's gather
+# and the cold push; the mapped head (the recovery arm with its retierer):
+# stale's, the tracker's window (K4), and the reconcile's scatter into the
+# owned rows of the hot ids (K2). A re-rank's re-split gathers once a
+# position (K1), at the boundary.
+DRIFT_LAUNCHES = {
+    "oracle": ({"gather_rows": 2, "scatter_add": 2}, "gather_rows"),
+    "stale": ({"gather_rows": 3, "scatter_add": 3}, "gather_rows"),
+    "mapped": ({"gather_rows": 3, "scatter_add": 3, "scatter_add_dim1": 1},
+               "scatter_add")}
+# The card-against-CPU jobs: SSP-capable logistic regression at (2, 4) with
+# a mapped head of 256 of 2,000 features, re-ranked at every chunk.
+DRIFT_CPU_NF, DRIFT_CPU_H = 2000, 256
+
+
+def drift_data(W, chunks):
+    from fps_tpu_torch.utils import datasets as ds
+
+    return ds.drifting_zipf_ratings(TIER_NU, TIER_NI,
+                                    W * TIER_LOCAL * TIER_SPC * chunks,
+                                    alpha=1.2, seed=0)
+
+
+def drift_chunks(data, W):
+    """The stream in its order (``seed=None``): the drift is the
+    workload."""
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    return list(epoch_chunks(data, num_workers=W, local_batch=TIER_LOCAL,
+                             steps_per_chunk=TIER_SPC, route_key="user",
+                             seed=None))
+
+
+def drift_mf(fps, mesh, arm):
+    """``run_tiered_drift``'s MF trainer for ``arm``: ``oracle`` (the whole
+    item table replicated), ``stale`` (the head 512), ``adaptive``
+    (``auto_tier``), ``recovery`` (the head 512 with the bench's
+    retierer) and ``identity`` (the head 512 with a retierer that never
+    checks: the mapped tier on the identity ranking)."""
+    import dataclasses
+
+    from fps_tpu_torch.tiering import Retierer
+
+    cfg = fps.MFConfig(num_users=TIER_NU, num_items=TIER_NI, rank=TIER_RANK,
+                       learning_rate=TIER_LR)
+    trainer, store = fps.online_mf(mesh, cfg, combine="mean")
+    if arm == "adaptive":
+        trainer.config = dataclasses.replace(trainer.config, auto_tier=True)
+        return trainer, store
+    store.specs[ITEM] = dataclasses.replace(
+        store.specs[ITEM], hot_tier=TIER_NI if arm == "oracle" else DRIFT_H)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E)
+    if arm == "recovery":
+        trainer.retierer = Retierer(check_every=DRIFT_CHECK,
+                                    churn_threshold=DRIFT_CHURN)
+    elif arm == "identity":
+        trainer.retierer = Retierer(check_every=1 << 30)
+    return trainer, store
+
+
+def current_hot_ids(trainer, name):
+    """The ids the replica of ``name`` holds: the retierer's set on the
+    mapped tier, the static head ``[0, H)`` otherwise."""
+    H = trainer._hot_tier_map()[name]
+    if name in trainer._mapped_tables():
+        return trainer.retierer.hot_ids_for(name, H)
+    return np.arange(H)
+
+
+def replica_check(torch, trainer, name):
+    """After a call: every position's replica equals the canonical rows of
+    the current hot ids, bit for bit."""
+    store = trainer.store
+    rep = store.tables[f"{name}::hot"]
+    for r in rep[1:]:
+        if not torch.equal(r, rep[0]):
+            raise AssertionError(f"{name}: the replicas differ")
+    want = store.lookup_host(name, current_hot_ids(trainer, name))
+    if not np.array_equal(rep[0].cpu().numpy(), want):
+        raise AssertionError(f"{name}: the replica differs from the "
+                             "canonical rows of the current hot ids")
+
+
+def drift_fit(torch, kernels, trainer, chunks, *, tables=None, local=None,
+              start=0, seed=1):
+    """``fit_stream`` over ``chunks`` (from fresh state unless given), the
+    launch counters at 0 just before: each chunk's launches apart (a
+    retierer's boundary after it not among them), the exchanges counted by
+    an :class:`ExchangeSpy`, the replica checked against the canonical rows
+    of the current hot ids after every chunk, the seconds less the checks.
+    Returns ``(tables, local, metrics, per_chunk, seconds, spy)``."""
+    if tables is None:
+        tables, local = trainer.init_state(0)
+    tables = trainer._attach_hot(tables)  # not timed, not counted
+    per_chunk, mark, checks = [], [{}], [0.0]
+    rt = trainer.retierer
+    if rt is not None:
+        def boundary(tr, tb, i, **k):
+            out = type(rt).on_boundary(rt, tr, tb, i, **k)
+            mark[0] = kernels.launch_counts()
+            return out
+        rt.on_boundary = boundary
+
+    def on_chunk(i, m):
+        now = time.perf_counter()
+        counts = kernels.launch_counts()
+        per_chunk.append({k: v - mark[0].get(k, 0) for k, v in counts.items()
+                          if v - mark[0].get(k, 0)})
+        mark[0] = counts
+        if trainer._hot_tier_map():
+            replica_check(torch, trainer, ITEM)
+        checks[0] += time.perf_counter() - now
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        with ExchangeSpy() as spy:
+            t0 = time.perf_counter()
+            tables, local, metrics = trainer.fit_stream(
+                tables, local, chunks, seed, start_step=start,
+                on_chunk=on_chunk)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0 - checks[0]
+    finally:
+        if rt is not None:
+            del rt.on_boundary  # the class's method again
+    return tables, local, metrics, per_chunk, seconds, spy
+
+
+def hit_rate(metrics):
+    hot = sum(float(m["hot_tier"][ITEM]["hot_rows"].sum()) for m in metrics)
+    pulled = sum(float(m["hot_tier"][ITEM]["pulled_rows"].sum())
+                 for m in metrics)
+    return hot / pulled
+
+
+def drift_launch_check(label, per_chunk, kind, W, E):
+    """Every chunk of 8 steps launches what the code gives: ``kind``'s
+    launches a position a step, and its reconcile kernel once a position
+    for each of the chunk's windows of ``E`` steps."""
+    per_step, rk = DRIFT_LAUNCHES[kind]
+    want = {k: v * W * TIER_SPC for k, v in per_step.items()}
+    want[rk] = want.get(rk, 0) + W * -(-TIER_SPC // E)
+    for i, got in enumerate(per_chunk):
+        if got != want:
+            raise AssertionError(f"{label}: chunk {i} launched {got}, "
+                                 f"expected {want} ({kind}: {per_step} a "
+                                 f"position a step, {rk} once a position "
+                                 "a reconcile)")
+    return want
+
+
+def falling_by_half(metrics):
+    """The drifting stream's learning check: the rotation at chunk 6 lifts
+    the train RMSE (its hot items are new), so it is held within each half
+    of the stream: the RMSE over the later chunks of a half (pooled by
+    examples) must lie below that over its earlier ones. (Pooled, because
+    the stream's last chunk is ragged: a few examples, a noisy RMSE.)"""
+    half = DRIFT_CHUNKS // 2
+    out = {}
+    for name, part in (("before", metrics[:half]), ("after", metrics[half:])):
+        k = len(part) // 2
+        early, late = (float(np.sqrt(
+            sum(m["se"].sum() for m in ms)
+            / max(1.0, sum(m["n"].sum() for m in ms))))
+            for ms in (part[:k], part[k:]))
+        if not np.isfinite([early, late]).all() or not late < early:
+            raise AssertionError(
+                f"train RMSE {name} the rotation: {late} over its later "
+                f"chunks is not below {early} over its earlier ones")
+        out[name] = {"earlier_chunks": early, "later_chunks": late}
+    return {"train_rmse_within_each_half": out}
+
+
+def drift_summary(kernels, label, trainer, metrics, per_chunk, seconds, spy,
+                  card, quality=falling_by_half):
+    steps = TIER_SPC * len(per_chunk)
+    W = len(trainer.mesh.local)
+    n = float(sum(m["n"].sum() for m in metrics))
+    launched = {}
+    for c in per_chunk:
+        for k, v in c.items():
+            launched[k] = launched.get(k, 0) + v
+    return {
+        "path": label, "chunks": len(per_chunk), "steps": steps,
+        "examples": n, "seconds": seconds, "examples_per_s": n / seconds,
+        "ms_per_step": seconds / steps * 1e3,
+        "launches": {k: launched.get(k, 0) for k in kernels.WRAPPERS},
+        "launches_per_position_per_step": {
+            k: v / (W * steps) for k, v in launched.items()},
+        "exchanges_per_step": {k: v / steps for k, v in spy.calls.items()},
+        "exchange_bytes_per_step": {k: v / steps
+                                    for k, v in spy.bytes.items()},
+        "train_rmse": float(np.sqrt(
+            sum(m["se"].sum() for m in metrics) / max(n, 1.0))),
+        "quality": quality(metrics), "hit_rate": hit_rate(metrics),
+        "mesh": dict(trainer.mesh.shape), "card": card}
+
+
+def drift_arms(torch, fps, kernels, mesh, chunks, card):
+    """Phase 10 (a): ``run_tiered_drift``'s three arms, each from fresh
+    state after its warm-up: oracle, stale and adaptive (``auto_tier``,
+    whose plan lands in the warm-up)."""
+    from itertools import islice
+
+    W = len(mesh.local)
+    out, finals = {}, {}
+    for arm in ("oracle", "stale", "adaptive"):
+        trainer, store = drift_mf(fps, mesh, arm)
+        tables, local = trainer.init_state(0)
+        trainer.fit_stream(tables, local, islice(iter(chunks), DRIFT_WARM), 9)
+        if arm == "adaptive":
+            rt = trainer.retierer
+            if not rt.planned or ITEM not in trainer._hot_tier_map():
+                raise AssertionError(f"adaptive: no plan tiered {ITEM} in "
+                                     f"the warm-up ({rt.plans})")
+        tables, local, metrics, per_chunk, seconds, spy = drift_fit(
+            torch, kernels, trainer, chunks)
+        kind = arm if arm != "adaptive" else (
+            "mapped" if trainer._mapped_tables() else
+            "oracle" if trainer._hot_tier_map()[ITEM] == TIER_NI
+            else "stale")
+        want = drift_launch_check(f"phase 10 {arm}", per_chunk, kind, W,
+                                  trainer.config.hot_sync_every)
+        summary = drift_summary(
+            kernels, f"MF drifting Zipf, {arm}, mesh {TIER_MESH[0]}x"
+            f"{TIER_MESH[1]}, fit_stream", trainer, metrics, per_chunk,
+            seconds, spy, card)
+        summary.update(arm=arm, launches_per_chunk=want,
+                       hot_sync_every=trainer.config.hot_sync_every,
+                       hot_tier=trainer._hot_tier_map()[ITEM])
+        if arm == "adaptive":
+            summary["planned"] = {n: p.to_json()
+                                  for n, p in sorted(rt.plans.items())}
+            summary["retierer"] = {"checks": rt.checks,
+                                   "re_ranks": rt.re_ranks}
+        check_finite(torch, arm, tables, local)
+        finals[arm] = (tables, local, metrics)
+        out[arm] = summary
+        log(f"phase 10, {arm}: {summary['ms_per_step']:.3f} ms a step, "
+            f"{summary['examples_per_s']:.0f} examples/s, train RMSE "
+            f"{summary['train_rmse']:.4f}, launches a position a step "
+            f"{summary['launches_per_position_per_step']}, hit rate "
+            f"{summary['hit_rate']:.4f}, exchanges a step "
+            f"{summary['exchanges_per_step']} "
+            f"({summary['exchange_bytes_per_step']} bytes)"
+            + (f", plan {summary['planned']}" if arm == "adaptive" else "")
+            + f" ({card})")
+    return out, finals
+
+
+def drift_recovery(torch, fps, kernels, mesh, chunks, card):
+    """Phase 10 (b): the recovery pair, the head 512 with and without the
+    bench's retierer, through both halves of the stream (``fit_stream``
+    each, the second from where the first ended): the hit rate before and
+    after the rotation, the re-ranks, every chunk's launches the same
+    across the re-ranks."""
+    W = len(mesh.local)
+    half = DRIFT_CHUNKS // 2
+    out = {}
+    for label in ("static", "adaptive"):
+        trainer, store = drift_mf(fps, mesh, "stale" if label == "static"
+                                  else "recovery")
+        tables = local = None
+        entry, runs, every = {}, [], []
+        for phase, sl, start in (("phase1", chunks[:half], 0),
+                                 ("phase2", chunks[half:], half)):
+            tables, local, metrics, per_chunk, seconds, spy = drift_fit(
+                torch, kernels, trainer, sl, tables=tables, local=local,
+                start=start)
+            drift_launch_check(f"phase 10 recovery {label} {phase}",
+                               per_chunk, "stale" if label == "static"
+                               else "mapped", W, TIER_E)
+            # The RMSE is held over both halves (the rotation lifts it).
+            runs.append(drift_summary(
+                kernels, f"MF drifting Zipf, recovery {label} {phase}, mesh "
+                f"{TIER_MESH[0]}x{TIER_MESH[1]}, fit_stream", trainer,
+                metrics, per_chunk, seconds, spy, card,
+                quality=lambda m: None))
+            entry[f"hit_rate_{phase}"] = runs[-1]["hit_rate"]
+            every += metrics
+        entry["quality"] = falling_by_half(every)
+        if label == "adaptive":
+            entry["re_ranks"] = trainer.retierer.re_ranks
+            entry["checks"] = trainer.retierer.checks
+            entry["last_churn"] = trainer.retierer.last_churn
+        entry["runs"] = runs
+        check_finite(torch, f"recovery {label}", tables, local)
+        out[label] = entry
+    a, s = out["adaptive"], out["static"]
+    if not a["re_ranks"] >= 1:
+        raise AssertionError("phase 10 recovery: the retierer never "
+                             "re-ranked")
+    if not a["hit_rate_phase2"] > s["hit_rate_phase2"]:
+        raise AssertionError(
+            f"phase 10 recovery: the hit rate after the rotation "
+            f"{a['hit_rate_phase2']} is not above the static head's "
+            f"{s['hit_rate_phase2']}")
+    log("phase 10, recovery: hit rate before / after the rotation, static "
+        f"{s['hit_rate_phase1']:.4f} / {s['hit_rate_phase2']:.4f}, "
+        f"adaptive {a['hit_rate_phase1']:.4f} / {a['hit_rate_phase2']:.4f} "
+        f"with {a['re_ranks']} re-ranks; launches a chunk the same before "
+        f"and after each ({card})")
+    return out
+
+
+def drift_identity(torch, fps, kernels, mesh, chunks, stale):
+    """Phase 10 (c): the mapped tier on the identity ranking (a retierer
+    that never checks) over the stale arm's chunks from the same state:
+    its tables, replica, local state and metrics equal the static tier's
+    bit for bit; and the window after one chunk equals a host count-min of
+    the chunk's live pulled ids, bit for bit."""
+    from fps_tpu_torch import sketch
+
+    trainer, _ = drift_mf(fps, mesh, "identity")
+    tables, local, metrics, _, _, _ = drift_fit(torch, kernels, trainer,
+                                                chunks)
+    s_tables, s_local, s_metrics = stale
+    for k, v in s_tables.items():
+        if not np.array_equal(tables[k].numpy(), v.numpy()):
+            raise AssertionError(f"phase 10 identity: {k} differs from the "
+                                 "static tier's")
+    if not np.array_equal(local.numpy(), s_local.numpy()):
+        raise AssertionError("phase 10 identity: the local state differs")
+    for a, b in zip(metrics, s_metrics):
+        if not np.array_equal(a["se"], b["se"]):
+            raise AssertionError("phase 10 identity: the metrics differ")
+    trainer, _ = drift_mf(fps, mesh, "identity")
+    tables, _, _, _, _, _ = drift_fit(torch, kernels, trainer, chunks[:1])
+    spec = trainer.retierer._table_cm(ITEM)
+    host = sketch.cm_update(spec, sketch.cm_init(spec), torch.from_numpy(
+        chunks[0]["item"].reshape(-1).astype(np.int32)))
+    win = tables[f"{ITEM}::sketch"]
+    for w in win:
+        if not np.array_equal(w.cpu().numpy(), host.numpy()):
+            raise AssertionError("phase 10: the device window differs from "
+                                 "the host count-min of the chunk's ids")
+    log("phase 10: the mapped tier on the identity ranking equals the "
+        "static tier bit for bit; the window after one chunk equals the "
+        "host count-min bit for bit")
+    return {"identity_bit_equal_to_static": True,
+            "window_bit_equal_to_host": True,
+            "window_sum": float(host.sum())}
+
+
+def drift_card_vs_cpu(torch, fps):
+    """Phase 10 (d): logistic regression at (2, 4) with a mapped head of
+    256 of 2,000 features re-ranked at every chunk (``churn_threshold =
+    -1``), sync and SSP (s = 2), and MF with a mapped head and its lanes,
+    on the card and on the CPU from the same tables and seeds: every
+    table, replica, slot map, id array and window within 1e-5 of the
+    largest value (the maps, ids and windows equal), the same hot ids."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.tiering import Retierer
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    lr = ds.synthetic_sparse_classification(W * 64 * 4 * 4, DRIFT_CPU_NF, 8,
+                                            seed=4, noise=0.05)
+    lr["label"] = (lr["label"] > 0).astype(np.float32)
+    mf = ds.drifting_zipf_ratings(300, 200, W * 64 * 4 * 4, seed=2)
+
+    def lr_job(sync_every):
+        chunks = list(epoch_chunks(lr, num_workers=W, local_batch=64,
+                                   steps_per_chunk=4, sync_every=sync_every,
+                                   seed=3))
+
+        def make(mesh):
+            trainer, store = fps.logistic_regression(mesh, fps.LogRegConfig(
+                num_features=DRIFT_CPU_NF, learning_rate=0.5),
+                sync_every=sync_every)
+            store.specs["weights"] = dataclasses.replace(
+                store.specs["weights"], hot_tier=DRIFT_CPU_H)
+            trainer.config = dataclasses.replace(trainer.config,
+                                                 hot_sync_every=3)
+            trainer.retierer = Retierer(check_every=1, churn_threshold=-1.0)
+            return trainer, "weights", DRIFT_CPU_H
+        return make, chunks
+
+    def mf_job():
+        chunks = list(epoch_chunks(mf, num_workers=W, local_batch=64,
+                                   steps_per_chunk=4, route_key="user",
+                                   seed=None))
+
+        def make(mesh):
+            trainer, store = fps.online_mf(mesh, fps.MFConfig(
+                num_users=300, num_items=200, rank=RANK, learning_rate=0.1),
+                combine="mean")
+            store.specs[ITEM] = dataclasses.replace(
+                store.specs[ITEM], hot_tier=40, cold_budget=56,
+                dense_collectives=False)
+            trainer.config = dataclasses.replace(trainer.config,
+                                                 hot_sync_every=3)
+            trainer.retierer = Retierer(check_every=1, churn_threshold=-1.0)
+            return trainer, ITEM, 40
+        return make, chunks
+
+    jobs = {"logreg mapped head sync": lr_job(None),
+            "logreg mapped head SSP": lr_job(2),
+            "MF mapped head with lanes": mf_job()}
+    worst, re_ranks = {}, {}
+    for job, (make, chunks) in jobs.items():
+        runs, ids, state0 = {}, {}, None
+        for device in ("cpu", "cuda:0"):
+            trainer, name, H = make(fps.make_ps_mesh(S, D, device=device))
+            if state0 is None:
+                state0 = trainer.init_state(7)
+            tables, local, _ = trainer.fit_stream(
+                on_device(torch, state0[0], device),
+                on_device(torch, state0[1], device), chunks, 2)
+            runs[device] = dict(on_host(torch, tables))
+            if not isinstance(local, tuple):
+                runs[device]["local_state"] = on_host(torch, local)
+            ids[device] = trainer.retierer.hot_ids_for(name, H)
+            re_ranks[job] = trainer.retierer.re_ranks
+        cpu, card = runs["cpu"], runs["cuda:0"]
+        if sorted(cpu) != sorted(card):
+            raise AssertionError(f"card vs CPU, {job}: entries differ")
+        if not np.array_equal(ids["cpu"], ids["cuda:0"]) or not re_ranks[job]:
+            raise AssertionError(f"card vs CPU, {job}: the hot ids differ "
+                                 "or nothing re-ranked")
+        for k in cpu:
+            if k.endswith(("::hotmap", "::hotids", "::sketch")) and not (
+                    torch.equal(cpu[k], card[k])):
+                raise AssertionError(f"card vs CPU, {job}: {k} differs")
+        worst[job] = max(
+            float((cpu[k].double() - card[k].double()).abs().max())
+            / max(1.0, float(cpu[k].double().abs().max())) for k in cpu)
+    log("phase 10, card vs CPU: " + json.dumps(worst)
+        + f", re-ranks {json.dumps(re_ranks)}")
+    for job, diff in worst.items():
+        if not diff <= 1e-5:
+            raise AssertionError(f"card vs CPU, {job}: {diff} of the largest "
+                                 "value > 1e-5")
+    return {"worst": worst, "re_ranks": re_ranks}
+
+
+def adaptive_kernel_cases(torch, kernels, cases, dev):
+    """Phase 3 at the adaptive tier's shapes, from phase 10's stream: the
+    mapped head of 512 after the rotation (the top 512 items of the second
+    half, ranked as the retierer ranks them), worker 0's first step after
+    the rotation. K1 the slot-addressed replica pull (the 512 x 16 replica,
+    the worker's 1,024 slots, cold slots -1) and the re-split's gather of
+    shard 1's owned rows of the hot ids (its 1,024 x 16 block, 512 ids, -1
+    where another shard owns the id); K2 the mapped reconcile's scatter
+    into the same owned rows (128 of them, 512 x 16 steps); K4 the
+    tracker's window (4 x 2,048 = 8,192 rows, the worker's 1,024 ids in
+    each of the 4 rows: 4,096 pushes)."""
+    from fps_tpu_torch import sketch
+    from fps_tpu_torch.core.store import hot_slot_map
+    from fps_tpu_torch.tiering import Retierer, top_ids
+
+    rng = np.random.default_rng(13)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    D, S = TIER_MESH
+    W = D * S
+    chunks = drift_chunks(drift_data(W, DRIFT_CHUNKS), W)
+    half = DRIFT_CHUNKS // 2
+    later = np.concatenate([c["item"].reshape(-1) for c in chunks[half:]])
+    hot = top_ids(np.bincount(later[later >= 0], minlength=TIER_NI
+                              ).astype(np.float32), DRIFT_H)
+    item = chunks[half]["item"][0, :TIER_LOCAL]
+    slots = hot_slot_map(TIER_NI, hot)[np.where(item >= 0, item, TIER_NI)]
+    cases["gather_rows"].append(check_gather(
+        torch, kernels, f"K1 adaptive tier {DRIFT_H} x {TIER_RANK} replica, "
+        f"{TIER_LOCAL} slots", kernels.gather_rows_cuda,
+        kernels.gather_rows_plain,
+        t(rng.normal(0, 0.1, (DRIFT_H, TIER_RANK)).astype(np.float32)),
+        t(slots.astype(np.int32)), "adaptive",
+        collect=cases["gather_inputs"]))
+    rps = TIER_NI // S
+    owned = np.where(hot % S == 1, hot // S, -1).astype(np.int32)
+    cases["gather_rows"].append(check_gather(
+        torch, kernels, f"K1 adaptive tier re-split, shard 1's {rps} x "
+        f"{TIER_RANK} block, {DRIFT_H} ids", kernels.gather_rows_cuda,
+        kernels.gather_rows_plain,
+        t(rng.normal(0, 0.1, (rps, TIER_RANK)).astype(np.float32)),
+        t(owned), "adaptive", collect=cases["gather_inputs"]))
+    cases["scatter_add"].append(check_scatter(
+        torch, f"K2 adaptive tier reconcile, shard 1's {rps} x {TIER_RANK} "
+        f"block, {int((owned >= 0).sum())} owned of {DRIFT_H}",
+        kernels.scatter_add_cuda_, kernels.scatter_add_plain,
+        t(rng.normal(0, 0.1, (rps, TIER_RANK)).astype(np.float32)),
+        t(owned), t(rng.normal(0, 0.01, (DRIFT_H, TIER_RANK)).astype(
+            np.float32)), "adaptive", kernels, cases["k2_inputs"]))
+    spec = Retierer()._table_cm(ITEM)
+    a, b = spec.constants()
+    ids = torch.from_numpy(item.astype(np.int32))
+    flat = (torch.arange(spec.depth, dtype=torch.int32)[:, None] * spec.width
+            + sketch._bucket(ids, a, b, spec.width)).reshape(-1)
+    ones = (ids >= 0).to(torch.float32)[None, :].expand(spec.depth, -1)
+    cases["scatter_add_dim1"].append(check_k4(
+        torch, kernels, dev, f"K4 adaptive tier window {spec.depth} x "
+        f"{spec.width}, {flat.numel()} pushes",
+        torch.zeros((spec.depth * spec.width, 1), device=dev),
+        flat.to(dev), ones.reshape(-1, 1).contiguous().to(dev), "adaptive",
+        cases["k4_inputs"]))
+
+
+def adaptive_phase(torch, fps, kernels, card):
+    """Phase 10: the adaptive tier on the card, every position on
+    ``cuda:0``, every launch counter at 0 just before each run."""
+    t0 = time.perf_counter()
+    D, S = TIER_MESH
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    chunks = drift_chunks(drift_data(D * S, DRIFT_CHUNKS), D * S)
+    arms, finals = drift_arms(torch, fps, kernels, mesh, chunks, card)
+    recovery = drift_recovery(torch, fps, kernels, mesh, chunks, card)
+    identity = drift_identity(torch, fps, kernels, mesh, chunks,
+                              finals["stale"])
+    del finals
+    cpu = drift_card_vs_cpu(torch, fps)
+    seconds = time.perf_counter() - t0
+    log(f"phase 10 done in {seconds:.1f} s")
+    runs = list(arms.values()) + [r for e in recovery.values()
+                                  for r in e["runs"]]
+    return {"runs": runs,
+            "arms": arms, "rerank_recovery": recovery, "identity": identity,
+            "card_vs_cpu": cpu, "seconds": seconds, "card": card}
+
+
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
     own = [c for c in cases if c["path"] == path]
@@ -4143,6 +4767,7 @@ def main() -> int:
     ials_kernel_cases(torch, kernels, cases, ials_chunks, dev)
     sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
     tier_kernel_cases(torch, kernels, cases, lr_data, dev)
+    adaptive_kernel_cases(torch, kernels, cases, dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
@@ -4192,6 +4817,8 @@ def main() -> int:
     del mf_data, ials_chunks
     # 9. The static hot tier, counters at 0 before each run.
     tier = tier_phase(torch, fps, kernels, lr_data, card)
+    # 10. The adaptive tier, counters at 0 before each run.
+    adaptive = adaptive_phase(torch, fps, kernels, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -4199,6 +4826,7 @@ def main() -> int:
     runs += mesh["runs"]
     runs += processes["runs"]
     runs += tier["runs"]
+    runs += adaptive["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -4228,7 +4856,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 10. Summary lines. Each entry's times are per step of its first path
+    # 11. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -4275,11 +4903,15 @@ def main() -> int:
              w2v_per_step=w2v_steps["gather_rows"],
              ials_two_half_steps=ials_steps["gather_rows"],
              hot_tier_shapes=path_sums(cases["gather_rows"], "tier",
-                                       copy=True)),
+                                       copy=True),
+             adaptive_tier_shapes=path_sums(cases["gather_rows"], "adaptive",
+                                            copy=True)),
         dict(entry("scatter_add", src + "scatter_add.cu", pallas + ":112",
                    "mf"), w2v_per_step=w2v_steps["scatter_add"],
              ials_two_half_steps=ials_steps["scatter_add"],
              hot_tier_shapes=path_sums(cases["scatter_add"], "tier"),
+             adaptive_tier_shapes=path_sums(cases["scatter_add"],
+                                            "adaptive"),
              sort={"source": src + "radix_sort.cu",
                    "passes_by_shape": {label: b["sort_passes"]
                                        for label, b in breakdown.items()},
@@ -4306,6 +4938,8 @@ def main() -> int:
                                            "w2v_sketch_tap"),
              hot_tier_shapes=path_sums(cases["scatter_add_dim1"],
                                        "tier_logreg"),
+             adaptive_tier_shapes=path_sums(cases["scatter_add_dim1"],
+                                            "adaptive"),
              traced_by_shape=k4_traced),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
                    pallas + ":178", "mf_hot"),
@@ -4319,6 +4953,7 @@ def main() -> int:
         "sharded_mesh": {k: v for k, v in mesh.items() if k != "runs"},
         "processes": processes,
         "hot_tier": {k: v for k, v in tier.items() if k != "runs"},
+        "adaptive_tier": {k: v for k, v in adaptive.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

@@ -17,7 +17,13 @@ The hot tier's entries come across too, so a tiered run starts from the JAX
 package's state: a replica (``name::hot``, ``(H, dim)``) goes to every
 position, a hot fold's state (``name::fold``, or a snapshot's
 ``fold::name``; ``(ceil(H / S) * S, cols)`` in reduce-scatter slice order)
-is cut into ``S`` slices, slice ``s`` on every position ``(d, s)``.
+is cut into ``S`` slices, slice ``s`` on every position ``(d, s)``. So do
+the mapped tier's: a slot map (``name::hotmap``, ``(num_ids + 1,)``
+int32), a hot id array (``name::hotids``, ``(H,)`` int32) and a tracker's
+window (``name::sketch``, ``(depth, width)`` float32), each to every
+position. :func:`retierer_from_jax` builds a port
+:class:`~fps_tpu_torch.tiering.Retierer` from the JAX package's
+``Retierer.snapshot()``, so both packages start from the same tracker.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ from fps_tpu_torch.core.store import (
     ParamStore,
     fold_key,
     hot_key,
+    ids_key,
+    map_key,
     padded_rows,
+    sketch_key,
     split_tiering,
 )
 from fps_tpu_torch.parallel.mesh import DATA_AXIS, Blocks, num_workers_of
@@ -55,15 +64,16 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
     ``(S * rps, dim)`` physical table) as the port's blocks on the store's
     mesh: shard ``s``'s rows on every position ``(d, s)``, each position
     its own copy. ``device``: every block there instead of its position's
-    device. The hot tier's replicas and fold states may come along (see
-    the module's docstring); their tables must be among the store's."""
+    device. The hot tier's entries may come along (see the module's
+    docstring); their tables must be among the store's."""
     arrays = {(fold_key(k[len("fold::"):]) if k.startswith("fold::")
                else k): v for k, v in arrays.items()}
-    arrays, replicas, folds = split_tiering(arrays)
+    arrays, replicas, maps, gids, sketches, folds = split_tiering(arrays)
     if set(arrays) != set(store.specs):
         raise ValueError(f"tables {sorted(arrays)} != store tables "
                          f"{sorted(store.specs)}")
-    for name in list(replicas) + list(folds):
+    for name in (list(replicas) + list(maps) + list(gids) + list(sketches)
+                 + list(folds)):
         if name not in store.specs:
             raise ValueError(f"hot tier entry of {name!r}, which is not a "
                              "store table")
@@ -74,6 +84,12 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
         raise ValueError("tables_from_jax: device= is for a mesh of one "
                          "process")
     S = store.num_shards
+
+    def everywhere(array):
+        return Blocks([torch.from_numpy(np.array(array, copy=True)).to(dev)
+                       for dev in positions],
+                      replicas=len(mesh.slot), mesh=mesh)
+
     out = {}
     for name, spec in store.specs.items():
         array = np.asarray(arrays[name])
@@ -85,10 +101,25 @@ def tables_from_jax(store: ParamStore, arrays: Mapping[str, np.ndarray], *,
         array = np.asarray(array)
         _check_array(f"replica of {name!r}", array,
                      (array.shape[0], spec.dim), spec.dtype)
-        out[hot_key(name)] = Blocks(
-            [torch.from_numpy(np.array(array, copy=True)).to(dev)
-             for dev in positions],
-            replicas=len(mesh.slot), mesh=mesh)
+        out[hot_key(name)] = everywhere(array)
+    for name, array in maps.items():
+        array = np.asarray(array)
+        _check_array(f"slot map of {name!r}", array,
+                     (store.specs[name].num_ids + 1,), torch.int32)
+        out[map_key(name)] = everywhere(array)
+    for name, array in gids.items():
+        array = np.asarray(array)
+        _check_array(f"hot ids of {name!r}", array, (array.size,),
+                     torch.int32)
+        out[ids_key(name)] = everywhere(array)
+    for name, array in sketches.items():
+        array = np.asarray(array)
+        if array.ndim != 2:
+            raise ValueError(f"window of {name!r}: shape {array.shape} is "
+                             "not (depth, width)")
+        _check_array(f"window of {name!r}", array, array.shape,
+                     torch.float32)
+        out[sketch_key(name)] = everywhere(array)
     for name, array in folds.items():
         array = np.asarray(array)
         if array.ndim != 2 or array.shape[0] % S:
@@ -134,6 +165,28 @@ def local_state_from_jax(logic: WorkerLogic, array: np.ndarray, *,
     parts = np.split(array, num_workers)
     return Blocks([torch.from_numpy(np.array(parts[w], copy=True)).to(dev)
                    for w, dev in zip(own, positions)], mesh=mesh)
+
+
+def retierer_from_jax(snapshot: Mapping, **kwargs):
+    """A port :class:`~fps_tpu_torch.tiering.Retierer` (made with
+    ``kwargs``) holding the tracker state of the JAX package's
+    ``Retierer.snapshot()``: its decayed sketches, hot sets, fold count,
+    plans (as the port's :class:`~fps_tpu_torch.tiering.TierPlan`), seed
+    windows and counts."""
+    from fps_tpu_torch.tiering import Retierer, TierPlan
+
+    plans = snapshot["plans"]
+    if plans:
+        plans = {n: TierPlan(**dict(p.to_json() if hasattr(p, "to_json")
+                                    else p))
+                 for n, p in plans.items()}
+    rt = Retierer(**kwargs)
+    rt.restore_snapshot(dict(snapshot, plans=plans,
+                             state={k: np.asarray(v) for k, v in
+                                    snapshot["state"].items()},
+                             hot_ids={k: np.asarray(v) for k, v in
+                                      snapshot["hot_ids"].items()}))
+    return rt
 
 
 def to_numpy(x: Any):

@@ -57,11 +57,21 @@ push; its outputs ride the metrics under ``"tap"``.
   round's snapshot (SSP). Every call returns one canonical table, its
   replica equal to its head rows. Each chunk of ``run_chunk`` is certified
   for the ``cold_budget`` lanes at dispatch; ``run_indexed`` never packs.
+* **the adaptive tier** (``Trainer.retierer``, a
+  :class:`~fps_tpu_torch.tiering.Retierer`, or ``TrainerConfig.auto_tier``,
+  which attaches one as a run begins): a tiered table with a partial head
+  takes the mapped tier, membership by slot (``name::hotmap`` and
+  ``name::hotids``, replicated data), and each tracked table's pulled ids
+  go into a count-min window on every position each step (K4), summed
+  over the mesh at the end of the call into ``name::sketch``. After every
+  chunk of ``fit_stream`` and every epoch of ``run_indexed`` the
+  retierer folds the windows and may re-rank the hot set or plan the
+  knobs; every call's replica equals the canonical rows of the current hot
+  ids.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP.md
-Queue 1 item that ports each: ``guard`` (item 8), ``auto_tier`` and the
-mapped tier (item 7c); checkpoint hooks and rollback (item 8), telemetry
-and supervision (item 9).
+Queue 1 item that ports each: ``guard`` (item 8); checkpoint hooks and
+rollback (item 8), telemetry and supervision (item 9).
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ import numpy as np
 import torch
 
 from fps_tpu_torch import ops
+from fps_tpu_torch import sketch as sklib
 from fps_tpu_torch.core.api import ServerLogic, WorkerLogic, as_hot_fold
 from fps_tpu_torch.core.ingest import per_worker_cold_counts
 from fps_tpu_torch.core.prefetch import (
@@ -92,13 +103,20 @@ from fps_tpu_torch.core.store import (
     hot_delta_init,
     hot_fold_state_shape,
     hot_key,
+    hot_slot_map,
     id_to_phys,
+    ids_key,
+    lookup_hot_slots,
+    map_key,
     pull,
     pull_hot,
     push,
     reconcile_hot,
+    reconcile_hot_mapped,
     rows_per_shard,
+    sketch_key,
     split_hot_push,
+    split_hot_push_slots,
     split_tiering,
 )
 from fps_tpu_torch.parallel import collectives
@@ -107,6 +125,7 @@ from fps_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
     Blocks,
     PSMesh,
+    host_to_replicated,
     num_workers_of,
 )
 
@@ -178,8 +197,15 @@ class TrainerConfig:
     (and at its end). 1, the default, is the exact mode: the untiered
     program runs, bit for bit.
 
-    ``guard`` (ROADMAP.md Queue 1 item 8) and ``auto_tier`` (item 7c) are
-    not ported; any value but the default raises ``NotImplementedError``.
+    ``auto_tier``: attach :meth:`~fps_tpu_torch.tiering.Retierer.auto_for`
+    as a ``fit_stream`` or ``run_indexed`` run begins (unless
+    ``Trainer.retierer`` is set): the tables are tracked, the planner sets
+    each table's tier knobs and ``hot_sync_every`` after its warm-up, and
+    the hot sets are re-ranked as the traffic drifts. It cannot combine
+    with ``push_delay`` (raised as the run begins).
+
+    ``guard`` (ROADMAP.md Queue 1 item 8) is not ported; any value but the
+    default raises ``NotImplementedError``.
     """
 
     sync_every: int | None = None
@@ -196,15 +222,10 @@ class TrainerConfig:
     max_steps_per_call: int | None = None
 
     def __post_init__(self):
-        unported = {
-            "guard": (self.guard is not None, "item 8, slice E: durability"),
-            "auto_tier": (bool(self.auto_tier),
-                          "item 7c, slice D: adaptive tiering")}
-        for field, (set_, where) in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"TrainerConfig.{field}={getattr(self, field)!r} is not "
-                    f"ported yet (ROADMAP.md Queue 1 {where})")
+        if self.guard is not None:
+            raise NotImplementedError(
+                f"TrainerConfig.guard={self.guard!r} is not ported yet "
+                "(ROADMAP.md Queue 1 item 8, slice E: durability)")
         if self.sync_every is not None and self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
         if self.push_delay < 0:
@@ -234,6 +255,9 @@ class Trainer:
         self.config = config or TrainerConfig()
         self.num_shards = mesh.shape[SHARD_AXIS]
         self.num_workers = num_workers_of(mesh)
+        # The adaptive tier's manager (fps_tpu_torch.tiering.Retierer): set
+        # before the first call, or let TrainerConfig.auto_tier attach one.
+        self.retierer = None
         self._tier_warned: set[str] = set()
 
     # -- state ------------------------------------------------------------
@@ -442,12 +466,18 @@ class Trainer:
         (uncertifiable: every compacted table overflows). Padding counts
         like any id, as the device's compaction sees it."""
         tier = self._hot_tier_map()
+        mapped = self._mapped_tables()
         overflowed = []
         for name, C in self._cold_compact_map().items():
             arr = None if host_ids is None else host_ids.get(name)
+            member = None
+            if name in mapped:
+                # The mapped tier's current hot set, the sentinel False.
+                member = np.zeros(self.store.specs[name].num_ids + 1, bool)
+                member[self.retierer.hot_ids_for(name, mapped[name])] = True
             if arr is None or int(per_worker_cold_counts(
-                    arr, self.num_workers,
-                    hot_head=tier[name]).max(initial=0)) > C:
+                    arr, self.num_workers, hot_head=tier[name],
+                    hot_member=member).max(initial=0)) > C:
                 overflowed.append(name)
         return not overflowed, overflowed
 
@@ -461,52 +491,139 @@ class Trainer:
             return None
         return self.logic.pulled_ids_host(chunk)
 
+    def _mapped_tables(self) -> dict[str, int]:
+        """``{table: H}`` of the tables on the mapped (adaptive) tier: with
+        a retierer, every tiered table with a partial head (``0 < H <
+        num_ids``) that it manages. A whole replicated table has nothing
+        to re-rank, and without a retierer the static head runs."""
+        if self.retierer is None:
+            return {}
+        return {name: H for name, H in sorted(self._hot_tier_map().items())
+                if H < self.store.specs[name].num_ids
+                and self.retierer.manages(name)}
+
+    def _track_specs(self) -> dict:
+        """``{table: CountMinSpec}`` of the tables whose pulled ids each
+        step sketches: none without a retierer; every managed table during
+        an ``auto_plan`` warm-up (the planner needs every density); after
+        it, or with the knobs set by hand, the mapped tables only. So a
+        disengaged tier (the exact mode, one position, a fold the window
+        cannot carry) runs the untiered program even with a retierer."""
+        if self.retierer is None:
+            return {}
+        track = self.retierer.track_specs(self.store.specs)
+        if self.retierer.auto_plan and not self.retierer.planned:
+            return track
+        mapped = self._mapped_tables()
+        return {n: cm for n, cm in sorted(track.items()) if n in mapped}
+
+    def _replicated(self, arr: np.ndarray) -> Blocks:
+        """A host array on every position of this process (every process
+        passes the same array)."""
+        return Blocks(host_to_replicated(np.ascontiguousarray(arr),
+                                         self.mesh),
+                      replicas=len(self.mesh.slot), mesh=self.mesh)
+
     def _attach_hot(self, tables):
         """``tables`` with exactly the tier entries the resolution calls for:
         each tiered table's replica (kept when live and of its size, else
-        derived from the canonical table by
-        :meth:`~fps_tpu_torch.core.store.ParamStore.head_replica`) and each
-        hot fold's state (kept when of its shape, else zeros, sharded over
-        the shard axis in slice order); stale entries are dropped, so a
-        tier turned off runs the untiered program again. Called at the
-        entry of ``run_chunk``, ``fit_stream`` and ``run_indexed``: the
-        replicas are valid at any call boundary, since every call ends in
-        a reconcile."""
+        derived from the canonical table: the static head by
+        :meth:`~fps_tpu_torch.core.store.ParamStore.head_replica`, the
+        mapped tier's hot set by :meth:`~fps_tpu_torch.core.store.
+        ParamStore.rows_replica`), each mapped table's slot map and id
+        array (from the retierer's current hot set), each tracked table's
+        window (the retierer's seed, else zeros) and each hot fold's state
+        (kept when of its shape, else zeros, sharded over the shard axis in
+        slice order); stale entries are dropped, so a tier turned off runs
+        the untiered program again. Called at the entry of ``run_chunk``,
+        ``fit_stream`` and ``run_indexed`` and by the retierer's plans:
+        the replicas are valid at any call boundary, since every call ends
+        in a reconcile."""
         tier = self._hot_tier_map()
+        mapped = self._mapped_tables()
+        track = self._track_specs()
         folds = self._hot_fold_map()
-        canonical, replicas, states = split_tiering(tables)
-        if not tier and len(canonical) == len(tables):
+        canonical = split_tiering(tables)[0]
+        if not (tier or track) and len(canonical) == len(tables):
             return tables
         S = self.num_shards
-        out = dict(canonical)
-        for name, v in replicas.items():
-            if name in tier and v[0].shape[0] == tier[name]:
-                out[hot_key(name)] = v
-        for name, v in states.items():
-            if name in folds:
-                rows, cols = hot_fold_state_shape(
-                    folds[name], tier[name], self.store.specs[name].dim, S)
-                if tuple(v[0].shape) == (rows // S, cols):
-                    out[fold_key(name)] = v
+
+        def fold_shape(name):
+            rows, cols = hot_fold_state_shape(
+                folds[name], tier[name], self.store.specs[name].dim, S)
+            return rows // S, cols
+
+        # The shape of each entry the resolution calls for (a block's).
+        shapes = {}
+        for name, H in tier.items():
+            shapes[hot_key(name)] = (H, self.store.specs[name].dim)
+        for name, H in mapped.items():
+            shapes[map_key(name)] = (self.store.specs[name].num_ids + 1,)
+            shapes[ids_key(name)] = (H,)
+        for name, cm in track.items():
+            shapes[sketch_key(name)] = (cm.depth, cm.width)
+        for name in folds:
+            shapes[fold_key(name)] = fold_shape(name)
+        out = {k: v for k, v in tables.items()
+               if k in canonical or tuple(v[0].shape) == shapes.get(k)}
         for name in sorted(tier):
-            if hot_key(name) not in out:
+            if hot_key(name) in out:
+                continue
+            if name in mapped:
+                out[hot_key(name)] = self.store.rows_replica(
+                    name, self.retierer.hot_ids_for(name, mapped[name]),
+                    out[name])
+            else:
                 out[hot_key(name)] = self.store.head_replica(
                     name, tier[name], out[name])
+        for name in sorted(mapped):
+            if map_key(name) in out and ids_key(name) in out:
+                continue
+            hot = self.retierer.hot_ids_for(name, mapped[name])
+            out[ids_key(name)] = self._replicated(hot.astype(np.int32))
+            out[map_key(name)] = self._replicated(
+                hot_slot_map(self.store.specs[name].num_ids, hot))
+        for name in sorted(track):
+            if sketch_key(name) in out:
+                continue
+            cm = track[name]
+            win = self.retierer.device_window(name)
+            if win is None or win.shape != (cm.depth, cm.width):
+                win = np.zeros((cm.depth, cm.width), np.float32)
+            out[sketch_key(name)] = self._replicated(
+                np.asarray(win, np.float32))
         for name in sorted(folds):
             if fold_key(name) not in out:
-                rows, cols = hot_fold_state_shape(
-                    folds[name], tier[name], self.store.specs[name].dim, S)
+                rows, cols = fold_shape(name)
                 out[fold_key(name)] = Blocks(
-                    [torch.zeros((rows // S, cols), dtype=torch.float32,
+                    [torch.zeros((rows, cols), dtype=torch.float32,
                                  device=dev)
                      for dev in self.mesh.positions],
                     replicas=self.mesh.shape[DATA_AXIS], mesh=self.mesh)
         return out
 
+    def _enter_tiering(self) -> None:
+        """A run's entry (``fit_stream``, ``run_indexed``): attach
+        ``TrainerConfig.auto_tier``'s retierer, and let the retierer apply
+        a plan it already made, so the run resolves the tier it had."""
+        if self.config.auto_tier and self.retierer is None:
+            from fps_tpu_torch.tiering import Retierer
+
+            self.retierer = Retierer.auto_for(self)
+        if self.retierer is not None:
+            if self.retierer.auto_plan and self.config.push_delay:
+                # As hot_tier with push_delay, but raised here rather than
+                # at the boundary where the plan would land.
+                raise ValueError(
+                    "auto_tier and push_delay cannot combine: the planner "
+                    "would turn on a hot tier whose windowed reconcile "
+                    "re-orders against the delayed pushes. Disable one.")
+            self.retierer.on_run_entry(self)
+
     # -- one step ---------------------------------------------------------
 
     def _compute_step(self, tables, snapshot, states, batches, keys,
-                      tier=None):
+                      tier=None, track=None):
         """Every worker's step: pull (from the live tables, or the SSP
         ``snapshot`` when given) and run the worker step; return the
         workers' pushes unapplied, the head-prefix guarantee for them, the
@@ -519,10 +636,21 @@ class Trainer:
         (packed into the ``cold_budget`` lane first, where the chunk
         certified; the route is skipped when ``H`` covers the table). SSP
         pulls read the round's snapshot, whose head rows the reconcile
-        before it already made the replica's."""
+        before it already made the replica's. A mapped table's membership
+        is its slot map's.
+
+        With ``track`` (a :class:`_Track`), each tracked table's pulled ids
+        go into every position's window first (:func:`~fps_tpu_torch.
+        sketch.cm_update`, K4; padding is dropped)."""
         batches = [self.logic.prepare(b, k) for b, k in zip(batches, keys)]
         hp = self._head_prefix(batches[0])
         ids = [self.logic.pull_ids(b) for b in batches]
+        if track is not None:
+            for name, cm in sorted(track.specs.items()):
+                if name in ids[0]:
+                    track.windows[name] = [
+                        sklib.cm_update(cm, w, i[name])
+                        for w, i in zip(track.windows[name], ids)]
         pulled = [{} for _ in batches]
         counts = [{} for _ in batches]
         heads = tier.heads if tier is not None else {}
@@ -565,7 +693,14 @@ class Trainer:
             for c, n in zip(counts, live):
                 c[name] = {"hot_rows": n, "pulled_rows": n}
             return [ops.gather_rows(r, t) for r, t in zip(reps, tids)]
-        hots = [pull_hot(r, t, hot_ids=H) for r, t in zip(reps, tids)]
+        if name in tier.maps:
+            # The mapped tier: membership and the replica's row by slot.
+            slots = [lookup_hot_slots(m, t)
+                     for m, t in zip(tier.maps[name], tids)]
+            hots = [(ops.gather_rows(r, sl), sl >= 0)
+                    for r, sl in zip(reps, slots)]
+        else:
+            hots = [pull_hot(r, t, hot_ids=H) for r, t in zip(reps, tids)]
         cold = [torch.where(m, -1, t).to(t.dtype)
                 for (_, m), t in zip(hots, tids)]
         for c, (_, m), n in zip(counts, hots, live):
@@ -607,7 +742,8 @@ class Trainer:
         return new_tables
 
     def _apply_hot_split(self, tables, tier, pushes, head_prefix):
-        """Split each tiered table's pushes on ``id < H``: the cold part
+        """Split each tiered table's pushes on ``id < H`` (a mapped table's
+        on its slot map, the hot part in slot space): the cold part
         goes through the table's routes (packed into the lane where the
         chunk certified; none when ``H`` covers the table), the hot part
         into the positions' pending buffers (:func:`~fps_tpu_torch.core.
@@ -625,7 +761,13 @@ class Trainer:
             if H >= self.store.specs[name].num_ids:
                 hots = per  # no cold residue to push
             else:
-                parts = [split_hot_push(i, d, hot_ids=H) for i, d in per]
+                if name in tier.maps:
+                    parts = [split_hot_push_slots(i, d,
+                                                  lookup_hot_slots(m, i))
+                             for (i, d), m in zip(per, tier.maps[name])]
+                else:
+                    parts = [split_hot_push(i, d, hot_ids=H)
+                             for i, d in per]
                 hots = [h for _, h in parts]
                 rest = [c for c, _ in parts]
                 if name in tier.compact:
@@ -646,16 +788,21 @@ class Trainer:
 
     def _reconcile(self, tables, tier):
         """The window's end: every tiered table's pending buffers folded
-        into its replicas and canonical head rows, its fold state advanced
-        and its buffers reset (:func:`~fps_tpu_torch.core.store.
-        reconcile_hot`)."""
+        into its replicas and canonical rows of its hot ids, its fold state
+        advanced and its buffers reset (:func:`~fps_tpu_torch.core.store.
+        reconcile_hot`, or :func:`~fps_tpu_torch.core.store.
+        reconcile_hot_mapped` on a mapped table)."""
         tables = dict(tables)
         for name in sorted(tier.heads):
             sl = self.server_logic[name]
+            args = (tables[name], tier.replicas[name], tier.deltas[name])
+            if name in tier.gids:
+                fn, args = reconcile_hot_mapped, args + (tier.gids[name],)
+            else:
+                fn = reconcile_hot
             (tables[name], tier.replicas[name], tier.deltas[name],
-             fstate) = reconcile_hot(
-                tables[name], tier.replicas[name], tier.deltas[name],
-                num_shards=self.num_shards, combine=sl.combine,
+             fstate) = fn(
+                *args, num_shards=self.num_shards, combine=sl.combine,
                 fold=as_hot_fold(sl.hot_fold),
                 fold_states=tier.folds.get(name),
                 inplace=self.config.donate, mesh=self.mesh)
@@ -727,9 +874,9 @@ class Trainer:
             collectives.gather_home(self.mesh, xs))))
 
     def _step(self, tables, snapshot, states, batches, keys, t, outs,
-              in_flight, tier=None):
+              in_flight, tier=None, track=None):
         pushes, hp, states, out, counts = self._compute_step(
-            tables, snapshot, states, batches, keys, tier)
+            tables, snapshot, states, batches, keys, tier, track)
         if tier is not None:
             # push_delay is 0 with the tier on (_hot_tier_map).
             tables, dropped = self._apply_hot_split(tables, tier, pushes, hp)
@@ -777,19 +924,31 @@ class Trainer:
         are reconciled after steps ``E - 1, 2E - 1, ...`` and after the
         last step (sync, ``E = hot_sync_every``), or after every round
         (SSP). ``compact``: ``{table: lane}`` of the tables whose cold
-        routes this call packs (a certified chunk).
+        routes this call packs (a certified chunk). Each tracked table's
+        windows start the call at zero, and the call ends by adding their
+        sum over the mesh to its ``::sketch`` entry (:func:`merge_windows`).
         """
         mesh = self.mesh
-        canonical, replicas, folds = split_tiering(tables)
+        canonical, replicas, maps, gids, sketches, folds = split_tiering(
+            tables)
         tables = {name: list(tb) for name, tb in canonical.items()}
         tier = None
         heads = self._hot_tier_map()
         if heads:
+            mapped = self._mapped_tables()
             tier = _Tier(
                 heads=heads, compact=dict(compact or {}),
                 replicas={n: list(replicas[n]) for n in heads},
                 deltas=self._init_hot_deltas(tables, heads),
-                folds={n: list(folds[n]) for n in self._hot_fold_map()})
+                folds={n: list(folds[n]) for n in self._hot_fold_map()},
+                maps={n: list(maps[n]) for n in mapped},
+                gids={n: list(gids[n]) for n in mapped})
+        track = None
+        specs = self._track_specs()
+        if specs:
+            track = _Track(specs=specs, windows={
+                n: [torch.zeros_like(w) for w in sketches[n]]
+                for n in specs})
         states = self._worker_states(local_state)
         per_worker = self._worker_batches(batches)
         seeds = [fold_seed(seed, w) for w in mesh.local]
@@ -816,7 +975,7 @@ class Trainer:
             for i in range(num_steps):
                 tables, states = self._step(
                     tables, None, states, batch_at(i), key(i), t0 + i,
-                    outs, in_flight, tier)
+                    outs, in_flight, tier, track)
                 # A window ends every E steps from the call's first, and
                 # the call ends with its ragged tail's.
                 if tier is not None and ((i + 1) % E == 0
@@ -832,7 +991,7 @@ class Trainer:
                 for j in range(r * s, (r + 1) * s):
                     tables, states = self._step(
                         tables, snapshot, states, batch_at(j), key(j),
-                        t0 + j, outs, in_flight, tier)
+                        t0 + j, outs, in_flight, tier, track)
                 if tier is not None:
                     # Before the next round's snapshot, which must see the
                     # reconciled head rows.
@@ -849,6 +1008,13 @@ class Trainer:
             for name in sorted(tier.folds):
                 tables[fold_key(name)] = Blocks(tier.folds[name],
                                                 replicas=D, mesh=mesh)
+            for name in sorted(tier.maps):
+                tables[map_key(name)] = maps[name]
+                tables[ids_key(name)] = gids[name]
+        if track is not None:
+            for name in sorted(track.specs):
+                tables[sketch_key(name)] = merge_windows(
+                    mesh, sketches[name], track.windows[name])
         local_state = _tree_stack(states, lambda xs: Blocks(xs, mesh=mesh))
         return tables, local_state, _tree_stack(outs, torch.stack)
 
@@ -1003,6 +1169,7 @@ class Trainer:
         if cfg.metrics_drain_every < 0:
             raise ValueError("TrainerConfig.metrics_drain_every must be >= "
                              f"0, got {cfg.metrics_drain_every}")
+        self._enter_tiering()
         # The tier's entries at the stream's entry; run_chunk keeps them.
         tables = self._attach_hot(tables)
         it = iter(chunks)
@@ -1022,12 +1189,17 @@ class Trainer:
                     metrics = _to_host(metrics)
                     all_metrics.append(metrics)
                     on_chunk(j, metrics)
-                    continue
-                # An unbounded stream must not pile up device buffers.
-                all_metrics.append(metrics)
-                if de and (j - start_step) % de == de - 1:
-                    all_metrics[-de:] = [_to_host(m)
-                                         for m in all_metrics[-de:]]
+                else:
+                    # An unbounded stream must not pile up device buffers.
+                    all_metrics.append(metrics)
+                    if de and (j - start_step) % de == de - 1:
+                        all_metrics[-de:] = [_to_host(m)
+                                             for m in all_metrics[-de:]]
+                if self.retierer is not None:
+                    # The adaptive tier's boundary: fold the chunk's
+                    # windows, maybe re-rank or plan.
+                    tables = self.retierer.on_boundary(self, tables, j)
+                    self.store.tables = dict(tables)
         finally:
             if pf is not None:
                 pf.close()
@@ -1103,6 +1275,7 @@ class Trainer:
         T = plan.steps_per_epoch
         T_call = self._indexed_call_steps(plan)
         n_calls = -(-T // T_call)
+        self._enter_tiering()
         # The tier's entries at the run's entry; each call keeps them and
         # never packs its cold routes (its batches are on the device).
         tables = self._attach_hot(tables)
@@ -1127,6 +1300,11 @@ class Trainer:
             if on_epoch is not None:
                 all_metrics[-1] = _to_host(metrics)
                 on_epoch(e, all_metrics[-1])
+            if self.retierer is not None:
+                # The adaptive tier's boundary: fold the epoch's windows,
+                # maybe re-rank or plan.
+                tables = self.retierer.on_boundary(self, tables, e)
+                self.store.tables = dict(tables)
         self.store.tables = dict(tables)
         if on_epoch is None and as_numpy:
             all_metrics = [_to_host(m) for m in all_metrics]
@@ -1138,13 +1316,35 @@ class _Tier:
     """One call's hot-tier state, this process's positions' lists:
     ``heads`` ``{table: H}``, ``compact`` ``{table: lane}`` (the compacted
     tables of a certified chunk), each tiered table's ``replicas`` and
-    pending ``deltas``, and each hot fold's state slices (``folds``)."""
+    pending ``deltas``, each hot fold's state slices (``folds``), and each
+    mapped table's slot maps (``maps``) and hot id arrays (``gids``)."""
 
     heads: dict
     compact: dict
     replicas: dict
     deltas: dict
     folds: dict
+    maps: dict
+    gids: dict
+
+
+@dataclasses.dataclass
+class _Track:
+    """One call's tracker: each tracked table's count-min spec and its
+    window a position of this process."""
+
+    specs: dict
+    windows: dict
+
+
+def merge_windows(mesh: PSMesh, incoming, windows) -> Blocks:
+    """The end of a call's tracking: every position's window summed over
+    the shard axis, then the data axis (fixed-order folds), added to the
+    incoming replicated window; every position gets the same bits."""
+    merged = collectives.psum(mesh, collectives.psum(
+        mesh, list(windows), SHARD_AXIS), DATA_AXIS)
+    return Blocks([inc + m for inc, m in zip(incoming, merged)],
+                  replicas=len(mesh.slot), mesh=mesh)
 
 
 def _refuse(fn: str, **args) -> None:

@@ -24,25 +24,35 @@ import numpy as np
 
 
 def per_worker_cold_counts(ids: np.ndarray, num_workers: int, *,
-                           hot_head: int = 0) -> np.ndarray:
+                           hot_head: int = 0,
+                           hot_member: np.ndarray | None = None
+                           ) -> np.ndarray:
     """Cold-id counts of one chunk's id column, a ``(steps, num_workers)``
     int array: the host half of the compacted cold route's certification
     (``TableSpec.cold_budget``).
 
     ``ids``' last axis is the global batch (worker-major, ``W *
     local_batch``), its leading axes the chunk's step dims. An id is cold
-    when it is ``>= hot_head`` (the static frequency-ranked head); negative
-    ids never count (the ``-1`` padding), every other id counts, as the
+    when it is ``>= hot_head`` (the static frequency-ranked head), or, with
+    ``hot_member`` (a boolean array of ``num_ids + 1`` entries: the mapped
+    tier's hot set, the last entry a ``False`` sentinel), when it is not a
+    member; an id past the array clamps onto the sentinel. Negative ids
+    never count (the ``-1`` padding), every other id counts, as the
     device's compaction sees it. The certifier compares the maximum with
-    the lane's budget. (The JAX package's ``hot_member`` form belongs to
-    the mapped tier, which is not ported.)"""
+    the lane's budget."""
     a = np.asarray(ids)
     B = a.shape[-1]
     if B % num_workers:
         raise ValueError(
             f"batch dim {B} not divisible by num_workers={num_workers}")
     per_worker = a.reshape(-1, num_workers, B // num_workers)
-    return (per_worker >= hot_head).sum(axis=-1)
+    if hot_member is not None:
+        member = np.asarray(hot_member, bool)
+        cold = (per_worker >= 0) & ~member[
+            np.clip(per_worker, 0, len(member) - 1)]
+    else:
+        cold = per_worker >= hot_head
+    return cold.sum(axis=-1)
 
 
 def _to_ssp_shape(chunk: dict, sync_every: int) -> dict:

@@ -41,8 +41,20 @@ The reconcile is a reduce-scatter over the shard axis, a sum over the data
 axis, an optional :class:`~fps_tpu_torch.core.api.HotFold` on the owned
 slice (its state the ``fold_key(name)`` entry, sharded) and an all-gather,
 all through the fixed-order folds of
-:mod:`fps_tpu_torch.parallel.collectives`. The mapped (adaptive) tier is not
-ported (ROADMAP.md Queue 1 item 7c).
+:mod:`fps_tpu_torch.parallel.collectives`.
+
+**The mapped (adaptive) tier** (a :class:`~fps_tpu_torch.tiering.Retierer`
+attached to the trainer). The replica holds an arbitrary hot id set: slot
+``j`` holds global id ``hot_ids[j]``. The set rides the tables dict as
+data of fixed shapes, replicated on every position: an id -> slot map
+(``map_key(name)``, :func:`hot_slot_map`) and its inverse
+(``ids_key(name)``), so a re-rank swaps values, never shapes. Membership is
+a slot lookup (:func:`lookup_hot_slots`), the hot half of a push is in slot
+space (:func:`split_hot_push_slots`), and :func:`reconcile_hot_mapped`
+scatters the window's step into the owners' rows of the current ids.
+:meth:`ParamStore.rows_replica` derives the replica of any id set from
+the canonical table by a copy. ``sketch_key(name)`` holds the tracker's
+count-min window of the pulled ids.
 """
 
 from __future__ import annotations
@@ -122,17 +134,37 @@ def _result(one: bool, out: list):
 # ---------------------------------------------------------------------------
 
 # The tier's entries ride the tables dict beside the tables they serve,
-# under reserved suffixes: the replica (every position's copy) and the hot
-# fold's state (sharded over the shard axis). The canonical tables are the
-# keys without a suffix.
+# under reserved suffixes: the replica (every position's copy), the mapped
+# tier's id -> slot map and slot -> id array and the tracker's count-min
+# window (each replicated), and the hot fold's state (sharded over the
+# shard axis). The canonical tables are the keys without a suffix.
 HOT_KEY_SUFFIX = "::hot"
+MAP_KEY_SUFFIX = "::hotmap"
+IDS_KEY_SUFFIX = "::hotids"
+SKETCH_KEY_SUFFIX = "::sketch"
 FOLD_KEY_SUFFIX = "::fold"
-AUX_KEY_SUFFIXES = (HOT_KEY_SUFFIX, FOLD_KEY_SUFFIX)
+AUX_KEY_SUFFIXES = (HOT_KEY_SUFFIX, MAP_KEY_SUFFIX, IDS_KEY_SUFFIX,
+                    SKETCH_KEY_SUFFIX, FOLD_KEY_SUFFIX)
 
 
 def hot_key(name: str) -> str:
     """Tables-dict key of ``name``'s replicated head."""
     return name + HOT_KEY_SUFFIX
+
+
+def map_key(name: str) -> str:
+    """Tables-dict key of ``name``'s replicated id -> slot map."""
+    return name + MAP_KEY_SUFFIX
+
+
+def ids_key(name: str) -> str:
+    """Tables-dict key of ``name``'s replicated slot -> id array."""
+    return name + IDS_KEY_SUFFIX
+
+
+def sketch_key(name: str) -> str:
+    """Tables-dict key of ``name``'s count-min window of pulled ids."""
+    return name + SKETCH_KEY_SUFFIX
 
 
 def fold_key(name: str) -> str:
@@ -145,7 +177,8 @@ def is_hot_key(key: str) -> bool:
 
 
 def is_aux_key(key: str) -> bool:
-    """Whether ``key`` is a tier entry (a replica or a fold state)."""
+    """Whether ``key`` is a tier entry (a replica, a slot map, an id array,
+    a sketch window or a fold state)."""
     return any(key.endswith(s) for s in AUX_KEY_SUFFIXES)
 
 
@@ -154,18 +187,64 @@ def hot_base(key: str) -> str:
     return key[: -len(HOT_KEY_SUFFIX)]
 
 
-def split_tiering(tables: Mapping[str, Any]) -> tuple[dict, dict, dict]:
-    """``(canonical, replicas, folds)`` of a tables dict, the tier's entries
-    keyed by their table's name."""
-    canonical, hot, folds = {}, {}, {}
+def split_tiering(tables: Mapping[str, Any]
+                  ) -> tuple[dict, dict, dict, dict, dict, dict]:
+    """``(canonical, replicas, maps, gids, sketches, folds)`` of a tables
+    dict, the tier's entries keyed by their table's name."""
+    parts = {s: {} for s in AUX_KEY_SUFFIXES}
+    canonical = {}
     for k, v in tables.items():
-        if k.endswith(HOT_KEY_SUFFIX):
-            hot[k[: -len(HOT_KEY_SUFFIX)]] = v
-        elif k.endswith(FOLD_KEY_SUFFIX):
-            folds[k[: -len(FOLD_KEY_SUFFIX)]] = v
+        for suffix, part in parts.items():
+            if k.endswith(suffix):
+                part[k[: -len(suffix)]] = v
+                break
         else:
             canonical[k] = v
-    return canonical, hot, folds
+    return (canonical, parts[HOT_KEY_SUFFIX], parts[MAP_KEY_SUFFIX],
+            parts[IDS_KEY_SUFFIX], parts[SKETCH_KEY_SUFFIX],
+            parts[FOLD_KEY_SUFFIX])
+
+
+def hot_slot_map(num_ids: int, hot_gids) -> np.ndarray:
+    """The ``(num_ids + 1,)`` int32 id -> slot map of a hot id set: entry
+    ``i`` is global id ``i``'s replica slot (``-1``: cold), and the trailing
+    sentinel entry stays ``-1``, so every id outside ``[0, num_ids)`` can be
+    looked up there (:func:`lookup_hot_slots`)."""
+    gids = np.asarray(hot_gids, np.int64)
+    if gids.size and (gids.min() < 0 or gids.max() >= num_ids):
+        raise ValueError(f"hot ids outside [0, {num_ids}): "
+                         f"[{gids.min()}, {gids.max()}]")
+    if len(np.unique(gids)) != len(gids):
+        raise ValueError("hot id set contains duplicates")
+    m = np.full(num_ids + 1, -1, np.int32)
+    m[gids] = np.arange(len(gids), dtype=np.int32)
+    return m
+
+
+def lookup_hot_slots(slot_map: Tensor, ids: Tensor) -> Tensor:
+    """Each id's replica slot, ``-1`` for a cold id, padding or any id
+    outside ``[0, num_ids)``: those are mapped to the sentinel entry before
+    the lookup (the JAX package's ``jnp.take`` fills an index past the map
+    with ``INT_MIN`` instead; both are ``slot < 0``, cold)."""
+    sentinel = slot_map.shape[0] - 1
+    idx = torch.where((ids >= 0) & (ids < sentinel), ids, sentinel)
+    return slot_map.index_select(0, idx.to(torch.int64))
+
+
+def split_hot_push_slots(ids: Tensor, deltas: Tensor, slots: Tensor
+                         ) -> tuple[tuple[Tensor, Tensor],
+                                    tuple[Tensor, Tensor]]:
+    """:func:`split_hot_push` of the mapped tier, on ``slots >= 0``:
+    ``((cold_ids, cold_deltas), (hot_slots, hot_deltas))``, each with the
+    other tier's entries masked to ``-1`` and zero deltas; the hot half is
+    in slot space, for :func:`accumulate_hot`."""
+    hot = slots >= 0
+    zero = torch.zeros((), dtype=deltas.dtype, device=deltas.device)
+    cold = (torch.where(hot, -1, ids).to(ids.dtype),
+            torch.where(hot[:, None], zero, deltas))
+    hots = (torch.where(hot, slots, -1).to(slots.dtype),
+            torch.where(hot[:, None], deltas, zero))
+    return cold, hots
 
 
 def pull_hot(replica: Tensor, ids: Tensor, *,
@@ -442,6 +521,46 @@ def reconcile_hot(cold_blocks, replicas, bufs, *, num_shards: int,
         if not inplace:
             blk, rep = blk.clone(), rep.clone()
         blk[:hl] += mine.to(blk.dtype)
+        new_cold.append(blk)
+        new_rep.append(rep.add_(comb))
+    return (new_cold, new_rep, [_reset_delta(b, combine) for b in bufs],
+            fold_states)
+
+
+def _owned_rows(gids: Tensor, shard: int, num_shards: int) -> Tensor:
+    """Shard ``shard``'s local row of each global id it owns (id ``g`` lives
+    on shard ``g % S`` at local row ``g // S``), ``-1`` elsewhere."""
+    owned = (gids >= 0) & ((gids % num_shards) == shard)
+    return torch.where(owned, gids // num_shards, -1).to(torch.int32)
+
+
+def reconcile_hot_mapped(cold_blocks, replicas, bufs, hot_gids, *,
+                         num_shards: int, combine: str = "sum", fold=None,
+                         fold_states=None, inplace: bool = False,
+                         mesh: PSMesh | None = None):
+    """:func:`reconcile_hot` for an arbitrary hot id set: replica slot ``j``
+    holds global id ``hot_gids[j]`` (``hot_gids``: one ``(H,)`` int32 copy a
+    position). The combined step (:func:`_reconcile_combine`, shared with
+    the static tier) is added to every replica, and scattered into shard
+    ``s``'s owned rows ``hot_gids // S`` where ``hot_gids % S == s`` (``-1``
+    elsewhere, dropped): K2 on a table wider than one column, K4 on a
+    scalar table (:func:`fps_tpu_torch.ops.scatter_add_`). The ids are
+    distinct, so each owned row takes one add, as the static tier's do.
+
+    Returns ``(cold_blocks, replicas, fresh_bufs, fold_states)``.
+    """
+    mesh = _mesh_of(list(cold_blocks), num_shards, mesh)
+    S = num_shards
+    combined, fold_states = _reconcile_combine(
+        mesh, replicas, bufs, num_shards=S, combine=combine, fold=fold,
+        fold_states=fold_states)
+    new_cold, new_rep = [], []
+    for p, blk, rep, comb, g in zip(mesh.local, cold_blocks, replicas,
+                                    combined, hot_gids):
+        if not inplace:
+            blk, rep = blk.clone(), rep.clone()
+        ops.scatter_add_(blk, _owned_rows(g, p % S, S),
+                         comb.to(blk.dtype).contiguous())
         new_cold.append(blk)
         new_rep.append(rep.add_(comb))
     return (new_cold, new_rep, [_reset_delta(b, combine) for b in bufs],
@@ -861,6 +980,33 @@ class ParamStore:
         # Shard s's head row j (global id j * S + s) sits at row s * hl + j.
         rows = id_to_phys(torch.arange(hot_rows, dtype=torch.int64), S, hl)
         return Blocks([h.index_select(0, rows.to(h.device)) for h in heads],
+                      replicas=len(self.mesh.slot), mesh=self.mesh)
+
+    def rows_replica(self, name: str, ids, table: Blocks | None = None
+                     ) -> Blocks:
+        """The ``(len(ids), dim)`` replica of arbitrary global ids of
+        ``name`` on every position of this process (the mapped tier's
+        :meth:`head_replica`), from the canonical table (``table``, default
+        the live one). Each shard gathers the rows it owns of ``ids`` (K1,
+        or K5 on a scalar table; ``-1`` elsewhere), the gathers are
+        all-gathered over the shard axis, and each slot's row is selected
+        from its owner's: a copy, so the canonical rows' bits, ``-0.0``
+        included. Over several processes a collective."""
+        spec = self.specs[name]
+        ids = np.asarray(ids, np.int64)
+        if ids.size == 0 or ids.min() < 0 or ids.max() >= spec.num_ids:
+            raise ValueError(
+                f"table {name!r}: replica ids must be a non-empty subset "
+                f"of [0, {spec.num_ids})")
+        blocks = list(self.tables[name] if table is None else table)
+        S, H = self.num_shards, len(ids)
+        gids = torch.from_numpy(ids.astype(np.int32))
+        owned = [ops.gather_rows(b, _owned_rows(gids.to(b.device), p % S, S))
+                 for p, b in zip(self.mesh.local, blocks)]
+        every = collectives.all_gather(self.mesh, owned, SHARD_AXIS)
+        # Slot j's row is shard (ids[j] % S)'s gather row j.
+        rows = torch.from_numpy((ids % S) * H + np.arange(H))
+        return Blocks([e.index_select(0, rows.to(e.device)) for e in every],
                       replicas=len(self.mesh.slot), mesh=self.mesh)
 
     def put(self, name: str, full: Tensor) -> Blocks:

@@ -13,7 +13,8 @@ chunk in numpy and copies it over (the unbounded-stream shape).
 ``--hot-tier H``, ``--hot-sync-every E``, ``--cold-budget C`` and
 ``--hot-fold KIND`` set the static hot tier on every table of the job
 (:func:`apply_hot_tier`, which emits a ``"hot_tier"`` event);
-``--auto-tier`` (adaptive tiering) is not ported and raises.
+``--auto-tier`` sets ``TrainerConfig.auto_tier`` (adaptive tiering: the
+tracker, the planner and the re-ranks of :mod:`fps_tpu_torch.tiering`).
 
 ``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
 examples: by default over every visible CUDA device, or with every position
@@ -99,8 +100,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "the shard axis; needs --hot-tier >= num_ids and "
                          "--hot-sync-every > 1")
     ap.add_argument("--auto-tier", action="store_true",
-                    help="adaptive tiering (TrainerConfig.auto_tier): not "
-                         "ported yet (ROADMAP.md Queue 1 item 7c); raises")
+                    help="adaptive tiering (TrainerConfig.auto_tier): "
+                         "track the pulled ids on the device (count-min "
+                         "windows, summed over the mesh), plan each "
+                         "table's hot_tier, hot_sync_every and cold_budget "
+                         "from the sketched densities after a warm-up, and "
+                         "re-rank a partial head's hot set as the traffic "
+                         "drifts")
     return ap
 
 
@@ -141,7 +147,7 @@ def apply_hot_tier(args, trainer, store=None):
         raise SystemExit(f"--cold-budget must be >= 0, got {cold}")
     if cold and not (H or auto):
         raise SystemExit("--cold-budget needs a hot tier: pass --hot-tier H "
-                         "(a partial head)")
+                         "(a partial head) or --auto-tier")
     if fold and not H:
         raise SystemExit("--hot-fold needs --hot-tier (the whole table: H >= "
                          "num_ids) and --hot-sync-every > 1")
@@ -161,7 +167,6 @@ def apply_hot_tier(args, trainer, store=None):
         for name, sl in trainer.server_logic.items():
             trainer.server_logic[name] = dataclasses.replace(sl,
                                                              hot_fold=fold)
-    # auto_tier=True raises NotImplementedError (item 7c).
     trainer.config = dataclasses.replace(trainer.config, hot_sync_every=E,
                                          auto_tier=auto)
     tiered = sorted(trainer._hot_tier_map())  # also checks push_delay
@@ -169,8 +174,22 @@ def apply_hot_tier(args, trainer, store=None):
           "auto_tier": auto, "tiered_tables": tiered,
           "cold_budget": cold, "hot_fold": fold,
           "compacted_tables": sorted(trainer._cold_compact_map()),
-          "exact_mode": E == 1 or not tiered})
+          "exact_mode": (E == 1 or not tiered) and not auto})
     return trainer
+
+
+def report_tiering(trainer) -> None:
+    """With a retierer (``--auto-tier``), emit a ``"tiering"`` event: its
+    checks, re-ranks and the plan it landed."""
+    rt = trainer.retierer
+    if rt is None:
+        return
+    emit({"event": "tiering", "checks": rt.checks, "re_ranks": rt.re_ranks,
+          "planned": rt.planned,
+          "plans": ({n: p.to_json() for n, p in sorted(rt.plans.items())}
+                    if rt.plans else None),
+          "tiered_tables": sorted(trainer._hot_tier_map()),
+          "hot_sync_every": trainer.config.hot_sync_every})
 
 
 def make_epoch_source(args, mesh, data, *, route_key=None):

@@ -33,6 +33,7 @@ from fps_tpu_torch.examples.common import (
     make_chunks,
     make_mesh,
     profiler,
+    report_tiering,
 )
 
 
@@ -120,6 +121,7 @@ def main(argv=None) -> int:
     with prof:
         tables, local_state, _ = trainer.fit_stream(
             tables, local_state, chunks, args.seed, on_chunk=report)
+    report_tiering(trainer)
     pred = predict_host(store, local_state, W, test["user"], test["item"])
     emit({"event": "done", "test_rmse": rmse(pred, test["rating"]),
           "seconds": time.perf_counter() - t0})

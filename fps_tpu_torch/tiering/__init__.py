@@ -1,0 +1,46 @@
+"""Adaptive tiering: online re-ranking of the hot set and the planner of
+the tier's knobs.
+
+Port of ``fps_tpu/tiering``. A static hot tier (``TableSpec.hot_tier``) is
+the leading ids, fixed when the spec is written; a stream whose hot set
+drifts leaves it serving little. Here the tier is managed as the run goes:
+
+* **tracking**: each tracked table's pulled ids go into a count-min
+  window on every position each step (kernel K4 on the card), summed over
+  the mesh once a call, and folded on the host into a decayed count-min
+  that forgets an old head;
+* **re-rank and re-split** (:class:`Retierer`): at chunk and epoch
+  boundaries the sketched top ``H`` replaces the hot set; the replica and
+  its slot map and id array are swapped, every shape as it was;
+* **planning** (:func:`plan_tables`): each table's ``hot_tier``,
+  ``hot_sync_every``, dense route and ``cold_budget`` from its sketched
+  density (``TrainerConfig.auto_tier``).
+
+The JAX package's megastep tick (``MegastepTick``, ``device_top_ids``) is
+ROADMAP.md Queue 1 item 7d, its sidecar (``sidecar_path``) item 8 and
+``lowered_plan_text`` item 10.
+"""
+
+from fps_tpu_torch.tiering.planner import (
+    DEFAULT_REPLICA_BUDGET_BYTES,
+    TableDensity,
+    TierPlan,
+    arbitrate_replica_budget,
+    choose_cold_budget,
+    choose_sync_every,
+    global_sync_every,
+    head_coverage,
+    plan_tables,
+    plan_tenants,
+    tenant_demand_bytes,
+)
+from fps_tpu_torch.tiering.probe import ProbeLogic, lowered_plan_text, probe_chunk
+from fps_tpu_torch.tiering.retier import Retierer, top_ids
+
+__all__ = [
+    "DEFAULT_REPLICA_BUDGET_BYTES", "TableDensity", "TierPlan",
+    "arbitrate_replica_budget", "choose_cold_budget", "choose_sync_every",
+    "global_sync_every", "head_coverage", "plan_tables", "plan_tenants",
+    "tenant_demand_bytes", "Retierer", "top_ids", "ProbeLogic",
+    "probe_chunk", "lowered_plan_text",
+]

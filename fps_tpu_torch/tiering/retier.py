@@ -1,0 +1,408 @@
+"""Online re-ranking of the hot set: the host half of the adaptive tier.
+
+Port of ``fps_tpu/tiering/retier.py``. The trainer tracks each tracked
+table's pulled ids on the device: a count-min window
+(:func:`fps_tpu_torch.sketch.cm_update`, kernel K4 on the card) a position,
+updated every step and summed over the mesh at the end of every call into
+the table's ``sketch_key(name)`` entry. At chunk and epoch boundaries a
+:class:`Retierer`
+
+* **folds** the windows, every ``check_every`` boundaries, into a decayed
+  count-min on the host (:func:`fps_tpu_torch.sketch.dcm_fold`: halved on a
+  schedule, so a drifting stream forgets its old head) and resets them;
+* **re-ranks** each mapped table: the sketched top ``H`` against the
+  current hot set; past the churn threshold the set is replaced. The
+  replica is derived anew from the canonical table
+  (:meth:`~fps_tpu_torch.core.store.ParamStore.rows_replica`, valid at
+  every boundary, since every call ends in a reconcile) and the slot map
+  and id array are swapped. Their shapes do not change, so neither does
+  any launch a step;
+* **plans** (``auto_plan``): after ``warmup_checks`` folds of the tracked
+  but untiered run, :func:`~fps_tpu_torch.tiering.planner.plan_tables`
+  sets each table's ``hot_tier``, ``dense_collectives`` and
+  ``cold_budget`` and the trainer's ``hot_sync_every``, and the trainer
+  resolves its tier anew; ``replan_every`` plans again, and a plan with
+  the same knobs changes nothing.
+
+The JAX package's sidecar (``state_dir``, :meth:`Retierer.restore`: the
+tracker's state written beside the checkpoints) is ROADMAP.md Queue 1 item
+8, and its ``tiering.*`` recorder counters item 9; the counts stay
+readable here as ``re_ranks``, ``checks`` and ``last_churn``.
+
+Over several processes every process runs the same boundaries in the same
+order: reading the windows (``Blocks.numpy``) and deriving a replica are
+collectives, and the fold and the ranking are deterministic numpy, so
+every process reaches the same re-rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from fps_tpu_torch import sketch as sklib
+from fps_tpu_torch.core.store import (
+    FOLD_KEY_SUFFIX,
+    _stable_hash,
+    hot_key,
+    hot_slot_map,
+    ids_key,
+    is_aux_key,
+    map_key,
+    sketch_key,
+)
+from fps_tpu_torch.tiering.planner import (
+    TableDensity,
+    global_sync_every,
+    plan_tables,
+)
+
+_log = logging.getLogger("fps_tpu_torch.tiering")
+
+# The JAX package's dense threshold (its ops.DENSE_TABLE_BYTES) was
+# measured on a TPU's interconnect, and the port's dense_collectives="auto"
+# keeps the gathered route: the planner puts no table on the dense route
+# unless plan_kwargs asks.
+DENSE_TABLE_BYTES = 0
+
+_SIDECAR = "ROADMAP.md Queue 1 item 8, slice E: durability"
+
+
+def top_ids(est: np.ndarray, H: int) -> np.ndarray:
+    """The top ``H`` ids of an estimate vector, by count descending and id
+    ascending on ties: a full ``lexsort`` ranking's, through
+    ``argpartition`` and a sort of the candidates only. Every id tied at
+    the ``H``-th count is a candidate, so the cut never depends on the
+    partition's order."""
+    n = len(est)
+    if H >= n:
+        cand = np.arange(n)
+    else:
+        part = np.argpartition(-est, H - 1)[:H]
+        thresh = est[part].min()
+        cand = np.flatnonzero(est >= thresh)
+    order = cand[np.lexsort((cand, -est[cand]))]
+    return order[:H].astype(np.int64)
+
+
+class Retierer:
+    """The hot-set manager of one trainer, driven at its boundaries.
+
+    Attach with ``trainer.retierer = Retierer(...)`` before the first call,
+    or set ``TrainerConfig.auto_tier`` and the trainer attaches
+    :meth:`auto_for` as a run begins.
+
+    Args:
+      tables: the tables to track and manage (default: every store table).
+      spec: the decayed count-min of every tracked table (each table's hash
+        seed derives from its name).
+      check_every: the fold and re-rank cadence, in boundaries.
+      churn_threshold: re-rank when ``|top-H \\ current| / H`` exceeds it;
+        ``< 0`` re-ranks at every check.
+      auto_plan: run :func:`plan_tables` after ``warmup_checks`` folds and
+        apply it.
+      warmup_checks: folds of evidence before the plan.
+      replan_every: plan again every this many folds after the first plan
+        (0: once a run).
+      state_dir: the sidecar, ROADMAP.md Queue 1 item 8; any value but
+        ``None`` raises ``NotImplementedError``.
+      batch_rows_hint: pulled rows a step, for the planner's reconcile cost.
+      plan_kwargs: :func:`plan_tables` keywords over the defaults
+        (``dense_table_bytes`` is :data:`DENSE_TABLE_BYTES` unless given).
+    """
+
+    def __init__(self, tables=None, *,
+                 spec: sklib.DecayedCountMinSpec | None = None,
+                 check_every: int = 4,
+                 churn_threshold: float = 0.25,
+                 auto_plan: bool = False,
+                 warmup_checks: int = 1,
+                 replan_every: int = 0,
+                 state_dir: str | None = None,
+                 batch_rows_hint: int = 1024,
+                 plan_kwargs: Mapping | None = None):
+        if check_every < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        if replan_every < 0:
+            raise ValueError(
+                f"replan_every must be >= 0, got {replan_every}")
+        if state_dir is not None:
+            raise NotImplementedError(
+                f"Retierer(state_dir=...) is not ported yet ({_SIDECAR})")
+        self.tables = None if tables is None else frozenset(tables)
+        self.spec = spec or sklib.DecayedCountMinSpec(depth=4, width=2048)
+        self.check_every = check_every
+        self.churn_threshold = churn_threshold
+        self.auto_plan = auto_plan
+        self.warmup_checks = warmup_checks
+        self.replan_every = replan_every
+        self.batch_rows_hint = batch_rows_hint
+        self.plan_kwargs = dict(plan_kwargs or {})
+        # The tracker's state.
+        self.state: dict[str, np.ndarray] = {}   # decayed host sketches
+        self.hot_ids: dict[str, np.ndarray] = {}
+        self.tick = 0          # folds so far: the decay schedule's clock
+        self.planned = False
+        self.plans = None
+        # Windows to seed the ::sketch entries with (restore_snapshot's).
+        self._restored_windows: dict[str, np.ndarray] = {}
+        # The run's counts.
+        self.re_ranks = 0
+        self.checks = 0
+        self.last_churn: dict[str, float] = {}
+
+    @classmethod
+    def auto_for(cls, trainer) -> "Retierer":
+        """``TrainerConfig.auto_tier``'s default: track every table, plan
+        after one fold, re-rank at the default cadence."""
+        return cls(auto_plan=True)
+
+    # -- what the trainer's resolution reads ---------------------------------
+
+    def manages(self, name: str) -> bool:
+        return self.tables is None or name in self.tables
+
+    def _table_cm(self, name: str) -> sklib.CountMinSpec:
+        """``name``'s hashing: the device's window updates and the host's
+        queries both use it. The seed derives from the name (the JAX
+        package's ``_stable_hash``), so both packages, every process and
+        every restart hash alike."""
+        return sklib.CountMinSpec(
+            depth=self.spec.depth, width=self.spec.width,
+            seed=(self.spec.seed + _stable_hash(name)) % (2 ** 31))
+
+    def track_specs(self, specs: Mapping) -> dict[str, sklib.CountMinSpec]:
+        """``{table: CountMinSpec}`` of every managed table: the trainer's
+        ``_track_specs`` keeps the mapped ones (every managed one during
+        an ``auto_plan`` warm-up)."""
+        return {name: self._table_cm(name) for name in sorted(specs)
+                if self.manages(name)}
+
+    def hot_ids_for(self, name: str, H: int) -> np.ndarray:
+        """``name``'s current hot set of ``H`` ids, hottest first: the
+        static head ``[0, H)`` until a re-rank or a plan replaces it (a
+        stored set of another size, from an older plan, resets to it)."""
+        cur = self.hot_ids.get(name)
+        if cur is None or len(cur) != H:
+            cur = np.arange(H, dtype=np.int64)
+            self.hot_ids[name] = cur
+        return cur
+
+    def device_window(self, name: str) -> np.ndarray | None:
+        """A window to seed ``name``'s ``::sketch`` entry with (``None``:
+        zeros)."""
+        return self._restored_windows.get(name)
+
+    def snapshot(self) -> dict:
+        """A copy of the tracker's state (for a rollback with the tables)."""
+        return {
+            "state": {k: v.copy() for k, v in self.state.items()},
+            "hot_ids": {k: v.copy() for k, v in self.hot_ids.items()},
+            "tick": self.tick,
+            "planned": self.planned,
+            "plans": self.plans,
+            "restored_windows": dict(self._restored_windows),
+            "re_ranks": self.re_ranks,
+            "checks": self.checks,
+        }
+
+    def restore_snapshot(self, snap: Mapping) -> None:
+        """Inverse of :meth:`snapshot`; also takes the JAX package's
+        ``Retierer.snapshot()`` (numpy arrays and plans,
+        :func:`fps_tpu_torch.convert.retierer_from_jax`)."""
+        self.state = {k: np.array(v, np.float32)
+                      for k, v in snap["state"].items()}
+        self.hot_ids = {k: np.array(v, np.int64)
+                        for k, v in snap["hot_ids"].items()}
+        self.tick = int(snap["tick"])
+        self.planned = bool(snap["planned"])
+        self.plans = snap["plans"]
+        self._restored_windows = {k: np.array(v, np.float32) for k, v in
+                                  snap["restored_windows"].items()}
+        self.re_ranks = int(snap["re_ranks"])
+        self.checks = int(snap["checks"])
+
+    def on_run_entry(self, trainer) -> None:
+        """Run-entry hook: a plan already made is applied to the trainer's
+        specs and config again, so the run resolves the tier it had.
+        Idempotent."""
+        if self.planned and self.plans:
+            self._apply_plans_to(trainer)
+
+    # -- the boundary ---------------------------------------------------------
+
+    def on_boundary(self, trainer, tables: dict, index: int, *,
+                    recorder=None) -> dict:
+        """The fold, re-rank and plan after chunk or epoch ``index``.
+        Changes and returns the tables dict (tier entries only: the
+        canonical tables are never touched here). ``recorder`` (the
+        ``tiering.*`` counters) is ROADMAP.md Queue 1 item 9."""
+        if recorder is not None:
+            raise NotImplementedError(
+                "Retierer.on_boundary(recorder=...) is not ported yet "
+                "(ROADMAP.md Queue 1 item 9, slice F)")
+        if (index + 1) % self.check_every:
+            return tables
+        self.checks += 1
+        for name in sorted(trainer._track_specs()):
+            k = sketch_key(name)
+            if k not in tables:
+                continue
+            window = tables[k].numpy()
+            st = self.state.get(name)
+            if st is None:
+                st = sklib.dcm_init(self.spec)
+            self.state[name] = sklib.dcm_fold(self.spec, st, window,
+                                              self.tick)
+            tables[k] = trainer._replicated(np.zeros_like(window))
+            # Folded now: a later derivation of the entry starts from 0.
+            self._restored_windows.pop(name, None)
+        self.tick += 1
+        if self.auto_plan and not self.planned and (
+                self.tick >= self.warmup_checks):
+            tables = self._apply_plan(trainer, tables)
+        elif (self.auto_plan and self.planned and self.replan_every
+                and self.tick % self.replan_every == 0):
+            tables = self._replan(trainer, tables)
+        return self._maybe_rerank(trainer, tables)
+
+    # -- re-rank and re-split -------------------------------------------------
+
+    def _estimated_counts(self, name: str, num_ids: int) -> np.ndarray | None:
+        st = self.state.get(name)
+        if st is None or float(st.sum()) <= 0:
+            return None
+        probe = torch.arange(num_ids, dtype=torch.int32)
+        # The table's hashing (the decayed spec only schedules halvings):
+        # the windows were built with it.
+        return sklib.cm_query(self._table_cm(name), torch.from_numpy(
+            np.asarray(st, np.float32)), probe).numpy()
+
+    def _maybe_rerank(self, trainer, tables: dict) -> dict:
+        mapped = trainer._mapped_tables()
+        for name in sorted(mapped):
+            H = mapped[name]
+            spec = trainer.store.specs[name]
+            est = self._estimated_counts(name, spec.num_ids)
+            if est is None:
+                continue
+            cand = top_ids(est, H)
+            cur = set(self.hot_ids_for(name, H).tolist())
+            promoted = [g for g in cand.tolist() if g not in cur]
+            churn = len(promoted) / H
+            self.last_churn[name] = churn
+            if churn <= self.churn_threshold or not promoted:
+                continue
+            self.hot_ids[name] = cand
+            # The re-split: the replica from the canonical table, the maps
+            # as fresh data, every shape as it was.
+            tables[hot_key(name)] = trainer.store.rows_replica(
+                name, cand, tables[name])
+            tables[ids_key(name)] = trainer._replicated(cand.astype(np.int32))
+            tables[map_key(name)] = trainer._replicated(
+                hot_slot_map(spec.num_ids, cand))
+            self.re_ranks += 1
+            _log.info("tiering: re-ranked %r at check %d (churn %.3f, %d "
+                      "promoted of H=%d)", name, self.checks, churn,
+                      len(promoted), H)
+        return tables
+
+    # -- plans ----------------------------------------------------------------
+
+    def _compute_plans(self, trainer):
+        """The planner over the current decayed densities: ``(plans,
+        estimates by table)``, nothing changed."""
+        store = trainer.store
+        densities, est_by_name = [], {}
+        for name in sorted(store.specs):
+            if not self.manages(name):
+                continue
+            spec = store.specs[name]
+            est = self._estimated_counts(name, spec.num_ids)
+            if est is not None:
+                est_by_name[name] = est
+            else:
+                est = np.zeros(spec.num_ids)
+            densities.append(TableDensity(
+                name, spec.num_ids, spec.dim, est,
+                itemsize=torch.empty((), dtype=spec.dtype).element_size()))
+        kwargs = dict(batch_rows_per_step=self.batch_rows_hint,
+                      dense_table_bytes=DENSE_TABLE_BYTES,
+                      num_shards=trainer.num_shards,
+                      num_workers=trainer.num_workers)
+        kwargs.update(self.plan_kwargs)
+        return plan_tables(densities, **kwargs), est_by_name
+
+    def _install_plans(self, trainer, tables, plans, est_by_name, *,
+                       what: str) -> dict:
+        """Adopt ``plans``: seed each partial head's ranking, set the specs
+        and config, and derive the tier entries anew under the new
+        resolution. ``::fold`` entries are kept: a fold's state is not a
+        copy of the canonical table, and the trainer keeps it where its
+        shape still fits."""
+        store = trainer.store
+        for name in sorted(plans):
+            plan, spec = plans[name], store.specs[name]
+            est = est_by_name.get(name)
+            if 0 < plan.hot_tier < spec.num_ids and est is not None:
+                self.hot_ids[name] = top_ids(est, plan.hot_tier)
+        self.planned = True
+        self.plans = plans
+        E = self._apply_plans_to(trainer)
+        _log.info("tiering: %s applied at check %d: %s, hot_sync_every=%d",
+                  what, self.checks,
+                  {n: (p.hot_tier, p.hot_sync_every, p.dense, p.cold_budget)
+                   for n, p in sorted(plans.items())}, E)
+        tables = {k: v for k, v in tables.items()
+                  if not is_aux_key(k) or k.endswith(FOLD_KEY_SUFFIX)}
+        return trainer._attach_hot(tables)
+
+    def _apply_plan(self, trainer, tables: dict) -> dict:
+        plans, est_by_name = self._compute_plans(trainer)
+        return self._install_plans(trainer, tables, plans, est_by_name,
+                                   what="plan")
+
+    def _replan(self, trainer, tables: dict) -> dict:
+        """A periodic plan: the same knobs change nothing (the specs,
+        config and tier entries stay); other knobs are applied."""
+        plans, est_by_name = self._compute_plans(trainer)
+        old = self.plans or {}
+        if set(plans) == set(old) and all(
+                plans[n].knobs() == old[n].knobs() for n in plans):
+            self.plans = plans  # the fresh evidence
+            return tables
+        _log.info("tiering: the re-plan at check %d changed the knobs",
+                  self.checks)
+        return self._install_plans(trainer, tables, plans, est_by_name,
+                                   what="replan")
+
+    def _apply_plans_to(self, trainer) -> int:
+        """Set the trainer's specs and config to ``self.plans``
+        (idempotent). Returns the global ``hot_sync_every``."""
+        store = trainer.store
+        for name in sorted(self.plans):
+            plan = self.plans[name]
+            spec = store.specs.get(name)
+            if spec is None:
+                continue
+            store.specs[name] = dataclasses.replace(
+                spec, hot_tier=plan.hot_tier, dense_collectives=plan.dense,
+                cold_budget=plan.cold_budget)
+        E = global_sync_every(self.plans)
+        trainer.config = dataclasses.replace(trainer.config,
+                                             hot_sync_every=E)
+        return E
+
+    # -- the sidecar: ROADMAP.md Queue 1 item 8 -------------------------------
+
+    def restore(self, step: int) -> bool:
+        raise NotImplementedError(
+            f"Retierer.restore is not ported yet ({_SIDECAR})")
+
+    def sidecar_flush(self, timeout: float | None = None) -> None:
+        raise NotImplementedError(
+            f"Retierer.sidecar_flush is not ported yet ({_SIDECAR})")

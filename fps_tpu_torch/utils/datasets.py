@@ -3,7 +3,9 @@
 A copy of ``fps_tpu/utils/datasets.py`` for the ported workloads:
 MovieLens-style ratings (``synthetic_ratings``, ``load_movielens``, and
 the unbounded ``streaming_rating_batches``; ``zipf_ratings``, the hot-tier
-bench's Zipf-skewed item stream from ``bench.py``), implicit feedback for iALS
+bench's Zipf-skewed item stream from ``bench.py``, and
+``drifting_zipf_ratings``, its adaptive-tier bench's stream whose hot items
+move), implicit feedback for iALS
 (``synthetic_implicit``), sparse
 classification for passive-aggressive and logistic regression
 (``synthetic_sparse_classification``, ``synthetic_sparse_multiclass``,
@@ -66,6 +68,32 @@ def zipf_ratings(num_users, num_items, n, *, alpha=1.05, rank=3, seed=0):
     p /= p.sum()
     user = rng.integers(0, num_users, n).astype(np.int32)
     item = rng.choice(num_items, size=n, p=p).astype(np.int32)
+    uf = rng.normal(0, 1.0 / rank ** 0.5, (num_users, rank))
+    vf = rng.normal(0, 1.0 / rank ** 0.5, (num_items, rank))
+    rating = ((uf[user] * vf[item]).sum(1)
+              + rng.normal(0, 0.1, n)).astype(np.float32)
+    return {"user": user, "item": item, "rating": rating}
+
+
+def drifting_zipf_ratings(num_users, num_items, n, *, alpha=1.2, rank=3,
+                          rotate_frac=0.5, shift=None, seed=0):
+    """Planted low-rank ratings whose item popularity ranking rotates
+    within the stream: the first ``rotate_frac`` of the examples draw items
+    with Zipf rank = id (hottest first, the static tier's head), the rest
+    with rank = ``(id - shift) mod num_items`` (default ``shift``: half the
+    items), so the hot head moves to the ids around ``shift``. The stream's
+    order is its time: chunk it with ``seed=None``. A copy of ``bench.py``'s
+    ``_drifting_zipf_ratings``, the same arrays from the same seed."""
+    rng = np.random.default_rng(seed)
+    shift = num_items // 2 if shift is None else shift
+    p = 1.0 / np.arange(1, num_items + 1) ** alpha
+    p /= p.sum()
+    n1 = int(n * rotate_frac)
+    user = rng.integers(0, num_users, n).astype(np.int32)
+    item1 = rng.choice(num_items, size=n1, p=p).astype(np.int32)
+    item2 = ((rng.choice(num_items, size=n - n1, p=p) + shift)
+             % num_items).astype(np.int32)
+    item = np.concatenate([item1, item2])
     uf = rng.normal(0, 1.0 / rank ** 0.5, (num_users, rank))
     vf = rng.normal(0, 1.0 / rank ** 0.5, (num_items, rank))
     rating = ((uf[user] * vf[item]).sum(1)

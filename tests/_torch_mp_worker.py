@@ -23,7 +23,10 @@ top-k tap and ``recommend_topk``); ``tiered`` (the static hot tier at
 (1, 4) and (2, 4): MF with a partial head and its certified cold lanes,
 sync and SSP, and logistic regression with a partial head, and with the
 whole table and an Adagrad hot fold; from the port's own initial state);
-``dies`` (rank 1 exits once the mesh is built, and rank 0's next
+``mapped`` (the adaptive tier with re-ranks at every boundary: MF's mapped
+head with its cold lanes at (2, 4) through ``fit_stream``, SSP logistic
+regression's at (1, 8) through ``run_indexed``; the retierer's hot ids and
+counts ride the results); ``dies`` (rank 1 exits once the mesh is built, and rank 0's next
 collective must fail within the timeout).
 """
 
@@ -68,7 +71,8 @@ BUNDLES = {"d2s4": ("collectives", "mf_indexed_d2s4", "mf_host_sync",
            "d1s8": ("mf_indexed_d1s8", "pa", "logreg", "w2v", "ials",
                     "topk"),
            "tiered": ("tiered_mf_d1s4", "tiered_mf_d2s4_ssp",
-                      "tiered_lr_d1s4", "tiered_lr_d2s4_fold")}
+                      "tiered_lr_d1s4", "tiered_lr_d2s4_fold"),
+           "mapped": ("mapped_mf_d2s4", "mapped_lr_d1s8_ssp")}
 COLLECTIVE_SHAPES = [(2, 4), (1, 8), (4, 2)]
 
 # The JAX reference's recipe (tests/test_multiprocess.py).
@@ -510,6 +514,61 @@ def tiered_lr_d2s4_fold(mesh_of, init, out):
                fold="adagrad")
 
 
+def _retier_record(out, name, rt, table, H):
+    out[f"{name}/hot_ids"] = rt.hot_ids_for(table, H)
+    out[f"{name}/counts"] = np.array([rt.re_ranks, rt.checks, rt.tick])
+    for k, v in rt.state.items():
+        out[f"{name}/state/{k}"] = v
+
+
+def mapped_mf_d2s4(mesh_of, init, out):
+    """MF's mapped head (12 of 31 items, windows of 3) with the cold lane
+    its chunks need under the static head, re-ranked at every chunk."""
+    from fps_tpu_torch.core.ingest import per_worker_cold_counts
+    from fps_tpu_torch.tiering import Retierer
+
+    mesh = mesh_of(2, 4)
+    trainer, store = online_mf(mesh, MFConfig(**MF_CFG), combine="mean")
+    chunks = list(multi_epoch_chunks(
+        mf_data(), 2, num_workers=8, local_batch=32, steps_per_chunk=4,
+        route_key="user", seed=5))
+    lane = max(int(per_worker_cold_counts(c["item"], 8,
+                                          hot_head=TIER_MF_H).max())
+               for c in chunks)
+    store.specs["item_factors"] = dataclasses.replace(
+        store.specs["item_factors"], hot_tier=TIER_MF_H, cold_budget=lane,
+        dense_collectives=False)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E)
+    trainer.retierer = rt = Retierer(check_every=1, churn_threshold=-1.0)
+    tables, local = trainer.init_state(0)
+    tables, local, metrics = trainer.fit_stream(tables, local, chunks, 1)
+    _record(out, "mapped_mf_d2s4", tables, local, metrics_of(metrics))
+    _retier_record(out, "mapped_mf_d2s4", rt, "item_factors", TIER_MF_H)
+
+
+def mapped_lr_d1s8_ssp(mesh_of, init, out):
+    """SSP logistic regression's mapped head (64 of 400 features) through
+    ``run_indexed``, calls of 8 steps, re-ranked at every epoch."""
+    from fps_tpu_torch.tiering import Retierer
+
+    mesh = mesh_of(1, 8)
+    trainer, store = logistic_regression(mesh, LogRegConfig(**LR_KW),
+                                         sync_every=2)
+    store.specs["weights"] = dataclasses.replace(store.specs["weights"],
+                                                 hot_tier=TIER_LR_H)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E,
+                                         max_steps_per_call=8)
+    trainer.retierer = rt = Retierer(check_every=1, churn_threshold=-1.0)
+    plan = DeviceEpochPlan(DeviceDataset(mesh, lr_data()), num_workers=8,
+                           local_batch=16, seed=5, sync_every=2)
+    tables, _ = trainer.init_state(0)
+    tables, _, metrics = trainer.run_indexed(tables, (), plan, 1, epochs=2)
+    _record(out, "mapped_lr_d1s8_ssp", tables, (), metrics_of(metrics))
+    _retier_record(out, "mapped_lr_d1s8_ssp", rt, "weights", TIER_LR_H)
+
+
 SCENARIOS = {"collectives": collectives_scenario,
              "mf_indexed_d2s4": mf_indexed_d2s4,
              "mf_indexed_d1s8": mf_indexed_d1s8,
@@ -518,7 +577,9 @@ SCENARIOS = {"collectives": collectives_scenario,
              "topk": topk, "tiered_mf_d1s4": tiered_mf_d1s4,
              "tiered_mf_d2s4_ssp": tiered_mf_d2s4_ssp,
              "tiered_lr_d1s4": tiered_lr_d1s4,
-             "tiered_lr_d2s4_fold": tiered_lr_d2s4_fold}
+             "tiered_lr_d2s4_fold": tiered_lr_d2s4_fold,
+             "mapped_mf_d2s4": mapped_mf_d2s4,
+             "mapped_lr_d1s8_ssp": mapped_lr_d1s8_ssp}
 
 
 def run_bundle(bundle: str, mesh_of, init) -> dict:

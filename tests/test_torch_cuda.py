@@ -1485,3 +1485,92 @@ def test_tiered_logreg_runs_k5_and_k4_on_the_replica(dev):
     np.testing.assert_array_equal(
         tables["weights::hot"].numpy(),
         store.lookup_host("weights", np.arange(1024)))
+
+
+# ---------------------------------------------------------------------------
+# The adaptive tier on the card (chip_smoke.py's adaptive-tier phase, small).
+# ---------------------------------------------------------------------------
+
+def _mapped_fit(trainer, store, chunks):
+    """``fit_stream`` with every launch counter at 0 before, each chunk's
+    launches apart (the retierer's boundary after it is not in them), and
+    the boundary invariant after every chunk."""
+    tables, local = trainer.init_state(0)
+    per_chunk, prev = [], [None]
+
+    def on_chunk(i, m):
+        torch.cuda.synchronize()
+        now = kernels.launch_counts()
+        per_chunk.append({k: v - prev[0].get(k, 0) for k, v in now.items()}
+                         if prev[0] else dict(now))
+        H = trainer._hot_tier_map()["item_factors"]
+        gids = trainer.retierer.hot_ids_for("item_factors", H)
+        rep = store.tables["item_factors::hot"]
+        np.testing.assert_array_equal(
+            rep.numpy(), store.lookup_host("item_factors", gids))
+        assert all(torch.equal(r, rep[0]) for r in rep)
+
+    real = trainer.retierer.on_boundary
+
+    def boundary(tr, tb, i, **k):
+        out = real(tr, tb, i, **k)
+        torch.cuda.synchronize()
+        prev[0] = kernels.launch_counts()
+        return out
+
+    trainer.retierer.on_boundary = boundary
+    kernels.reset_launch_counts()
+    tables, local, metrics = trainer.fit_stream(tables, local, chunks, 1,
+                                                on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    return tables, local, metrics, per_chunk
+
+
+def test_mapped_tier_launches_and_boundary_on_the_card(dev):
+    """The mapped head with re-ranks at every chunk: a position a step K1 3
+    (the user row, the replica's rows by slot, the cold route), K2 3 (the
+    user push, the cold push, the buffer) and K4 1 (the tracker's window),
+    K2 once a position a reconcile (the owned rows' scatter); every chunk
+    launches the same across the re-ranks (the derivation's K1 runs at the
+    boundary, outside the chunks), and the replica equals the canonical
+    rows of the current hot ids after every chunk."""
+    from fps_tpu_torch.tiering import Retierer
+
+    trainer, store = _tier_mf(TIER_H, 0)
+    trainer.retierer = Retierer(check_every=1, churn_threshold=-1.0)
+    chunks = _tier_chunks()
+    _, _, metrics, per_chunk = _mapped_fit(trainer, store, chunks)
+    assert trainer.retierer.re_ranks >= 1
+    T = chunks[0]["item"].shape[0]
+    want = {"gather_rows": 8 * 3 * T,
+            "scatter_add": 8 * (3 * T + -(-T // TIER_E)),
+            "scatter_add_dim1": 8 * T}
+    for got in per_chunk[1:]:
+        assert {k: v for k, v in got.items() if v} == want, got
+    assert per_chunk[0]["gather_rows"] == want["gather_rows"] + 8
+    assert all(np.isfinite(m["se"]).all() for m in metrics)
+
+
+def test_mapped_identity_and_window_on_the_card(dev):
+    """A retierer that never checks: the mapped tier on the identity
+    ranking equals the static tier's tables bit for bit on the card, and
+    the window after one chunk equals a host count-min of its live pulled
+    ids bit for bit."""
+    from fps_tpu_torch import sketch
+    from fps_tpu_torch.tiering import Retierer
+
+    chunks = _tier_chunks()[:1]
+    static, _, _, _ = _tier_fit(_tier_mf(TIER_H, 0)[0], chunks)
+    trainer, store = _tier_mf(TIER_H, 0)
+    trainer.retierer = rt = Retierer(check_every=100)
+    mapped, _, _, _ = _tier_fit(trainer, chunks)
+    for k in static:
+        np.testing.assert_array_equal(mapped[k].numpy(), static[k].numpy(),
+                                      k)
+    spec = rt._table_cm("item_factors")
+    item = chunks[0]["item"].reshape(-1)
+    host = sketch.cm_update(spec, sketch.cm_init(spec),
+                            torch.from_numpy(item.astype(np.int32)))
+    win = mapped["item_factors::sketch"]
+    assert all(torch.equal(w, win[0]) for w in win)
+    np.testing.assert_array_equal(win[0].cpu().numpy(), host.numpy())

@@ -469,10 +469,11 @@ def test_tier_keys_and_split():
     assert tstore.is_hot_key("t::hot") and not tstore.is_hot_key("t::fold")
     assert tstore.is_aux_key("t::fold") and not tstore.is_aux_key("t")
     assert tstore.hot_base("t::hot") == "t"
-    canonical, hot, folds = tstore.split_tiering(
+    canonical, hot, maps, gids, sketches, folds = tstore.split_tiering(
         {"a": 1, "a::hot": 2, "b": 3, "a::fold": 4})
     assert canonical == {"a": 1, "b": 3}
     assert hot == {"a": 2} and folds == {"a": 4}
+    assert maps == gids == sketches == {}
 
 
 # ---------------------------------------------------------------------------
@@ -963,9 +964,23 @@ def test_example_hot_tier_flags_are_checked(argv, match):
                       "4"] + argv)
 
 
-def test_example_auto_tier_names_its_item():
+def test_example_auto_tier_trains():
+    """``--auto-tier`` on four shards: the retierer plans after its warm-up
+    chunks (the item table fits the replica budget, so the whole of it is
+    replicated) and the run finishes with a ``"tiering"`` event and a test
+    RMSE."""
     from fps_tpu_torch.examples import mf
 
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        _example(mf, ["--scale", "100k", "--device", "cpu", "--num-shards",
-                      "4", "--auto-tier"])
+    events = _example(mf, ["--scale", "100k", "--device", "cpu",
+                           "--num-shards", "4", "--local-batch", "256",
+                           "--steps-per-chunk", "4", "--epochs", "1",
+                           "--auto-tier"])
+    (tier,) = [e for e in events if e["event"] == "hot_tier"]
+    assert tier["auto_tier"] and not tier["exact_mode"]
+    (report,) = [e for e in events if e["event"] == "tiering"]
+    assert report["planned"] and report["checks"] >= 1
+    plan = report["plans"]["item_factors"]
+    assert plan["hot_tier"] == 1682 and not plan["dense"]
+    assert report["tiered_tables"] == ["item_factors"]
+    assert events[-1]["event"] == "done"
+    assert np.isfinite(events[-1]["test_rmse"])

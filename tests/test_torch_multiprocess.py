@@ -136,7 +136,7 @@ def _jax_init(bundle):
     numpy arrays under the worker's keys."""
     key = jax.random.key(0)
     init = {}
-    if bundle == "tiered":
+    if bundle in ("tiered", "mapped"):
         return init  # the scenarios start from the port's own state
     for D, S in ((2, 4),) if bundle == "d2s4" else ((1, 8),):
         tables, local = _mf_trainer(D, S)[0].init_state(key)
@@ -236,10 +236,11 @@ def _jax_w2v_plan_class(draws):
 
 def _jax_runs(bundle, init):
     """The JAX package's one-process run of every scenario of ``bundle``
-    (none for ``tiered``: ``tests/test_torch_hot_tier.py`` holds the tier
-    against the JAX package)."""
+    (none for ``tiered`` and ``mapped``: ``tests/test_torch_hot_tier.py``
+    and ``tests/test_torch_tiering.py`` hold the tiers against the JAX
+    package)."""
     ref = {}
-    if bundle == "tiered":
+    if bundle in ("tiered", "mapped"):
         return ref
     if bundle == "d2s4":
         for kind in ("indexed", "host_sync", "host_ssp"):
@@ -441,6 +442,34 @@ def test_tiered_two_ranks_equal_one_process_bit_for_bit(run):
             full[(ids % S) * rps + ids // S], name)
     assert "tiered_lr_d2s4_fold/table/weights::fold" in one
     assert one["tiered_mf_d1s4/metrics/hot_tier/item_factors/cold_dropped"
+               ].sum() == 0
+
+
+def test_mapped_two_ranks_equal_one_process_bit_for_bit(run):
+    """The adaptive tier over two ranks (the ``mapped`` bundle), re-ranked
+    at every boundary: at (2, 4) the data axis crosses the ranks, at (1, 8)
+    the shard axis (the windows' merge, the re-split's all-gather, the
+    reconcile's scatter of the owned rows). Every table, replica, slot
+    map, id array, window, local state and metric equals one process's bit
+    for bit on both ranks, and so do the retierers' hot ids, counts and
+    decayed sketches; each replica is its table's rows of the hot ids."""
+    ranks, one, _ = run("mapped")
+    assert {k.split("/")[0] for k in one} == set(mpw.BUNDLES["mapped"])
+    for key, want in one.items():
+        np.testing.assert_array_equal(ranks[0][key], want, key)
+        np.testing.assert_array_equal(ranks[1][key], want, key)
+    for name, table, S in (("mapped_mf_d2s4", "item_factors", 4),
+                           ("mapped_lr_d1s8_ssp", "weights", 8)):
+        assert one[f"{name}/counts"][0] >= 1  # re-ranked
+        gids = one[f"{name}/hot_ids"]
+        full = one[f"{name}/table/{table}"]
+        rps = full.shape[0] // S
+        np.testing.assert_array_equal(one[f"{name}/table/{table}::hot"],
+                                      full[(gids % S) * rps + gids // S])
+        np.testing.assert_array_equal(one[f"{name}/table/{table}::hotids"],
+                                      gids)
+        assert f"{name}/table/{table}::sketch" in one
+    assert one["mapped_mf_d2s4/metrics/hot_tier/item_factors/cold_dropped"
                ].sum() == 0
 
 

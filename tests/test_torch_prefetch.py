@@ -584,11 +584,27 @@ def test_driver_methods_have_the_reference_parameters_in_order(method):
 
 @pytest.mark.parametrize("make,item", [
     (lambda: TrainerConfig(guard="observe"), "item 8"),
-    (lambda: TrainerConfig(auto_tier=True), "item 7c"),
-], ids=["guard", "auto_tier"])
+], ids=["guard"])
 def test_unported_config_values_raise_naming_their_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
+
+
+def test_auto_tier_attaches_a_retierer_as_a_stream_begins():
+    """``TrainerConfig(auto_tier=True)`` is taken: ``fit_stream`` attaches
+    the default retierer as it begins, which tracks the pulled ids during
+    its warm-up (a one-position mesh has no tier to plan for)."""
+    from fps_tpu_torch.tiering import Retierer
+
+    trainer, _ = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW))
+    trainer.config = dataclasses.replace(trainer.config, auto_tier=True)
+    tables, local = trainer.init_state(0)
+    tables, local, _ = trainer.fit_stream(tables, local,
+                                          _mf_chunks(None, epochs=1)[:2], 1)
+    assert isinstance(trainer.retierer, Retierer)
+    assert trainer.retierer.auto_plan and not trainer.retierer.planned
+    assert "item_factors::sketch" in tables
+    assert tables["item_factors::sketch"].numpy().sum() > 0
 
 
 @pytest.mark.parametrize("call,kw,item", [

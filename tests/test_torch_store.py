@@ -167,11 +167,22 @@ def test_param_store_init_lookup_dump():
 
 @pytest.mark.parametrize("make", [
     lambda: TrainerConfig(guard="mask"),
-    lambda: TrainerConfig(auto_tier=True),
-], ids=["guard", "auto_tier"])
+], ids=["guard"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="not ported"):
         make()
+
+
+def test_auto_tier_option_is_taken():
+    """``TrainerConfig(auto_tier=True)`` constructs, and the store's tier
+    entries of the adaptive tier have their reserved keys."""
+    assert TrainerConfig(auto_tier=True).auto_tier
+    for key in ("t::hotmap", "t::hotids", "t::sketch"):
+        assert tstore.is_aux_key(key)
+    canonical, *aux = tstore.split_tiering(
+        {"t": 0, "t::hotmap": 1, "t::hotids": 2, "t::sketch": 3})
+    assert canonical == {"t": 0} and aux[1:4] == [{"t": 1}, {"t": 2},
+                                                 {"t": 3}]
 
 
 def _hot_push_matches_jax():
