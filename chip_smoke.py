@@ -179,7 +179,11 @@ on the card, raising on the first failure:
    block worker one ``run_indexed`` call of 32 steps at (1, 4), iALS one
    epoch at (1, 4), phase 9's ``head_compact`` arm at (1, 4) for 32 steps
    (the hot tier), phase 10's recovery arm at (1, 4) for 32 steps with a
-   re-rank at every chunk (the adaptive tier), each rank after one uncounted MF call of 64 steps
+   re-rank at every chunk (the adaptive tier), MF at (1, 4) for 4 chunks
+   of 16 steps with both ranks saving into one checkpoint directory after
+   every chunk (then this process restores their last save and must hold
+   their state bit for bit), each rank after one uncounted MF call of 64
+   steps
    (its first use of each kernel and exchange). Every job's tables, local
    state and metrics on every rank must equal, bit for bit, the same job
    run by this process alone on a mesh of the same shape, with K1 2 and
@@ -246,7 +250,32 @@ on the card, raising on the first failure:
    its lanes) on the card and on the CPU: the same hot ids, the slot
    maps, ids and windows equal, the rest within 1e-5 of the largest
    value;
-11. prints one JSON line describing every ported kernel, then, as the last
+11. drives durability on ``cuda:0`` at phase 4's MF width (ML-20M, rank
+   10, batch 32,768, mean combine), every launch counter at 0 just before
+   each run: (a) a child (``--phase11-child``) trains 3 epochs through
+   ``run_indexed`` with an ``AsyncCheckpointer`` saving every epoch and
+   dies by SIGKILL after epoch 2, leaving a torn tmp file; this process
+   restores its latest valid snapshot, finishes, and must equal the
+   uninterrupted run bit for bit, then again past a truncated newest
+   snapshot (the fallback, the ``.corrupt`` quarantine); (b) 12 host
+   chunks of 16 steps through ``fit_stream`` with prefetch 2 and a save
+   every chunk, full snapshots and ``DeltaPolicy(full_every=8)``, each
+   bit-equal to no checkpointer, the head equal to the live state and
+   ``compact()`` to the chain; (c) that (1, 1) snapshot restored onto a
+   (2, 4) mesh of the card and back, and onto the CPU, bit for bit; (d)
+   chunk 3 of 8 poisoned with NaN and 1e30 ratings: the mask guard keeps
+   the tables finite and masks exactly the host's count of poisoned live
+   rows, an observe guard's quarantine equals a preset skip at
+   ``health_lag`` 0 and 1, and a clean mask run equals ``guard=None``;
+   (e) ``bench.py run_storage``'s arms: phase 4's SSP logistic regression
+   with prefetch 2 and ``when_full="degrade"``, clean and under the
+   port's faultfs (an EIO blackout past the retry budget, slow fsyncs),
+   final weights and recovered snapshots bit-equal to the clean stream's;
+   (f) phase 9's MF at (2, 4) with an Adagrad hot fold, and phase 10's
+   recovery arm with the Retierer's sidecar, restarted at chunk 6 and
+   bit-equal to the uninterrupted runs. Phase 3 also holds K2 and K4 at
+   the guard's shapes (1 % of the ids masked to -1, their deltas zeroed);
+12. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -3178,7 +3207,12 @@ P8_MF_STEPS, P8_W2V_STEPS = 64, 32
 P8_DEVICE, P8_ONE_RANK_BACKEND = "cuda:0", "nccl"
 # The gloo ranks' jobs, in order (p8_job).
 P8_GLOO_JOBS = ("mf_sync_1x4", "mf_ssp_2x2", "pa_1x4", "w2v_1x4",
-                "ials_1x4", "tiered_1x4", "mapped_1x4")
+                "ials_1x4", "tiered_1x4", "mapped_1x4", "ckpt_1x4")
+# The checkpoint job: MF at (1, 4), 4 chunks of 16 steps, every rank saving
+# into one directory after every chunk (under P8_WHERE, the phase's
+# directory; the one process saves apart).
+P8_CKPT_CHUNKS, P8_CKPT_STEPS = 4, 16
+P8_WHERE = [None]
 # The hot tier's gloo job: phase 9's head_compact arm at (1, 4), 32 steps;
 # the adaptive tier's: phase 10's recovery arm at (1, 4) on the first 32
 # steps of its stream, re-ranked at every chunk.
@@ -3322,6 +3356,30 @@ def p8_job(torch, fps, job, mesh_of, data):
                 ITEM, DRIFT_H), re_ranks=np.array(rt.re_ranks))
         return ("MF mapped head, re-ranked, mesh 1x4, fit_stream", mesh,
                 run, steps, per_step)
+    if job == "ckpt_1x4":
+        import itertools
+
+        from fps_tpu_torch.core.checkpoint import Checkpointer
+
+        mesh = mesh_of(1, 4)
+        trainer, store = fps.online_mf(mesh, mf_cfg, combine="mean")
+        chunks = list(itertools.islice(epoch_chunks(
+            data["mf"], num_workers=4, local_batch=BATCH // 4,
+            steps_per_chunk=P8_CKPT_STEPS, route_key="user", seed=0),
+            P8_CKPT_CHUNKS))
+        state = trainer.init_state(0)
+        ck = Checkpointer(os.path.join(P8_WHERE[0], "ckpt"), keep=8)
+
+        def run():
+            tables, local, _ = trainer.fit_stream(
+                *state, chunks, 1, checkpointer=ck, checkpoint_every=1)
+            return lambda: {"item_factors": store.dump_model(ITEM)[1],
+                            "users": trainer.logic.export_local_state(
+                                local.numpy()),
+                            "steps": np.array(ck.steps())}
+        return ("MF, every rank saving every chunk, mesh 1x4, fit_stream",
+                mesh, run, P8_CKPT_CHUNKS * P8_CKPT_STEPS,
+                {"gather_rows": 2, "scatter_add": 2})
     assert job == "ials_1x4", job
     mesh = mesh_of(1, 4)
     solver = fps.IALSSolver(mesh, fps.IALSConfig(
@@ -3413,6 +3471,7 @@ def p8_rank(argv) -> int:
     tmesh.init_distributed(f"file://{where}/store_{tag}", world, rank,
                            backend=backend, device=P8_DEVICE,
                            timeout=datetime.timedelta(seconds=P8_TIMEOUT_S))
+    P8_WHERE[0] = os.path.join(where, f"ranks_{tag}")
     try:
         data = p8_load(where)
         spent = p8_timed_exchange(torch, collectives, backend == "gloo")
@@ -3489,6 +3548,34 @@ def p8_compare(where, tag, world, job, want):
                     f"{float(np.abs(got[k].astype(np.float64) - v).max())}")
 
 
+def p8_restore_check(fps, where, tag, want):
+    """One process restores the ranks' last save of the checkpoint job onto
+    a (1, 4) mesh of the card: the state both ranks ended with, bit for
+    bit."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+
+    d = os.path.join(where, f"ranks_{tag}", "ckpt")
+    if [f for f in os.listdir(d) if f.endswith(".tmp.npz")]:
+        raise AssertionError(f"phase 8 {tag}: tmp files left in {d}")
+    trainer, store = fps.online_mf(
+        fps.make_ps_mesh(4, 1, device=P8_DEVICE), fps.MFConfig(
+            num_users=ML20M_USERS, num_items=ML20M_ITEMS, rank=RANK,
+            learning_rate=0.1, reg=0.01), combine="mean")
+    _, like = trainer.init_state(3)
+    _, local, step = trainer.restore_checkpoint(Checkpointer(d), like)
+    got = {"item_factors": store.dump_model(ITEM)[1],
+           "users": trainer.logic.export_local_state(local.numpy())}
+    for k, v in got.items():
+        if not np.array_equal(v, want[k]):
+            raise AssertionError(f"phase 8 {tag}: the restored {k} differs "
+                                 "from the ranks' state")
+    if step != P8_CKPT_CHUNKS:
+        raise AssertionError(f"phase 8 {tag}: restored step {step}")
+    log(f"phase 8 {tag}: one process restored the ranks' save of step "
+        f"{step} bit for bit")
+    return {"step": step, "bit_equal": True}
+
+
 def process_phase(torch, fps, kernels, mf_data, pa_data, pa_q, tokens, uni,
                   ials_chunks, card):
     """Phase 8: the mesh over several processes on ``torch.distributed``,
@@ -3513,6 +3600,7 @@ def process_phase(torch, fps, kernels, mf_data, pa_data, pa_q, tokens, uni,
                 tokens, uni, ials_chunks)
         data = p8_load(where)
         one = {}
+        P8_WHERE[0] = os.path.join(where, "one_process")
         for job in ("mf_call_1x4",) + P8_GLOO_JOBS:
             one[job] = p8_run(
                 torch, fps, kernels, job,
@@ -3562,6 +3650,9 @@ def process_phase(torch, fps, kernels, mf_data, pa_data, pa_q, tokens, uni,
                     f"one process ({card})")
             log(f"phase 8 {tag}: {world} {backend} rank(s) done in "
                 f"{wall:.1f} s")
+            if "ckpt_1x4" in jobs:
+                results[f"{tag}/ckpt_1x4"]["restored_by_one_process"] = (
+                    p8_restore_check(fps, where, tag, one["ckpt_1x4"][0]))
     finally:
         shutil.rmtree(where, ignore_errors=True)
     return {"runs": list(results.values()), "card": card,
@@ -4679,6 +4770,718 @@ def adaptive_phase(torch, fps, kernels, card):
             "card_vs_cpu": cpu, "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: durability (checkpoints, delta chains, restore, the guard and
+# rollback, storage faults, the tier across a restart).
+# ---------------------------------------------------------------------------
+
+# MF at phase 4's width on ML-20M (load_movielens(None, "20m")'s data, the
+# same as phase 4's): rank 10, global batch 32,768, mean combine. (a) 3
+# epochs through run_indexed, killed after epoch 2 (index 1); (b), (d) the
+# first 12 (8) host chunks of 16 steps of an epoch through fit_stream; (d)
+# poisons chunk 3. (e) phase 4's SSP logistic regression (1M features, SGD,
+# dense head 13, s = 8), one epoch in chunks of one round. (f) phase 9's
+# MF at (2, 4), 12 chunks, restarted at chunk 6.
+P11 = dict(epochs=3, kill_epoch=1, chunk_steps=16, stream_chunks=12,
+           guard_chunks=8, poison_chunk=3, poison_frac=1e-4,
+           norm_limit=100.0, lr_chunk_steps=8, tier_chunks=12,
+           tier_restart=6, wait_s=300)
+
+
+def p11_mf(fps, mesh):
+    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                       rank=RANK, learning_rate=0.1, reg=0.01)
+    return fps.online_mf(mesh, cfg, combine="mean", max_steps_per_call=64)
+
+
+def p11_plan(fps, mesh, data):
+    return fps.DeviceEpochPlan(fps.DeviceDataset(mesh, data), num_workers=1,
+                               local_batch=BATCH, route_key="user", seed=0)
+
+
+def p11_state(trainer, store, local):
+    """The logical state: every table's rows in id order (a restore
+    zero-fills the padding rows no id reaches), the hot fold's state and
+    the local state in its export form, on the host."""
+    from fps_tpu_torch.core.store import FOLD_KEY_SUFFIX
+
+    out = {f"table/{k}": store.dump_model(k)[1] for k in store.specs}
+    for k, v in store.tables.items():
+        if k.endswith(FOLD_KEY_SUFFIX):
+            out[f"table/{k}"] = v.numpy()
+    leaves = trainer.logic.export_local_state(
+        trainer._host_local_state(local))
+    from fps_tpu_torch.core.resilience import tree_flatten
+
+    for i, leaf in enumerate(tree_flatten(leaves)[0]):
+        out[f"local/{i}"] = np.asarray(leaf)
+    return out
+
+
+def p11_equal(label, got, want):
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: arrays {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, v in want.items():
+        g = np.asarray(got[k])
+        if g.dtype != v.dtype or g.shape != v.shape or not np.array_equal(
+                g.view(np.uint8), np.ascontiguousarray(v).view(np.uint8)):
+            raise AssertionError(f"{label}: {k} differs bit for bit")
+
+
+def p11_counted(torch, kernels, label, steps, per_step, fn, card):
+    """Run ``fn`` with every launch counter at 0 just before and read just
+    after; on the card hold the counts to ``per_step`` (each kernel's
+    launches a step, ``None``: recorded only). Returns ``(result,
+    summary)``."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    if cuda and per_step is not None:
+        check_launches(label, launched, per_step, steps)
+    summary = {"path": label, "steps": steps, "seconds": seconds,
+               "ms_per_step": seconds / steps * 1e3, "launches": launched,
+               "launches_per_step": {k: v / steps for k, v in
+                                     launched.items() if v},
+               "card": card}
+    log(f"phase 11, {label}: {summary['ms_per_step']:.3f} ms a step, "
+        f"launches a step {summary['launches_per_step']} ({card})")
+    return out, summary
+
+
+def p11_child(argv) -> int:
+    """(a)'s victim: ``--phase11-child <dir> <device>``. Trains 3 epochs of
+    MF through ``run_indexed`` with an ``AsyncCheckpointer`` saving every
+    epoch, and after epoch 2's training (index 1), before its save, flushes
+    it, leaves a torn tmp file and dies by SIGKILL
+    (``partial_write_then_kill``): step 1 is the latest on disk."""
+    import torch
+
+    import fps_tpu_torch as fps
+    from fps_tpu_torch.core.checkpoint import AsyncCheckpointer
+    from fps_tpu_torch.ops import _build
+    from fps_tpu_torch.testing import chaos
+
+    where, device = argv[0], argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if torch.device(device).type == "cuda":
+        _build.library()  # built by the parent: this loads it
+    with np.load(os.path.join(where, "mf.npz")) as z:
+        data = {k: z[k] for k in z.files}
+    mesh = fps.make_ps_mesh(device=device)
+    trainer, _ = p11_mf(fps, mesh)
+    plan = p11_plan(fps, mesh, data)
+    tables, local = trainer.init_state(0)
+    ck = AsyncCheckpointer(os.path.join(where, "a"), keep=4)
+
+    def on_epoch(e, _metrics):
+        if e == P11["kill_epoch"]:
+            ck.flush()  # the saves before this epoch's are durable
+            chaos.partial_write_then_kill(ck.dir)
+
+    trainer.run_indexed(tables, local, plan, 1, epochs=P11["epochs"],
+                        checkpointer=ck, checkpoint_every=1,
+                        on_epoch=on_epoch)
+    return 3  # the victim never gets here
+
+
+def p11_resume(torch, fps, kernels, mf_data, where, dev, card):
+    """(a): SIGKILL and resume, bit for bit, then the fallback past a
+    truncated newest snapshot."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+    from fps_tpu_torch.testing import chaos
+
+    np.savez(os.path.join(where, "mf.npz"),
+             **{k: mf_data[k] for k in ("user", "item", "rating")})
+    log_path = os.path.join(where, "child.log")
+    with open(log_path, "w") as log_f:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase11-child",
+             where, str(dev)], cwd=ROOT, stdout=log_f,
+            stderr=subprocess.STDOUT)
+    try:
+        mesh = fps.make_ps_mesh(device=dev)
+        plan = p11_plan(fps, mesh, mf_data)
+        trainer, store = p11_mf(fps, mesh)
+        tables, local = trainer.init_state(0)
+        steps = P11["epochs"] * plan.steps_per_epoch
+        (tables, local, _), run = p11_counted(
+            torch, kernels, "MF, 3 epochs uninterrupted, run_indexed", steps,
+            {"gather_rows": 2, "scatter_add": 2},
+            lambda: trainer.run_indexed(tables, local, plan, 1,
+                                        epochs=P11["epochs"]), card)
+        want = p11_state(trainer, store, local)
+        try:
+            rc = child.wait(timeout=P11["wait_s"])
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != -9:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"phase 11 (a): the child "
+                             f"{'hung' if rc is None else f'exited {rc}'}"
+                             f", not by SIGKILL:\n{tail}")
+    d = os.path.join(where, "a")
+    torn = [f for f in os.listdir(d) if f.endswith(".tmp.npz")]
+    ck = Checkpointer(d)
+    latest = ck.latest_valid_step()
+    if latest != P11["kill_epoch"] or not torn:
+        raise AssertionError(f"phase 11 (a): latest valid step {latest}, "
+                             f"torn tmp files {torn}")
+
+    def resume(label):
+        tr, st = p11_mf(fps, mesh)
+        _, like = tr.init_state(5)
+        t0 = time.perf_counter()
+        tb, ls, step = tr.restore_checkpoint(Checkpointer(d), like)
+        restore_s = time.perf_counter() - t0
+        left = P11["epochs"] - step
+        (tb, ls, _), summary = p11_counted(
+            torch, kernels, f"MF, resumed at epoch {step}, run_indexed",
+            left * plan.steps_per_epoch,
+            {"gather_rows": 2, "scatter_add": 2},
+            lambda: tr.run_indexed(tb, ls, plan, 1, epochs=left,
+                                   start_epoch=step,
+                                   checkpointer=Checkpointer(d),
+                                   checkpoint_every=1), card)
+        p11_equal(label, p11_state(tr, st, ls), want)
+        summary["restore_seconds"] = restore_s
+        return step, summary
+
+    step1, r1 = resume("phase 11 (a), resumed after SIGKILL")
+    newest = os.path.join(d, f"ckpt_{P11['epochs']:012d}.npz")
+    chaos.truncate_file(newest)
+    step2, r2 = resume("phase 11 (a), resumed past a truncated snapshot")
+    if step2 != P11["epochs"] - 1 or not os.path.exists(newest + ".corrupt"):
+        raise AssertionError(f"phase 11 (a): the fallback restored step "
+                             f"{step2}, corrupt file kept: "
+                             f"{os.path.exists(newest + '.corrupt')}")
+    log(f"phase 11 (a): killed after epoch {P11['kill_epoch'] + 1} (torn "
+        f"tmp {torn}), resumed from step {step1} and, past a truncated "
+        f"step {P11['epochs']}, from step {step2}: both bit-equal to the "
+        f"uninterrupted run ({card})")
+    return {"killed_after_epoch": P11["kill_epoch"] + 1,
+            "resumed_from": [step1, step2], "bit_equal": True,
+            "torn_tmp_files": torn,
+            "restore_seconds": [r1["restore_seconds"],
+                                r2["restore_seconds"]]}, [run, r1, r2]
+
+
+def p11_chunks(data, n, steps, *, W=1, local_batch=BATCH, route_key="user",
+               sync_every=None, seed=0):
+    import itertools
+
+    from fps_tpu_torch.core.ingest import epoch_chunks
+
+    return list(itertools.islice(epoch_chunks(
+        data, num_workers=W, local_batch=local_batch, steps_per_chunk=steps,
+        route_key=route_key, sync_every=sync_every, seed=seed), n))
+
+
+def p11_streams(torch, fps, kernels, chunks, where, dev, card):
+    """(b): fit_stream with prefetch 2 and a save every chunk, full
+    snapshots and a delta chain, against no checkpointer; (c): the (1, 1)
+    snapshot onto a (2, 4) mesh of the card and back, and onto the CPU."""
+    import dataclasses
+
+    from fps_tpu_torch.core.checkpoint import (
+        AsyncCheckpointer,
+        Checkpointer,
+        DeltaPolicy,
+    )
+
+    mesh = fps.make_ps_mesh(device=dev)
+    steps = len(chunks) * P11["chunk_steps"]
+    out, runs, states = {}, [], {}
+    for arm in ("none", "full", "delta"):
+        trainer, store = p11_mf(fps, mesh)
+        trainer.config = dataclasses.replace(trainer.config, prefetch=2)
+        tables, local = trainer.init_state(0)
+        ck = None
+        if arm != "none":
+            ck = AsyncCheckpointer(
+                os.path.join(where, f"b_{arm}"), keep=3,
+                delta=DeltaPolicy(full_every=8) if arm == "delta" else None)
+        (tables, local, _), summary = p11_counted(
+            torch, kernels, f"MF, fit_stream, prefetch 2, saves: {arm}",
+            steps, {"gather_rows": 2, "scatter_add": 2},
+            lambda: trainer.fit_stream(tables, local, chunks, 1,
+                                       checkpointer=ck, checkpoint_every=1),
+            card)
+        states[arm] = p11_state(trainer, store, local)
+        runs.append(summary)
+        if ck is None:
+            continue
+        p11_equal(f"phase 11 (b), {arm} against no checkpointer",
+                  states[arm], states["none"])
+        head, values, leaves, _ = ck.read_snapshot()
+        if head != len(chunks):
+            raise AssertionError(f"phase 11 (b), {arm}: the head is step "
+                                 f"{head}, not {len(chunks)}")
+        snap = {f"table/{k}": values[k] for k in store.specs}
+        snap.update({f"local/{i}": v for i, v in enumerate(leaves)})
+        p11_equal(f"phase 11 (b), {arm}: the head against the live state",
+                  snap, states[arm])
+        folded = ck.compact()
+        if folded is not None:
+            after = ck.read_snapshot(head)[1]
+            p11_equal(f"phase 11 (b), {arm}: compact",
+                      {k: after[k] for k in store.specs},
+                      {k: values[k] for k in store.specs})
+        ck.close()
+        m = ck.metrics
+        out[arm] = {
+            "full_publishes": ck.full_publishes,
+            "delta_publishes": ck.delta_publishes,
+            "publish_bytes": ck.publish_bytes_total,
+            "delta_bytes": ck.delta_bytes_total,
+            "compacted": folded is not None,
+            "dump_seconds": [sum(m["checkpoint.dump_seconds"]),
+                             len(m["checkpoint.dump_seconds"])],
+            "capture_seconds": [sum(m["checkpoint.capture_seconds"]),
+                                len(m["checkpoint.capture_seconds"])],
+            "ms_per_step": summary["ms_per_step"],
+            "ms_per_step_without_saves": runs[0]["ms_per_step"]}
+        log(f"phase 11 (b), {arm}: {ck.full_publishes} fulls, "
+            f"{ck.delta_publishes} deltas, {ck.publish_bytes_total} bytes "
+            f"published; dump (training thread) {out[arm]['dump_seconds']}"
+            f" s, capture (writer) {out[arm]['capture_seconds']} s over "
+            f"(total, count); bit-equal to no checkpointer, the head to "
+            f"the live state ({card})")
+
+    # (c) The elastic re-split: (1, 1) -> (2, 4) on the card -> (1, 1),
+    # and onto the CPU.
+    want = states["delta"]
+    src = os.path.join(where, "b_delta")
+    D, S = TIER_MESH
+    elastic = {}
+    for label, target, source in (
+            ("(1, 1) -> (2, 4)", fps.make_ps_mesh(S, D, device=dev), src),
+            ("(2, 4) -> (1, 1)", mesh, os.path.join(where, "c_24")),
+            ("(1, 1) -> the CPU", fps.make_ps_mesh(device="cpu"), src)):
+        trainer, store = p11_mf(fps, target)
+        _, like = trainer.init_state(7)
+        ck = Checkpointer(source)
+        t0 = time.perf_counter()
+        _, local, step = trainer.restore_checkpoint(ck, like)
+        seconds = time.perf_counter() - t0
+        p11_equal(f"phase 11 (c), {label}", p11_state(trainer, store, local),
+                  want)
+        resplits = ck.metrics.get("checkpoint.resplits", 0)
+        if resplits != (0 if "CPU" in label else 1):
+            raise AssertionError(f"phase 11 (c), {label}: {resplits} "
+                                 "re-splits recorded")
+        if label.startswith("(1, 1) -> (2, 4)"):
+            trainer._save_checkpoint(Checkpointer(
+                os.path.join(where, "c_24")), step, local)
+        elastic[label] = {"seconds": seconds, "resplits": resplits}
+    log(f"phase 11 (c): the (1, 1) snapshot restores onto (2, 4) and back "
+        f"and onto the CPU bit for bit: {json.dumps(elastic)} ({card})")
+    return {"arms": out, "elastic": elastic}, runs
+
+
+def p11_poison(chunks, index, frac):
+    """``chunks`` with chunk ``index``'s rating column poisoned: NaN at a
+    seeded ``frac`` of its entries (``poison_chunks``), 1e30 at as many
+    more; the host's count of poisoned live rows."""
+    from fps_tpu_torch.testing import chaos
+
+    out = list(chaos.poison_chunks(chunks, chunk_index=index,
+                                   column="rating", kind="nan", frac=frac,
+                                   seed=1))
+    c = dict(out[index])
+    r = np.array(c["rating"], copy=True)
+    flat = r.reshape(-1)
+    rng = np.random.default_rng(2)
+    clean = np.flatnonzero(np.isfinite(flat))
+    flat[rng.choice(clean, size=max(1, int(frac * flat.size)),
+                    replace=False)] = 1e30
+    c["rating"] = r
+    out[index] = c
+    live = (~np.isfinite(r) | (r == 1e30)) & (c["weight"] > 0)
+    return out, int(live.sum())
+
+
+def p11_host_launches(torch, fn):
+    """Kernel launches the host made during ``fn()`` (every
+    ``cudaLaunchKernel`` and the like, from ``torch.profiler``'s host-side
+    records), and the result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if re.fullmatch(r"cu(da)?LaunchKernel(ExC)?(_v2)?", e.name))
+    return n, out
+
+
+def p11_guard(torch, fps, kernels, chunks, dev, card):
+    """(d): the guard and rollback on MF's stream, chunk 3 poisoned."""
+    import dataclasses
+
+    from fps_tpu_torch.core.resilience import GuardConfig, RollbackPolicy
+
+    mesh = fps.make_ps_mesh(device=dev)
+    steps = len(chunks) * P11["chunk_steps"]
+    poisoned, n_poison = p11_poison(chunks, P11["poison_chunk"],
+                                    P11["poison_frac"])
+    mask = GuardConfig(mode="mask", norm_limit=P11["norm_limit"],
+                       local=True)
+    per_step = {"gather_rows": 2, "scatter_add": 2}
+    runs, states, out = [], {}, {}
+
+    def run(label, guard, stream, *, rollback=None, lag=0, traced=False,
+            extra=0):
+        """``extra``: chunks run beyond the stream's (a lag-1
+        quarantine runs the next chunk again) or, negative, skipped."""
+        trainer, store = p11_mf(fps, mesh)
+        trainer.config = dataclasses.replace(trainer.config, guard=guard,
+                                             health_lag=lag)
+        tables, local = trainer.init_state(0)
+        n_steps = steps + extra * P11["chunk_steps"]
+
+        def go():
+            return trainer.fit_stream(tables, local, stream, 1,
+                                      rollback=rollback)
+
+        (tables, local, metrics), summary = p11_counted(
+            torch, kernels, f"MF, fit_stream, {label}", n_steps, per_step,
+            go, card)
+        runs.append(summary)
+        states[label] = p11_state(trainer, store, local)
+        if traced and torch.cuda.is_available():
+            # One more chunk, traced: the host's kernel launches a step.
+            n, _ = p11_host_launches(torch, lambda: trainer.run_chunk(
+                tables, local, stream[0], 99))
+            summary["host_launches_per_step"] = n / P11["chunk_steps"]
+        return tables, local, metrics, summary
+
+    _, _, _, none_run = run("clean, guard None", None, chunks, traced=True)
+    _, _, m_clean, mask_run = run("clean, guard mask", mask, chunks,
+                                  traced=True)
+    p11_equal("phase 11 (d), clean mask against guard None",
+              states["clean, guard mask"], states["clean, guard None"])
+    if any(int(np.sum(c[k])) for m in m_clean
+           for c in m["health"].values() for k in c):
+        raise AssertionError("phase 11 (d): the clean stream counted poison")
+    tables, local, metrics, _ = run("poisoned, guard mask", mask, poisoned)
+    check_finite(torch, "phase 11 (d), poisoned, mask", tables, local)
+    masked = int(sum(np.sum(m["health"][ITEM]["masked"]) for m in metrics))
+    if masked != n_poison:
+        raise AssertionError(f"phase 11 (d): masked {masked} rows, the host "
+                             f"counts {n_poison} poisoned live rows")
+    for lag in (0, 1):
+        rb = RollbackPolicy(max_rollbacks=1)
+        run(f"poisoned, observe, rollback, health_lag {lag}", "observe",
+            poisoned, rollback=rb, lag=lag, extra=lag)
+        if rb.quarantined != [P11["poison_chunk"]]:
+            raise AssertionError(f"phase 11 (d): lag {lag} quarantined "
+                                 f"{rb.quarantined}")
+    run("poisoned, observe, preset skip", "observe", poisoned,
+        rollback=RollbackPolicy(preset={P11["poison_chunk"]}), extra=-1)
+    want = states["poisoned, observe, preset skip"]
+    for lag in (0, 1):
+        p11_equal(f"phase 11 (d), quarantine at lag {lag} against a preset "
+                  "skip",
+                  states[f"poisoned, observe, rollback, health_lag {lag}"],
+                  want)
+    out = {"poisoned_live_rows": n_poison, "masked": masked,
+           "quarantined": [P11["poison_chunk"]],
+           "ms_per_step_guard_none": none_run["ms_per_step"],
+           "ms_per_step_guard_mask": mask_run["ms_per_step"],
+           "kernel_launches_per_step_guard_none":
+               none_run["launches_per_step"],
+           "kernel_launches_per_step_guard_mask":
+               mask_run["launches_per_step"]}
+    if "host_launches_per_step" in none_run:
+        out["host_launches_per_step"] = {
+            "none": none_run["host_launches_per_step"],
+            "mask": mask_run["host_launches_per_step"]}
+        out["launches_the_guard_adds_per_step"] = (
+            mask_run["host_launches_per_step"]
+            - none_run["host_launches_per_step"])
+    log(f"phase 11 (d): mask kept the tables finite and masked {masked} = "
+        f"{n_poison} poisoned live rows; quarantine = preset skip at lag 0 "
+        f"and 1; clean mask = guard None bit for bit; {json.dumps(out)} "
+        f"({card})")
+    return out, runs
+
+
+def p11_brownout(torch, fps, kernels, lr_data, where, dev, card):
+    """(e): bench.py run_storage's arms on the port: SSP logistic
+    regression at phase 4's width, prefetch 2, an AsyncCheckpointer
+    (``when_full="degrade"``) saving every chunk, clean and under the
+    port's faultfs (an EIO blackout past the retry budget, slow fsyncs)."""
+    import dataclasses
+    import threading
+
+    from fps_tpu_torch.core.checkpoint import AsyncCheckpointer
+    from fps_tpu_torch.testing import faultfs
+    from fps_tpu_torch.testing.faultfs import FaultRule
+
+    mesh = fps.make_ps_mesh(device=dev)
+    chunks = p11_chunks(lr_data, 1 << 30, P11["lr_chunk_steps"],
+                        local_batch=SPARSE_BATCH, route_key=None,
+                        sync_every=8, seed=1)
+    steps = len(chunks) * P11["lr_chunk_steps"]
+    rules = [FaultRule("snapshot", "write", "errno", errno_name="EIO",
+                       start=2, count=6),
+             FaultRule("snapshot", "fsync", "delay", delay_s=0.01, start=0,
+                       count=None, every=3)]
+
+    def trainer_of():
+        cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.1,
+                               dense_features=LR_DENSE)
+        tr, st = fps.logistic_regression(mesh, cfg, sync_every=8)
+        tr.config = dataclasses.replace(tr.config, prefetch=2)
+        return tr, st
+
+    # The reference: the weights after every chunk, untimed.
+    tr, st = trainer_of()
+    tables, local = tr.init_state(0)
+    per_chunk = []
+    tr.fit_stream(tables, local, chunks, 1, on_chunk=lambda i, m:
+                  per_chunk.append(st.dump_model("weights")[1]))
+    arms, runs = {}, []
+    for arm in ("clean", "brownout"):
+        tr, st = trainer_of()
+        tables, local = tr.init_state(0)
+        d = os.path.join(where, f"e_{arm}")
+        ck = AsyncCheckpointer(d, keep=len(chunks) + 2, when_full="degrade")
+        fs = faultfs.install(rules, seed=0) if arm == "brownout" else None
+        peak, stop = [0], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                peak[0] = max(peak[0], ck._publish_backlog)
+                stop.wait(0.005)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            (tables, local, metrics), summary = p11_counted(
+                torch, kernels, f"logreg SSP, fit_stream, saves every "
+                f"chunk, {arm}", steps,
+                {"gather_rows_dim1": 1, "scatter_add_dim1": 1},
+                lambda: tr.fit_stream(tables, local, chunks, 1,
+                                      checkpointer=ck, checkpoint_every=1),
+                card)
+        finally:
+            stop.set()
+            sampler.join(timeout=5.0)
+            injected = fs.injected_counts() if fs is not None else None
+            faultfs.uninstall()
+        runs.append(summary)
+        weights = st.dump_model("weights")[1]
+        p11_equal(f"phase 11 (e), {arm}: final weights",
+                  {"w": weights}, {"w": per_chunk[-1]})
+        step = ck.latest_valid_step()
+        snap = ck.read_snapshot(step)[1]["weights"]
+        p11_equal(f"phase 11 (e), {arm}: the recovered snapshot of step "
+                  f"{step}", {"w": snap}, {"w": per_chunk[step - 1]})
+        n = float(sum(np.sum(m["n"]) for m in metrics))
+        arms[arm] = {"examples_per_s": n / summary["seconds"],
+                     "degraded_publishes": ck.degraded_publishes,
+                     "backlog_peak": peak[0],
+                     "backlog_final": ck._publish_backlog,
+                     "publishes_landed": ck.full_publishes,
+                     "retries": ck.metrics.get(
+                         "storage.retries{plane=checkpoint}", 0),
+                     "last_recovered_step": step, "chunks": len(chunks),
+                     "injected": ({"/".join(k): v for k, v in
+                                   injected.items()} if injected else None)}
+        ck.close()
+    if arms["brownout"]["degraded_publishes"] < 1:
+        raise AssertionError("phase 11 (e): the blackout degraded nothing")
+    retention = (arms["brownout"]["examples_per_s"]
+                 / arms["clean"]["examples_per_s"])
+    out = {"arms": arms, "throughput_retention": retention}
+    log(f"phase 11 (e): throughput retention {retention:.4f}, degraded "
+        f"{arms['brownout']['degraded_publishes']}, backlog peak "
+        f"{arms['brownout']['backlog_peak']}; final weights and the "
+        f"recovered snapshots bit-equal to the clean stream's "
+        f"{json.dumps(arms)} ({card})")
+    return out, runs
+
+
+def p11_tier(torch, fps, kernels, dev, card):
+    """(f): the tier across a restart at (2, 4): the whole item table
+    replicated with an Adagrad hot fold (phase 9's fold arm; a fold needs
+    the whole table), and phase 10's recovery arm with the sidecar."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+    from fps_tpu_torch.core.store import fold_key
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mesh = fps.make_ps_mesh(S, D, device=dev)
+    n, k = P11["tier_chunks"], P11["tier_restart"]
+    fold = fps.HotFold(kind="adagrad", lr=TIER_FOLD_LR)
+    out, runs = {}, []
+    import tempfile
+
+    for arm in ("fold", "recovery"):
+        if arm == "fold":
+            chunks = tier_chunks(ds.zipf_ratings(
+                TIER_NU, TIER_NI, W * TIER_LOCAL * TIER_SPC * n, seed=1),
+                W, None)[:n]
+
+            def make(state_dir=None):
+                return tier_mf(fps, mesh, TIER_NI, 0, False, None,
+                               fold=fold)
+        else:
+            chunks = drift_chunks(drift_data(W, n), W)[:n]
+
+            def make(state_dir=None):
+                tr, st = drift_mf(fps, mesh, "recovery")
+                tr.retierer.state_dir = state_dir
+                return tr, st
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p11_") as d:
+            tr, st = make()
+            tables, local = tr.init_state(0)
+            (tables, local, _), summary = p11_counted(
+                torch, kernels, f"MF tier {arm}, mesh {D}x{S}, "
+                "uninterrupted", n * TIER_SPC, None,
+                lambda: tr.fit_stream(tables, local, chunks, 1), card)
+            runs.append(summary)
+            want = p11_state(tr, st, local)
+            want_ids = (tr.retierer.hot_ids_for(ITEM, DRIFT_H).copy()
+                        if arm == "recovery" else None)
+            tr, st = make(d)
+            tables, local = tr.init_state(0)
+            tr.fit_stream(tables, local, chunks[:k], 1,
+                          checkpointer=Checkpointer(d), checkpoint_every=k)
+            tr, st = make(d)
+            _, like = tr.init_state(3)
+            tables, local, step = tr.restore_checkpoint(Checkpointer(d),
+                                                        like)
+            if arm == "recovery" and not tr.retierer.restore(step):
+                raise AssertionError("phase 11 (f): no sidecar at step "
+                                     f"{step}")
+            (tables, local, _), summary = p11_counted(
+                torch, kernels, f"MF tier {arm}, mesh {D}x{S}, resumed at "
+                f"chunk {step}", (n - k) * TIER_SPC, None,
+                lambda: tr.fit_stream(tables, local, chunks[k:], 1,
+                                      start_step=k), card)
+            runs.append(summary)
+            p11_equal(f"phase 11 (f), {arm}: resumed against "
+                      "uninterrupted", p11_state(tr, st, local), want)
+            entry = {"restored_step": step, "bit_equal": True}
+            if arm == "fold":
+                if f"table/{fold_key(ITEM)}" not in want:
+                    raise AssertionError("phase 11 (f): no fold state")
+                # An untiered trainer restores the same canonical tables.
+                tr0, st0 = tier_mf(fps, mesh, 0, 0, False, None)
+                _, like = tr0.init_state(3)
+                tr0.restore_checkpoint(Checkpointer(d), like)
+                tr1, st1 = make()
+                _, like = tr1.init_state(3)
+                tr1.restore_checkpoint(Checkpointer(d), like)
+                p11_equal("phase 11 (f): an untiered restore",
+                          {"t": st0.dump_model(ITEM)[1]},
+                          {"t": st1.dump_model(ITEM)[1]})
+                entry["untiered_restore_equal"] = True
+            else:
+                got_ids = tr.retierer.hot_ids_for(ITEM, DRIFT_H)
+                if not np.array_equal(got_ids, want_ids):
+                    raise AssertionError("phase 11 (f): the resumed hot ids "
+                                         "differ")
+                entry["re_ranks_after_resume"] = tr.retierer.re_ranks
+            out[arm] = entry
+    log(f"phase 11 (f): the tier resumed bit for bit, fold state and "
+        f"sidecar included: {json.dumps(out)} ({card})")
+    return out, runs
+
+
+def durability_phase(torch, fps, kernels, mf_data, lr_data, card,
+                     dev="cuda:0"):
+    """Phase 11: durability at phase 4's MF width on ``dev``, every launch
+    counter at 0 just before each run: (a) SIGKILL and resume, (b) saves
+    that change nothing and the delta chain, (c) the elastic re-split, (d)
+    the guard and rollback, (e) the storage brownout, (f) the tier across
+    a restart."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
+    runs = []
+    try:
+        resume, r = p11_resume(torch, fps, kernels, mf_data, where, dev, card)
+        runs += r
+        chunks = p11_chunks(mf_data, max(P11["stream_chunks"],
+                                         P11["guard_chunks"]),
+                            P11["chunk_steps"])
+        streams, r = p11_streams(torch, fps, kernels,
+                                 chunks[:P11["stream_chunks"]], where, dev,
+                                 card)
+        runs += r
+        guard, r = p11_guard(torch, fps, kernels,
+                             chunks[:P11["guard_chunks"]], dev, card)
+        runs += r
+        del chunks
+        brownout, r = p11_brownout(torch, fps, kernels, lr_data, where, dev,
+                                   card)
+        runs += r
+        tier, r = p11_tier(torch, fps, kernels, dev, card)
+        runs += r
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"phase 11 done in {seconds:.1f} s")
+    return {"runs": runs, "resume": resume, "streams": streams,
+            "guard": guard, "brownout": brownout, "tier": tier,
+            "seconds": seconds, "card": card}
+
+
+def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
+    """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
+    (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
+    and K4 at the SGD logistic-regression push (1M x 1, 13 + 16,384 x 26
+    ids), each with 1 % of its ids masked to -1 and their deltas zeroed, as
+    ``guard_pushes`` in mask mode hands them over."""
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def masked(ids, dim):
+        ids = np.array(ids, np.int32, copy=True)
+        deltas = rng.normal(0, 1, (ids.size, dim)).astype(np.float32)
+        bad = rng.random(ids.size) < 0.01
+        ids[bad] = -1
+        deltas[bad] = 0.0
+        return t(ids), t(deltas)
+
+    ids, dl = masked(path_ids(rng, ML20M_ITEMS, BATCH, True), RANK + 1)
+    cases["scatter_add"].append(check_scatter(
+        torch, "K2 MF item push, guarded (1 % masked)",
+        kernels.scatter_add_cuda_, kernels.scatter_add_plain,
+        t(rng.normal(0, 1, (ML20M_ITEMS, RANK + 1)).astype(np.float32)),
+        ids, dl, "guarded", kernels))
+    lr_ids = mix_dropped(np.concatenate([
+        np.arange(LR_DENSE), lr_data["feat_ids"][:SPARSE_BATCH, LR_DENSE:]
+        .reshape(-1)]), LR_NF)
+    ids, dl = masked(lr_ids, 1)
+    cases["scatter_add_dim1"].append(check_k4(
+        torch, kernels, dev, "K4 logreg push, guarded (1 % masked)",
+        t(rng.normal(0, 1, (LR_NF, 1)).astype(np.float32)), ids, dl,
+        "guarded", None))
+
+
 def path_sums(cases, path, copy=False):
     """A kernel's times summed over its shapes on one path (a step's)."""
     own = [c for c in cases if c["path"] == path]
@@ -4768,6 +5571,7 @@ def main() -> int:
     sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
     tier_kernel_cases(torch, kernels, cases, lr_data, dev)
     adaptive_kernel_cases(torch, kernels, cases, dev)
+    guard_kernel_cases(torch, kernels, cases, lr_data, dev)
     k2_inputs = cases.pop("k2_inputs")
     k3_inputs = cases.pop("k3_inputs")
     k4_inputs = cases.pop("k4_inputs")
@@ -4814,11 +5618,15 @@ def main() -> int:
     # every rank.
     processes = process_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
                               w2v_tokens, w2v_uni, ials_chunks, card)
-    del mf_data, ials_chunks
+    del ials_chunks
     # 9. The static hot tier, counters at 0 before each run.
     tier = tier_phase(torch, fps, kernels, lr_data, card)
     # 10. The adaptive tier, counters at 0 before each run.
     adaptive = adaptive_phase(torch, fps, kernels, card)
+    # 11. Durability, counters at 0 before each run.
+    durability = durability_phase(torch, fps, kernels, mf_data, lr_data,
+                                  card)
+    del mf_data
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -4827,6 +5635,7 @@ def main() -> int:
     runs += processes["runs"]
     runs += tier["runs"]
     runs += adaptive["runs"]
+    runs += durability["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -4856,7 +5665,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 11. Summary lines. Each entry's times are per step of its first path
+    # 12. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -4912,6 +5721,7 @@ def main() -> int:
              hot_tier_shapes=path_sums(cases["scatter_add"], "tier"),
              adaptive_tier_shapes=path_sums(cases["scatter_add"],
                                             "adaptive"),
+             guarded_shapes=path_sums(cases["scatter_add"], "guarded"),
              sort={"source": src + "radix_sort.cu",
                    "passes_by_shape": {label: b["sort_passes"]
                                        for label, b in breakdown.items()},
@@ -4940,6 +5750,7 @@ def main() -> int:
                                        "tier_logreg"),
              adaptive_tier_shapes=path_sums(cases["scatter_add_dim1"],
                                             "adaptive"),
+             guarded_shapes=path_sums(cases["scatter_add_dim1"], "guarded"),
              traced_by_shape=k4_traced),
         dict(entry("scatter_add_packed", src + "scatter_add_packed.cu",
                    pallas + ":178", "mf_hot"),
@@ -4954,6 +5765,7 @@ def main() -> int:
         "processes": processes,
         "hot_tier": {k: v for k, v in tier.items() if k != "runs"},
         "adaptive_tier": {k: v for k, v in adaptive.items() if k != "runs"},
+        "durability": {k: v for k, v in durability.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),
@@ -4976,4 +5788,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase8-rank"]:
         sys.exit(p8_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase11-child"]:
+        sys.exit(p11_child(sys.argv[2:]))
     sys.exit(main())

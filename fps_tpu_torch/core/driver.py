@@ -69,15 +69,26 @@ push; its outputs ride the metrics under ``"tap"``.
   knobs; every call's replica equals the canonical rows of the current hot
   ids.
 
+* **durability** (:mod:`fps_tpu_torch.core.checkpoint`,
+  :mod:`fps_tpu_torch.core.resilience`): ``TrainerConfig.guard`` screens
+  every push (and, with ``GuardConfig.local``, the local state's update)
+  in the step and counts the bad rows under ``"health"``;
+  ``fit_stream`` and ``run_indexed`` save to a checkpointer every
+  ``checkpoint_every`` chunks or epochs and at the end, and quarantine a
+  poisoned chunk or epoch under a
+  :class:`~fps_tpu_torch.core.resilience.RollbackPolicy`;
+  :meth:`Trainer.restore_checkpoint` restores onto any mesh.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP.md
-Queue 1 item that ports each: ``guard`` (item 8); checkpoint hooks and
-rollback (item 8), telemetry and supervision (item 9).
+Queue 1 item that ports each: telemetry and supervision (item 9).
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
+import logging
 import warnings
 from typing import Any, Callable, Iterable, Mapping
 
@@ -86,6 +97,7 @@ import torch
 
 from fps_tpu_torch import ops
 from fps_tpu_torch import sketch as sklib
+from fps_tpu_torch.core import resilience
 from fps_tpu_torch.core.api import ServerLogic, WorkerLogic, as_hot_fold
 from fps_tpu_torch.core.ingest import per_worker_cold_counts
 from fps_tpu_torch.core.prefetch import (
@@ -94,6 +106,7 @@ from fps_tpu_torch.core.prefetch import (
     place_columns,
     placed_batches,
 )
+from fps_tpu_torch.core.resilience import RollbackPolicy, tree_copy
 from fps_tpu_torch.core.rng import fold_seed
 from fps_tpu_torch.core.store import (
     ParamStore,
@@ -133,8 +146,13 @@ Tensor = torch.Tensor
 
 __all__ = ["TrainerConfig", "Trainer", "num_workers_of"]
 
+_log = logging.getLogger("fps_tpu_torch.driver")
+
 # The out channel's key for the hot tier's counters.
-HOT_TIER_KEY = "hot_tier"
+HOT_TIER_KEY = resilience.HOT_TIER_KEY
+
+# fit_stream's end of stream.
+_STREAM_END = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,9 +199,11 @@ class TrainerConfig:
     (0: the synchronous host loop); ``prefetch_max > 0`` lets the depth
     rise to it when the driver keeps finding the buffer empty
     (:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`). ``health_lag``
-    is 0 or 1; it acts only where rollback, a health monitor or a watchdog
-    forces a host sync after every chunk, none of which is ported, so both
-    values run the same loop. ``metrics_drain_every``: without ``on_chunk``,
+    is 0 or 1; it acts where a rollback policy forces a host read of every
+    chunk's metrics: at 1, chunk ``i - 1``'s are read while chunk ``i``
+    runs, a quarantine of ``i - 1`` restores the state from before it and
+    runs chunk ``i`` again, and the tables and metrics are those of 0 bit
+    for bit. ``metrics_drain_every``: without ``on_chunk``,
     ``fit_stream`` moves the buffered metrics to the host every this many
     chunks (0: at the end only).
 
@@ -204,8 +224,13 @@ class TrainerConfig:
     the hot sets are re-ranked as the traffic drifts. It cannot combine
     with ``push_delay`` (raised as the run begins).
 
-    ``guard`` (ROADMAP.md Queue 1 item 8) is not ported; any value but the
-    default raises ``NotImplementedError``.
+    ``guard``: the push-delta guard
+    (:class:`~fps_tpu_torch.core.resilience.GuardConfig`, or its mode
+    ``"observe"`` / ``"mask"``): every table's push rows are screened in
+    the step for non-finite values (and norms over ``norm_limit``), counted
+    under the out channel's ``"health"`` entry, and in mask mode dropped
+    before the hot/cold split and the push. ``None`` runs none of it: a
+    step launches what it launches without a guard.
     """
 
     sync_every: int | None = None
@@ -222,10 +247,6 @@ class TrainerConfig:
     max_steps_per_call: int | None = None
 
     def __post_init__(self):
-        if self.guard is not None:
-            raise NotImplementedError(
-                f"TrainerConfig.guard={self.guard!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 8, slice E: durability)")
         if self.sync_every is not None and self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
         if self.push_delay < 0:
@@ -253,6 +274,20 @@ class Trainer:
             server_logic = {name: server_logic for name in param_store.specs}
         self.server_logic = dict(server_logic)
         self.config = config or TrainerConfig()
+        guard = resilience.as_guard(self.config.guard)  # fail fast on typos
+        if guard is not None and guard.tables is not None:
+            unknown = set(guard.tables) - set(param_store.specs)
+            if unknown:
+                raise ValueError(
+                    f"guard.tables names unknown tables {sorted(unknown)} — "
+                    f"store has {sorted(param_store.specs)}; a typo here "
+                    "would silently disable the guard")
+        if (guard is not None and guard.local
+                and resilience.LOCAL_STATE_KEY in param_store.specs):
+            raise ValueError(
+                f"guard.local reserves the {resilience.LOCAL_STATE_KEY!r} "
+                "health-channel entry, but the store has a table of that "
+                "name — rename the table or disable the local guard")
         self.num_shards = mesh.shape[SHARD_AXIS]
         self.num_workers = num_workers_of(mesh)
         # The adaptive tier's manager (fps_tpu_torch.tiering.Retierer): set
@@ -679,8 +714,41 @@ class Trainer:
                 p[name] = v
         outs = [self.logic.step(b, p, s, k)
                 for b, p, s, k in zip(batches, pulled, states, keys)]
+        guard = resilience.as_guard(self.config.guard)
+        if guard is not None:
+            outs = [self._guard_step(guard, o, s, b)
+                    for o, s, b in zip(outs, states, batches)]
         return ([o.pushes for o in outs], hp, [o.local_state for o in outs],
                 [o.out for o in outs], counts)
+
+    def _guard_step(self, guard, out, old_state, batch):
+        """One worker's step output through the guard
+        (:func:`~fps_tpu_torch.core.resilience.guard_pushes`, and with
+        ``guard.local`` :func:`~fps_tpu_torch.core.resilience.
+        guard_local_state` over the rows ``touched_local_rows`` names), its
+        counts mounted on the out channel under ``"health"``."""
+        pushes, health = resilience.guard_pushes(out.pushes, guard)
+        new_local = out.local_state
+        if guard.local:
+            new_local, local_health = resilience.guard_local_state(
+                old_state, new_local, guard,
+                touched=self.logic.touched_local_rows(batch))
+            if local_health is not None:
+                health[resilience.LOCAL_STATE_KEY] = local_health
+        outch = out.out
+        if health:
+            if not isinstance(outch, dict):
+                raise TypeError(
+                    "TrainerConfig.guard requires the worker's out "
+                    "channel to be a dict so the health counters can "
+                    f"ride it (got {type(outch).__name__})")
+            if resilience.HEALTH_KEY in outch:
+                raise ValueError(
+                    "the worker's out channel already has a 'health' "
+                    "key — it would collide with the guard's counters")
+            outch = dict(outch, **{resilience.HEALTH_KEY: health})
+        return dataclasses.replace(out, pushes=pushes, local_state=new_local,
+                                   out=outch)
 
     def _pull_tiered(self, tables, tier, name: str, H: int, tids, counts):
         """A sync pull of tiered table ``name``: every worker's rows, its
@@ -1118,6 +1186,188 @@ class Trainer:
         placed.host_ids = self._host_cert_ids(batches)
         return placed
 
+    # -- checkpoint plumbing ----------------------------------------------
+
+    def _host_local_state(self, local_state):
+        """The local state as host arrays: each leaf's global array
+        (:meth:`~fps_tpu_torch.parallel.mesh.Blocks.numpy`, a collective
+        over several processes: every process reaches the boundary
+        together, as for the tables' dump)."""
+        def to_host(leaf):
+            if isinstance(leaf, Blocks):
+                return leaf.numpy()
+            if isinstance(leaf, Tensor):
+                return leaf.detach().cpu().numpy()
+            return leaf
+
+        return _tree_map(to_host, local_state)
+
+    def _save_checkpoint(self, checkpointer, step: int, local_state, *,
+                         tables=None, touched=None, final=False,
+                         ready=None) -> None:
+        """Save the tables and the local state, the local state in the
+        logic's worker-count-independent export form (tagged
+        ``"exported"``, so a mismatched restore fails loudly).
+
+        ``tables``: boundary copies (clones on the device) to save instead
+        of the live store: the overlapped paths take them at the boundary
+        and save after the next chunk was dispatched. With an
+        :class:`~fps_tpu_torch.core.checkpoint.AsyncCheckpointer` on one
+        process, the device-to-host capture itself moves to the writer
+        thread (``save_deferred``), which first waits for ``ready`` (the
+        CUDA event recorded after the copies); over several processes the
+        capture is a collective and stays on this thread.
+
+        ``touched``: ``(ids_by_table, marker, tracker)`` from a
+        :class:`~fps_tpu_torch.core.checkpoint.TouchedRowsTracker` at the
+        same boundary, committed once the save was accepted. ``final``:
+        the end-of-run save, forced to land (``when_full="block"``)."""
+        kwargs = {}
+        if touched is not None:
+            kwargs["touched_rows"] = touched[0]
+        if final and hasattr(checkpointer, "when_full"):
+            kwargs["when_full"] = "block"
+        try:
+            if (tables is not None
+                    and hasattr(checkpointer, "save_deferred")
+                    and self.mesh.procs is None):
+                # The writer gets a private store view over the copies;
+                # everything the closure touches is frozen.
+                view = copy.copy(self.store)
+                view.tables = dict(tables)
+                ckpt, logic = checkpointer, self.logic
+                ls_dev = local_state
+
+                def collect():
+                    if ready is not None:
+                        ready.synchronize()
+                    return ckpt._collect(
+                        view, logic.export_local_state(
+                            self._host_local_state(ls_dev)), "exported")
+
+                checkpointer.save_deferred(step, collect, **kwargs)
+            else:
+                prev = None
+                if tables is not None:
+                    prev = self.store.tables
+                    self.store.tables = dict(tables)
+                try:
+                    checkpointer.save(
+                        step, self.store, self.logic.export_local_state(
+                            self._host_local_state(local_state)),
+                        local_state_format="exported", **kwargs)
+                finally:
+                    if prev is not None:
+                        self.store.tables = prev
+            if touched is not None:
+                touched[2].commit(touched[1])
+        except Exception as e:
+            from fps_tpu_torch.core.checkpoint import _fenced
+
+            if _fenced(e):
+                _log.error("run fenced off by the pod at step %d: %s", step,
+                           e)
+            raise
+
+    def restore_checkpoint(self, checkpointer, local_state_like, *,
+                           step: int | None = None):
+        """Restore a snapshot onto this trainer's mesh: tables onto any
+        shard count (the elastic re-split, asserted), local state onto any
+        worker count for an ``"exported"`` snapshot whose logic has
+        ``import_local_state``, else onto ``local_state_like``'s shapes
+        (the same worker count). Every process places its own positions.
+
+        ``local_state_like``: the local state of :meth:`init_state`.
+        Returns ``(tables, local_state, step)``; the next run's entry
+        derives the hot tier's entries from the restored tables.
+        """
+        from fps_tpu_torch.core.checkpoint import place_like
+
+        step, values, leaves, fmt = checkpointer.read_snapshot(step)
+        tables = checkpointer.load_tables(self.store, step, values)
+        imported = NotImplemented
+        if fmt == "exported":
+            imported = self.logic.import_local_state(leaves,
+                                                     self.num_workers)
+        like_leaves, treedef = resilience.tree_flatten(local_state_like)
+        if imported is NotImplemented:
+            # The raw layout (or an identity export): shapes must match
+            # this worker count's local state exactly.
+            if len(like_leaves) != len(leaves):
+                raise ValueError(
+                    f"checkpoint step {step} has {len(leaves)} local-state "
+                    f"leaves, local_state_like has {len(like_leaves)}")
+            for saved, like in zip(leaves, like_leaves):
+                shape = self._global_shape(like)
+                if shape is not None and tuple(saved.shape) != shape:
+                    raise ValueError(
+                        f"checkpoint local-state leaf shape {saved.shape} "
+                        f"!= expected {shape} — was the snapshot taken at "
+                        "a different worker count with a logic that has "
+                        "no import_local_state?")
+            imported = resilience.tree_unflatten(treedef, leaves)
+        got = resilience.tree_flatten(imported)[0]
+        if len(got) != len(like_leaves):
+            raise ValueError(
+                f"imported local state has {len(got)} leaves, "
+                f"local_state_like has {len(like_leaves)}")
+        placed = [place_like(self.mesh, np.asarray(leaf), like)
+                  for leaf, like in zip(got, like_leaves)]
+        return tables, resilience.tree_unflatten(treedef, placed), step
+
+    def _global_shape(self, like) -> tuple | None:
+        """The global shape of a local-state leaf (``None``: not an
+        array)."""
+        if isinstance(like, Blocks):
+            rows = self.num_workers // like.replicas * like[0].shape[0]
+            return (rows,) + tuple(like[0].shape[1:])
+        if isinstance(like, (Tensor, np.ndarray)):
+            return tuple(like.shape)
+        return None
+
+    def _check_rollback(self, rollback) -> None:
+        if rollback is None:
+            return
+        if not isinstance(rollback, RollbackPolicy):
+            raise TypeError(f"rollback must be a RollbackPolicy, got "
+                            f"{type(rollback).__name__}")
+        if (resilience.as_guard(self.config.guard) is None
+                and not rollback.preset):
+            # A preset-only policy needs no health channel; a quarantine
+            # does.
+            raise ValueError(
+                "a rollback policy needs the health channel: set "
+                "TrainerConfig.guard ('observe' for pure quarantine "
+                "semantics, 'mask' to also drop poison rows in-step)")
+
+    def _maybe_quarantine(self, rollback, last_good, metrics, index, what):
+        """The rollback step of ``fit_stream`` (chunks) and ``run_indexed``
+        (epochs): the metrics to the host and, when the health channel
+        reports poison, the state from before the call restored and the
+        index recorded. Returns ``(host_metrics, restored_or_None)``. The
+        state (and the store's view) is restored before ``record()``,
+        whose budget check may raise."""
+        metrics = _to_host(metrics)
+        poison = resilience.health_total(metrics)
+        if not poison:
+            return metrics, None
+        tables, local_state = last_good
+        self.store.tables = dict(tables)
+        _log.warning("%s %d poisoned (%d bad push rows): rolled back and "
+                     "quarantined", what, index, poison)
+        rollback.record(index)
+        return metrics, (tables, local_state)
+
+    def _boundary_ready(self):
+        """A CUDA event recorded on the current stream after a boundary's
+        copies (``None`` off the card): the writer thread waits on it
+        before it reads them."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
     def fit_stream(self, tables, local_state, chunks: Iterable[Mapping],
                    seed: int, metrics_reduce=None, checkpointer=None,
                    checkpoint_every: int = 0, start_step: int = 0,
@@ -1135,6 +1385,24 @@ class Trainer:
         ``TrainerConfig.metrics_drain_every`` chunks (0: when the stream
         ends).
 
+        ``checkpointer`` (a :class:`~fps_tpu_torch.core.checkpoint.
+        Checkpointer`) with ``checkpoint_every = k``: the tables and the
+        local state are saved as step ``j + 1`` after every ``k``-th chunk
+        and once more at the end of the stream (forced to land), and the
+        checkpointer is flushed on every exit path. With a
+        :class:`~fps_tpu_torch.core.checkpoint.DeltaPolicy` each save is
+        planned against the chunks' pulled ids
+        (``WorkerLogic.pulled_ids_host``). With the pipeline on (or
+        ``health_lag = 1``) a boundary's save runs from clones of the state
+        taken at the boundary, after the next chunk was dispatched.
+
+        ``rollback`` (a :class:`~fps_tpu_torch.core.resilience.
+        RollbackPolicy`, with ``TrainerConfig.guard``): a chunk whose
+        health channel reports poison is undone (the state cloned before
+        it restored), recorded in ``rollback.quarantined`` and left out of
+        the metrics and the checkpoints; ``rollback.preset`` chunks are
+        consumed and never run.
+
         With ``TrainerConfig.prefetch > 0`` the chunks are assembled and
         placed on a worker thread, ``prefetch`` chunks ahead
         (:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`); the worker
@@ -1146,19 +1414,16 @@ class Trainer:
           list, or ``metrics_reduce(list)`` when given.
 
         Raises:
-          NotImplementedError: ``checkpointer`` / ``checkpoint_every`` /
-            ``rollback`` (durability, ROADMAP.md Queue 1 item 8) or
-            ``recorder`` / ``health`` / ``watchdog`` (telemetry and
-            supervision, item 9).
-          ValueError: ``prefetch`` or ``metrics_drain_every`` below 0, or
-            ``health_lag`` other than 0 and 1.
+          NotImplementedError: ``recorder`` / ``health`` / ``watchdog``
+            (telemetry and supervision, ROADMAP.md Queue 1 item 9).
+          ValueError: ``prefetch`` or ``metrics_drain_every`` below 0,
+            ``health_lag`` other than 0 and 1, or a rollback policy
+            without a guard.
         """
-        _refuse("fit_stream", checkpointer=(checkpointer, "item 8, slice E"),
-                checkpoint_every=(checkpoint_every or None, "item 8, slice E"),
-                rollback=(rollback, "item 8, slice E"),
-                recorder=(recorder, "item 9, slice F"),
+        _refuse("fit_stream", recorder=(recorder, "item 9, slice F"),
                 health=(health, "item 9, slice F"),
                 watchdog=(watchdog, "item 9, slice F"))
+        self._check_rollback(rollback)
         cfg = self.config
         if cfg.prefetch < 0:
             raise ValueError(
@@ -1169,6 +1434,44 @@ class Trainer:
         if cfg.metrics_drain_every < 0:
             raise ValueError("TrainerConfig.metrics_drain_every must be >= "
                              f"0, got {cfg.metrics_drain_every}")
+        # A health-based quarantine needs the guard; a preset-only policy
+        # pays neither the copies nor the per-chunk host read.
+        quarantine = (rollback if rollback is not None
+                      and resilience.as_guard(cfg.guard) is not None
+                      else None)
+        sync_each = quarantine is not None
+        lag = 1 if (cfg.health_lag and sync_each) else 0
+        saves = checkpointer is not None and checkpoint_every > 0
+        overlap_ckpt = saves and (cfg.prefetch > 0 or lag > 0)
+        saved_at = None  # step of the last periodic save
+        all_metrics = []
+        delta_touched = None
+        if saves and getattr(checkpointer, "delta_policy", None) is not None:
+            from fps_tpu_torch.core.checkpoint import TouchedRowsTracker
+
+            delta_touched = TouchedRowsTracker(self.store.specs)
+
+        def capture_touched():
+            if delta_touched is None:
+                return None
+            ids, marker = delta_touched.capture()
+            return (ids, marker, delta_touched)
+
+        def chunk_touched_ids(c):
+            if isinstance(c, PlacedChunk):
+                return c.host_ids
+            if any(isinstance(v, Tensor) for v in c.values()):
+                # A chunk already on the device: reading its ids back
+                # would stall; the save takes the exact compare instead.
+                return None
+            return self.logic.pulled_ids_host(c)
+
+        def place_for_prefetch(b):
+            placed = self._place_for_prefetch(b)
+            if placed.host_ids is None and delta_touched is not None:
+                placed.host_ids = self.logic.pulled_ids_host(b)
+            return placed
+
         self._enter_tiering()
         # The tier's entries at the stream's entry; run_chunk keeps them.
         tables = self._attach_hot(tables)
@@ -1176,33 +1479,170 @@ class Trainer:
         pf = None
         if cfg.prefetch:
             it = pf = ChunkPrefetcher(
-                it, self._place_for_prefetch, depth=cfg.prefetch,
+                it, place_for_prefetch, depth=cfg.prefetch,
                 max_depth=cfg.prefetch_max or None, start_index=start_step,
+                skip_place=(rollback.preset if rollback is not None
+                            else frozenset()),
                 device=self.device)
-        all_metrics = []
-        de = cfg.metrics_drain_every
-        try:
-            for j, chunk in enumerate(it, start_step):
-                tables, local_state, metrics = self.run_chunk(
-                    tables, local_state, chunk, fold_seed(seed, j))
-                if on_chunk is not None:
-                    metrics = _to_host(metrics)
-                    all_metrics.append(metrics)
-                    on_chunk(j, metrics)
+        i = start_step - 1
+        pending = None       # health_lag 1: the chunk not yet adjudicated
+        pending_save = None  # the deferred boundary save
+
+        def retier_boundary(j):
+            nonlocal tables
+            if self.retierer is None:
+                return
+            tables = self.retierer.on_boundary(self, tables, j)
+            self.store.tables = dict(tables)
+
+        def save_due(j):
+            return saves and (j + 1) % checkpoint_every == 0
+
+        def boundary_copy(j):
+            """The state after chunk ``j`` as clones on the device, the
+            touched-rows capture of the same boundary and the event the
+            writer waits on."""
+            tb, ls = tree_copy(tables), tree_copy(local_state)
+            return (j + 1, tb, ls, capture_touched(), self._boundary_ready())
+
+        def flush_save():
+            nonlocal pending_save, saved_at
+            if pending_save is None:
+                return
+            step, tb, ls, tc, ready = pending_save
+            pending_save = None
+            self._save_checkpoint(checkpointer, step, ls, tables=tb,
+                                  touched=tc, ready=ready)
+            saved_at = step
+
+        def sync_entry(entry):
+            if quarantine is not None:
+                return self._maybe_quarantine(
+                    quarantine, entry["last_good"], entry["metrics"],
+                    entry["index"], "chunk")
+            return entry["metrics"], None
+
+        def account_entry(entry, metrics, restored):
+            """Callbacks and the boundary save of one adjudicated chunk;
+            True when it was quarantined (the state then restored)."""
+            nonlocal tables, local_state, pending_save, saved_at
+            j = entry["index"]
+            if restored is not None:
+                if (self.retierer is not None
+                        and entry.get("retier_state") is not None):
+                    # The tracker rolls back with the tables.
+                    self.retierer.restore_snapshot(entry["retier_state"])
+                tables, local_state = restored
+                return True
+            if on_chunk is not None:
+                metrics = _to_host(metrics)
+                all_metrics.append(metrics)
+                on_chunk(j, metrics)
+            else:
+                # An unbounded stream must not pile up device buffers.
+                all_metrics.append(metrics)
+                de = cfg.metrics_drain_every
+                if de and (j - start_step) % de == de - 1:
+                    all_metrics[-de:] = [_to_host(m)
+                                         for m in all_metrics[-de:]]
+            if save_due(j):
+                if entry.get("save") is not None:
+                    # Lag: the copies were taken when the chunk ran.
+                    pending_save = entry["save"]
+                    flush_save()
+                elif overlap_ckpt:
+                    pending_save = boundary_copy(j)
                 else:
-                    # An unbounded stream must not pile up device buffers.
-                    all_metrics.append(metrics)
-                    if de and (j - start_step) % de == de - 1:
-                        all_metrics[-de:] = [_to_host(m)
-                                             for m in all_metrics[-de:]]
-                if self.retierer is not None:
-                    # The adaptive tier's boundary: fold the chunk's
-                    # windows, maybe re-rank or plan.
-                    tables = self.retierer.on_boundary(self, tables, j)
-                    self.store.tables = dict(tables)
+                    self._save_checkpoint(checkpointer, j + 1, local_state,
+                                          touched=capture_touched())
+                    saved_at = j + 1
+            return False
+
+        try:
+            while True:
+                chunk = next(it, _STREAM_END)
+                if chunk is _STREAM_END:
+                    break
+                i += 1
+                if rollback is not None and i in rollback.preset:
+                    # Quarantined before: consumed, never run; the draws
+                    # key off i, so later chunks are unaffected.
+                    rollback.skip(i)
+                    continue
+                if delta_touched is not None:
+                    delta_touched.observe(chunk_touched_ids(chunk))
+                if quarantine is not None:
+                    last_good = (tree_copy(tables), tree_copy(local_state))
+                    rt_snap = (self.retierer.snapshot()
+                               if self.retierer is not None else None)
+                else:
+                    last_good = rt_snap = None
+                cseed = fold_seed(seed, i)
+                if lag:
+                    prev, pending = pending, None
+                    tables, local_state, metrics = self.run_chunk(
+                        tables, local_state, chunk, cseed)
+                    save = boundary_copy(i) if save_due(i) else None
+                    # Chunk i - 1 is judged while chunk i runs.
+                    if prev is not None:
+                        pmetrics, prestored = sync_entry(prev)
+                        if account_entry(prev, pmetrics, prestored):
+                            # Chunk i ran on the poisoned state: run it
+                            # again from the restored one, as lag 0 would
+                            # have.
+                            if quarantine is not None:
+                                last_good = (tree_copy(tables),
+                                             tree_copy(local_state))
+                                rt_snap = (self.retierer.snapshot()
+                                           if self.retierer is not None
+                                           else None)
+                            tables, local_state, metrics = self.run_chunk(
+                                tables, local_state, chunk, cseed)
+                            save = (boundary_copy(i) if save_due(i)
+                                    else None)
+                        else:
+                            retier_boundary(prev["index"])
+                    pending = {"index": i, "metrics": metrics,
+                               "last_good": last_good, "save": save,
+                               "retier_state": rt_snap}
+                else:
+                    tables, local_state, metrics = self.run_chunk(
+                        tables, local_state, chunk, cseed)
+                    entry = {"index": i, "metrics": metrics,
+                             "last_good": last_good, "save": None,
+                             "retier_state": rt_snap}
+                    metrics, restored = sync_entry(entry)
+                    # The previous boundary's deferred save: the device is
+                    # already past it.
+                    flush_save()
+                    if not account_entry(entry, metrics, restored):
+                        retier_boundary(i)
+            if pending is not None:
+                prev, pending = pending, None
+                pmetrics, prestored = sync_entry(prev)
+                if not account_entry(prev, pmetrics, prestored):
+                    retier_boundary(prev["index"])
+            flush_save()
+            # The end of the stream is saved unless it already is (also
+            # when a quarantined last chunk skipped its periodic save).
+            if (checkpointer is not None and i >= start_step
+                    and saved_at != i + 1):
+                self.store.tables = dict(tables)
+                self._save_checkpoint(checkpointer, i + 1, local_state,
+                                      touched=capture_touched(), final=True)
         finally:
             if pf is not None:
                 pf.close()
+            if checkpointer is not None:
+                try:
+                    # An accepted boundary's deferred save must not vanish
+                    # because the stream stopped before it ran.
+                    flush_save()
+                except Exception:
+                    _log.exception("deferred checkpoint save failed during "
+                                   "stream teardown")
+                checkpointer.flush()
+        self.store.tables = dict(tables)
         all_metrics = [_to_host(m) for m in all_metrics]
         if metrics_reduce is not None and all_metrics:
             return tables, local_state, metrics_reduce(all_metrics)
@@ -1247,65 +1687,98 @@ class Trainer:
         only the steps left
         in the epoch (the JAX package pads it to the full call length with
         weight-0 steps, which leave the state as it is), so each epoch's
-        metrics have ``plan.steps_per_epoch`` rows. To resume, pass
-        ``start_epoch``: the
-        shuffle and the seeds derive from the epoch index.
+        metrics have ``plan.steps_per_epoch`` rows. To resume, restore
+        from the checkpointer and pass ``start_epoch``: the shuffle and the
+        seeds derive from the epoch index.
 
         ``on_epoch(e, host_metrics)`` runs after each epoch, with the store
         already pointing at the live tables. ``as_numpy=False`` returns the
         metrics as device tensors (no effect with ``on_epoch``).
 
+        ``checkpointer`` with ``checkpoint_every = k``: saved as step
+        ``e + 1`` after every ``k``-th epoch and at the end (unless that
+        state is already saved), and flushed on every exit path.
+        ``rollback``: as in :meth:`fit_stream`, an epoch at a time.
+
         Returns ``(tables, local_state, per-epoch metrics list)``.
 
         Raises:
-          NotImplementedError: ``checkpointer`` / ``checkpoint_every`` /
-            ``rollback`` (durability, ROADMAP.md Queue 1 item 8) or
-            ``recorder`` / ``health`` / ``watchdog`` (telemetry and
-            supervision, item 9).
-          ValueError: ``plan.sync_every`` differs from the config.
+          NotImplementedError: ``recorder`` / ``health`` / ``watchdog``
+            (telemetry and supervision, ROADMAP.md Queue 1 item 9).
+          ValueError: ``plan.sync_every`` differs from the config, or a
+            rollback policy without a guard.
         """
-        _refuse("run_indexed", checkpointer=(checkpointer, "item 8, slice E"),
-                checkpoint_every=(checkpoint_every or None, "item 8, slice E"),
-                rollback=(rollback, "item 8, slice E"),
-                recorder=(recorder, "item 9, slice F"),
+        _refuse("run_indexed", recorder=(recorder, "item 9, slice F"),
                 health=(health, "item 9, slice F"),
                 watchdog=(watchdog, "item 9, slice F"))
+        self._check_rollback(rollback)
         if (self.config.sync_every or None) != (plan.sync_every or None):
             raise ValueError("plan.sync_every must match TrainerConfig")
+        quarantine = (rollback if rollback is not None
+                      and resilience.as_guard(self.config.guard) is not None
+                      else None)
         T = plan.steps_per_epoch
         T_call = self._indexed_call_steps(plan)
         n_calls = -(-T // T_call)
+        end_epoch = start_epoch + epochs
+        saved_at = None
         self._enter_tiering()
         # The tier's entries at the run's entry; each call keeps them and
         # never packs its cold routes (its batches are on the device).
         tables = self._attach_hot(tables)
         all_metrics = []
-        for e in range(start_epoch, start_epoch + epochs):
-            args = plan.epoch_args(e)
-            parts = []
-            for c in range(n_calls):
-                # T and T_call are sync_every multiples, so is the rest.
-                steps = min(T_call, T - c * T_call)
-                # Each step's batch is a view of the call's batches.
-                batches = plan.call_batches(args, c * T_call, steps)
-                tables, local_state, metrics = self._run_steps(
-                    tables, local_state, batches, steps,
-                    fold_seed(fold_seed(seed, e), c), c * T_call)
-                parts.append(metrics)
-            metrics = _tree_stack(parts, torch.cat)
-            all_metrics.append(metrics)
-            # Host reads through the store see the live tables before any
-            # callback runs.
-            self.store.tables = dict(tables)
-            if on_epoch is not None:
-                all_metrics[-1] = _to_host(metrics)
-                on_epoch(e, all_metrics[-1])
-            if self.retierer is not None:
-                # The adaptive tier's boundary: fold the epoch's windows,
-                # maybe re-rank or plan.
-                tables = self.retierer.on_boundary(self, tables, e)
+        try:
+            for e in range(start_epoch, end_epoch):
+                if rollback is not None and e in rollback.preset:
+                    rollback.skip(e)
+                    continue
+                if quarantine is not None:
+                    last_good = (tree_copy(tables), tree_copy(local_state))
+                    rt_snap = (self.retierer.snapshot()
+                               if self.retierer is not None else None)
+                args = plan.epoch_args(e)
+                parts = []
+                for c in range(n_calls):
+                    # T and T_call are sync_every multiples, so is the rest.
+                    steps = min(T_call, T - c * T_call)
+                    # Each step's batch is a view of the call's batches.
+                    batches = plan.call_batches(args, c * T_call, steps)
+                    tables, local_state, metrics = self._run_steps(
+                        tables, local_state, batches, steps,
+                        fold_seed(fold_seed(seed, e), c), c * T_call)
+                    parts.append(metrics)
+                metrics = _tree_stack(parts, torch.cat)
+                if quarantine is not None:
+                    metrics, restored = self._maybe_quarantine(
+                        quarantine, last_good, metrics, e, "epoch")
+                    if restored is not None:
+                        if rt_snap is not None:
+                            self.retierer.restore_snapshot(rt_snap)
+                        tables, local_state = restored
+                        continue
+                all_metrics.append(metrics)
+                # Host reads through the store see the live tables before
+                # any callback runs.
                 self.store.tables = dict(tables)
-        self.store.tables = dict(tables)
+                if on_epoch is not None:
+                    all_metrics[-1] = _to_host(metrics)
+                    on_epoch(e, all_metrics[-1])
+                if (checkpointer is not None and checkpoint_every > 0
+                        and (e + 1) % checkpoint_every == 0):
+                    self._save_checkpoint(checkpointer, e + 1, local_state)
+                    saved_at = e + 1
+                if self.retierer is not None:
+                    # The adaptive tier's boundary: fold the epoch's
+                    # windows, maybe re-rank or plan.
+                    tables = self.retierer.on_boundary(self, tables, e)
+                    self.store.tables = dict(tables)
+            self.store.tables = dict(tables)
+            if (checkpointer is not None and epochs > 0
+                    and saved_at != end_epoch):
+                self._save_checkpoint(checkpointer, end_epoch, local_state)
+        finally:
+            if checkpointer is not None:
+                checkpointer.flush()
         if on_epoch is None and as_numpy:
             all_metrics = [_to_host(m) for m in all_metrics]
         return tables, local_state, all_metrics

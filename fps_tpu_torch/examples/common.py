@@ -16,6 +16,17 @@ chunk in numpy and copies it over (the unbounded-stream shape).
 ``--auto-tier`` sets ``TrainerConfig.auto_tier`` (adaptive tiering: the
 tracker, the planner and the re-ranks of :mod:`fps_tpu_torch.tiering`).
 
+Durability (:mod:`fps_tpu_torch.core.checkpoint`,
+:mod:`fps_tpu_torch.core.resilience`): ``--checkpoint-dir`` with
+``--checkpoint-every N`` saves every N chunks (epochs for ``run_indexed``)
+and at the end (``--checkpoint-async``: the background writer);
+``--export PATH`` writes the final model, ``--warm-start PATH`` loads one
+before training; ``--guard observe|mask`` (with ``--guard-norm-limit`` and
+``--guard-local``) screens every push, and ``--rollback-budget K``
+quarantines up to K poisoned chunks. ``--heartbeat``, ``--serve-port`` and
+``--obs-dir`` (the supervisor, serving and telemetry) are ROADMAP.md Queue
+1 item 9 and exit naming it.
+
 ``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
 examples: by default over every visible CUDA device, or with every position
 on ``--device`` (``--device cpu --num-shards 4``: four shards on the CPU).
@@ -107,7 +118,117 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                          "from the sketched densities after a warm-up, and "
                          "re-rank a partial head's hot set as the traffic "
                          "drifts")
+    ap.add_argument("--export", default=None,
+                    help="write the final model to this .npz")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save every N chunks (requires --checkpoint-dir)")
+    ap.add_argument("--checkpoint-async", action="store_true",
+                    help="the background checkpoint writer "
+                         "(fps_tpu_torch.core.checkpoint.AsyncCheckpointer): "
+                         "save() returns before serialize and fsync; the "
+                         "end of the run flushes it")
+    ap.add_argument("--warm-start", default=None,
+                    help="initialize the tables from a saved model .npz "
+                         "(reference: transformWithModelLoad)")
+    ap.add_argument("--guard", default=None, choices=["observe", "mask"],
+                    help="the push-delta guard (fps_tpu_torch.core."
+                         "resilience): 'mask' drops non-finite or "
+                         "norm-exploded update rows in the step, 'observe' "
+                         "only counts them under the metrics' 'health'; "
+                         "default off")
+    ap.add_argument("--guard-norm-limit", type=float, default=None,
+                    help="a push row's L2 norm ceiling (requires --guard)")
+    ap.add_argument("--guard-local", action="store_true",
+                    help="screen the worker-local state's update too (MF's "
+                         "user factors; requires --guard)")
+    ap.add_argument("--rollback-budget", type=int, default=None,
+                    help="quarantine poisoned chunks through a "
+                         "RollbackPolicy with this budget (requires "
+                         "--guard)")
+    for flag in ("--heartbeat", "--serve-port", "--obs-dir"):
+        ap.add_argument(flag, default=None,
+                        help="not ported yet (ROADMAP.md Queue 1 item 9)")
     return ap
+
+
+def refuse_unported(args) -> None:
+    """Exit naming the item that ports the supervisor's, the serving
+    plane's and the recorder's flags."""
+    for flag in ("heartbeat", "serve_port", "obs_dir"):
+        if getattr(args, flag, None) is not None:
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md "
+                "Queue 1 item 9, slice F)")
+
+
+def make_guard(args):
+    """The ``--guard`` flags as a ``TrainerConfig.guard`` value."""
+    if args.guard is None:
+        if args.guard_norm_limit is not None:
+            raise SystemExit("--guard-norm-limit requires --guard")
+        if args.guard_local:
+            raise SystemExit("--guard-local requires --guard")
+        return None
+    from fps_tpu_torch.core.resilience import GuardConfig
+
+    return GuardConfig(mode=args.guard, norm_limit=args.guard_norm_limit,
+                       local=args.guard_local)
+
+
+def make_rollback(args):
+    """``--rollback-budget`` as a RollbackPolicy (or ``None``)."""
+    if args.rollback_budget is None:
+        return None
+    if args.guard is None:
+        raise SystemExit("--rollback-budget requires --guard")
+    from fps_tpu_torch.core.resilience import RollbackPolicy
+
+    return RollbackPolicy(max_rollbacks=args.rollback_budget)
+
+
+def maybe_checkpointer(args):
+    if args.checkpoint_dir and args.checkpoint_every > 0:
+        from fps_tpu_torch.core.checkpoint import (
+            AsyncCheckpointer,
+            Checkpointer,
+        )
+
+        cls = AsyncCheckpointer if args.checkpoint_async else Checkpointer
+        return cls(args.checkpoint_dir)
+    if args.checkpoint_async:
+        raise SystemExit("--checkpoint-async requires --checkpoint-dir "
+                         "and --checkpoint-every")
+    return None
+
+
+def durability(args) -> dict:
+    """``fit_stream`` / ``run_indexed``'s checkpoint and rollback
+    arguments from the flags."""
+    return dict(checkpointer=maybe_checkpointer(args),
+                checkpoint_every=args.checkpoint_every,
+                rollback=make_rollback(args))
+
+
+def maybe_warm_start(args, store, tables):
+    """Apply ``--warm-start`` after the state is made; returns the tables
+    to train from (the store's, overwritten)."""
+    if not args.warm_start:
+        return tables
+    from fps_tpu_torch.core.checkpoint import load_model
+
+    load_model(store, args.warm_start)
+    emit({"event": "warm_start", "path": args.warm_start})
+    return dict(store.tables)
+
+
+def finish(args, store) -> None:
+    """``--export`` at the end of the run."""
+    if args.export:
+        from fps_tpu_torch.core.checkpoint import export_model
+
+        export_model(store, args.export)
+        emit({"event": "export", "path": args.export})
 
 
 def make_mesh(args):
@@ -115,6 +236,7 @@ def make_mesh(args):
     every visible CUDA device, or every position on ``--device``."""
     from fps_tpu_torch.parallel.mesh import make_ps_mesh
 
+    refuse_unported(args)
     return make_ps_mesh(num_shards=args.num_shards, num_data=args.num_data,
                         device=args.device)
 

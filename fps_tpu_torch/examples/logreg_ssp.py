@@ -27,6 +27,10 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    durability,
+    finish,
+    make_guard,
+    maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
     base_parser,
@@ -97,10 +101,12 @@ def main(argv=None) -> int:
                        learning_rate=args.learning_rate, l2=args.l2,
                        optimizer=args.optimizer, dense_features=dense)
     trainer, store = logistic_regression(mesh, cfg,
-                                         sync_every=args.sync_every)
+                                         sync_every=args.sync_every,
+                                         guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
+    tables = maybe_warm_start(args, store, tables)
     chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
@@ -115,12 +121,14 @@ def main(argv=None) -> int:
 
     with prof:
         tables, local_state, _ = trainer.fit_stream(
-            tables, local_state, chunks, args.seed, on_chunk=report)
+            tables, local_state, chunks, args.seed, on_chunk=report,
+            **durability(args))
     seconds = time.perf_counter() - t0
     p = predict_proba_host(store, test["feat_ids"], test["feat_vals"])
     emit({"event": "done",
           "test_accuracy": float(np.mean((p > 0.5) == (test["label"] > 0.5))),
           "seconds": seconds})
+    finish(args, store)
     return 0
 
 

@@ -26,6 +26,10 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    durability,
+    finish,
+    make_guard,
+    maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
     base_parser,
@@ -86,7 +90,7 @@ def main(argv=None) -> int:
                    negative_samples=args.negative_samples,
                    negative_weight=args.negative_weight)
     trainer, store = online_mf(mesh, cfg, sync_every=args.sync_every,
-                               combine=args.combine)
+                               combine=args.combine, guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
     if args.topk_every:
@@ -100,6 +104,7 @@ def main(argv=None) -> int:
                 store, ITEM_TABLE, args.topk, every=args.topk_every,
                 query_fn=mf_topk_query_fn(W, 2)))
     tables, local_state = trainer.init_state(args.seed)
+    tables = maybe_warm_start(args, store, tables)
 
     chunks = make_chunks(args, mesh, train, route_key="user")
     prof, prof_step = profiler(args, mesh.device)
@@ -120,7 +125,8 @@ def main(argv=None) -> int:
 
     with prof:
         tables, local_state, _ = trainer.fit_stream(
-            tables, local_state, chunks, args.seed, on_chunk=report)
+            tables, local_state, chunks, args.seed, on_chunk=report,
+            **durability(args))
     report_tiering(trainer)
     pred = predict_host(store, local_state, W, test["user"], test["item"])
     emit({"event": "done", "test_rmse": rmse(pred, test["rating"]),
@@ -138,6 +144,7 @@ def main(argv=None) -> int:
         for u, row_i, row_s in zip(users, ids, scores):
             emit({"event": "topk", "user": int(u), "items": row_i.tolist(),
                   "scores": np.round(row_s, 4).tolist()})
+    finish(args, store)
     return 0
 
 

@@ -25,6 +25,10 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    durability,
+    finish,
+    make_guard,
+    maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
     base_parser,
@@ -106,10 +110,12 @@ def main(argv=None) -> int:
                    C=args.C, hot_features=args.head_features if q else 0,
                    head_prefix_cols=q)
     trainer, store = passive_aggressive(mesh, cfg,
-                                        sync_every=args.sync_every)
+                                        sync_every=args.sync_every,
+                                        guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
+    tables = maybe_warm_start(args, store, tables)
     chunks = make_chunks(args, mesh, train)
     prof, prof_step = profiler(args, mesh.device)
     t0 = time.perf_counter()
@@ -124,13 +130,15 @@ def main(argv=None) -> int:
 
     with prof:
         tables, local_state, _ = trainer.fit_stream(
-            tables, local_state, chunks, args.seed, on_chunk=report)
+            tables, local_state, chunks, args.seed, on_chunk=report,
+            **durability(args))
     seconds = time.perf_counter() - t0
     pred = predict_host(store, test["feat_ids"], test["feat_vals"],
                         num_classes=args.num_classes)
     emit({"event": "done",
           "test_accuracy": float(np.mean(pred == test["label"])),
           "seconds": seconds})
+    finish(args, store)
     return 0
 
 

@@ -22,6 +22,10 @@ from __future__ import annotations
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    durability,
+    finish,
+    make_guard,
+    maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
     base_parser,
@@ -65,10 +69,12 @@ def main(argv=None) -> int:
 
     cfg = MFConfig(num_users=args.num_users, num_items=args.num_items,
                    rank=args.rank, learning_rate=args.learning_rate)
-    trainer, _ = online_mf(mesh, cfg, sync_every=args.sync_every)
+    trainer, store = online_mf(mesh, cfg, sync_every=args.sync_every,
+                               guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
+    tables = maybe_warm_start(args, store, tables)
 
     source = streaming_rating_batches(
         args.num_users, args.num_items, rank=args.rank, seed=args.seed,
@@ -96,11 +102,12 @@ def main(argv=None) -> int:
     try:
         with prof:
             trainer.fit_stream(tables, local_state, chunks, args.seed,
-                               on_chunk=on_chunk)
+                               on_chunk=on_chunk, **durability(args))
         stopped = "stream_exhausted"
     except _TargetReached:
         stopped = "target_rmse"
     emit({"event": "done", "stopped_by": stopped, "records_seen": seen})
+    finish(args, store)
     return 0
 
 

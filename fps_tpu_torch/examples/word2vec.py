@@ -28,6 +28,10 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    durability,
+    finish,
+    make_guard,
+    maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
     base_parser,
@@ -101,13 +105,16 @@ def main(argv=None) -> int:
         trainer, store = word2vec_block(mesh, cfg, uni, block_len,
                                         sync_every=args.sync_every,
                                         max_steps_per_call=256,
-                                        step_tap=step_tap)
+                                        step_tap=step_tap,
+                                        guard=make_guard(args))
     else:
         trainer, store = word2vec(mesh, cfg, uni, sync_every=args.sync_every,
-                                  max_steps_per_call=256, step_tap=step_tap)
+                                  max_steps_per_call=256, step_tap=step_tap,
+                                  guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
     tables, local_state = trainer.init_state(args.seed)
+    tables = maybe_warm_start(args, store, tables)
 
     prof, prof_step = profiler(args, mesh.device)
     total_pairs = 0.0
@@ -136,7 +143,7 @@ def main(argv=None) -> int:
                 seed=args.seed, sync_every=args.sync_every, mode=mode)
             tables, local_state, _ = trainer.run_indexed(
                 tables, local_state, plan, args.seed, epochs=args.epochs,
-                on_epoch=report)
+                on_epoch=report, **durability(args))
         else:
             def all_epochs():
                 for epoch in range(args.epochs):
@@ -148,7 +155,7 @@ def main(argv=None) -> int:
 
             tables, local_state, _ = trainer.fit_stream(
                 tables, local_state, all_epochs(), args.seed,
-                on_chunk=report)
+                on_chunk=report, **durability(args))
     dt = time.perf_counter() - t0
     emit({"event": "done", "pairs_per_sec": total_pairs / max(dt, 1e-9),
           "words_per_sec": args.epochs * len(tokens) / max(dt, 1e-9),
@@ -168,6 +175,7 @@ def main(argv=None) -> int:
         emit({"event": "neighbors", "word": int(p),
               "nearest": row_i.tolist(),
               "sims": np.round(row_s, 3).tolist()})
+    finish(args, store)
     return 0
 
 

@@ -189,7 +189,7 @@ def logistic_regression(mesh, cfg: LogRegConfig, *,
                         max_steps_per_call: int | None = None, guard=None):
     """(trainer, store); pass ``sync_every=s`` for SSP bounded staleness
     and ``push_delay=d`` for delayed pushes (``TrainerConfig``'s). ``guard``
-    is not ported; setting it raises."""
+    is ``TrainerConfig.guard`` (the push-delta guard)."""
     from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 
     store = make_store(mesh, cfg)

@@ -208,8 +208,9 @@ def online_mf(mesh, cfg: MFConfig, *, sync_every: int | None = None,
     ``combine``: how duplicate item ids of one batch merge: ``"sum"`` (the
     reference's per-message fold) or ``"mean"`` (one averaged step per
     touched item per batch, stable at large batches). ``push_delay`` is
-    ``TrainerConfig``'s (delayed pushes); ``guard`` is not ported, and
-    setting it raises."""
+    ``TrainerConfig``'s (delayed pushes); ``guard`` its push-delta guard
+    (``"mask"`` drops poison updates in the step, ``"observe"`` only
+    counts them)."""
     from fps_tpu_torch.core.api import ServerLogic
     from fps_tpu_torch.core.driver import Trainer, TrainerConfig
     from fps_tpu_torch.parallel.mesh import num_workers_of

@@ -221,7 +221,7 @@ def passive_aggressive(mesh, cfg: PAConfig, *, sync_every: int | None = None,
                        max_steps_per_call: int | None = None, guard=None):
     """(trainer, store): the analog of
     ``PassiveAggressiveParameterServer.transformBinary`` /
-    ``transformMulticlass``. ``guard`` is not ported; setting it raises."""
+    ``transformMulticlass``. ``guard`` is ``TrainerConfig.guard`` (the push-delta guard)."""
     from fps_tpu_torch.core.driver import Trainer, TrainerConfig
 
     store = make_store(mesh, cfg)

@@ -365,8 +365,6 @@ def _make_trainer(mesh, cfg: W2VConfig, worker, *, sync_every, donate,
             "Prefer bounding READS (sync_every) at full lr and keeping "
             "push_delay small or zero.",
             UserWarning, stacklevel=3)
-    # TrainerConfig raises on guard, naming the item that ports it; it is
-    # built first so that nothing else is.
     config = TrainerConfig(sync_every=sync_every, donate=donate,
                            max_steps_per_call=max_steps_per_call,
                            push_delay=push_delay, step_tap=step_tap,
@@ -386,8 +384,8 @@ def word2vec(mesh: PSMesh, cfg: W2VConfig, unigram_counts: np.ndarray, *,
     as in :func:`fps_tpu_torch.models.matrix_factorization.online_mf`;
     ``step_tap`` and ``push_delay`` are ``TrainerConfig``'s (e.g.
     :func:`cooccurrence_sketch_tap`; ``push_delay >= 16`` warns, as in the
-    JAX package); ``guard`` raises ``NotImplementedError`` (not ported
-    yet)."""
+    JAX package); ``guard`` is ``TrainerConfig.guard`` (the push-delta
+    guard)."""
     return _make_trainer(
         mesh, cfg, Word2VecWorker(cfg, unigram_counts),
         sync_every=sync_every, donate=donate,

@@ -16,9 +16,12 @@ drifts leaves it serving little. Here the tier is managed as the run goes:
   ``hot_sync_every``, dense route and ``cold_budget`` from its sketched
   density (``TrainerConfig.auto_tier``).
 
+* **the sidecar** (``Retierer(state_dir=...)``, :func:`sidecar_path`):
+  the tracker's state beside the checkpoints, restored with them
+  (:meth:`Retierer.restore`).
+
 The JAX package's megastep tick (``MegastepTick``, ``device_top_ids``) is
-ROADMAP.md Queue 1 item 7d, its sidecar (``sidecar_path``) item 8 and
-``lowered_plan_text`` item 10.
+ROADMAP.md Queue 1 item 7d and ``lowered_plan_text`` item 10.
 """
 
 from fps_tpu_torch.tiering.planner import (
@@ -35,12 +38,12 @@ from fps_tpu_torch.tiering.planner import (
     tenant_demand_bytes,
 )
 from fps_tpu_torch.tiering.probe import ProbeLogic, lowered_plan_text, probe_chunk
-from fps_tpu_torch.tiering.retier import Retierer, top_ids
+from fps_tpu_torch.tiering.retier import Retierer, sidecar_path, top_ids
 
 __all__ = [
     "DEFAULT_REPLICA_BUDGET_BYTES", "TableDensity", "TierPlan",
     "arbitrate_replica_budget", "choose_cold_budget", "choose_sync_every",
     "global_sync_every", "head_coverage", "plan_tables", "plan_tenants",
-    "tenant_demand_bytes", "Retierer", "top_ids", "ProbeLogic",
+    "tenant_demand_bytes", "Retierer", "sidecar_path", "top_ids", "ProbeLogic",
     "probe_chunk", "lowered_plan_text",
 ]

@@ -24,10 +24,15 @@ the table's ``sketch_key(name)`` entry. At chunk and epoch boundaries a
   resolves its tier anew; ``replan_every`` plans again, and a plan with
   the same knobs changes nothing.
 
-The JAX package's sidecar (``state_dir``, :meth:`Retierer.restore`: the
-tracker's state written beside the checkpoints) is ROADMAP.md Queue 1 item
-8, and its ``tiering.*`` recorder counters item 9; the counts stay
-readable here as ``re_ranks``, ``checks`` and ``last_churn``.
+The **sidecar** (``state_dir``): at every boundary the tracker's state
+(the decayed sketches, the hot sets, the unfolded windows, the clock and
+the plans) is written to ``tiering-{step:08d}.npz`` beside the
+checkpoints, in the JAX package's format; :meth:`Retierer.restore` loads
+the one of a restored checkpoint's step, so a resumed run re-ranks as the
+uninterrupted one does. Its ``tiering.*`` recorder counters are ROADMAP.md
+Queue 1 item 9; the counts stay readable here as ``re_ranks``, ``checks``
+and ``last_churn``, the sidecar's retries and skips as
+``sidecar_retries`` and ``sidecar_skips``.
 
 Over several processes every process runs the same boundaries in the same
 order: reading the windows (``Blocks.numpy``) and deriving a replica are
@@ -38,7 +43,10 @@ every process reaches the same re-rank.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
+import threading
 from typing import Mapping
 
 import numpy as np
@@ -69,7 +77,11 @@ _log = logging.getLogger("fps_tpu_torch.tiering")
 # unless plan_kwargs asks.
 DENSE_TABLE_BYTES = 0
 
-_SIDECAR = "ROADMAP.md Queue 1 item 8, slice E: durability"
+SIDECAR_FMT = "tiering-{:08d}.npz"
+
+
+def sidecar_path(state_dir: str, step: int) -> str:
+    return os.path.join(state_dir, SIDECAR_FMT.format(step))
 
 
 def top_ids(est: np.ndarray, H: int) -> np.ndarray:
@@ -108,8 +120,8 @@ class Retierer:
       warmup_checks: folds of evidence before the plan.
       replan_every: plan again every this many folds after the first plan
         (0: once a run).
-      state_dir: the sidecar, ROADMAP.md Queue 1 item 8; any value but
-        ``None`` raises ``NotImplementedError``.
+      state_dir: write the sidecar here at every boundary (``keep`` newest
+        kept, and every one beside a checkpoint); ``None``: no sidecar.
       batch_rows_hint: pulled rows a step, for the planner's reconcile cost.
       plan_kwargs: :func:`plan_tables` keywords over the defaults
         (``dense_table_bytes`` is :data:`DENSE_TABLE_BYTES` unless given).
@@ -123,6 +135,7 @@ class Retierer:
                  warmup_checks: int = 1,
                  replan_every: int = 0,
                  state_dir: str | None = None,
+                 keep: int = 3,
                  batch_rows_hint: int = 1024,
                  plan_kwargs: Mapping | None = None):
         if check_every < 1:
@@ -130,9 +143,6 @@ class Retierer:
         if replan_every < 0:
             raise ValueError(
                 f"replan_every must be >= 0, got {replan_every}")
-        if state_dir is not None:
-            raise NotImplementedError(
-                f"Retierer(state_dir=...) is not ported yet ({_SIDECAR})")
         self.tables = None if tables is None else frozenset(tables)
         self.spec = spec or sklib.DecayedCountMinSpec(depth=4, width=2048)
         self.check_every = check_every
@@ -140,6 +150,8 @@ class Retierer:
         self.auto_plan = auto_plan
         self.warmup_checks = warmup_checks
         self.replan_every = replan_every
+        self.state_dir = state_dir
+        self.keep = keep
         self.batch_rows_hint = batch_rows_hint
         self.plan_kwargs = dict(plan_kwargs or {})
         # The tracker's state.
@@ -154,6 +166,12 @@ class Retierer:
         self.re_ranks = 0
         self.checks = 0
         self.last_churn: dict[str, float] = {}
+        # The sidecar's lost durability (the reference's storage.* metrics).
+        self.sidecar_retries = 0
+        self.sidecar_skips = 0
+        self._sc_lock = threading.Lock()
+        self._sc_pending = None
+        self._sc_thread = None
 
     @classmethod
     def auto_for(cls, trainer) -> "Retierer":
@@ -245,30 +263,41 @@ class Retierer:
             raise NotImplementedError(
                 "Retierer.on_boundary(recorder=...) is not ported yet "
                 "(ROADMAP.md Queue 1 item 9, slice F)")
-        if (index + 1) % self.check_every:
+        check = (index + 1) % self.check_every == 0
+        if not check and self.state_dir is None:
             return tables
-        self.checks += 1
+        # Every tracked window on the host (a collective over several
+        # processes): folded at a check, kept in the sidecar otherwise.
+        windows: dict[str, np.ndarray] = {}
         for name in sorted(trainer._track_specs()):
             k = sketch_key(name)
-            if k not in tables:
-                continue
-            window = tables[k].numpy()
-            st = self.state.get(name)
-            if st is None:
-                st = sklib.dcm_init(self.spec)
-            self.state[name] = sklib.dcm_fold(self.spec, st, window,
-                                              self.tick)
-            tables[k] = trainer._replicated(np.zeros_like(window))
-            # Folded now: a later derivation of the entry starts from 0.
-            self._restored_windows.pop(name, None)
-        self.tick += 1
-        if self.auto_plan and not self.planned and (
-                self.tick >= self.warmup_checks):
-            tables = self._apply_plan(trainer, tables)
-        elif (self.auto_plan and self.planned and self.replan_every
-                and self.tick % self.replan_every == 0):
-            tables = self._replan(trainer, tables)
-        return self._maybe_rerank(trainer, tables)
+            if k in tables:
+                windows[name] = tables[k].numpy()
+        if check:
+            self.checks += 1
+            for name in sorted(windows):
+                st = self.state.get(name)
+                if st is None:
+                    st = sklib.dcm_init(self.spec)
+                self.state[name] = sklib.dcm_fold(self.spec, st,
+                                                  windows[name], self.tick)
+                tables[sketch_key(name)] = trainer._replicated(
+                    np.zeros_like(windows[name]))
+                windows[name] = np.zeros_like(windows[name])
+                # Folded now: a later derivation of the entry starts from
+                # 0.
+                self._restored_windows.pop(name, None)
+            self.tick += 1
+            if self.auto_plan and not self.planned and (
+                    self.tick >= self.warmup_checks):
+                tables = self._apply_plan(trainer, tables)
+            elif (self.auto_plan and self.planned and self.replan_every
+                    and self.tick % self.replan_every == 0):
+                tables = self._replan(trainer, tables)
+            tables = self._maybe_rerank(trainer, tables)
+        if self.state_dir is not None:
+            self._save_sidecar(index + 1, windows)
+        return tables
 
     # -- re-rank and re-split -------------------------------------------------
 
@@ -397,12 +426,179 @@ class Retierer:
                                              hot_sync_every=E)
         return E
 
-    # -- the sidecar: ROADMAP.md Queue 1 item 8 -------------------------------
+    # -- the sidecar ----------------------------------------------------------
 
-    def restore(self, step: int) -> bool:
-        raise NotImplementedError(
-            f"Retierer.restore is not ported yet ({_SIDECAR})")
+    def _save_sidecar(self, step: int, windows: dict) -> None:
+        """Write boundary ``step``'s sidecar: one attempt inline; a
+        transient failure hands the write to a background retrier (its
+        backoff never sleeps on the training thread), and a failure past
+        the retry budget is skipped (the sidecar is advisory: without it a
+        resume only starts the tracker cold)."""
+        from fps_tpu_torch.core import retry as _retry
+
+        os.makedirs(self.state_dir, exist_ok=True)
+        path = sidecar_path(self.state_dir, step)
+        arrays = {"meta": np.frombuffer(json.dumps({
+            "version": 1, "tick": self.tick, "step": step,
+            "planned": self.planned,
+            "plans": ({n: p.to_json() for n, p in sorted(
+                self.plans.items())} if self.plans else None),
+        }).encode(), dtype=np.uint8)}
+        for name in sorted(self.state):
+            arrays[f"state::{name}"] = self.state[name]
+        for name in sorted(self.hot_ids):
+            arrays[f"hot::{name}"] = self.hot_ids[name]
+        for name in sorted(windows):
+            arrays[f"window::{name}"] = windows[name]
+        try:
+            self._write_sidecar_file(path, arrays)
+        except OSError as e:
+            if _retry.classify_error(e) != "retryable":
+                raise
+            self.sidecar_retries += 1
+            self._sidecar_retry_bg(step, path, arrays)
+            return
+        self._sweep_sidecars()
+
+    def _sidecar_retry_bg(self, step: int, path: str, arrays: dict) -> None:
+        """Hand a failed sidecar write to the background retrier (one
+        slot, the newest wins: an older pending sidecar displaced by a
+        newer one counts as a skip)."""
+        with self._sc_lock:
+            if self._sc_pending is not None:
+                _log.warning("tiering: sidecar for step %d displaced by "
+                             "step %d before its background retry ran — "
+                             "skipped", self._sc_pending[0], step)
+                self.sidecar_skips += 1
+            self._sc_pending = (step, path, arrays)
+            t = self._sc_thread
+            if t is None or not t.is_alive():
+                t = threading.Thread(target=self._sidecar_retry_loop,
+                                     name="sidecar-retrier", daemon=True)
+                self._sc_thread = t
+                t.start()
+
+    def _sidecar_retry_loop(self) -> None:
+        from fps_tpu_torch.core import retry as _retry
+
+        while True:
+            with self._sc_lock:
+                item, self._sc_pending = self._sc_pending, None
+            if item is None:
+                return
+            step, path, arrays = item
+
+            def on_retry(attempt, err, delay):
+                self.sidecar_retries += 1
+
+            try:
+                _retry.call_with_retry(
+                    lambda: self._write_sidecar_file(path, arrays),
+                    policy=dataclasses.replace(
+                        _retry.DEFAULT_PUBLISH_RETRY, seed=path),
+                    op="sidecar", on_retry=on_retry)
+            except OSError as e:
+                _log.warning("tiering: sidecar write for step %d DEGRADED "
+                             "(skipped after retries): %r — a resume past "
+                             "this boundary cold-starts the tracker", step,
+                             e)
+                self.sidecar_skips += 1
+                continue
+            try:
+                self._sweep_sidecars()
+            except OSError:
+                pass
 
     def sidecar_flush(self, timeout: float | None = None) -> None:
-        raise NotImplementedError(
-            f"Retierer.sidecar_flush is not ported yet ({_SIDECAR})")
+        """Block until a background sidecar retry has drained (for tests
+        and shutdown; training never calls it)."""
+        t = self._sc_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+
+    @staticmethod
+    def _write_sidecar_file(path: str, arrays: dict) -> None:
+        """The write through the storage seams (path class ``sidecar``)."""
+        from fps_tpu_torch.core import retry as _retry
+
+        _retry.fault_check("write", path)
+        tmp = path + ".tmp.npz"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+                f.flush()
+                _retry.fault_check("fsync", path)
+                os.fsync(f.fileno())
+            _retry.fault_check("replace", path)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+
+    def _sweep_sidecars(self) -> None:
+        """Keep every sidecar whose step has a published snapshot beside
+        it (a resume restores the one of ``latest_valid_step``, which may
+        be older than the last boundaries), and the newest ``keep``."""
+        from fps_tpu_torch.core import snapshot_format as fmt
+
+        ckpt_steps = set()
+        for f in os.listdir(self.state_dir):
+            m = fmt.SNAPSHOT_RE.fullmatch(f)
+            if m:
+                ckpt_steps.add(int(m.group(1)))
+        kept = sorted(
+            f for f in os.listdir(self.state_dir)
+            if f.startswith("tiering-") and f.endswith(".npz")
+            and not f.endswith(".tmp.npz"))
+        for f in kept[:-self.keep] if self.keep else kept:
+            try:
+                step = int(f[len("tiering-"):-len(".npz")])
+            except ValueError:
+                continue
+            if step in ckpt_steps:
+                continue
+            try:
+                os.remove(os.path.join(self.state_dir, f))
+            except OSError:
+                pass
+
+    def restore(self, step: int) -> bool:
+        """Load the sidecar of boundary ``step`` (the restored checkpoint's
+        step). True on an exact match; False (a cold tracker, with a
+        warning) when it is missing: training stays correct, only the
+        re-rank decisions start from scratch. Reads the JAX package's
+        sidecars too."""
+        if self.state_dir is None:
+            return False
+        path = sidecar_path(self.state_dir, step)
+        if not os.path.exists(path):
+            if step:
+                _log.warning(
+                    "tiering: no sidecar for step %d under %s — tracker "
+                    "restarts cold (re-rank decisions may differ from the "
+                    "uninterrupted run)", step, self.state_dir)
+            return False
+        from fps_tpu_torch.tiering.planner import TierPlan
+
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            self.tick = int(meta["tick"])
+            self.planned = bool(meta.get("planned", False))
+            self.plans = ({n: TierPlan(**p) for n, p in
+                           meta["plans"].items()}
+                          if meta.get("plans") else None)
+            self.state = {}
+            self.hot_ids = {}
+            self._restored_windows = {}
+            for k in z.files:
+                if k.startswith("state::"):
+                    self.state[k[len("state::"):]] = z[k].copy()
+                elif k.startswith("hot::"):
+                    self.hot_ids[k[len("hot::"):]] = z[k].copy()
+                elif k.startswith("window::"):
+                    self._restored_windows[k[len("window::"):]] = (
+                        z[k].copy())
+        return True

@@ -72,7 +72,11 @@ BUNDLES = {"d2s4": ("collectives", "mf_indexed_d2s4", "mf_host_sync",
                     "topk"),
            "tiered": ("tiered_mf_d1s4", "tiered_mf_d2s4_ssp",
                       "tiered_lr_d1s4", "tiered_lr_d2s4_fold"),
-           "mapped": ("mapped_mf_d2s4", "mapped_lr_d1s8_ssp")}
+           "mapped": ("mapped_mf_d2s4", "mapped_lr_d1s8_ssp"),
+           "ckpt": ("ckpt_mf_d1s4",)}
+# The directory a scenario that saves checkpoints writes under (the ranks
+# share theirs; the one-process run has its own).
+WHERE = None
 COLLECTIVE_SHAPES = [(2, 4), (1, 8), (4, 2)]
 
 # The JAX reference's recipe (tests/test_multiprocess.py).
@@ -569,6 +573,42 @@ def mapped_lr_d1s8_ssp(mesh_of, init, out):
     _retier_record(out, "mapped_lr_d1s8_ssp", rt, "weights", TIER_LR_H)
 
 
+def ckpt_mf_d1s4(mesh_of, init, out):
+    """MF at (1, 4), 6 chunks of ``fit_stream``, every rank saving into
+    one directory after every chunk; then a fresh trainer over the same
+    processes restores step 2 and finishes the stream. Recorded as logical
+    rows (a restore zero-fills the padding rows)."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+
+    mesh = mesh_of(1, 4)
+    d = os.path.join(WHERE, "ckpt")
+    chunks = list(multi_epoch_chunks(mf_data(), 2, num_workers=4,
+                                     local_batch=16, steps_per_chunk=4,
+                                     route_key="user", seed=5))[:6]
+
+    def logical(name, trainer, store, local, metrics):
+        out[f"{name}/item_factors"] = store.dump_model("item_factors")[1]
+        out[f"{name}/users"] = trainer.logic.export_local_state(
+            local.numpy())
+        for k, v in metrics_of(metrics).items():
+            out[f"{name}/metrics/{k}"] = v
+
+    trainer, store = online_mf(mesh, MFConfig(**MF_CFG))
+    tables, local = trainer.init_state(0)
+    ck = Checkpointer(d, keep=8)
+    tables, local, metrics = trainer.fit_stream(
+        tables, local, chunks, 1, checkpointer=ck, checkpoint_every=1)
+    logical("ckpt_straight", trainer, store, local, metrics)
+    out["ckpt_straight/steps"] = np.array(ck.steps())
+    trainer, store = online_mf(mesh, MFConfig(**MF_CFG))
+    _, like = trainer.init_state(3)
+    tables, local, step = trainer.restore_checkpoint(Checkpointer(d), like,
+                                                     step=2)
+    tables, local, metrics = trainer.fit_stream(tables, local, chunks[2:],
+                                                1, start_step=2)
+    logical("ckpt_resumed", trainer, store, local, metrics)
+
+
 SCENARIOS = {"collectives": collectives_scenario,
              "mf_indexed_d2s4": mf_indexed_d2s4,
              "mf_indexed_d1s8": mf_indexed_d1s8,
@@ -579,7 +619,8 @@ SCENARIOS = {"collectives": collectives_scenario,
              "tiered_lr_d1s4": tiered_lr_d1s4,
              "tiered_lr_d2s4_fold": tiered_lr_d2s4_fold,
              "mapped_mf_d2s4": mapped_mf_d2s4,
-             "mapped_lr_d1s8_ssp": mapped_lr_d1s8_ssp}
+             "mapped_lr_d1s8_ssp": mapped_lr_d1s8_ssp,
+             "ckpt_mf_d1s4": ckpt_mf_d1s4}
 
 
 def run_bundle(bundle: str, mesh_of, init) -> dict:
@@ -616,6 +657,8 @@ def main() -> int:
             os._exit(3)
         collectives.gather_home(mesh, [torch.zeros(2)] * len(mesh.local))
         return 0
+    global WHERE
+    WHERE = where
     try:
         init = dict(np.load(os.path.join(where, "init.npz")))
         out = run_bundle(bundle, mesh_of, init)

@@ -20,7 +20,11 @@ sketches, the sketch tap and top-k ties on the card against the CPU, and the
 host pipeline's side-stream placement (50 chunks with the compute stream
 held, bit-equal to synchronous placement; a device-resident source whose
 data the held compute stream is still writing, bit-equal to prefetch 0; a
-CUDA error in the worker's copy re-raised in ``fit_stream``). Every
+CUDA error in the worker's copy re-raised in ``fit_stream``), and
+durability on the card at a small size (``chip_smoke.py`` phase 11 (a)
+and (d)): a checkpointed MF run resumed bit for bit (inline, and through
+the async writer's capture behind boundary copies), the guard's mask,
+quarantine and clean runs. Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1574,3 +1578,112 @@ def test_mapped_identity_and_window_on_the_card(dev):
     win = mapped["item_factors::sketch"]
     assert all(torch.equal(w, win[0]) for w in win)
     np.testing.assert_array_equal(win[0].cpu().numpy(), host.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Durability on the card, small (chip_smoke.py phase 11 (a) and (d)).
+# ---------------------------------------------------------------------------
+
+def _mf_card(dev, guard=None, **cfg):
+    import dataclasses
+
+    from fps_tpu_torch import MFConfig, make_ps_mesh, online_mf
+
+    trainer, store = online_mf(
+        make_ps_mesh(device=str(dev)),
+        MFConfig(num_users=500, num_items=300, rank=8, learning_rate=0.1),
+        combine="mean", guard=guard)
+    trainer.config = dataclasses.replace(trainer.config, **cfg)
+    return trainer, store
+
+
+def _mf_card_chunks(n=6):
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+    from fps_tpu_torch.utils.datasets import synthetic_ratings
+
+    data = synthetic_ratings(500, 300, 20_000, seed=0)
+    return list(multi_epoch_chunks(data, 2, num_workers=1, local_batch=512,
+                                   steps_per_chunk=4, route_key="user",
+                                   seed=1))[:n]
+
+
+@pytest.mark.parametrize("async_", [False, True], ids=["inline", "async"])
+def test_checkpoint_resume_on_the_card_is_bit_for_bit(dev, tmp_path,
+                                                       async_):
+    """MF on the card saved every chunk (inline, or the async writer with
+    prefetch 2: the capture on the writer thread behind boundary copies
+    and their CUDA event), restored by a fresh trainer from step 3 and
+    finished: the uninterrupted run's tables and users, bit for bit; the
+    restored run launches K1 and K2 twice a step."""
+    from fps_tpu_torch.core.checkpoint import AsyncCheckpointer, Checkpointer
+
+    chunks = _mf_card_chunks()
+    cfg = dict(prefetch=2) if async_ else {}
+    trainer, store = _mf_card(dev, **cfg)
+    t, l = trainer.init_state(0)
+    t, l, _ = trainer.fit_stream(t, l, chunks, 1)
+    want = (store.dump_model("item_factors")[1],
+            trainer.logic.export_local_state(l.numpy()))
+    trainer, store = _mf_card(dev, **cfg)
+    t, l = trainer.init_state(0)
+    ck = (AsyncCheckpointer if async_ else Checkpointer)(str(tmp_path),
+                                                        keep=8)
+    trainer.fit_stream(t, l, chunks[:3], 1, checkpointer=ck,
+                       checkpoint_every=1)
+    ck.close()
+    trainer, store = _mf_card(dev, **cfg)
+    _, like = trainer.init_state(5)
+    t, l, step = trainer.restore_checkpoint(Checkpointer(str(tmp_path)),
+                                            like)
+    assert step == 3 and l[0].device.type == "cuda"
+    kernels.reset_launch_counts()
+    t, l, _ = trainer.fit_stream(t, l, chunks[3:], 1, start_step=3)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rows"] == 2 * 4 * 3
+    np.testing.assert_array_equal(store.dump_model("item_factors")[1],
+                                  want[0])
+    np.testing.assert_array_equal(
+        trainer.logic.export_local_state(l.numpy()), want[1])
+
+
+def test_guard_and_rollback_on_the_card(dev):
+    """A poisoned chunk on the card: mask keeps the tables finite and
+    masks the poisoned live rows; an observe guard's quarantine equals a
+    preset skip bit for bit at health_lag 0 and 1; a clean mask run equals
+    guard=None bit for bit and launches the same kernels."""
+    from fps_tpu_torch.core.resilience import GuardConfig, RollbackPolicy
+    from fps_tpu_torch.testing import chaos
+
+    chunks = _mf_card_chunks()
+    poisoned = list(chaos.poison_chunks(chunks, chunk_index=2,
+                                        column="rating", kind="nan",
+                                        frac=0.01, seed=1))
+    n_poison = int((np.isnan(poisoned[2]["rating"])
+                    & (poisoned[2]["weight"] > 0)).sum())
+
+    def run(stream, guard=None, **kw):
+        rollback = kw.pop("rollback", None)
+        trainer, store = _mf_card(dev, guard=guard, **kw)
+        t, l = trainer.init_state(0)
+        kernels.reset_launch_counts()
+        t, l, m = trainer.fit_stream(t, l, stream, 1, rollback=rollback)
+        torch.cuda.synchronize()
+        return (t["item_factors"].numpy(), l.numpy(), m,
+                kernels.launch_counts())
+
+    base, mask = run(chunks), run(chunks, GuardConfig(mode="mask",
+                                                      local=True))
+    np.testing.assert_array_equal(base[0], mask[0])
+    np.testing.assert_array_equal(base[1], mask[1])
+    assert base[3] == mask[3]
+    t, l, m, _ = run(poisoned, GuardConfig(mode="mask", local=True))
+    assert np.isfinite(t).all() and np.isfinite(l).all()
+    assert int(sum(np.sum(x["health"]["item_factors"]["masked"])
+                   for x in m)) == n_poison
+    want = run(poisoned, "observe", rollback=RollbackPolicy(preset={2}))
+    for lag in (0, 1):
+        rb = RollbackPolicy(max_rollbacks=1)
+        got = run(poisoned, "observe", rollback=rb, health_lag=lag)
+        assert rb.quarantined == [2]
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])

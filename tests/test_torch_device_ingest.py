@@ -384,13 +384,34 @@ def test_run_indexed_as_numpy_false_returns_device_metrics():
 
 
 @pytest.mark.parametrize("hook", ["checkpointer", "checkpoint_every",
-                                  "rollback", "recorder", "health",
-                                  "watchdog"])
+                                  "rollback"])
+def test_run_indexed_takes_durability_hooks(hook, tmp_path):
+    """``run_indexed``'s checkpoint and rollback hooks are taken (they were
+    refused before durability was ported): a checkpointer saves every
+    ``checkpoint_every`` epochs, ``checkpoint_every`` alone saves nothing,
+    and a preset-only rollback skips its epoch."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+    from fps_tpu_torch.core.resilience import RollbackPolicy
+
+    tr, _, t, l, plan = _indexed()
+    ck = Checkpointer(str(tmp_path))
+    kw = {"checkpointer": dict(checkpointer=ck, checkpoint_every=1),
+          "checkpoint_every": dict(checkpoint_every=1),
+          "rollback": dict(rollback=RollbackPolicy(preset={0}))}[hook]
+    _, _, m = tr.run_indexed(t, l, plan, 1, epochs=2, **kw)
+    if hook == "checkpointer":
+        assert ck.steps() == [1, 2] and len(m) == 2
+    elif hook == "checkpoint_every":
+        assert ck.steps() == [] and len(m) == 2
+    else:
+        assert kw["rollback"].skipped == [0] and len(m) == 1
+
+
+@pytest.mark.parametrize("hook", ["recorder", "health", "watchdog"])
 def test_run_indexed_refuses_unported_hooks(hook):
     tr, _, t, l, plan = _indexed()
-    value = 1 if hook == "checkpoint_every" else object()
-    with pytest.raises(NotImplementedError, match="slice [EF]"):
-        tr.run_indexed(t, l, plan, 1, **{hook: value})
+    with pytest.raises(NotImplementedError, match="slice F"):
+        tr.run_indexed(t, l, plan, 1, **{hook: object()})
 
 
 def test_run_indexed_checks_the_plan_and_the_call_size():

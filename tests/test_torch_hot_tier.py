@@ -14,10 +14,13 @@ call ends with the replica equal to the canonical head rows, a fully
 replicated table makes no pull or push exchange (counted by a spy on
 ``collectives``), the resolution's policy and errors.
 
-Oracles of ``tests/test_hot_tier.py`` that wait for later items:
-checkpoint resume and the fold state in snapshots (ROADMAP.md Queue 1 item
-8, durability), rollback quarantine (item 8), the recorder's counters and
-the SIGKILL chaos runs (items 8 and 9), and the lowered-HLO comparisons
+The tier's durability oracles of ``tests/test_hot_tier.py`` are held
+elsewhere: the fold state in snapshots across the packages
+(``tests/test_torch_checkpoint.py``), a tiered run resumed bit for bit
+with its sidecar (``tests/test_torch_tiering.py``), rollback quarantine of
+replica and table as a unit (``tests/test_torch_resilience.py``). Those
+that wait for later items: the recorder's counters and the supervisor's
+chaos runs (ROADMAP.md Queue 1 item 9), and the lowered-HLO comparisons
 (item 10; the launch counts and the collective spy stand in for them here).
 """
 

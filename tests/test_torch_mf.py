@@ -338,6 +338,9 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.examples.word2vec\n"
         "import fps_tpu_torch.examples.ials\n"
         "import fps_tpu_torch.examples.streaming_mf\n"
+        "import fps_tpu_torch.core.checkpoint, fps_tpu_torch.core.resilience\n"
+        "import fps_tpu_torch.core.retry, fps_tpu_torch.core.snapshot_format\n"
+        "import fps_tpu_torch.testing, fps_tpu_torch.testing.faultfs\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

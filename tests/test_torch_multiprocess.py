@@ -63,6 +63,7 @@ from fps_tpu.models.passive_aggressive import (
 )
 from fps_tpu.parallel import mesh as jmesh
 
+from fps_tpu_torch.models.matrix_factorization import MFConfig, online_mf
 from fps_tpu_torch.parallel import mesh as tmesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,7 +137,7 @@ def _jax_init(bundle):
     numpy arrays under the worker's keys."""
     key = jax.random.key(0)
     init = {}
-    if bundle in ("tiered", "mapped"):
+    if bundle in ("tiered", "mapped", "ckpt"):
         return init  # the scenarios start from the port's own state
     for D, S in ((2, 4),) if bundle == "d2s4" else ((1, 8),):
         tables, local = _mf_trainer(D, S)[0].init_state(key)
@@ -240,7 +241,7 @@ def _jax_runs(bundle, init):
     and ``tests/test_torch_tiering.py`` hold the tiers against the JAX
     package)."""
     ref = {}
-    if bundle in ("tiered", "mapped"):
+    if bundle in ("tiered", "mapped", "ckpt"):
         return ref
     if bundle == "d2s4":
         for kind in ("indexed", "host_sync", "host_ssp"):
@@ -359,6 +360,7 @@ def _wait(procs, where, timeout_s=RANK_TIMEOUT_S):
 
 
 _RUNS = {}
+_WHERES = {}
 
 
 def _bundle(tmp_path_factory, bundle):
@@ -369,7 +371,10 @@ def _bundle(tmp_path_factory, bundle):
         init = _jax_init(bundle)
         np.savez(where / "init.npz", **init)
         procs = _spawn(where, bundle)
+        _WHERES[bundle] = where
         try:
+            # The one-process run saves apart from the ranks.
+            mpw.WHERE = str(where / "one_process")
             one = mpw.run_bundle(bundle, mpw.one_process_mesh, init)
             ref = _jax_runs(bundle, init)
         finally:
@@ -443,6 +448,39 @@ def test_tiered_two_ranks_equal_one_process_bit_for_bit(run):
     assert "tiered_lr_d2s4_fold/table/weights::fold" in one
     assert one["tiered_mf_d1s4/metrics/hot_tier/item_factors/cold_dropped"
                ].sum() == 0
+
+
+def test_checkpoints_over_two_ranks_resume_as_one_process(run):
+    """MF at (1, 4) over two ranks, both saving into one directory after
+    every chunk (the same file written by both, atomically): every save
+    lands, a resume over the two ranks from step 2 equals the
+    uninterrupted run, and both equal one process's runs bit for bit; one
+    process restoring the ranks' last save holds their final state."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+
+    ranks, one, _ = run("ckpt")
+    assert {k.split("/")[0] for k in one} == {"ckpt_straight",
+                                              "ckpt_resumed"}
+    for key, want in one.items():
+        np.testing.assert_array_equal(ranks[0][key], want, key)
+        np.testing.assert_array_equal(ranks[1][key], want, key)
+    np.testing.assert_array_equal(one["ckpt_straight/steps"],
+                                  np.arange(1, 7))
+    for k in ("item_factors", "users"):
+        np.testing.assert_array_equal(one[f"ckpt_resumed/{k}"],
+                                      one[f"ckpt_straight/{k}"], k)
+    where = str(_WHERES["ckpt"] / "ckpt")
+    assert not [f for f in os.listdir(where) if f.endswith(".tmp.npz")]
+    trainer, store = online_mf(tmesh.make_ps_mesh(4, 1, device="cpu"),
+                               MFConfig(**mpw.MF_CFG))
+    _, like = trainer.init_state(9)
+    _, local, step = trainer.restore_checkpoint(Checkpointer(where), like)
+    assert step == 6
+    np.testing.assert_array_equal(store.dump_model("item_factors")[1],
+                                  ranks[0]["ckpt_straight/item_factors"])
+    np.testing.assert_array_equal(
+        trainer.logic.export_local_state(local.numpy()),
+        ranks[0]["ckpt_straight/users"])
 
 
 def test_mapped_two_ranks_equal_one_process_bit_for_bit(run):

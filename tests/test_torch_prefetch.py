@@ -582,12 +582,22 @@ def test_driver_methods_have_the_reference_parameters_in_order(method):
     assert params(tdriver.Trainer) == params(jdriver.Trainer)
 
 
-@pytest.mark.parametrize("make,item", [
-    (lambda: TrainerConfig(guard="observe"), "item 8"),
-], ids=["guard"])
-def test_unported_config_values_raise_naming_their_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+@pytest.mark.parametrize("guard", ["observe"], ids=["guard"])
+def test_guard_config_values_are_taken(guard):
+    """``TrainerConfig.guard`` is taken (it was refused before the guard
+    was ported): a trainer resolves the mode to a ``GuardConfig`` and its
+    run counts the guard's rows under ``"health"``."""
+    from fps_tpu_torch.core.resilience import GuardConfig, as_guard
+
+    trainer, _ = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW),
+                           guard=guard)
+    assert as_guard(trainer.config.guard) == GuardConfig(mode=guard)
+    tables, local = trainer.init_state(0)
+    _, _, m = trainer.fit_stream(tables, local,
+                                 _mf_chunks(None, epochs=1)[:1], 1)
+    assert set(m[0]["health"]["item_factors"]) == {"nonfinite", "norm",
+                                                   "masked"}
+    assert int(np.sum(m[0]["health"]["item_factors"]["nonfinite"])) == 0
 
 
 def test_auto_tier_attaches_a_retierer_as_a_stream_begins():
@@ -607,10 +617,33 @@ def test_auto_tier_attaches_a_retierer_as_a_stream_begins():
     assert tables["item_factors::sketch"].numpy().sum() > 0
 
 
+@pytest.mark.parametrize("hook", ["checkpointer", "checkpoint_every",
+                                  "rollback"])
+def test_fit_stream_takes_durability_arguments(hook, tmp_path):
+    """``fit_stream``'s checkpoint and rollback arguments are taken (they
+    were refused before durability was ported): a checkpointer saves
+    every ``checkpoint_every`` chunks and at the end, ``checkpoint_every``
+    alone saves nothing, and a preset-only rollback skips its chunk."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+    from fps_tpu_torch.core.resilience import RollbackPolicy
+
+    trainer, _ = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW))
+    tables, local = trainer.init_state(0)
+    chunks = _mf_chunks(None, epochs=1)[:3]
+    ck = Checkpointer(str(tmp_path))
+    kw = {"checkpointer": dict(checkpointer=ck, checkpoint_every=2),
+          "checkpoint_every": dict(checkpoint_every=2),
+          "rollback": dict(rollback=RollbackPolicy(preset={1}))}[hook]
+    _, _, m = trainer.fit_stream(tables, local, chunks, 1, **kw)
+    if hook == "checkpointer":
+        assert ck.steps() == [2, 3] and len(m) == 3
+    elif hook == "checkpoint_every":
+        assert ck.steps() == [] and len(m) == 3
+    else:
+        assert kw["rollback"].skipped == [1] and len(m) == 2
+
+
 @pytest.mark.parametrize("call,kw,item", [
-    ("fit_stream", dict(checkpointer=object()), "item 8"),
-    ("fit_stream", dict(checkpoint_every=2), "item 8"),
-    ("fit_stream", dict(rollback=object()), "item 8"),
     ("fit_stream", dict(recorder=object()), "item 9"),
     ("fit_stream", dict(health=object()), "item 9"),
     ("fit_stream", dict(watchdog=object()), "item 9"),

@@ -165,12 +165,16 @@ def test_param_store_init_lookup_dump():
     assert not zeros.numpy().any()
 
 
-@pytest.mark.parametrize("make", [
-    lambda: TrainerConfig(guard="mask"),
-], ids=["guard"])
-def test_unported_options_raise(make):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make()
+@pytest.mark.parametrize("guard", ["mask"], ids=["guard"])
+def test_guard_options_are_taken(guard):
+    """``TrainerConfig.guard`` is taken (it was refused before the guard
+    was ported), and a bad mode fails as the JAX package's does."""
+    from fps_tpu_torch.core.resilience import as_guard
+
+    assert TrainerConfig(guard=guard).guard == guard
+    assert as_guard(guard).mode == guard
+    with pytest.raises(ValueError, match="guard mode"):
+        as_guard("drop")
 
 
 def test_auto_tier_option_is_taken():

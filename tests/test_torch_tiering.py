@@ -27,16 +27,21 @@ Planner parity hands both packages ``dense_table_bytes=0``: the port's
 ``Retierer`` passes it (its ``dense_collectives="auto"`` keeps the gathered
 route), the JAX package's passes a threshold measured on a TPU.
 
+The sidecar: a re-ranked run checkpointed with its tracker's sidecar and
+resumed by a fresh trainer and retierer equals the uninterrupted run bit
+for bit (tables, replica, hot ids, decayed sketches), and the sweep keeps
+every sidecar beside a checkpoint and the newest ``keep``.
+
 Oracles of ``tests/test_tiering.py`` that wait for later items: the
-sidecar's resume and sweep and the ``retier_kill`` chaos run (ROADMAP.md
-Queue 1 item 8), checkpoints of a re-ranked run (item 8), the recorder's
-``tiering.*`` counters (item 9) and the lowered-program comparisons (item
-10; the launch counts stand in for them here).
+``retier_kill`` chaos run of the supervisor (ROADMAP.md Queue 1 item 9),
+the recorder's ``tiering.*`` counters (item 9) and the lowered-program
+comparisons (item 10; the launch counts stand in for them here).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -961,14 +966,25 @@ def test_probe_trainer_runs_a_mapped_plan():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tiering.Retierer(state_dir="x"), "item 8"),
-    (lambda: tiering.Retierer().restore(3), "item 8"),
     (lambda: tiering.lowered_plan_text(None, {}, {}, hot_sync_every=2),
      "item 10"),
-], ids=["state_dir", "restore", "lowered_plan_text"])
+], ids=["lowered_plan_text"])
 def test_what_waits_for_later_items_raises_naming_it(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.mark.parametrize("what", ["state_dir", "restore"])
+def test_sidecar_arguments_are_taken(what, tmp_path):
+    """``Retierer(state_dir=)`` and ``restore`` are taken (refused before
+    the sidecar was ported): without a sidecar a restore is a cold start
+    (False), and a missing one too."""
+    if what == "state_dir":
+        rt = tiering.Retierer(state_dir=str(tmp_path), keep=2)
+        assert rt.state_dir == str(tmp_path) and rt.keep == 2
+        assert rt.restore(3) is False
+    else:
+        assert tiering.Retierer().restore(3) is False
 
 
 def test_on_boundary_recorder_waits_for_item_9():
@@ -976,3 +992,67 @@ def test_on_boundary_recorder_waits_for_item_9():
     rt = ttr.retierer = tiering.Retierer(check_every=1)
     with pytest.raises(NotImplementedError, match="item 9"):
         rt.on_boundary(ttr, tt, 0, recorder=object())
+
+
+@pytest.mark.parametrize("model", ["mf", "logreg"])
+def test_a_resumed_rerank_run_equals_the_uninterrupted_one(tmp_path,
+                                                           model):
+    """A mapped run re-ranked at every check (``check_every=2``), saved
+    every 2 chunks with its sidecar beside the checkpoints: a fresh trainer
+    and retierer restore chunk 4's checkpoint and sidecar and finish the
+    stream to the uninterrupted run's tables, replica, hot ids and decayed
+    sketches, bit for bit."""
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+
+    mf = model == "mf"
+    name = ITEM if mf else "weights"
+    chunks = _mf_chunks(4, n=6) if mf else _lr_chunks(4, n=6)
+
+    def fresh(state_dir):
+        (_, _, _, _), (tr, st, tt, tl) = _mf_pair(2, 2) if mf else (
+            (None,) * 4, _lr_pair(2, 2)[1] + ((),))
+        tr.retierer = tiering.Retierer(check_every=2, churn_threshold=-1.0,
+                                       state_dir=state_dir)
+        st.tables = dict(tt)
+        return tr, st, tt, tl
+
+    tr, st, tt, tl = fresh(None)
+    tt, tl, _ = tr.fit_stream(tt, tl, chunks, 1)
+    want_ids = tr.retierer.hot_ids[name].copy()
+    # The canonical table's logical rows (a restore zero-fills padding).
+    want = {k: st.dump_model(k)[1] if k == name else v.numpy()
+            for k, v in tt.items()}
+    assert tr.retierer.re_ranks >= 2
+    d = str(tmp_path)
+    tr, st, tt, tl = fresh(d)
+    tr.fit_stream(tt, tl, chunks[:4], 1, checkpointer=Checkpointer(d),
+                  checkpoint_every=2)
+    assert os.path.exists(tiering.sidecar_path(d, 4))
+    tr, st, tt, tl = fresh(d)
+    tt, tl, step = tr.restore_checkpoint(Checkpointer(d), tl)
+    assert step == 4 and tr.retierer.restore(step)
+    assert not any(tstore.is_aux_key(k) and not k.endswith("::fold")
+                   for k in tt)
+    tt, tl, _ = tr.fit_stream(tt, tl, chunks[4:], 1, start_step=4)
+    np.testing.assert_array_equal(tr.retierer.hot_ids[name], want_ids)
+    got = {k: st.dump_model(k)[1] if k == name else v.numpy()
+           for k, v in tt.items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
+
+
+def test_the_sidecar_sweep_keeps_checkpointed_steps(tmp_path):
+    """With ``keep=2`` the newest two sidecars stay, and so does every one
+    whose step has a checkpoint beside it; a restore of a missing one is a
+    cold start."""
+    d = str(tmp_path)
+    rt = tiering.Retierer(state_dir=d, keep=2)
+    for step in (2, 4):
+        open(os.path.join(d, f"ckpt_{step:012d}.npz"), "wb").close()
+    for step in range(1, 7):
+        rt._save_sidecar(step, {})
+    kept = sorted(f for f in os.listdir(d) if f.startswith("tiering-"))
+    assert kept == [os.path.basename(tiering.sidecar_path(d, s))
+                    for s in (2, 4, 5, 6)]
+    assert rt.restore(4) and not rt.restore(3)

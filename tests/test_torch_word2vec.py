@@ -589,14 +589,16 @@ def test_hot_words_literal_validated():
     assert {s.hot_ids for s in store.specs.values()} == {"auto"}
 
 
-@pytest.mark.parametrize("option,slice_", [(dict(guard="mask"), "slice E")])
 @pytest.mark.parametrize("factory", ["word2vec", "word2vec_block"])
-def test_unported_options_raise_naming_their_slice(option, slice_, factory):
+def test_guard_passes_through_the_factories(factory):
+    """Both factories take ``guard=`` (refused before the guard was
+    ported) and hand it to ``TrainerConfig``, as the JAX package's do."""
     _, uni = _corpus(2000)
     cfg = tw2v.W2VConfig(vocab_size=V, dim=8, subsample_t=None)
     args = (cfg, uni) if factory == "word2vec" else (cfg, uni, 64)
-    with pytest.raises(NotImplementedError, match=slice_):
-        getattr(tw2v, factory)(make_ps_mesh(device="cpu"), *args, **option)
+    trainer, _ = getattr(tw2v, factory)(make_ps_mesh(device="cpu"), *args,
+                                        guard="mask")
+    assert trainer.config.guard == "mask"
 
 
 @pytest.mark.parametrize("factory", ["word2vec", "word2vec_block"])
