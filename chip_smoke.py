@@ -275,7 +275,29 @@ on the card, raising on the first failure:
    recovery arm with the Retierer's sidecar, restarted at chunk 6 and
    bit-equal to the uninterrupted runs. Phase 3 also holds K2 and K4 at
    the guard's shapes (1 % of the ids masked to -1, their deltas zeroed);
-12. prints one JSON line describing every ported kernel, then, as the last
+12. drives telemetry (``fps_tpu_torch.obs``) on ``cuda:0`` at phase 4's
+   widths, every launch counter at 0 just before each run: (a) MF through
+   ``run_indexed`` (2 epochs, a save an epoch) and ``fit_stream``
+   (prefetch 2, 12 chunks, a save every 4), each with a ``StepWatchdog``,
+   in turns with an ``open_run`` recorder (A) and without (B), A, B, B,
+   A, after one untimed run of each driver: the tables bit-equal, the
+   launches and the synchronising calls (``torch.cuda.set_sync_debug_mode
+   ("warn")``) equal, the phase totals holding dispatch, host_sync,
+   place, ingest, prefetch and checkpoint, ``driver.examples`` the
+   examples fed; (b) phase 11 (d)'s poisoned chunk 3 of 8 under an
+   observe guard with rollback and a ``HealthMonitor``: escalation to
+   mask at the chunk the reference's policy names, ``guard_escalated``
+   in the journal, and a monitor with ``abort_after_chunks=1`` raising
+   ``PoisonedStreamError``; (c) an ``on_chunk`` that stalls the card past
+   a 0.5 s watchdog: one ``stall`` and its recovery, the stream
+   finished; (d) ``obs.trace`` around one SSP round of phase 4's
+   logistic regression: the Chrome trace names K5's and K4's kernels and
+   the ``fps.pull`` / ``fps.push`` ranges (padded and retraced as phase
+   5's windows are); (e) ``tools/obs_report.py`` and
+   ``tools/trace_export.py`` exit 0 over the runs' obs dirs and report
+   their chunks and epochs; (f) the steady ms a step of each turn, printed
+   beside the card, not gated;
+13. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -2382,7 +2404,9 @@ def probed(probe):
     base_pf, base_place = prefetch.ChunkPrefetcher, prefetch.place_columns
 
     class TimedPrefetcher(base_pf):
-        def __init__(self, *args, **kw):
+        # The probe takes the driver's timer's place: phase 6 runs no
+        # recorder, so the driver hands the prefetcher timer=None.
+        def __init__(self, *args, timer=None, **kw):
             super().__init__(*args, timer=probe, **kw)
 
         def __next__(self):
@@ -5013,12 +5037,17 @@ def p11_streams(torch, fps, kernels, chunks, where, dev, card):
             ck = AsyncCheckpointer(
                 os.path.join(where, f"b_{arm}"), keep=3,
                 delta=DeltaPolicy(full_every=8) if arm == "delta" else None)
-        (tables, local, _), summary = p11_counted(
-            torch, kernels, f"MF, fit_stream, prefetch 2, saves: {arm}",
-            steps, {"gather_rows": 2, "scatter_add": 2},
-            lambda: trainer.fit_stream(tables, local, chunks, 1,
-                                       checkpointer=ck, checkpoint_every=1),
-            card)
+        # The savers' timings go to the process-default recorder; the
+        # stream flushes the writer before it returns.
+        rec = fps.obs.Recorder()
+        with fps.obs.events.default_recorder(rec):
+            (tables, local, _), summary = p11_counted(
+                torch, kernels, f"MF, fit_stream, prefetch 2, saves: {arm}",
+                steps, {"gather_rows": 2, "scatter_add": 2},
+                lambda: trainer.fit_stream(tables, local, chunks, 1,
+                                           checkpointer=ck,
+                                           checkpoint_every=1),
+                card)
         states[arm] = p11_state(trainer, store, local)
         runs.append(summary)
         if ck is None:
@@ -5040,17 +5069,17 @@ def p11_streams(torch, fps, kernels, chunks, where, dev, card):
                       {k: after[k] for k in store.specs},
                       {k: values[k] for k in store.specs})
         ck.close()
-        m = ck.metrics
+        m = rec.snapshot()["histograms"]
         out[arm] = {
             "full_publishes": ck.full_publishes,
             "delta_publishes": ck.delta_publishes,
             "publish_bytes": ck.publish_bytes_total,
             "delta_bytes": ck.delta_bytes_total,
             "compacted": folded is not None,
-            "dump_seconds": [sum(m["checkpoint.dump_seconds"]),
-                             len(m["checkpoint.dump_seconds"])],
-            "capture_seconds": [sum(m["checkpoint.capture_seconds"]),
-                                len(m["checkpoint.capture_seconds"])],
+            "dump_seconds": [m["checkpoint.dump_seconds"]["sum"],
+                             m["checkpoint.dump_seconds"]["count"]],
+            "capture_seconds": [m["checkpoint.capture_seconds"]["sum"],
+                                m["checkpoint.capture_seconds"]["count"]],
             "ms_per_step": summary["ms_per_step"],
             "ms_per_step_without_saves": runs[0]["ms_per_step"]}
         log(f"phase 11 (b), {arm}: {ck.full_publishes} fulls, "
@@ -5073,12 +5102,15 @@ def p11_streams(torch, fps, kernels, chunks, where, dev, card):
         trainer, store = p11_mf(fps, target)
         _, like = trainer.init_state(7)
         ck = Checkpointer(source)
+        # The checkpointer's metrics go to the process-default recorder.
+        rec = fps.obs.Recorder()
         t0 = time.perf_counter()
-        _, local, step = trainer.restore_checkpoint(ck, like)
+        with fps.obs.events.default_recorder(rec):
+            _, local, step = trainer.restore_checkpoint(ck, like)
         seconds = time.perf_counter() - t0
         p11_equal(f"phase 11 (c), {label}", p11_state(trainer, store, local),
                   want)
-        resplits = ck.metrics.get("checkpoint.resplits", 0)
+        resplits = rec.counter_value("checkpoint.resplits")
         if resplits != (0 if "CPU" in label else 1):
             raise AssertionError(f"phase 11 (c), {label}: {resplits} "
                                  "re-splits recorded")
@@ -5271,14 +5303,18 @@ def p11_brownout(torch, fps, kernels, lr_data, where, dev, card):
 
         sampler = threading.Thread(target=sample, daemon=True)
         sampler.start()
+        # The writer's retries go to the process-default recorder.
+        rec = fps.obs.Recorder()
         try:
-            (tables, local, metrics), summary = p11_counted(
-                torch, kernels, f"logreg SSP, fit_stream, saves every "
-                f"chunk, {arm}", steps,
-                {"gather_rows_dim1": 1, "scatter_add_dim1": 1},
-                lambda: tr.fit_stream(tables, local, chunks, 1,
-                                      checkpointer=ck, checkpoint_every=1),
-                card)
+            with fps.obs.events.default_recorder(rec):
+                (tables, local, metrics), summary = p11_counted(
+                    torch, kernels, f"logreg SSP, fit_stream, saves every "
+                    f"chunk, {arm}", steps,
+                    {"gather_rows_dim1": 1, "scatter_add_dim1": 1},
+                    lambda: tr.fit_stream(tables, local, chunks, 1,
+                                          checkpointer=ck,
+                                          checkpoint_every=1),
+                    card)
         finally:
             stop.set()
             sampler.join(timeout=5.0)
@@ -5298,8 +5334,8 @@ def p11_brownout(torch, fps, kernels, lr_data, where, dev, card):
                      "backlog_peak": peak[0],
                      "backlog_final": ck._publish_backlog,
                      "publishes_landed": ck.full_publishes,
-                     "retries": ck.metrics.get(
-                         "storage.retries{plane=checkpoint}", 0),
+                     "retries": rec.counter_value("storage.retries",
+                                                  plane="checkpoint"),
                      "last_recovered_step": step, "chunks": len(chunks),
                      "injected": ({"/".join(k): v for k, v in
                                    injected.items()} if injected else None)}
@@ -5445,6 +5481,530 @@ def durability_phase(torch, fps, kernels, mf_data, lr_data, card,
     return {"runs": runs, "resume": resume, "streams": streams,
             "guard": guard, "brownout": brownout, "tier": tier,
             "seconds": seconds, "card": card}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: telemetry on the card.
+# ---------------------------------------------------------------------------
+
+P12 = dict(indexed_epochs=2, stream_chunks=12, chunk_steps=16, ckpt_every=4,
+           prefetch=2, watchdog_s=60.0, guard_chunks=8, poison_chunk=3,
+           poison_frac=1e-4, norm_limit=100.0, stall_chunks=6, stall_after=2,
+           stall_deadline_s=0.5, stall_cycles=1_500_000_000,
+           stall_host_s=0.8, trace_warm_spins=64)
+# What the recorder's phase totals must hold, across (a)'s two drivers
+# (run_indexed has no ingest, placement or prefetch of its own).
+P12_PHASES = ("dispatch", "host_sync", "place", "ingest", "prefetch",
+              "checkpoint")
+# (f)'s turns: with the recorder (A) and without (B).
+P12_TURNS = ("A", "B", "B", "A")
+
+
+class SyncCount:
+    """The synchronising CUDA calls made while entered, every thread's:
+    torch's sync debug mode (``"warn"``) turns each into a warning, counted
+    here with the Python line that made it (``sites``) and, for each
+    site, the stack of its first call (``stacks``). Off the card, none."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = 0
+        self.sites = {}
+        self.stacks = {}
+        self._arming = False
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        import traceback
+
+        if self._arming or "synchroniz" not in str(message).lower():
+            return
+        site = f"{os.path.basename(filename)}:{lineno}"
+        self.calls += 1
+        self.sites[site] = self.sites.get(site, 0) + 1
+        if site not in self.stacks:
+            self.stacks[site] = "".join(traceback.format_stack(limit=10))
+
+    def __enter__(self):
+        import warnings
+
+        self._cuda = self.torch.cuda.is_available()
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._show
+        if self._cuda:
+            # Switching the mode on warns once a process itself: not a
+            # call of the code under count.
+            self._arming = True
+            self.torch.cuda.set_sync_debug_mode("warn")
+        self._arming = False
+        return self
+
+    def __exit__(self, *exc):
+        if self._cuda:
+            self.torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+
+
+def p12_counted(torch, kernels, fn):
+    """``fn()`` with every launch counter at 0 just before and read just
+    after, and its synchronising calls counted: ``(result, launches,
+    SyncCount, seconds)``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with SyncCount(torch) as syncs:
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    return out, kernels.launch_counts(), syncs, time.perf_counter() - t0
+
+
+def p12_journal(obs_dir):
+    """The events of ``obs_dir``'s journal (process 0)."""
+    with open(os.path.join(obs_dir, "journal-p0.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def p12_same(label, a, b):
+    """Two arms' tables and local state bit for bit, launches and
+    synchronising calls equal."""
+    p11_equal(f"phase 12 (a), {label}: tables with the recorder against "
+              "without", a["state"], b["state"])
+    if a["launches"] != b["launches"]:
+        raise AssertionError(f"phase 12 (a), {label}: launches "
+                             f"{a['launches']} with the recorder, "
+                             f"{b['launches']} without")
+    if a["syncs"] != b["syncs"]:
+        odd = {site: (a["sync_stacks"].get(site) or b["sync_stacks"][site])
+               for site in set(a["sync_sites"]) | set(b["sync_sites"])
+               if a["sync_sites"].get(site) != b["sync_sites"].get(site)}
+        raise AssertionError(f"phase 12 (a), {label}: {a['syncs']} "
+                             f"synchronising calls with the recorder "
+                             f"({a['sync_sites']}), {b['syncs']} without "
+                             f"({b['sync_sites']}); where they differ: "
+                             + json.dumps(odd))
+
+
+def p12_arm(torch, fps, kernels, mesh, label, obs_dir, ck_dir, run, steps,
+            fed, card):
+    """One arm of (a) / (f): a fresh MF trainer, a checkpointer and a
+    ``StepWatchdog`` (deadline far off: it watches, it does not fire), and
+    with ``obs_dir`` an ``open_run`` recorder (installed: the checkpoint
+    trail flows to it). ``run(trainer, tables, local, **kw)`` trains."""
+    import shutil
+
+    from fps_tpu_torch.core.checkpoint import Checkpointer
+
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    trainer, store = p11_mf(fps, mesh)
+    rec = None
+    if obs_dir is not None:
+        rec = fps.obs.open_run(obs_dir, config={"phase": 12, "arm": label},
+                               meta={"workload": "mf"})
+    wd = fps.obs.StepWatchdog(P12["watchdog_s"], recorder=rec)
+    tables, local = trainer.init_state(0)
+    stamps = []
+    try:
+        (tables, local, metrics), launched, syncs, seconds = p12_counted(
+            torch, kernels, lambda: run(
+                trainer, tables, local, recorder=rec, watchdog=wd,
+                checkpointer=Checkpointer(ck_dir, keep=2), stamps=stamps))
+    finally:
+        if rec is not None:
+            rec.close()
+    check_finite(torch, f"phase 12, {label}", tables, local)
+    per_chunk = np.diff(stamps) if len(stamps) > 1 else np.array([seconds])
+    steps_per_chunk = steps / max(1, len(stamps))
+    arm = {"label": label, "recorder": rec is not None, "steps": steps,
+           "seconds": seconds, "ms_per_step": seconds / steps * 1e3,
+           "steady_ms_per_step": float(np.median(per_chunk))
+           / steps_per_chunk * 1e3,
+           "launches": launched, "syncs": syncs.calls,
+           "sync_sites": syncs.sites, "sync_stacks": syncs.stacks,
+           "stalls": len(wd.stalls),
+           "state": p11_state(trainer, store, local)}
+    if rec is not None:
+        totals = rec.phase_totals()
+        arm["phase_totals"] = totals
+        arm["examples"] = rec.counter_value("driver.examples")
+        # The counter adds each chunk's (epoch's) float32 sum of the
+        # per-step "n" leaf, as the reference's does: exact below 2^24
+        # examples a sum, a few float32 roundings of it above (ML-20M's
+        # epoch is 20M). 1e-6 of the total is 8 ulps at float32.
+        if not abs(arm["examples"] - fed) <= 1e-6 * fed:
+            raise AssertionError(f"phase 12 (a), {label}: driver.examples "
+                                 f"{arm['examples']}, {fed} fed")
+    if wd.stalls:
+        raise AssertionError(f"phase 12 (a), {label}: the watchdog flagged "
+                             f"{wd.stalls}")
+    log(f"phase 12 (a), {label}: {seconds:.3f} s, "
+        f"{arm['steady_ms_per_step']:.4f} ms a step steady, "
+        f"{syncs.calls} synchronising calls ({syncs.sites}), launches "
+        f"{launched} ({card})")
+    return arm
+
+
+def p12_recorder_changes_nothing(torch, fps, kernels, mesh, mf_data,
+                                 chunks, where, card):
+    """(a) and (f): MF through run_indexed (A then B) and fit_stream
+    (A, B, B, A), each arm with a checkpointer and a watchdog, A with an
+    ``open_run`` recorder."""
+    import tempfile
+    plan = p11_plan(fps, mesh, mf_data)
+
+    def indexed(trainer, tables, local, recorder, watchdog, checkpointer,
+                stamps):
+        return trainer.run_indexed(
+            tables, local, plan, 1, epochs=P12["indexed_epochs"],
+            checkpointer=checkpointer, checkpoint_every=1,
+            recorder=recorder, watchdog=watchdog,
+            on_epoch=lambda e, m: stamps.append(time.perf_counter()))
+
+    def stream(trainer, tables, local, recorder, watchdog, checkpointer,
+               stamps):
+        import dataclasses
+
+        trainer.config = dataclasses.replace(trainer.config,
+                                             prefetch=P12["prefetch"])
+        return trainer.fit_stream(
+            tables, local, chunks, 1, checkpointer=checkpointer,
+            checkpoint_every=P12["ckpt_every"], recorder=recorder,
+            watchdog=watchdog,
+            on_chunk=lambda i, m: stamps.append(time.perf_counter()))
+
+    n = len(mf_data["rating"])
+    arms = {}
+    # A process's first run at these shapes pays one-time work (the
+    # kernels' card plans are queried and cached): each driver runs once
+    # untimed first, so the arms compare like with like.
+    for run in (indexed, stream):
+        trainer, _ = p11_mf(fps, mesh)
+        tables, local = trainer.init_state(0)
+        with tempfile.TemporaryDirectory(dir=where) as ck:
+            from fps_tpu_torch.core.checkpoint import Checkpointer
+
+            run(trainer, tables, local, recorder=None,
+                watchdog=fps.obs.StepWatchdog(P12["watchdog_s"]),
+                checkpointer=Checkpointer(ck, keep=2), stamps=[])
+    for label, run, steps, fed, turns in (
+            ("run_indexed", indexed,
+             P12["indexed_epochs"] * plan.steps_per_epoch,
+             float(P12["indexed_epochs"] * n), P12_TURNS),
+            ("fit_stream", stream, len(chunks) * P12["chunk_steps"],
+             float(sum(np.sum(c["weight"] > 0) for c in chunks)),
+             P12_TURNS)):
+        arms[label] = []
+        for i, turn in enumerate(turns):
+            obs_dir = (os.path.join(where, f"obs_{label}_{i}")
+                       if turn == "A" else None)
+            arms[label].append(dict(p12_arm(
+                torch, fps, kernels, mesh, f"{label}, turn {i} ({turn})",
+                obs_dir,
+                os.path.join(where, f"ck_{label}"), run, steps, fed, card),
+                turn=turn, obs_dir=obs_dir))
+        a = [x for x in arms[label] if x["turn"] == "A"]
+        b = [x for x in arms[label] if x["turn"] == "B"]
+        for x, y in zip(a, b):
+            p12_same(label, x, y)
+    have = set()
+    for label in arms:
+        for x in arms[label]:
+            have |= set(x.get("phase_totals", {}))
+    missing = [p for p in P12_PHASES if p not in have]
+    if missing:
+        raise AssertionError(f"phase 12 (a): the phase totals lack "
+                             f"{missing} (have {sorted(have)})")
+    return arms
+
+
+def p12_health(torch, fps, kernels, mesh, chunks, where, card):
+    """(b): phase 11 (d)'s stream, chunk 3 of 8 poisoned, under an observe
+    guard with a rollback policy and a HealthMonitor: the guard escalates
+    to mask where the reference's policy says (the first chunk whose
+    cumulative poisoned rows reach the threshold), the journal holds the
+    ``guard_escalated`` event; a monitor with ``abort_after_chunks=1``
+    raises PoisonedStreamError."""
+    import dataclasses
+
+    from fps_tpu_torch.core.resilience import (
+        GuardConfig,
+        PoisonedStreamError,
+        RollbackPolicy,
+    )
+
+    poisoned, n_poison = p11_poison(chunks, P12["poison_chunk"],
+                                    P12["poison_frac"])
+    guard = GuardConfig(mode="observe", norm_limit=P12["norm_limit"])
+    threshold = max(1, n_poison // 2)
+    out = {"poisoned_live_rows": n_poison, "escalate_after_rows": threshold}
+
+    trainer, _ = p11_mf(fps, mesh)
+    trainer.config = dataclasses.replace(trainer.config, guard=guard)
+    obs_dir = os.path.join(where, "obs_health")
+    rec = fps.obs.open_run(obs_dir, config={"phase": 12, "part": "b"})
+    monitor = fps.obs.HealthMonitor(escalate_after_rows=threshold)
+    rb = RollbackPolicy(max_rollbacks=1)
+    tables, local = trainer.init_state(0)
+    try:
+        tables, local, _ = trainer.fit_stream(
+            tables, local, poisoned, 1, recorder=rec, health=monitor,
+            rollback=rb)
+    finally:
+        rec.close()
+    journal = p12_journal(obs_dir)
+    poison_by_chunk = {e["index"]: e.get("poison_rows", 0)
+                       for e in journal if e["event"] == "chunk"}
+    # The reference's policy (fps_tpu/obs/health.py HealthMonitor.update):
+    # escalate at the first chunk whose cumulative poisoned rows reach the
+    # threshold.
+    total, expected = 0, None
+    for i in sorted(poison_by_chunk):
+        total += poison_by_chunk[i]
+        if total >= threshold:
+            expected = i
+            break
+    esc = [e for e in journal if e["event"] == "guard_escalated"]
+    if (monitor.escalated_at != expected or expected != P12["poison_chunk"]
+            or len(esc) != 1 or esc[0]["index"] != expected
+            or trainer.config.guard.mode != "mask"):
+        raise AssertionError(
+            f"phase 12 (b): escalated at {monitor.escalated_at}, the "
+            f"policy says {expected} (poison by chunk {poison_by_chunk}), "
+            f"journal {esc}, guard {trainer.config.guard}")
+    if rb.quarantined != [P12["poison_chunk"]]:
+        raise AssertionError(f"phase 12 (b): quarantined {rb.quarantined}")
+    check_finite(torch, "phase 12 (b)", tables, local)
+    out.update(escalated_at=monitor.escalated_at,
+               poison_rows_by_chunk=poison_by_chunk,
+               quarantined=rb.quarantined)
+
+    trainer, _ = p11_mf(fps, mesh)
+    trainer.config = dataclasses.replace(trainer.config, guard=guard)
+    sink = fps.obs.MemorySink()
+    abort = fps.obs.HealthMonitor(abort_after_chunks=1)
+    tables, local = trainer.init_state(0)
+    try:
+        trainer.fit_stream(tables, local, poisoned, 1,
+                           recorder=fps.obs.Recorder(sinks=[sink]),
+                           health=abort)
+        raise AssertionError("phase 12 (b): the abort monitor let the "
+                             "poisoned stream finish")
+    except PoisonedStreamError as e:
+        if (abort.aborted_at != P12["poison_chunk"]
+                or len(sink.events("health_abort")) != 1):
+            raise AssertionError(f"phase 12 (b): aborted at "
+                                 f"{abort.aborted_at}: {e}") from e
+    out["aborted_at"] = abort.aborted_at
+    log(f"phase 12 (b): escalated observe -> mask at chunk "
+        f"{monitor.escalated_at} as the policy says, quarantined "
+        f"{rb.quarantined}, aborted at chunk {abort.aborted_at}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def p12_stall(torch, fps, kernels, mesh, chunks, card):
+    """(c): on_chunk of chunk 2 stalls the card (a spin kernel of ~0.8 s;
+    on the CPU the next chunk sleeps): the 0.5 s watchdog records one
+    ``stall`` (chunk 3, the chunk whose read waits) and its recovery, and
+    the stream finishes."""
+    trainer, _ = p11_mf(fps, mesh)
+    sink = fps.obs.MemorySink()
+    rec = fps.obs.Recorder(sinks=[sink])
+    wd = fps.obs.StepWatchdog(P12["stall_deadline_s"], recorder=rec)
+    cuda = mesh.device.type == "cuda"
+    host_stall = []
+
+    def on_chunk(i, m):
+        if i == P12["stall_after"]:
+            if cuda:
+                torch.cuda._sleep(P12["stall_cycles"])
+            else:
+                host_stall.append(i)
+
+    if not cuda:
+        run_chunk = trainer.run_chunk
+
+        def slow(*a, **k):
+            if host_stall:
+                time.sleep(P12["stall_host_s"])
+                host_stall.clear()
+            return run_chunk(*a, **k)
+
+        trainer.run_chunk = slow
+    tables, local = trainer.init_state(0)
+    _, _, metrics = trainer.fit_stream(tables, local, chunks, 1,
+                                       recorder=rec, watchdog=wd,
+                                       on_chunk=on_chunk)
+    stalls = sink.events("stall")
+    recovered = sink.events("stall_recovered")
+    if (len(metrics) != len(chunks) or len(wd.stalls) != 1
+            or len(stalls) != 1 or len(recovered) != 1
+            or stalls[0]["index"] != P12["stall_after"] + 1
+            or rec.counter_value("watchdog.stalls") != 1):
+        raise AssertionError(f"phase 12 (c): stalls {wd.stalls}, events "
+                             f"{stalls} / {recovered}, {len(metrics)} "
+                             f"chunks of {len(chunks)}")
+    out = {"stall": stalls[0], "elapsed_s": recovered[0]["elapsed_s"],
+           "chunks": len(metrics)}
+    log(f"phase 12 (c): one stall at chunk {stalls[0]['index']}, "
+        f"recovered after {recovered[0]['elapsed_s']} s, the stream "
+        f"finished ({card})")
+    return out
+
+
+def p12_trace(torch, fps, kernels, mesh, lr_data, where, card):
+    """(d): ``obs.trace`` around one SSP round (8 steps) of phase 4's
+    logistic regression writes a Chrome trace naming K5's and K4's kernels
+    and the step's ``fps.pull`` / ``fps.push`` ranges. The window is padded
+    as phase 5's are (host waits, a spin kernel first) and traced again
+    when the tracer lost its device records."""
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+
+    cuda = mesh.device.type == "cuda"
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.1,
+                           dense_features=LR_DENSE)
+    trainer, _ = fps.logistic_regression(mesh, cfg, sync_every=8)
+    it = multi_epoch_chunks(lr_data, 1, num_workers=1,
+                            local_batch=SPARSE_BATCH, steps_per_chunk=8,
+                            sync_every=8, seed=1)
+    warm, chunk = next(it), next(it)
+    tables, local = trainer.init_state(0)
+    tables, local, _ = trainer.run_chunk(tables, local, warm, 0)
+    for attempt in range(PROFILE_ATTEMPTS):
+        d = os.path.join(where, f"trace_{attempt}")
+        with fps.obs.trace(d) as prof:
+            time.sleep(PROFILE_PAD_S)
+            if cuda:
+                # obs.trace has no warm-up cycle, and late in a process
+                # the tracer drops the first records of a window (the
+                # full chip_smoke run lost its first 32): a burst of
+                # short spins takes them before the sentinel spin.
+                for _ in range(P12["trace_warm_spins"]):
+                    torch.cuda._sleep(1000)
+                torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+            trainer.run_chunk(tables, local, chunk, 1)
+            if cuda:
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        records = dict(window_records(torch, prof.events(), 1),
+                       attempt=attempt)
+        if cuda:
+            TRACE_WINDOWS.append(records)
+        if records["spin_kernel"] or not cuda:
+            break
+        log("phase 12 (d): traced window without its spin kernel, tracing "
+            "again: " + json.dumps(records))
+    with open(os.path.join(d, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {"fps.pull": "fps.pull" in names, "fps.push": "fps.push" in names}
+    if cuda:
+        found["K5 gather_dim1"] = any("gather_dim1" in n for n in names)
+        found["K4 dim1_*_pass"] = any(re.search(r"dim1_(tile|fold)_pass", n)
+                                      for n in names)
+    if not all(found.values()):
+        raise AssertionError(f"phase 12 (d): the trace lacks "
+                             f"{[k for k, v in found.items() if not v]}")
+    out = {"trace": os.path.relpath(d, where), "found": found,
+           "events": len(names), "window": records}
+    log(f"phase 12 (d): obs.trace named {sorted(found)}; {json.dumps(out)}")
+    return out
+
+
+def p12_tools(obs_dirs, card):
+    """(e): the reference's tools (stdlib-only) read the port's obs dirs:
+    ``tools/obs_report.py`` and ``tools/trace_export.py`` each exit 0 and
+    report the run's chunks (epochs)."""
+    out = {}
+    for label, d, kind, want in obs_dirs:
+        rep = subprocess.run([sys.executable, os.path.join(
+            ROOT, "tools", "obs_report.py"), d, "--json"],
+            capture_output=True, text=True, timeout=120)
+        tr = subprocess.run([sys.executable, os.path.join(
+            ROOT, "tools", "trace_export.py"), d],
+            capture_output=True, text=True, timeout=120)
+        if rep.returncode != 0 or tr.returncode != 0:
+            raise AssertionError(f"phase 12 (e), {label}: obs_report exit "
+                                 f"{rep.returncode} ({rep.stderr[-500:]}), "
+                                 f"trace_export exit {tr.returncode} "
+                                 f"({tr.stderr[-500:]})")
+        digest = json.loads(rep.stdout)
+        spans = [e for e in json.loads(tr.stdout)["traceEvents"]
+                 if e.get("name") == kind and e.get("ph") == "X"]
+        key = kind + "s"
+        if digest[key] != want or len(spans) != want:
+            raise AssertionError(f"phase 12 (e), {label}: obs_report "
+                                 f"{key} {digest[key]}, trace_export "
+                                 f"{len(spans)} {kind} spans, {want} run")
+        out[label] = {key: digest[key], "spans": len(spans),
+                      "phase_seconds": sorted(digest["phase_seconds"]),
+                      "checkpoint_saves": digest["checkpoint_saves"]}
+    log(f"phase 12 (e): tools/obs_report.py and tools/trace_export.py read "
+        f"the port's runs: {json.dumps(out)}")
+    return out
+
+
+def telemetry_phase(torch, fps, kernels, mf_data, lr_data, card,
+                    dev="cuda:0"):
+    """Phase 12: telemetry at phase 4's widths on ``dev``, every launch
+    counter at 0 just before each run: (a) the recorder changes no table,
+    launch or synchronising call, (b) health escalation and abort, (c) one
+    stall, (d) the profiler trace, (e) the reference's tools, (f) the
+    recorder's cost in turns."""
+    import shutil
+    import tempfile
+
+    mesh = fps.make_ps_mesh(device=dev)
+    t0 = time.perf_counter()
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase12_")
+    try:
+        chunks = p11_chunks(mf_data, P12["stream_chunks"],
+                            P12["chunk_steps"])
+        arms = p12_recorder_changes_nothing(torch, fps, kernels, mesh,
+                                            mf_data, chunks, where, card)
+        health = p12_health(torch, fps, kernels, mesh,
+                            chunks[:P12["guard_chunks"]], where, card)
+        stall = p12_stall(torch, fps, kernels, mesh,
+                          chunks[:P12["stall_chunks"]], card)
+        trace = p12_trace(torch, fps, kernels, mesh, lr_data, where, card)
+        a_stream = [x for x in arms["fit_stream"] if x["turn"] == "A"][0]
+        a_indexed = arms["run_indexed"][0]
+        tools = p12_tools([
+            ("fit_stream", a_stream["obs_dir"], "chunk", len(chunks)),
+            ("run_indexed", a_indexed["obs_dir"], "epoch",
+             P12["indexed_epochs"])], card)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    cost = {label: [{k: x[k] for k in ("turn", "ms_per_step",
+                                       "steady_ms_per_step", "syncs",
+                                       "sync_sites")}
+                    for x in runs] for label, runs in arms.items()}
+    for label, runs in cost.items():
+        log(f"phase 12 (f), {label}: steady ms a step by turn "
+            + ", ".join(f"{x['turn']} {x['steady_ms_per_step']:.4f}"
+                        for x in runs) + f" (A: recorder on) ({card})")
+    runs = []
+    for label, xs in arms.items():
+        for x in xs:
+            runs.append({"path": f"phase 12, MF {x['label']}",
+                         "steps": x["steps"], "seconds": x["seconds"],
+                         "ms_per_step": x["ms_per_step"],
+                         "launches": x["launches"],
+                         "launches_per_step": {
+                             k: v / x["steps"] for k, v in
+                             x["launches"].items() if v},
+                         "synchronising_calls": x["syncs"], "card": card})
+    seconds = time.perf_counter() - t0
+    out = {"runs": runs, "cost": cost, "health": health, "stall": stall,
+           "trace": trace, "tools": tools,
+           "phase_totals": {label: [x.get("phase_totals") for x in xs
+                                    if x["turn"] == "A"]
+                            for label, xs in arms.items()},
+           "seconds": seconds, "card": card}
+    log(f"phase 12 done in {seconds:.1f} s")
+    return out
 
 
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
@@ -5626,6 +6186,8 @@ def main() -> int:
     # 11. Durability, counters at 0 before each run.
     durability = durability_phase(torch, fps, kernels, mf_data, lr_data,
                                   card)
+    # 12. Telemetry, counters at 0 before each run.
+    telemetry = telemetry_phase(torch, fps, kernels, mf_data, lr_data, card)
     del mf_data
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
@@ -5636,6 +6198,7 @@ def main() -> int:
     runs += tier["runs"]
     runs += adaptive["runs"]
     runs += durability["runs"]
+    runs += telemetry["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -5665,7 +6228,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 12. Summary lines. Each entry's times are per step of its first path
+    # 13. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -5766,6 +6329,7 @@ def main() -> int:
         "hot_tier": {k: v for k, v in tier.items() if k != "runs"},
         "adaptive_tier": {k: v for k, v in adaptive.items() if k != "runs"},
         "durability": {k: v for k, v in durability.items() if k != "runs"},
+        "telemetry": {k: v for k, v in telemetry.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

@@ -20,7 +20,10 @@ normal-equation solves over the same store and kernels, and top-k retrieval
 model family runs on any mesh. A table may keep its frequency-ranked head
 replicated on every position (``TableSpec.hot_tier``, reconciled every
 ``TrainerConfig.hot_sync_every`` steps, with ``HotFold`` server state and
-``cold_budget`` lanes for the cold tail).
+``cold_budget`` lanes for the cold tail). Telemetry (:mod:`fps_tpu_torch.obs`:
+the recorder, its sinks and run journal, phase timers, the health monitor
+and the step watchdog) rides ``Trainer(recorder=...)`` and the drivers'
+``recorder`` / ``health`` / ``watchdog`` arguments.
 
 Entry points run on the visible CUDA devices unless ``device="cpu"`` is
 passed to :func:`make_ps_mesh`; without CUDA and without a device they
@@ -67,6 +70,7 @@ from fps_tpu_torch.parallel.mesh import (
     make_ps_mesh,
     num_workers_of,
 )
+from fps_tpu_torch import obs
 
 __all__ = [
     "ADDITIVE", "Blocks", "DATA_AXIS", "DeviceDataset", "DeviceEpochPlan",
@@ -75,6 +79,7 @@ __all__ = [
     "TrainerConfig", "W2VConfig", "Word2VecDevicePlan", "WorkerLogic",
     "default_mesh_shape", "device_epoch_chunks", "init_distributed",
     "logistic_regression",
-    "make_ps_mesh", "num_workers_of", "online_mf", "passive_aggressive",
+    "make_ps_mesh", "num_workers_of", "obs", "online_mf",
+    "passive_aggressive",
     "pull", "push", "word2vec", "word2vec_block",
 ]

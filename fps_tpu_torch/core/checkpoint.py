@@ -21,13 +21,12 @@ the writer thread behind boundary copies (:meth:`save_deferred`), the
 serialize, fsync and rename on a background writer, and ``flush()`` is
 the durability barrier.
 
-The reference's journal and metrics recorder come with ROADMAP.md Queue 1
-item 9. Until then each checkpointer keeps what it would have recorded:
-``events`` (a list of ``(kind, fields)``) and ``metrics`` (``inc``
-counters and ``set`` gauges as numbers, ``observe`` series as lists),
-under the reference's names. The pod fence (``pod_fence.json``) is part
-of the directory's contract and is honoured here; its
-:class:`StaleEpochError` moves to the supervisor's module with item 9.
+Every save, fallback, re-split, compaction and degraded publish goes to
+the run journal and the metrics through the process-default recorder
+(:mod:`fps_tpu_torch.obs.events`; a no-op when none is installed), under
+the reference's names. The pod fence (``pod_fence.json``) is part of the
+directory's contract and is honoured here; its :class:`StaleEpochError`
+moves to the supervisor's module with ROADMAP.md item 9c.
 """
 
 from __future__ import annotations
@@ -66,6 +65,21 @@ from fps_tpu_torch.core.store import (
 Pytree = Any
 
 _log = logging.getLogger("fps_tpu_torch.checkpoint")
+
+
+def _obs_event(etype: str, **fields) -> None:
+    """Persistence events onto the process-default recorder
+    (:mod:`fps_tpu_torch.obs.events`): the run journal's checkpoint trail,
+    a no-op when no recorder is installed."""
+    from fps_tpu_torch.obs import events
+
+    events.emit(etype, **fields)
+
+
+def _obs_metric(kind: str, name: str, value: float, **labels) -> None:
+    from fps_tpu_torch.obs import events
+
+    events.record_metric(kind, name, value, **labels)
 
 
 # The pod fence: ``pod_fence.json`` in a checkpoint directory
@@ -475,36 +489,9 @@ class Checkpointer:
         # removed). A chaos victim SIGKILLs itself here to pin the
         # recovery contract at every phase. None in production.
         self._compact_phase_hook = None
-        # The recorder's stand-ins (ROADMAP.md Queue 1 item 9): what the
-        # reference emits to its journal and metrics, kept here.
-        self.events: list[tuple[str, dict]] = []
-        self.metrics: dict[str, Any] = {}
-        self._obs_lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
         self._sweep_tmp()
         self._sweep_corrupt()
-
-    def _obs_event(self, etype: str, **fields) -> None:
-        """One journal event, kept in :attr:`events` (thread-safe: the
-        async writer records from its thread)."""
-        with self._obs_lock:
-            self.events.append((etype, fields))
-
-    def _obs_metric(self, kind: str, name: str, value: float,
-                    **labels) -> None:
-        """One metric sample, kept in :attr:`metrics` under ``name`` (with
-        its labels as ``name{k=v}``): ``inc`` adds, ``set`` replaces,
-        ``observe`` appends to a list."""
-        if labels:
-            name += "{" + ",".join(f"{k}={v}" for k, v in
-                                   sorted(labels.items())) + "}"
-        with self._obs_lock:
-            if kind == "inc":
-                self.metrics[name] = self.metrics.get(name, 0) + value
-            elif kind == "set":
-                self.metrics[name] = value
-            else:
-                self.metrics.setdefault(name, []).append(value)
 
     # A tmp file younger than this is treated as a LIVE write in progress
     # (another process mid-_atomic_savez) and left alone; older ones are
@@ -622,10 +609,10 @@ class Checkpointer:
         ok, min_epoch = fence_allows(self.dir, self.fence_epoch)
         if ok:
             return
-        self._obs_event("checkpoint_fenced", step=int(step),
+        _obs_event("checkpoint_fenced", step=int(step),
                    epoch=self.fence_epoch, min_epoch=min_epoch,
                    dir=self.dir)
-        self._obs_metric("inc", "checkpoint.fenced_publishes", 1)
+        _obs_metric("inc", "checkpoint.fenced_publishes", 1)
         raise StaleEpochError(
             f"checkpoint step {step} refused: writer epoch "
             f"{self.fence_epoch} is behind the pod fence (min_epoch "
@@ -671,19 +658,19 @@ class Checkpointer:
             nbytes = -1
         # "publication", not "kind": the record envelope already uses
         # the "kind" key for event-vs-metric.
-        self._obs_event("checkpoint_saved", step=int(step), path=path,
+        _obs_event("checkpoint_saved", step=int(step), path=path,
                    seconds=round(secs, 4), bytes=nbytes,
                    publication="full" if base is None else "delta",
                    **({} if base is None else {"base": int(base)}))
-        self._obs_metric("inc", "checkpoint.saves", 1)
-        self._obs_metric("observe", "checkpoint.save_seconds", secs)
+        _obs_metric("inc", "checkpoint.saves", 1)
+        _obs_metric("observe", "checkpoint.save_seconds", secs)
         if nbytes >= 0:
             if base is None:
                 # FULLS only: this gauge is the payload-proportionality
                 # reference checkpoint.delta_bytes is compared against —
                 # letting a small delta overwrite it would make the
                 # obs_report ratio meaningless.
-                self._obs_metric("set", "checkpoint.bytes", nbytes)
+                _obs_metric("set", "checkpoint.bytes", nbytes)
             self.publish_bytes_total += nbytes
         if base is None:
             self.full_publishes += 1
@@ -691,8 +678,8 @@ class Checkpointer:
             self.delta_publishes += 1
             if nbytes >= 0:
                 self.delta_bytes_total += nbytes
-                self._obs_metric("inc", "checkpoint.delta_bytes", nbytes)
-            self._obs_metric("inc", "checkpoint.delta_publishes", 1)
+                _obs_metric("inc", "checkpoint.delta_bytes", nbytes)
+            _obs_metric("inc", "checkpoint.delta_publishes", 1)
         self._gc()
         self._maybe_auto_compact()
         return path
@@ -712,7 +699,7 @@ class Checkpointer:
                 "transient I/O failure publishing %s (attempt %d, "
                 "retrying in %.3fs): %r", os.path.basename(path),
                 attempt + 1, delay, err)
-            self._obs_metric("inc", "storage.retries", 1, plane="checkpoint")
+            _obs_metric("inc", "storage.retries", 1, plane="checkpoint")
 
         _retry.call_with_retry(
             lambda: _atomic_savez(path, arrays, precommit=precommit),
@@ -872,7 +859,7 @@ class Checkpointer:
         stalling dispatch)."""
         t0 = time.perf_counter()
         arrays = self._collect(store, local_state, local_state_format)
-        self._obs_metric("observe", "checkpoint.capture_seconds",
+        _obs_metric("observe", "checkpoint.capture_seconds",
                     time.perf_counter() - t0)
         return arrays
 
@@ -884,7 +871,7 @@ class Checkpointer:
         so the split attributes any residual stall."""
         t0 = time.perf_counter()
         arrays = self._capture_timed(store, local_state, local_state_format)
-        self._obs_metric("observe", "checkpoint.dump_seconds",
+        _obs_metric("observe", "checkpoint.dump_seconds",
                     time.perf_counter() - t0)
         return arrays
 
@@ -1059,9 +1046,9 @@ class Checkpointer:
             "discarding corrupt snapshot step %d (%s); falling back to the "
             "previous surviving snapshot", step, err,
         )
-        self._obs_event("checkpoint_fallback", step=int(step), path=path,
+        _obs_event("checkpoint_fallback", step=int(step), path=path,
                    error=repr(err))
-        self._obs_metric("inc", "checkpoint.fallbacks", 1)
+        _obs_metric("inc", "checkpoint.fallbacks", 1)
         bad = {step}
         doomed = [path]
         # Transitive descendants: any delta whose back-chain passes
@@ -1079,7 +1066,7 @@ class Checkpointer:
                 _log.warning(
                     "quarantining %s: chained on corrupt step %d",
                     os.path.basename(p), step)
-                self._obs_event("checkpoint_fallback", path=p,
+                _obs_event("checkpoint_fallback", path=p,
                            step=int(step), chained=True,
                            error="chained on quarantined step")
             try:
@@ -1211,9 +1198,9 @@ class Checkpointer:
         if resplit:
             _log.info("checkpoint step %d: mesh-shape re-split %s -> %s",
                       step, saved_shape, cur_shape)
-            self._obs_event("checkpoint_resplit", step=int(step),
+            _obs_event("checkpoint_resplit", step=int(step),
                        from_shape=saved_shape, to_shape=cur_shape)
-            self._obs_metric("inc", "checkpoint.resplits", 1)
+            _obs_metric("inc", "checkpoint.resplits", 1)
         for name, spec in store.specs.items():
             if name not in values_by_name:
                 raise ValueError(
@@ -1400,9 +1387,9 @@ class Checkpointer:
                 _log.warning("background chain compaction failed "
                              "(chain left as-is, retried at the next "
                              "publish): %r", e)
-                self._obs_event("compaction_aborted", error=repr(e),
+                _obs_event("compaction_aborted", error=repr(e),
                            dir=self.dir)
-                self._obs_metric("inc", "storage.compaction_aborts", 1)
+                _obs_metric("inc", "storage.compaction_aborts", 1)
 
     def compact(self) -> str | None:
         """Fold the newest chain into a fresh FULL at its head step —
@@ -1458,11 +1445,11 @@ class Checkpointer:
             # disk): it must ride the same payload accounting the bench
             # ratios and the obs_report delta-vs-full comparison read.
             self.publish_bytes_total += nbytes
-            self._obs_metric("set", "checkpoint.bytes", nbytes)
-        self._obs_event("checkpoint_compacted", step=int(head), path=path,
+            _obs_metric("set", "checkpoint.bytes", nbytes)
+        _obs_event("checkpoint_compacted", step=int(head), path=path,
                    folded=len(members), seconds=round(secs, 4),
                    bytes=nbytes)
-        self._obs_metric("inc", "checkpoint.compactions", 1)
+        _obs_metric("inc", "checkpoint.compactions", 1)
         # Sweep the folded DELTA links (the head's delta file is now
         # shadowed by the full; the others are folded into it). The base
         # full is deliberately left to normal retention — it remains a
@@ -1655,7 +1642,7 @@ class AsyncCheckpointer(Checkpointer):
         path = self._path(int(step))
         self._enqueue(("deferred", int(step), collect, touched_rows),
                       int(step), path, when_full)
-        self._obs_metric("observe", "checkpoint.dump_seconds",
+        _obs_metric("observe", "checkpoint.dump_seconds",
                     time.perf_counter() - t0)
         return path
 
@@ -1692,18 +1679,18 @@ class AsyncCheckpointer(Checkpointer):
                 # instantaneous write. No lock cycle: the writer takes
                 # the recorder lock only from _write, never while
                 # waiting on this cv.
-                self._obs_event("checkpoint_enqueued", step=step, path=path,
+                _obs_event("checkpoint_enqueued", step=step, path=path,
                            **({"capture": "writer"} if deferred else {}))
-                self._obs_metric("inc", "checkpoint.enqueues", 1)
+                _obs_metric("inc", "checkpoint.enqueues", 1)
                 self._cv.notify_all()
         if backlog is not None:
             _log.warning(
                 "checkpoint publish step %d DEGRADED (writer busy; "
                 "backlog %d)", step, backlog)
-            self._obs_event("checkpoint_degraded", step=step, backlog=backlog,
+            _obs_event("checkpoint_degraded", step=step, backlog=backlog,
                        error="writer busy (queue slot full)")
-            self._obs_metric("inc", "storage.degraded_publishes", 1)
-            self._obs_metric("set", "checkpoint.publish_backlog", backlog)
+            _obs_metric("inc", "storage.degraded_publishes", 1)
+            _obs_metric("set", "checkpoint.publish_backlog", backlog)
             return False
         return True
 
@@ -1788,7 +1775,7 @@ class AsyncCheckpointer(Checkpointer):
                     try:
                         t0 = time.perf_counter()
                         arrays = _run_capture(collect)
-                        self._obs_metric("observe", "checkpoint.capture_seconds",
+                        _obs_metric("observe", "checkpoint.capture_seconds",
                                     time.perf_counter() - t0)
                         with self._cv:
                             if self._degraded_chain:
@@ -1812,8 +1799,8 @@ class AsyncCheckpointer(Checkpointer):
                     # the whole backlog of skipped recency drains here.
                     with self._cv:
                         self._publish_backlog = 0
-                    self._obs_metric("set", "checkpoint.publish_backlog", 0)
-                    self._obs_event("checkpoint_backlog_drained",
+                    _obs_metric("set", "checkpoint.publish_backlog", 0)
+                    _obs_event("checkpoint_backlog_drained",
                                step=int(step))
             except BaseException as e:  # noqa: BLE001 - re-raised on caller
                 if self.degrade and self._degradable(e):
@@ -1831,10 +1818,10 @@ class AsyncCheckpointer(Checkpointer):
                         "checkpoint publish step %d DEGRADED (skipped "
                         "after retries; backlog %d): %r", step, backlog,
                         e)
-                    self._obs_event("checkpoint_degraded", step=int(step),
+                    _obs_event("checkpoint_degraded", step=int(step),
                                backlog=backlog, error=repr(e))
-                    self._obs_metric("inc", "storage.degraded_publishes", 1)
-                    self._obs_metric("set", "checkpoint.publish_backlog",
+                    _obs_metric("inc", "storage.degraded_publishes", 1)
+                    _obs_metric("set", "checkpoint.publish_backlog",
                                 backlog)
                 else:
                     with self._cv:

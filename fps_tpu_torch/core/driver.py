@@ -79,13 +79,28 @@ push; its outputs ride the metrics under ``"tap"``.
   :class:`~fps_tpu_torch.core.resilience.RollbackPolicy`;
   :meth:`Trainer.restore_checkpoint` restores onto any mesh.
 
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP.md
-Queue 1 item that ports each: telemetry and supervision (item 9).
+* **telemetry** (:mod:`fps_tpu_torch.obs`): ``Trainer(recorder=...)`` (or
+  each call's ``recorder``) times every chunk's and epoch's host phases
+  (:class:`~fps_tpu_torch.obs.PhaseTimer`), counts the ``driver.*``,
+  ``health.*``, ``rollback.*``, ``hot_tier.*`` and ``cold_route.*`` leaves
+  and journals ``chunk`` / ``epoch`` events; ``health`` (a
+  :class:`~fps_tpu_torch.obs.HealthMonitor`) escalates the guard from
+  observe to mask or aborts, and ``watchdog`` (a
+  :class:`~fps_tpu_torch.obs.StepWatchdog`) flags stalled chunks. A
+  recorder changes no table, launch or host synchronisation: its phases
+  time the syncs the loop already makes. While a profiler runs, the step
+  names its pulls, compute and pushes with ``record_function`` ranges
+  (``fps.pull``, ``fps.compute``, ``fps.push``, ...); otherwise it opens
+  none.
+
+Refused with ``NotImplementedError`` naming the ROADMAP.md Queue 1 item
+that ports it: ``Trainer(audit=...)`` (the program auditor, item 10).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -108,6 +123,13 @@ from fps_tpu_torch.core.prefetch import (
 )
 from fps_tpu_torch.core.resilience import RollbackPolicy, tree_copy
 from fps_tpu_torch.core.rng import fold_seed
+from fps_tpu_torch.obs.health import (
+    HEALTH_ABORT,
+    HEALTH_ESCALATE,
+    HealthMonitor,
+    StepWatchdog,
+)
+from fps_tpu_torch.obs.timing import PhaseTimer
 from fps_tpu_torch.core.store import (
     ParamStore,
     accumulate_hot,
@@ -154,6 +176,28 @@ HOT_TIER_KEY = resilience.HOT_TIER_KEY
 # fit_stream's end of stream.
 _STREAM_END = object()
 
+_NULL = contextlib.nullcontext()
+_autograd_profiler = torch.autograd.profiler
+
+
+def _phase(timer: PhaseTimer | None, name: str):
+    """Timer phase scope, or a free no-op when telemetry is off."""
+    return timer.phase(name) if timer is not None else _NULL
+
+
+def _watch(watchdog: StepWatchdog | None, what: str, index: int):
+    return watchdog.watch(what, index) if watchdog is not None else _NULL
+
+
+def _scope(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs (the reference's ``jax.named_scope``); otherwise a free
+    no-op, since opening a range is a dispatcher call even with no
+    profiler."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
@@ -199,11 +243,12 @@ class TrainerConfig:
     (0: the synchronous host loop); ``prefetch_max > 0`` lets the depth
     rise to it when the driver keeps finding the buffer empty
     (:class:`~fps_tpu_torch.core.prefetch.ChunkPrefetcher`). ``health_lag``
-    is 0 or 1; it acts where a rollback policy forces a host read of every
-    chunk's metrics: at 1, chunk ``i - 1``'s are read while chunk ``i``
-    runs, a quarantine of ``i - 1`` restores the state from before it and
-    runs chunk ``i`` again, and the tables and metrics are those of 0 bit
-    for bit. ``metrics_drain_every``: without ``on_chunk``,
+    is 0 or 1; it acts where a rollback policy, a health monitor or a
+    watchdog forces a host read of every chunk's metrics: at 1, chunk
+    ``i - 1``'s are read while chunk ``i`` runs, a quarantine of ``i - 1``
+    restores the state from before it and runs chunk ``i`` again, and the
+    tables and metrics are those of 0 bit for bit (a monitor's escalation
+    lands one chunk later). ``metrics_drain_every``: without ``on_chunk``,
     ``fit_stream`` moves the buffered metrics to the host every this many
     chunks (0: at the end only).
 
@@ -265,7 +310,16 @@ class Trainer:
                  worker_logic: WorkerLogic,
                  server_logic: Mapping[str, ServerLogic] | ServerLogic = (
                      ServerLogic()),
-                 config: TrainerConfig | None = None):
+                 config: TrainerConfig | None = None, recorder=None,
+                 audit=None):
+        # Telemetry (fps_tpu_torch.obs.Recorder): host-side only; None
+        # means the drivers make no obs call. Assignable after
+        # construction and overridable per fit_stream / run_indexed call.
+        self.recorder = recorder
+        if audit is not None:
+            raise NotImplementedError(
+                "Trainer(audit=...) is not ported yet: the program auditor "
+                "(ROADMAP.md Queue 1 item 10)")
         self.mesh = mesh
         self.device = mesh.device
         self.store = param_store
@@ -559,7 +613,7 @@ class Trainer:
                                          self.mesh),
                       replicas=len(self.mesh.slot), mesh=self.mesh)
 
-    def _attach_hot(self, tables):
+    def _attach_hot(self, tables, timer=None):
         """``tables`` with exactly the tier entries the resolution calls for:
         each tiered table's replica (kept when live and of its size, else
         derived from the canonical table: the static head by
@@ -573,7 +627,9 @@ class Trainer:
         the untiered program again. Called at the entry of ``run_chunk``,
         ``fit_stream`` and ``run_indexed`` and by the retierer's plans:
         the replicas are valid at any call boundary, since every call ends
-        in a reconcile."""
+        in a reconcile. Only a derivation is timed (``timer``'s
+        ``reconcile`` phase): the steady per-chunk call checks shapes
+        only."""
         tier = self._hot_tier_map()
         mapped = self._mapped_tables()
         track = self._track_specs()
@@ -601,6 +657,15 @@ class Trainer:
             shapes[fold_key(name)] = fold_shape(name)
         out = {k: v for k, v in tables.items()
                if k in canonical or tuple(v[0].shape) == shapes.get(k)}
+        if all(k in out for k in shapes):
+            return out
+        with _phase(timer, "reconcile"):
+            self._derive_tier(out, tier, mapped, track, folds, fold_shape)
+        return out
+
+    def _derive_tier(self, out, tier, mapped, track, folds, fold_shape):
+        """The missing tier entries of :meth:`_attach_hot`, added to
+        ``out``."""
         for name in sorted(tier):
             if hot_key(name) in out:
                 continue
@@ -635,7 +700,6 @@ class Trainer:
                                  device=dev)
                      for dev in self.mesh.positions],
                     replicas=self.mesh.shape[DATA_AXIS], mesh=self.mesh)
-        return out
 
     def _enter_tiering(self) -> None:
         """A run's entry (``fit_stream``, ``run_indexed``): attach
@@ -681,43 +745,48 @@ class Trainer:
         hp = self._head_prefix(batches[0])
         ids = [self.logic.pull_ids(b) for b in batches]
         if track is not None:
-            for name, cm in sorted(track.specs.items()):
-                if name in ids[0]:
-                    track.windows[name] = [
-                        sklib.cm_update(cm, w, i[name])
-                        for w, i in zip(track.windows[name], ids)]
-        pulled = [{} for _ in batches]
-        counts = [{} for _ in batches]
-        heads = tier.heads if tier is not None else {}
-        for name in ids[0]:
-            tids = [i[name] for i in ids]
-            route = dict(hot_rows=self._hot_rows(name),
-                         head_prefix=hp.get(name, 0))
-            H = heads.get(name, 0)
-            if snapshot is None and H:
-                vals = self._pull_tiered(tables, tier, name, H, tids,
-                                         counts)
-            elif snapshot is None:
-                vals = pull(tables[name], tids, num_shards=self.num_shards,
-                            dense=self._dense(name), mesh=self.mesh,
-                            **route)
-            else:
-                rps = tables[name][0].shape[0]
-                # -1 padding stays -1 (a zero row): the floor-mod of
-                # id_to_phys would wrap it onto a live row for S > 1.
-                # On one shard phys == ids, so the head guarantee holds.
-                vals = [ops.gather_rows(
-                    snap, torch.where(t >= 0, id_to_phys(
-                        t, self.num_shards, rps), -1), **route)
-                    for snap, t in zip(snapshot[name], tids)]
-            for p, v in zip(pulled, vals):
-                p[name] = v
-        outs = [self.logic.step(b, p, s, k)
-                for b, p, s, k in zip(batches, pulled, states, keys)]
-        guard = resilience.as_guard(self.config.guard)
-        if guard is not None:
-            outs = [self._guard_step(guard, o, s, b)
-                    for o, s, b in zip(outs, states, batches)]
+            with _scope("fps.sketch"):
+                for name, cm in sorted(track.specs.items()):
+                    if name in ids[0]:
+                        track.windows[name] = [
+                            sklib.cm_update(cm, w, i[name])
+                            for w, i in zip(track.windows[name], ids)]
+        with _scope("fps.pull"):
+            pulled = [{} for _ in batches]
+            counts = [{} for _ in batches]
+            heads = tier.heads if tier is not None else {}
+            for name in ids[0]:
+                tids = [i[name] for i in ids]
+                route = dict(hot_rows=self._hot_rows(name),
+                             head_prefix=hp.get(name, 0))
+                H = heads.get(name, 0)
+                if snapshot is None and H:
+                    vals = self._pull_tiered(tables, tier, name, H, tids,
+                                             counts)
+                elif snapshot is None:
+                    vals = pull(tables[name], tids,
+                                num_shards=self.num_shards,
+                                dense=self._dense(name), mesh=self.mesh,
+                                **route)
+                else:
+                    rps = tables[name][0].shape[0]
+                    # -1 padding stays -1 (a zero row): the floor-mod of
+                    # id_to_phys would wrap it onto a live row for S > 1.
+                    # On one shard phys == ids, so the head guarantee
+                    # holds.
+                    vals = [ops.gather_rows(
+                        snap, torch.where(t >= 0, id_to_phys(
+                            t, self.num_shards, rps), -1), **route)
+                        for snap, t in zip(snapshot[name], tids)]
+                for p, v in zip(pulled, vals):
+                    p[name] = v
+        with _scope("fps.compute"):
+            outs = [self.logic.step(b, p, s, k)
+                    for b, p, s, k in zip(batches, pulled, states, keys)]
+            guard = resilience.as_guard(self.config.guard)
+            if guard is not None:
+                outs = [self._guard_step(guard, o, s, b)
+                        for o, s, b in zip(outs, states, batches)]
         return ([o.pushes for o in outs], hp, [o.local_state for o in outs],
                 [o.out for o in outs], counts)
 
@@ -847,9 +916,10 @@ class Trainer:
                     c[name] = x
             sl = self.server_logic[name]
             fold = as_hot_fold(sl.hot_fold)
-            tier.deltas[name] = [
-                accumulate_hot(buf, i, d, combine=sl.combine, fold=fold)
-                for buf, (i, d) in zip(tier.deltas[name], hots)]
+            with _scope("fps.hot_accumulate"):
+                tier.deltas[name] = [
+                    accumulate_hot(buf, i, d, combine=sl.combine, fold=fold)
+                    for buf, (i, d) in zip(tier.deltas[name], hots)]
         if cold[0]:
             tables = self._apply_pushes(tables, cold, head_prefix)
         return tables, dropped
@@ -947,15 +1017,19 @@ class Trainer:
             tables, snapshot, states, batches, keys, tier, track)
         if tier is not None:
             # push_delay is 0 with the tier on (_hot_tier_map).
-            tables, dropped = self._apply_hot_split(tables, tier, pushes, hp)
+            with _scope("fps.push"):
+                tables, dropped = self._apply_hot_split(tables, tier,
+                                                        pushes, hp)
             out = self._mount_hot_channel(out, counts, dropped, tier)
         else:
             # This step's pushes go in flight, with the head-prefix
             # guarantee of the batch that made them; the pushes of
             # push_delay steps ago land (at push_delay = 0, this step's own).
             in_flight.append((pushes, hp))
-            while len(in_flight) > self.config.push_delay:
-                tables = self._apply_pushes(tables, *in_flight.popleft())
+            with _scope("fps.push"):
+                while len(in_flight) > self.config.push_delay:
+                    tables = self._apply_pushes(tables,
+                                                *in_flight.popleft())
         # Metrics summed over the shards, then the data replicas.
         out = _sum_metrics(self.mesh, out)
         outs.append(self._run_tap(out, tables, batches, states, t))
@@ -1048,7 +1122,8 @@ class Trainer:
                 # the call ends with its ragged tail's.
                 if tier is not None and ((i + 1) % E == 0
                                          or i == num_steps - 1):
-                    tables = self._reconcile(tables, tier)
+                    with _scope("fps.reconcile"):
+                        tables = self._reconcile(tables, tier)
         else:
             for r in range(num_steps // s):
                 # The round's reads see the tables as the round begins: a
@@ -1063,9 +1138,11 @@ class Trainer:
                 if tier is not None:
                     # Before the next round's snapshot, which must see the
                     # reconciled head rows.
-                    tables = self._reconcile(tables, tier)
-        while in_flight:  # the end of the call: deliver what is in flight
-            tables = self._apply_pushes(tables, *in_flight.popleft())
+                    with _scope("fps.reconcile"):
+                        tables = self._reconcile(tables, tier)
+        with _scope("fps.push"):
+            while in_flight:  # the call's end: deliver what is in flight
+                tables = self._apply_pushes(tables, *in_flight.popleft())
         D = mesh.shape[DATA_AXIS]
         tables = {name: Blocks(tb, replicas=D, mesh=mesh)
                   for name, tb in tables.items()}
@@ -1080,9 +1157,10 @@ class Trainer:
                 tables[map_key(name)] = maps[name]
                 tables[ids_key(name)] = gids[name]
         if track is not None:
-            for name in sorted(track.specs):
-                tables[sketch_key(name)] = merge_windows(
-                    mesh, sketches[name], track.windows[name])
+            with _scope("fps.sketch_merge"):
+                for name in sorted(track.specs):
+                    tables[sketch_key(name)] = merge_windows(
+                        mesh, sketches[name], track.windows[name])
         local_state = _tree_stack(states, lambda xs: Blocks(xs, mesh=mesh))
         return tables, local_state, _tree_stack(outs, torch.stack)
 
@@ -1126,30 +1204,40 @@ class Trainer:
             be certified and takes the static routes.
           seed: seed of this chunk's ``torch.Generator`` (for ``prepare`` /
             ``step`` draws, e.g. negative sampling).
-          timer, recorder: the JAX package's phase timer and recorder
-            (telemetry, ROADMAP.md Queue 1 item 9); not ported, any value
-            but ``None`` raises ``NotImplementedError``.
+          timer: optional :class:`fps_tpu_torch.obs.PhaseTimer`: the
+            placement goes to ``place``, the steps' launches to
+            ``dispatch``. ``fit_stream`` passes its own; standalone callers
+            may too.
+          recorder: optional :class:`fps_tpu_torch.obs.Recorder` for the
+            cold lanes' certification counters (``cold_route.*``; default
+            ``self.recorder``).
 
         Returns:
           ``(tables, local_state, metrics)``: metrics is a dict of ``(T,)``
           tensors on the device, one entry per step, summed over workers.
         """
-        _refuse("run_chunk", timer=(timer, "item 9, slice F"),
-                recorder=(recorder, "item 9, slice F"))
-        tables = self._attach_hot(tables)
+        rec = recorder if recorder is not None else self.recorder
+        tables = self._attach_hot(tables, timer)
         compact = self._cold_compact_map()
         if compact:
             # The chunk takes the compacted lanes only where it certifies;
             # an overflowing chunk takes the static routes, the same bits
             # as cold_budget = 0.
-            fits, _ = self._certify_cold(
+            fits, overflowed = self._certify_cold(
                 batches.host_ids if isinstance(batches, PlacedChunk)
                 else self._host_cert_ids(batches))
+            if rec is not None:
+                if fits:
+                    rec.inc("cold_route.compact_chunks")
+                else:
+                    for t in overflowed:
+                        rec.inc("cold_route.overflow_chunks", table=t)
             if not fits:
                 compact = {}
-        if not isinstance(batches, PlacedChunk):
-            batches = self._place_chunk(batches)
-        batches = placed_batches(batches, self.device)
+        with _phase(timer, "place"):
+            if not isinstance(batches, PlacedChunk):
+                batches = self._place_chunk(batches)
+            batches = placed_batches(batches, self.device)
         lead = next(iter(batches.values())).shape
         if self.config.sync_every is None:
             steps = lead[0]
@@ -1161,8 +1249,9 @@ class Trainer:
             steps = lead[0] * lead[1]
             batches = {k: v.reshape((steps,) + v.shape[2:])
                        for k, v in batches.items()}
-        tables, local_state, metrics = self._run_steps(
-            tables, local_state, batches, steps, seed, compact=compact)
+        with _phase(timer, "dispatch"):
+            tables, local_state, metrics = self._run_steps(
+                tables, local_state, batches, steps, seed, compact=compact)
         # Keep the store's host reads (lookup_host / dump_model) on the
         # live tensors.
         self.store.tables = dict(tables)
@@ -1340,6 +1429,115 @@ class Trainer:
                 "TrainerConfig.guard ('observe' for pure quarantine "
                 "semantics, 'mask' to also drop poison rows in-step)")
 
+    def _check_health(self, health) -> None:
+        if health is None:
+            return
+        if not isinstance(health, HealthMonitor):
+            raise TypeError(
+                f"health must be a fps_tpu_torch.obs.HealthMonitor, got "
+                f"{type(health).__name__}")
+        if resilience.as_guard(self.config.guard) is None:
+            raise ValueError(
+                "a HealthMonitor needs the health channel: set "
+                "TrainerConfig.guard ('observe' to run cheap until the "
+                "monitor escalates to mask, or 'mask' outright)")
+
+    def _record_health(self, rec, metrics) -> int:
+        """Fold one host metrics dict's health channel into the recorder
+        (per-table counters) and return the poisoned-row total that the
+        HealthMonitor thresholds (the nonfinite and norm tiers)."""
+        h = (metrics.get(resilience.HEALTH_KEY)
+             if isinstance(metrics, Mapping) else None)
+        if not h:
+            return 0
+        poison = 0
+        for table, counters in h.items():
+            nf = int(np.sum(np.asarray(counters.get("nonfinite", 0))))
+            nm = int(np.sum(np.asarray(counters.get("norm", 0))))
+            mk = int(np.sum(np.asarray(counters.get("masked", 0))))
+            if rec is not None:
+                # Zero increments too: a clean guarded run's digest shows
+                # the table at 0 rather than as unguarded.
+                rec.inc("health.nonfinite_rows", nf, table=table)
+                rec.inc("health.norm_rows", nm, table=table)
+                rec.inc("health.masked_rows", mk, table=table)
+            poison += nf + nm
+        return poison
+
+    def _fold_metrics_accounting(self, rec, metrics, ev=None) -> int:
+        """The one per-chunk / per-epoch telemetry fold of a host metrics
+        dict: the per-table health counters (and
+        ``health.poisoned_chunks``), the hot tier's counters, the example
+        and step counters from the ``"n"`` leaf, and, with a journal event
+        dict ``ev``, its ``examples`` / ``poison_rows`` fields. Returns
+        the poisoned-row total."""
+        poison = self._record_health(rec, metrics)
+        ht = (metrics.get(HOT_TIER_KEY)
+              if isinstance(metrics, Mapping) else None)
+        if ht and rec is not None:
+            for table, counters in ht.items():
+                # .get: an SSP run's reads come from the round snapshot,
+                # not the replica, and carry no pull counters.
+                rec.inc("hot_tier.hot_rows", float(np.sum(np.asarray(
+                    counters.get("hot_rows", 0)))), table=table)
+                rec.inc("hot_tier.pulled_rows", float(np.sum(np.asarray(
+                    counters.get("pulled_rows", 0)))), table=table)
+                if "cold_dropped" in counters:
+                    # Always zero for a certified chunk: nonzero would be a
+                    # certifier bug, surfaced rather than lost.
+                    rec.inc("hot_tier.cold_dropped", float(np.sum(
+                        np.asarray(counters["cold_dropped"]))), table=table)
+                # Peak pending-delta magnitude over the call's steps.
+                ds = np.asarray(counters.get("delta_sq", 0.0))
+                rec.set("hot_tier.pending_delta",
+                        float(np.sqrt(np.max(ds))) if ds.size else 0.0,
+                        table=table)
+        if rec is not None:
+            if poison:
+                rec.inc("health.poisoned_chunks")
+                if ev is not None:
+                    ev["poison_rows"] = poison
+            if isinstance(metrics, Mapping) and "n" in metrics:
+                n = float(np.sum(metrics["n"]))
+                rec.inc("driver.examples", n)
+                rec.inc("driver.steps", int(np.shape(metrics["n"])[0]))
+                if ev is not None:
+                    ev["examples"] = n
+        return poison
+
+    def _apply_health_decision(self, health, rec, index, poison, what):
+        """Feed the monitor and apply its decision: escalate swaps this
+        trainer's guard observe -> mask (the next chunk or epoch screens in
+        mask mode), abort raises PoisonedStreamError after flushing the
+        telemetry."""
+        if health is None:
+            return
+        decision = health.update(index, poison)
+        if decision == HEALTH_ESCALATE:
+            guard = resilience.as_guard(self.config.guard)
+            if guard is not None and guard.mode == "observe":
+                self.config = dataclasses.replace(
+                    self.config,
+                    guard=dataclasses.replace(guard, mode="mask"))
+                _log.warning(
+                    "health monitor: escalating guard observe->mask at "
+                    "%s %d (%d poisoned rows >= %d)", what, index,
+                    health.poison_rows, health.escalate_after_rows)
+                if rec is not None:
+                    rec.event("guard_escalated", index=int(index), what=what,
+                              poison_rows=health.poison_rows)
+        elif decision == HEALTH_ABORT:
+            if rec is not None:
+                rec.event("health_abort", index=int(index), what=what,
+                          poisoned_chunks=health.poisoned_chunks,
+                          poison_rows=health.poison_rows)
+                rec.flush()
+            raise resilience.PoisonedStreamError(
+                f"health monitor abort at {what} {index}: "
+                f"{health.poisoned_chunks} poisoned {what}s (threshold "
+                f"{health.abort_after_chunks}), {health.poison_rows} "
+                "poisoned rows total")
+
     def _maybe_quarantine(self, rollback, last_good, metrics, index, what):
         """The rollback step of ``fit_stream`` (chunks) and ``run_indexed``
         (epochs): the metrics to the host and, when the health channel
@@ -1409,21 +1607,35 @@ class Trainer:
         is joined on every exit path, and an error in the source or in a
         copy re-raises here at its chunk's position.
 
+        Telemetry (:mod:`fps_tpu_torch.obs`): ``recorder`` (default
+        ``self.recorder``) times each chunk's phases (``ingest``,
+        ``place``, ``dispatch``, ``host_sync``, ``checkpoint``,
+        ``callback``; the pipeline's worker adds ``prefetch``), journals
+        ``chunk`` events and folds the health channel into per-table
+        counters; it forces no host read of its own, so a recorder costs
+        host bookkeeping only. ``health`` (a
+        :class:`~fps_tpu_torch.obs.HealthMonitor`, with a guard) escalates
+        this trainer's guard from observe to mask after N poisoned rows and
+        aborts with ``PoisonedStreamError`` after M poisoned chunks;
+        ``watchdog`` (a :class:`~fps_tpu_torch.obs.StepWatchdog`) flags a
+        chunk whose launches and read overrun its deadline. Health and the
+        watchdog, like ``rollback``, read every chunk's metrics as it
+        happens; ``health_lag = 1`` makes that read lag by one chunk
+        (chunk ``i - 1``'s is read while chunk ``i`` runs): the tables
+        equal lag 0's, except that an escalation lands one chunk later.
+
         Returns:
           ``(tables, local_state, metrics)``: the per-chunk host metrics
           list, or ``metrics_reduce(list)`` when given.
 
         Raises:
-          NotImplementedError: ``recorder`` / ``health`` / ``watchdog``
-            (telemetry and supervision, ROADMAP.md Queue 1 item 9).
           ValueError: ``prefetch`` or ``metrics_drain_every`` below 0,
-            ``health_lag`` other than 0 and 1, or a rollback policy
-            without a guard.
+            ``health_lag`` other than 0 and 1, or a rollback policy or a
+            HealthMonitor without a guard.
+          TypeError: ``health`` that is not a HealthMonitor.
         """
-        _refuse("fit_stream", recorder=(recorder, "item 9, slice F"),
-                health=(health, "item 9, slice F"),
-                watchdog=(watchdog, "item 9, slice F"))
         self._check_rollback(rollback)
+        self._check_health(health)
         cfg = self.config
         if cfg.prefetch < 0:
             raise ValueError(
@@ -1434,12 +1646,17 @@ class Trainer:
         if cfg.metrics_drain_every < 0:
             raise ValueError("TrainerConfig.metrics_drain_every must be >= "
                              f"0, got {cfg.metrics_drain_every}")
+        rec = recorder if recorder is not None else self.recorder
+        timer = PhaseTimer(rec) if rec is not None else None
         # A health-based quarantine needs the guard; a preset-only policy
         # pays neither the copies nor the per-chunk host read.
         quarantine = (rollback if rollback is not None
                       and resilience.as_guard(cfg.guard) is not None
                       else None)
-        sync_each = quarantine is not None
+        # Rollback, health and the watchdog read every chunk's metrics as
+        # it happens: a host read a chunk (lagged by one at health_lag 1).
+        sync_each = (quarantine is not None or health is not None
+                     or watchdog is not None)
         lag = 1 if (cfg.health_lag and sync_each) else 0
         saves = checkpointer is not None and checkpoint_every > 0
         overlap_ckpt = saves and (cfg.prefetch > 0 or lag > 0)
@@ -1474,13 +1691,14 @@ class Trainer:
 
         self._enter_tiering()
         # The tier's entries at the stream's entry; run_chunk keeps them.
-        tables = self._attach_hot(tables)
+        tables = self._attach_hot(tables, timer)
         it = iter(chunks)
         pf = None
         if cfg.prefetch:
             it = pf = ChunkPrefetcher(
                 it, place_for_prefetch, depth=cfg.prefetch,
-                max_depth=cfg.prefetch_max or None, start_index=start_step,
+                max_depth=cfg.prefetch_max or None, recorder=rec,
+                timer=timer, start_index=start_step,
                 skip_place=(rollback.preset if rollback is not None
                             else frozenset()),
                 device=self.device)
@@ -1492,7 +1710,9 @@ class Trainer:
             nonlocal tables
             if self.retierer is None:
                 return
-            tables = self.retierer.on_boundary(self, tables, j)
+            with _phase(timer, "retier"):
+                tables = self.retierer.on_boundary(self, tables, j,
+                                                   recorder=rec)
             self.store.tables = dict(tables)
 
         def save_due(j):
@@ -1511,23 +1731,44 @@ class Trainer:
                 return
             step, tb, ls, tc, ready = pending_save
             pending_save = None
-            self._save_checkpoint(checkpointer, step, ls, tables=tb,
-                                  touched=tc, ready=ready)
+            with _phase(timer, "checkpoint"):
+                self._save_checkpoint(checkpointer, step, ls, tables=tb,
+                                      touched=tc, ready=ready)
             saved_at = step
 
         def sync_entry(entry):
+            """The forced host read of one chunk's metrics: ``(metrics,
+            restored_or_None)``."""
             if quarantine is not None:
-                return self._maybe_quarantine(
-                    quarantine, entry["last_good"], entry["metrics"],
-                    entry["index"], "chunk")
+                with _phase(timer, "host_sync"):
+                    return self._maybe_quarantine(
+                        quarantine, entry["last_good"], entry["metrics"],
+                        entry["index"], "chunk")
+            if sync_each:
+                with _phase(timer, "host_sync"):
+                    return _to_host(entry["metrics"]), None
             return entry["metrics"], None
 
         def account_entry(entry, metrics, restored):
-            """Callbacks and the boundary save of one adjudicated chunk;
-            True when it was quarantined (the state then restored)."""
+            """Telemetry, callbacks and the boundary save of one
+            adjudicated chunk; True when it was quarantined (the state then
+            restored)."""
             nonlocal tables, local_state, pending_save, saved_at
             j = entry["index"]
+            ev = {"index": j} if rec is not None else None
+            poison = 0
+            if sync_each and (rec is not None or health is not None):
+                poison = self._fold_metrics_accounting(rec, metrics, ev)
+            if rec is not None:
+                rec.inc("driver.chunks")
+                if restored is not None:
+                    rec.inc("rollback.quarantined")
+                    ev["quarantined"] = True
+            self._apply_health_decision(health, rec, j, poison, "chunk")
             if restored is not None:
+                if rec is not None:
+                    rec.event("chunk", phases=timer.chunk_summary(), **ev)
+                    rec.flush()
                 if (self.retierer is not None
                         and entry.get("retier_state") is not None):
                     # The tracker rolls back with the tables.
@@ -1535,16 +1776,23 @@ class Trainer:
                 tables, local_state = restored
                 return True
             if on_chunk is not None:
-                metrics = _to_host(metrics)
+                with _phase(timer, "host_sync"):
+                    metrics = _to_host(metrics)
+                if rec is not None and not sync_each:
+                    # on_chunk paid the host read: the same accounting as
+                    # the forced reads.
+                    self._fold_metrics_accounting(rec, metrics, ev)
                 all_metrics.append(metrics)
-                on_chunk(j, metrics)
+                with _phase(timer, "callback"):
+                    on_chunk(j, metrics)
             else:
                 # An unbounded stream must not pile up device buffers.
                 all_metrics.append(metrics)
                 de = cfg.metrics_drain_every
                 if de and (j - start_step) % de == de - 1:
-                    all_metrics[-de:] = [_to_host(m)
-                                         for m in all_metrics[-de:]]
+                    with _phase(timer, "host_sync"):
+                        all_metrics[-de:] = [_to_host(m)
+                                             for m in all_metrics[-de:]]
             if save_due(j):
                 if entry.get("save") is not None:
                     # Lag: the copies were taken when the chunk ran.
@@ -1553,14 +1801,23 @@ class Trainer:
                 elif overlap_ckpt:
                     pending_save = boundary_copy(j)
                 else:
-                    self._save_checkpoint(checkpointer, j + 1, local_state,
-                                          touched=capture_touched())
+                    with _phase(timer, "checkpoint"):
+                        self._save_checkpoint(checkpointer, j + 1,
+                                              local_state,
+                                              touched=capture_touched())
                     saved_at = j + 1
+            if rec is not None:
+                # After the callback and checkpoint phases, so the event's
+                # breakdown covers the whole chunk; flushed at every
+                # boundary, so a kill loses at most one chunk of JSONL.
+                rec.event("chunk", phases=timer.chunk_summary(), **ev)
+                rec.flush()
             return False
 
         try:
             while True:
-                chunk = next(it, _STREAM_END)
+                with _phase(timer, "ingest"):
+                    chunk = next(it, _STREAM_END)
                 if chunk is _STREAM_END:
                     break
                 i += 1
@@ -1568,6 +1825,9 @@ class Trainer:
                     # Quarantined before: consumed, never run; the draws
                     # key off i, so later chunks are unaffected.
                     rollback.skip(i)
+                    if rec is not None:
+                        rec.inc("rollback.preset_skipped")
+                        rec.flush()
                     continue
                 if delta_touched is not None:
                     delta_touched.observe(chunk_touched_ids(chunk))
@@ -1580,12 +1840,16 @@ class Trainer:
                 cseed = fold_seed(seed, i)
                 if lag:
                     prev, pending = pending, None
-                    tables, local_state, metrics = self.run_chunk(
-                        tables, local_state, chunk, cseed)
-                    save = boundary_copy(i) if save_due(i) else None
-                    # Chunk i - 1 is judged while chunk i runs.
+                    with _watch(watchdog, "chunk", i):
+                        tables, local_state, metrics = self.run_chunk(
+                            tables, local_state, chunk, cseed, timer=timer,
+                            recorder=rec)
+                        save = boundary_copy(i) if save_due(i) else None
+                        # Chunk i - 1 is judged while chunk i runs.
+                        pmetrics = prestored = None
+                        if prev is not None:
+                            pmetrics, prestored = sync_entry(prev)
                     if prev is not None:
-                        pmetrics, prestored = sync_entry(prev)
                         if account_entry(prev, pmetrics, prestored):
                             # Chunk i ran on the poisoned state: run it
                             # again from the restored one, as lag 0 would
@@ -1596,8 +1860,11 @@ class Trainer:
                                 rt_snap = (self.retierer.snapshot()
                                            if self.retierer is not None
                                            else None)
-                            tables, local_state, metrics = self.run_chunk(
-                                tables, local_state, chunk, cseed)
+                            with _watch(watchdog, "chunk", i):
+                                tables, local_state, metrics = (
+                                    self.run_chunk(tables, local_state,
+                                                   chunk, cseed, timer=timer,
+                                                   recorder=rec))
                             save = (boundary_copy(i) if save_due(i)
                                     else None)
                         else:
@@ -1606,20 +1873,25 @@ class Trainer:
                                "last_good": last_good, "save": save,
                                "retier_state": rt_snap}
                 else:
-                    tables, local_state, metrics = self.run_chunk(
-                        tables, local_state, chunk, cseed)
-                    entry = {"index": i, "metrics": metrics,
-                             "last_good": last_good, "save": None,
-                             "retier_state": rt_snap}
-                    metrics, restored = sync_entry(entry)
+                    with _watch(watchdog, "chunk", i):
+                        tables, local_state, metrics = self.run_chunk(
+                            tables, local_state, chunk, cseed, timer=timer,
+                            recorder=rec)
+                        entry = {"index": i, "metrics": metrics,
+                                 "last_good": last_good, "save": None,
+                                 "retier_state": rt_snap}
+                        metrics, restored = sync_entry(entry)
                     # The previous boundary's deferred save: the device is
                     # already past it.
                     flush_save()
                     if not account_entry(entry, metrics, restored):
                         retier_boundary(i)
             if pending is not None:
+                # Lag 1: the last chunk is still to be judged; its forced
+                # read keeps the watchdog's cover, like every other.
                 prev, pending = pending, None
-                pmetrics, prestored = sync_entry(prev)
+                with _watch(watchdog, "chunk", prev["index"]):
+                    pmetrics, prestored = sync_entry(prev)
                 if not account_entry(prev, pmetrics, prestored):
                     retier_boundary(prev["index"])
             flush_save()
@@ -1628,8 +1900,10 @@ class Trainer:
             if (checkpointer is not None and i >= start_step
                     and saved_at != i + 1):
                 self.store.tables = dict(tables)
-                self._save_checkpoint(checkpointer, i + 1, local_state,
-                                      touched=capture_touched(), final=True)
+                with _phase(timer, "checkpoint"):
+                    self._save_checkpoint(checkpointer, i + 1, local_state,
+                                          touched=capture_touched(),
+                                          final=True)
         finally:
             if pf is not None:
                 pf.close()
@@ -1641,9 +1915,19 @@ class Trainer:
                 except Exception:
                     _log.exception("deferred checkpoint save failed during "
                                    "stream teardown")
-                checkpointer.flush()
+                with _phase(timer, "checkpoint"):
+                    checkpointer.flush()
         self.store.tables = dict(tables)
-        all_metrics = [_to_host(m) for m in all_metrics]
+        if on_chunk is None:
+            with _phase(timer, "host_sync"):
+                all_metrics = [_to_host(m) for m in all_metrics]
+            if rec is not None and not sync_each:
+                # A stream read only at its end still gets its whole-run
+                # health totals and example counts.
+                for m in all_metrics:
+                    self._fold_metrics_accounting(rec, m)
+        if rec is not None:
+            rec.flush()
         if metrics_reduce is not None and all_metrics:
             return tables, local_state, metrics_reduce(all_metrics)
         return tables, local_state, all_metrics
@@ -1700,23 +1984,31 @@ class Trainer:
         state is already saved), and flushed on every exit path.
         ``rollback``: as in :meth:`fit_stream`, an epoch at a time.
 
+        Telemetry: ``recorder`` (default ``self.recorder``) times each
+        epoch's phases (``dispatch``, ``host_sync``, ``checkpoint``,
+        ``callback``; no ``ingest`` or ``place``, the batches are built on
+        the device) and journals ``epoch`` events; ``health`` and
+        ``watchdog`` act as in :meth:`fit_stream`, an epoch at a time, and
+        like ``rollback`` read every epoch's metrics as it ends.
+
         Returns ``(tables, local_state, per-epoch metrics list)``.
 
         Raises:
-          NotImplementedError: ``recorder`` / ``health`` / ``watchdog``
-            (telemetry and supervision, ROADMAP.md Queue 1 item 9).
           ValueError: ``plan.sync_every`` differs from the config, or a
-            rollback policy without a guard.
+            rollback policy or a HealthMonitor without a guard.
+          TypeError: ``health`` that is not a HealthMonitor.
         """
-        _refuse("run_indexed", recorder=(recorder, "item 9, slice F"),
-                health=(health, "item 9, slice F"),
-                watchdog=(watchdog, "item 9, slice F"))
         self._check_rollback(rollback)
+        self._check_health(health)
         if (self.config.sync_every or None) != (plan.sync_every or None):
             raise ValueError("plan.sync_every must match TrainerConfig")
+        rec = recorder if recorder is not None else self.recorder
+        timer = PhaseTimer(rec) if rec is not None else None
         quarantine = (rollback if rollback is not None
                       and resilience.as_guard(self.config.guard) is not None
                       else None)
+        sync_each = (quarantine is not None or health is not None
+                     or watchdog is not None)
         T = plan.steps_per_epoch
         T_call = self._indexed_call_steps(plan)
         n_calls = -(-T // T_call)
@@ -1725,12 +2017,15 @@ class Trainer:
         self._enter_tiering()
         # The tier's entries at the run's entry; each call keeps them and
         # never packs its cold routes (its batches are on the device).
-        tables = self._attach_hot(tables)
+        tables = self._attach_hot(tables, timer)
         all_metrics = []
         try:
             for e in range(start_epoch, end_epoch):
                 if rollback is not None and e in rollback.preset:
                     rollback.skip(e)
+                    if rec is not None:
+                        rec.inc("rollback.preset_skipped")
+                        rec.flush()
                     continue
                 if quarantine is not None:
                     last_good = (tree_copy(tables), tree_copy(local_state))
@@ -1738,49 +2033,99 @@ class Trainer:
                                if self.retierer is not None else None)
                 args = plan.epoch_args(e)
                 parts = []
-                for c in range(n_calls):
-                    # T and T_call are sync_every multiples, so is the rest.
-                    steps = min(T_call, T - c * T_call)
-                    # Each step's batch is a view of the call's batches.
-                    batches = plan.call_batches(args, c * T_call, steps)
-                    tables, local_state, metrics = self._run_steps(
-                        tables, local_state, batches, steps,
-                        fold_seed(fold_seed(seed, e), c), c * T_call)
-                    parts.append(metrics)
-                metrics = _tree_stack(parts, torch.cat)
-                if quarantine is not None:
-                    metrics, restored = self._maybe_quarantine(
-                        quarantine, last_good, metrics, e, "epoch")
+                restored = None
+                with _watch(watchdog, "epoch", e):
+                    for c in range(n_calls):
+                        # T and T_call are sync_every multiples, so is the
+                        # rest.
+                        steps = min(T_call, T - c * T_call)
+                        # Each step's batch is a view of the call's
+                        # batches.
+                        batches = plan.call_batches(args, c * T_call, steps)
+                        with _phase(timer, "dispatch"):
+                            tables, local_state, metrics = self._run_steps(
+                                tables, local_state, batches, steps,
+                                fold_seed(fold_seed(seed, e), c),
+                                c * T_call)
+                        parts.append(metrics)
+                    metrics = _tree_stack(parts, torch.cat)
+                    if quarantine is not None:
+                        with _phase(timer, "host_sync"):
+                            metrics, restored = self._maybe_quarantine(
+                                quarantine, last_good, metrics, e, "epoch")
+                    elif sync_each:
+                        with _phase(timer, "host_sync"):
+                            metrics = _to_host(metrics)
+                ev = {"index": e} if rec is not None else None
+                poison = 0
+                if sync_each and (rec is not None or health is not None):
+                    poison = self._fold_metrics_accounting(rec, metrics, ev)
+                if rec is not None:
+                    rec.inc("driver.epochs")
                     if restored is not None:
-                        if rt_snap is not None:
-                            self.retierer.restore_snapshot(rt_snap)
-                        tables, local_state = restored
-                        continue
+                        rec.inc("rollback.quarantined")
+                        ev["quarantined"] = True
+                self._apply_health_decision(health, rec, e, poison, "epoch")
+                if restored is not None:
+                    if rec is not None:
+                        rec.event("epoch", phases=timer.chunk_summary(), **ev)
+                        rec.flush()
+                    if rt_snap is not None:
+                        self.retierer.restore_snapshot(rt_snap)
+                    tables, local_state = restored
+                    continue
                 all_metrics.append(metrics)
                 # Host reads through the store see the live tables before
                 # any callback runs.
                 self.store.tables = dict(tables)
                 if on_epoch is not None:
-                    all_metrics[-1] = _to_host(metrics)
-                    on_epoch(e, all_metrics[-1])
+                    with _phase(timer, "host_sync"):
+                        host = _to_host(metrics)
+                    if rec is not None and not sync_each:
+                        # on_epoch paid the host read: the same accounting
+                        # as the forced reads.
+                        self._fold_metrics_accounting(rec, host, ev)
+                    all_metrics[-1] = host
+                    with _phase(timer, "callback"):
+                        on_epoch(e, host)
                 if (checkpointer is not None and checkpoint_every > 0
                         and (e + 1) % checkpoint_every == 0):
-                    self._save_checkpoint(checkpointer, e + 1, local_state)
+                    with _phase(timer, "checkpoint"):
+                        self._save_checkpoint(checkpointer, e + 1,
+                                              local_state)
                     saved_at = e + 1
+                if rec is not None:
+                    # After the callback and checkpoint phases, so the
+                    # event's breakdown covers the whole epoch.
+                    rec.event("epoch", phases=timer.chunk_summary(), **ev)
+                    rec.flush()
                 if self.retierer is not None:
                     # The adaptive tier's boundary: fold the epoch's
                     # windows, maybe re-rank or plan.
-                    tables = self.retierer.on_boundary(self, tables, e)
+                    with _phase(timer, "retier"):
+                        tables = self.retierer.on_boundary(
+                            self, tables, e, recorder=rec)
                     self.store.tables = dict(tables)
             self.store.tables = dict(tables)
             if (checkpointer is not None and epochs > 0
                     and saved_at != end_epoch):
-                self._save_checkpoint(checkpointer, end_epoch, local_state)
+                with _phase(timer, "checkpoint"):
+                    self._save_checkpoint(checkpointer, end_epoch,
+                                          local_state)
         finally:
             if checkpointer is not None:
-                checkpointer.flush()
+                with _phase(timer, "checkpoint"):
+                    checkpointer.flush()
         if on_epoch is None and as_numpy:
-            all_metrics = [_to_host(m) for m in all_metrics]
+            with _phase(timer, "host_sync"):
+                all_metrics = [_to_host(m) for m in all_metrics]
+            if rec is not None and not sync_each:
+                # A run read only at its end still gets its whole-run
+                # health totals and example counts.
+                for m in all_metrics:
+                    self._fold_metrics_accounting(rec, m)
+        if rec is not None:
+            rec.flush()
         return tables, local_state, all_metrics
 
 
@@ -1818,17 +2163,6 @@ def merge_windows(mesh: PSMesh, incoming, windows) -> Blocks:
         mesh, list(windows), SHARD_AXIS), DATA_AXIS)
     return Blocks([inc + m for inc, m in zip(incoming, merged)],
                   replicas=len(mesh.slot), mesh=mesh)
-
-
-def _refuse(fn: str, **args) -> None:
-    """Raise ``NotImplementedError`` for the first unported argument of
-    ``fn`` that was given: ``args`` maps its name to ``(value, item)``,
-    ``None`` meaning not given."""
-    for name, (value, item) in args.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{fn}({name}=...) is not ported yet (ROADMAP.md Queue 1 "
-                f"{item})")
 
 
 def _tree_map(fn, tree):

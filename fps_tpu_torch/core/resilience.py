@@ -363,15 +363,15 @@ class RollbackPolicy:
     never run (no copy, no metrics entry), which is how a quarantine
     outlives a restart. A preset-only policy needs no guard.
 
-    ``events`` stands in for the reference's journal (ROADMAP.md Queue 1
-    item 9): one ``(kind, fields)`` pair a skip, a rollback and an abort.
+    Each skip, rollback and abort goes to the run journal through the
+    process-default recorder (:func:`fps_tpu_torch.obs.events.emit`; a
+    no-op when none is installed).
     """
 
     max_rollbacks: int = 8
     quarantined: list = dataclasses.field(default_factory=list)
     preset: frozenset = frozenset()
     skipped: list = dataclasses.field(default_factory=list)
-    events: list = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
         self.preset = frozenset(int(i) for i in self.preset)
@@ -379,21 +379,25 @@ class RollbackPolicy:
     def skip(self, index: int) -> None:
         """Record one preset index skipped without running (no budget)."""
         self.skipped.append(index)
-        self.events.append(("preset_skip", {"index": int(index),
-                                            "total": len(self.skipped)}))
+        from fps_tpu_torch.obs import events as _obs_events
+
+        _obs_events.emit("preset_skip", index=int(index),
+                         total=len(self.skipped))
 
     def record(self, index: int) -> None:
         """Record a quarantined index; raises :class:`PoisonedStreamError`
         once the budget is exceeded (the index is appended first). The
         driver restores the last good state before calling this."""
         self.quarantined.append(index)
-        self.events.append(("rollback", {
-            "index": int(index), "total": len(self.quarantined),
-            "budget": self.max_rollbacks}))
+        from fps_tpu_torch.obs import events as _obs_events
+
+        _obs_events.emit("rollback", index=int(index),
+                         total=len(self.quarantined),
+                         budget=self.max_rollbacks)
         if len(self.quarantined) > self.max_rollbacks:
-            self.events.append(("poisoned_stream_abort", {
-                "quarantined": list(self.quarantined),
-                "budget": self.max_rollbacks}))
+            _obs_events.emit("poisoned_stream_abort",
+                             quarantined=list(self.quarantined),
+                             budget=self.max_rollbacks)
             raise PoisonedStreamError(
                 f"rollback budget exhausted ({self.max_rollbacks}); "
                 f"quarantined chunks: {self.quarantined}")

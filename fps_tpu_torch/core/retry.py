@@ -351,7 +351,7 @@ _net_env_checked = False
 def install_net_injector(inj) -> None:
     """Install ``inj`` as the process-global NETWORK fault injector.
     Its ``check(op, peer_class)`` is consulted by every socket seam in
-    of the serving plane (ROADMAP.md Queue 1 item 9). Passing None
+    of the serving plane (ROADMAP.md Queue 1 item 9b). Passing None
     uninstalls."""
     global _net_injector
     _net_injector = inj
@@ -378,10 +378,10 @@ def get_net_injector():
 
 def _load_env_net_injector(spec: str):
     """The network schedule's injector (``FaultNet``) comes with the
-    serving plane's wire (ROADMAP.md Queue 1 item 9)."""
+    serving plane's wire and its chaos harness (ROADMAP.md Queue 1 item 9c)."""
     raise NotImplementedError(
         f"{FAULTNET_ENV} is not ported yet: the network fault injector "
-        "comes with the serving plane (ROADMAP.md Queue 1 item 9)")
+        "comes with the chaos harnesses (ROADMAP.md Queue 1 item 9c)")
 
 
 def net_fault_check(op: str, peer_class: str):

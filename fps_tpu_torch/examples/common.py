@@ -23,9 +23,15 @@ and at the end (``--checkpoint-async``: the background writer);
 ``--export PATH`` writes the final model, ``--warm-start PATH`` loads one
 before training; ``--guard observe|mask`` (with ``--guard-norm-limit`` and
 ``--guard-local``) screens every push, and ``--rollback-budget K``
-quarantines up to K poisoned chunks. ``--heartbeat``, ``--serve-port`` and
-``--obs-dir`` (the supervisor, serving and telemetry) are ROADMAP.md Queue
-1 item 9 and exit naming it.
+quarantines up to K poisoned chunks.
+
+Telemetry (:mod:`fps_tpu_torch.obs`): ``--obs-dir DIR`` writes the run's
+JSONL event log, run journal and Prometheus exposition under ``DIR``
+(:func:`attach_obs`; render them with ``tools/obs_report.py DIR``), and
+``--obs-watchdog-s S`` flags any chunk whose launches and read take longer
+than ``S`` seconds (:func:`make_watchdog`). ``--heartbeat`` (the
+supervisor's contract, ROADMAP.md Queue 1 item 9c) and ``--serve-port``
+(the serving plane, item 9b) exit naming their item.
 
 ``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
 examples: by default over every visible CUDA device, or with every position
@@ -146,20 +152,66 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                     help="quarantine poisoned chunks through a "
                          "RollbackPolicy with this budget (requires "
                          "--guard)")
-    for flag in ("--heartbeat", "--serve-port", "--obs-dir"):
-        ap.add_argument(flag, default=None,
-                        help="not ported yet (ROADMAP.md Queue 1 item 9)")
+    ap.add_argument("--heartbeat", default=None,
+                    help="not ported yet (the supervisor, ROADMAP.md Queue "
+                         "1 item 9c)")
+    ap.add_argument("--serve-port", default=None,
+                    help="not ported yet (the serving plane, ROADMAP.md "
+                         "Queue 1 item 9b)")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="telemetry output (fps_tpu_torch.obs): JSONL event "
+                         "log, per-process run journal, and Prometheus text "
+                         "exposition under DIR; render with "
+                         "tools/obs_report.py")
+    ap.add_argument("--obs-watchdog-s", type=float, default=None,
+                    help="flag any chunk whose launches and metrics read "
+                         "exceed this many seconds (a stalled step or a "
+                         "hung peer); forces a per-chunk metrics read")
     return ap
 
 
+_UNPORTED = {"heartbeat": "item 9c", "serve_port": "item 9b"}
+
+
 def refuse_unported(args) -> None:
-    """Exit naming the item that ports the supervisor's, the serving
-    plane's and the recorder's flags."""
-    for flag in ("heartbeat", "serve_port", "obs_dir"):
+    """Exit naming the item that ports the supervisor's and the serving
+    plane's flags."""
+    for flag, item in _UNPORTED.items():
         if getattr(args, flag, None) is not None:
             raise SystemExit(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md "
-                "Queue 1 item 9, slice F)")
+                f"Queue 1 {item})")
+
+
+def attach_obs(args, trainer=None, *, workload: str | None = None):
+    """``--obs-dir`` as an installed recorder (or ``None``): the standard
+    on-disk telemetry set (:func:`fps_tpu_torch.obs.open_run`), the
+    journal's config digest over the CLI args, installed as the
+    process-default recorder (checkpoint and rollback events flow without
+    plumbing) and attached to ``trainer`` when given. :func:`finish`
+    closes it."""
+    if getattr(args, "obs_dir", None) is None:
+        if getattr(args, "obs_watchdog_s", None) is not None:
+            raise SystemExit("--obs-watchdog-s requires --obs-dir")
+        return None
+    from fps_tpu_torch import obs
+
+    rec = obs.open_run(args.obs_dir, config=vars(args),
+                       meta={"workload": workload} if workload else None)
+    if trainer is not None:
+        trainer.recorder = rec
+    emit({"event": "obs", "dir": args.obs_dir, "run_id": rec.run_id})
+    return rec
+
+
+def make_watchdog(args, recorder):
+    """``--obs-watchdog-s`` as a StepWatchdog bound to the run's
+    recorder."""
+    if getattr(args, "obs_watchdog_s", None) is None:
+        return None
+    from fps_tpu_torch.obs import StepWatchdog
+
+    return StepWatchdog(args.obs_watchdog_s, recorder=recorder)
 
 
 def make_guard(args):
@@ -222,13 +274,16 @@ def maybe_warm_start(args, store, tables):
     return dict(store.tables)
 
 
-def finish(args, store) -> None:
-    """``--export`` at the end of the run."""
+def finish(args, store, recorder=None) -> None:
+    """``--export`` at the end of the run, and the ``--obs-dir`` recorder
+    closed (the journal's ``run_end`` and the final flush)."""
     if args.export:
         from fps_tpu_torch.core.checkpoint import export_model
 
         export_model(store, args.export)
         emit({"event": "export", "path": args.export})
+    if recorder is not None:
+        recorder.close()
 
 
 def make_mesh(args):

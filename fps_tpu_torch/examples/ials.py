@@ -20,16 +20,19 @@ loss and the epoch's seconds (its weighted loss on the host included), and
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
     apply_hot_tier,
+    attach_obs,
     base_parser,
     emit,
     make_epoch_source,
     make_mesh,
+    make_watchdog,
 )
 
 
@@ -83,21 +86,32 @@ def main(argv=None) -> int:
         raise SystemExit(f"--prefetch must be >= 0, got {args.prefetch}")
     solver.prefetch = args.prefetch
     solver.init(args.seed)
+    # The solver drives its own loop (no Trainer): the recorder journals
+    # the run, and its epochs are recorded below.
+    rec = attach_obs(args, workload="ials")
+    wd = make_watchdog(args, rec)
     # The interactions split over every device (no worker-local state to
     # route for); each epoch consumes its chunks twice, once a side.
     source = make_epoch_source(args, mesh, train)
     t0 = time.perf_counter()
     for epoch in range(args.epochs):
         te = time.perf_counter()
-        solver.epoch(lambda e=epoch: source(e, 1))
+        with (wd.watch("epoch", epoch) if wd is not None
+              else contextlib.nullcontext()):
+            solver.epoch(lambda e=epoch: source(e, 1))
         loss = solver.weighted_loss(train["user"], train["item"],
                                     train["rating"])
         emit({"event": "epoch", "epoch": epoch, "weighted_loss": loss,
               "seconds": time.perf_counter() - te})
+        if rec is not None:
+            rec.inc("driver.epochs")
+            rec.event("epoch", index=epoch, weighted_loss=float(loss))
     r = recall_at_k(solver, test["user"][:2000], test["item"][:2000],
                     k=args.topk, exclude=(train["user"], train["item"]))
     emit({"event": "done", f"recall_at_{args.topk}": r,
           "seconds": time.perf_counter() - t0})
+    if rec is not None:
+        rec.close()  # the journal's run_end and the final flush
     return 0
 
 

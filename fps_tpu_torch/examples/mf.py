@@ -26,9 +26,11 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    attach_obs,
     durability,
     finish,
     make_guard,
+    make_watchdog,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -103,6 +105,7 @@ def main(argv=None) -> int:
             trainer.config, step_tap=make_online_topk_tap(
                 store, ITEM_TABLE, args.topk, every=args.topk_every,
                 query_fn=mf_topk_query_fn(W, 2)))
+    rec = attach_obs(args, trainer, workload="mf")
     tables, local_state = trainer.init_state(args.seed)
     tables = maybe_warm_start(args, store, tables)
 
@@ -126,6 +129,7 @@ def main(argv=None) -> int:
     with prof:
         tables, local_state, _ = trainer.fit_stream(
             tables, local_state, chunks, args.seed, on_chunk=report,
+            watchdog=make_watchdog(args, rec),
             **durability(args))
     report_tiering(trainer)
     pred = predict_host(store, local_state, W, test["user"], test["item"])
@@ -144,7 +148,7 @@ def main(argv=None) -> int:
         for u, row_i, row_s in zip(users, ids, scores):
             emit({"event": "topk", "user": int(u), "items": row_i.tolist(),
                   "scores": np.round(row_s, 4).tolist()})
-    finish(args, store)
+    finish(args, store, recorder=rec)
     return 0
 
 

@@ -25,9 +25,11 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    attach_obs,
     durability,
     finish,
     make_guard,
+    make_watchdog,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -114,6 +116,7 @@ def main(argv=None) -> int:
                                         guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
+    rec = attach_obs(args, trainer, workload="pa")
     tables, local_state = trainer.init_state(args.seed)
     tables = maybe_warm_start(args, store, tables)
     chunks = make_chunks(args, mesh, train)
@@ -131,6 +134,7 @@ def main(argv=None) -> int:
     with prof:
         tables, local_state, _ = trainer.fit_stream(
             tables, local_state, chunks, args.seed, on_chunk=report,
+            watchdog=make_watchdog(args, rec),
             **durability(args))
     seconds = time.perf_counter() - t0
     pred = predict_host(store, test["feat_ids"], test["feat_vals"],
@@ -138,7 +142,7 @@ def main(argv=None) -> int:
     emit({"event": "done",
           "test_accuracy": float(np.mean(pred == test["label"])),
           "seconds": seconds})
-    finish(args, store)
+    finish(args, store, recorder=rec)
     return 0
 
 

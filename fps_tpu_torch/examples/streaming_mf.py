@@ -22,9 +22,11 @@ from __future__ import annotations
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    attach_obs,
     durability,
     finish,
     make_guard,
+    make_watchdog,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -73,6 +75,7 @@ def main(argv=None) -> int:
                                guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
+    rec = attach_obs(args, trainer, workload="streaming_mf")
     tables, local_state = trainer.init_state(args.seed)
     tables = maybe_warm_start(args, store, tables)
 
@@ -102,12 +105,14 @@ def main(argv=None) -> int:
     try:
         with prof:
             trainer.fit_stream(tables, local_state, chunks, args.seed,
-                               on_chunk=on_chunk, **durability(args))
+                               on_chunk=on_chunk,
+                               watchdog=make_watchdog(args, rec),
+                               **durability(args))
         stopped = "stream_exhausted"
     except _TargetReached:
         stopped = "target_rmse"
     emit({"event": "done", "stopped_by": stopped, "records_seen": seen})
-    finish(args, store)
+    finish(args, store, recorder=rec)
     return 0
 
 

@@ -28,9 +28,11 @@ import time
 import numpy as np
 
 from fps_tpu_torch.examples.common import (
+    attach_obs,
     durability,
     finish,
     make_guard,
+    make_watchdog,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -113,6 +115,7 @@ def main(argv=None) -> int:
                                   guard=make_guard(args))
     apply_host_pipeline(args, trainer)
     apply_hot_tier(args, trainer)
+    rec = attach_obs(args, trainer, workload="w2v")
     tables, local_state = trainer.init_state(args.seed)
     tables = maybe_warm_start(args, store, tables)
 
@@ -143,7 +146,8 @@ def main(argv=None) -> int:
                 seed=args.seed, sync_every=args.sync_every, mode=mode)
             tables, local_state, _ = trainer.run_indexed(
                 tables, local_state, plan, args.seed, epochs=args.epochs,
-                on_epoch=report, **durability(args))
+                on_epoch=report, watchdog=make_watchdog(args, rec),
+                **durability(args))
         else:
             def all_epochs():
                 for epoch in range(args.epochs):
@@ -155,7 +159,8 @@ def main(argv=None) -> int:
 
             tables, local_state, _ = trainer.fit_stream(
                 tables, local_state, all_epochs(), args.seed,
-                on_chunk=report, **durability(args))
+                on_chunk=report, watchdog=make_watchdog(args, rec),
+                **durability(args))
     dt = time.perf_counter() - t0
     emit({"event": "done", "pairs_per_sec": total_pairs / max(dt, 1e-9),
           "words_per_sec": args.epochs * len(tokens) / max(dt, 1e-9),
@@ -175,7 +180,7 @@ def main(argv=None) -> int:
         emit({"event": "neighbors", "word": int(p),
               "nearest": row_i.tolist(),
               "sims": np.round(row_s, 3).tolist()})
-    finish(args, store)
+    finish(args, store, recorder=rec)
     return 0
 
 

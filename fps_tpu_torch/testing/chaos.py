@@ -14,7 +14,7 @@ Port of the jax-free injectors of ``fps_tpu/testing/chaos.py``, composed by
 
 The supervisor's injectors (``wedge_at_chunk``, ``sigstop_self``,
 ``sleep_forever``, ``kill_in_prefetch``) come with the supervisor
-(ROADMAP.md Queue 1 item 9).
+(ROADMAP.md Queue 1 item 9c).
 
 Every injector is deterministic: corruption sites come from a seeded
 ``np.random.default_rng``, never from wall-clock or os entropy, so a

@@ -29,10 +29,11 @@ The **sidecar** (``state_dir``): at every boundary the tracker's state
 the plans) is written to ``tiering-{step:08d}.npz`` beside the
 checkpoints, in the JAX package's format; :meth:`Retierer.restore` loads
 the one of a restored checkpoint's step, so a resumed run re-ranks as the
-uninterrupted one does. Its ``tiering.*`` recorder counters are ROADMAP.md
-Queue 1 item 9; the counts stay readable here as ``re_ranks``, ``checks``
-and ``last_churn``, the sidecar's retries and skips as
-``sidecar_retries`` and ``sidecar_skips``.
+uninterrupted one does. With a recorder (``on_boundary(recorder=...)``,
+which the drivers pass) every re-rank and plan lands the reference's
+``tiering.*`` counters and ``tiering_rerank`` / ``tiering_plan`` events; the
+sidecar's retries and skips go to the process-default recorder
+(``storage.retries{plane=sidecar}``, ``storage.sidecar_skips``).
 
 Over several processes every process runs the same boundaries in the same
 order: reading the windows (``Blocks.numpy``) and deriving a replica are
@@ -166,9 +167,6 @@ class Retierer:
         self.re_ranks = 0
         self.checks = 0
         self.last_churn: dict[str, float] = {}
-        # The sidecar's lost durability (the reference's storage.* metrics).
-        self.sidecar_retries = 0
-        self.sidecar_skips = 0
         self._sc_lock = threading.Lock()
         self._sc_pending = None
         self._sc_thread = None
@@ -257,12 +255,9 @@ class Retierer:
                     recorder=None) -> dict:
         """The fold, re-rank and plan after chunk or epoch ``index``.
         Changes and returns the tables dict (tier entries only: the
-        canonical tables are never touched here). ``recorder`` (the
-        ``tiering.*`` counters) is ROADMAP.md Queue 1 item 9."""
-        if recorder is not None:
-            raise NotImplementedError(
-                "Retierer.on_boundary(recorder=...) is not ported yet "
-                "(ROADMAP.md Queue 1 item 9, slice F)")
+        canonical tables are never touched here). ``recorder``: an
+        :class:`fps_tpu_torch.obs.Recorder` for the ``tiering.*`` counters
+        and the ``tiering_rerank`` / ``tiering_plan`` events."""
         check = (index + 1) % self.check_every == 0
         if not check and self.state_dir is None:
             return tables
@@ -290,11 +285,11 @@ class Retierer:
             self.tick += 1
             if self.auto_plan and not self.planned and (
                     self.tick >= self.warmup_checks):
-                tables = self._apply_plan(trainer, tables)
+                tables = self._apply_plan(trainer, tables, recorder)
             elif (self.auto_plan and self.planned and self.replan_every
                     and self.tick % self.replan_every == 0):
-                tables = self._replan(trainer, tables)
-            tables = self._maybe_rerank(trainer, tables)
+                tables = self._replan(trainer, tables, recorder)
+            tables = self._maybe_rerank(trainer, tables, recorder)
         if self.state_dir is not None:
             self._save_sidecar(index + 1, windows)
         return tables
@@ -311,7 +306,7 @@ class Retierer:
         return sklib.cm_query(self._table_cm(name), torch.from_numpy(
             np.asarray(st, np.float32)), probe).numpy()
 
-    def _maybe_rerank(self, trainer, tables: dict) -> dict:
+    def _maybe_rerank(self, trainer, tables: dict, recorder=None) -> dict:
         mapped = trainer._mapped_tables()
         for name in sorted(mapped):
             H = mapped[name]
@@ -324,8 +319,11 @@ class Retierer:
             promoted = [g for g in cand.tolist() if g not in cur]
             churn = len(promoted) / H
             self.last_churn[name] = churn
+            if recorder is not None:
+                recorder.set("tiering.churn", churn, table=name)
             if churn <= self.churn_threshold or not promoted:
                 continue
+            demoted = sorted(cur - set(cand.tolist()))
             self.hot_ids[name] = cand
             # The re-split: the replica from the canonical table, the maps
             # as fresh data, every shape as it was.
@@ -336,8 +334,18 @@ class Retierer:
                 hot_slot_map(spec.num_ids, cand))
             self.re_ranks += 1
             _log.info("tiering: re-ranked %r at check %d (churn %.3f, %d "
-                      "promoted of H=%d)", name, self.checks, churn,
-                      len(promoted), H)
+                      "promoted / %d demoted of H=%d)", name, self.checks,
+                      churn, len(promoted), len(demoted), H)
+            if recorder is not None:
+                recorder.inc("tiering.re_ranks", table=name)
+                recorder.inc("tiering.promoted_rows", len(promoted),
+                             table=name)
+                recorder.inc("tiering.demoted_rows", len(demoted),
+                             table=name)
+                recorder.event("tiering_rerank", table=name,
+                               churn=round(churn, 4),
+                               promoted=len(promoted),
+                               demoted=len(demoted), head=H)
         return tables
 
     # -- plans ----------------------------------------------------------------
@@ -366,8 +374,8 @@ class Retierer:
         kwargs.update(self.plan_kwargs)
         return plan_tables(densities, **kwargs), est_by_name
 
-    def _install_plans(self, trainer, tables, plans, est_by_name, *,
-                       what: str) -> dict:
+    def _install_plans(self, trainer, tables, plans, est_by_name,
+                       recorder=None, *, what: str) -> dict:
         """Adopt ``plans``: seed each partial head's ranking, set the specs
         and config, and derive the tier entries anew under the new
         resolution. ``::fold`` entries are kept: a fold's state is not a
@@ -386,28 +394,36 @@ class Retierer:
                   what, self.checks,
                   {n: (p.hot_tier, p.hot_sync_every, p.dense, p.cold_budget)
                    for n, p in sorted(plans.items())}, E)
+        if recorder is not None:
+            recorder.event(
+                "tiering_plan", hot_sync_every=E, what=what,
+                plan={n: p.to_json() for n, p in sorted(plans.items())})
         tables = {k: v for k, v in tables.items()
                   if not is_aux_key(k) or k.endswith(FOLD_KEY_SUFFIX)}
         return trainer._attach_hot(tables)
 
-    def _apply_plan(self, trainer, tables: dict) -> dict:
+    def _apply_plan(self, trainer, tables: dict, recorder=None) -> dict:
         plans, est_by_name = self._compute_plans(trainer)
         return self._install_plans(trainer, tables, plans, est_by_name,
-                                   what="plan")
+                                   recorder, what="plan")
 
-    def _replan(self, trainer, tables: dict) -> dict:
+    def _replan(self, trainer, tables: dict, recorder=None) -> dict:
         """A periodic plan: the same knobs change nothing (the specs,
         config and tier entries stay); other knobs are applied."""
         plans, est_by_name = self._compute_plans(trainer)
         old = self.plans or {}
-        if set(plans) == set(old) and all(
-                plans[n].knobs() == old[n].knobs() for n in plans):
+        unchanged = set(plans) == set(old) and all(
+            plans[n].knobs() == old[n].knobs() for n in plans)
+        if recorder is not None:
+            recorder.inc("tiering.replans",
+                         changed="false" if unchanged else "true")
+        if unchanged:
             self.plans = plans  # the fresh evidence
             return tables
         _log.info("tiering: the re-plan at check %d changed the knobs",
                   self.checks)
         return self._install_plans(trainer, tables, plans, est_by_name,
-                                   what="replan")
+                                   recorder, what="replan")
 
     def _apply_plans_to(self, trainer) -> int:
         """Set the trainer's specs and config to ``self.plans``
@@ -455,7 +471,7 @@ class Retierer:
         except OSError as e:
             if _retry.classify_error(e) != "retryable":
                 raise
-            self.sidecar_retries += 1
+            self._obs_metric("inc", "storage.retries", 1, plane="sidecar")
             self._sidecar_retry_bg(step, path, arrays)
             return
         self._sweep_sidecars()
@@ -469,7 +485,7 @@ class Retierer:
                 _log.warning("tiering: sidecar for step %d displaced by "
                              "step %d before its background retry ran — "
                              "skipped", self._sc_pending[0], step)
-                self.sidecar_skips += 1
+                self._obs_metric("inc", "storage.sidecar_skips", 1)
             self._sc_pending = (step, path, arrays)
             t = self._sc_thread
             if t is None or not t.is_alive():
@@ -488,21 +504,20 @@ class Retierer:
                 return
             step, path, arrays = item
 
-            def on_retry(attempt, err, delay):
-                self.sidecar_retries += 1
-
             try:
                 _retry.call_with_retry(
                     lambda: self._write_sidecar_file(path, arrays),
                     policy=dataclasses.replace(
                         _retry.DEFAULT_PUBLISH_RETRY, seed=path),
-                    op="sidecar", on_retry=on_retry)
+                    op="sidecar",
+                    on_retry=lambda a, e, d: self._obs_metric(
+                        "inc", "storage.retries", 1, plane="sidecar"))
             except OSError as e:
                 _log.warning("tiering: sidecar write for step %d DEGRADED "
                              "(skipped after retries): %r — a resume past "
                              "this boundary cold-starts the tracker", step,
                              e)
-                self.sidecar_skips += 1
+                self._obs_metric("inc", "storage.sidecar_skips", 1)
                 continue
             try:
                 self._sweep_sidecars()
@@ -515,6 +530,12 @@ class Retierer:
         t = self._sc_thread
         if t is not None and t.is_alive():
             t.join(timeout)
+
+    @staticmethod
+    def _obs_metric(kind: str, name: str, value, **labels) -> None:
+        from fps_tpu_torch.obs import events
+
+        events.record_metric(kind, name, value, **labels)
 
     @staticmethod
     def _write_sidecar_file(path: str, arrays: dict) -> None:

@@ -73,7 +73,8 @@ BUNDLES = {"d2s4": ("collectives", "mf_indexed_d2s4", "mf_host_sync",
            "tiered": ("tiered_mf_d1s4", "tiered_mf_d2s4_ssp",
                       "tiered_lr_d1s4", "tiered_lr_d2s4_fold"),
            "mapped": ("mapped_mf_d2s4", "mapped_lr_d1s8_ssp"),
-           "ckpt": ("ckpt_mf_d1s4",)}
+           "ckpt": ("ckpt_mf_d1s4",),
+           "obs": ("obs_mf_d1s4",)}
 # The directory a scenario that saves checkpoints writes under (the ranks
 # share theirs; the one-process run has its own).
 WHERE = None
@@ -609,6 +610,69 @@ def ckpt_mf_d1s4(mesh_of, init, out):
     logical("ckpt_resumed", trainer, store, local, metrics)
 
 
+class _ExchangeCount:
+    """Counts the process group's exchanges (``torch.distributed``'s
+    collective calls) while entered; on one process, none."""
+
+    NAMES = ("all_gather", "all_to_all_single", "broadcast", "all_reduce",
+             "reduce_scatter", "send", "recv", "barrier")
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def spy(fn):
+            def counted(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, spy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+def obs_mf_d1s4(mesh_of, init, out):
+    """Guarded MF at (1, 4), 4 chunks of ``fit_stream`` with a rank's
+    ``open_run`` into one directory (each rank its ``-p<rank>`` files),
+    then the same run without a recorder: every counter total, the
+    exchanges of each run, and both runs' tables."""
+    from fps_tpu_torch import obs
+
+    mesh = mesh_of(1, 4)
+    chunks = list(multi_epoch_chunks(mf_data(), 1, num_workers=4,
+                                     local_batch=16, steps_per_chunk=4,
+                                     route_key="user", seed=5))[:4]
+    exchanges = []
+    for name, obs_dir in (("obs_mf_d1s4", os.path.join(WHERE, "obs")),
+                          ("obs_mf_d1s4_off", None)):
+        trainer, store = online_mf(mesh, MFConfig(**MF_CFG), guard="observe")
+        tables, local = trainer.init_state(0)
+        rec = (obs.open_run(obs_dir, install=False) if obs_dir is not None
+               else None)
+        with _ExchangeCount() as ex:
+            tables, local, metrics = trainer.fit_stream(
+                tables, local, chunks, 1, recorder=rec,
+                on_chunk=lambda i, m: None)
+        exchanges.append(ex.calls)
+        _record(out, name, tables, local, metrics_of(metrics))
+        if rec is not None:
+            for k, v in rec.snapshot()["counters"].items():
+                out[f"{name}/counters/{k}"] = np.float64(v)
+            rec.close()
+    out["exchanges/obs_mf_d1s4"] = np.array(exchanges)
+
+
 SCENARIOS = {"collectives": collectives_scenario,
              "mf_indexed_d2s4": mf_indexed_d2s4,
              "mf_indexed_d1s8": mf_indexed_d1s8,
@@ -620,7 +684,8 @@ SCENARIOS = {"collectives": collectives_scenario,
              "tiered_lr_d2s4_fold": tiered_lr_d2s4_fold,
              "mapped_mf_d2s4": mapped_mf_d2s4,
              "mapped_lr_d1s8_ssp": mapped_lr_d1s8_ssp,
-             "ckpt_mf_d1s4": ckpt_mf_d1s4}
+             "ckpt_mf_d1s4": ckpt_mf_d1s4,
+             "obs_mf_d1s4": obs_mf_d1s4}
 
 
 def run_bundle(bundle: str, mesh_of, init) -> dict:

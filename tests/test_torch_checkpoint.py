@@ -58,6 +58,8 @@ from fps_tpu_torch.core import checkpoint as tck
 from fps_tpu_torch.core import snapshot_format as tfmt
 from fps_tpu_torch.core.ingest import multi_epoch_chunks
 from fps_tpu_torch.core.resilience import SnapshotCorruptionError
+from fps_tpu_torch import obs
+from fps_tpu_torch.obs import events as obs_events
 from fps_tpu_torch.models import word2vec as tw2v
 from fps_tpu_torch.parallel import mesh as tmesh
 from fps_tpu_torch.testing import chaos
@@ -77,6 +79,23 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def journal():
+    """A process-default recorder over a memory sink for the test: the
+    checkpoint trail and metrics as a run's journal gets them."""
+    sink = obs.MemorySink()
+    rec = obs.Recorder(sinks=[sink])
+    with obs_events.default_recorder(rec):
+        yield rec, sink
+
+
+def _trail(sink, since=0):
+    """The kinds of the events recorded after the first ``since``
+    records."""
+    return [r["event"] for r in list(sink.records)[since:]
+            if r["kind"] == "event"]
 
 
 def _jmesh(D, S):
@@ -290,7 +309,7 @@ def test_export_and_load_model_cross_between_the_packages(tmp_path,
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
-def test_elastic_resplit_from_1x8(tmp_path, devices8, shape):
+def test_elastic_resplit_from_1x8(tmp_path, devices8, shape, journal):
     """A (1, 8) snapshot restores onto (2, 4) and (4, 2): the re-split is
     taken explicitly (an event and a metric), asserted bit for bit, and
     the JAX package restores the same file to the same tables. A restore
@@ -305,11 +324,13 @@ def test_elastic_resplit_from_1x8(tmp_path, devices8, shape):
     D, S = shape
     tr2, st2 = online_mf(_tmesh(D, S), MFConfig(**MF_KW))
     _, like = tr2.init_state(5)
+    rec, sink = journal
+    n0 = len(sink.records)
     ck2 = tck.Checkpointer(str(tmp_path))
     t2, l2, step = tr2.restore_checkpoint(ck2, like)
     assert step == 2
-    assert [e for e, _ in ck2.events] == ["checkpoint_resplit"]
-    assert ck2.metrics["checkpoint.resplits"] == 1
+    assert _trail(sink, n0) == ["checkpoint_resplit"]
+    assert rec.counter_value("checkpoint.resplits") == 1
     _same_bits(st2.dump_model(ITEM)[1], want_t, "tables")
     _same_bits(tr2.logic.export_local_state(l2.numpy()), want_l, "local")
     for d in range(1, D):
@@ -319,11 +340,13 @@ def test_elastic_resplit_from_1x8(tmp_path, devices8, shape):
     _, jlike = jtr.init_state(jax.random.key(5))
     jtr.restore_checkpoint(jck.Checkpointer(str(tmp_path)), jlike)
     _same_bits(jst.dump_model(ITEM)[1], want_t, "jax")
+    n1 = len(sink.records)
     ck3 = tck.Checkpointer(str(tmp_path))
     tr3 = online_mf(_tmesh(1, 8), MFConfig(**MF_KW))[0]
     tr3.init_state(5)
     tr3.restore_checkpoint(ck3, local)
-    assert ck3.events == [] and "checkpoint.resplits" not in ck3.metrics
+    assert _trail(sink, n1) == []
+    assert rec.counter_value("checkpoint.resplits") == 1
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +474,7 @@ def _saved(tmp_path, n=3, **kw):
 
 @pytest.mark.parametrize("corruption", ["truncate", "bitflip"])
 def test_a_corrupt_newest_snapshot_falls_back_in_both_packages(
-        tmp_path, devices8, corruption):
+        tmp_path, devices8, corruption, journal):
     """A truncated or bit-flipped newest snapshot: a pinned read raises, an
     unpinned one falls back to the step before, moves the bad file to
     ``.corrupt`` and records the fallback; the JAX package, reading a
@@ -461,6 +484,8 @@ def test_a_corrupt_newest_snapshot_falls_back_in_both_packages(
     import shutil
 
     shutil.copytree(tmp_path / "a", tmp_path / "b")
+    rec, sink = journal
+    n0 = len(sink.records)
     ck = tck.Checkpointer(str(tmp_path / "a"))
     assert not ck.verify_snapshot(3) and ck.latest_valid_step() == 2
     with pytest.raises(SnapshotCorruptionError):
@@ -470,8 +495,8 @@ def test_a_corrupt_newest_snapshot_falls_back_in_both_packages(
     _same_bits(values[ITEM], states[2], "fallback")
     assert os.path.exists(bad + ".corrupt") and not os.path.exists(bad)
     assert ck.steps() == [1, 2]
-    assert [e for e, _ in ck.events] == ["checkpoint_fallback"]
-    assert ck.metrics["checkpoint.fallbacks"] == 1
+    assert _trail(sink, n0) == ["checkpoint_fallback"]
+    assert rec.counter_value("checkpoint.fallbacks") == 1
     jstep, jvalues, _, _ = jck.Checkpointer(str(tmp_path / "b")
                                             ).read_snapshot()
     assert jstep == 2
@@ -586,7 +611,8 @@ def test_compaction_stopped_at_every_phase_leaves_a_recoverable_chain(
 # The async writer.
 # ---------------------------------------------------------------------------
 
-def test_async_save_deferred_runs_the_capture_on_the_writer(tmp_path):
+def test_async_save_deferred_runs_the_capture_on_the_writer(tmp_path,
+                                                             journal):
     """``save_deferred``: the capture runs on the writer thread, the
     training thread pays the enqueue (``checkpoint.dump_seconds``), the
     writer the capture (``checkpoint.capture_seconds``); ``flush`` makes
@@ -612,8 +638,9 @@ def test_async_save_deferred_runs_the_capture_on_the_writer(tmp_path):
         tck.Checkpointer._collect = real
     assert any(n.startswith("fps-ckpt-writer") for n in threads)
     assert ack.steps() == [1, 2, 3, 4]
-    assert len(ack.metrics["checkpoint.capture_seconds"]) == 4
-    assert len(ack.metrics["checkpoint.dump_seconds"]) == 4
+    hists = journal[0].snapshot()["histograms"]
+    assert hists["checkpoint.capture_seconds"]["count"] == 4
+    assert hists["checkpoint.dump_seconds"]["count"] == 4
     ttr2, _ = online_mf(_tmesh(1, 2), MFConfig(**MF_KW))
     t2, l2 = ttr2.init_state(0)
     ck = tck.Checkpointer(str(tmp_path / "s"), keep=8)
@@ -623,7 +650,7 @@ def test_async_save_deferred_runs_the_capture_on_the_writer(tmp_path):
 
 
 def test_async_when_full_degrade_skips_and_first_error_surfaces(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, journal):
     """``when_full="degrade"``: a save that finds the slot full while the
     writer is busy is skipped (``degraded_publishes``, the backlog), never
     blocking; the next landed publish drains the backlog. A fatal write
@@ -653,7 +680,7 @@ def test_async_when_full_degrade_skips_and_first_error_surfaces(
     gate.set()
     ack.flush()
     assert ack.steps() == [1, 2] and ack._publish_backlog == 0
-    assert ack.metrics["storage.degraded_publishes"] == 1
+    assert journal[0].counter_value("storage.degraded_publishes") == 1
     ack.close()
 
     fails = []
@@ -675,7 +702,7 @@ def test_async_when_full_degrade_skips_and_first_error_surfaces(
     ack.close()
 
 
-def test_fence_refuses_a_stale_writer(tmp_path, monkeypatch):
+def test_fence_refuses_a_stale_writer(tmp_path, monkeypatch, journal):
     """A directory fenced at epoch 5 refuses a writer of epoch 3 and one
     without an epoch (``StaleEpochError``, also from the async writer on
     the caller's next call), and takes epoch 5; the JAX package's fence
@@ -690,10 +717,11 @@ def test_fence_refuses_a_stale_writer(tmp_path, monkeypatch):
     jchild.write_fence(d, 5, 0)
     assert tck.read_fence(d) == {"min_epoch": 5, "step": 0}
     for epoch in (3, None):
+        n0 = len(journal[1].records)
         ck = tck.Checkpointer(d, fence_epoch=epoch)
         with pytest.raises(tck.StaleEpochError):
             ck.save(1, tst, ls, local_state_format="exported")
-        assert ck.events[0][0] == "checkpoint_fenced"
+        assert _trail(journal[1], n0)[0] == "checkpoint_fenced"
     assert tck.Checkpointer(d).steps() == []
     tck.Checkpointer(d, fence_epoch=5).save(1, tst, ls)
     assert tck.Checkpointer(d).steps() == [1]

@@ -408,10 +408,36 @@ def test_run_indexed_takes_durability_hooks(hook, tmp_path):
 
 
 @pytest.mark.parametrize("hook", ["recorder", "health", "watchdog"])
-def test_run_indexed_refuses_unported_hooks(hook):
-    tr, _, t, l, plan = _indexed()
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tr.run_indexed(t, l, plan, 1, **{hook: object()})
+def test_run_indexed_takes_the_telemetry_hooks(hook):
+    """``run_indexed``'s ``recorder`` / ``health`` / ``watchdog`` (refused
+    until telemetry was ported) are taken: each does its part an epoch at
+    a time, and the tables and metrics are those of the run without it,
+    bit for bit."""
+    from fps_tpu_torch import obs
+
+    sink = obs.MemorySink()
+    arg = {"recorder": obs.Recorder(sinks=[sink]),
+           "health": obs.HealthMonitor(escalate_after_rows=1),
+           "watchdog": obs.StepWatchdog(120.0)}[hook]
+    runs = []
+    for kw in ({hook: arg}, {}):
+        tr, _, t, l, plan = _indexed(guard="observe")
+        runs.append(tr.run_indexed(t, l, plan, 1, epochs=2, **kw))
+    (ta, la, ma), (tb, lb, mb) = runs
+    for k in ta:
+        np.testing.assert_array_equal(ta[k].numpy(), tb[k].numpy(), k)
+    np.testing.assert_array_equal(la.numpy(), lb.numpy())
+    for x, y in zip(ma, mb):
+        np.testing.assert_array_equal(x["se"], y["se"])
+    if hook == "recorder":
+        assert arg.counter_value("driver.epochs") == 2
+        assert [e["index"] for e in sink.events("epoch")] == [0, 1]
+        assert arg.counter_value("driver.examples") == sum(
+            float(np.sum(m["n"])) for m in ma)
+    elif hook == "health":
+        assert arg.log == [] and arg.escalated_at is None
+    else:
+        assert arg.stalls == []
 
 
 def test_run_indexed_checks_the_plan_and_the_call_size():

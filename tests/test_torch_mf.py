@@ -340,6 +340,11 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.examples.streaming_mf\n"
         "import fps_tpu_torch.core.checkpoint, fps_tpu_torch.core.resilience\n"
         "import fps_tpu_torch.core.retry, fps_tpu_torch.core.snapshot_format\n"
+        "import fps_tpu_torch.obs, fps_tpu_torch.obs.fleet\n"
+        "import fps_tpu_torch.obs.health, fps_tpu_torch.obs.journal\n"
+        "import fps_tpu_torch.obs.registry, fps_tpu_torch.obs.sinks\n"
+        "import fps_tpu_torch.obs.timing, fps_tpu_torch.obs.events\n"
+        "import fps_tpu_torch.utils.profiling\n"
         "import fps_tpu_torch.testing, fps_tpu_torch.testing.faultfs\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

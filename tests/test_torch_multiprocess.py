@@ -137,7 +137,7 @@ def _jax_init(bundle):
     numpy arrays under the worker's keys."""
     key = jax.random.key(0)
     init = {}
-    if bundle in ("tiered", "mapped", "ckpt"):
+    if bundle in ("tiered", "mapped", "ckpt", "obs"):
         return init  # the scenarios start from the port's own state
     for D, S in ((2, 4),) if bundle == "d2s4" else ((1, 8),):
         tables, local = _mf_trainer(D, S)[0].init_state(key)
@@ -241,7 +241,7 @@ def _jax_runs(bundle, init):
     and ``tests/test_torch_tiering.py`` hold the tiers against the JAX
     package)."""
     ref = {}
-    if bundle in ("tiered", "mapped", "ckpt"):
+    if bundle in ("tiered", "mapped", "ckpt", "obs"):
         return ref
     if bundle == "d2s4":
         for kind in ("indexed", "host_sync", "host_ssp"):
@@ -481,6 +481,38 @@ def test_checkpoints_over_two_ranks_resume_as_one_process(run):
     np.testing.assert_array_equal(
         trainer.logic.export_local_state(local.numpy()),
         ranks[0]["ckpt_straight/users"])
+
+
+def test_telemetry_over_two_ranks_counts_as_one_process(run):
+    """Guarded MF at (1, 4) over two ranks, each with ``open_run`` into one
+    directory: both ranks' ``-p0`` / ``-p1`` files exist, each rank's
+    counter totals equal the one-process run's (the step's metrics are
+    global on every rank), the tables with and without the recorder are
+    the same bits, and the recorder adds no exchange."""
+    ranks, one, _ = run("obs")
+    counters = [k for k in one if "/counters/" in k]
+    assert {k.rsplit("/", 1)[1] for k in counters} >= {
+        "driver.chunks", "driver.examples", "driver.steps",
+        "health.nonfinite_rows{table=item_factors}"}
+    for key, want in one.items():
+        if key.startswith("exchanges/"):
+            continue
+        np.testing.assert_array_equal(ranks[0][key], want, key)
+        np.testing.assert_array_equal(ranks[1][key], want, key)
+        if key.startswith("obs_mf_d1s4/table/"):
+            off = key.replace("obs_mf_d1s4/", "obs_mf_d1s4_off/")
+            np.testing.assert_array_equal(one[off], want, key)
+    assert one["obs_mf_d1s4/counters/driver.chunks"] == 4
+    for r in range(2):
+        on, off = ranks[r]["exchanges/obs_mf_d1s4"]
+        assert on == off > 0
+    assert list(one["exchanges/obs_mf_d1s4"]) == [0, 0]
+    where = str(_WHERES["obs"] / "obs")
+    assert sorted(os.listdir(where)) == [
+        f"{kind}-p{r}.{ext}" for kind, ext in (("events", "jsonl"),
+                                               ("journal", "jsonl"),
+                                               ("metrics", "prom"))
+        for r in range(2)]
 
 
 def test_mapped_two_ranks_equal_one_process_bit_for_bit(run):

@@ -643,26 +643,60 @@ def test_fit_stream_takes_durability_arguments(hook, tmp_path):
         assert kw["rollback"].skipped == [1] and len(m) == 2
 
 
-@pytest.mark.parametrize("call,kw,item", [
-    ("fit_stream", dict(recorder=object()), "item 9"),
-    ("fit_stream", dict(health=object()), "item 9"),
-    ("fit_stream", dict(watchdog=object()), "item 9"),
-    ("run_chunk", dict(timer=object()), "item 9"),
-    ("run_chunk", dict(recorder=object()), "item 9"),
+@pytest.mark.parametrize("call,hook", [
+    ("fit_stream", "recorder"),
+    ("fit_stream", "health"),
+    ("fit_stream", "watchdog"),
+    ("run_chunk", "timer"),
+    ("run_chunk", "recorder"),
 ])
-def test_unported_arguments_raise_naming_their_item(call, kw, item):
-    trainer, _ = online_mf(make_ps_mesh(device="cpu"), MFConfig(**MF_KW))
-    tables, local = trainer.init_state(0)
-    chunk = _mf_chunks(None, epochs=1)[0]
-    arg = [chunk] if call == "fit_stream" else chunk
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(trainer, call)(tables, local, arg, 1, **kw)
+def test_telemetry_arguments_are_taken(call, hook):
+    """The reference's telemetry arguments (refused until telemetry was
+    ported) are taken, each does its part on a guarded MF chunk, and the
+    tables and metrics are those of the same call without it, bit for
+    bit."""
+    from fps_tpu_torch import obs
+
+    def run(**kw):
+        trainer, _ = online_mf(make_ps_mesh(device="cpu"),
+                               MFConfig(**MF_KW), guard="observe")
+        tables, local = trainer.init_state(0)
+        chunk = _mf_chunks(None, epochs=1)[0]
+        if call == "fit_stream":
+            t, l, ms = trainer.fit_stream(tables, local, [chunk], 1, **kw)
+        else:
+            t, l, m = trainer.run_chunk(tables, local, chunk, 1, **kw)
+            ms = [{k: v if isinstance(v, dict) else v.numpy()
+                   for k, v in m.items()}]
+        # The guard's "health" counters nest; the flat leaves are compared.
+        return t, l, [{k: v for k, v in m.items() if not isinstance(v, dict)}
+                      for m in ms]
+
+    sink = obs.MemorySink()
+    arg = {"recorder": obs.Recorder(sinks=[sink]),
+           "health": obs.HealthMonitor(escalate_after_rows=1),
+           "watchdog": obs.StepWatchdog(120.0),
+           "timer": obs.PhaseTimer()}[hook]
+    got = run(**{hook: arg})
+    _assert_bit_equal(got, run())
+    if call == "fit_stream" and hook == "recorder":
+        assert arg.counter_value("driver.chunks") == 1
+        assert [e["index"] for e in sink.events("chunk")] == [0]
+    elif hook == "health":
+        assert arg.log == [] and arg.escalated_at is None
+    elif hook == "watchdog":
+        assert arg.stalls == []
+    elif hook == "timer":
+        assert {"place", "dispatch"} <= set(arg.chunk_summary())
+    else:  # run_chunk's recorder: cold-lane counters only, none here
+        assert arg.snapshot()["counters"] == {}
 
 
 def test_prefetch_and_health_lag_values():
-    """``health_lag`` 0 and 1 run the same loop (nothing forces a per-chunk
-    sync in the port); 2 raises, as a negative ``prefetch`` does, where the
-    reference raises them (in ``fit_stream``)."""
+    """``health_lag`` 0 and 1 run the same loop where nothing reads every
+    chunk's metrics (no rollback, health monitor or watchdog); 2 raises,
+    as a negative ``prefetch`` does, where the reference raises them (in
+    ``fit_stream``)."""
     chunks = _mf_chunks(None, epochs=1)[:3]
     mesh = make_ps_mesh(device="cpu")
 

@@ -49,6 +49,8 @@ from fps_tpu_torch.core.ingest import multi_epoch_chunks
 from fps_tpu_torch.models import word2vec as tw2v
 from fps_tpu_torch.parallel import mesh as tmesh
 from fps_tpu_torch.testing import chaos
+from fps_tpu_torch import obs
+from fps_tpu_torch.obs import events as obs_events
 
 ITEM = "item_factors"
 MF_KW = dict(num_users=96, num_items=61, rank=4, learning_rate=0.08,
@@ -61,6 +63,16 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def journal():
+    """A process-default recorder over a memory sink for the test: the
+    trail and metrics as a run's journal gets them."""
+    sink = obs.MemorySink()
+    rec = obs.Recorder(sinks=[sink])
+    with obs_events.default_recorder(rec):
+        yield rec, sink
 
 
 def _tmesh(D, S):
@@ -352,7 +364,7 @@ def test_guarded_stream_counts_what_the_jax_package_counts(devices8):
 
 @pytest.mark.parametrize("lag", [0, 1])
 @pytest.mark.parametrize("sync_every", [None, 2], ids=["sync", "ssp"])
-def test_quarantine_equals_a_preset_skip(lag, sync_every):
+def test_quarantine_equals_a_preset_skip(lag, sync_every, journal):
     """``guard="observe"`` with a rollback policy: the poisoned chunk 3 is
     quarantined and the run ends where a run that skips chunk 3 outright
     (``preset={3}``) ends, bit for bit, tables, local state and metrics,
@@ -365,6 +377,7 @@ def test_quarantine_equals_a_preset_skip(lag, sync_every):
     _, _, t, l, m = _run(2, 2, chunks, guard="observe", rollback=rb, lag=lag,
                          sync_every=sync_every)
     assert rb.quarantined == [3] and len(m) == len(chunks) - 1
+    assert [e["event"] for e in journal[1].events()] == ["rollback"]
     pre = tres.RollbackPolicy(preset={3})
     _, _, t2, l2, m2 = _run(2, 2, chunks, guard="observe", rollback=pre,
                             sync_every=sync_every)
@@ -373,7 +386,6 @@ def test_quarantine_equals_a_preset_skip(lag, sync_every):
     _eq(l.numpy(), l2.numpy(), "local")
     for a, b in zip(m, m2):
         _eq(a["se"], b["se"], "se")
-    assert [e for e, _ in rb.events] == ["rollback"]
 
 
 def test_rollback_under_the_hot_tier_restores_replica_and_table():

@@ -38,11 +38,12 @@ from fps_tpu.models.logistic_regression import (
 from fps_tpu.parallel import mesh as jmesh
 from fps_tpu.testing import faultfs as jfaultfs
 
-from fps_tpu_torch import LogRegConfig, logistic_regression
+from fps_tpu_torch import LogRegConfig, logistic_regression, obs
 from fps_tpu_torch.convert import tables_from_jax
 from fps_tpu_torch.core import checkpoint as tck
 from fps_tpu_torch.core import retry as tretry
 from fps_tpu_torch.core import snapshot_format as tfmt
+from fps_tpu_torch.obs import events as obs_events
 from fps_tpu_torch.parallel import mesh as tmesh
 from fps_tpu_torch.testing import faultfs as tfaultfs
 from fps_tpu_torch.testing.faultfs import FaultRule
@@ -138,6 +139,16 @@ def test_env_schedule_loads_the_ports_faultfs(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+@pytest.fixture
+def journal():
+    """A process-default recorder over a memory sink for the test: the
+    trail and metrics as a run's journal gets them."""
+    sink = obs.MemorySink()
+    rec = obs.Recorder(sinks=[sink])
+    with obs_events.default_recorder(rec):
+        yield rec, sink
+
+
 def _both(tmp_path, rules, save, *, async_=True, ck_kw=None):
     """Run ``save(checkpointer, store)`` in each package under the same
     schedule, each installed in its own package's seams."""
@@ -160,7 +171,7 @@ def _both(tmp_path, rules, save, *, async_=True, ck_kw=None):
     return out
 
 
-def test_a_retried_publish_is_the_unfaulted_bytes(tmp_path):
+def test_a_retried_publish_is_the_unfaulted_bytes(tmp_path, journal):
     """EIO twice, then the publish lands: the same file as an unfaulted
     publish and as the JAX package's under the same schedule; nothing
     degraded."""
@@ -172,10 +183,12 @@ def test_a_retried_publish_is_the_unfaulted_bytes(tmp_path):
     clean.save(1, _stores()[1], None)
     _same_dirs(str(tmp_path / "clean"), runs["port"][0])
     assert runs["port"][1].degraded_publishes == 0
-    assert runs["port"][1].metrics["storage.retries{plane=checkpoint}"] == 2
+    assert journal[0].counter_value("storage.retries",
+                                    plane="checkpoint") == 2
 
 
-def test_a_blackout_degrades_and_a_delta_chain_resets_to_a_full(tmp_path):
+def test_a_blackout_degrades_and_a_delta_chain_resets_to_a_full(tmp_path,
+                                                                 journal):
     """A write blackout past the retry budget: the async writer skips the
     publish (degraded, the backlog rises), the training side never sees an
     error, the next landed publish is a full (no delta chains from the
@@ -205,8 +218,10 @@ def test_a_blackout_degrades_and_a_delta_chain_resets_to_a_full(tmp_path):
     pubs = tfmt.publications(d)
     assert sorted(pubs) == [1, 3] and pubs[3].kind == "full"
     assert c._publish_backlog == 0
-    assert c.metrics["storage.degraded_publishes"] == 1
-    assert ("checkpoint_backlog_drained", {"step": 3}) in c.events
+    rec, sink = journal
+    assert rec.counter_value("storage.degraded_publishes") == 1
+    assert [e["step"] for e in sink.events("checkpoint_backlog_drained")
+            ] == [3]
 
 
 def test_a_fatal_errno_surfaces_once_and_keeps_the_first_error(tmp_path):
@@ -272,7 +287,7 @@ def test_a_stale_or_torn_read_never_quarantines_a_valid_snapshot(
 
 
 def test_the_sidecar_write_degrades_off_the_training_thread(tmp_path,
-                                                            caplog):
+                                                            caplog, journal):
     """A sidecar write that fails through its retry budget is skipped (the
     sidecar is advisory), its backoff on the background retrier, never on
     the caller; once the storage recovers the next one lands, in the JAX
@@ -292,7 +307,8 @@ def test_the_sidecar_write_degrades_off_the_training_thread(tmp_path,
         inline_s = time.perf_counter() - t0
         rt.sidecar_flush(timeout=30.0)
     assert inline_s < 0.1
-    assert "DEGRADED" in caplog.text and rt.sidecar_skips == 1
+    assert "DEGRADED" in caplog.text
+    assert journal[0].counter_value("storage.sidecar_skips") == 1
     assert not os.listdir(rt.state_dir)
     tfaultfs.uninstall()
     rt._save_sidecar(4, {"t": np.ones((2, 8), np.float32)})

@@ -987,11 +987,18 @@ def test_sidecar_arguments_are_taken(what, tmp_path):
         assert tiering.Retierer().restore(3) is False
 
 
-def test_on_boundary_recorder_waits_for_item_9():
+def test_on_boundary_takes_a_recorder():
+    """``Retierer.on_boundary(recorder=)`` (refused until telemetry was
+    ported) is taken: a check with evidence sets the ``tiering.churn``
+    gauge, as the reference's does."""
+    from fps_tpu_torch import obs
+
     (_, _, _), (ttr, _, tt) = _lr_pair(1, 4)
     rt = ttr.retierer = tiering.Retierer(check_every=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rt.on_boundary(ttr, tt, 0, recorder=object())
+    tt, _, _ = ttr.fit_stream(tt, (), iter(_lr_chunks(4)[:1]), 1)
+    rec = obs.Recorder()
+    rt.on_boundary(ttr, tt, 1, recorder=rec)
+    assert "tiering.churn{table=weights}" in rec.snapshot()["gauges"]
 
 
 @pytest.mark.parametrize("model", ["mf", "logreg"])
