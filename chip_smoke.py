@@ -297,7 +297,24 @@ on the card, raising on the first failure:
    ``tools/trace_export.py`` exit 0 over the runs' obs dirs and report
    their chunks and epochs; (f) the steady ms a step of each turn, printed
    beside the card, not gated;
-13. prints one JSON line describing every ported kernel, then, as the last
+13. serves while the card trains (``fps_tpu_torch.serve``): phase 11's MF
+   (ML-20M, rank 10, batch 32,768, mean combine) on ``cuda:0`` through
+   ``fit_stream``, 14 chunks of 2 steps, an ``AsyncCheckpointer`` with
+   ``DeltaPolicy(full_every=4)`` publishing every chunk, in turns A, B, B,
+   A: with (A) a ``ServingFleet`` of 3 readers (quorum 2) polling on
+   threads, a ``TcpServe`` on reader 0 and a ``WireClient`` thread sending
+   pulls of 256 item ids and ``topk`` of 64 users (k 20), each pull's ids
+   also pulled in process from readers 1 and 2, and without (B), every
+   launch counter at 0 just before each run. The first A is gated: every
+   answer's step published and at or behind the fence, a pull's rows the
+   card's at that step, bit for bit; the fleet converged on the last step
+   serving the card's item rows (``ParamStore.table`` read back) and the
+   exported user rows bit for bit, its ``topk`` the same selection over
+   them; then one more chunk published as a delta, bit-flipped by the
+   port's ``testing.chaos``, refused (``SnapshotRejected``) and never
+   answered. It reports the write->servable lag, pull and topk latency
+   (p50, p99) and the ms a step of each turn, not gated;
+14. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -4853,7 +4870,8 @@ def p11_equal(label, got, want):
             raise AssertionError(f"{label}: {k} differs bit for bit")
 
 
-def p11_counted(torch, kernels, label, steps, per_step, fn, card):
+def p11_counted(torch, kernels, label, steps, per_step, fn, card,
+                phase=11):
     """Run ``fn`` with every launch counter at 0 just before and read just
     after; on the card hold the counts to ``per_step`` (each kernel's
     launches a step, ``None``: recorded only). Returns ``(result,
@@ -4875,7 +4893,7 @@ def p11_counted(torch, kernels, label, steps, per_step, fn, card):
                "launches_per_step": {k: v / steps for k, v in
                                      launched.items() if v},
                "card": card}
-    log(f"phase 11, {label}: {summary['ms_per_step']:.3f} ms a step, "
+    log(f"phase {phase}, {label}: {summary['ms_per_step']:.3f} ms a step, "
         f"launches a step {summary['launches_per_step']} ({card})")
     return out, summary
 
@@ -6007,6 +6025,393 @@ def telemetry_phase(torch, fps, kernels, mf_data, lr_data, card,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: serving while the card trains.
+# ---------------------------------------------------------------------------
+
+P13 = dict(chunks=14, chunk_steps=2, full_every=4, readers=3, quorum=2,
+           poll_s=0.005, pull_ids=256, topk_users=64, k=20,
+           converge_s=60.0, join_s=30.0)
+# The training arms, in turns: with the fleet and its client (A) and
+# without (B), the first A gated.
+P13_TURNS = ("A", "B", "B", "A")
+
+
+def p13_client(serve, host, port, others, fence, answers, errors, stop):
+    """The query traffic: over one ``WireClient`` on reader 0's
+    ``TcpServe``, pulls of ``P13["pull_ids"]`` item ids and ``topk`` of
+    ``P13["topk_users"]`` users (k ``P13["k"]``) in turns until ``stop``,
+    each pull's ids also pulled in process from the ``others`` readers;
+    each answer with its reader, op, seconds, step, the fence read just
+    after, and a pull's ids and rows."""
+    rng = np.random.default_rng(13)
+    try:
+        with serve.WireClient(host, port, timeout=10.0,
+                              deadline_s=10.0) as c:
+            i = 0
+            while not stop.is_set():
+                if i % 2 == 0:
+                    ids = rng.integers(0, ML20M_ITEMS, P13["pull_ids"])
+                    req = {"op": "pull", "table": ITEM, "ids": ids.tolist()}
+                else:
+                    ids = rng.integers(0, ML20M_USERS, P13["topk_users"])
+                    req = {"op": "topk", "users": ids.tolist(),
+                           "k": P13["k"]}
+                t0 = time.perf_counter()
+                r = c.request(req)
+                dt = time.perf_counter() - t0
+                i += 1
+                if not r["ok"]:
+                    if r.get("retryable"):
+                        time.sleep(0.001)  # nothing published yet
+                        continue
+                    errors.append(r)
+                    return
+                a = {"reader": "r0", "op": req["op"], "s": dt,
+                     "step": r["step"], "fence": fence.read()}
+                if req["op"] == "pull":
+                    a["ids"] = ids
+                    a["values"] = np.asarray(r["values"], np.float32)
+                answers.append(a)
+                if req["op"] != "pull":
+                    continue
+                for rd in others:
+                    try:
+                        step, values = rd.server.pull(ITEM, ids)
+                    except serve.NoSnapshotError:
+                        continue
+                    answers.append({"reader": rd.reader_id, "op": "local",
+                                    "step": step, "fence": fence.read(),
+                                    "ids": ids, "values": values})
+    except Exception as e:  # noqa: BLE001 — failed by the phase
+        errors.append(repr(e))
+
+
+def p13_quantiles(xs):
+    xs = np.asarray(xs, np.float64)
+    if not xs.size:
+        raise AssertionError("phase 13: no sample to summarise")
+    return {"p50": float(np.quantile(xs, 0.5)),
+            "p99": float(np.quantile(xs, 0.99)), "n": int(xs.size)}
+
+
+def p13_arm(torch, fps, kernels, mesh, index, turn, where, chunks, card):
+    """One training arm: a fresh MF trainer at phase 11's width through
+    ``fit_stream``, an ``AsyncCheckpointer`` with
+    ``DeltaPolicy(full_every=P13["full_every"])`` publishing every chunk,
+    the card's item rows read back after each chunk; with ``turn == "A"``
+    a ``ServingFleet`` of ``P13["readers"]`` readers polling on threads, a
+    ``TcpServe`` on reader 0 and a ``WireClient`` thread. Returns the arm
+    and, for A, what the gates read."""
+    import shutil
+    import threading
+
+    from fps_tpu_torch import serve
+    from fps_tpu_torch.core.checkpoint import AsyncCheckpointer, DeltaPolicy
+
+    d = os.path.join(where, f"arm_{index}_{turn}")
+    shutil.rmtree(d, ignore_errors=True)
+    trainer, store = p11_mf(fps, mesh)
+    tables, local = trainer.init_state(0)
+    ck = AsyncCheckpointer(d, keep=64, delta=DeltaPolicy(
+        full_every=P13["full_every"]))
+    rows_at, stamps = {}, []
+
+    def on_chunk(j, _metrics):
+        # A copy: on the CPU ``.cpu()`` is the live table itself.
+        rows_at[j + 1] = store.table(ITEM)[:ML20M_ITEMS].cpu().numpy().copy()
+        stamps.append(time.perf_counter())
+
+    fleet = tcp = None
+    answers, errors, swaps, threads = [], [], [], []
+    stop = threading.Event()
+    if turn == "A":
+        fleet = serve.ServingFleet(d, P13["readers"], quorum=P13["quorum"])
+        for r in fleet.readers:
+            def swap_to(snap, _r=r, _orig=r.server.swap_to):
+                if snap is not None:
+                    swaps.append((_r.reader_id, snap.step, time.time()))
+                _orig(snap)
+            r.server.swap_to = swap_to
+        tcp = serve.TcpServe(fleet.readers[0].server, port=0).start()
+        threads.append(threading.Thread(
+            target=p13_client, name="p13-client",
+            args=(serve, tcp.host, tcp.port, fleet.readers[1:],
+                  serve.StepFence(d, "client"), answers, errors, stop)))
+    steps = len(chunks) * P13["chunk_steps"]
+    try:
+        if fleet is not None:
+            fleet.start(interval_s=P13["poll_s"])
+        for t in threads:
+            t.start()
+        (tables, local, _), summary = p11_counted(
+            torch, kernels, f"MF, fit_stream, a publish a chunk, turn "
+            f"{index + 1} of {len(P13_TURNS)} ({turn})", steps, {"gather_rows": 2, "scatter_add": 2},
+            lambda: trainer.fit_stream(tables, local, chunks, 1,
+                                       checkpointer=ck, checkpoint_every=1,
+                                       on_chunk=on_chunk), card, phase=13)
+        converged = None
+        if fleet is not None:
+            deadline = time.monotonic() + P13["converge_s"]
+            while {r.server._snap.step if r.server._snap else None
+                   for r in fleet.readers} != {len(chunks)}:
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"phase 13: the fleet did not converge on step "
+                        f"{len(chunks)}: {fleet.stats()}")
+                time.sleep(0.01)
+            converged = time.perf_counter()
+            # A few answers at the converged step before the traffic stops.
+            n = len(answers)
+            while len(answers) < n + 4 and not errors and all(
+                    t.is_alive() for t in threads):
+                if time.perf_counter() - converged > P13["join_s"]:
+                    break
+                time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=P13["join_s"])
+        if tcp is not None:
+            tcp.close()
+        if fleet is not None:
+            fleet.stop(timeout=P13["join_s"])
+    alive = [t.name for t in threads if t.is_alive()]
+    if alive:
+        raise AssertionError(f"phase 13: threads still running: {alive}")
+    check_finite(torch, f"phase 13, turn {turn}", tables, local)
+    per_chunk = np.diff(stamps) if len(stamps) > 1 else np.array(
+        [summary["seconds"]])
+    arm = {"turn": turn, "steps": steps, "seconds": summary["seconds"],
+           "ms_per_step": summary["ms_per_step"],
+           "steady_ms_per_step": float(np.median(per_chunk))
+           / P13["chunk_steps"] * 1e3,
+           "full_publishes": ck.full_publishes,
+           "delta_publishes": ck.delta_publishes,
+           "publish_bytes": ck.publish_bytes_total}
+    seen = None
+    if fleet is None:
+        ck.close()
+    if fleet is not None:
+        if errors:
+            raise AssertionError(f"phase 13: the client failed: {errors[:3]}")
+        seen = {"dir": d, "fleet": fleet, "trainer": trainer,
+                "store": store, "local": local, "tcp_answers": answers,
+                "swaps": swaps, "rows_at": rows_at, "ck": ck,
+                "tables": tables}
+    return arm, summary, seen
+
+
+def p13_gates(seen, chunks):
+    """The gated A arm: every answer from a published step at or behind
+    the fence, a pull's rows the card's at its step; the fleet converged
+    on the last step serving the card's item rows and the exported user
+    rows bit for bit, and a ``topk`` equal to the selection over them; a
+    corrupted delta refused and never answered. Returns the readings."""
+    from fps_tpu_torch import serve
+    from fps_tpu_torch.core import snapshot_format as fmt
+    from fps_tpu_torch.serve.server import ReadServer
+
+    d, fleet, last = seen["dir"], seen["fleet"], len(chunks)
+    pubs = fmt.publications(d)
+    published = set(pubs)
+    if published != set(range(1, last + 1)):
+        raise AssertionError(f"phase 13: published {sorted(published)}")
+    answers = seen["tcp_answers"]
+    if not answers:
+        raise AssertionError("phase 13: no answer while training")
+    for a in answers:
+        if a["step"] not in published:
+            raise AssertionError(f"phase 13: an answer at step {a['step']}, "
+                                 "never published")
+        if a["fence"] is None or a["step"] > a["fence"][1]:
+            raise AssertionError(f"phase 13: an answer at step {a['step']} "
+                                 f"ahead of the fence {a['fence']}")
+        if a["op"] in ("pull", "local"):
+            want = seen["rows_at"][a["step"]][a["ids"]]
+            if a["values"].tobytes() != want.tobytes():
+                raise AssertionError(f"phase 13: a pull at step {a['step']}"
+                                     " differs from the card's rows there")
+    for r in fleet.readers:
+        trail = r.served_steps
+        if any(b < a for a, b in zip(trail, trail[1:])) or not set(
+                trail) <= published:
+            raise AssertionError(f"phase 13: reader {r.reader_id} served "
+                                 f"{trail}")
+    # Converged: the card's tables read back, and the exported users.
+    items = seen["store"].table(ITEM)[:ML20M_ITEMS].cpu().numpy()
+    users = np.asarray(seen["trainer"].logic.export_local_state(
+        seen["local"]))
+    rng = np.random.default_rng(14)
+    uids = rng.integers(0, ML20M_USERS, P13["topk_users"])
+    want_items, want_scores = ReadServer._topk_select(
+        users[uids] @ items.T, P13["k"])
+    for r in fleet.readers:
+        if r.fence.read() != (0, last):
+            raise AssertionError(f"phase 13: reader {r.reader_id}'s fence "
+                                 f"{r.fence.read()}")
+        step, got = r.server.pull(ITEM, np.arange(ML20M_ITEMS))
+        if step != last or got.tobytes() != items.tobytes():
+            raise AssertionError(f"phase 13: reader {r.reader_id} serves "
+                                 f"items at {step} unlike the card's")
+        snap = r.server.snapshot
+        if np.asarray(serve.materialize(snap.local_state[0])).tobytes() \
+                != users.tobytes():
+            raise AssertionError(f"phase 13: reader {r.reader_id}'s user "
+                                 "rows differ from the exported state")
+        step, ids, scores = r.server.topk(uids, k=P13["k"])
+        if (ids.tobytes() != want_items.tobytes()
+                or scores.tobytes() != want_scores.tobytes()):
+            raise AssertionError(f"phase 13: reader {r.reader_id}'s topk "
+                                 "differs from the selection on the card's "
+                                 "rows")
+    return {"answers": len(answers),
+            "answers_by_op": {op: sum(1 for a in answers if a["op"] == op)
+                              for op in ("pull", "topk", "local")},
+            "steps_answered": sorted({a["step"] for a in answers}),
+            "served_steps": {r.reader_id: r.served_steps
+                             for r in fleet.readers},
+            "rejected": {r.reader_id: r.watcher.rejected
+                         for r in fleet.readers}}
+
+
+def p13_corrupt_delta(torch, fps, kernels, seen, extra, card):
+    """One more chunk through ``fit_stream`` (the fleet's threads
+    stopped), published as a delta of the last step, bit-flipped by the
+    port's ``testing.chaos`` before any reader polls: ``open_chain`` and
+    ``with_delta`` refuse it (``SnapshotRejected``), and the fleet, polled
+    and queried over TCP, keeps answering from the last step."""
+    from fps_tpu_torch import serve
+    from fps_tpu_torch.core import snapshot_format as fmt
+    from fps_tpu_torch.testing import chaos
+
+    d, fleet, ck = seen["dir"], seen["fleet"], seen["ck"]
+    trainer = seen["trainer"]
+    last = max(fmt.publications(d))
+    _, summary = p11_counted(
+        torch, kernels, "MF, fit_stream, the corrupted delta's chunk",
+        P13["chunk_steps"], {"gather_rows": 2, "scatter_add": 2},
+        lambda: trainer.fit_stream(seen["tables"], seen["local"], [extra],
+                                   1, checkpointer=ck, checkpoint_every=1,
+                                   start_step=last), card, phase=13)
+    ck.close()
+    pub = fmt.publications(d).get(last + 1)
+    if pub is None or pub.kind != "delta" or pub.base != last:
+        raise AssertionError(f"phase 13: step {last + 1} published as "
+                             f"{pub}, not a delta of {last}")
+    chaos.bitflip_file(pub.path, nflips=8, seed=0)
+    refused = []
+    for what, fn in (
+            ("open_chain", lambda: serve.ServableSnapshot.open_chain(
+                d, last + 1)),
+            ("with_delta", lambda: fleet.readers[0].server.snapshot
+             .with_delta(pub.path))):
+        try:
+            fn()
+        except serve.SnapshotRejected as e:
+            refused.append(f"{what}: {e}")
+            continue
+        raise AssertionError(f"phase 13: {what} took the corrupted delta")
+    for _ in range(3):
+        fleet.poll()
+    with serve.TcpServe(fleet.readers[0].server, port=0) as tcp, \
+            serve.WireClient(tcp.host, tcp.port, timeout=10.0) as c:
+        r = c.request({"op": "pull", "table": ITEM, "ids": [0, 1, 2]})
+    for rd in fleet.readers:
+        if (rd.server.snapshot.step != last or rd.fence.read() != (0, last)
+                or last + 1 in rd.served_steps):
+            raise AssertionError(f"phase 13: reader {rd.reader_id} moved "
+                                 f"past {last}: {rd.served_steps}, fence "
+                                 f"{rd.fence.read()}")
+        if rd.watcher.rejected < 1:
+            raise AssertionError(f"phase 13: reader {rd.reader_id} never "
+                                 "counted the corrupted delta")
+    if not (r["ok"] and r["step"] == last):
+        raise AssertionError(f"phase 13: after the corrupted delta the "
+                             f"server answered {r}")
+    log(f"phase 13: the corrupted delta {os.path.basename(pub.path)} was "
+        f"refused ({refused[0][:120]}...) and never answered ({card})")
+    return {"delta": os.path.basename(pub.path), "refused": refused,
+            "rejected": {rd.reader_id: rd.watcher.rejected
+                         for rd in fleet.readers}}, summary
+
+
+def p13_lags(seen):
+    """Write→servable lag: each (reader, step) a reader swapped to, from
+    the publication's mtime (its atomic rename of a finished file) to the
+    swap's wall clock."""
+    from fps_tpu_torch.core import snapshot_format as fmt
+
+    pubs = fmt.publications(seen["dir"])
+    first = {}
+    for reader, step, t in seen["swaps"]:
+        first.setdefault((reader, step), t)
+    return [t - os.stat(pubs[step].path).st_mtime
+            for (reader, step), t in first.items() if step in pubs]
+
+
+def serving_phase(torch, fps, kernels, mf_data, card, dev="cuda:0"):
+    """Phase 13: serving while the card trains. MF at phase 11's width on
+    ``dev`` through ``fit_stream``, an ``AsyncCheckpointer`` with a
+    ``DeltaPolicy`` publishing every chunk, in turns with a 3-reader
+    ``ServingFleet`` (quorum 2), a ``TcpServe`` on reader 0 and a
+    ``WireClient`` thread (A) and without them (B); the first A gated
+    (:func:`p13_gates`), then a corrupted delta
+    (:func:`p13_corrupt_delta`). Every launch counter at 0 just before
+    each run."""
+    import shutil
+    import tempfile
+
+    mesh = fps.make_ps_mesh(device=dev)
+    t0 = time.perf_counter()
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    chunks = p11_chunks(mf_data, P13["chunks"] + 1, P13["chunk_steps"])
+    extra, chunks = chunks[-1], chunks[:-1]
+    arms, runs = [], []
+    gates = corrupt = lags = None
+    try:
+        for index, turn in enumerate(P13_TURNS):
+            arm, summary, seen = p13_arm(torch, fps, kernels, mesh, index,
+                                         turn, where, chunks, card)
+            arms.append(arm)
+            runs.append(summary)
+            if seen is None:
+                continue
+            if gates is None:
+                gates = p13_gates(seen, chunks)
+                corrupt, summary = p13_corrupt_delta(torch, fps, kernels,
+                                                     seen, extra, card)
+                runs.append(summary)
+                lags = p13_lags(seen)
+                answers = seen["tcp_answers"]
+            else:
+                seen["ck"].close()
+                lags += p13_lags(seen)
+                answers += seen["tcp_answers"]
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    readings = {
+        "write_to_servable_s": p13_quantiles(lags),
+        "pull_s": p13_quantiles([a["s"] for a in answers
+                                 if a["op"] == "pull"]),
+        "topk_s": p13_quantiles([a["s"] for a in answers
+                                 if a["op"] == "topk"]),
+        "steady_ms_per_step_by_turn": [
+            [a["turn"], a["steady_ms_per_step"]] for a in arms],
+        "ms_per_step_by_turn": [[a["turn"], a["ms_per_step"]]
+                                for a in arms]}
+    seconds = time.perf_counter() - t0
+    log(f"phase 13: write->servable {readings['write_to_servable_s']} s; "
+        f"pull {readings['pull_s']} s; topk {readings['topk_s']} s; "
+        "steady ms a step by turn (A: the fleet on) "
+        + ", ".join(f"{t} {ms:.4f}" for t, ms in
+                    readings["steady_ms_per_step_by_turn"]) + f" ({card})")
+    log(f"phase 13 done in {seconds:.1f} s")
+    return {"runs": runs, "arms": arms, "gates": gates,
+            "corrupted_delta": corrupt, "readings": readings,
+            "seconds": seconds, "card": card}
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -6188,6 +6593,8 @@ def main() -> int:
                                   card)
     # 12. Telemetry, counters at 0 before each run.
     telemetry = telemetry_phase(torch, fps, kernels, mf_data, lr_data, card)
+    # 13. Serving while the card trains, counters at 0 before each run.
+    serving = serving_phase(torch, fps, kernels, mf_data, card)
     del mf_data
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
@@ -6199,6 +6606,7 @@ def main() -> int:
     runs += adaptive["runs"]
     runs += durability["runs"]
     runs += telemetry["runs"]
+    runs += serving["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -6228,7 +6636,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 13. Summary lines. Each entry's times are per step of its first path
+    # 14. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -6330,6 +6738,7 @@ def main() -> int:
         "adaptive_tier": {k: v for k, v in adaptive.items() if k != "runs"},
         "durability": {k: v for k, v in durability.items() if k != "runs"},
         "telemetry": {k: v for k, v in telemetry.items() if k != "runs"},
+        "serving": {k: v for k, v in serving.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

@@ -350,9 +350,11 @@ _net_env_checked = False
 
 def install_net_injector(inj) -> None:
     """Install ``inj`` as the process-global NETWORK fault injector.
-    Its ``check(op, peer_class)`` is consulted by every socket seam in
-    of the serving plane (ROADMAP.md Queue 1 item 9b). Passing None
-    uninstalls."""
+    Its ``check(op, peer_class)`` is consulted by every socket seam
+    of the serving plane (:mod:`fps_tpu_torch.serve.wire` /
+    :mod:`fps_tpu_torch.serve.net`); see
+    :mod:`fps_tpu_torch.testing.faultnet` for the implementation.
+    Passing None uninstalls."""
     global _net_injector
     _net_injector = inj
 
@@ -377,11 +379,23 @@ def get_net_injector():
 
 
 def _load_env_net_injector(spec: str):
-    """The network schedule's injector (``FaultNet``) comes with the
-    serving plane's wire and its chaos harness (ROADMAP.md Queue 1 item 9c)."""
-    raise NotImplementedError(
-        f"{FAULTNET_ENV} is not ported yet: the network fault injector "
-        "comes with the chaos harnesses (ROADMAP.md Queue 1 item 9c)")
+    """Build a FaultNet from the env spec — faultnet.py loaded by FILE
+    path (stdlib-only, like this module), so env activation works in
+    torch-free serving processes. The port's own FaultNet, never the JAX
+    package's."""
+    import importlib.util as _ilu
+    import sys as _sys
+
+    mod = _sys.modules.get("fps_tpu_torch.testing.faultnet")
+    if mod is None:
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "testing", "faultnet.py")
+        ld = _ilu.spec_from_file_location("_fps_torch_faultnet", path)
+        mod = _ilu.module_from_spec(ld)
+        _sys.modules[ld.name] = mod
+        ld.loader.exec_module(mod)
+    return mod.FaultNet.from_spec(spec)
 
 
 def net_fault_check(op: str, peer_class: str):

@@ -11,7 +11,7 @@ snapshot:
   snapshots and restores them (it re-exports the names below);
 * the **chaos injectors** (:mod:`fps_tpu_torch.testing.chaos`) corrupt
   them by the same filename contract;
-* the **serving plane** (ROADMAP.md Queue 1 item 9b), a process that must
+* the **serving plane** (:mod:`fps_tpu_torch.serve`), a process that must
   discover, CRC-verify and map snapshots without the training stack.
 
 Integrity is the checkpoint layer's scheme verbatim: every array entry

@@ -30,8 +30,13 @@ JSONL event log, run journal and Prometheus exposition under ``DIR``
 (:func:`attach_obs`; render them with ``tools/obs_report.py DIR``), and
 ``--obs-watchdog-s S`` flags any chunk whose launches and read take longer
 than ``S`` seconds (:func:`make_watchdog`). ``--heartbeat`` (the
-supervisor's contract, ROADMAP.md Queue 1 item 9c) and ``--serve-port``
-(the serving plane, item 9b) exit naming their item.
+supervisor's contract, ROADMAP.md Queue 1 item 9c) exits naming its item.
+
+Serving (:mod:`fps_tpu_torch.serve`): ``--serve-port PORT`` (with
+``--checkpoint-dir`` and ``--checkpoint-every``) answers pull / score /
+top-k queries over the framed TCP wire while the job trains, from the
+snapshots it publishes (:func:`maybe_serve`; ``0`` binds an ephemeral
+port, named in the ``"serving"`` event).
 
 ``--num-shards`` / ``--num-data`` shape the mesh as in the JAX package's
 examples: by default over every visible CUDA device, or with every position
@@ -155,9 +160,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     ap.add_argument("--heartbeat", default=None,
                     help="not ported yet (the supervisor, ROADMAP.md Queue "
                          "1 item 9c)")
-    ap.add_argument("--serve-port", default=None,
-                    help="not ported yet (the serving plane, ROADMAP.md "
-                         "Queue 1 item 9b)")
+    ap.add_argument("--serve-port", type=int, default=None, metavar="PORT",
+                    help="serve the published snapshots over TCP on PORT "
+                         "while training (fps_tpu_torch.serve; requires "
+                         "--checkpoint-dir and --checkpoint-every; 0 = "
+                         "an ephemeral port)")
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
                     help="telemetry output (fps_tpu_torch.obs): JSONL event "
                          "log, per-process run journal, and Prometheus text "
@@ -170,12 +177,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return ap
 
 
-_UNPORTED = {"heartbeat": "item 9c", "serve_port": "item 9b"}
+_UNPORTED = {"heartbeat": "item 9c"}
 
 
 def refuse_unported(args) -> None:
-    """Exit naming the item that ports the supervisor's and the serving
-    plane's flags."""
+    """Exit naming the item that ports the supervisor's flag."""
     for flag, item in _UNPORTED.items():
         if getattr(args, flag, None) is not None:
             raise SystemExit(
@@ -202,6 +208,61 @@ def attach_obs(args, trainer=None, *, workload: str | None = None):
         trainer.recorder = rec
     emit({"event": "obs", "dir": args.obs_dir, "run_id": rec.run_id})
     return rec
+
+
+def maybe_serve(args, recorder=None):
+    """``--serve-port`` as a serve-while-train context manager.
+
+    Inside the ``with`` block a background thread polls
+    ``--checkpoint-dir`` (and the ``--obs-dir`` journal, when set: the
+    ``checkpoint_saved`` events carry path, step and bytes) and hot-swaps
+    every new verified snapshot into a TCP ``ReadServer``; exit stops the
+    watcher, closes the socket, publishes the end-of-run snapshot and
+    emits the serve stats. A null context when the flag is off, so call
+    sites wrap the training region unconditionally.
+    """
+    if getattr(args, "serve_port", None) is None:
+        return contextlib.nullcontext()
+    if not (args.checkpoint_dir and args.checkpoint_every > 0):
+        raise SystemExit("--serve-port requires --checkpoint-dir and "
+                         "--checkpoint-every (serving reads published "
+                         "snapshots)")
+    import threading
+
+    from fps_tpu_torch.serve import ReadServer, TcpServe
+
+    server, watcher = ReadServer.over(
+        args.checkpoint_dir, journal=getattr(args, "obs_dir", None),
+        recorder=recorder)
+    tcp = TcpServe(server, port=args.serve_port).start()
+    stop = threading.Event()
+    thread = threading.Thread(
+        target=watcher.run, kwargs={"interval_s": 0.5, "stop": stop},
+        name="fps-serve-watcher", daemon=True)
+    thread.start()
+    emit({"event": "serving", "host": tcp.host, "port": tcp.port,
+          "ckpt_dir": args.checkpoint_dir})
+
+    @contextlib.contextmanager
+    def running():
+        try:
+            yield server
+        finally:
+            stop.set()
+            thread.join(timeout=10.0)
+            tcp.close()
+            if not thread.is_alive():
+                # Final swap: the end-of-run flush's snapshot. Skipped if
+                # the watcher thread outlived the join (a multi-GB verify
+                # can): poll() is single-threaded by contract.
+                watcher.poll()
+            stats = server.stats()
+            stats.update(swaps=dict(watcher.swaps),
+                         rejected=watcher.rejected,
+                         write_to_servable_s=watcher.write_to_servable_s)
+            emit({"event": "served", **stats})
+
+    return running()
 
 
 def make_watchdog(args, recorder):

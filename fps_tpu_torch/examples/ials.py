@@ -10,7 +10,9 @@ thread.
 Alternating normal-equation solves (``fps_tpu_torch.models.ials``). Prints
 one JSON line per event: ``start``, an ``epoch`` event with the weighted
 loss and the epoch's seconds (its weighted loss on the host included), and
-``done`` with the held-out recall@k.
+``done`` with the held-out recall@k. ``--checkpoint-dir`` with
+``--checkpoint-every N`` saves both factor tables every N epochs, which
+``--serve-port`` serves while the solver runs.
 
     python -m fps_tpu_torch.examples.ials --device cpu
     python -m fps_tpu_torch.examples.ials --num-users 32768 --num-items 16384 --per-user 64 --data-rank 8 --local-batch 65536 --steps-per-chunk 4 --topk 20 --epochs 8
@@ -33,6 +35,8 @@ from fps_tpu_torch.examples.common import (
     make_epoch_source,
     make_mesh,
     make_watchdog,
+    maybe_checkpointer,
+    maybe_serve,
 )
 
 
@@ -90,22 +94,31 @@ def main(argv=None) -> int:
     # the run, and its epochs are recorded below.
     rec = attach_obs(args, workload="ials")
     wd = make_watchdog(args, rec)
+    ckpt = maybe_checkpointer(args)
     # The interactions split over every device (no worker-local state to
     # route for); each epoch consumes its chunks twice, once a side.
     source = make_epoch_source(args, mesh, train)
     t0 = time.perf_counter()
-    for epoch in range(args.epochs):
-        te = time.perf_counter()
-        with (wd.watch("epoch", epoch) if wd is not None
-              else contextlib.nullcontext()):
-            solver.epoch(lambda e=epoch: source(e, 1))
-        loss = solver.weighted_loss(train["user"], train["item"],
-                                    train["rating"])
-        emit({"event": "epoch", "epoch": epoch, "weighted_loss": loss,
-              "seconds": time.perf_counter() - te})
-        if rec is not None:
-            rec.inc("driver.epochs")
-            rec.event("epoch", index=epoch, weighted_loss=float(loss))
+    with maybe_serve(args, rec):
+        for epoch in range(args.epochs):
+            te = time.perf_counter()
+            with (wd.watch("epoch", epoch) if wd is not None
+                  else contextlib.nullcontext()):
+                solver.epoch(lambda e=epoch: source(e, 1))
+            loss = solver.weighted_loss(train["user"], train["item"],
+                                        train["rating"])
+            emit({"event": "epoch", "epoch": epoch, "weighted_loss": loss,
+                  "seconds": time.perf_counter() - te})
+            if rec is not None:
+                rec.inc("driver.epochs")
+                rec.event("epoch", index=epoch, weighted_loss=float(loss))
+            if ckpt is not None and (epoch + 1) % args.checkpoint_every == 0:
+                ckpt.save(epoch + 1, solver.store)
+        if ckpt is not None:
+            # The solver drives its own loop, so it owns the durability
+            # barrier the Trainer's drivers give: the async writer's last
+            # snapshot is on disk before the run reports done.
+            ckpt.flush()
     r = recall_at_k(solver, test["user"][:2000], test["item"][:2000],
                     k=args.topk, exclude=(train["user"], train["item"]))
     emit({"event": "done", f"recall_at_{args.topk}": r,

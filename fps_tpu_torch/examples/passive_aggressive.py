@@ -30,6 +30,7 @@ from fps_tpu_torch.examples.common import (
     finish,
     make_guard,
     make_watchdog,
+    maybe_serve,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -131,7 +132,7 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t0})
         prof_step()
 
-    with prof:
+    with prof, maybe_serve(args, rec):
         tables, local_state, _ = trainer.fit_stream(
             tables, local_state, chunks, args.seed, on_chunk=report,
             watchdog=make_watchdog(args, rec),

@@ -27,6 +27,7 @@ from fps_tpu_torch.examples.common import (
     finish,
     make_guard,
     make_watchdog,
+    maybe_serve,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -103,7 +104,7 @@ def main(argv=None) -> int:
             raise _TargetReached
 
     try:
-        with prof:
+        with prof, maybe_serve(args, rec):
             trainer.fit_stream(tables, local_state, chunks, args.seed,
                                on_chunk=on_chunk,
                                watchdog=make_watchdog(args, rec),

@@ -33,6 +33,7 @@ from fps_tpu_torch.examples.common import (
     finish,
     make_guard,
     make_watchdog,
+    maybe_serve,
     maybe_warm_start,
     apply_host_pipeline,
     apply_hot_tier,
@@ -137,7 +138,7 @@ def main(argv=None) -> int:
               "seconds": dt})
         prof_step()
 
-    with prof:
+    with prof, maybe_serve(args, rec):
         if args.ingest == "device":
             # Tokens resident on the device; subsampling, compaction and
             # pair generation there, each epoch in calls of 256 steps.

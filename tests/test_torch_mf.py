@@ -346,6 +346,10 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.obs.timing, fps_tpu_torch.obs.events\n"
         "import fps_tpu_torch.utils.profiling\n"
         "import fps_tpu_torch.testing, fps_tpu_torch.testing.faultfs\n"
+        "import fps_tpu_torch.testing.faultnet, fps_tpu_torch.serve\n"
+        "import fps_tpu_torch.serve.fleet, fps_tpu_torch.serve.shadow\n"
+        "import fps_tpu_torch.serve.net, fps_tpu_torch.serve.wire\n"
+        "import fps_tpu_torch.examples.serve\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

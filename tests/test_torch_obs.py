@@ -28,6 +28,8 @@ import json
 import logging
 import os
 import re
+import subprocess
+import sys
 import threading
 import time
 
@@ -633,8 +635,7 @@ def test_registry_scan_catches_a_seeded_unregistered_emission():
 # What telemetry leaves to later items still names them.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("flag,item", [("--heartbeat", "item 9c"),
-                                       ("--serve-port", "item 9b")])
+@pytest.mark.parametrize("flag,item", [("--heartbeat", "item 9c")])
 def test_the_examples_unported_flags_exit_naming_their_item(flag, item):
     from fps_tpu_torch.examples import mf
 
@@ -642,11 +643,77 @@ def test_the_examples_unported_flags_exit_naming_their_item(flag, item):
         mf.main(["--device", "cpu", flag, "x"])
 
 
-def test_the_network_fault_loader_waits_for_item_9c():
-    from fps_tpu_torch.core import retry
+def test_the_examples_serve_port_answers_a_pull_while_training(
+        tmp_path, monkeypatch):
+    """``--serve-port 0`` (refused until the serving plane was ported)
+    serves the run's snapshots over TCP while it trains: at the second
+    chunk's event, with training held inside it, one framed ``pull``
+    answers from a published step, and the run ends with a ``served``
+    event. It needs ``--checkpoint-dir`` and ``--checkpoint-every``."""
+    from fps_tpu_torch.core import snapshot_format
+    from fps_tpu_torch.examples import common, mf
+    from fps_tpu_torch.serve import WireClient
 
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        retry._load_env_net_injector("{}")
+    events, answers = [], []
+    d = str(tmp_path / "ck")
+
+    def emit(record):
+        events.append(record)
+        chunks = [e for e in events if e["event"] == "chunk"]
+        if record["event"] != "chunk" or len(chunks) != 2:
+            return
+        port = next(e["port"] for e in events if e["event"] == "serving")
+        deadline = time.monotonic() + 30.0
+        with WireClient("127.0.0.1", port, timeout=10.0) as c:
+            while True:
+                r = c.request({"op": "pull", "table": "item_factors",
+                               "ids": [0, 1, 2]})
+                if r["ok"] or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)  # the watcher polls every 0.5 s
+        answers.append((r, set(snapshot_format.publications(d))))
+
+    monkeypatch.setattr(common, "emit", emit)
+    monkeypatch.setattr(mf, "emit", emit)
+    assert mf.main(["--scale", "100k", "--device", "cpu", "--rank", "4",
+                    "--local-batch", "2048", "--steps-per-chunk", "4",
+                    "--ingest", "host", "--checkpoint-dir", d,
+                    "--checkpoint-every", "1", "--serve-port", "0"]) == 0
+    [(r, published)] = answers
+    assert r["ok"] and r["step"] in published
+    assert np.asarray(r["values"]).shape == (3, 4)
+    served = next(e for e in events if e["event"] == "served")
+    assert served["requests"] >= 1
+    with pytest.raises(SystemExit, match="requires --checkpoint-dir"):
+        mf.main(["--device", "cpu", "--serve-port", "0"])
+
+
+def test_the_network_fault_env_installs_the_ports_faultnet(tmp_path):
+    """``FPS_TPU_FAULTNET`` (refused until the wire was ported) installs
+    the port's ``FaultNet`` at the first seam crossing of a fresh
+    process, never the JAX package's, and its schedule fires there."""
+    spec = json.dumps({"seed": 3, "rules": [
+        {"peer_class": "serve", "op": "connect", "fault": "refuse",
+         "start": 0, "count": 1}]})
+    code = (
+        "import sys\n"
+        "from fps_tpu_torch.core import retry\n"
+        "try:\n"
+        "    retry.net_fault_check('connect', 'serve')\n"
+        "    raise SystemExit('no fault fired')\n"
+        "except ConnectionRefusedError:\n"
+        "    pass\n"
+        "assert retry.net_fault_check('connect', 'serve') is None\n"
+        "inj = retry.get_net_injector()\n"
+        "print(type(inj).__module__, type(inj).__name__, inj.seed)\n"
+        "bad = [m for m in sys.modules if m == 'fps_tpu' or "
+        "m.startswith(('fps_tpu.', 'jax'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, FPS_TPU_FAULTNET=spec)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["_fps_torch_faultnet", "FaultNet", "3"]
 
 
 def test_the_examples_obs_dir_writes_the_run(tmp_path, capsys):
