@@ -4250,19 +4250,363 @@ def tier_card_vs_cpu(torch, fps):
     return worst
 
 
+# bench.py run_megastep_ab (:1678-1800) at its own widths: phase 9's MF
+# (4,096 users and items, rank 16, lr 0.05, the mean combine, a (2, 4) mesh)
+# with the item table's head of 2,048 on the gathered route and lanes of 8,
+# windows of 4, local batch 32, calls of 2 steps (max_steps_per_call), K = 16
+# chunks a dispatch, Zipf(1.05) ratings (seed 0) in a DeviceEpochPlan routed
+# by user (seed 5), 2 epochs. Cut to depth only: 64 chunks' worth of ratings
+# of the bench's 768. The turns: A (run_indexed), B (run_megastep, K = 16),
+# B, A; then "auto" (chunks_per_dispatch="auto") and "tick" (a
+# MegastepTick re-ranking every 2 segments, K = 16) twice. Each arm is
+# warmed up on throwaway state (one epoch) before its first turn.
+MEGA_LOCAL, MEGA_SPC, MEGA_CHUNKS, MEGA_BENCH_CHUNKS = 32, 2, 64, 768
+MEGA_K, MEGA_C, MEGA_EPOCHS, MEGA_CHECK = 16, 8, 2, 2
+MEGA_TURNS = ("A", "B", "B", "A", "auto", "tick", "tick")
+# The card-against-CPU tick job: tests/test_torch_megastep.py's size (57
+# users, 31 items, rank 4, a mapped head of 16, windows of 2, calls of 4
+# steps, local batch 8, lanes of 8) on its drifting stream, K = 2, a tick
+# at every segment.
+MEGA_CPU = dict(nu=57, ni=31, rank=4, H=16, E=2, T=4, B=8, C=8, n=1200)
+
+
+def mega_mf(fps, mesh, data, H, C, E, *, nu, ni, rank, lr, local, spc):
+    """run_megastep_ab's trainer and plan: MF with the item table's head on
+    the gathered route, lanes of ``C``, windows of ``E``, calls of ``spc``
+    steps."""
+    import dataclasses
+
+    trainer, store = fps.online_mf(mesh, fps.MFConfig(
+        num_users=nu, num_items=ni, rank=rank, learning_rate=lr),
+        combine="mean", max_steps_per_call=spc)
+    store.specs[ITEM] = dataclasses.replace(
+        store.specs[ITEM], hot_tier=H, cold_budget=C,
+        dense_collectives=False)
+    trainer.config = dataclasses.replace(trainer.config, hot_sync_every=E)
+    plan = fps.DeviceEpochPlan(fps.DeviceDataset(mesh, data),
+                               num_workers=mesh.shape["data"]
+                               * mesh.shape["shard"], local_batch=local,
+                               route_key="user", seed=5)
+    return trainer, store, plan
+
+
+def mega_strip(tree):
+    """A metrics tree without the megastep's ``cold_dropped`` leaves
+    (``run_indexed`` never packs its lanes)."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: mega_strip(v) for k, v in tree.items() if k != "cold_dropped"}
+
+
+def mega_flat(metrics):
+    """One run's metrics (a list of trees) as flat arrays joined along the
+    step axis."""
+    parts = [flat_metrics(m) for m in metrics]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def mega_arm(torch, fps, kernels, mesh, data, turn, card, warm):
+    """One turn of phase 9's megastep arms from fresh state (after one
+    warm-up epoch on throwaway state when ``warm``), the launch counters at
+    0 just before and read just after, the synchronising calls counted
+    (``SyncCount``), the lanes' packing counted (``ExchangeSpy``). The
+    ``auto`` arm's calibration window is timed and counted apart: its
+    launches and packing are taken out of the run's (its seconds are
+    not)."""
+    from fps_tpu_torch.core import autok
+    from fps_tpu_torch.tiering import MegastepTick
+
+    trainer, store, plan = mega_mf(
+        fps, mesh, data, TIER_H, MEGA_C, TIER_E, nu=TIER_NU, ni=TIER_NI,
+        rank=TIER_RANK, lr=TIER_LR, local=MEGA_LOCAL, spc=MEGA_SPC)
+
+    def go(tables, local, seed, epochs, rec=None):
+        if turn == "A":
+            return trainer.run_indexed(tables, local, plan, seed,
+                                       epochs=epochs, recorder=rec)
+        tick = None
+        if turn == "tick":
+            tick = MegastepTick(check_every=MEGA_CHECK, churn_threshold=-1.0)
+            trainer.retierer = None
+        return trainer.run_megastep(
+            tables, local, plan, seed, epochs=epochs,
+            chunks_per_dispatch="auto" if turn == "auto" else MEGA_K,
+            tick=tick, recorder=rec)
+
+    if warm:
+        tables, local = trainer.init_state(7)
+        go(tables, local, 9, 1)
+    calibrated, spies = [], []
+    real = autok.calibrate_chunks_per_dispatch
+
+    def calibrate(*a, **k):
+        # The calibration window's dispatches (on copies of the state) are
+        # counted apart from the run's.
+        torch.cuda.synchronize()
+        before, packed = kernels.launch_counts(), spies[0].compact
+        t0 = time.perf_counter()
+        calibrated.append(real(*a, **k))
+        torch.cuda.synchronize()
+        calibrated.append({
+            "seconds": time.perf_counter() - t0,
+            "launches": {n: v - before[n]
+                         for n, v in kernels.launch_counts().items()},
+            "compact_cold_calls": spies[0].compact - packed})
+        return calibrated[0]
+
+    autok.calibrate_chunks_per_dispatch = calibrate
+    rec = fps.obs.Recorder(sinks=[])
+    tables, local = trainer.init_state(0)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with ExchangeSpy() as spy, SyncCount(torch) as syncs:
+            spies.append(spy)
+            t0 = time.perf_counter()
+            tables, local, metrics = go(tables, local, 1, MEGA_EPOCHS, rec)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        autok.calibrate_chunks_per_dispatch = real
+    launched = kernels.launch_counts()
+    packed = spy.compact
+    if calibrated:
+        launched = {n: v - calibrated[1]["launches"][n]
+                    for n, v in launched.items()}
+        packed -= calibrated[1]["compact_cold_calls"]
+    T_call = trainer._indexed_call_steps(plan)
+    n_calls = plan.calls_per_epoch(T_call)
+    steps = MEGA_EPOCHS * plan.steps_per_epoch
+    W = len(mesh.local)
+    K = 1 if turn == "A" else int(
+        rec.snapshot()["gauges"]["megastep.chunks_per_dispatch"])
+    dispatches = MEGA_EPOCHS * (n_calls if turn == "A"
+                                else -(-n_calls // K))
+    summary = {
+        "path": f"MF megastep arm {turn}, mesh 2x4", "turn": turn,
+        "seconds": seconds, "steps": steps,
+        "ms_per_step": seconds / steps * 1e3,
+        "examples": float(sum(m["n"].sum() for m in metrics)),
+        "launches": launched,
+        "launches_per_position_per_step": {
+            k: v / (W * steps) for k, v in launched.items() if v},
+        "chunks_per_dispatch": K, "dispatches": dispatches,
+        "chunk_calls": MEGA_EPOCHS * n_calls,
+        "host_syncs": syncs.calls, "host_sync_sites": syncs.sites,
+        "host_syncs_per_dispatch": syncs.calls / dispatches,
+        "compact_cold_calls": packed,
+        "counters": {k: rec.counter_value(k) for k in (
+            "cold_route.vote_compact_windows",
+            "cold_route.vote_overflow_windows", "megastep.windows")},
+        "card": card}
+    if calibrated:
+        summary["calibration"] = dict(
+            calibrated[1], chosen_k=calibrated[0][0],
+            overhead_s=calibrated[0][1], per_chunk_s=calibrated[0][2])
+        summary["ms_per_step_without_calibration"] = (
+            seconds - calibrated[1]["seconds"]) / steps * 1e3
+    if turn == "tick":
+        summary["re_ranks"] = rec.counter_value("tiering.re_ranks",
+                                                table=ITEM)
+    state = {k: v.numpy() for k, v in tables.items()}
+    state["local"] = local.numpy()
+    return summary, state, mega_flat([mega_strip(m) for m in metrics]), \
+        trainer, store
+
+
+def mega_same(label, a, b):
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: the entries differ: {sorted(a)} vs "
+                             f"{sorted(b)}")
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def mega_launch_check(summary, W):
+    """The launches the code gives a run of the arms: a position a step K1
+    3 (the user row, the replica, the cold route) and one more in a step of
+    a certified segment (the lane's rows back to the batch: ``compact_cold``
+    runs twice a worker a certified step), K2 3 (the user push, the cold
+    push, the buffer), and K1 once a position a call (the reconcile's owned
+    rows); the tick adds K4 1 a position a step (the tracker's window), K2
+    once a position a reconcile (the mapped reconcile's owned rows, in
+    place of K1) and K1 once a position a tick (the re-split) and once at
+    the run's entry (the mapped replica's derivation)."""
+    steps, calls = summary["steps"], summary["chunk_calls"]
+    lanes = summary["compact_cold_calls"] // 2
+    got = summary["launches"]
+    if summary["turn"] == "tick":
+        ticks = summary["ticks"]
+        want = {"gather_rows": W * (3 * steps + ticks + 1) + lanes,
+                "scatter_add": W * (3 * steps + calls),
+                "scatter_add_dim1": W * steps}
+    else:
+        want = {"gather_rows": W * (3 * steps + calls) + lanes,
+                "scatter_add": W * 3 * steps}
+    for k, v in got.items():
+        if v != want.get(k, 0):
+            raise AssertionError(
+                f"{summary['path']}: {k} launched {v} times, expected "
+                f"{want.get(k, 0)} ({steps} steps, {calls} calls, {lanes} "
+                f"certified worker-steps, {W} positions)")
+
+
+def tier_megastep(torch, fps, kernels, card):
+    """Phase 9 (e): bench.py run_megastep_ab's arms in turns (A
+    ``run_indexed``, B ``run_megastep`` K = 16, B, A, ``"auto"``, a tick
+    every 2 segments twice), every position on ``cuda:0``. Gates: every
+    megastep arm's tables, replica, local state and metrics equal
+    ``run_indexed``'s bit for bit (the tick arm's its own second run's);
+    the vote counters sum to the real windows; the tick re-ranks, its
+    replica is the canonical rows of the final hot ids and its slot map
+    their order; each run's launches are what the code gives."""
+    from fps_tpu_torch.core.store import hot_key, ids_key, map_key
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    data = ds.zipf_ratings(TIER_NU, TIER_NI,
+                           W * MEGA_LOCAL * MEGA_SPC * MEGA_CHUNKS, seed=0)
+    arms, states, metrics = [], {}, {}
+    warmed = set()
+    for turn in MEGA_TURNS:
+        summary, state, flat, trainer, store = mega_arm(
+            torch, fps, kernels, mesh, data, turn, card, turn not in warmed)
+        warmed.add(turn)
+        windows = summary["chunk_calls"]
+        c = summary["counters"]
+        if turn != "A":
+            if not (c["megastep.windows"] == windows == c[
+                    "cold_route.vote_compact_windows"]
+                    + c["cold_route.vote_overflow_windows"]):
+                raise AssertionError(
+                    f"arm {turn}: vote counters {c} against {windows} real "
+                    "windows")
+        if turn == "tick":
+            if summary["re_ranks"] < 1:
+                raise AssertionError("the tick arm did not re-rank")
+            gids = store.tables[ids_key(ITEM)].numpy()
+            if not np.array_equal(store.tables[hot_key(ITEM)].numpy(),
+                                  store.lookup_host(ITEM, gids)):
+                raise AssertionError("the tick arm's replica is not the "
+                                     "canonical rows of its hot ids")
+            smap = store.tables[map_key(ITEM)].numpy()
+            if not np.array_equal(smap[gids], np.arange(len(gids))):
+                raise AssertionError("the tick arm's slot map is not its "
+                                     "hot ids' order")
+            summary["ticks"] = trainer.retierer.tick
+            summary["hot_ids_changed"] = int(
+                np.setdiff1d(gids, np.arange(TIER_H)).size)
+        mega_launch_check(summary, W)
+        if turn in states:
+            mega_same(f"arm {turn}, two turns", states[turn], state)
+            mega_same(f"arm {turn} metrics, two turns", metrics[turn], flat)
+        states.setdefault(turn, state)
+        metrics.setdefault(turn, flat)
+        arms.append(summary)
+        log(f"phase 9, megastep arm {turn}: {summary['ms_per_step']:.3f} ms "
+            f"a step, K {summary['chunks_per_dispatch']}, "
+            f"{summary['dispatches']} dispatches, launches a position a "
+            f"step {summary['launches_per_position_per_step']}, "
+            f"synchronising calls {summary['host_syncs']} "
+            f"({summary['host_syncs_per_dispatch']:.2f} a dispatch; "
+            f"{summary['host_sync_sites']}), vote {c}, calibration "
+            f"{summary.get('calibration')} ({card})")
+    for turn in ("B", "auto"):
+        mega_same(f"arm {turn} against run_indexed", states["A"],
+                  states[turn])
+        mega_same(f"arm {turn} metrics against run_indexed", metrics["A"],
+                  metrics[turn])
+    log("phase 9: the megastep arms (K = 16 and auto) equal run_indexed bit "
+        "for bit; the tick arm's two runs equal each other")
+    by = {}
+    for a in arms:
+        by.setdefault(a["turn"], []).append(a["ms_per_step"])
+        if "ms_per_step_without_calibration" in a:
+            by.setdefault("auto without calibration", []).append(
+                a["ms_per_step_without_calibration"])
+    readings = {t: {"median": float(np.median(v)), "min": min(v),
+                    "max": max(v), "turns": v} for t, v in by.items()}
+    auto = next(a for a in arms if a["turn"] == "auto")
+    return {"arms": arms, "ms_per_step": readings,
+            "calibration": auto.get("calibration"),
+            "cut": {"chunks": MEGA_CHUNKS, "of_bench": MEGA_BENCH_CHUNKS,
+                    "epochs": MEGA_EPOCHS}}
+
+
+def megastep_card_vs_cpu(torch, fps):
+    """Phase 9 (f): the CPU test's tick job (``MEGA_CPU``) on the card and
+    on the CPU from the same tables: the same hot ids, and every table
+    within 1e-5 of max(1, its largest value)."""
+    from fps_tpu_torch.tiering import MegastepTick
+
+    cfg = MEGA_CPU
+    rng = np.random.default_rng(0)
+    n = cfg["n"]
+    item = np.where(rng.random(n) < 0.9, rng.integers(15, cfg["ni"], n),
+                    rng.integers(0, 15, n)).astype(np.int32)
+    data = {"user": rng.integers(0, cfg["nu"], n).astype(np.int32),
+            "item": item, "rating": rng.normal(size=n).astype(np.float32)}
+    D, S = TIER_MESH
+    runs, state0 = {}, None
+    for device in ("cpu", "cuda:0"):
+        mesh = fps.make_ps_mesh(S, D, device=device)
+        trainer, _, plan = mega_mf(
+            fps, mesh, data, cfg["H"], cfg["C"], cfg["E"], nu=cfg["nu"],
+            ni=cfg["ni"], rank=cfg["rank"], lr=0.1, local=cfg["B"],
+            spc=cfg["T"])
+        if state0 is None:
+            state0 = trainer.init_state(0)
+        tick = MegastepTick(check_every=1, churn_threshold=-1.0)
+        tables, local, _ = trainer.run_megastep(
+            on_device(torch, state0[0], device),
+            on_device(torch, state0[1], device), plan, 1, epochs=2,
+            chunks_per_dispatch=2, tick=tick)
+        runs[device] = (dict(on_host(torch, tables)),
+                        tick.hot_ids[ITEM].copy())
+        runs[device][0]["local_state"] = on_host(torch, local)
+    cpu, card = runs["cpu"], runs["cuda:0"]
+    if not np.array_equal(cpu[1], card[1]):
+        raise AssertionError(f"megastep card vs CPU: hot ids {card[1]} "
+                             f"against {cpu[1]}")
+    worst = max(float((want - card[0][k]).abs().max())
+                / max(1.0, float(want.abs().max()))
+                for k, want in cpu[0].items()
+                if want.dtype.is_floating_point)
+    log(f"phase 9, megastep card vs CPU: hot ids equal, worst {worst}")
+    if not worst <= 1e-5:
+        raise AssertionError(f"megastep card vs CPU: {worst} of the largest "
+                             "value > 1e-5")
+    for k, want in cpu[0].items():
+        if not want.dtype.is_floating_point and not torch.equal(
+                want, card[0][k]):
+            raise AssertionError(f"megastep card vs CPU: {k} differs")
+    return {"worst": worst, "hot_ids": cpu[1].tolist()}
+
+
 def tier_phase(torch, fps, kernels, lr_data, card):
     """Phase 9: the static hot tier on the card, every position on
     ``cuda:0``, every launch counter at 0 just before each run and read
-    just after."""
+    just after; then the megastep's arms on its tiered MF."""
     t0 = time.perf_counter()
     arms = tier_arms(torch, fps, kernels, card)
     logreg = tier_logreg(torch, fps, kernels, lr_data, card)
     fold = tier_fold(torch, fps, kernels, card)
     worst = tier_card_vs_cpu(torch, fps)
-    seconds = time.perf_counter() - t0
-    log(f"phase 9 done in {seconds:.1f} s")
-    return {"runs": list(arms.values()) + [logreg, fold], "arms": arms,
-            "card_vs_cpu": worst, "seconds": seconds, "card": card}
+    t_mega = time.perf_counter()
+    mega = tier_megastep(torch, fps, kernels, card)
+    mega["card_vs_cpu"] = megastep_card_vs_cpu(torch, fps)
+    now = time.perf_counter()
+    mega["seconds"] = now - t_mega
+    seconds = now - t0
+    log(f"phase 9 done in {seconds:.1f} s (the megastep arms "
+        f"{mega['seconds']:.1f} s)")
+    return {"runs": list(arms.values()) + [logreg, fold] + mega["arms"],
+            "arms": arms, "card_vs_cpu": worst,
+            "megastep": {k: v for k, v in mega.items() if k != "arms"},
+            "seconds": seconds, "card": card}
 
 
 # ---------------------------------------------------------------------------

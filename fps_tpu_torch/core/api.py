@@ -82,6 +82,18 @@ class WorkerLogic:
         the static cold routes."""
         return None
 
+    def pulled_ids_traced(self, batch) -> Mapping[str, Tensor] | None:
+        """Optional device stream that certifies the megastep's segments for
+        the compacted cold routes (its overflow vote,
+        :mod:`fps_tpu_torch.core.megastep`), where no host id stream
+        exists: ``{table: int id tensor}`` from one worker's raw
+        (un-``prepare``-d) batch, covering every id the step pulls or pushes
+        for that table. The megastep hands it a worker's batches with a
+        leading step axis and counts each step's ids apart; any trailing
+        shape is flattened. ``None`` (the default): uncertifiable, and every
+        segment takes the static cold routes."""
+        return None
+
     def head_prefix(self, batch) -> Mapping[str, int]:
         """Optional static guarantee: table name -> count of leading ids (in
         both :meth:`pull_ids` order and the step's push order) that lie in

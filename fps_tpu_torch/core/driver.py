@@ -79,6 +79,13 @@ push; its outputs ride the metrics under ``"tap"``.
   :class:`~fps_tpu_torch.core.resilience.RollbackPolicy`;
   :meth:`Trainer.restore_checkpoint` restores onto any mesh.
 
+* **run_megastep**: K chunk segments of a device plan in one Python
+  dispatch (:mod:`fps_tpu_torch.core.megastep`): the per-chunk
+  ``run_indexed`` loop bit for bit, the ``cold_budget`` lanes certified by
+  a vote on the device, the adaptive tier's boundary a
+  :class:`~fps_tpu_torch.tiering.MegastepTick` on the device, and
+  ``chunks_per_dispatch="auto"`` (:mod:`fps_tpu_torch.core.autok`).
+
 * **telemetry** (:mod:`fps_tpu_torch.obs`): ``Trainer(recorder=...)`` (or
   each call's ``recorder``) times every chunk's and epoch's host phases
   (:class:`~fps_tpu_torch.obs.PhaseTimer`), counts the ``driver.*``,
@@ -94,7 +101,8 @@ push; its outputs ride the metrics under ``"tap"``.
   none.
 
 Refused with ``NotImplementedError`` naming the ROADMAP.md Queue 1 item
-that ports it: ``Trainer(audit=...)`` (the program auditor, item 10).
+that ports it: ``Trainer(audit=...)`` and ``lowered_megastep_text`` (the
+program auditor, item 10).
 """
 
 from __future__ import annotations
@@ -2127,6 +2135,51 @@ class Trainer:
         if rec is not None:
             rec.flush()
         return tables, local_state, all_metrics
+
+    # -- megasteps ----------------------------------------------------------
+
+    def run_megastep(self, tables, local_state, plan, seed: int, *,
+                     epochs: int = 1, chunks_per_dispatch=4,
+                     on_megastep=None, checkpointer=None,
+                     checkpoint_every: int = 0, start_megastep: int = 0,
+                     as_numpy: bool = True, rollback=None, recorder=None,
+                     health=None, watchdog=None, tick=None):
+        """Run ``epochs`` passes over a device plan in megasteps of
+        ``chunks_per_dispatch`` chunk segments (an int >= 1 or ``"auto"``),
+        one Python dispatch each: the per-chunk :meth:`run_indexed` loop
+        (``max_steps_per_call`` steps a chunk) bit for bit, in tables,
+        metrics and checkpoints, with no host read between the segments but
+        the overflow vote of the ``cold_budget`` lanes, once a group. A
+        :class:`~fps_tpu_torch.tiering.MegastepTick` (``tick``) re-ranks the
+        mapped tier on the device every ``tick.check_every`` segments;
+        without it, no retierer may be attached (the tick is the boundary).
+        The JAX package's parameters, in its order (``key`` is ``seed``);
+        see :func:`fps_tpu_torch.core.megastep.run_megastep`."""
+        from fps_tpu_torch.core import megastep as _megastep
+
+        return _megastep.run_megastep(
+            self, tables, local_state, plan, seed, epochs=epochs,
+            chunks_per_dispatch=chunks_per_dispatch,
+            on_megastep=on_megastep, checkpointer=checkpointer,
+            checkpoint_every=checkpoint_every,
+            start_megastep=start_megastep, as_numpy=as_numpy,
+            rollback=rollback, recorder=recorder, health=health,
+            watchdog=watchdog, tick=tick)
+
+    def lowered_megastep_text(self, plan, *, chunks_per_dispatch: int,
+                              mode: str = "sync", tick=None) -> str:
+        """The JAX package's lowered megastep program. The cadence is
+        checked as :meth:`run_megastep` checks it; then refused: the port
+        has no compiled program to lower, and the program auditor is
+        ROADMAP.md Queue 1 item 10."""
+        if tick is not None and chunks_per_dispatch % tick.check_every:
+            raise ValueError(
+                f"chunks_per_dispatch={chunks_per_dispatch} must be a "
+                f"multiple of tick.check_every={tick.check_every}")
+        raise NotImplementedError(
+            "lowered_megastep_text is not ported: the port's megastep is "
+            "eager, with no compiled program to lower; the program auditor "
+            "is ROADMAP.md Queue 1 item 10")
 
 
 @dataclasses.dataclass

@@ -326,8 +326,8 @@ def health_total(metrics: Pytree) -> int:
 def health_by_segment(metrics: Pytree, segments: int,
                       steps_per_segment: int) -> list[int]:
     """Poison totals a segment of ``steps_per_segment`` steps of one HOST
-    metrics tree (the megastep's in-graph chunks, ROADMAP.md Queue 1 item
-    7d), counted as :func:`health_total` counts; trailing segments a
+    metrics tree (the chunk segments of one ``Trainer.run_megastep``
+    dispatch), counted as :func:`health_total` counts; trailing segments a
     shorter tree does not reach report 0."""
     h = metrics.get(HEALTH_KEY) if isinstance(metrics, Mapping) else None
     totals = [0] * segments

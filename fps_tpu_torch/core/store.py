@@ -53,7 +53,9 @@ a slot lookup (:func:`lookup_hot_slots`), the hot half of a push is in slot
 space (:func:`split_hot_push_slots`), and :func:`reconcile_hot_mapped`
 scatters the window's step into the owners' rows of the current ids.
 :meth:`ParamStore.rows_replica` derives the replica of any id set from
-the canonical table by a copy. ``sketch_key(name)`` holds the tracker's
+the canonical table by a copy; :func:`replica_from_shard` and
+:func:`device_slot_map` do the same from ids on the device, with no host
+read (the megastep's tier tick). ``sketch_key(name)`` holds the tracker's
 count-min window of the pulled ids.
 """
 
@@ -219,6 +221,19 @@ def hot_slot_map(num_ids: int, hot_gids) -> np.ndarray:
     m = np.full(num_ids + 1, -1, np.int32)
     m[gids] = np.arange(len(gids), dtype=np.int32)
     return m
+
+
+def device_slot_map(num_ids: int, hot_gids: Tensor) -> Tensor:
+    """:func:`hot_slot_map` built on ``hot_gids``' device, with no host
+    read: the megastep's tier tick draws the ids from ``arange``, so
+    nothing is validated. For the same ids the same bits as
+    :func:`hot_slot_map` (a function of the ids' order)."""
+    m = torch.full((num_ids + 1,), -1, dtype=torch.int32,
+                   device=hot_gids.device)
+    return m.index_put_(
+        (hot_gids.to(torch.int64),),
+        torch.arange(hot_gids.shape[0], dtype=torch.int32,
+                     device=hot_gids.device))
 
 
 def lookup_hot_slots(slot_map: Tensor, ids: Tensor) -> Tensor:
@@ -532,6 +547,30 @@ def _owned_rows(gids: Tensor, shard: int, num_shards: int) -> Tensor:
     on shard ``g % S`` at local row ``g // S``), ``-1`` elsewhere."""
     owned = (gids >= 0) & ((gids % num_shards) == shard)
     return torch.where(owned, gids // num_shards, -1).to(torch.int32)
+
+
+def replica_from_shard(mesh: PSMesh, blocks, hot_gids: Tensor, *,
+                       num_shards: int) -> Blocks:
+    """The ``(H, dim)`` replica of the global ids ``hot_gids`` (an int
+    tensor of ids in ``[0, num_ids)``, on any device) on every position of
+    this process, from the canonical ``blocks``, with no host read: each
+    shard gathers the rows it owns (K1, or K5 on a scalar table; ``-1``
+    elsewhere), the gathers are all-gathered over the shard axis, and each
+    slot's row is selected from its owner's. A copy, so the canonical rows'
+    bits, ``-0.0`` included (the JAX package's sums the gathers with zero
+    rows). :meth:`ParamStore.rows_replica` validates host ids and calls
+    it; the megastep's tier tick calls it on the ids it ranked on the
+    device. Over several processes a collective."""
+    S, H = num_shards, hot_gids.shape[0]
+    blocks = list(blocks)
+    owned = [ops.gather_rows(b, _owned_rows(hot_gids.to(b.device), p % S, S))
+             for p, b in zip(mesh.local, blocks)]
+    every = collectives.all_gather(mesh, owned, SHARD_AXIS)
+    # Slot j's row is shard (ids[j] % S)'s gather row j.
+    g = hot_gids.to(torch.int64)
+    rows = (g % S) * H + torch.arange(H, dtype=torch.int64, device=g.device)
+    return Blocks([e.index_select(0, rows.to(e.device)) for e in every],
+                  replicas=len(mesh.slot), mesh=mesh)
 
 
 def reconcile_hot_mapped(cold_blocks, replicas, bufs, hot_gids, *,
@@ -998,16 +1037,10 @@ class ParamStore:
             raise ValueError(
                 f"table {name!r}: replica ids must be a non-empty subset "
                 f"of [0, {spec.num_ids})")
-        blocks = list(self.tables[name] if table is None else table)
-        S, H = self.num_shards, len(ids)
-        gids = torch.from_numpy(ids.astype(np.int32))
-        owned = [ops.gather_rows(b, _owned_rows(gids.to(b.device), p % S, S))
-                 for p, b in zip(self.mesh.local, blocks)]
-        every = collectives.all_gather(self.mesh, owned, SHARD_AXIS)
-        # Slot j's row is shard (ids[j] % S)'s gather row j.
-        rows = torch.from_numpy((ids % S) * H + np.arange(H))
-        return Blocks([e.index_select(0, rows.to(e.device)) for e in every],
-                      replicas=len(self.mesh.slot), mesh=self.mesh)
+        return replica_from_shard(
+            self.mesh, self.tables[name] if table is None else table,
+            torch.from_numpy(ids.astype(np.int32)),
+            num_shards=self.num_shards)
 
     def put(self, name: str, full: Tensor) -> Blocks:
         """Set table ``name`` from its whole ``(S * rps, dim)`` physical

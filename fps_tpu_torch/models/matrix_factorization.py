@@ -126,6 +126,15 @@ class MatrixFactorizationWorker(WorkerLogic):
             return None
         return {ITEM_TABLE: chunk["item"]}
 
+    def pulled_ids_traced(self, batch):
+        """The megastep's device certification stream: the contract of
+        :meth:`pulled_ids_host`, from one worker's raw batch on the device.
+        Negative sampling draws ids in :meth:`prepare`, so those runs stay
+        uncertifiable."""
+        if self.cfg.negative_samples:
+            return None
+        return {ITEM_TABLE: batch["item"].to(torch.int32)}
+
     def touched_local_rows(self, batch):
         """The local user rows :meth:`step` scatters into (``-1`` for
         padding examples); the user table is the only leaf."""

@@ -29,7 +29,7 @@ Stdlib-only, zero package imports. Port of ``fps_tpu/obs/fleet.py``: the
 same series, windows, SLOs and burn rates over the same files, so either
 package's rollup reads either package's obs dirs. The per-tenant rollups
 (``tenant_fleet_digest`` and the tenancy layout it reads) come with the
-tenancy plane (ROADMAP.md item 9c).
+tenancy plane (ROADMAP.md item 9d).
 """
 
 from __future__ import annotations

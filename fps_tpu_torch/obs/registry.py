@@ -8,8 +8,8 @@ and the reference's help text, word for word) registered in a
 :class:`Recorder` that validates against the schema and fans the sample
 out to pluggable sinks (:mod:`fps_tpu_torch.obs.sinks`: JSONL event log,
 Prometheus text exposition, in-memory ring for tests). The registry is a
-schema: leaves of planes the port has not taken yet (the megastep, the
-serving tier, the auditor) stay declared, so a file written by either
+schema: leaves of planes the port has not taken yet (the supervisor, the
+pod and tenancy, the auditor) stay declared, so a file written by either
 package validates against the other's registry.
 
 Host-side only, stdlib-only: nothing here runs on the device or touches a

@@ -42,9 +42,9 @@ DRIVER_PHASES = (
     "checkpoint",  # snapshot save on the training thread
     "callback",    # user on_chunk / on_epoch hooks
     "reconcile",   # two-tier re-split at run entry (hot replica derive)
-    "megastep",    # K-chunk device-resident dispatch: the megastep
-                   # driver's analog of "dispatch" (declared with the
-                   # reference's tuple; the port has no megastep yet)
+    "megastep",    # K-chunk dispatch of Trainer.run_megastep: the
+                   # megastep driver's analog of "dispatch" (its segments'
+                   # launches and the vote's host read)
 )
 
 

@@ -20,8 +20,11 @@ drifts leaves it serving little. Here the tier is managed as the run goes:
   the tracker's state beside the checkpoints, restored with them
   (:meth:`Retierer.restore`).
 
-The JAX package's megastep tick (``MegastepTick``, ``device_top_ids``) is
-ROADMAP.md Queue 1 item 7d and ``lowered_plan_text`` item 10.
+* **the megastep's tick** (:class:`MegastepTick`, :func:`device_top_ids`):
+  the same boundary on the device, every ``check_every`` chunk segments of
+  ``Trainer.run_megastep``, with no host read.
+
+``lowered_plan_text`` is ROADMAP.md Queue 1 item 10.
 """
 
 from fps_tpu_torch.tiering.planner import (
@@ -39,11 +42,12 @@ from fps_tpu_torch.tiering.planner import (
 )
 from fps_tpu_torch.tiering.probe import ProbeLogic, lowered_plan_text, probe_chunk
 from fps_tpu_torch.tiering.retier import Retierer, sidecar_path, top_ids
+from fps_tpu_torch.tiering.tick import MegastepTick, device_top_ids
 
 __all__ = [
     "DEFAULT_REPLICA_BUDGET_BYTES", "TableDensity", "TierPlan",
     "arbitrate_replica_budget", "choose_cold_budget", "choose_sync_every",
     "global_sync_every", "head_coverage", "plan_tables", "plan_tenants",
     "tenant_demand_bytes", "Retierer", "sidecar_path", "top_ids", "ProbeLogic",
-    "probe_chunk", "lowered_plan_text",
+    "probe_chunk", "lowered_plan_text", "MegastepTick", "device_top_ids",
 ]

@@ -26,7 +26,10 @@ whole table and an Adagrad hot fold; from the port's own initial state);
 ``mapped`` (the adaptive tier with re-ranks at every boundary: MF's mapped
 head with its cold lanes at (2, 4) through ``fit_stream``, SSP logistic
 regression's at (1, 8) through ``run_indexed``; the retierer's hot ids and
-counts ride the results); ``dies`` (rank 1 exits once the mesh is built, and rank 0's next
+counts ride the results); ``megastep`` (``run_megastep`` of MF's mapped
+head with its cold lanes, the vote and a forced tick every 2 segments, at
+(2, 4) and (1, 8); the tick's hot ids, counter and decayed sketch and the
+vote counters ride the results); ``dies`` (rank 1 exits once the mesh is built, and rank 0's next
 collective must fail within the timeout).
 """
 
@@ -74,7 +77,8 @@ BUNDLES = {"d2s4": ("collectives", "mf_indexed_d2s4", "mf_host_sync",
                       "tiered_lr_d1s4", "tiered_lr_d2s4_fold"),
            "mapped": ("mapped_mf_d2s4", "mapped_lr_d1s8_ssp"),
            "ckpt": ("ckpt_mf_d1s4",),
-           "obs": ("obs_mf_d1s4",)}
+           "obs": ("obs_mf_d1s4",),
+           "megastep": ("megastep_mf_d2s4", "megastep_mf_d1s8")}
 # The directory a scenario that saves checkpoints writes under (the ranks
 # share theirs; the one-process run has its own).
 WHERE = None
@@ -574,6 +578,49 @@ def mapped_lr_d1s8_ssp(mesh_of, init, out):
     _retier_record(out, "mapped_lr_d1s8_ssp", rt, "weights", TIER_LR_H)
 
 
+def _megastep_mf(mesh_of, out, name, D, S):
+    """``run_megastep`` over 2 epochs, K = 4, MF's mapped head (12 of 31
+    items, windows of 3, calls of 2 steps) with a lane of 5 (some segments
+    fit, some overflow) and a ``MegastepTick`` re-ranking every 2
+    segments."""
+    from fps_tpu_torch import obs
+    from fps_tpu_torch.tiering import MegastepTick
+
+    mesh = mesh_of(D, S)
+    trainer, store = online_mf(mesh, MFConfig(**MF_CFG), combine="mean",
+                               max_steps_per_call=2)
+    store.specs["item_factors"] = dataclasses.replace(
+        store.specs["item_factors"], hot_tier=TIER_MF_H, cold_budget=5,
+        dense_collectives=False)
+    trainer.config = dataclasses.replace(trainer.config,
+                                         hot_sync_every=TIER_E)
+    plan = DeviceEpochPlan(DeviceDataset(mesh, mf_data()), num_workers=8,
+                           local_batch=8, route_key="user", seed=5)
+    tick = MegastepTick(check_every=2, churn_threshold=-1.0)
+    rec = obs.Recorder(sinks=[])
+    tables, local = trainer.init_state(0)
+    tables, local, metrics = trainer.run_megastep(
+        tables, local, plan, 1, epochs=2, chunks_per_dispatch=4, tick=tick,
+        recorder=rec)
+    _record(out, name, tables, local, metrics_of(metrics))
+    out[f"{name}/hot_ids"] = tick.hot_ids["item_factors"]
+    out[f"{name}/tick"] = np.array([tick.tick])
+    out[f"{name}/state"] = tick.state["item_factors"]
+    for k in ("cold_route.vote_compact_windows",
+              "cold_route.vote_overflow_windows", "megastep.windows"):
+        out[f"{name}/counters/{k}"] = np.float64(rec.counter_value(k))
+    out[f"{name}/counters/tiering.re_ranks"] = np.float64(
+        rec.counter_value("tiering.re_ranks", table="item_factors"))
+
+
+def megastep_mf_d2s4(mesh_of, init, out):
+    _megastep_mf(mesh_of, out, "megastep_mf_d2s4", 2, 4)
+
+
+def megastep_mf_d1s8(mesh_of, init, out):
+    _megastep_mf(mesh_of, out, "megastep_mf_d1s8", 1, 8)
+
+
 def ckpt_mf_d1s4(mesh_of, init, out):
     """MF at (1, 4), 6 chunks of ``fit_stream``, every rank saving into
     one directory after every chunk; then a fresh trainer over the same
@@ -685,7 +732,9 @@ SCENARIOS = {"collectives": collectives_scenario,
              "mapped_mf_d2s4": mapped_mf_d2s4,
              "mapped_lr_d1s8_ssp": mapped_lr_d1s8_ssp,
              "ckpt_mf_d1s4": ckpt_mf_d1s4,
-             "obs_mf_d1s4": obs_mf_d1s4}
+             "obs_mf_d1s4": obs_mf_d1s4,
+             "megastep_mf_d2s4": megastep_mf_d2s4,
+             "megastep_mf_d1s8": megastep_mf_d1s8}
 
 
 def run_bundle(bundle: str, mesh_of, init) -> dict:

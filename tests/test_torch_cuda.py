@@ -1687,3 +1687,108 @@ def test_guard_and_rollback_on_the_card(dev):
         assert rb.quarantined == [2]
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The megastep on the card (chip_smoke.py phase 9's megastep arms, small).
+# ---------------------------------------------------------------------------
+
+MEGA_NU = MEGA_NI = 1024
+MEGA_H, MEGA_C = 256, 24
+
+
+def _mega_job(device, run):
+    """MF at (2, 4) on ``device``: a mapped head of 256 of 1,024 items with
+    lanes of 24, windows of 3, calls of 2 steps, 2 epochs. ``run``:
+    ``"indexed"`` (``run_indexed`` with a host ``Retierer`` re-ranking at
+    every epoch's end) or ``"megastep"`` (one dispatch an epoch, its tick
+    at the epoch's end: the same boundary). Returns ``(tables, local,
+    metrics, hot ids, decayed sketch)`` on the host."""
+    import dataclasses
+
+    import fps_tpu_torch as fps
+    from fps_tpu_torch.tiering import MegastepTick, Retierer
+    from fps_tpu_torch.utils.datasets import zipf_ratings
+
+    mesh = fps.make_ps_mesh(4, 2, device=device)
+    trainer, store = fps.online_mf(mesh, fps.MFConfig(
+        num_users=MEGA_NU, num_items=MEGA_NI, rank=8, learning_rate=0.05),
+        combine="mean", max_steps_per_call=2)
+    store.specs["item_factors"] = dataclasses.replace(
+        store.specs["item_factors"], hot_tier=MEGA_H, cold_budget=MEGA_C,
+        dense_collectives=False)
+    trainer.config = dataclasses.replace(trainer.config, hot_sync_every=3)
+    data = zipf_ratings(MEGA_NU, MEGA_NI, 8 * 32 * 16, seed=0)
+    plan = fps.DeviceEpochPlan(fps.DeviceDataset(mesh, data), num_workers=8,
+                               local_batch=32, route_key="user", seed=5)
+    n_calls = plan.calls_per_epoch(2)
+    tables, local = trainer.init_state(0)
+    if run == "indexed":
+        trainer.retierer = rt = Retierer(check_every=1, churn_threshold=-1.0)
+        tables, local, metrics = trainer.run_indexed(tables, local, plan, 1,
+                                                     epochs=2)
+    else:
+        rt = MegastepTick(check_every=n_calls, churn_threshold=-1.0)
+        tables, local, metrics = trainer.run_megastep(
+            tables, local, plan, 1, epochs=2, chunks_per_dispatch=n_calls,
+            tick=rt)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return ({k: v.numpy() for k, v in tables.items()}, local.numpy(),
+            metrics, rt.hot_ids["item_factors"], rt.state["item_factors"])
+
+
+def test_megastep_tick_equals_run_indexed_on_the_card(dev, monkeypatch):
+    """On the card, a megastep of one epoch's calls with its tick at the
+    epoch's end equals ``run_indexed`` with a host retierer re-ranking at
+    every epoch's end, bit for bit (tables, replica, maps, windows, local
+    state, ``se``; the vote's lanes and the static routes agree on the
+    card); its hot ids equal the CPU run's; and under the sync debug mode
+    the tick makes no synchronising call and the vote one a group."""
+    import warnings
+
+    from fps_tpu_torch.core import megastep
+
+    syncs = {"tick": 0, "vote": 0, "groups": 0}
+    inside = []
+
+    def within(kind, fn):
+        def wrapped(*a, **k):
+            syncs["groups"] += kind == "vote"
+            inside.append(kind)
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.pop()
+        return wrapped
+
+    def show(message, *a, **k):
+        if inside and "synchroniz" in str(message).lower():
+            syncs[inside[-1]] += 1
+
+    monkeypatch.setattr(megastep, "apply_tick",
+                        within("tick", megastep.apply_tick))
+    monkeypatch.setattr(megastep, "group_votes",
+                        within("vote", megastep.group_votes))
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mega = _mega_job("cuda:0", "megastep")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert syncs == {"tick": 0, "vote": 2, "groups": 2}
+    indexed = _mega_job("cuda:0", "indexed")
+    assert sorted(mega[0]) == sorted(indexed[0])
+    for k in indexed[0]:
+        np.testing.assert_array_equal(mega[0][k], indexed[0][k], k)
+    np.testing.assert_array_equal(mega[1], indexed[1])
+    np.testing.assert_array_equal(
+        np.concatenate([m["se"] for m in mega[2]]),
+        np.concatenate([m["se"] for m in indexed[2]]))
+    np.testing.assert_array_equal(mega[3], indexed[3])
+    np.testing.assert_array_equal(mega[4], indexed[4])
+    assert not np.array_equal(np.sort(mega[3]), np.arange(MEGA_H))
+    cpu = _mega_job("cpu", "megastep")
+    np.testing.assert_array_equal(mega[3], cpu[3])

@@ -332,6 +332,8 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.core.combinators, fps_tpu_torch.core.prefetch\n"
         "import fps_tpu_torch.tiering, fps_tpu_torch.tiering.planner\n"
         "import fps_tpu_torch.tiering.retier, fps_tpu_torch.tiering.probe\n"
+        "import fps_tpu_torch.tiering.tick, fps_tpu_torch.core.megastep\n"
+        "import fps_tpu_torch.core.autok\n"
         "import fps_tpu_torch.examples.common, fps_tpu_torch.examples.mf\n"
         "import fps_tpu_torch.examples.passive_aggressive\n"
         "import fps_tpu_torch.examples.logreg_ssp\n"

@@ -137,7 +137,7 @@ def _jax_init(bundle):
     numpy arrays under the worker's keys."""
     key = jax.random.key(0)
     init = {}
-    if bundle in ("tiered", "mapped", "ckpt", "obs"):
+    if bundle in ("tiered", "mapped", "ckpt", "obs", "megastep"):
         return init  # the scenarios start from the port's own state
     for D, S in ((2, 4),) if bundle == "d2s4" else ((1, 8),):
         tables, local = _mf_trainer(D, S)[0].init_state(key)
@@ -241,7 +241,7 @@ def _jax_runs(bundle, init):
     and ``tests/test_torch_tiering.py`` hold the tiers against the JAX
     package)."""
     ref = {}
-    if bundle in ("tiered", "mapped", "ckpt", "obs"):
+    if bundle in ("tiered", "mapped", "ckpt", "obs", "megastep"):
         return ref
     if bundle == "d2s4":
         for kind in ("indexed", "host_sync", "host_ssp"):
@@ -541,6 +541,41 @@ def test_mapped_two_ranks_equal_one_process_bit_for_bit(run):
         assert f"{name}/table/{table}::sketch" in one
     assert one["mapped_mf_d2s4/metrics/hot_tier/item_factors/cold_dropped"
                ].sum() == 0
+
+
+def test_megastep_two_ranks_equal_one_process_bit_for_bit(run):
+    """``run_megastep`` over two ranks (the ``megastep`` bundle): the vote's
+    misfit sum crosses the ranks on the data axis at (2, 4) and on the shard
+    axis at (1, 8), as do the tick's re-split (its all-gather) and the
+    compacted lanes' routes. Every table, replica, slot map, id array,
+    window, local state and metric equals one process's bit for bit on both
+    ranks, and so do the tick's hot ids, fold counter and decayed sketch
+    and the vote counters; some segments fit and some overflow, and the
+    tick re-ranked (``tests/test_torch_megastep.py`` holds the megastep
+    against the JAX package's)."""
+    ranks, one, _ = run("megastep")
+    assert {k.split("/")[0] for k in one} == set(mpw.BUNDLES["megastep"])
+    for key, want in one.items():
+        np.testing.assert_array_equal(ranks[0][key], want, key)
+        np.testing.assert_array_equal(ranks[1][key], want, key)
+    for name, S in (("megastep_mf_d2s4", 4), ("megastep_mf_d1s8", 8)):
+        c = f"{name}/counters/"
+        assert one[c + "cold_route.vote_compact_windows"] > 0
+        assert one[c + "cold_route.vote_overflow_windows"] > 0
+        assert (one[c + "cold_route.vote_compact_windows"]
+                + one[c + "cold_route.vote_overflow_windows"]
+                == one[c + "megastep.windows"])
+        assert one[c + "tiering.re_ranks"] >= 1
+        gids = one[f"{name}/hot_ids"]
+        full = one[f"{name}/table/item_factors"]
+        rps = full.shape[0] // S
+        np.testing.assert_array_equal(
+            one[f"{name}/table/item_factors::hot"],
+            full[(gids % S) * rps + gids // S])
+        np.testing.assert_array_equal(
+            one[f"{name}/table/item_factors::hotids"], gids)
+        assert one[f"{name}/metrics/hot_tier/item_factors/cold_dropped"
+                   ].sum() == 0
 
 
 @pytest.mark.parametrize("D,S", mpw.COLLECTIVE_SHAPES)
