@@ -314,7 +314,28 @@ on the card, raising on the first failure:
    port's ``testing.chaos``, refused (``SnapshotRejected``) and never
    answered. It reports the write->servable lag, pull and topk latency
    (p50, p99) and the ms a step of each turn, not gated;
-14. prints one JSON line describing every ported kernel, then, as the last
+14. supervises training on the card (``fps_tpu_torch.supervise``): four
+   jobs at once, each under the port's supervisor CLI
+   (``fps_tpu_torch/examples/supervise.py``) run with torch and jax made
+   unimportable, every child on ``cuda:0`` loading the library this process
+   built (it builds nothing): (a) SGD logistic regression at 1,000,000
+   features (``bench.py run_logreg``'s table; the demo's 8,000 examples, 2
+   epochs, local batch 32, 8 steps a chunk, an ``AsyncCheckpointer`` every
+   chunk) run straight, then under the CLI SIGSTOP-wedged after chunk 3:
+   success, one deadline abort, one restart, restored step 3, no
+   ``*.corrupt`` file, the final weights bit-equal to the straight run's;
+   (b) the same job crashing at chunk 2 on every attempt: chunk 2
+   quarantined, attempt codes 3, 3, 0, ``quarantine_carried`` in the last
+   child's log, bit-equal to a straight run given the quarantine through
+   the env contract; (c) the megastep (K 2) killed after megastep 3,
+   bit-equal to its straight megastep run; every child of (a)-(c) on
+   ``cuda:0`` with K5 and K4 launched; (d) the MF example at ML-20M width
+   (batch 32,768, mean combine, lr 0.1, 1 epoch) under the CLI with the
+   heartbeat from the env contract: one attempt, success, its last beat
+   naming a driver sub-phase. It reports, not gated, the time to recovered
+   of (a) and (c), each attempt's start-to-first-beat seconds, the card's
+   free memory at each attempt's start and the phase's seconds;
+15. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -4255,13 +4276,13 @@ def tier_card_vs_cpu(torch, fps):
 # with the item table's head of 2,048 on the gathered route and lanes of 8,
 # windows of 4, local batch 32, calls of 2 steps (max_steps_per_call), K = 16
 # chunks a dispatch, Zipf(1.05) ratings (seed 0) in a DeviceEpochPlan routed
-# by user (seed 5), 2 epochs. Cut to depth only: 64 chunks' worth of ratings
-# of the bench's 768. The turns: A (run_indexed), B (run_megastep, K = 16),
+# by user (seed 5), 1 epoch. Cut to depth only: 64 chunks' worth of
+# ratings of the bench's 768, one of its epochs. The turns: A (run_indexed), B (run_megastep, K = 16),
 # B, A; then "auto" (chunks_per_dispatch="auto") and "tick" (a
 # MegastepTick re-ranking every 2 segments, K = 16) twice. Each arm is
 # warmed up on throwaway state (one epoch) before its first turn.
 MEGA_LOCAL, MEGA_SPC, MEGA_CHUNKS, MEGA_BENCH_CHUNKS = 32, 2, 64, 768
-MEGA_K, MEGA_C, MEGA_EPOCHS, MEGA_CHECK = 16, 8, 2, 2
+MEGA_K, MEGA_C, MEGA_EPOCHS, MEGA_CHECK = 16, 8, 1, 2
 MEGA_TURNS = ("A", "B", "B", "A", "auto", "tick", "tick")
 # The card-against-CPU tick job: tests/test_torch_megastep.py's size (57
 # users, 31 items, rank 4, a mapped head of 16, windows of 2, calls of 4
@@ -6756,6 +6777,149 @@ def serving_phase(torch, fps, kernels, mf_data, card, dev="cuda:0"):
             "seconds": seconds, "card": card}
 
 
+P14 = dict(nf=1_000_000, stall_s=6.0, grace_s=120.0, timeout=400,
+           mf_stall_s=60.0)
+
+
+def p14_first_beats(state_dir):
+    """Each attempt's start-to-first-beat seconds, from the supervisor's
+    journal (``attempt_first_signal``)."""
+    out = []
+    path = os.path.join(state_dir, "journal-supervisor.jsonl")
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("event") == "attempt_first_signal":
+                out.append(rec["t_rel_s"])
+    return out
+
+
+def p14_children(label, detail, dev):
+    """The gates on every child of a scenario on the card: each attempt
+    that started ran on ``dev`` and only loaded the library built by this
+    process; the straight and the last attempt launched K4 and K5.
+    Returns their launch counts as two runs of the JSON line."""
+    starts = detail["attempt_starts"]
+    for i, st in enumerate(starts):
+        if not st:
+            continue  # an attempt that died before its first line
+        if st.get("device") != dev or st.get("build_cached") is not True:
+            raise AssertionError(f"phase 14 {label}: attempt {i} started "
+                                 f"on {st.get('device')} (library cached: "
+                                 f"{st.get('build_cached')})")
+    runs = []
+    for which, counts in (("straight", detail["straight_launches"]),
+                          ("supervised, last attempt", detail["launches"])):
+        if not counts or not (counts["gather_rows_dim1"] > 0
+                              and counts["scatter_add_dim1"] > 0):
+            raise AssertionError(f"phase 14 {label}, {which}: K5 / K4 "
+                                 f"launches {counts}")
+        runs.append({"path": f"phase 14 {label}, {which} (child process)",
+                     "launches": counts})
+    return runs
+
+
+def p14_mf(where, dev, card):
+    """(d): the MF example at ML-20M width under the CLI, its heartbeat
+    from the env contract. One attempt, success, and the heartbeat's last
+    record names a driver sub-phase."""
+    from fps_tpu_torch.testing import supervised_demo as sd
+
+    state = os.path.join(where, "d")
+    argv = sd.supervise_cmd(state, stall_timeout_s=P14["mf_stall_s"],
+                            startup_grace_s=P14["grace_s"]) + [
+        sys.executable, "-m", "fps_tpu_torch.examples.mf", "--scale", "20m",
+        "--local-batch", "32768", "--combine", "mean", "--learning-rate",
+        "0.1", "--epochs", "1", "--device", dev]
+    rc, digest, tail = sd.run_supervisor(argv, state, env=sd._env(dev),
+                                         timeout=P14["timeout"])
+    if digest is None or rc != 0 or not digest.get("success") or (
+            digest.get("attempts") != 1):
+        raise AssertionError(f"phase 14 (d): rc {rc}, digest {digest}:\n"
+                             f"{tail[-3000:]}")
+    with open(os.path.join(state, "heartbeat.json"), encoding="utf-8") as f:
+        beat = json.load(f)
+    if beat.get("phase") not in ("prefetch", "ingest", "dispatch"):
+        raise AssertionError(f"phase 14 (d): the last beat {beat} names no "
+                             "driver sub-phase")
+    with open(os.path.join(state, "attempt-0.log"), encoding="utf-8") as f:
+        done = [json.loads(line) for line in f
+                if line.startswith('{"event": "done"')]
+    return {"digest": {k: digest.get(k) for k in
+                       ("success", "attempts", "restarts", "wall_s")},
+            "last_beat": {k: beat.get(k) for k in ("index", "phase")},
+            "done": done[-1] if done else None,
+            "first_beat_s": p14_first_beats(state)}
+
+
+def supervise_phase(torch, card, dev="cuda:0"):
+    """Phase 14: the supervisor drives training on the card. Four jobs at
+    once, each under the port's supervisor CLI run with torch and jax
+    unimportable: (a) the SIGSTOP-wedged logistic regression at 1M
+    features, (b) the deterministic crash and its quarantine, (c) the
+    megastep killed at megastep 3 (both at 1M features), (d) the MF example
+    at ML-20M width. Every child only loads the library this process
+    built. Nothing is caught: a failed gate fails the script."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fps_tpu_torch.testing import supervised_demo as sd
+
+    t0 = time.perf_counter()
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase14_")
+    demo = ("--num-features", str(P14["nf"]))
+    kw = dict(device=dev, demo_args=demo, timeout=P14["timeout"],
+              startup_grace_s=P14["grace_s"])
+    jobs = {
+        "(a) wedge": lambda: sd.run_supervised_scenario(
+            os.path.join(where, "a"), stall_timeout_s=P14["stall_s"], **kw),
+        "(b) crash": lambda: sd.run_crash_quarantine_scenario(
+            os.path.join(where, "b"), **kw),
+        "(c) megastep": lambda: sd.run_megastep_kill_scenario(
+            os.path.join(where, "c"), **kw),
+        "(d) mf": lambda: p14_mf(where, dev, card),
+    }
+    runs, report = [], {}
+    try:
+        for sub in "abc":
+            os.makedirs(os.path.join(where, sub))
+        with ThreadPoolExecutor(len(jobs)) as ex:
+            futures = {k: ex.submit(fn) for k, fn in jobs.items()}
+            results = {k: f.result() for k, f in futures.items()}
+        for label in ("(a) wedge", "(b) crash", "(c) megastep"):
+            ok, detail = results[label]
+            if not ok:
+                raise AssertionError(f"phase 14 {label}: "
+                                     f"{json.dumps(detail)}")
+            runs += p14_children(label, detail, dev)
+            report[label] = {
+                "supervisor": detail["supervisor"],
+                "restored_step": detail["restored_step"],
+                "time_to_recovered_s": detail["time_to_recovered_s"],
+                "first_beat_s": p14_first_beats(
+                    os.path.join(where, label[1], "sup")),
+                "mem_free_gib_at_start": [
+                    round(st["mem_free_bytes"] / 2**30, 3)
+                    for st in detail["attempt_starts"] if st],
+                **{k: detail[k] for k in ("attempt_codes",
+                                          "quarantine_carried", "skipped")
+                   if k in detail}}
+        report["(d) mf"] = results["(d) mf"]
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for label, r in report.items():
+        log(f"phase 14 {label}: {json.dumps(r)} ({card})")
+    log(f"phase 14: time to recovered (a) "
+        f"{report['(a) wedge']['time_to_recovered_s']} s, (c) "
+        f"{report['(c) megastep']['time_to_recovered_s']} s; start to "
+        f"first beat {[r['first_beat_s'] for r in report.values()]} s; "
+        f"done in {seconds:.1f} s ({card})")
+    return {"runs": runs, "report": report, "seconds": seconds,
+            "card": card}
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -6940,6 +7104,9 @@ def main() -> int:
     # 13. Serving while the card trains, counters at 0 before each run.
     serving = serving_phase(torch, fps, kernels, mf_data, card)
     del mf_data
+    # 14. The supervisor drives training on the card (its children count
+    # their own launches).
+    supervised = supervise_phase(torch, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -6951,6 +7118,7 @@ def main() -> int:
     runs += durability["runs"]
     runs += telemetry["runs"]
     runs += serving["runs"]
+    runs += supervised["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -6980,7 +7148,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 14. Summary lines. Each entry's times are per step of its first path
+    # 15. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -7083,6 +7251,7 @@ def main() -> int:
         "durability": {k: v for k, v in durability.items() if k != "runs"},
         "telemetry": {k: v for k, v in telemetry.items() if k != "runs"},
         "serving": {k: v for k, v in serving.items() if k != "runs"},
+        "supervised": {k: v for k, v in supervised.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

@@ -25,8 +25,9 @@ Every save, fallback, re-split, compaction and degraded publish goes to
 the run journal and the metrics through the process-default recorder
 (:mod:`fps_tpu_torch.obs.events`; a no-op when none is installed), under
 the reference's names. The pod fence (``pod_fence.json``) is part of the
-directory's contract and is honoured here; its :class:`StaleEpochError`
-moves to the supervisor's module with ROADMAP.md item 9c.
+directory's contract and is honoured here; the fence's helpers and its
+:class:`StaleEpochError` are the supervisor's
+(:mod:`fps_tpu_torch.supervise.child`), re-exported here.
 """
 
 from __future__ import annotations
@@ -61,6 +62,17 @@ from fps_tpu_torch.core.store import (
     is_hot_key,
     rows_per_shard,
 )
+# The pod fence (``pod_fence.json``, read before every publish) and its
+# error: one definition, the supervisor's, so the class a publish raises is
+# the class a pod coordinator catches.
+from fps_tpu_torch.supervise.child import (  # noqa: F401
+    FENCE_FILENAME,
+    POD_EPOCH_ENV,
+    StaleEpochError,
+    fence_allows,
+    read_fence,
+    write_fence,
+)
 
 Pytree = Any
 
@@ -80,62 +92,6 @@ def _obs_metric(kind: str, name: str, value: float, **labels) -> None:
     from fps_tpu_torch.obs import events
 
     events.record_metric(kind, name, value, **labels)
-
-
-# The pod fence: ``pod_fence.json`` in a checkpoint directory
-# (``{"min_epoch": E, "step": S}``), read before every publish.
-FENCE_FILENAME = "pod_fence.json"
-POD_EPOCH_ENV = "FPS_TPU_POD_EPOCH"
-
-
-class StaleEpochError(RuntimeError):
-    """A checkpoint publish was refused because the writer's fencing
-    epoch predates the pod fence: the writer belongs to an attempt the
-    pod has already aborted and restarted past."""
-
-
-def read_fence(directory: str) -> dict | None:
-    """The pod fence in ``directory``, or ``None`` when the directory is
-    unfenced or the fence is torn (an unreadable fence must not brick an
-    unsupervised run)."""
-    try:
-        with open(os.path.join(directory, FENCE_FILENAME),
-                  encoding="utf-8") as f:
-            rec = json.load(f)
-        return rec if isinstance(rec, dict) else None
-    except (OSError, json.JSONDecodeError):
-        return None
-
-
-def write_fence(directory: str, min_epoch: int, step: int) -> None:
-    """Publish the fence atomically (tmp + rename, same directory)."""
-    os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".fence.tmp")
-    try:
-        with os.fdopen(fd, "w", encoding="utf-8") as f:
-            json.dump({"min_epoch": int(min_epoch), "step": int(step)}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, os.path.join(directory, FENCE_FILENAME))
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
-def fence_allows(directory: str, epoch: int | None) -> tuple[bool, int]:
-    """``(allowed, min_epoch)`` for a writer of fencing epoch ``epoch``:
-    an unfenced directory allows everyone; a fenced one refuses a writer
-    without an epoch."""
-    fence = read_fence(directory)
-    if fence is None:
-        return True, 0
-    try:
-        min_epoch = int(fence.get("min_epoch", 0))
-    except (TypeError, ValueError):
-        return True, 0
-    if epoch is None:
-        return False, min_epoch
-    return int(epoch) >= min_epoch, min_epoch
 
 
 def _fenced(e: BaseException) -> bool:

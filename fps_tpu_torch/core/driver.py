@@ -197,6 +197,30 @@ def _watch(watchdog: StepWatchdog | None, what: str, index: int):
     return watchdog.watch(what, index) if watchdog is not None else _NULL
 
 
+def _find_heartbeat(rec):
+    """The supervised run's progress beacon riding ``rec``'s sinks, if any.
+
+    Duck-typed on the sink's ``heartbeat`` attribute (the
+    :class:`fps_tpu_torch.supervise.child.HeartbeatSink` shape), so the
+    driver never imports the supervise package. With a beacon the drivers
+    beat between chunk boundaries (the prefetch or ingest wait, the
+    dispatch) with a ``phase`` field, as the reference's do, so a death
+    there attributes to its sub-phase in the supervisor's records."""
+    for s in getattr(rec, "sinks", ()) if rec is not None else ():
+        hb = getattr(s, "heartbeat", None)
+        if hb is not None and hasattr(hb, "beat"):
+            return hb
+    return None
+
+
+def _beat(hb, index: int, phase: str) -> None:
+    """A sub-phase liveness beat (nothing without a beacon): the index
+    being worked on and the sub-phase's name. Host-only: a file replace,
+    no launch and no device read."""
+    if hb is not None:
+        hb.beat(index=int(index), phase=phase)
+
+
 def _scope(name: str):
     """A ``torch.profiler.record_function`` range named ``name`` while a
     profiler runs (the reference's ``jax.named_scope``); otherwise a free
@@ -1656,6 +1680,7 @@ class Trainer:
                              f"0, got {cfg.metrics_drain_every}")
         rec = recorder if recorder is not None else self.recorder
         timer = PhaseTimer(rec) if rec is not None else None
+        hb = _find_heartbeat(rec)
         # A health-based quarantine needs the guard; a preset-only policy
         # pays neither the copies nor the per-chunk host read.
         quarantine = (rollback if rollback is not None
@@ -1825,6 +1850,8 @@ class Trainer:
         try:
             while True:
                 with _phase(timer, "ingest"):
+                    _beat(hb, i + 1, "prefetch" if pf is not None
+                          else "ingest")
                     chunk = next(it, _STREAM_END)
                 if chunk is _STREAM_END:
                     break
@@ -1846,6 +1873,7 @@ class Trainer:
                 else:
                     last_good = rt_snap = None
                 cseed = fold_seed(seed, i)
+                _beat(hb, i, "dispatch")
                 if lag:
                     prev, pending = pending, None
                     with _watch(watchdog, "chunk", i):
@@ -2012,6 +2040,7 @@ class Trainer:
             raise ValueError("plan.sync_every must match TrainerConfig")
         rec = recorder if recorder is not None else self.recorder
         timer = PhaseTimer(rec) if rec is not None else None
+        hb = _find_heartbeat(rec)
         quarantine = (rollback if rollback is not None
                       and resilience.as_guard(self.config.guard) is not None
                       else None)
@@ -2042,6 +2071,7 @@ class Trainer:
                 args = plan.epoch_args(e)
                 parts = []
                 restored = None
+                _beat(hb, e, "dispatch")
                 with _watch(watchdog, "epoch", e):
                     for c in range(n_calls):
                         # T and T_call are sync_every multiples, so is the

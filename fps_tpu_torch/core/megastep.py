@@ -339,13 +339,20 @@ def run_megastep(trainer, tables, local_state, plan, seed: int, *,
     Returns ``(tables, local_state, metrics)``, one metrics tree a
     megastep, of its real steps.
     """
-    from fps_tpu_torch.core.driver import _phase, _to_host, _watch
+    from fps_tpu_torch.core.driver import (
+        _beat,
+        _find_heartbeat,
+        _phase,
+        _to_host,
+        _watch,
+    )
 
     K, auto_k = _validate(trainer, plan, chunks_per_dispatch, tick,
                           rollback, health)
     cfg = trainer.config
     rec = recorder if recorder is not None else trainer.recorder
     timer = PhaseTimer(rec) if rec is not None else None
+    hb = _find_heartbeat(rec)
     quarantine = (rollback if rollback is not None
                   and resilience.as_guard(cfg.guard) is not None else None)
     sync_each = (quarantine is not None or health is not None
@@ -434,6 +441,7 @@ def run_megastep(trainer, tables, local_state, plan, seed: int, *,
                 tick_ops = (tick_dev if tick_dev is not None
                             else tick.tick_ops(trainer))
             real_segs = min(K, n_calls - m * K)
+            _beat(hb, g, "dispatch")
             restored = None
             with _watch(watchdog, "megastep", g):
                 with _phase(timer, "megastep"):

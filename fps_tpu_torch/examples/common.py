@@ -29,8 +29,16 @@ Telemetry (:mod:`fps_tpu_torch.obs`): ``--obs-dir DIR`` writes the run's
 JSONL event log, run journal and Prometheus exposition under ``DIR``
 (:func:`attach_obs`; render them with ``tools/obs_report.py DIR``), and
 ``--obs-watchdog-s S`` flags any chunk whose launches and read take longer
-than ``S`` seconds (:func:`make_watchdog`). ``--heartbeat`` (the
-supervisor's contract, ROADMAP.md Queue 1 item 9c) exits naming its item.
+than ``S`` seconds (:func:`make_watchdog`).
+
+Supervision (:mod:`fps_tpu_torch.supervise`): under the supervisor
+(``fps_tpu_torch/examples/supervise.py``, which sets ``FPS_TPU_HEARTBEAT``)
+or with ``--heartbeat PATH``, a ``HeartbeatSink`` rides the run's recorder
+(a heartbeat-only recorder without ``--obs-dir``), so every chunk and epoch
+event beats and the drivers beat their sub-phases; the quarantine the
+supervisor carries (``FPS_TPU_SUPERVISOR_STATE``) is preloaded into the
+``RollbackPolicy`` (:func:`make_rollback`, a ``"quarantine_carried"``
+event).
 
 Serving (:mod:`fps_tpu_torch.serve`): ``--serve-port PORT`` (with
 ``--checkpoint-dir`` and ``--checkpoint-every``) answers pull / score /
@@ -157,9 +165,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                     help="quarantine poisoned chunks through a "
                          "RollbackPolicy with this budget (requires "
                          "--guard)")
-    ap.add_argument("--heartbeat", default=None,
-                    help="not ported yet (the supervisor, ROADMAP.md Queue "
-                         "1 item 9c)")
+    ap.add_argument("--heartbeat", default=None, metavar="PATH",
+                    help="supervised-run progress beacon "
+                         "(fps_tpu_torch.supervise.child.Heartbeat): beat "
+                         "this file at every chunk or epoch boundary and "
+                         "the drivers' sub-phases (default: the "
+                         "supervisor's FPS_TPU_HEARTBEAT, when set)")
     ap.add_argument("--serve-port", type=int, default=None, metavar="PORT",
                     help="serve the published snapshots over TCP on PORT "
                          "while training (fps_tpu_torch.serve; requires "
@@ -177,33 +188,49 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return ap
 
 
-_UNPORTED = {"heartbeat": "item 9c"}
+def _make_heartbeat(args):
+    """``--heartbeat`` or the supervisor's ``FPS_TPU_HEARTBEAT`` as a
+    Heartbeat, or ``None`` when the run is unsupervised."""
+    from fps_tpu_torch.supervise import child
 
-
-def refuse_unported(args) -> None:
-    """Exit naming the item that ports the supervisor's flag."""
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag, None) is not None:
-            raise SystemExit(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md "
-                f"Queue 1 {item})")
+    path = getattr(args, "heartbeat", None)
+    return child.Heartbeat(path) if path else child.from_env()
 
 
 def attach_obs(args, trainer=None, *, workload: str | None = None):
-    """``--obs-dir`` as an installed recorder (or ``None``): the standard
-    on-disk telemetry set (:func:`fps_tpu_torch.obs.open_run`), the
-    journal's config digest over the CLI args, installed as the
-    process-default recorder (checkpoint and rollback events flow without
-    plumbing) and attached to ``trainer`` when given. :func:`finish`
-    closes it."""
+    """``--obs-dir`` and the heartbeat contract as an installed recorder
+    (or ``None``): the standard on-disk telemetry set
+    (:func:`fps_tpu_torch.obs.open_run`), the journal's config digest over
+    the CLI args, installed as the process-default recorder (checkpoint and
+    rollback events flow without plumbing) and attached to ``trainer`` when
+    given. :func:`finish` closes it.
+
+    When the run is supervised (``--heartbeat`` or ``FPS_TPU_HEARTBEAT``)
+    a ``HeartbeatSink`` rides the recorder, so every chunk and epoch event
+    is also the supervisor's liveness signal; with no ``--obs-dir`` a
+    heartbeat-only recorder is returned instead. Either way the training
+    is the same."""
+    hb = _make_heartbeat(args)
     if getattr(args, "obs_dir", None) is None:
         if getattr(args, "obs_watchdog_s", None) is not None:
             raise SystemExit("--obs-watchdog-s requires --obs-dir")
-        return None
+        if hb is None:
+            return None
+        from fps_tpu_torch.obs import Recorder
+        from fps_tpu_torch.supervise import child
+
+        rec = Recorder(sinks=[child.HeartbeatSink(hb)])
+        if trainer is not None:
+            trainer.recorder = rec
+        return rec
     from fps_tpu_torch import obs
 
     rec = obs.open_run(args.obs_dir, config=vars(args),
                        meta={"workload": workload} if workload else None)
+    if hb is not None:
+        from fps_tpu_torch.supervise import child
+
+        rec.sinks.append(child.HeartbeatSink(hb))
     if trainer is not None:
         trainer.recorder = rec
     emit({"event": "obs", "dir": args.obs_dir, "run_id": rec.run_id})
@@ -290,14 +317,25 @@ def make_guard(args):
 
 
 def make_rollback(args):
-    """``--rollback-budget`` as a RollbackPolicy (or ``None``)."""
-    if args.rollback_budget is None:
-        return None
-    if args.guard is None:
-        raise SystemExit("--rollback-budget requires --guard")
+    """``--rollback-budget`` and the supervisor-carried quarantine as a
+    RollbackPolicy (or ``None``). The preset alone (no budget, no guard) is
+    legal: a supervised restart honours the quarantine even when no
+    health-based rollback was asked for."""
     from fps_tpu_torch.core.resilience import RollbackPolicy
+    from fps_tpu_torch.supervise import child
 
-    return RollbackPolicy(max_rollbacks=args.rollback_budget)
+    preset = child.quarantined_from_env()
+    budget = args.rollback_budget
+    if budget is None and not preset:
+        return None
+    if budget is not None and args.guard is None:
+        raise SystemExit("--rollback-budget requires --guard")
+    policy = RollbackPolicy(preset=preset)
+    if budget is not None:
+        policy.max_rollbacks = budget
+    if preset:
+        emit({"event": "quarantine_carried", "indices": sorted(preset)})
+    return policy
 
 
 def maybe_checkpointer(args):
@@ -352,7 +390,6 @@ def make_mesh(args):
     every visible CUDA device, or every position on ``--device``."""
     from fps_tpu_torch.parallel.mesh import make_ps_mesh
 
-    refuse_unported(args)
     return make_ps_mesh(num_shards=args.num_shards, num_data=args.num_data,
                         device=args.device)
 

@@ -1,7 +1,8 @@
 """Deterministic fault injection for the port's resilience tests.
 
 Port of the jax-free injectors of ``fps_tpu/testing/chaos.py``, composed by
-``tests/test_torch_resilience.py`` and ``tests/test_torch_checkpoint.py``:
+the port's resilience and checkpoint tests and by the supervised scenarios
+(:mod:`fps_tpu_torch.testing.supervised_demo`):
 
 * **poison batches**: NaN, Inf or huge values planted into chosen rows of
   a chunk stream's columns, exercising the step guard
@@ -10,11 +11,11 @@ Port of the jax-free injectors of ``fps_tpu/testing/chaos.py``, composed by
   disk, exercising the verified read and its fallback
   (:mod:`fps_tpu_torch.core.checkpoint`);
 * **process death**: SIGKILL helpers: die at an epoch or chunk boundary,
-  or die mid-write leaving a partial ``.tmp.npz`` behind.
-
-The supervisor's injectors (``wedge_at_chunk``, ``sigstop_self``,
-``sleep_forever``, ``kill_in_prefetch``) come with the supervisor
-(ROADMAP.md Queue 1 item 9c).
+  inside the prefetch worker's assembly of a chunk, or mid-write leaving a
+  partial ``.tmp.npz`` behind;
+* **wedges**: freeze the whole process (SIGSTOP) or the host loop (sleep
+  forever) after a chunk trains, the stalls only the supervisor's
+  deadline abort (:mod:`fps_tpu_torch.supervise`) clears.
 
 Every injector is deterministic: corruption sites come from a seeded
 ``np.random.default_rng``, never from wall-clock or os entropy, so a
@@ -201,6 +202,65 @@ def kill_at_chunk(index: int, *, marker: str | None = None,
 
     return cb
 
+
+def sigstop_self() -> None:
+    """Freeze NOW: every thread stops and the heartbeat with it, but the
+    process does not die, and a SIGTERM only queues until a SIGCONT that
+    never comes. A card held by the process stays held. The wedge only
+    the supervisor's SIGKILL escalation clears."""
+    os.kill(os.getpid(), signal.SIGSTOP)
+
+
+def sleep_forever() -> None:
+    """Wedge the calling thread without stopping the process: the Python
+    loop stops launching while signal handlers stay live (the quietly hung
+    host loop; a SIGTERM still kills this one)."""
+    import time
+
+    while True:
+        time.sleep(3600)
+
+
+def wedge_at_chunk(index: int, mode: str = "sigstop", *,
+                   marker: str | None = None):
+    """``on_chunk`` / ``on_epoch`` callback that wedges the process after
+    chunk ``index`` trains but BEFORE its checkpoint lands, the supervisor
+    scenario's counterpart of :func:`kill_at_epoch`.
+
+    ``mode``: ``"sigstop"`` (freeze the whole process) or ``"sleep"``
+    (wedge the host loop). ``marker``: a file path making the wedge once
+    only: the callback touches it before wedging, and a restarted attempt
+    that finds it proceeds (no wall clock or entropy involved)."""
+    if mode not in ("sigstop", "sleep"):
+        raise ValueError(f"unknown wedge mode {mode!r}")
+
+    def cb(i, _metrics):
+        if i != index:
+            return
+        if marker is not None:
+            if os.path.exists(marker):
+                return
+            open(marker, "w").close()
+        sigstop_self() if mode == "sigstop" else sleep_forever()
+
+    return cb
+
+
+def kill_in_prefetch(chunks: Iterable, index: int, *,
+                     marker: str | None = None) -> Iterator:
+    """Re-yield ``chunks`` but die (SIGKILL, no flush) right before chunk
+    ``index`` is handed on: under the overlapped host pipeline
+    (:mod:`fps_tpu_torch.core.prefetch`) that is inside the worker
+    thread's assembly, typically chunks ahead of the one the driver is
+    launching. ``marker`` makes the kill once only across supervised
+    attempts (touched before dying)."""
+    for i, c in enumerate(chunks):
+        if i == index:
+            if marker is None or not os.path.exists(marker):
+                if marker is not None:
+                    open(marker, "w").close()
+                sigkill_self()
+        yield c
 
 def partial_write_then_kill(directory: str, nbytes: int = 4096) -> None:
     """Simulate dying MID-checkpoint-write: leave a partial ``.tmp.npz``

@@ -24,7 +24,9 @@ CUDA error in the worker's copy re-raised in ``fit_stream``), and
 durability on the card at a small size (``chip_smoke.py`` phase 11 (a)
 and (d)): a checkpointed MF run resumed bit for bit (inline, and through
 the async writer's capture behind boundary copies), the guard's mask,
-quarantine and clean runs. Every
+quarantine and clean runs; and the supervisor on the card
+(``chip_smoke.py`` phase 14 (a), small: a SIGSTOP-wedged child restarted
+bit for bit; a heartbeat changes no launch). Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1792,3 +1794,56 @@ def test_megastep_tick_equals_run_indexed_on_the_card(dev, monkeypatch):
     assert not np.array_equal(np.sort(mega[3]), np.arange(MEGA_H))
     cpu = _mega_job("cpu", "megastep")
     np.testing.assert_array_equal(mega[3], cpu[3])
+
+
+# ---------------------------------------------------------------------------
+# The supervisor on the card (chip_smoke.py phase 14 (a), small).
+# ---------------------------------------------------------------------------
+
+def test_supervised_wedge_on_the_card_is_bit_for_bit(dev, tmp_path):
+    """A SIGSTOP-wedged logistic-regression child on the card is
+    deadline-aborted by the port's supervisor CLI (run with torch
+    unimportable), restarted from step 3 and ends on its straight run's
+    weights bit for bit; every attempt ran on the card and only loaded the
+    library built here, and K5 and K4 ran."""
+    from fps_tpu_torch.ops import _build
+    from fps_tpu_torch.testing import supervised_demo as sd
+
+    _build.library()
+    ok, detail = sd.run_supervised_scenario(
+        str(tmp_path), device="cuda:0", stall_timeout_s=10.0,
+        startup_grace_s=120.0, timeout=300)
+    assert ok, detail
+    assert [s["device"] for s in detail["attempt_starts"]] == ["cuda:0"] * 2
+    assert all(s["build_cached"] for s in detail["attempt_starts"])
+    for counts in (detail["launches"], detail["straight_launches"]):
+        assert counts["gather_rows_dim1"] > 0
+        assert counts["scatter_add_dim1"] > 0
+
+
+def test_a_heartbeat_changes_no_launch_on_the_card(dev, tmp_path):
+    """The drivers' beats are host-only: ``fit_stream`` with a
+    ``HeartbeatSink`` on its recorder launches what it launches with a
+    recorder and no sink, and gives the same bits."""
+    from fps_tpu_torch import LogRegConfig, logistic_regression, make_ps_mesh
+    from fps_tpu_torch.obs import Recorder
+    from fps_tpu_torch.supervise import Heartbeat, HeartbeatSink
+    from fps_tpu_torch.testing import workloads
+
+    train, _ = workloads.logreg_data(2000)
+    chunks = workloads.logreg_chunks(train, 1, epochs=2)
+    out = []
+    for sinks in ([HeartbeatSink(Heartbeat(str(tmp_path / "hb.json")))], []):
+        trainer, store = logistic_regression(
+            make_ps_mesh(device=dev),
+            LogRegConfig(num_features=workloads.NF, learning_rate=0.5))
+        tables, ls = trainer.init_state(0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        trainer.fit_stream(tables, ls, iter(chunks), 1,
+                           recorder=Recorder(sinks=sinks))
+        torch.cuda.synchronize()
+        out.append((kernels.launch_counts(), workloads.weights(store)))
+    assert out[0][0] == out[1][0] and out[0][0]["scatter_add_dim1"] > 0
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert (tmp_path / "hb.json").exists()

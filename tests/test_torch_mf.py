@@ -352,6 +352,11 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.serve.fleet, fps_tpu_torch.serve.shadow\n"
         "import fps_tpu_torch.serve.net, fps_tpu_torch.serve.wire\n"
         "import fps_tpu_torch.examples.serve\n"
+        "import fps_tpu_torch.supervise, fps_tpu_torch.supervise.child\n"
+        "import fps_tpu_torch.supervise.supervisor\n"
+        "import fps_tpu_torch.testing.workloads\n"
+        "import fps_tpu_torch.testing.supervised_demo\n"
+        "import fps_tpu_torch.examples.supervise\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"
