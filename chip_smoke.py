@@ -335,7 +335,30 @@ on the card, raising on the first failure:
    naming a driver sub-phase. It reports, not gated, the time to recovered
    of (a) and (c), each attempt's start-to-first-beat seconds, the card's
    free memory at each attempt's start and the phase's seconds;
-15. prints one JSON line describing every ported kernel, then, as the last
+15. runs a pod and two tenants on the card (``fps_tpu_torch.supervise.pod``,
+   ``fps_tpu_torch.tenancy``), one scenario after another, every member
+   agent (the port's CLI in pod mode) and the tenants' manager with torch
+   and jax made unimportable, every child on ``cuda:0`` training phase
+   14's logistic regression at 1,000,000 features (the demo's 8,000
+   examples, 2 epochs; (b): 20,000 examples, 4 epochs) and loading the
+   library this process built: (a) a three-member pod whose member h1's
+   child is SIGKILLed after chunk 3: every member succeeds with one
+   coordinated restart, no quarantine, no eviction, the kill fired, one
+   restart span tree whose attempt children are h0, h1 and h2, each
+   carrying its epoch, no torn or ``*.corrupt`` snapshot and no publish
+   behind a fence, every member's weights bit-equal to the straight run's;
+   (b) the elastic cycle: a non-leader host's agent and child SIGKILLed,
+   world 2 observed, the host relaunched and re-admitted, every digest at
+   world 3 with one re-admission, every member bit-equal to the straight
+   run, no torn snapshot and no stale publish; (c) two tenants, tenant a
+   crashing at chunk 3 on every attempt: a quarantines chunk 3 and
+   finishes, b bit-equal to its solo run, ``audit_namespaces`` clean,
+   ``tenant_fleet_digest`` reporting both tenants; every child with K5 and
+   K4 launched. It reports, not gated, each scenario's time to recovered,
+   each attempt's start to its first chunk (pods) or first beat
+   (tenants), the card's free memory at each child's start, the lease
+   seizures and the phase's seconds;
+16. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -4276,12 +4299,12 @@ def tier_card_vs_cpu(torch, fps):
 # with the item table's head of 2,048 on the gathered route and lanes of 8,
 # windows of 4, local batch 32, calls of 2 steps (max_steps_per_call), K = 16
 # chunks a dispatch, Zipf(1.05) ratings (seed 0) in a DeviceEpochPlan routed
-# by user (seed 5), 1 epoch. Cut to depth only: 64 chunks' worth of
+# by user (seed 5), 1 epoch. Cut to depth only: 32 chunks' worth of
 # ratings of the bench's 768, one of its epochs. The turns: A (run_indexed), B (run_megastep, K = 16),
 # B, A; then "auto" (chunks_per_dispatch="auto") and "tick" (a
 # MegastepTick re-ranking every 2 segments, K = 16) twice. Each arm is
 # warmed up on throwaway state (one epoch) before its first turn.
-MEGA_LOCAL, MEGA_SPC, MEGA_CHUNKS, MEGA_BENCH_CHUNKS = 32, 2, 64, 768
+MEGA_LOCAL, MEGA_SPC, MEGA_CHUNKS, MEGA_BENCH_CHUNKS = 32, 2, 32, 768
 MEGA_K, MEGA_C, MEGA_EPOCHS, MEGA_CHECK = 16, 8, 1, 2
 MEGA_TURNS = ("A", "B", "B", "A", "auto", "tick", "tick")
 # The card-against-CPU tick job: tests/test_torch_megastep.py's size (57
@@ -6920,6 +6943,161 @@ def supervise_phase(torch, card, dev="cuda:0"):
             "card": card}
 
 
+P15 = dict(nf=1_000_000, stall_s=20.0, grace_s=120.0, timeout=400)
+
+
+def p15_first_chunks(member_dir):
+    """Each attempt's start-to-first-chunk seconds in a pod member's dir:
+    its supervisor journal's ``attempt_start`` to the first ``chunk`` event
+    after it in the child's run journals (PodMember journals no first
+    signal). ``None`` for an attempt that trained no chunk."""
+    from fps_tpu_torch.testing.supervised_demo import _jsonl
+
+    starts = [r["t"] for r in _jsonl(os.path.join(
+        member_dir, "journal-supervisor.jsonl"))
+        if r.get("event") == "attempt_start"]
+    chunks = sorted(r["t"] for p in sorted(os.listdir(member_dir))
+                    if p.startswith("journal-p") and p.endswith(".jsonl")
+                    for r in _jsonl(os.path.join(member_dir, p))
+                    if r.get("event") == "chunk")
+    out = []
+    for i, t in enumerate(starts):
+        end = starts[i + 1] if i + 1 < len(starts) else float("inf")
+        first = [c for c in chunks if t <= c < end]
+        out.append(round(first[0] - t, 3) if first else None)
+    return out
+
+
+def p15_children(label, children, ref_launches, ref_name, dev):
+    """The gates on every child of a pod or tenant scenario on the card:
+    each attempt that started ran on ``dev`` and only loaded the library
+    this process built; every member's (tenant's) last attempt and the
+    straight (solo) run launched K4 and K5. Returns their launch counts
+    as runs of the JSON line."""
+    runs = []
+    for who, ch in children.items():
+        for i, st in enumerate(ch["attempt_starts"]):
+            if not st:
+                continue  # an attempt that died before its first line
+            if (st.get("device") != dev
+                    or st.get("build_cached") is not True):
+                raise AssertionError(
+                    f"phase 15 {label}: {who} attempt {i} started on "
+                    f"{st.get('device')} (library cached: "
+                    f"{st.get('build_cached')})")
+    for who, counts in [(ref_name, ref_launches)] + [
+            (f"{who}, last attempt", ch["meta"].get("launches"))
+            for who, ch in children.items()]:
+        if not counts or not (counts["gather_rows_dim1"] > 0
+                              and counts["scatter_add_dim1"] > 0):
+            raise AssertionError(f"phase 15 {label}, {who}: K5 / K4 "
+                                 f"launches {counts}")
+        runs.append({"path": f"phase 15 {label}, {who} (child process)",
+                     "launches": counts})
+    return runs
+
+
+def p15_free_gib(children):
+    return {who: [round(st["mem_free_bytes"] / 2**30, 3)
+                  for st in ch["attempt_starts"] if st]
+            for who, ch in children.items()}
+
+
+def pod_phase(torch, card, dev="cuda:0"):
+    """Phase 15: a pod and two tenants train on the card, one after
+    another: (a) a three-member pod whose member h1's child is SIGKILLed
+    after chunk 3, (b) the elastic W -> W-1 -> W cycle (a non-leader host's
+    agent and child SIGKILLed, evicted at world 2, relaunched and
+    re-admitted), (c) two tenants under a TenantManager, tenant a crashing
+    at chunk 3 on every attempt. Every child trains the demo's logistic
+    regression at 1M features on ``dev`` and only loads the library this
+    process built; every member agent and the tenants' manager run with
+    torch and jax unimportable. Nothing is caught: a failed gate fails the
+    script."""
+    import shutil
+    import tempfile
+
+    from fps_tpu_torch.obs import fleet
+    from fps_tpu_torch.testing import supervised_demo as sd
+    from fps_tpu_torch.testing import tenant_demo as td
+
+    t0 = time.perf_counter()
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    demo = ("--num-features", str(P15["nf"]))
+    kw = dict(device=dev, demo_args=demo, timeout=P15["timeout"],
+              stall_timeout_s=P15["stall_s"], startup_grace_s=P15["grace_s"])
+    hosts = sd.SCENARIO_POD_HOSTS
+    runs, report = [], {}
+    try:
+        for sub, label, fn in (
+                ("a", "(a) kill one host", sd.run_pod_kill_one_host_scenario),
+                ("b", "(b) elastic", sd.run_pod_elastic_resize_scenario)):
+            t = time.perf_counter()
+            ok, detail = fn(os.path.join(where, sub), **kw)
+            seconds = time.perf_counter() - t
+            if not ok:
+                raise AssertionError(f"phase 15 {label}: "
+                                     f"{json.dumps(detail, default=str)}")
+            runs += p15_children(label, detail["children"],
+                                 detail["straight_launches"], "straight",
+                                 dev)
+            pod_dir = os.path.join(where, sub, "pod")
+            report[label] = {
+                "digests": detail["digests"],
+                "time_to_recovered_s": detail["time_to_recovered_s"],
+                "start_to_first_chunk_s": {
+                    h: p15_first_chunks(os.path.join(pod_dir, h))
+                    for h in hosts},
+                "mem_free_gib_at_start": p15_free_gib(detail["children"]),
+                "lease_seizures": detail["lease_seizures"],
+                "seconds": round(seconds, 3),
+                **{k: detail[k] for k in ("victim", "kill_to_eviction_s",
+                                          "victim_restored_step")
+                   if k in detail}}
+            if "trace" in detail:
+                report[label]["restart_trees"] = detail["trace"][
+                    "restart_trees"]
+        label = "(c) tenants"
+        t = time.perf_counter()
+        ok, detail = td.run_tenant_poison_isolation_scenario(
+            os.path.join(where, "c"), **kw)
+        seconds = time.perf_counter() - t
+        if not ok:
+            raise AssertionError(f"phase 15 {label}: "
+                                 f"{json.dumps(detail, default=str)}")
+        runs += p15_children(label, detail["children"],
+                             detail["solo_launches"], "solo", dev)
+        root = os.path.join(where, "c", "pod")
+        tenants = fleet.tenant_fleet_digest(root)["tenants"]
+        if sorted(tenants) != [td.TENANT_INJECTED, td.TENANT_NEIGHBOR]:
+            raise AssertionError(f"phase 15 {label}: tenant_fleet_digest "
+                                 f"reports {sorted(tenants)}")
+        report[label] = {
+            **{k: detail[k] for k in ("injected", "neighbor",
+                                      "injected_skipped", "fence_epochs",
+                                      "recovery", "time_to_recovered_s")},
+            "audit_files": detail["namespace_audit"]["per_tenant"],
+            "fleet_recovery": {n: tenants[n]["recovery"]["count"]
+                               for n in sorted(tenants)},
+            "start_to_first_beat_s": {
+                n: p14_first_beats(os.path.join(root, "tenants", n,
+                                                "state"))
+                for n in (td.TENANT_INJECTED, td.TENANT_NEIGHBOR)},
+            "mem_free_gib_at_start": p15_free_gib(detail["children"]),
+            "seconds": round(seconds, 3)}
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for label, r in report.items():
+        log(f"phase 15 {label}: {json.dumps(r)} ({card})")
+    log(f"phase 15: time to recovered "
+        f"{[r['time_to_recovered_s'] for r in report.values()]} s, lease "
+        f"seizures {[r.get('lease_seizures') for r in report.values()]}; "
+        f"done in {seconds:.1f} s ({card})")
+    return {"runs": runs, "report": report, "seconds": seconds,
+            "card": card}
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -7107,6 +7285,9 @@ def main() -> int:
     # 14. The supervisor drives training on the card (its children count
     # their own launches).
     supervised = supervise_phase(torch, card)
+    # 15. A pod and two tenants on the card, one after another (their
+    # children count their own launches).
+    pod = pod_phase(torch, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -7119,6 +7300,7 @@ def main() -> int:
     runs += telemetry["runs"]
     runs += serving["runs"]
     runs += supervised["runs"]
+    runs += pod["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -7148,7 +7330,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 15. Summary lines. Each entry's times are per step of its first path
+    # 16. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -7252,6 +7434,7 @@ def main() -> int:
         "telemetry": {k: v for k, v in telemetry.items() if k != "runs"},
         "serving": {k: v for k, v in serving.items() if k != "runs"},
         "supervised": {k: v for k, v in supervised.items() if k != "runs"},
+        "pod_and_tenants": {k: v for k, v in pod.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

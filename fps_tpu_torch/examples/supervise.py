@@ -23,15 +23,27 @@ with it):
   python3 fps_tpu_torch/examples/supervise.py --state-dir CKPT_DIR \\
       [policy flags] -- CMD...
 
+Pod mode (``fps_tpu_torch/supervise/pod.py``, one failure domain for a
+multi-host run): one such process a host, all sharing ``--pod-dir``:
+
+  python3 fps_tpu_torch/examples/supervise.py --pod-dir POD --pod-host h0 \\
+      --pod-size 3 [--elastic] [policy flags] -- CMD...
+
+The members elect a leader over an atomic-rename lease; every abort,
+restart and quarantine becomes one pod-wide, epoch-fenced decision (a
+coordinated restart from the COMMON ``latest_valid_step``; the quarantine
+merged and broadcast). ``{host}`` in CMD expands to the member's host
+name; the member's state dir (and, by convention, its child's checkpoint
+dir) is ``POD_DIR/HOST``.
+
 It prints the one-line JSON digest (attempts, restarts, deadline aborts,
 quarantined indices, success) and exits 0 only when the child succeeded.
 
-Neither torch nor jax is imported: ``supervise/child.py`` and
-``supervise/supervisor.py`` are loaded by file path under package names
-whose roots are stubbed, so the ``__init__`` of ``fps_tpu_torch`` (which
-imports torch) never runs and this process never touches the card, even
-when the child owns it. The pod flags (``--pod-dir`` and the rest) exit
-naming ROADMAP.md item 9d.
+Neither torch nor jax is imported: ``supervise/child.py``,
+``supervise/supervisor.py`` and ``supervise/pod.py`` are loaded under
+package names whose roots are stubbed, so the ``__init__`` of
+``fps_tpu_torch`` (which imports torch) never runs and this process never
+touches the card, even when the child owns it.
 """
 
 from __future__ import annotations
@@ -47,20 +59,13 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _STUBS = (("fps_tpu_torch", ()), ("fps_tpu_torch.supervise", ("supervise",)))
 
-# The reference CLI's pod flags, with their defaults: the pod coordinator
-# is ROADMAP.md item 9d.
-_POD_FLAGS = (("--pod-dir", None), ("--pod-host", None), ("--pod-size", 1),
-              ("--elastic", False), ("--lease-ttl-s", 5.0),
-              ("--member-timeout-s", 10.0), ("--evict-after", 2),
-              ("--readmit-budget", 2), ("--rejoin-delay-s", 0.5))
-
 
 def load_supervise_module(name: str):
     """``fps_tpu_torch.supervise.<name>`` without running the ``__init__``
     of ``fps_tpu_torch`` or ``fps_tpu_torch.supervise``: when the package
     root is not imported yet, both names are stubbed as bare packages whose
     ``__path__`` points at the real directories, and the module is then
-    imported normally (``child.py`` and ``supervisor.py`` are
+    imported normally (``child.py``, ``supervisor.py`` and ``pod.py`` are
     stdlib-only)."""
     if "fps_tpu_torch" not in sys.modules:
         for pkg, sub in _STUBS:
@@ -81,7 +86,9 @@ def main(argv=None) -> int:
                          "heartbeat, the supervisor journal and the "
                          "attempts' logs (conventionally the checkpoint "
                          "directory: the quarantine lives next to the "
-                         "snapshots it protects)")
+                         "snapshots it protects). Required unless running "
+                         "in pod mode, where the member's state dir is "
+                         "POD_DIR/HOST")
     ap.add_argument("--stall-timeout-s", type=float, default=120.0,
                     help="liveness deadline between progress signals")
     ap.add_argument("--startup-grace-s", type=float, default=None,
@@ -107,17 +114,41 @@ def main(argv=None) -> int:
                     help="file glob whose growth also counts as liveness "
                          "(repeatable; e.g. 'OBSDIR/journal-p*.jsonl')")
     pod = ap.add_argument_group(
-        "pod coordination",
-        "the reference's pod flags; the pod coordinator is ROADMAP.md "
-        "item 9d, and each exits naming it")
-    for flag, default in _POD_FLAGS:
-        if isinstance(default, bool):
-            pod.add_argument(flag, action="store_true",
-                             help="not ported yet (item 9d)")
-        else:
-            pod.add_argument(flag, type=type(default) if default is not None
-                             else str, default=default,
-                             help="not ported yet (item 9d)")
+        "pod coordination (fps_tpu_torch.supervise.pod)",
+        "run this process as ONE member of a pod: all members share "
+        "--pod-dir (a shared filesystem), elect a leader over an "
+        "atomic-rename lease, and every abort/restart/quarantine becomes "
+        "one pod-wide decision. '{host}' in the child command expands to "
+        "--pod-host; the member's state dir (and, by convention, its "
+        "child's checkpoint dir) is POD_DIR/HOST.")
+    pod.add_argument("--pod-dir", default=None,
+                     help="shared pod directory (lease, control, pod "
+                          "state, per-member subdirs); enables pod mode "
+                          "together with --pod-host")
+    pod.add_argument("--pod-host", default=None,
+                     help="this member's unique host name within the pod")
+    pod.add_argument("--pod-size", type=int, default=1,
+                     help="number of members forming the pod (the leader "
+                          "waits for all of them before the first launch)")
+    pod.add_argument("--elastic", action="store_true",
+                     help="elastic membership: evict a member whose "
+                          "failures exhaust --evict-after (the pod "
+                          "re-plans at W-1) and re-admit it when it "
+                          "returns")
+    pod.add_argument("--lease-ttl-s", type=float, default=5.0,
+                     help="leader lease expiry; any member may seize an "
+                          "expired lease (fencing epoch bump)")
+    pod.add_argument("--member-timeout-s", type=float, default=10.0,
+                     help="member-beacon staleness before the leader "
+                          "treats that host as unreachable")
+    pod.add_argument("--evict-after", type=int, default=2,
+                     help="consecutive member failures before eviction "
+                          "(elastic pods)")
+    pod.add_argument("--readmit-budget", type=int, default=2,
+                     help="re-admissions allowed per evicted host")
+    pod.add_argument("--rejoin-delay-s", type=float, default=0.5,
+                     help="cooldown before an evicted member reports "
+                          "ready again")
     ap.add_argument("--compilation-cache-dir", default=None,
                     help="exported to every attempt as "
                          "JAX_COMPILATION_CACHE_DIR, as the reference does. "
@@ -136,14 +167,12 @@ def main(argv=None) -> int:
     else:
         cmd = []
     args = ap.parse_args(argv)
-    for flag, default in _POD_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise SystemExit(f"{flag} is not ported yet (the pod "
-                             "coordinator, ROADMAP.md Queue 1 item 9d)")
     if not cmd:
         ap.error("no child command given (append it after --)")
-    if not args.state_dir:
-        ap.error("--state-dir is required")
+    if bool(args.pod_dir) != bool(args.pod_host):
+        ap.error("--pod-dir and --pod-host must be given together")
+    if not args.pod_dir and not args.state_dir:
+        ap.error("--state-dir is required outside pod mode")
 
     extra_env = {}
     if args.compilation_cache_dir:
@@ -151,6 +180,7 @@ def main(argv=None) -> int:
         os.makedirs(cache_dir, exist_ok=True)
         extra_env["JAX_COMPILATION_CACHE_DIR"] = cache_dir
 
+    load_supervise_module("child")
     sup_mod = load_supervise_module("supervisor")
     config = sup_mod.SupervisorConfig(
         stall_timeout_s=args.stall_timeout_s,
@@ -164,11 +194,30 @@ def main(argv=None) -> int:
         poll_interval_s=args.poll_s,
         quarantine_after=args.quarantine_after,
     )
-    supervisor = sup_mod.RunSupervisor(
-        cmd, state_dir=args.state_dir, config=config,
-        watch=tuple(args.watch), env=extra_env,
-    )
-    digest = supervisor.run()
+    if args.pod_dir:
+        pod_mod = load_supervise_module("pod")
+        pod_config = pod_mod.PodConfig(
+            pod_size=args.pod_size,
+            elastic=args.elastic,
+            lease_ttl_s=args.lease_ttl_s,
+            member_timeout_s=args.member_timeout_s,
+            max_restarts=args.max_restarts,
+            evict_after=args.evict_after,
+            readmit_budget=args.readmit_budget,
+            rejoin_delay_s=args.rejoin_delay_s,
+            member=config,
+        )
+        member = pod_mod.PodMember(
+            cmd, pod_dir=args.pod_dir, host=args.pod_host,
+            config=pod_config, watch=tuple(args.watch), env=extra_env,
+        )
+        digest = member.run()
+    else:
+        supervisor = sup_mod.RunSupervisor(
+            cmd, state_dir=args.state_dir, config=config,
+            watch=tuple(args.watch), env=extra_env,
+        )
+        digest = supervisor.run()
     print(json.dumps(digest, indent=2 if args.pretty else None), flush=True)
     return 0 if digest["success"] else 1
 

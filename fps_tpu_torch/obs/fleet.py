@@ -27,9 +27,9 @@ hot path (see the telemetry-lag row in ``docs/STALENESS.md``).
 
 Stdlib-only, zero package imports. Port of ``fps_tpu/obs/fleet.py``: the
 same series, windows, SLOs and burn rates over the same files, so either
-package's rollup reads either package's obs dirs. The per-tenant rollups
-(``tenant_fleet_digest`` and the tenancy layout it reads) come with the
-tenancy plane (ROADMAP.md item 9d).
+package's rollup reads either package's obs dirs, and the per-tenant
+rollups (``tenant_fleet_digest`` over the tenancy layout) either
+package's tenants root.
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ import os
 __all__ = [
     "SLO", "DEFAULT_SLOS", "host_series", "rollup", "evaluate_slos",
     "fleet_digest", "FLEET_SCHEMA_VERSION",
+    "TENANTS_DIRNAME", "discover_tenants", "apply_slo_overrides",
+    "tenant_fleet_digest",
 ]
 
 FLEET_SCHEMA_VERSION = 1
@@ -422,4 +424,140 @@ def fleet_digest(dirs, *, window_s: float | None = None,
             except FileNotFoundError:
                 hosts[key] = None  # a member dir with no obs files yet
         out["host_digests"] = hosts
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant pods (fps_tpu_torch.tenancy): per-tenant rollups + SLO burn.
+#
+# These constants MIRROR fps_tpu_torch/tenancy/paths.py: this module is
+# stdlib-only and loads by file path without torch, so it cannot import
+# the package (tests/test_torch_tenancy.py pins the mirror).
+TENANTS_DIRNAME = "tenants"
+TENANT_MANIFEST_FILENAME = "tenant.json"
+TENANT_OBS_DIRNAME = "obs"
+TENANT_STATE_DIRNAME = "state"
+# Mirrors fps_tpu_torch/supervise/supervisor.py JOURNAL_FILENAME.
+SUPERVISOR_JOURNAL_FILENAME = "journal-supervisor.jsonl"
+
+
+def discover_tenants(root: str) -> dict:
+    """``{name: {"dir", "obs_dir", "state_dir", "manifest"}}`` for every
+    ``<root>/tenants/<name>/`` carrying a ``tenant.json`` manifest (the
+    :class:`fps_tpu_torch.tenancy.TenantManager` layout). An unreadable or
+    torn manifest degrades to ``{}`` — the tenant still reports."""
+    out = {}
+    base = os.path.join(root, TENANTS_DIRNAME)
+    try:
+        names = sorted(os.listdir(base))
+    except OSError:
+        return out
+    for name in names:
+        tdir = os.path.join(base, name)
+        mpath = os.path.join(tdir, TENANT_MANIFEST_FILENAME)
+        if not os.path.isfile(mpath):
+            continue
+        try:
+            with open(mpath, encoding="utf-8") as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            manifest = {}
+        out[name] = {
+            "dir": tdir,
+            "obs_dir": os.path.join(tdir, TENANT_OBS_DIRNAME),
+            "state_dir": os.path.join(tdir, TENANT_STATE_DIRNAME),
+            "manifest": manifest if isinstance(manifest, dict) else {},
+        }
+    return out
+
+
+def apply_slo_overrides(slos, overrides) -> tuple:
+    """Per-tenant SLO overrides (``TenantSpec.slo`` via the tenant.json
+    manifest): ``{slo_name: {"target": x, "objective": y}}`` replaces
+    just those knobs on the matching default SLO. Unknown SLO names and
+    non-dict values are ignored — a manifest written by a newer spec
+    must not break an older report."""
+    if not overrides or not isinstance(overrides, dict):
+        return tuple(slos)
+    out = []
+    for slo in slos:
+        ov = overrides.get(slo.name)
+        if isinstance(ov, dict):
+            try:
+                kw = {k: float(ov[k]) for k in ("target", "objective")
+                      if k in ov}
+                if kw:
+                    slo = dataclasses.replace(slo, **kw)
+            except (TypeError, ValueError):
+                pass  # malformed override: keep the default knobs
+        out.append(slo)
+    return tuple(out)
+
+
+def _load_supervisor():
+    """``fps_tpu_torch/supervise/supervisor.py`` for :func:`recovery_times`,
+    by file path when the package is not already imported (the rule by
+    which a torch-free reader loads THIS file)."""
+    import importlib.util
+    import sys as _sys
+
+    for name in ("fps_tpu_torch.supervise.supervisor",
+                 "_fps_torch_supervisor_fleet"):
+        mod = _sys.modules.get(name)
+        if mod is not None:
+            return mod
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "supervise", "supervisor.py")
+    spec = importlib.util.spec_from_file_location(
+        "_fps_torch_supervisor_fleet", path)
+    mod = importlib.util.module_from_spec(spec)
+    _sys.modules[spec.name] = mod  # dataclasses resolve via sys.modules
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tenant_fleet_digest(root: str, *, window_s: float | None = None,
+                        num_windows: int = 6, slos=DEFAULT_SLOS) -> dict:
+    """Per-tenant rollup + SLO burn over ``<root>/tenants/<name>/``.
+
+    Blast-radius isolation extends to telemetry: each tenant's obs +
+    supervisor-state dirs fold into its OWN rollup and its OWN burn
+    rates (with manifest SLO overrides applied), so one tenant's
+    incidents never burn a neighbor's error budget. The supervisor
+    journal's recovery times (attempt kill -> first post-restart
+    dispatch) ride along as the tenant's MTTR evidence."""
+    out = {"schema": FLEET_SCHEMA_VERSION,
+           "root": os.path.abspath(root), "tenants": {}}
+    sup = None
+    for name, info in discover_tenants(root).items():
+        roll = rollup([info["obs_dir"], info["state_dir"]],
+                      window_s=window_s, num_windows=num_windows)
+        manifest = info["manifest"]
+        t_slos = apply_slo_overrides(slos, manifest.get("slo"))
+        journal = os.path.join(info["state_dir"],
+                               SUPERVISOR_JOURNAL_FILENAME)
+        times = []
+        if os.path.isfile(journal):
+            if sup is None:
+                sup = _load_supervisor()
+            times = sup.recovery_times(journal)
+        try:
+            weight = float(manifest.get("weight", 1.0))
+        except (TypeError, ValueError):
+            weight = 1.0
+        out["tenants"][name] = {
+            "weight": weight,
+            "slo_overrides": sorted(manifest.get("slo") or ())
+                             if isinstance(manifest.get("slo"), dict)
+                             else [],
+            "rollup": roll,
+            "slo": evaluate_slos(roll, t_slos),
+            "recovery": {
+                "count": len(times),
+                "times_s": times,
+                "mean_s": (round(sum(times) / len(times), 3)
+                           if times else None),
+                "max_s": round(max(times), 3) if times else None,
+            },
+        }
     return out

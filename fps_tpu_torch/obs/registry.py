@@ -8,9 +8,9 @@ and the reference's help text, word for word) registered in a
 :class:`Recorder` that validates against the schema and fans the sample
 out to pluggable sinks (:mod:`fps_tpu_torch.obs.sinks`: JSONL event log,
 Prometheus text exposition, in-memory ring for tests). The registry is a
-schema: leaves of planes the port has not taken yet (the pod and tenancy,
-ROADMAP.md item 9d; the auditor, item 10) stay declared, so a file written
-by either package validates against the other's registry.
+schema: leaves of a plane the port has not taken yet (the auditor,
+ROADMAP.md item 10) stay declared, so a file written by either package
+validates against the other's registry.
 
 Host-side only, stdlib-only: nothing here runs on the device or touches a
 tensor, so attaching or detaching a recorder changes no table, launch or

@@ -1,8 +1,7 @@
 """fps_tpu_torch.supervise: external run supervision (the deadline-abort
-layer). Port of ``fps_tpu/supervise/`` but the pod (``pod.py``: ``Lease``,
-``PodConfig``, ``PodMember``; ROADMAP.md item 9d).
+layer). Port of ``fps_tpu/supervise/``.
 
-Two halves of one contract:
+Two halves of one contract, and the pod above them:
 
 * :mod:`fps_tpu_torch.supervise.supervisor`, the parent side:
   :class:`RunSupervisor` launches a training command, tails its heartbeat
@@ -17,8 +16,13 @@ Two halves of one contract:
   and the env contract through which a supervised process finds its
   heartbeat path, attempt number and carried quarantine set; also the pod
   fence a checkpoint publish honours (:class:`StaleEpochError`).
+* :mod:`fps_tpu_torch.supervise.pod`, the pod coordinator:
+  :class:`PodMember` runs one host's member of a pod (leader election
+  over a :class:`Lease` with a fencing epoch, coordinated restarts from
+  a common step, a pod-wide quarantine, elastic membership) under a
+  :class:`PodConfig`.
 
-Both modules are stdlib-only and load by file path; importing this
+The three modules are stdlib-only and load by file path; importing this
 package imports ``fps_tpu_torch`` (and torch) first, so a supervising
 process loads them by path instead.
 """
@@ -49,9 +53,24 @@ from fps_tpu_torch.supervise.supervisor import (
     SupervisorConfig,
 )
 
+# pod.py finds its siblings in sys.modules under these names (it also
+# loads by bare file path, without the package), so child, supervisor and
+# the stdlib-only core/retry.py are imported before it: the package keeps
+# ONE StaleEpochError, one RunSupervisor and the one fault seam that
+# testing/faultfs.py installs its injector into.
+from fps_tpu_torch.core import retry as _retry  # noqa: F401
+from fps_tpu_torch.supervise.pod import (
+    Lease,
+    PodConfig,
+    PodMember,
+)
+
 __all__ = [
     "RunSupervisor",
     "SupervisorConfig",
+    "PodConfig",
+    "PodMember",
+    "Lease",
     "Heartbeat",
     "HeartbeatSink",
     "StaleEpochError",

@@ -21,9 +21,9 @@ either package's child.
 The pod fence (:data:`FENCE_FILENAME`, :class:`StaleEpochError`,
 :func:`read_fence`, :func:`write_fence`, :func:`fence_allows`) lives here
 as in the reference: ``fps_tpu_torch.core.checkpoint`` imports it, so the
-class a publish raises is the class a pod coordinator catches. The pod
-coordinator itself is ROADMAP.md item 9d; :func:`pod_env` already reads
-its contract.
+class a publish raises is the class a pod coordinator
+(:mod:`fps_tpu_torch.supervise.pod`) catches, and :func:`pod_env` reads the
+contract that coordinator sets.
 
 Everything here is stdlib-only and loads by file path with torch
 unimportable: the port's supervisor CLI
@@ -43,10 +43,11 @@ HEARTBEAT_ENV = "FPS_TPU_HEARTBEAT"
 STATE_ENV = "FPS_TPU_SUPERVISOR_STATE"
 ATTEMPT_ENV = "FPS_TPU_ATTEMPT"
 
-# Pod membership contract (set by a pod coordinator, ROADMAP.md item 9d;
-# all absent in plain supervised runs): the member host this child belongs
-# to, the fencing epoch of the pod attempt that spawned it, the pod world
-# size, and the pod-commanded common restart step.
+# Pod membership contract (set by fps_tpu_torch/supervise/pod.py when the
+# child runs under a pod coordinator; all absent in plain supervised
+# runs): the member host this child belongs to, the fencing epoch of the
+# pod attempt that spawned it, the pod world size, and the pod-commanded
+# common restart step.
 POD_HOST_ENV = "FPS_TPU_POD_HOST"
 POD_EPOCH_ENV = "FPS_TPU_POD_EPOCH"
 POD_WORLD_ENV = "FPS_TPU_POD_WORLD"

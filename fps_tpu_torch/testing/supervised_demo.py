@@ -1,7 +1,6 @@
 """Tiny supervised training child, and the supervised scenarios over it.
 
-Port of ``fps_tpu/testing/supervised_demo.py`` but its pod scenarios (the
-pod coordinator is ROADMAP.md item 9d).
+Port of ``fps_tpu/testing/supervised_demo.py``.
 ``python -m fps_tpu_torch.testing.supervised_demo --ckpt-dir D --out W.npz``
 trains the standard tiny logistic regression
 (:mod:`fps_tpu_torch.testing.workloads`) under the supervised-child
@@ -32,7 +31,8 @@ Deterministic end to end: a supervised run that is wedged, killed or
 crashed must end on the straight run's final weights bit for bit. Each
 ``run_*_scenario(tmpdir, ...)`` drives one such story through the port's
 supervisor CLI (``fps_tpu_torch/examples/supervise.py``, run with torch
-unimportable) and returns ``(ok, detail)``.
+unimportable; the ``run_pod_*`` scenarios run three of them in pod mode,
+one member a host, over one pod dir) and returns ``(ok, detail)``.
 """
 
 from __future__ import annotations
@@ -216,18 +216,40 @@ def attempt_starts(state_dir: str) -> list[dict]:
     return out
 
 
+def _start_straight(tmpdir: str, demo: list, name: str, *, env,
+                    extra_env=None):
+    """Start one unsupervised run of ``demo`` in the background; the
+    handle goes to :func:`_finish_straight`."""
+    d = os.path.join(tmpdir, name)
+    out = os.path.join(tmpdir, name + ".npz")
+    os.makedirs(tmpdir, exist_ok=True)
+    proc = subprocess.Popen(demo + ["--ckpt-dir", d, "--out", out],
+                            env={**env, **(extra_env or {})}, cwd=_ROOT,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, name
+
+
+def _finish_straight(run, timeout: float):
+    """Wait for a started straight run: ``(out path, meta, error)``. At
+    ``timeout`` it is killed and reported failed."""
+    proc, out, name = run
+    try:
+        stdout, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, _ = proc.communicate()
+    if proc.returncode != 0:
+        return out, {}, {"error": f"straight run ({name}) failed",
+                         "tail": stdout[-2000:]}
+    return out, _read_json(out + ".meta.json"), None
+
+
 def _straight(tmpdir: str, demo: list, name: str, *, env, timeout: float,
               extra_env=None):
     """One unsupervised run of ``demo``: ``(out path, meta, error)``."""
-    d = os.path.join(tmpdir, name)
-    out = os.path.join(tmpdir, name + ".npz")
-    r = subprocess.run(demo + ["--ckpt-dir", d, "--out", out],
-                       env={**env, **(extra_env or {})}, cwd=_ROOT,
-                       capture_output=True, text=True, timeout=timeout)
-    if r.returncode != 0:
-        return out, {}, {"error": f"straight run ({name}) failed",
-                         "tail": (r.stdout + r.stderr)[-2000:]}
-    return out, _read_json(out + ".meta.json"), None
+    return _finish_straight(_start_straight(tmpdir, demo, name, env=env,
+                                            extra_env=extra_env), timeout)
 
 
 def _supervised_pair(tmpdir: str, demo: list, misbehave: list, *,
@@ -905,6 +927,665 @@ def run_fleet_fence_scenario(tmpdir: str, *, timeout: float = 600,
 
 
 # ---------------------------------------------------------------------------
+# Pod scenarios: N member agents (the port's CLI in pod mode) over one
+# shared pod dir, each supervising its own replica of the demo child: the
+# single-machine stand-in for N symmetric hosts of one job.
+# ---------------------------------------------------------------------------
+
+SCENARIO_POD_HOSTS = ("h0", "h1", "h2")
+SCENARIO_POD_KILL_AT = 3
+SCENARIO_POD_CRASH_AT = 5
+# The partition scenario needs the children still RUNNING when the
+# post-seizure fence lands (a few seconds after the leader freezes), so
+# the stale leader's orphan demonstrably hits the fence: every chunk
+# boundary of the pod's children sleeps. The straight run leaves the
+# sleep out (it changes no number).
+SCENARIO_PARTITION_ARGS = ("--examples", "8000", "--epochs", "6")
+SCENARIO_PARTITION_PACE = ("--chunk-sleep-s", "0.3")
+SCENARIO_ELASTIC_ARGS = ("--examples", "20000", "--epochs", "4")
+# The flapping member's quarantine changes the trajectory, so every member
+# must restore the commanded common step itself; a sibling that runs more
+# than ``--keep`` chunks past it before the leader's decision has lost that
+# snapshot and resumes from its own newest one. The port's children train
+# a chunk in milliseconds, so the pod's children pace each chunk boundary
+# (a start skew of up to 20 chunks, 4 s, stays inside the window); the
+# straight run leaves the sleep out.
+SCENARIO_FLAP_PACE = ("--chunk-sleep-s", "0.2")
+TRACE_EXPORT = os.path.join(_ROOT, "fps_tpu_torch", "examples",
+                            "trace_export.py")
+
+
+def _load_trace_export():
+    """``fps_tpu_torch/examples/trace_export.py`` by file path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_fps_torch_trace_export",
+                                                  TRACE_EXPORT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _export_pod_trace(pod_dir: str):
+    """The pod scenarios' trace evidence: the pod dir's merged
+    Chrome/Perfetto trace (written next to the journals) and a summary of
+    the coordinated-restart span trees, one entry a ``pod_restart``
+    decision, with the hosts of its attempt children and whether every
+    child carries the decision's fencing epoch."""
+    te = _load_trace_export()
+    spans = te.collect_spans([pod_dir])
+    doc = te.export_chrome(spans)
+    out_path = os.path.join(pod_dir, "pod_trace.json")
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, default=str)
+    summary = []
+    for tree in te.coordinated_restart_trees(spans):
+        children = tree["children"]
+        attempts = [c for c in children if c["cat"] == "attempt"]
+        epoch = tree["epoch"]
+        summary.append({
+            "epoch": epoch,
+            "children": len(children),
+            "attempt_hosts": sorted({c.get("host") for c in attempts}),
+            # Attempts carry the epoch as pod_epoch, the fence write as
+            # min_epoch.
+            "children_carry_epoch": all(
+                (c["attrs"].get("pod_epoch") if c["cat"] == "attempt"
+                 else c["attrs"].get("min_epoch")) == epoch
+                for c in children) if children else False,
+        })
+    return {"trace_path": out_path, "trace_events": len(doc["traceEvents"]),
+            "spans": len(spans), "restart_trees": summary}
+
+
+def _pod_fleet_digest(pod_dir: str, hosts):
+    """Fleet rollup and SLO burn over the member dirs (each holds its
+    child's ``--obs-dir`` telemetry beside its snapshots) and the pod dir
+    (``journal-pod.jsonl``'s restarts)."""
+    from fps_tpu_torch.obs import fleet
+
+    digest = fleet.fleet_digest(
+        [pod_dir] + [os.path.join(pod_dir, h) for h in hosts])
+    roll = digest["rollup"]
+    return {"hosts": roll["hosts"], "window_s": roll["window_s"],
+            "windows": len(roll["windows"]), "totals": roll["totals"],
+            "slo": digest["slo"]}
+
+
+def pod_member_cmd(pod_dir: str, host: str, pod_size: int, child_args, *,
+                   device: str | None = None, pod_flags=(), member_flags=(),
+                   stall_timeout_s: float = 20.0,
+                   startup_grace_s: float = 300.0) -> list[str]:
+    """argv of one pod member: the port's CLI in pod mode, run by path with
+    torch and jax unimportable, over the demo child, whose checkpoints,
+    telemetry and output land in ``POD_DIR/HOST``. ``member_flags`` come
+    last, so they override the defaults (argparse keeps the last)."""
+    member_dir = os.path.join(pod_dir, "{host}")
+    return [
+        sys.executable, "-c", _NO_TORCH, CLI,
+        "--pod-dir", pod_dir, "--pod-host", host,
+        "--pod-size", str(pod_size), *pod_flags,
+        "--stall-timeout-s", str(stall_timeout_s),
+        "--startup-grace-s", str(startup_grace_s),
+        "--term-grace-s", "2", "--backoff-base-s", "0.2",
+        "--backoff-max-s", "2", "--max-restarts", "6",
+        "--poll-s", "0.15", "--lease-ttl-s", "1.5",
+        "--member-timeout-s", "4", *member_flags, "--",
+        *demo_cmd(*child_args, "--keep", "20", "--ckpt-dir", member_dir,
+                  "--obs-dir", member_dir,
+                  "--out", os.path.join(member_dir, "out.npz"),
+                  device=device),
+    ]
+
+
+def _launch_pod(pod_dir: str, child_args, *, device, hosts=SCENARIO_POD_HOSTS,
+                pod_flags=(), member_flags=(), stall_timeout_s=20.0,
+                startup_grace_s=300.0, pod_size=None):
+    """Start one member process a host; returns ``{host: Popen}``."""
+    os.makedirs(pod_dir, exist_ok=True)
+    env = _env(device)
+    return {h: subprocess.Popen(
+        pod_member_cmd(pod_dir, h, pod_size or len(hosts), child_args,
+                       device=device, pod_flags=pod_flags,
+                       member_flags=member_flags,
+                       stall_timeout_s=stall_timeout_s,
+                       startup_grace_s=startup_grace_s),
+        env=env, cwd=_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for h in hosts}
+
+
+def _collect_pod(procs: dict, pod_dir: str, timeout: float) -> dict:
+    """Wait for every member: ``{host: {"rc", "digest", "tail"}}``. A
+    member still running at ``timeout`` is killed with every attempt its
+    journal started (``rc`` None)."""
+    import time as _time
+
+    out = {}
+    deadline = _time.monotonic() + timeout
+    for h, p in procs.items():
+        try:
+            stdout, _ = p.communicate(
+                timeout=max(5.0, deadline - _time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, _ = p.communicate()
+            kill_attempts(os.path.join(pod_dir, h))
+            out[h] = {"rc": None, "digest": None, "tail": stdout[-1200:]}
+            continue
+        try:
+            digest = json.loads(stdout.strip().splitlines()[-1])
+        except (json.JSONDecodeError, IndexError):
+            digest = None
+        out[h] = {"rc": p.returncode, "digest": digest,
+                  "tail": stdout[-1200:]}
+    return out
+
+
+def _kill_pod(procs: dict, pod_dir: str) -> None:
+    """Kill every member still running and every attempt it started."""
+    for h, p in procs.items():
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+        kill_attempts(os.path.join(pod_dir, h))
+
+
+def _abandon(procs: dict, pod_dir: str, straight) -> None:
+    """Stop a pod scenario's members, their attempts and its straight run
+    on a way out before the pod ends."""
+    _kill_pod(procs, pod_dir)
+    straight[0].kill()
+    straight[0].communicate()
+
+
+def _start_pod_straight(tmpdir: str, child_args, *, device,
+                        preset_quarantine=None):
+    """Start the pod's unsupervised twin in the background (it runs beside
+    the pod: it shares nothing with it but the card). With
+    ``preset_quarantine`` it carries that quarantine through the
+    supervised-child env contract (the straight twin of a pod run that
+    quarantined those chunks)."""
+    from fps_tpu_torch.supervise.child import STATE_ENV
+
+    extra = None
+    if preset_quarantine:
+        state = os.path.join(tmpdir, "straight_state.json")
+        with open(state, "w", encoding="utf-8") as f:
+            json.dump({"quarantined": sorted(preset_quarantine)}, f)
+        extra = {STATE_ENV: state}
+    return _start_straight(tmpdir, demo_cmd(*child_args, device=device),
+                           "straight", env=_env(device), extra_env=extra)
+
+
+def _pod_dirs_clean(pod_dir: str, hosts) -> list[str]:
+    """``*.corrupt`` files and TORN published snapshots across the member
+    dirs; must be empty. (``*.tmp.npz`` leftovers of a child SIGKILLed
+    mid-write were never published, and the checkpointer sweeps them.)"""
+    import zipfile
+
+    bad = [p for h in hosts
+           for p in glob.glob(os.path.join(pod_dir, h, "*.corrupt"))]
+    for h in hosts:
+        for p in glob.glob(os.path.join(pod_dir, h, "ckpt_*.npz")):
+            try:
+                with zipfile.ZipFile(p) as z:
+                    if z.testzip() is None:
+                        continue
+            except (OSError, zipfile.BadZipFile):
+                pass
+            bad.append(p + ":torn")
+    return sorted(os.path.relpath(p, pod_dir) for p in bad)
+
+
+def _stale_publishes(pod_dir: str, hosts) -> list[str]:
+    """Snapshots written AFTER their dir's fence yet stamped with an epoch
+    below it: the publishes the fence exists to prevent. Must be empty."""
+    import numpy as np
+
+    bad = []
+    for h in hosts:
+        d = os.path.join(pod_dir, h)
+        fence_path = os.path.join(d, "pod_fence.json")
+        try:
+            with open(fence_path, encoding="utf-8") as f:
+                fence = json.load(f)
+            fence_mtime = os.stat(fence_path).st_mtime_ns
+            min_epoch = int(fence["min_epoch"])
+        except (OSError, KeyError, ValueError, json.JSONDecodeError):
+            continue
+        for p in sorted(glob.glob(os.path.join(d, "ckpt_*.npz"))):
+            try:
+                if os.stat(p).st_mtime_ns <= fence_mtime:
+                    continue
+                with np.load(p) as z:
+                    epoch = (int(z["meta::pod_epoch"])
+                             if "meta::pod_epoch" in z.files else None)
+            except (OSError, ValueError):
+                continue
+            if epoch is not None and epoch < min_epoch:
+                bad.append(f"{h}/{os.path.basename(p)}:epoch{epoch}"
+                           f"<fence{min_epoch}")
+    return bad
+
+
+def _pod_bit_identity(pod_dir: str, hosts, straight_out: str):
+    """``(all identical, per-host verdict)`` of the members' outputs
+    against the straight run's, byte for byte."""
+    detail = {h: _weights_equal(os.path.join(pod_dir, h, "out.npz"),
+                                straight_out) for h in hosts}
+    return all(detail.values()), detail
+
+
+def _pod_children(pod_dir: str, hosts) -> dict:
+    """Each member's attempts' ``demo_start`` lines and its final meta
+    (device, free card memory at each start, launch counts)."""
+    return {h: {"attempt_starts": attempt_starts(os.path.join(pod_dir, h)),
+                "meta": _read_json(os.path.join(pod_dir, h,
+                                                "out.npz.meta.json"))}
+            for h in hosts}
+
+
+def _pod_detail(res, pod_dir, hosts, straight_out, straight_meta, keys,
+                **extra):
+    """``(bit identical, detail)``: the gates' evidence every pod scenario
+    shares."""
+    digests = {h: r["digest"] for h, r in res.items()}
+    bit_identical, bit_detail = _pod_bit_identity(pod_dir, hosts,
+                                                  straight_out)
+    return bit_identical, {
+        "digests": {h: {k: d.get(k) for k in keys}
+                    for h, d in digests.items()},
+        "bit_identical": bit_detail,
+        "debris": _pod_dirs_clean(pod_dir, hosts),
+        "stale_publishes": _stale_publishes(pod_dir, hosts),
+        "children": _pod_children(pod_dir, hosts),
+        "straight_launches": straight_meta.get("launches"),
+        "lease_seizures": _pod_events(pod_dir, "lease_seized"),
+        **extra,
+    }
+
+
+def _pod_events(pod_dir: str, name: str) -> int:
+    """How many ``name`` events the pod journal holds."""
+    return sum(1 for r in _jsonl(os.path.join(pod_dir, "journal-pod.jsonl"))
+               if r.get("event") == name)
+
+
+def _missing_digest(res):
+    if any(r["digest"] is None for r in res.values()):
+        return {"error": "missing member digest",
+                "tails": {h: r["tail"] for h, r in res.items()}}
+    return None
+
+
+def run_pod_kill_one_host_scenario(tmpdir: str, *, timeout: float = 600,
+                                   device: str | None = None, demo_args=(),
+                                   stall_timeout_s: float = 20.0,
+                                   startup_grace_s: float = 300.0):
+    """ONE member's child is SIGKILLed mid-run (``--kill-at`` on h1): the
+    leader must make ONE pod-wide decision, a coordinated abort of every
+    member's child and the restart of all three from the COMMON
+    ``latest_valid_step``, after which every member finishes bit-identical
+    to an uninterrupted run. One death quarantines nothing and evicts
+    nobody; the restart exports as ONE span tree whose attempt children,
+    one a host, all carry its fencing epoch."""
+    args = (*SCENARIO_DEMO_ARGS, *demo_args)
+    straight = _start_pod_straight(tmpdir, args, device=device)
+    pod_dir = os.path.join(tmpdir, "pod")
+    procs = _launch_pod(
+        pod_dir, (*args, "--kill-at", str(SCENARIO_POD_KILL_AT),
+                  "--misbehave-host", "h1"),
+        device=device, stall_timeout_s=stall_timeout_s,
+        startup_grace_s=startup_grace_s)
+    try:
+        res = _collect_pod(procs, pod_dir, timeout)
+    finally:
+        straight_out, straight_meta, err = _finish_straight(straight,
+                                                            timeout)
+    if err is not None:
+        return False, err
+    missing = _missing_digest(res)
+    if missing is not None:
+        return False, missing
+    digests = {h: r["digest"] for h, r in res.items()}
+    trace = _export_pod_trace(pod_dir)
+    trees = trace["restart_trees"]
+    trace_ok = (len(trees) == 1
+                and trees[0]["attempt_hosts"] == sorted(SCENARIO_POD_HOSTS)
+                and trees[0]["children_carry_epoch"]
+                and trace["trace_events"] > 0)
+    bit_identical, detail = _pod_detail(
+        res, pod_dir, SCENARIO_POD_HOSTS, straight_out, straight_meta,
+        ("success", "attempts", "epoch", "pod"),
+        kill_fired=os.path.exists(os.path.join(pod_dir, "h1",
+                                               "kill_at.done")),
+        trace=trace, fleet=_pod_fleet_digest(pod_dir, SCENARIO_POD_HOSTS),
+        time_to_recovered_s=_pod_recovery(pod_dir, SCENARIO_POD_HOSTS))
+    ok = (all(r["rc"] == 0 and r["digest"]["success"]
+              for r in res.values())
+          # One pod-wide decision, not per-host timers.
+          and all(d["pod"]["restarts"] == 1 for d in digests.values())
+          and all(d["pod"]["quarantined"] == [] for d in digests.values())
+          and all(d["pod"]["evicted"] == [] for d in digests.values())
+          and detail["kill_fired"]
+          and trace_ok
+          and not detail["debris"] and not detail["stale_publishes"]
+          and bit_identical)
+    return ok, detail
+
+
+def _jsonl(path: str) -> list[dict]:
+    try:
+        with open(path, encoding="utf-8") as f:
+            return [json.loads(line) for line in f if line.strip()]
+    except (OSError, json.JSONDecodeError):
+        return []
+
+
+def _pod_recovery(pod_dir: str, hosts):
+    """Seconds from the pod's first failure (the earliest failed attempt's
+    end in a member's supervisor journal, or the leader's first
+    ``member_failed``) to the moment every member's last attempt finished
+    its first chunk (the ``chunk`` events of the children's run journals
+    beside the snapshots); ``None`` when nothing failed. PodMember journals
+    no first signal, so ``recovery_times`` has nothing to pair here."""
+    fails = [r["t"] for r in _jsonl(os.path.join(pod_dir,
+                                                 "journal-pod.jsonl"))
+             if r.get("event") == "member_failed"]
+    firsts = []
+    for h in hosts:
+        fails += [r["t"] for r in _jsonl(os.path.join(
+            pod_dir, h, "journal-supervisor.jsonl"))
+            if r.get("event") == "attempt_end" and r.get("rc")]
+        events = [r for path in sorted(glob.glob(os.path.join(
+            pod_dir, h, "journal-p*.jsonl"))) for r in _jsonl(path)
+            if r.get("kind") == "event"]
+        starts = [r["t"] for r in events if r.get("event") == "run_start"]
+        chunks = [r["t"] for r in events if r.get("event") == "chunk"
+                  and starts and r["t"] >= starts[-1]]
+        firsts.append(min(chunks) if chunks else None)
+    if not fails or None in firsts:
+        return None
+    return round(max(firsts) - min(fails), 3)
+
+
+def run_pod_partition_coordinator_scenario(tmpdir: str, *,
+                                           timeout: float = 600,
+                                           device: str | None = None,
+                                           demo_args=(),
+                                           stall_timeout_s: float = 20.0,
+                                           startup_grace_s: float = 300.0):
+    """The LEASE HOLDER's member agent is SIGSTOPped mid-run (a partitioned
+    coordinator host: its child keeps training, orphaned). A follower must
+    seize the expired lease (fencing epoch bump), treat the unreachable
+    member as failed, fence every member dir and command a coordinated
+    restart, and the stale leader's orphan child must be REFUSED by the
+    fence at its next publish. On SIGCONT the deposed leader rejoins as a
+    follower and the pod completes bit-identical to an uninterrupted
+    run."""
+    import signal as _signal
+    import time as _time
+
+    args = (*SCENARIO_PARTITION_ARGS, *demo_args)
+    straight = _start_pod_straight(tmpdir, args, device=device)
+    pod_dir = os.path.join(tmpdir, "pod")
+    # Tighter unreachable-member detection: the fence must land while the
+    # frozen leader's orphan is still mid-run.
+    procs = _launch_pod(pod_dir, (*args, *SCENARIO_PARTITION_PACE),
+                        device=device, member_flags=("--member-timeout-s",
+                                                     "3"),
+                        stall_timeout_s=stall_timeout_s,
+                        startup_grace_s=startup_grace_s)
+    lease_path = os.path.join(pod_dir, "pod_lease.json")
+    deadline = _time.monotonic() + timeout
+    leader = seized_by = stopped_pid = None
+    try:
+        # Wait for a leader and its first published snapshot (the run is
+        # really underway), then freeze the leader's member agent.
+        while _time.monotonic() < deadline:
+            lease = _read_json(lease_path)
+            if lease.get("host"):
+                mem = _read_json(os.path.join(pod_dir, "members",
+                                              lease["host"] + ".json"))
+                if (mem.get("latest_step") or 0) >= 1:
+                    leader = lease["host"]
+                    stopped_pid = procs[leader].pid
+                    os.kill(stopped_pid, _signal.SIGSTOP)
+                    break
+            _time.sleep(0.1)
+        if leader is None:
+            _abandon(procs, pod_dir, straight)
+            return False, {"error": "no leader emerged"}
+        # Wait for the seizure (the lease's holder changes).
+        while _time.monotonic() < deadline:
+            lease = _read_json(lease_path)
+            if lease.get("host") not in (None, leader):
+                seized_by = lease["host"]
+                break
+            _time.sleep(0.1)
+        # Time for the new leader to fence and restart, and for the orphan
+        # to run into the fence; then release the old leader.
+        _time.sleep(6.0)
+    except BaseException:
+        _abandon(procs, pod_dir, straight)
+        raise
+    finally:
+        if stopped_pid is not None:
+            try:
+                os.kill(stopped_pid, _signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+    res = _collect_pod(procs, pod_dir,
+                       max(10.0, deadline - _time.monotonic()))
+    straight_out, straight_meta, err = _finish_straight(straight, timeout)
+    if err is not None:
+        return False, err
+    missing = _missing_digest(res)
+    if missing is not None:
+        return False, dict(missing, leader=leader)
+    digests = {h: r["digest"] for h, r in res.items()}
+    # The orphan's epitaph: its attempt log shows the fence's refusal.
+    fenced_logs = []
+    for p in glob.glob(os.path.join(pod_dir, leader, "attempt-*.log")):
+        with open(p, encoding="utf-8", errors="replace") as f:
+            if "StaleEpochError" in f.read():
+                fenced_logs.append(os.path.basename(p))
+    trace = _export_pod_trace(pod_dir)
+    trees = trace["restart_trees"]
+    # The FINAL coordinated restart (the new leader's post-seizure
+    # decision) exports as exactly one tree gathering the whole pod; a
+    # paced unreachable-member incident may spend a second restart while
+    # the old leader is frozen, each its own well-formed tree.
+    final = [t for t in trees
+             if t["epoch"] == max(x["epoch"] for x in trees)]
+    trace_ok = (len(trees) >= 1 and len(final) == 1
+                and final[0]["attempt_hosts"] == sorted(SCENARIO_POD_HOSTS)
+                and all(t["children_carry_epoch"] for t in trees
+                        if t["children"])
+                and trace["trace_events"] > 0)
+    bit_identical, detail = _pod_detail(
+        res, pod_dir, SCENARIO_POD_HOSTS, straight_out, straight_meta,
+        ("success", "leader_terms", "epoch", "pod"),
+        stopped_leader=leader, seized_by=seized_by,
+        fenced_logs=sorted(fenced_logs), trace=trace,
+        time_to_recovered_s=_pod_recovery(pod_dir, SCENARIO_POD_HOSTS))
+    ok = (all(r["rc"] == 0 and r["digest"]["success"]
+              for r in res.values())
+          and seized_by is not None and seized_by != leader
+          and digests[seized_by]["leader_terms"] >= 1
+          and bool(fenced_logs)
+          and trace_ok
+          and all(d["pod"]["quarantined"] == [] for d in digests.values())
+          and not detail["debris"] and not detail["stale_publishes"]
+          and bit_identical)
+    return ok, detail
+
+
+def run_pod_flapping_member_scenario(tmpdir: str, *, timeout: float = 600,
+                                     device: str | None = None,
+                                     demo_args=(),
+                                     stall_timeout_s: float = 20.0,
+                                     startup_grace_s: float = 300.0):
+    """One member's child crashes at the same chunk on every attempt (a
+    flapping member). The pod converges in two coordinated restarts:
+    crash, crash, then the leader quarantines that chunk POD-WIDE and the
+    third attempt completes with EVERY member skipping it. Bit-identity
+    target: a straight run carrying the same quarantine preset."""
+    args = (*SCENARIO_DEMO_ARGS, *demo_args)
+    straight = _start_pod_straight(tmpdir, args, device=device,
+                                   preset_quarantine={SCENARIO_POD_CRASH_AT})
+    pod_dir = os.path.join(tmpdir, "pod")
+    procs = _launch_pod(
+        pod_dir, (*args, *SCENARIO_FLAP_PACE,
+                  "--crash-at", str(SCENARIO_POD_CRASH_AT),
+                  "--misbehave-host", "h1"),
+        device=device, stall_timeout_s=stall_timeout_s,
+        startup_grace_s=startup_grace_s)
+    try:
+        res = _collect_pod(procs, pod_dir, timeout)
+    finally:
+        straight_out, straight_meta, err = _finish_straight(straight,
+                                                            timeout)
+    if err is not None:
+        return False, err
+    missing = _missing_digest(res)
+    if missing is not None:
+        return False, missing
+    digests = {h: r["digest"] for h, r in res.items()}
+    # The broadcast, observed at the CHILDREN: every member's final meta
+    # shows the chunk skipped, the never-crashing members' included.
+    skipped = {h: _read_json(os.path.join(pod_dir, h, "out.npz.meta.json"))
+               .get("skipped") for h in SCENARIO_POD_HOSTS}
+    bit_identical, detail = _pod_detail(
+        res, pod_dir, SCENARIO_POD_HOSTS, straight_out, straight_meta,
+        ("success", "attempts", "pod"), skipped=skipped,
+        time_to_recovered_s=_pod_recovery(pod_dir, SCENARIO_POD_HOSTS))
+    ok = (all(r["rc"] == 0 and r["digest"]["success"]
+              for r in res.values())
+          and all(d["pod"]["quarantined"] == [SCENARIO_POD_CRASH_AT]
+                  for d in digests.values())
+          and all(d["pod"]["restarts"] == 2 for d in digests.values())
+          and all(d["pod"]["evicted"] == [] for d in digests.values())
+          and all(skipped[h] == [SCENARIO_POD_CRASH_AT]
+                  for h in SCENARIO_POD_HOSTS)
+          and not detail["debris"] and not detail["stale_publishes"]
+          and bit_identical)
+    return ok, detail
+
+
+def run_pod_elastic_resize_scenario(tmpdir: str, *, timeout: float = 600,
+                                    device: str | None = None, demo_args=(),
+                                    stall_timeout_s: float = 20.0,
+                                    startup_grace_s: float = 300.0):
+    """The elastic W -> W-1 -> W path: a whole non-leader HOST dies (its
+    member agent AND its child SIGKILLed) once the pod has made progress.
+    The leader, past that member's budget (``--evict-after 1``: one
+    disappearance of a dead host), re-plans at W-1 and the survivors
+    continue. The host then RETURNS (its member agent relaunched); the
+    leader copies it the newest canonical snapshot and restarts the pod at
+    W. Every member, the returned one included, must finish bit-identical
+    to a straight run, with no torn or epoch-stale snapshot published."""
+    import signal as _signal
+    import time as _time
+
+    args = (*SCENARIO_ELASTIC_ARGS, *demo_args)
+    straight = _start_pod_straight(tmpdir, args, device=device)
+    pod_dir = os.path.join(tmpdir, "pod")
+    pod_flags = ("--elastic", "--evict-after", "1", "--rejoin-delay-s",
+                 "0.3")
+    launch = dict(device=device, pod_flags=pod_flags,
+                  stall_timeout_s=stall_timeout_s,
+                  startup_grace_s=startup_grace_s,
+                  pod_size=len(SCENARIO_POD_HOSTS))
+    procs = _launch_pod(pod_dir, args, **launch)
+    deadline = _time.monotonic() + timeout
+    try:
+        victim = None
+        t_kill = t_world2 = None
+        # Kill a NON-leader host once it has published (the catch-up after its
+        # return is measured against its snapshots).
+        while _time.monotonic() < deadline and victim is None:
+            leader = _read_json(os.path.join(pod_dir, "pod_lease.json")).get(
+                "host")
+            if leader in SCENARIO_POD_HOSTS:
+                for h in SCENARIO_POD_HOSTS:
+                    if h == leader:
+                        continue
+                    mem = _read_json(os.path.join(pod_dir, "members",
+                                                  h + ".json"))
+                    if (mem.get("latest_step") or 0) >= 2:
+                        victim = h
+                        for pid in (mem.get("child_pid"), procs[h].pid):
+                            if pid:
+                                try:
+                                    os.killpg(pid, _signal.SIGKILL)
+                                except OSError:
+                                    try:
+                                        os.kill(pid, _signal.SIGKILL)
+                                    except OSError:
+                                        pass
+                        t_kill = _time.monotonic()
+                        break
+            _time.sleep(0.1)
+        if victim is None:
+            _abandon(procs, pod_dir, straight)
+            return False, {"error": "no victim reached step 2 in time"}
+        # Wait for the eviction (the control's world drops to 2), then RETURN
+        # the host: relaunch its member agent with the same command.
+        saw_evicted_world = None
+        while _time.monotonic() < deadline:
+            ctl = _read_json(os.path.join(pod_dir, "pod_control.json"))
+            if ctl.get("action") == "run" and ctl.get("world") == 2:
+                saw_evicted_world = 2
+                t_world2 = _time.monotonic()
+                break
+            if ctl.get("action") in ("shutdown", "give_up"):
+                break
+            _time.sleep(0.1)
+        if saw_evicted_world == 2:
+            procs[victim].wait()  # reap the killed agent
+            procs[victim] = _launch_pod(pod_dir, args, hosts=(victim,),
+                                        **launch)[victim]
+    except BaseException:
+        _abandon(procs, pod_dir, straight)
+        raise
+    res = _collect_pod(procs, pod_dir,
+                       max(10.0, deadline - _time.monotonic()))
+    straight_out, straight_meta, err = _finish_straight(straight, timeout)
+    if err is not None:
+        return False, err
+    missing = _missing_digest(res)
+    if missing is not None:
+        return False, dict(missing, victim=victim)
+    digests = {h: r["digest"] for h, r in res.items()}
+    victim_meta = _read_json(os.path.join(pod_dir, victim,
+                                          "out.npz.meta.json"))
+    bit_identical, detail = _pod_detail(
+        res, pod_dir, SCENARIO_POD_HOSTS, straight_out, straight_meta,
+        ("success", "attempts", "pod"), victim=victim,
+        evicted_world_observed=saw_evicted_world,
+        kill_to_eviction_s=(round(t_world2 - t_kill, 3)
+                            if t_world2 is not None else None),
+        victim_restored_step=victim_meta.get("restored_step"),
+        time_to_recovered_s=_pod_recovery(pod_dir, SCENARIO_POD_HOSTS))
+    ok = (all(r["rc"] == 0 and r["digest"]["success"]
+              for r in res.values())
+          and saw_evicted_world == 2
+          # The full cycle: one eviction (W -> W-1), one readmission
+          # (W-1 -> W), ending with all three back in the plan.
+          and all(d["pod"]["readmissions"] == 1 for d in digests.values())
+          and all(d["pod"]["world"] == 3 for d in digests.values())
+          and all(d["pod"]["evicted"] == [] for d in digests.values())
+          and all(d["pod"]["quarantined"] == [] for d in digests.values())
+          # The returned host resumed from the copied canonical snapshot:
+          # caught up, not cold-started.
+          and (victim_meta.get("restored_step") or 0) >= 2
+          and not detail["debris"] and not detail["stale_publishes"]
+          and bit_identical)
+    return ok, detail
+
+
+# ---------------------------------------------------------------------------
 # Storage scenarios: in process, under the port's faultfs (no supervisor).
 # ---------------------------------------------------------------------------
 
@@ -1219,6 +1900,99 @@ def run_enospc_compaction_scenario(tmpdir: str, *, timeout: float = 600,
     ok = (aborted and mid_ok and aborts >= 1
           and ck.compactions >= 1 and head_ok and state_ok)
     return ok, detail
+
+def run_slow_lease_near_ttl_scenario(tmpdir: str, *, timeout: float = 600):
+    """A live leader's lease renewals hit injected slow writes (1.2 s
+    against a 2 s TTL, two consecutive renewals; one isolated spike is
+    tolerated by design): the holder must STEP DOWN before its own record
+    expires, stop renewing so the record lapses on schedule, and a
+    follower must seize with a strictly higher fencing epoch, after which
+    the deposed leader stays out. In process, on the port's ``faultfs``
+    (the injector reaches the lease through ``fps_tpu_torch.core.retry``,
+    the one fault seam the pod module shares with the package); no
+    child, so no device."""
+    import time as _time
+
+    from fps_tpu_torch.supervise.pod import Lease
+    from fps_tpu_torch.testing import faultfs
+    from fps_tpu_torch.testing.faultfs import FaultRule
+
+    TTL = 2.0
+    path = os.path.join(tmpdir, "pod_lease.json")
+    A = Lease(path, "hA", TTL)
+    B = Lease(path, "hB", TTL)
+    A.tick()  # claim
+    held, rec, _ = A.tick()  # confirm
+    if not held:
+        return False, {"error": "A never acquired the lease"}
+    epoch_a = int(rec["epoch"])
+    # Lease writes so far: A's claim (op 0). The next renewals (ops 1..2)
+    # are slowed past TTL/2.
+    fs = faultfs.install([FaultRule("lease", "replace", "delay",
+                                    delay_s=0.6 * TTL, start=1, count=2)])
+    try:
+        stepped_at = None
+        last_landed_t = float(rec["t"])
+        deadline = _time.monotonic() + min(timeout, 30.0)
+        while _time.monotonic() < deadline:
+            held, rec, _ = A.tick()
+            if held:
+                last_landed_t = float(rec["t"])
+            else:
+                # The step-down tick's own (slow-landed) renewal is the
+                # freshest landed record: expiry runs from ITS timestamp.
+                if rec and rec.get("host") == "hA":
+                    last_landed_t = float(rec["t"])
+                stepped_at = _time.time()
+                break
+            _time.sleep(0.05)
+        if stepped_at is None:
+            return False, {"error": "A never stepped down",
+                           "injected": {"/".join(k): v for k, v in
+                                        fs.injected_counts().items()}}
+        before_expiry = stepped_at < last_landed_t + TTL
+        # B seizes after the record lapses, with a monotone epoch bump.
+        seized_epoch = seized_at = None
+        deadline = _time.monotonic() + min(timeout, 30.0)
+        while _time.monotonic() < deadline:
+            held_b, rec_b, _ = B.tick()
+            if held_b:
+                seized_epoch = int(rec_b["epoch"])
+                seized_at = _time.time()
+                break
+            _time.sleep(0.05)
+        if seized_epoch is None:
+            return False, {"error": "B never seized the lease"}
+        # The deposed leader stays out while B renews, and its stale epoch
+        # never regresses the record for any observer.
+        stays_out = True
+        regress = False
+        for _ in range(6):
+            held_a, _, _ = A.tick()
+            stays_out = stays_out and not held_a
+            B.tick()
+            cur = B.read() or {}
+            if int(cur.get("epoch", seized_epoch)) < seized_epoch:
+                regress = True
+            _time.sleep(0.05)
+    finally:
+        faultfs.uninstall()
+    detail = {
+        "ttl_s": TTL,
+        "leader_epoch": epoch_a,
+        "stepdowns": A.stepdowns,
+        "renew_failures": A.renew_failures,
+        "stepped_down_before_expiry": before_expiry,
+        "stepdown_to_seizure_s": round(seized_at - stepped_at, 3),
+        "seized_epoch": seized_epoch,
+        "epoch_monotone": seized_epoch > epoch_a and not regress,
+        "deposed_stays_out": stays_out,
+    }
+    ok = (A.stepdowns >= 1 and before_expiry
+          and seized_epoch > epoch_a and not regress and stays_out
+          and seized_at > stepped_at)
+    return ok, detail
+
 
 # ---------------------------------------------------------------------------
 # Network scenarios: the wire plane under the port's faultnet, in process

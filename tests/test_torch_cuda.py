@@ -26,7 +26,9 @@ and (d)): a checkpointed MF run resumed bit for bit (inline, and through
 the async writer's capture behind boundary copies), the guard's mask,
 quarantine and clean runs; and the supervisor on the card
 (``chip_smoke.py`` phase 14 (a), small: a SIGSTOP-wedged child restarted
-bit for bit; a heartbeat changes no launch). Every
+bit for bit; a heartbeat changes no launch), and the pod on the card
+(``chip_smoke.py`` phase 15 (a), small: one member's child killed, one
+coordinated restart, every member bit-equal to the straight run). Every
 test here needs a CUDA device and carries the ``cuda`` marker; without a
 card each one skips. On the card:
 
@@ -1847,3 +1849,27 @@ def test_a_heartbeat_changes_no_launch_on_the_card(dev, tmp_path):
     assert out[0][0] == out[1][0] and out[0][0]["scatter_add_dim1"] > 0
     np.testing.assert_array_equal(out[0][1], out[1][1])
     assert (tmp_path / "hb.json").exists()
+
+
+# The pod on the card (chip_smoke.py phase 15 (a), small).
+
+def test_pod_kill_one_host_on_the_card_is_bit_for_bit(dev, tmp_path):
+    """Three pod members (the port's CLI in pod mode, torch unimportable)
+    each supervise a logistic-regression child on the card; h1's child is
+    SIGKILLed after chunk 3. One coordinated restart, no quarantine, no
+    eviction, every member's weights bit-equal to the straight run's;
+    every attempt ran on the card and only loaded the library built here,
+    and K5 and K4 ran in every member's last attempt."""
+    from fps_tpu_torch.ops import _build
+    from fps_tpu_torch.testing import supervised_demo as sd
+
+    _build.library()
+    ok, detail = sd.run_pod_kill_one_host_scenario(
+        str(tmp_path), device="cuda:0", startup_grace_s=120.0, timeout=300)
+    assert ok, detail
+    for h, ch in detail["children"].items():
+        starts = [s for s in ch["attempt_starts"] if s]
+        assert starts and all(s["device"] == "cuda:0" and s["build_cached"]
+                              for s in starts), (h, starts)
+        assert ch["meta"]["launches"]["gather_rows_dim1"] > 0
+        assert ch["meta"]["launches"]["scatter_add_dim1"] > 0

@@ -638,14 +638,25 @@ def test_registry_scan_catches_a_seeded_unregistered_emission():
 @pytest.mark.parametrize("flag,item", [("--pod-dir", "item 9d")])
 def test_the_examples_unported_flags_exit_naming_their_item(flag, item,
                                                             tmp_path):
-    """What supervision leaves to a later item still names it: the
-    supervisor CLI's pod flags (``--heartbeat``, refused until the
-    supervisor was ported, is lifted below)."""
+    """The supervisor CLI's pod flags, refused until the pod was ported
+    (``item``), now run a pod: ``flag`` with ``--pod-host h0`` and
+    ``--pod-size 1`` over the stub child is a pod of one that leads
+    itself and succeeds (``--heartbeat``, refused until the supervisor
+    was ported, is lifted below)."""
     cli = os.path.join(ROOT, "fps_tpu_torch", "examples", "supervise.py")
-    r = subprocess.run([sys.executable, cli, "--state-dir", str(tmp_path),
-                        flag, "x", "--", "true"], capture_output=True,
+    stub = os.path.join(ROOT, "tests", "_torch_supervised_stub.py")
+    pod = tmp_path / "pod"
+    r = subprocess.run([sys.executable, cli, flag, str(pod), "--pod-host",
+                        "h0", "--pod-size", "1", "--poll-s", "0.05",
+                        "--lease-ttl-s", "1.0", "--", sys.executable, stub,
+                        "--dir", str(pod / "{host}"), "--chunks", "3",
+                        "--chunk-s", "0.02"], capture_output=True,
                        text=True, timeout=60, cwd=ROOT)
-    assert r.returncode != 0 and item in r.stderr, r.stderr
+    assert r.returncode == 0, r.stderr
+    assert item not in r.stderr
+    digest = json.loads(r.stdout.strip().splitlines()[-1])
+    assert digest["success"] and digest["pod"]["world"] == 1
+    assert json.loads((pod / "h0" / "result.json").read_text())["done"] == 3
 
 
 def test_the_examples_heartbeat_beats_and_carries_the_quarantine(

@@ -178,6 +178,9 @@ def test_fleet_digest_matches(fleet_dirs, which):
 def test_the_port_fleet_module_imports_nothing_of_either_package():
     src = open(os.path.join(ROOT, "fps_tpu_torch", "obs", "fleet.py")).read()
     assert "import fps_tpu" not in src and "from fps_tpu" not in src
-    assert not any(n.startswith("tenant") for n in tfleet.__all__)
+    # The per-tenant rollups are ported: the module's names are the
+    # reference's, the tenant ones included.
+    assert set(tfleet.__all__) == set(jfleet.__all__)
+    assert "tenant_fleet_digest" in tfleet.__all__
     np.testing.assert_equal(tfleet.FLEET_SCHEMA_VERSION,
                             jfleet.FLEET_SCHEMA_VERSION)

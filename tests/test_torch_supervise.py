@@ -565,8 +565,7 @@ def test_env_contract_and_constants_equal_across_packages():
 
     import fps_tpu_torch.supervise as pkg
 
-    assert set(pkg.__all__) == set(jpkg.__all__) - {
-        "Lease", "PodConfig", "PodMember"}
+    assert set(pkg.__all__) == set(jpkg.__all__)
 
 
 def test_heartbeat_records_equal_across_packages(tmp_path, monkeypatch):
@@ -644,15 +643,19 @@ def test_one_stale_epoch_error(tmp_path):
     assert np.isfinite(store.lookup_host("w", np.arange(8))).all()
 
 
-@pytest.mark.parametrize("flag", [["--pod-dir", "P", "--pod-host", "h0"],
-                                  ["--elastic"], ["--lease-ttl-s", "1"]])
+@pytest.mark.parametrize("flag", [["--pod-dir", "P"], ["--pod-host", "h0"],
+                                  []])
 def test_the_clis_pod_flags_exit_naming_item_9d(tmp_path, flag):
+    """Pod mode is ported (item 9d is done): the pod flags are now the
+    reference's usage cases (``test_cli_pod_flag_validation`` of
+    tests/test_pod.py). --pod-dir and --pod-host travel together, and
+    --state-dir is required outside pod mode: exit 2, nothing started."""
+    flag = [str(tmp_path) if f == "P" else f for f in flag]
     r = subprocess.run(
-        [sys.executable, "-c", _NO_TORCH, _CLI, "--state-dir",
-         str(tmp_path), *flag, "--", "true"],
+        [sys.executable, "-c", _NO_TORCH, _CLI, *flag, "--", "true"],
         capture_output=True, text=True, timeout=60, cwd=_ROOT)
-    assert r.returncode != 0
-    assert "item 9d" in r.stderr, r.stderr
+    assert r.returncode == 2, r.stderr
+    assert "usage:" in r.stderr, r.stderr
     assert not os.path.exists(tmp_path / "journal-supervisor.jsonl")
 
 
