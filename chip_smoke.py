@@ -358,7 +358,24 @@ on the card, raising on the first failure:
    each attempt's start to its first chunk (pods) or first beat
    (tenants), the card's free memory at each child's start, the lease
    seizures and the phase's seconds;
-16. prints one JSON line describing every ported kernel, then, as the last
+16. audits the programs on the card (``fps_tpu_torch.analysis``): (a) MF at
+   ML-20M width (rank 10, batch 32,768) on one position, one chunk of 4
+   steps with ``Trainer(audit="strict")`` against the same chunk
+   unaudited: the certificate clean, the record's K1 and K2 entries equal
+   to the launch counters' deltas over the call, its host transfers equal
+   to the synchronising calls ``SyncCount`` sees over the call (and, with
+   a step tap that reads one value back a step, 4 = 4), the tables
+   and launches bit-equal to the unaudited call's, the audited first
+   call's ms against the plain call's reported; (b) phase 9's tiered MF at
+   (2, 4): ``replica_consistency`` certifies and the reconcile's
+   reduce-scatter is in the census; (c) phase 9's megastep at (2, 4) with
+   a tick every 2 segments: the records of K = 4 and K = 16 certify with
+   equal censuses; (d) SSP logistic regression at 1,000,000 features (K5,
+   K4) certifies; (e) the drift detector pinned to the port's
+   ``BUDGETS`` (``fps_tpu_torch/examples/audit_programs.py``) stays quiet
+   over 3 chunks of the audit's MF row run on the card at (1, 8), and the
+   pinned bytes halved raise exactly one ``budget_drift`` incident;
+17. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -7098,6 +7115,303 @@ def pod_phase(torch, card, dev="cuda:0"):
             "card": card}
 
 
+# Phase 16: the program auditor on the card. (a) one chunk of MF at the
+# bench's width on one position, its data made here (BATCH * P16_STEPS *
+# P16_CHUNKS ratings over ML-20M's users and items); (e) the audit's MF row
+# (fps_tpu_torch/examples/audit_programs.py) on (1, 8) for P16_DRIFT_CHUNKS
+# chunks.
+P16_STEPS, P16_CHUNKS, P16_DRIFT_CHUNKS = 4, 2, 3
+P16_KS = (4, 16)
+
+
+def p16_keep_records(analysis):
+    """A strict auditor that keeps each certified program's record."""
+    class Keep(analysis.ProgramAuditor):
+        def __init__(self):
+            super().__init__(strict=True)
+            self.records = []
+
+        def certify(self, program, text, **kw):
+            self.records.append(text)
+            return super().certify(program, text, **kw)
+
+    return Keep()
+
+
+def p16_mf(torch, fps, kernels, analysis, card):
+    """(a): MF at full width, one chunk with ``Trainer(audit="strict")``
+    against the same chunk unaudited, each from fresh state after an
+    untimed warm-up. Gates: the certificate is clean; the record's kernel
+    entries equal the launch counters' deltas over the call; its host
+    transfers equal the synchronising calls ``SyncCount`` sees over the
+    call; the tables and launches equal the unaudited call's."""
+    import dataclasses
+
+    from fps_tpu_torch.core.ingest import epoch_chunks
+    from fps_tpu_torch.utils.datasets import synthetic_ratings
+
+    mesh = fps.make_ps_mesh()
+    cfg = fps.MFConfig(num_users=ML20M_USERS, num_items=ML20M_ITEMS,
+                       rank=RANK, learning_rate=0.1, reg=0.01)
+    data = synthetic_ratings(ML20M_USERS, ML20M_ITEMS,
+                             BATCH * P16_STEPS * P16_CHUNKS, seed=16)
+    chunk = next(iter(epoch_chunks(data, num_workers=1, local_batch=BATCH,
+                                   steps_per_chunk=P16_STEPS,
+                                   route_key="user", seed=0)))
+
+    def call(audit):
+        trainer, _ = fps.online_mf(mesh, cfg, combine="mean")
+        trainer.audit = audit
+        tables, local = trainer.init_state(0)
+        placed = trainer._place_chunk(chunk)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with SyncCount(torch) as syncs:
+            t0 = time.perf_counter()
+            out = trainer.run_chunk(tables, local, placed, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return trainer, out, kernels.launch_counts(), syncs, ms
+
+    call(None)  # warm-up: the kernels' plans, the allocator
+    _, plain, plain_launches, _, plain_ms = call(None)
+    auditor = p16_keep_records(analysis)
+    trainer, audited, launches, syncs, audited_ms = call(auditor)
+    [cert] = auditor.certificates
+    [rec] = auditor.records
+    if not cert.ok:
+        raise AssertionError(f"phase 16 (a): {cert.to_json()}")
+    want = {k: v for k, v in launches.items() if v}
+    if rec.kernel_counts() != want:
+        raise AssertionError(f"phase 16 (a): the record's kernels "
+                             f"{rec.kernel_counts()} != the launch "
+                             f"counters' {want}")
+    if rec.host_reads() != syncs.calls:
+        raise AssertionError(
+            f"phase 16 (a): the record's host transfers "
+            f"{[(op.site, op.custom_target, op.count) for op in rec.host_transfers()]}"
+            f" != the synchronising calls {syncs.sites} "
+            f"{list(syncs.stacks.values())[:2]}")
+    if launches != plain_launches:
+        raise AssertionError(f"phase 16 (a): audited launches {launches} "
+                             f"!= unaudited {plain_launches}")
+    for name in plain[0]:
+        for a, b in zip(plain[0][name], audited[0][name]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 16 (a): table {name} differs "
+                                     "with the auditor on")
+    # The host-transfer check made non-vacuous: a step tap that reads one
+    # value back a step, under a recording (not strict) auditor.
+    def read_back(tables, batch, state, t):
+        total = batch["rating"].sum()
+        total.item()
+        return {"total": total}
+
+    probe = p16_keep_records(analysis)
+    probe.strict = False
+    probe_trainer, _ = fps.online_mf(mesh, cfg, combine="mean")
+    probe_trainer.config = dataclasses.replace(probe_trainer.config,
+                                               step_tap=read_back)
+    probe_trainer.audit = probe
+    tables, local = probe_trainer.init_state(0)
+    placed = probe_trainer._place_chunk(chunk)
+    torch.cuda.synchronize()
+    with SyncCount(torch) as probe_syncs:
+        probe_trainer.run_chunk(tables, local, placed, 1)
+    torch.cuda.synchronize()
+    [probe_rec] = probe.records
+    fired = {v.pass_name for v in probe.certificates[0].violations}
+    if not (probe_rec.host_reads() == probe_syncs.calls == P16_STEPS
+            and fired == {"host_transfer"}):
+        raise AssertionError(
+            f"phase 16 (a), read-back tap: the record's host transfers "
+            f"{probe_rec.host_reads()}, the synchronising calls "
+            f"{probe_syncs.calls} {probe_syncs.sites}, expected "
+            f"{P16_STEPS} each; passes fired {fired}")
+    out = {"program": cert.program, "ok": cert.ok,
+           "collectives": cert.collective_count,
+           "read_back_tap": {"host_reads": probe_rec.host_reads(),
+                             "sync_calls": probe_syncs.calls},
+           "kernels": rec.kernel_counts(), "host_reads": rec.host_reads(),
+           "sync_calls": syncs.calls, "audited_first_call_ms": audited_ms,
+           "plain_call_ms": plain_ms, "steps": P16_STEPS,
+           "batch": BATCH, "launches": launches}
+    log(f"phase 16 (a): MF {ML20M_USERS}x{ML20M_ITEMS} rank {RANK}, batch "
+        f"{BATCH}, {P16_STEPS} steps: certified {cert.ok}, kernels "
+        f"{rec.kernel_counts()} = launch counters, host reads "
+        f"{rec.host_reads()} = sync calls {syncs.calls} (a read-back tap: "
+        f"{probe_rec.host_reads()} = {probe_syncs.calls}), tables bit-equal "
+        f"({card})")
+    log(f"phase 16 (a): audited first call {audited_ms:.1f} ms, plain call "
+        f"{plain_ms:.1f} ms ({card})")
+    return out, dict(path="auditor (a): MF, audited first call",
+                     launches=launches)
+
+
+def p16_tiered(torch, fps, analysis, card):
+    """(b): phase 9's tiered MF at (2, 4) on the card (head 2,048 of 4,096,
+    lanes of 256, gathered cold routes): its record certifies, the
+    reconcile's reduce-scatter over the shard groups in the census."""
+    from fps_tpu_torch.analysis.passes import RECONCILE_SITES
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    trainer, store = tier_mf(fps, mesh, TIER_H, TIER_C, True, None)
+    data = ds.zipf_ratings(TIER_NU, TIER_NI, D * S * TIER_LOCAL * TIER_SPC,
+                           seed=0)
+    chunk = tier_chunks(data, D * S, None)[0]
+    rec = analysis.ProgramRecord.from_text(trainer.lowered_chunk_text(chunk))
+    cert = analysis.certify(rec, analysis.contract_for_trainer(trainer))
+    head = TIER_H * TIER_RANK * 4
+    reconcile = [op for op in rec.collectives()
+                 if op.kind == "reduce_scatter" and op.group_size == S
+                 and op.site_function in RECONCILE_SITES
+                 and op.payload_bytes >= head]
+    if not cert.ok or not reconcile:
+        raise AssertionError(f"phase 16 (b): certified {cert.ok} "
+                             f"{[v.summary for v in cert.violations]}, "
+                             f"reconcile in the census: {len(reconcile)}")
+    log(f"phase 16 (b): tiered MF at {D}x{S}: replica_consistency "
+        f"certified, the reconcile's reduce_scatter of "
+        f"{reconcile[0].payload_bytes} B >= {head} B over groups of {S}; "
+        f"{cert.collective_count} collectives {cert.per_kind()} ({card})")
+    return {"program": rec.program, "ok": cert.ok,
+            "per_kind": cert.per_kind(),
+            "reconcile_bytes": reconcile[0].payload_bytes}
+
+
+def p16_megastep(torch, fps, analysis, card):
+    """(c): phase 9's megastep at (2, 4) with a tick every 2 segments: the
+    records of K = 4 and K = 16 certify, with equal censuses."""
+    from fps_tpu_torch.tiering import MegastepTick
+    from fps_tpu_torch.utils import datasets as ds
+
+    D, S = TIER_MESH
+    W = D * S
+    mesh = fps.make_ps_mesh(S, D, device="cuda:0")
+    data = ds.zipf_ratings(TIER_NU, TIER_NI,
+                           W * MEGA_LOCAL * MEGA_SPC * MEGA_CHUNKS, seed=0)
+    census, out = [], {}
+    for K in P16_KS:
+        trainer, _, plan = mega_mf(
+            fps, mesh, data, TIER_H, MEGA_C, TIER_E, nu=TIER_NU,
+            ni=TIER_NI, rank=TIER_RANK, lr=TIER_LR, local=MEGA_LOCAL,
+            spc=MEGA_SPC)
+        text = trainer.lowered_megastep_text(
+            plan, chunks_per_dispatch=K,
+            tick=MegastepTick(check_every=MEGA_CHECK))
+        cert = analysis.certify(text, analysis.contract_for_trainer(
+            trainer, program="megastep"))
+        if not cert.ok:
+            raise AssertionError(f"phase 16 (c), K {K}: "
+                                 f"{[v.summary for v in cert.violations]}")
+        census.append(sorted((c.kind, c.payload_bytes)
+                             for c in cert.collectives))
+        out[f"K{K}"] = {"collectives": cert.collective_count,
+                        "bytes": cert.collective_bytes,
+                        "host_reads": analysis.ProgramRecord.from_text(
+                            text).host_reads()}
+    if census[0] != census[1]:
+        raise AssertionError(f"phase 16 (c): census K {P16_KS[0]} "
+                             f"{census[0]} != K {P16_KS[1]} {census[1]}")
+    log(f"phase 16 (c): megastep K {P16_KS[0]} and K {P16_KS[1]}: equal "
+        f"censuses of {len(census[0])} collectives, certified ({card})")
+    return out
+
+
+def p16_logreg(torch, fps, lr_data, analysis, card):
+    """(d): SSP logistic regression at 1,000,000 features on one position
+    (K5 pulls, K4 pushes): its record certifies."""
+    from fps_tpu_torch.core.ingest import multi_epoch_chunks
+
+    mesh = fps.make_ps_mesh()
+    cfg = fps.LogRegConfig(num_features=LR_NF, learning_rate=0.1,
+                           dense_features=LR_DENSE)
+    trainer, _ = fps.logistic_regression(mesh, cfg, sync_every=8)
+    chunk = next(iter(multi_epoch_chunks(
+        lr_data, 1, num_workers=1, local_batch=SPARSE_BATCH,
+        steps_per_chunk=16, sync_every=8, seed=1)))
+    rec = analysis.ProgramRecord.from_text(
+        trainer.lowered_chunk_text(chunk, "ssp"))
+    cert = analysis.certify(rec, analysis.contract_for_trainer(trainer,
+                                                               "ssp"))
+    kernels = rec.kernel_counts()
+    if not cert.ok or not (kernels.get("gather_rows_dim1")
+                           and kernels.get("scatter_add_dim1")):
+        raise AssertionError(f"phase 16 (d): certified {cert.ok} "
+                             f"{[v.summary for v in cert.violations]}, "
+                             f"kernels {kernels}")
+    log(f"phase 16 (d): SSP logreg at {LR_NF} features: certified, kernels "
+        f"{kernels} ({card})")
+    return {"program": rec.program, "ok": cert.ok, "kernels": kernels}
+
+
+def p16_drift(torch, fps, card):
+    """(e): the drift detector pinned to the port's BUDGETS over the audit's
+    MF row run on the card at (1, 8) (every position on cuda:0), chunk by
+    chunk with a recorder: quiet; then the pinned bytes halved: exactly one
+    ``budget_drift`` incident."""
+    import copy
+
+    from fps_tpu_torch.examples import audit_programs as ap
+    from fps_tpu_torch.obs.drift import BudgetDriftDetector
+
+    mesh = fps.make_ps_mesh(8, 1, device="cuda:0")
+    trainer, chunks = ap._mf_pieces(mesh)
+    chunks = list(chunks)[:P16_DRIFT_CHUNKS]
+    mem = fps.obs.MemorySink()
+    rec = fps.obs.Recorder(sinks=[mem])
+    trainer.recorder = rec
+    det = BudgetDriftDetector(ap.pinned_budgets(), recorder=rec)
+    tables, local = trainer.init_state(0)
+    for i, chunk in enumerate(chunks):
+        tables, local, _ = trainer.fit_stream(tables, local, iter([chunk]),
+                                              i)
+        det.observe_trainer_chunk(trainer, chunk, program="mf", chunks=1)
+    reports = det.evaluate()
+    if not all(r.ok for r in reports) or mem.events("budget_drift"):
+        raise AssertionError(f"phase 16 (e): not quiet: "
+                             f"{[r.to_json() for r in reports]}")
+    pinned = copy.deepcopy(ap.pinned_budgets())
+    pinned["mf"]["bytes"] //= 2
+    mem2 = fps.obs.MemorySink()
+    det2 = BudgetDriftDetector(pinned,
+                               recorder=fps.obs.Recorder(sinks=[mem2]))
+    det2.observe_trainer_chunk(trainer, chunks[0], program="mf",
+                               chunks=len(chunks))
+    det2.evaluate()
+    incidents = mem2.events("budget_drift")
+    if len(incidents) != 1:
+        raise AssertionError(f"phase 16 (e): {len(incidents)} incidents "
+                             "after the seeded mutation, expected 1")
+    log(f"phase 16 (e): drift quiet over {len(chunks)} chunks of the audit's "
+        f"MF at 1x8 (ratios {[r.byte_ratio for r in reports]}); the seeded "
+        f"mutation raised 1 incident, ratio {incidents[0]['byte_ratio']} "
+        f"({card})")
+    return {"chunks": len(chunks), "ratios": [r.byte_ratio for r in reports],
+            "mutation_incidents": len(incidents),
+            "mutation_ratio": incidents[0]["byte_ratio"]}
+
+
+def audit_phase(torch, fps, kernels, lr_data, card):
+    """Phase 16: the program auditor on the card, (a)-(e). Nothing is
+    caught: a failed gate fails the script."""
+    from fps_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    a, run = p16_mf(torch, fps, kernels, analysis, card)
+    out = {"mf": a,
+           "tiered": p16_tiered(torch, fps, analysis, card),
+           "megastep": p16_megastep(torch, fps, analysis, card),
+           "logreg": p16_logreg(torch, fps, lr_data, analysis, card),
+           "drift": p16_drift(torch, fps, card),
+           "runs": [run]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16: {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -7288,6 +7602,9 @@ def main() -> int:
     # 15. A pod and two tenants on the card, one after another (their
     # children count their own launches).
     pod = pod_phase(torch, card)
+    # 16. The program auditor on the card (its audited call's launches
+    # counted from 0).
+    auditor = audit_phase(torch, fps, kernels, lr_data, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -7301,6 +7618,7 @@ def main() -> int:
     runs += serving["runs"]
     runs += supervised["runs"]
     runs += pod["runs"]
+    runs += auditor["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -7330,7 +7648,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 16. Summary lines. Each entry's times are per step of its first path
+    # 17. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -7435,6 +7753,7 @@ def main() -> int:
         "serving": {k: v for k, v in serving.items() if k != "runs"},
         "supervised": {k: v for k, v in supervised.items() if k != "runs"},
         "pod_and_tenants": {k: v for k, v in pod.items() if k != "runs"},
+        "auditor": {k: v for k, v in auditor.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

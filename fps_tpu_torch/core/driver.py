@@ -100,9 +100,14 @@ push; its outputs ride the metrics under ``"tap"``.
   (``fps.pull``, ``fps.compute``, ``fps.push``, ...); otherwise it opens
   none.
 
-Refused with ``NotImplementedError`` naming the ROADMAP.md Queue 1 item
-that ports it: ``Trainer(audit=...)`` and ``lowered_megastep_text`` (the
-program auditor, item 10).
+* **the program auditor** (:mod:`fps_tpu_torch.analysis`):
+  ``Trainer(audit=...)`` records the first call of every program it runs (a
+  chunk's, an indexed call's, a megastep's, keyed by what shapes it) as a
+  :class:`~fps_tpu_torch.analysis.record.ProgramRecord` and certifies it;
+  :meth:`Trainer.lowered_chunk_text` and :meth:`Trainer.
+  lowered_megastep_text` return the record's text of one extra call, on
+  fresh state, leaving the trainer as they found it. Recording changes no
+  table, launch or host synchronisation of the call.
 """
 
 from __future__ import annotations
@@ -120,6 +125,7 @@ import torch
 
 from fps_tpu_torch import ops
 from fps_tpu_torch import sketch as sklib
+from fps_tpu_torch.analysis import record as _record
 from fps_tpu_torch.core import resilience
 from fps_tpu_torch.core.api import ServerLogic, WorkerLogic, as_hot_fold
 from fps_tpu_torch.core.ingest import per_worker_cold_counts
@@ -348,10 +354,19 @@ class Trainer:
         # means the drivers make no obs call. Assignable after
         # construction and overridable per fit_stream / run_indexed call.
         self.recorder = recorder
+        # The program auditor (fps_tpu_torch.analysis): a ProgramAuditor,
+        # a ProgramContract, True or "strict". The first call of every
+        # program (by its key, _program_key) is recorded and certified
+        # against the contract (default: contract_for_trainer) through the
+        # recorder; "strict" raises ContractViolationError after that call.
+        # A bad value fails here; False means off. Assignable later: a
+        # program already recorded is not recorded again.
         if audit is not None:
-            raise NotImplementedError(
-                "Trainer(audit=...) is not ported yet: the program auditor "
-                "(ROADMAP.md Queue 1 item 10)")
+            from fps_tpu_torch.analysis import as_auditor
+
+            audit = as_auditor(audit)
+        self.audit = audit
+        self._audited: set = set()
         self.mesh = mesh
         self.device = mesh.device
         self.store = param_store
@@ -1045,6 +1060,7 @@ class Trainer:
 
     def _step(self, tables, snapshot, states, batches, keys, t, outs,
               in_flight, tier=None, track=None):
+        _record.mark_step()
         pushes, hp, states, out, counts = self._compute_step(
             tables, snapshot, states, batches, keys, tier, track)
         if tier is not None:
@@ -1270,24 +1286,143 @@ class Trainer:
             if not isinstance(batches, PlacedChunk):
                 batches = self._place_chunk(batches)
             batches = placed_batches(batches, self.device)
-        lead = next(iter(batches.values())).shape
-        if self.config.sync_every is None:
-            steps = lead[0]
-        else:
-            if lead[1] != self.config.sync_every:
-                raise ValueError(
-                    f"SSP chunk rounds of {lead[1]} steps, config "
-                    f"sync_every={self.config.sync_every}")
-            steps = lead[0] * lead[1]
-            batches = {k: v.reshape((steps,) + v.shape[2:])
-                       for k, v in batches.items()}
+        steps, batches = self._chunk_steps(batches)
         with _phase(timer, "dispatch"):
-            tables, local_state, metrics = self._run_steps(
-                tables, local_state, batches, steps, seed, compact=compact)
+            tables, local_state, metrics = self._audited_call(
+                "chunk", (tuple(sorted(compact.items())),),
+                "chunk/" + self._mode() + ("+compact" if compact else ""),
+                tables, lambda: self._run_steps(
+                    tables, local_state, batches, steps, seed,
+                    compact=compact))
         # Keep the store's host reads (lookup_host / dump_model) on the
         # live tensors.
         self.store.tables = dict(tables)
         return tables, local_state, metrics
+
+    def _chunk_steps(self, batches):
+        """``(steps, batches)`` of a placed chunk: an SSP chunk's ``(R, s,
+        ...)`` columns joined to ``(R * s, ...)``."""
+        lead = next(iter(batches.values())).shape
+        if self.config.sync_every is None:
+            return lead[0], batches
+        if lead[1] != self.config.sync_every:
+            raise ValueError(
+                f"SSP chunk rounds of {lead[1]} steps, config "
+                f"sync_every={self.config.sync_every}")
+        steps = lead[0] * lead[1]
+        return steps, {k: v.reshape((steps,) + v.shape[2:])
+                       for k, v in batches.items()}
+
+    # -- the program auditor ------------------------------------------------
+
+    def _mode(self) -> str:
+        return "sync" if self.config.sync_every is None else "ssp"
+
+    def _program_key(self, kind: str, *extra) -> tuple:
+        """What shapes a program of ``kind`` (the fields of the JAX
+        package's compile keys): a program with a new key is audited on
+        its first call."""
+        logic = tuple(
+            (name, sl.combine, sl.apply_fn, as_hot_fold(sl.hot_fold))
+            for name, sl in sorted(self.server_logic.items()))
+        return (kind, self._mode(), self.device.type,
+                self.config.push_delay, self.config.step_tap,
+                resilience.as_guard(self.config.guard), logic,
+                self.config.hot_sync_every,
+                tuple(sorted(self._hot_tier_map().items())),
+                tuple(sorted(self._mapped_tables().items())),
+                tuple(sorted(self._track_specs().items()))) + extra
+
+    def _audited_call(self, kind: str, extra: tuple, label: str, tables,
+                      call):
+        """``call()`` (a ``_run_steps`` call or a megastep dispatch over
+        ``tables``), recorded and certified when the auditor is on and
+        this program's key is new; otherwise just ``call()``."""
+        if self.audit is None or self.audit is False:
+            return call()
+        from fps_tpu_torch.analysis import as_auditor, contract_for_trainer
+
+        auditor = as_auditor(self.audit)
+        self.audit = auditor  # one auditor keeps the certificates
+        key = self._program_key(kind, *extra)
+        if key in self._audited:
+            return call()
+        out, prog = self._record_call(label, tables, call)
+        self._audited.add(key)
+        contract = auditor.contract or contract_for_trainer(
+            self, self._mode(), program=kind)
+        auditor.certify(label, prog, contract=contract,
+                        recorder=self.recorder)
+        return out
+
+    def _record_call(self, label: str, tables, call):
+        """``(call(), its ProgramRecord)``; ``tables``' canonical ones are
+        the record's arguments."""
+        canonical = {name: list(tables[name]) for name in self.store.specs
+                     if name in tables}
+        return _record.record_call(label, canonical, call,
+                                   off_cpu=self.device.type != "cpu")
+
+    def _lowering_state(self):
+        """What a lowering call may change, to be put back after it: the
+        store's tables, the retierer (and its tracker's state), the
+        warnings already given and the global random states."""
+        rt = self.retierer
+        return (dict(self.store.tables), rt,
+                rt.snapshot() if rt is not None else None,
+                set(self._tier_warned), torch.random.get_rng_state(),
+                torch.cuda.get_rng_state_all()
+                if torch.cuda.is_initialized() else None)
+
+    def _restore_lowering_state(self, saved) -> None:
+        tables, rt, snap, warned, rng, cuda_rng = saved
+        self.store.tables = tables
+        self.retierer = rt
+        if rt is not None:
+            rt.restore_snapshot(snap)
+        self._tier_warned = warned
+        torch.random.set_rng_state(rng)
+        if cuda_rng is not None:
+            torch.cuda.set_rng_state_all(cuda_rng)
+
+    def _check_mode(self, mode: str) -> None:
+        if mode != self._mode():
+            raise ValueError(
+                f"mode={mode!r}, but the trainer's config runs "
+                f"{self._mode()!r} (sync_every={self.config.sync_every})")
+
+    def lowered_chunk_text(self, chunk, mode: str = "sync") -> str:
+        """The record's text (:class:`~fps_tpu_torch.analysis.record.
+        ProgramRecord`) of the exact per-chunk program ``fit_stream`` runs
+        for ``chunk``: fresh state (``init_state(0)``) with the tier's
+        entries attached, the chunk placed and certified for the compacted
+        lanes as :meth:`run_chunk` does, one ``_run_steps`` call with seed
+        1, recorded. The entry point of the analysis tools
+        (``fps_tpu_torch/examples/audit_programs.py``,
+        :func:`~fps_tpu_torch.tiering.lowered_plan_text`,
+        :meth:`~fps_tpu_torch.obs.drift.BudgetDriftDetector.
+        observe_trainer_chunk`). The call passes no recorder, and the
+        trainer is left as it was found: the store's tables, the
+        retierer's state, the global random states; a run after it is the
+        same bits as one without it. ``mode`` must be the config's
+        (``"ssp"`` with ``sync_every``)."""
+        self._check_mode(mode)
+        saved = self._lowering_state()
+        try:
+            tables, ls = self.init_state(0)
+            tables = self._attach_hot(tables)
+            compact = self._cold_compact_map()
+            if compact and not self._certify_cold(
+                    self._host_cert_ids(chunk))[0]:
+                compact = {}
+            steps, batches = self._chunk_steps(placed_batches(
+                self._place_chunk(chunk), self.device))
+            label = "chunk/" + mode + ("+compact" if compact else "")
+            _, prog = self._record_call(label, tables, lambda: self._run_steps(
+                tables, ls, batches, steps, 1, compact=compact))
+            return prog.to_text()
+        finally:
+            self._restore_lowering_state(saved)
 
     def _place_chunk(self, batches) -> PlacedChunk:
         """Place one chunk's columns on the trainer's device: the placement
@@ -2081,10 +2216,14 @@ class Trainer:
                         # batches.
                         batches = plan.call_batches(args, c * T_call, steps)
                         with _phase(timer, "dispatch"):
-                            tables, local_state, metrics = self._run_steps(
-                                tables, local_state, batches, steps,
-                                fold_seed(fold_seed(seed, e), c),
-                                c * T_call)
+                            tables, local_state, metrics = (
+                                self._audited_call(
+                                    "indexed", (plan,),
+                                    "indexed/" + self._mode(), tables,
+                                    lambda e=e, c=c: self._run_steps(
+                                        tables, local_state, batches, steps,
+                                        fold_seed(fold_seed(seed, e), c),
+                                        c * T_call)))
                         parts.append(metrics)
                     metrics = _tree_stack(parts, torch.cat)
                     if quarantine is not None:
@@ -2198,18 +2337,39 @@ class Trainer:
 
     def lowered_megastep_text(self, plan, *, chunks_per_dispatch: int,
                               mode: str = "sync", tick=None) -> str:
-        """The JAX package's lowered megastep program. The cadence is
-        checked as :meth:`run_megastep` checks it; then refused: the port
-        has no compiled program to lower, and the program auditor is
-        ROADMAP.md Queue 1 item 10."""
+        """The record's text of the exact megastep :meth:`run_megastep`
+        dispatches: one dispatch of ``chunks_per_dispatch`` segments from
+        the start of epoch 0, on fresh state (``init_state(0)``), seed 1,
+        ``tick`` attached as the retierer for it, the vote on where the
+        run would vote. The cadence is checked as :meth:`run_megastep`
+        checks it. Leaves the trainer as it was found, like
+        :meth:`lowered_chunk_text`."""
+        from fps_tpu_torch.core import megastep as _megastep
+
         if tick is not None and chunks_per_dispatch % tick.check_every:
             raise ValueError(
                 f"chunks_per_dispatch={chunks_per_dispatch} must be a "
                 f"multiple of tick.check_every={tick.check_every}")
-        raise NotImplementedError(
-            "lowered_megastep_text is not ported: the port's megastep is "
-            "eager, with no compiled program to lower; the program auditor "
-            "is ROADMAP.md Queue 1 item 10")
+        self._check_mode(mode)
+        saved = self._lowering_state()
+        try:
+            if tick is not None and self.retierer is None:
+                self.retierer = tick
+            tables, ls = self.init_state(0)
+            tables = self._attach_hot(tables)
+            lanes = None
+            if (self._cold_compact_map()
+                    and _megastep.vote_certifiable_tables(self, plan)):
+                lanes = dict(self._cold_compact_map())
+            tick_ops = tick.tick_ops(self) if tick is not None else None
+            _, prog = self._record_call(
+                "megastep/" + mode, tables, lambda: _megastep.dispatch(
+                    self, tables, ls, plan, plan.epoch_args(0),
+                    fold_seed(1, 0), 0, int(chunks_per_dispatch),
+                    lanes=lanes, tick=tick, tick_ops=tick_ops))
+            return prog.to_text()
+        finally:
+            self._restore_lowering_state(saved)
 
 
 @dataclasses.dataclass

@@ -377,6 +377,11 @@ def run_megastep(trainer, tables, local_state, plan, seed: int, *,
                       overhead_s=round(overhead_s, 6),
                       per_chunk_s=round(per_chunk_s, 6))
     M = -(-n_calls // K)
+    # What shapes the dispatch beside the trainer's program key (the JAX
+    # package's: the tick's spec, cadence, threshold and tables).
+    tick_key = (None if tick is None else
+                (tick.spec, tick.check_every, tick.churn_threshold,
+                 tuple(sorted(tick.tables)) if tick.tables else None))
     if rec is not None:
         rec.set("megastep.chunks_per_dispatch", K)
     all_metrics = []
@@ -445,10 +450,14 @@ def run_megastep(trainer, tables, local_state, plan, seed: int, *,
             restored = None
             with _watch(watchdog, "megastep", g):
                 with _phase(timer, "megastep"):
-                    tables, local_state, metrics, aux = dispatch(
-                        trainer, tables, local_state, plan, iargs,
-                        fold_seed(seed, e), m * K, K, lanes=lanes, tick=tick,
-                        tick_ops=tick_ops)
+                    tables, local_state, metrics, aux = trainer._audited_call(
+                        "megastep", (plan, K, tuple(sorted(
+                            compact_cfg.items())), tick_key),
+                        "megastep/" + trainer._mode(), tables,
+                        lambda: dispatch(
+                            trainer, tables, local_state, plan, iargs,
+                            fold_seed(seed, e), m * K, K, lanes=lanes,
+                            tick=tick, tick_ops=tick_ops))
                 if quarantine is not None:
                     with _phase(timer, "host_sync"):
                         metrics, restored = trainer._maybe_quarantine(

@@ -46,6 +46,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from fps_tpu_torch.analysis import record as _record
 from fps_tpu_torch.core.prefetch import (
     ChunkPrefetcher,
     place_columns,
@@ -158,6 +159,7 @@ class IALSSolver:
         k = cfg.rank
         S, mesh = self.num_shards, self.mesh
         for t in range(chunk[0]["solve_ids"].shape[0]):
+            _record.mark_step()
             fixed_ids = [c["fixed_ids"][t].to(torch.int32) for c in chunk]
             ys = pull(fixed, fixed_ids, num_shards=S, mesh=mesh)
             ids, outers, vecs = [], [], []

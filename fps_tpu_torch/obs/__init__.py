@@ -23,9 +23,9 @@ shapes and files, so the reference's ``tools/obs_report.py`` and
 * **fleet** — :mod:`fps_tpu_torch.obs.fleet` tails N per-host obs dirs
   into windowed rollups with declarative SLO burn-rate evaluation.
 
-The reference's budget-drift detector (``fps_tpu/obs/drift.py``) reads the
-program auditor's collective profiles and comes with it (ROADMAP.md item
-10).
+* **drift** — :mod:`fps_tpu_torch.obs.drift` checks the live data plane's
+  collective traffic against the budgets the program auditor pinned
+  (``analysis.budget_drift`` + incidents).
 
 Everything is host-side: attaching a recorder changes no table, launch or
 host synchronisation (tested, and gated on the card by ``chip_smoke.py``),
@@ -37,6 +37,7 @@ from __future__ import annotations
 import os
 
 from fps_tpu_torch.obs import events
+from fps_tpu_torch.obs.drift import BudgetDriftDetector, load_pinned_budgets
 from fps_tpu_torch.obs.fleet import (
     DEFAULT_SLOS,
     SLO,
@@ -86,6 +87,7 @@ __all__ = [
     "TraceContext", "Tracer", "new_trace_id", "new_span_id",
     "TRACE_ID_ENV", "PARENT_SPAN_ENV",
     "SLO", "DEFAULT_SLOS", "evaluate_slos", "fleet_digest",
+    "BudgetDriftDetector", "load_pinned_budgets",
     "events", "open_run",
 ]
 

@@ -8,9 +8,8 @@ and the reference's help text, word for word) registered in a
 :class:`Recorder` that validates against the schema and fans the sample
 out to pluggable sinks (:mod:`fps_tpu_torch.obs.sinks`: JSONL event log,
 Prometheus text exposition, in-memory ring for tests). The registry is a
-schema: leaves of a plane the port has not taken yet (the auditor,
-ROADMAP.md item 10) stay declared, so a file written by either package
-validates against the other's registry.
+schema: every leaf of the JAX package's registry is declared, so a file
+written by either package validates against the other's registry.
 
 Host-side only, stdlib-only: nothing here runs on the device or touches a
 tensor, so attaching or detaching a recorder changes no table, launch or
@@ -442,7 +441,8 @@ def default_registry() -> MetricsRegistry:
                         "beyond min_delta): the fleet keeps serving the "
                         "old approved step — lost freshness, never "
                         "wrong answers"),
-        # Program contract auditor (fps_tpu.analysis; Trainer(audit=...)).
+        # Program contract auditor (fps_tpu_torch.analysis;
+        # Trainer(audit=...)).
         MetricSpec("analysis.certified_programs", "counter",
                    unit="programs",
                    help="compiled step programs certified clean against "

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from fps_tpu_torch.analysis import record as _record
 from fps_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
@@ -78,35 +79,56 @@ def _head_route(table: Tensor, head_prefix: int, hot_rows: int) -> bool:
     return head_prefix > 0 and hot_rows > 0 and table.shape[1] == 1
 
 
+def _kernel(name: str, fn, launches: bool, *args):
+    """``fn(*args)``, recorded as kernel ``name`` (where ``launches``: the
+    card's wrapper counts a launch for these inputs) while a program
+    record is taken on this thread (:mod:`fps_tpu_torch.analysis.
+    record`)."""
+    rec = _record.active()
+    if rec is None or rec.depth:
+        return fn(*args)
+    return rec.kernel(name, lambda: fn(*args), args[:3], launches)
+
+
 def _gather(table: Tensor, ids: Tensor, hot_rows: int = 0,
             head_prefix: int = 0) -> Tensor:
     cuda = _on(table, "gather_rows") == "cuda"
+    B = ids.shape[0]
     if table.shape[1] == 1:
-        return (kernels.gather_rows_dim1_cuda if cuda
-                else kernels.gather_rows_dim1_plain)(
-                    table, ids, head_rows=hot_rows, head_prefix=head_prefix)
-    return (kernels.gather_rows_cuda if cuda
-            else kernels.gather_rows_plain)(table, ids)
+        fn = (kernels.gather_rows_dim1_cuda if cuda
+              else kernels.gather_rows_dim1_plain)
+        return _kernel("gather_rows_dim1", lambda t, i: fn(
+            t, i, head_rows=hot_rows, head_prefix=head_prefix), B > 0,
+            table, ids)
+    return _kernel("gather_rows", kernels.gather_rows_cuda if cuda
+                   else kernels.gather_rows_plain, B * table.shape[1] > 0,
+                   table, ids)
 
 
 def _scatter_(table: Tensor, ids: Tensor, deltas: Tensor,
               hot_rows: int = 0) -> Tensor:
     cuda = _on(table, "scatter_add_") == "cuda"
     R, D = table.shape
+    B = ids.shape[0]
     if D == 1:
-        return (kernels.scatter_add_dim1_cuda_ if cuda
-                else kernels.scatter_add_dim1_plain)(table, ids, deltas)
+        return _kernel("scatter_add_dim1", kernels.scatter_add_dim1_cuda_
+                       if cuda else kernels.scatter_add_dim1_plain,
+                       B * R > 0, table, ids, deltas)
     rows = (kernels.scatter_add_cuda_ if cuda
             else kernels.scatter_add_plain)
     if hot_rows > 0 and R > 0:
         head = (kernels.scatter_add_packed_cuda_ if cuda
                 else kernels.scatter_add_packed_plain)
+        H = min(hot_rows, R)
         if hot_rows >= R:
-            return head(table, ids, deltas, R)
-        head(table, ids, deltas, hot_rows)
+            return _kernel("scatter_add_packed", head, B * D * H > 0, table,
+                           ids, deltas, R)
+        _kernel("scatter_add_packed", head, B * D * H > 0, table, ids,
+                deltas, hot_rows)
         in_head = (ids >= 0) & (ids < hot_rows)
-        return rows(table, torch.where(in_head, -1, ids), deltas)
-    return rows(table, ids, deltas)
+        return _kernel("scatter_add", rows, B * D > 0, table,
+                       torch.where(in_head, -1, ids), deltas)
+    return _kernel("scatter_add", rows, B * D > 0, table, ids, deltas)
 
 
 def gather_rows(table: Tensor, ids: Tensor, *, hot_rows: int = 0,

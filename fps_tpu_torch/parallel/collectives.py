@@ -39,6 +39,13 @@ either way. A process holds all its positions on one device
 tensors travel joined in one buffer.
 
 An axis of size 1 returns each position's own tensor, with no copy.
+
+While a program record is taken on the calling thread
+(:mod:`fps_tpu_torch.analysis.record`), each public collective is recorded:
+``all_gather``, ``psum_scatter`` as ``reduce_scatter``, ``all_to_all``,
+``psum`` / ``pmax`` / ``pmin`` and ``sum_home_each`` as ``all_reduce``, and
+the placements ``replicate``, ``broadcast`` and ``gather_home`` under their
+names. Otherwise the decorator costs one thread-local read a call.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from fps_tpu_torch.analysis.record import recorded_collective
 from fps_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SHARD_AXIS,
@@ -209,6 +217,7 @@ def _pieces(mesh: PSMesh, xs: Sequence[Tensor], axis: str,
 # The collectives over an axis.
 # ---------------------------------------------------------------------------
 
+@recorded_collective("all_gather")
 def all_gather(mesh: PSMesh, xs: Sequence[Tensor], axis: str, *,
                dim: int = 0, copy: bool = False) -> list[Tensor]:
     """``lax.all_gather(x, axis, axis=dim, tiled=True)``: each position
@@ -231,6 +240,7 @@ def _rows(x: Tensor, i: int, n: int) -> Tensor:
     return x[i * rows:(i + 1) * rows]
 
 
+@recorded_collective("reduce_scatter")
 def psum_scatter(mesh: PSMesh, xs: Sequence[Tensor],
                  axis: str) -> list[Tensor]:
     """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``: the
@@ -247,6 +257,7 @@ def psum_scatter(mesh: PSMesh, xs: Sequence[Tensor],
     return out
 
 
+@recorded_collective("all_to_all")
 def all_to_all(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
     """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0, tiled=False)``
     over ``(n, ...)`` tensors: the group's ``i``-th position receives
@@ -273,17 +284,20 @@ def _reduce(mesh: PSMesh, xs: Sequence[Tensor], axis: str,
             for p, dev in zip(mesh.local, mesh.positions)]
 
 
+@recorded_collective("all_reduce")
 def psum(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
     """``lax.psum(x, axis)``: each position receives its group's sum."""
     return _reduce(mesh, xs, axis, torch.add)
 
 
+@recorded_collective("all_reduce")
 def pmax(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
     """``lax.pmax(x, axis)``: each position receives its group's
     elementwise maximum."""
     return _reduce(mesh, xs, axis, torch.maximum)
 
 
+@recorded_collective("all_reduce")
 def pmin(mesh: PSMesh, xs: Sequence[Tensor], axis: str) -> list[Tensor]:
     """``lax.pmin(x, axis)``: each position receives its group's
     elementwise minimum."""
@@ -333,6 +347,7 @@ def own_columns(mesh: PSMesh, columns: dict, dim: int) -> dict:
     return out
 
 
+@recorded_collective("replicate")
 def replicate(mesh: PSMesh, pieces: Sequence[Tensor]) -> list[Tensor]:
     """Shard ``s``'s piece (``pieces[s]``) on every position ``(d, s)`` of
     this process: a table's blocks from its ``S`` pieces. With more than
@@ -346,6 +361,7 @@ def replicate(mesh: PSMesh, pieces: Sequence[Tensor]) -> list[Tensor]:
             for p, dev in zip(mesh.local, mesh.positions)]
 
 
+@recorded_collective("broadcast")
 def broadcast(mesh: PSMesh, x: Tensor) -> list[Tensor]:
     """``x`` (on the home device) on every position of this process: an
     input the JAX package places replicated (``P()``). Positions on ``x``'s
@@ -358,6 +374,7 @@ def home(mesh: PSMesh, xs: Sequence[Tensor]) -> list[Tensor]:
     return [_to(x, mesh.device) for x in xs]
 
 
+@recorded_collective("gather_home")
 def gather_home(mesh: PSMesh, xs: Sequence[Tensor]) -> list[Tensor]:
     """Every position's tensor (``xs``: this process's, of one shape and
     dtype), ``W`` of them in worker order, on the home device. Over several
@@ -403,6 +420,7 @@ def _sum_in_order(mesh: PSMesh, every: Sequence[Tensor]) -> Tensor:
                   for g in groups(mesh, SHARD_AXIS)], mesh.device)
 
 
+@recorded_collective("all_reduce")
 def sum_home_each(mesh: PSMesh, leaves: Sequence[Sequence[Tensor]]
                   ) -> list[Tensor]:
     """``psum(psum(x, 'shard'), 'data')`` of each ``x`` of ``leaves`` (one

@@ -5,8 +5,8 @@ reference's letter for letter, so either package reads the other's tenants
 root. Every plane that is tenancy-aware (the manager, the audit, the chaos
 scenarios, the obs fleet rollup) derives its on-disk locations from
 :class:`TenantPaths`, never by joining ``"tenants"`` / ``"ckpt"`` /
-``"obs"`` string literals itself (the reference's lint rule FPS009 flags
-such a literal; the port's linter is ROADMAP.md item 10). The payoff is
+``"obs"`` string literals itself (lint rule FPS009 of
+:mod:`fps_tpu_torch.analysis.lint` flags such a literal). The payoff is
 the blast-radius contract — if no plane can even *spell* a neighbor's
 namespace, one tenant's fault cannot write into another's state.
 

@@ -374,7 +374,7 @@ def run_tenant_reader_wedge_scenario(tmpdir: str, *, timeout: float = 600,
     def _fence_bytes(ckpt_dir):
         # Raw bytes on purpose: the claim is "this FILE never changed".
         try:
-            with open(os.path.join(ckpt_dir, "fleet", FENCE_NAME),
+            with open(os.path.join(ckpt_dir, "fleet", FENCE_NAME),  # noqa: FPS006
                       "rb") as f:
                 return f.read()
         except OSError:

@@ -24,7 +24,10 @@ drifts leaves it serving little. Here the tier is managed as the run goes:
   the same boundary on the device, every ``check_every`` chunk segments of
   ``Trainer.run_megastep``, with no host read.
 
-``lowered_plan_text`` is ROADMAP.md Queue 1 item 10.
+* **the probe** (:class:`ProbeLogic`, :func:`probe_chunk`,
+  :func:`lowered_plan_text`): a plan's data plane without a model, and
+  the record of its per-chunk program for the program auditor
+  (:mod:`fps_tpu_torch.analysis`).
 """
 
 from fps_tpu_torch.tiering.planner import (

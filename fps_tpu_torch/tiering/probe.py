@@ -6,9 +6,9 @@ store's: pull ``B`` ids a table and push deltas of the same shape back (a
 small fraction of the pulled rows, so every push depends on its pull), with
 one scalar out. A trainer over it runs the routes a plan sets and nothing
 else: the pulls and pushes, the tier's reconcile, the tracker's windows.
-:func:`probe_chunk` makes its host chunks. (The JAX package's
-``lowered_plan_text``, the lowered program's text for the program auditor,
-is ROADMAP.md Queue 1 item 10.)
+:func:`probe_chunk` makes its host chunks, and :func:`lowered_plan_text`
+the record of the per-chunk program a plan runs, for the program auditor
+(:mod:`fps_tpu_torch.analysis`) and its collective profile.
 """
 
 from __future__ import annotations
@@ -52,9 +52,36 @@ def probe_chunk(table_specs, *, num_workers: int, local_batch: int = 32,
     }
 
 
-def lowered_plan_text(*args, **kwargs) -> str:
-    """The JAX package's lowered program of a plan: the program auditor's
-    input, not ported (ROADMAP.md Queue 1 item 10, slice G)."""
-    raise NotImplementedError(
-        "lowered_plan_text is not ported yet (ROADMAP.md Queue 1 item 10, "
-        "slice G: the program auditor)")
+def lowered_plan_text(mesh, specs, plans, *, hot_sync_every: int,
+                      retierer=None, local_batch: int = 32,
+                      steps_per_chunk: int = 4) -> str:
+    """Build a probe trainer with ``plans`` (``{table: TierPlan}``) applied
+    over ``specs`` and return the record's text of the exact per-chunk
+    program it would run (:meth:`~fps_tpu_torch.core.driver.Trainer.
+    lowered_chunk_text`): what ``collective_profile`` measures a plan's
+    collective budget from.
+
+    ``retierer``: attach one to record the adaptive (mapped and tracked)
+    program instead of the static tier's.
+    """
+    import dataclasses
+
+    from fps_tpu_torch.core.driver import Trainer, TrainerConfig, num_workers_of
+    from fps_tpu_torch.core.store import ParamStore
+
+    planned = {}
+    for name, spec in sorted(specs.items()):
+        plan = plans.get(name)
+        if plan is not None:
+            spec = dataclasses.replace(
+                spec, hot_tier=plan.hot_tier,
+                dense_collectives=plan.dense)
+        planned[name] = spec
+    store = ParamStore(mesh, planned)
+    trainer = Trainer(mesh, store, ProbeLogic(planned),
+                      config=TrainerConfig(hot_sync_every=hot_sync_every))
+    trainer.retierer = retierer
+    chunk = probe_chunk(planned, num_workers=num_workers_of(mesh),
+                        local_batch=local_batch,
+                        steps_per_chunk=steps_per_chunk)
+    return trainer.lowered_chunk_text(chunk, "sync")

@@ -107,7 +107,7 @@ def main(argv=None) -> int:
             wrapper = (kernels.gather_rows_dim1_plain if D == 1
                        else kernels.gather_rows_plain)
         row = {"R": R, "D": D, "B": B, "head": [H, q],
-               "ops_us": host_us(torch, lambda: ops.gather_rows(
+               "ops_us": host_us(torch, lambda H=H, q=q: ops.gather_rows(
                    table, ids, hot_rows=H, head_prefix=q), cuda),
                "wrapper_us": host_us(torch, lambda: wrapper(table, ids),
                                      cuda)}

@@ -20,8 +20,11 @@ elsewhere: the fold state in snapshots across the packages
 with its sidecar (``tests/test_torch_tiering.py``), rollback quarantine of
 replica and table as a unit (``tests/test_torch_resilience.py``). Those
 that wait for later items: the recorder's counters and the supervisor's
-chaos runs (ROADMAP.md Queue 1 item 9), and the lowered-HLO comparisons
-(item 10; the launch counts and the collective spy stand in for them here).
+chaos runs (ROADMAP.md Queue 1 item 9). The lowered-program contracts (the
+reconcile's reduce-scatter in the census, ReplicaConsistency, the pinned
+tiered rows) are the program auditor's, held in
+``tests/test_torch_analysis.py``; the launch counts and the collective spy
+here test the same routes from the other side.
 """
 
 from __future__ import annotations

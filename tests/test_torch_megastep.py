@@ -791,9 +791,17 @@ def test_megastep_validations(tmesh, jmesh8, data, pkg):
         tr2.lowered_megastep_text(p2, chunks_per_dispatch=3,
                                   tick=Tick(check_every=2))
     if pkg == "port":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tr2.lowered_megastep_text(p2, chunks_per_dispatch=4,
-                                      tick=Tick(check_every=2))
+        # Lowering is taken (the program auditor): a certifiable record,
+        # with the tick left detached.
+        from fps_tpu_torch.analysis import certify, contract_for_trainer
+
+        text = tr2.lowered_megastep_text(p2, chunks_per_dispatch=4,
+                                         tick=Tick(check_every=2))
+        assert tr2.retierer is None
+        tr2.retierer = Tick(check_every=2)
+        assert certify(text, contract_for_trainer(
+            tr2, program="megastep")).ok
+        tr2.retierer = None
 
 
 # -- auto-K -------------------------------------------------------------------

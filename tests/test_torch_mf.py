@@ -361,6 +361,10 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.tenancy.manager, fps_tpu_torch.tenancy.audit\n"
         "import fps_tpu_torch.testing.tenant_demo\n"
         "import fps_tpu_torch.examples.trace_export\n"
+        "import fps_tpu_torch.analysis, fps_tpu_torch.analysis.record\n"
+        "import fps_tpu_torch.analysis.lint, fps_tpu_torch.obs.drift\n"
+        "import fps_tpu_torch.examples.audit_programs\n"
+        "import fps_tpu_torch.examples.lint\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

@@ -570,8 +570,21 @@ def test_trainer_takes_a_recorder_and_audit_waits_for_item_10():
     t2 = Trainer(trainer.mesh, trainer.store, trainer.logic,
                  trainer.server_logic, trainer.config, rec)
     assert t2.recorder is rec and trainer.recorder is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(trainer.mesh, trainer.store, trainer.logic, audit=True)
+    # The program auditor is taken (it was refused before it was ported):
+    # the first chunk is recorded and certified through the recorder.
+    from fps_tpu_torch.analysis import ProgramAuditor
+
+    mem = tobs.MemorySink()
+    t3 = Trainer(trainer.mesh, trainer.store, trainer.logic,
+                 trainer.server_logic, trainer.config,
+                 tobs.Recorder(sinks=[mem]), audit=True)
+    assert isinstance(t3.audit, ProgramAuditor)
+    _, chunk = _mf_step_inputs()
+    tables, local = t3.init_state(0)
+    t3.run_chunk(tables, local, chunk, 1)
+    assert [c.program for c in t3.audit.certificates] == ["chunk/sync"]
+    assert t3.audit.certificates[0].ok
+    assert t3.recorder.counter_value("analysis.certified_programs") == 1
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,10 @@ every sidecar beside a checkpoint and the newest ``keep``.
 
 Oracles of ``tests/test_tiering.py`` that wait for later items: the
 ``retier_kill`` chaos run of the supervisor (ROADMAP.md Queue 1 item 9),
-the recorder's ``tiering.*`` counters (item 9) and the lowered-program
-comparisons (item 10; the launch counts stand in for them here).
+the recorder's ``tiering.*`` counters (item 9). The lowered-program
+comparisons (the mapped tier's census, the re-rank byte identity,
+``lowered_plan_text``) are the program auditor's, held in
+``tests/test_torch_analysis.py`` and below.
 """
 
 from __future__ import annotations
@@ -965,13 +967,29 @@ def test_probe_trainer_runs_a_mapped_plan():
     assert np.isfinite(tables["t"].numpy()).all()
 
 
+def _plan_text():
+    from fps_tpu_torch.core.store import TableSpec
+    from fps_tpu_torch.parallel.mesh import make_ps_mesh
+
+    specs = {"t": TableSpec("t", 256, 8)}
+    plan = tiering.TierPlan(hot_tier=64, hot_sync_every=2, dense=False,
+                            coverage=0.5, reason="test")
+    return tiering.lowered_plan_text(make_ps_mesh(4, device="cpu"), specs,
+                                     {"t": plan}, hot_sync_every=2)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda: tiering.lowered_plan_text(None, {}, {}, hot_sync_every=2),
-     "item 10"),
+    (_plan_text, "reduce_scatter"),
 ], ids=["lowered_plan_text"])
 def test_what_waits_for_later_items_raises_naming_it(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+    """What waited for a later item is taken now: ``lowered_plan_text``
+    (the program auditor) records the planned program, whose census holds
+    the tier's reconcile."""
+    from fps_tpu_torch.analysis import certify, collective_profile
+
+    text = call()
+    assert item in {c.kind for c in collective_profile(text)}
+    assert certify(text).ok
 
 
 @pytest.mark.parametrize("what", ["state_dir", "restore"])
