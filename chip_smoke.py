@@ -375,7 +375,28 @@ on the card, raising on the first failure:
    ``BUDGETS`` (``fps_tpu_torch/examples/audit_programs.py``) stays quiet
    over 3 chunks of the audit's MF row run on the card at (1, 8), and the
    pinned bytes halved raise exactly one ``budget_drift`` incident;
-17. prints one JSON line describing every ported kernel, then, as the last
+17. runs the chaos sweep, the native host library and the planner's
+   command line on the card: (a) two processes of the port's sweep
+   (``fps_tpu_torch/examples/chaos_sweep.py``) at once, ``--shard 1/2``
+   and ``--shard 2/2`` over its seven in-process scenarios (the logistic
+   regression harness at ``(1, 8)`` on ``cuda:0``: K5, K4) and the
+   training-plane kills ``prefetch_kill``, ``hot_tier_kill``,
+   ``retier_kill`` and ``reconcile_shard_kill`` (their children on
+   ``cuda:0``, the tiers at 8 positions), each scenario bounded by
+   ``--timeout-s``: every scenario survived, the program certificate ok,
+   no recovery-SLO breach, the device ``cuda:0``, every child on
+   ``cuda:0`` loading the library this process built, K5 and K4 launched
+   in the straight run and the last attempt; (b) ``fps_tpu_torch.native``
+   builds with ``g++`` and loads, and the first chunk of
+   ``skipgram_chunks(use_native=True)`` over phase 3's corpus (50,000
+   words, 2M tokens) trains the pair worker at text8 width through
+   ``fit_stream``, 8 steps of 81,920 pairs, K1 2 and K2 2 a step, a
+   finite loss; the whole stream's pairs a second, native and numpy; (c)
+   the planner's command line (``fps_tpu_torch/examples/plan.py``) over
+   ML-20M's two MF tables records the plan's and the untiered program on
+   the card and on the CPU: the same ``predicted``, ``untiered_baseline``
+   and plan. It reports each shard's time to recovered and seconds;
+18. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
@@ -6834,27 +6855,28 @@ def p14_first_beats(state_dir):
     return out
 
 
-def p14_children(label, detail, dev):
+def p14_children(label, detail, dev, pushes=("scatter_add_dim1",)):
     """The gates on every child of a scenario on the card: each attempt
     that started ran on ``dev`` and only loaded the library built by this
-    process; the straight and the last attempt launched K4 and K5.
-    Returns their launch counts as two runs of the JSON line."""
+    process; the straight and the last attempt launched K5 and one of
+    ``pushes`` (K4; a tier's pushes may go to K2 or K3). Returns their
+    launch counts as two runs of the JSON line."""
     starts = detail["attempt_starts"]
     for i, st in enumerate(starts):
         if not st:
             continue  # an attempt that died before its first line
         if st.get("device") != dev or st.get("build_cached") is not True:
-            raise AssertionError(f"phase 14 {label}: attempt {i} started "
+            raise AssertionError(f"{label}: attempt {i} started "
                                  f"on {st.get('device')} (library cached: "
                                  f"{st.get('build_cached')})")
     runs = []
     for which, counts in (("straight", detail["straight_launches"]),
                           ("supervised, last attempt", detail["launches"])):
         if not counts or not (counts["gather_rows_dim1"] > 0
-                              and counts["scatter_add_dim1"] > 0):
-            raise AssertionError(f"phase 14 {label}, {which}: K5 / K4 "
+                              and any(counts[k] > 0 for k in pushes)):
+            raise AssertionError(f"{label}, {which}: K5 / {pushes} "
                                  f"launches {counts}")
-        runs.append({"path": f"phase 14 {label}, {which} (child process)",
+        runs.append({"path": f"{label}, {which} (child process)",
                      "launches": counts})
     return runs
 
@@ -6932,7 +6954,7 @@ def supervise_phase(torch, card, dev="cuda:0"):
             if not ok:
                 raise AssertionError(f"phase 14 {label}: "
                                      f"{json.dumps(detail)}")
-            runs += p14_children(label, detail, dev)
+            runs += p14_children(f"phase 14 {label}", detail, dev)
             report[label] = {
                 "supervisor": detail["supervisor"],
                 "restored_step": detail["restored_step"],
@@ -7412,6 +7434,181 @@ def audit_phase(torch, fps, kernels, lr_data, card):
     return out
 
 
+# Phase 17: the chaos sweep, the native host library and the planner's
+# command line on the card.
+P17_SWEEP = ("nan_mask", "inf_mask", "huge_norm_mask", "observe_rollback",
+             "ckpt_truncate", "ckpt_bitflip", "tmp_sweep", "prefetch_kill",
+             "hot_tier_kill", "retier_kill", "reconcile_shard_kill")
+P17_KILLS = P17_SWEEP[7:]
+# A tier's pushes go to its replica's buffer (K2, K3) or the table (K4).
+P17_PUSHES = ("scatter_add_dim1", "scatter_add", "scatter_add_packed")
+P17_TIMEOUT_S = 240.0  # a scenario's bound (--timeout-s)
+P17_SHARDS = 2
+P17_PLAN_TABLES = ("item_factors:26744:10", "user_factors:138493:10")
+
+
+def p17_sweep(card, dev="cuda:0"):
+    """(a): two sweep processes at once, one a shard; their digests gated.
+    Returns the children's launch counts as runs of the JSON line and the
+    report."""
+    import shutil
+    import signal
+    import tempfile
+
+    where = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for k in range(1, P17_SHARDS + 1):
+            with open(os.path.join(where, f"{k}.out"), "w") as out, \
+                    open(os.path.join(where, f"{k}.err"), "w") as err:
+                procs[k] = subprocess.Popen(
+                    [sys.executable, "-m", "fps_tpu_torch.examples.chaos_sweep",
+                     "--only", ",".join(P17_SWEEP), "--shard",
+                     f"{k}/{P17_SHARDS}", "--timeout-s", str(P17_TIMEOUT_S)],
+                    cwd=ROOT, stdout=out, stderr=err,
+                    start_new_session=True)
+        seconds = {}
+        for k, proc in procs.items():
+            proc.wait(timeout=P17_TIMEOUT_S * len(P17_SWEEP))
+            seconds[k] = time.perf_counter() - t0
+        digests = {}
+        for k, proc in procs.items():
+            with open(os.path.join(where, f"{k}.out")) as f:
+                lines = f.read().strip().splitlines()
+            with open(os.path.join(where, f"{k}.err")) as f:
+                tail = f.read()[-3000:]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"phase 17 (a) shard {k}/{P17_SHARDS}: "
+                                     f"exit {proc.returncode}\n{tail}")
+            digests[k] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(where, ignore_errors=True)
+    ran = [n for d in digests.values() for n in d["chaos_sweep"]]
+    if sorted(ran) != sorted(P17_SWEEP):
+        raise AssertionError(f"phase 17 (a): the shards ran {ran}")
+    runs, report = [], {}
+    for k, d in digests.items():
+        label = f"phase 17 (a) shard {k}/{P17_SHARDS}"
+        cert = d["program_certificate"]
+        if (d["failed"] or d["survived"] != d["total"]
+                or not (cert and cert["ok"])
+                or d["recovery_slo"]["breaches"] or d["device"] != dev
+                or d["mesh"] != {"data": 1, "shard": 8}):
+            raise AssertionError(f"{label}: {json.dumps(d)}")
+        for name in d["chaos_sweep"]:
+            if name in P17_KILLS:
+                runs += p14_children(f"{label} {name}", d["detail"][name],
+                                     dev, pushes=P17_PUSHES)
+        report[f"shard {k}/{P17_SHARDS}"] = {
+            "scenarios": list(d["chaos_sweep"]),
+            "survived": d["survived"], "total": d["total"],
+            "time_to_recovered_s": d["time_to_recovered_s"],
+            "certificate": cert["collectives"]["per_kind"],
+            "clean_test_acc": d["clean_test_acc"],
+            "seconds": seconds[k]}
+    log(f"phase 17 (a): {json.dumps(report)} ({card})")
+    return runs, report
+
+
+def p17_native(torch, fps, kernels, tokens, uni, card):
+    """(b): the native library builds and loads; its pair stream's first
+    chunk trains the pair worker through ``fit_stream`` (counters at 0
+    just before, K1 2 and K2 2 a step); the stream's pairs a second, native
+    and numpy."""
+    from fps_tpu_torch import native
+    from fps_tpu_torch.models import word2vec as w2v
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 17 (b): fps_tpu_torch.native did not "
+                             "build or load (g++)")
+    build_s = time.perf_counter() - t0
+    cfg = w2v_config(fps)
+    kw = dict(num_workers=1, local_batch=2 * cfg.window * W2V_BLOCK,
+              steps_per_chunk=W2V_PAIR_STEPS, seed=1)
+    rates = {}
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        pairs = chunks = 0
+        for c in w2v.skipgram_chunks(tokens, uni, cfg, use_native=use_native,
+                                     **kw):
+            pairs += float(c["weight"].sum())
+            chunks += 1
+        dt = time.perf_counter() - t0
+        rates["native" if use_native else "numpy"] = {
+            "pairs": pairs, "chunks": chunks, "seconds": dt,
+            "pairs_per_s": pairs / dt}
+    first = next(w2v.skipgram_chunks(tokens, uni, cfg, use_native=True,
+                                     **kw))
+
+    def quality(metrics):
+        n = float(sum(m["n"].sum() for m in metrics))
+        loss = float(sum(m["loss"].sum() for m in metrics)) / max(n, 1.0)
+        if not (np.isfinite(loss) and n > 0):
+            raise AssertionError(f"phase 17 (b): loss a pair {loss} over "
+                                 f"{n} pairs")
+        return {"loss_per_pair": loss, "pairs": n}
+
+    trainer, _ = fps.word2vec(fps.make_ps_mesh(), cfg, uni)
+    run = run_path(torch, kernels, "w2v pairs, native skipgram_chunks, "
+                   "fit_stream", trainer, [first],
+                   {"gather_rows": 2, "scatter_add": 2}, quality, card)
+    report = {"library": os.path.relpath(native.library_path(), ROOT),
+              "build_or_load_seconds": build_s, "pair_rates": rates}
+    log(f"phase 17 (b): {json.dumps(report)} ({card})")
+    return run, report
+
+
+def p17_plan(card):
+    """(c): the planner's command line over ML-20M's two MF tables on the
+    card and on the CPU; the recorded budgets equal."""
+    import contextlib
+    import io
+
+    from fps_tpu_torch.examples import plan as plan_cli
+
+    outs, seconds = {}, {}
+    for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        argv = [a for t in P17_PLAN_TABLES for a in ("--table", t)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = plan_cli.main(argv + ["--json"] + extra)
+        seconds[where] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"phase 17 (c), {where}: exit {rc}")
+        outs[where] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if outs["card"] != outs["cpu"]:
+        raise AssertionError(f"phase 17 (c): the card's plan "
+                             f"{json.dumps(outs['card'])} differs from the "
+                             f"CPU's {json.dumps(outs['cpu'])}")
+    report = {k: outs["card"][k] for k in ("predicted", "untiered_baseline",
+                                           "hot_sync_every", "mesh")}
+    report["seconds"] = seconds
+    log(f"phase 17 (c): {json.dumps(report)} ({card})")
+    return report
+
+
+def sweep_phase(torch, fps, kernels, tokens, uni, card):
+    """Phase 17, (a)-(c). Nothing is caught: a failed gate fails the
+    script."""
+    t0 = time.perf_counter()
+    runs, sweep = p17_sweep(card)
+    native_run, native_report = p17_native(torch, fps, kernels, tokens, uni,
+                                           card)
+    out = {"sweep": sweep, "native": native_report, "plan": p17_plan(card),
+           "runs": runs + [native_run]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -7605,6 +7802,9 @@ def main() -> int:
     # 16. The program auditor on the card (its audited call's launches
     # counted from 0).
     auditor = audit_phase(torch, fps, kernels, lr_data, card)
+    # 17. The chaos sweep (its children count their own launches), the
+    # native pair stream (counters at 0 before its run) and the planner.
+    chaos = sweep_phase(torch, fps, kernels, w2v_tokens, w2v_uni, card)
     runs += [dict(arm, path=f"{arm['path']}, arm {i}")
              for ab in pipeline["prefetch_ab"]
              for i, arm in enumerate(ab["arms"])]
@@ -7619,6 +7819,7 @@ def main() -> int:
     runs += supervised["runs"]
     runs += pod["runs"]
     runs += auditor["runs"]
+    runs += chaos["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
@@ -7648,7 +7849,7 @@ def main() -> int:
     log(f"card vs CPU: tables agree within {tol} of their largest value "
         f"({json.dumps(worst)})")
 
-    # 17. Summary lines. Each entry's times are per step of its first path
+    # 18. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -7754,6 +7955,7 @@ def main() -> int:
         "supervised": {k: v for k, v in supervised.items() if k != "runs"},
         "pod_and_tenants": {k: v for k, v in pod.items() if k != "runs"},
         "auditor": {k: v for k, v in auditor.items() if k != "runs"},
+        "chaos_native_plan": {k: v for k, v in chaos.items() if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

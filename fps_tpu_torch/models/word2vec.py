@@ -25,9 +25,10 @@ bits; the parity tests hand both packages the same draws.
 The co-occurrence sketch tap (:func:`cooccurrence_sketch_tap`, a
 ``TrainerConfig.step_tap``) sketches each probe word's context distribution
 from the very batches the worker trains on, on both workers' batches; its
-per-step stack update is one scatter-add (kernel K4 on the card). Not
-ported here: the native pair generator, which waits for the port's bench
-(ROADMAP.md Queue 1 item 1).
+per-step stack update is one scatter-add (kernel K4 on the card).
+:func:`skipgram_chunks` takes the port's C++ pair generator
+(:mod:`fps_tpu_torch.native`) when it builds, as the JAX package's does:
+the same pairs for the same seed.
 """
 
 from __future__ import annotations
@@ -426,13 +427,17 @@ def skipgram_chunks(
 ) -> Iterator[dict]:
     """Stream ``(center, context, weight)`` chunks over one pass of
     ``tokens``, segment by segment, with frequent-word subsampling and a
-    dynamic window: the JAX package's numpy path, the same chunks for the
-    same seed. ``use_native=True`` (its C++ pair generator) raises
-    ``NotImplementedError``: the port has none yet."""
-    if use_native:
-        raise NotImplementedError(
-            "skipgram_chunks(use_native=True): the native pair generator is "
-            "not ported yet (ROADMAP.md Queue 1 item 1, the port bench)")
+    dynamic window: the JAX package's chunks for the same seed, on either
+    path.
+
+    ``use_native`` selects the C++ pair generator
+    (:mod:`fps_tpu_torch.native`): ``None`` (default) uses it when it
+    builds, ``True`` requires it (``RuntimeError`` when it does not),
+    ``False`` forces the numpy path. Both paths implement the same sampling
+    scheme; their streams differ only in the random draws."""
+    from fps_tpu_torch import native
+
+    use_native = native.choose(use_native)
     rng = np.random.default_rng(seed)
     n = len(tokens)
     if n and int(np.max(tokens)) >= len(unigram_counts):
@@ -449,6 +454,8 @@ def skipgram_chunks(
     buf_c: list[np.ndarray] = []
     buf_x: list[np.ndarray] = []
     buffered = 0
+    native_kp = (keep_p.astype(np.float32) if cfg.subsample_t is not None
+                 else None)
 
     def emit(c, x, wgt):
         chunk = {
@@ -463,23 +470,38 @@ def skipgram_chunks(
 
     # Segments are disjoint: cross-boundary pairs (at most window per
     # ~million-token segment) are dropped rather than double-counted.
-    for start in range(0, n, segment_tokens):
+    for si, start in enumerate(range(0, n, segment_tokens)):
         seg = tokens[start:start + segment_tokens]
-        # Subsample frequent words (drop positions entirely, like word2vec).
-        keep = rng.random(len(seg)) < keep_p[seg]
-        seg = seg[keep]
-        if len(seg) < 2:
-            continue
-        m = len(seg)
-        half = rng.integers(1, cfg.window + 1, m)  # dynamic window
-        for d in range(1, cfg.window + 1):
-            ok = (half >= d)[:m - d]
-            c = seg[:m - d][ok]
-            x = seg[d:][ok]
-            # Both directions: (center, context) and (context, center).
-            buf_c.append(np.concatenate([c, x]))
-            buf_x.append(np.concatenate([x, c]))
-            buffered += 2 * len(c)
+        if use_native:
+            pair = native.skipgram_pairs(seg, cfg.window,
+                                         seed=(seed << 20) ^ si,
+                                         keep_p=native_kp)
+            if pair is None:  # native failure mid-stream (e.g. OOM)
+                raise RuntimeError(
+                    "native skipgram_pairs failed mid-stream; rerun with "
+                    "use_native=False")
+            c, x = pair
+            if len(c):
+                buf_c.append(c)
+                buf_x.append(x)
+                buffered += len(c)
+        else:
+            # Subsample frequent words (drop positions entirely, like
+            # word2vec).
+            keep = rng.random(len(seg)) < keep_p[seg]
+            seg = seg[keep]
+            if len(seg) < 2:
+                continue
+            m = len(seg)
+            half = rng.integers(1, cfg.window + 1, m)  # dynamic window
+            for d in range(1, cfg.window + 1):
+                ok = (half >= d)[:m - d]
+                c = seg[:m - d][ok]
+                x = seg[d:][ok]
+                # Both directions: (center, context) and (context, center).
+                buf_c.append(np.concatenate([c, x]))
+                buf_x.append(np.concatenate([x, c]))
+                buffered += 2 * len(c)
 
         while buffered >= stride:
             cs = np.concatenate(buf_c)

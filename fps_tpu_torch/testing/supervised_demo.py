@@ -433,10 +433,11 @@ def _kill_at_scenario(tmpdir, demo_extra, kill_at, *, timeout, device,
 
 
 def _tier_args(device):
-    """The hot tier needs several positions: on the CPU, the reference's
-    eight devices as eight positions."""
+    """The hot tier needs several positions: on a named device (the CPU,
+    or ``cuda:0`` from the chaos sweep), the reference's eight devices as
+    eight positions on it."""
     return (("--num-shards", str(SCENARIO_TIER_SHARDS))
-            if device == "cpu" else ())
+            if device is not None else ())
 
 
 def run_hot_tier_kill_scenario(tmpdir: str, *, timeout: float = 600,

@@ -12,9 +12,10 @@ classification for passive-aggressive and logistic regression
 ``head_sort_slots``), the svmlight / Criteo loaders (``load_svmlight``,
 ``load_criteo``, ``sniff_sparse_format``, ``load_sparse``), the text8-style
 token stream for word2vec (``synthetic_corpus``, ``load_text8``) and
-``train_test_split``. The loaders are the JAX package's pure-Python
-branches; its compiled C++ parsers are not carried over. The same seed gives
-the same arrays as the JAX package's functions.
+``train_test_split``. The loaders take the port's C++ scanners
+(:mod:`fps_tpu_torch.native`) when they build, as the JAX package's do, and
+keep its pure-Python parsers as the fallback. The same seed gives the same
+arrays as the JAX package's functions.
 """
 
 from __future__ import annotations
@@ -23,6 +24,16 @@ import os
 import re
 
 import numpy as np
+
+# Importing the native module builds nothing: the library is built at the
+# first call that needs it. The Criteo schema (13 numeric columns, then 26
+# categorical ones) is its scanner's.
+from fps_tpu_torch import native
+from fps_tpu_torch.native import (  # noqa: F401
+    CRITEO_CAT_COLS,
+    CRITEO_NNZ,
+    CRITEO_NUM_COLS,
+)
 
 
 def synthetic_ratings(
@@ -111,10 +122,16 @@ def load_movielens(path: str | None = None, scale: str = "100k"):
     20m -> (138_493, 26_744, 20_000_263) like ML-20M.
     """
     if path and os.path.exists(path):
-        raw = np.loadtxt(path, dtype=np.int64)
-        users = raw[:, 0].astype(np.int32) - 1
-        items = raw[:, 1].astype(np.int32) - 1
-        ratings = raw[:, 2].astype(np.float32)
+        parsed = native.parse_ratings(path)
+        if parsed is not None:
+            users, items, ratings = parsed
+            users = users - 1
+            items = items - 1
+        else:  # no compiler on this host: numpy fallback
+            raw = np.loadtxt(path, dtype=np.int64)
+            users = raw[:, 0].astype(np.int32) - 1
+            items = raw[:, 1].astype(np.int32) - 1
+            ratings = raw[:, 2].astype(np.float32)
         data = {"user": users, "item": items, "rating": ratings}
         return data, int(users.max()) + 1, int(items.max()) + 1
     sizes = {
@@ -256,18 +273,14 @@ def load_text8(path: str | None = None, vocab_size: int = 50_000,
 # Sparse classification: RCV1 / Criteo shapes.
 # ---------------------------------------------------------------------------
 
-# Criteo schema: 13 numeric columns, then 26 categorical ones.
-CRITEO_NUM_COLS = 13
-CRITEO_CAT_COLS = 26
-CRITEO_NNZ = CRITEO_NUM_COLS + CRITEO_CAT_COLS
-
 _MASK64 = (1 << 64) - 1
 
 
 def _criteo_hash(col: int, token: bytes) -> int:
-    """FNV-1a 64 + splitmix64 finalizer: bit for bit the JAX package's
-    ``hash_bytes`` (``fps_tpu/native/src/fps_native.cc``), so that both
-    packages hash a Criteo file to the same ids."""
+    """FNV-1a 64 + splitmix64 finalizer: bit for bit the native scanner's
+    ``hash_bytes`` (``fps_tpu_torch/native/src/fps_native.cc``, the JAX
+    package's too), so that both branches and both packages hash a Criteo
+    file to the same ids."""
     h = (1469598103934665603 ^ col) & _MASK64
     for b in token:
         h = ((h ^ b) * 1099511628211) & _MASK64
@@ -285,7 +298,7 @@ def _parse_svmlight_py(path: str, nnz_cap: int | None):
     """Pure-python svmlight parse, with the JAX package's conventions:
     malformed data lines raise; rows longer than nnz_cap keep their first
     nnz_cap features (count returned as ``truncated``). Tokens are
-    validated against the exact grammar of its native scanner
+    validated against the exact grammar of the native scanner
     (``_SVM_NUM``/``_SVM_IDX``) BEFORE float()/int(), which are more
     permissive ("1_0", "inf", "+5" as an index)."""
     rows = []
@@ -332,7 +345,7 @@ def _parse_svmlight_py(path: str, nnz_cap: int | None):
 
 
 def load_svmlight(path: str, *, num_features: int | None = None,
-                  nnz_cap: int | None = None):
+                  nnz_cap: int | None = None, use_native: bool | None = None):
     """Load an svmlight/RCV1 file into the framework's sparse batch shape.
 
     Returns ``(data, num_features)`` where data has ``feat_ids (N, nnz)``,
@@ -340,8 +353,13 @@ def load_svmlight(path: str, *, num_features: int | None = None,
     mapped by sign; 0 maps to -1). Pad slots are id 0 / value 0 — inactive
     under the models' ``x != 0`` convention. Ids are kept verbatim
     (1-based in RCV1), so ``num_features`` defaults to ``max_id + 1``.
+    ``use_native=None`` prefers the C++ scanner when available.
     """
-    labels, ids, vals, truncated = _parse_svmlight_py(path, nnz_cap)
+    parsed = (native.parse_svmlight(path, nnz_cap)
+              if native.choose(use_native) else None)
+    if parsed is None:
+        parsed = _parse_svmlight_py(path, nnz_cap)
+    labels, ids, vals, truncated = parsed
     if truncated:
         import warnings
 
@@ -366,8 +384,8 @@ def load_svmlight(path: str, *, num_features: int | None = None,
 
 
 def _parse_criteo_py(path: str, num_features: int):
-    """Pure-python Criteo TSV parse, with the conventions of the JAX
-    package's native scanner, including the categorical hash and the
+    """Pure-python Criteo TSV parse, with the conventions of the native
+    scanner, including the categorical hash and the
     FIXED-SLOT layout: numeric column j always sits at batch slot j (id j, value 0 =
     inactive when missing), categoricals append from slot 13. The fixed
     head is what lets ``LogRegConfig.dense_features`` pull/push the
@@ -426,7 +444,8 @@ def _parse_criteo_py(path: str, num_features: int):
     )
 
 
-def load_criteo(path: str, *, num_features: int = 1 << 20):
+def load_criteo(path: str, *, num_features: int = 1 << 20,
+                use_native: bool | None = None):
     """Load a Criteo click-log TSV (label + 13 numeric + 26 categorical).
 
     Returns ``(data, num_features)`` with ``feat_ids (N, 39)``,
@@ -436,7 +455,11 @@ def load_criteo(path: str, *, num_features: int = 1 << 20):
     """
     if num_features <= CRITEO_NUM_COLS:
         raise ValueError("num_features must exceed 13 (the numeric columns)")
-    labels, ids, vals = _parse_criteo_py(path, num_features)
+    parsed = (native.parse_criteo(path, num_features)
+              if native.choose(use_native) else None)
+    if parsed is None:
+        parsed = _parse_criteo_py(path, num_features)
+    labels, ids, vals = parsed
     data = {
         "feat_ids": ids,
         "feat_vals": vals,
@@ -463,7 +486,8 @@ def sniff_sparse_format(path: str) -> str:
 
 def load_sparse(path: str, *, fmt: str = "auto",
                 num_features: int | None = None,
-                nnz_cap: int | None = None):
+                nnz_cap: int | None = None,
+                use_native: bool | None = None):
     """Dispatch to :func:`load_svmlight` / :func:`load_criteo` by format.
 
     Returns ``(data, num_features)`` in the framework's sparse batch shape
@@ -473,9 +497,10 @@ def load_sparse(path: str, *, fmt: str = "auto",
         fmt = sniff_sparse_format(path)
     if fmt == "svmlight":
         return load_svmlight(path, num_features=num_features,
-                             nnz_cap=nnz_cap)
+                             nnz_cap=nnz_cap, use_native=use_native)
     if fmt == "criteo":
-        return load_criteo(path, num_features=num_features or (1 << 20))
+        return load_criteo(path, num_features=num_features or (1 << 20),
+                           use_native=use_native)
     raise ValueError(f"unknown sparse dataset format {fmt!r}")
 
 def synthetic_sparse_classification(

@@ -365,6 +365,12 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.analysis.lint, fps_tpu_torch.obs.drift\n"
         "import fps_tpu_torch.examples.audit_programs\n"
         "import fps_tpu_torch.examples.lint\n"
+        "import fps_tpu_torch.native\n"
+        "assert fps_tpu_torch.native.available()\n"
+        "import fps_tpu_torch.examples.chaos_sweep\n"
+        "import fps_tpu_torch.examples.plan\n"
+        "import fps_tpu_torch.examples.staleness_sweep\n"
+        "import fps_tpu_torch.testing.serve_race_trace\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

@@ -543,32 +543,48 @@ def test_plan_refuses_what_the_port_does_not_run():
     np.testing.assert_array_equal(got["block"].numpy()[:16], tokens[16:32])
 
 
-def test_skipgram_chunks_match_jax_and_keep_static_shapes():
+def test_skipgram_chunks_match_jax_and_keep_static_shapes(monkeypatch):
+    """Both paths (the default takes the C++ pair generator, as the JAX
+    package's does) give the JAX package's chunks for the same seed."""
     tokens, uni = _corpus(5000, seed=1, vocab=50)
     for sync_every, sub in ((None, None), (2, 1e-2)):
-        kw = dict(vocab_size=50, window=2, subsample_t=sub)
-        args = dict(num_workers=4, local_batch=8, steps_per_chunk=4,
-                    sync_every=sync_every, seed=3, segment_tokens=1500)
-        got = list(tw2v.skipgram_chunks(tokens, uni, tw2v.W2VConfig(**kw),
-                                        **args))
-        want = list(jw2v.skipgram_chunks(tokens, uni, jw2v.W2VConfig(**kw),
-                                         use_native=False, **args))
-        assert len(got) == len(want) > 1
-        for g, w in zip(got, want):
-            assert set(g) == {"center", "context", "weight"}
-            for k in g:
-                np.testing.assert_array_equal(g[k], w[k])
-        assert len({c["center"].shape for c in got}) == 1
+        for use_native in (None, True, False):
+            kw = dict(vocab_size=50, window=2, subsample_t=sub)
+            args = dict(num_workers=4, local_batch=8, steps_per_chunk=4,
+                        sync_every=sync_every, seed=3, segment_tokens=1500,
+                        use_native=use_native)
+            got = list(tw2v.skipgram_chunks(tokens, uni,
+                                            tw2v.W2VConfig(**kw), **args))
+            want = list(jw2v.skipgram_chunks(tokens, uni,
+                                             jw2v.W2VConfig(**kw), **args))
+            assert len(got) == len(want) > 1
+            for g, w in zip(got, want):
+                assert set(g) == {"center", "context", "weight"}
+                for k in g:
+                    assert g[k].dtype == w[k].dtype
+                    np.testing.assert_array_equal(g[k], w[k])
+            assert len({c["center"].shape for c in got}) == 1
     total_w = sum(
         c["weight"].sum() for c in tw2v.skipgram_chunks(
             tokens, uni, tw2v.W2VConfig(vocab_size=50, window=2,
                                         subsample_t=None),
             num_workers=4, local_batch=8, steps_per_chunk=4))
     assert total_w > 2 * 0.9 * len(tokens)
-    with pytest.raises(NotImplementedError, match="bench"):
+    # The native pair generator is required with use_native=True: without
+    # the library it raises, and the default falls back to numpy.
+    from fps_tpu_torch import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="unavailable"):
         next(tw2v.skipgram_chunks(tokens, uni, tw2v.W2VConfig(vocab_size=50),
                                   num_workers=1, local_batch=8,
                                   steps_per_chunk=4, use_native=True))
+    args = dict(num_workers=4, local_batch=8, steps_per_chunk=4, seed=3)
+    cfg = tw2v.W2VConfig(vocab_size=50, window=2)
+    for g, w in zip(tw2v.skipgram_chunks(tokens, uni, cfg, **args),
+                    tw2v.skipgram_chunks(tokens, uni, cfg, use_native=False,
+                                         **args)):
+        np.testing.assert_array_equal(g["center"], w["center"])
     with pytest.raises(ValueError, match="vocab"):
         next(tw2v.skipgram_chunks(tokens, uni[:10],
                                   tw2v.W2VConfig(vocab_size=10),
