@@ -396,8 +396,27 @@ on the card, raising on the first failure:
    ML-20M's two MF tables records the plan's and the untiered program on
    the card and on the CPU: the same ``predicted``, ``untiered_baseline``
    and plan. It reports each shard's time to recovered and seconds;
-18. prints one JSON line describing every ported kernel, then, as the last
+18. runs the driver's entry points and the route-timing tools on the card
+   (``fps_tpu_torch/entry.py``, ``fps_tpu_torch/examples/
+   profile_mf_step.py``, ``bench_scatter.py``, ``bench_logreg_routes.py``,
+   ``pa_scaling.py``): (a) ``entry()``'s chunk twice on the same
+   arguments, bit-equal outputs, the arguments unchanged, K1 4 and K2 4 a
+   call, and within 1e-5 of the largest value of ``entry(device="cpu")``;
+   (b) ``dryrun_multichip(4)`` and ``dryrun_multichip(8)`` on ``cuda:0``:
+   every family processed examples, K3 launched by the w2v route, both hot
+   tiers on with rows served, K1-K5 each launched; (c) the four tools at
+   their full widths with ``T = P18_T`` steps (``pa_scaling`` at its full
+   size, 3 timed epochs a point, all three routes), each with its spot
+   checks as gates, their readings logged;
+19. prints one JSON line describing every ported kernel, then, as the last
    line, ``{"ok": true, "device": {...}}``.
+
+``--phases LIST`` (``3,18`` or ``9-11``) runs a subset: phases 1 and 2
+always run, phase 5 brings phase 3 and phase 6 brings phase 4 with it
+(they read their results), and the data each phase needs is made for it.
+A subset prints, before the last line, a summary of the phases it ran
+(their paths' launches, outputs and seconds) in place of the kernels
+line.
 
 It imports neither jax nor the JAX package. Without CUDA it exits non-zero
 and prints no result.
@@ -7609,6 +7628,181 @@ def sweep_phase(torch, fps, kernels, tokens, uni, card):
     return out
 
 
+# Phase 18: the driver's entry points and the route-timing tools on the
+# card. The tools run at their full widths, each timed pass cut to P18_T
+# steps (the tools' own T is 256 or 512).
+P18_T = 16
+# entry()'s chunk: 2 MF steps, K1 2 (the item pull, the user rows) and K2 2
+# (the item push, the user push) a step.
+P18_ENTRY_LAUNCHES = {"gather_rows": 4, "scatter_add": 4}
+# The kernels each tool's job must launch.
+P18_TOOL_KERNELS = {
+    "profile_mf_step": ("gather_rows", "scatter_add"),
+    "bench_scatter run": ("scatter_add", "scatter_add_packed"),
+    "bench_scatter dim1": ("gather_rows_dim1", "scatter_add_dim1"),
+    "bench_scatter sweep": ("scatter_add", "scatter_add_packed"),
+    "bench_logreg_routes": ("gather_rows_dim1", "scatter_add_dim1"),
+    "pa_scaling": ("gather_rows_dim1", "scatter_add_dim1"),
+}
+
+
+def p18_host(out):
+    """``(tables, local_state, dict of tensors)`` read to numpy."""
+    tables, local_state, extra = out
+    return ({k: v.numpy() for k, v in tables.items()}, local_state.numpy(),
+            {k: v.cpu().numpy() for k, v in extra.items()})
+
+
+def p18_equal(a, b) -> bool:
+    return (a[0].keys() == b[0].keys() and a[2].keys() == b[2].keys()
+            and all(np.array_equal(a[0][k], b[0][k]) for k in a[0])
+            and np.array_equal(a[1], b[1])
+            and all(np.array_equal(a[2][k], b[2][k]) for k in a[2]))
+
+
+def p18_entry(torch, kernels, card):
+    """(a): ``entry()``'s chunk twice on the same arguments, against the
+    CPU's."""
+    from fps_tpu_torch import entry as fe
+
+    fn, args = fe.entry()
+    before = p18_host(args[:3])
+    runs, outs = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = kernels.launch_counts()
+        want = {**dict.fromkeys(launched, 0), **P18_ENTRY_LAUNCHES}
+        if launched != want:
+            raise AssertionError(f"phase 18 (a): entry() call {i + 1} "
+                                 f"launched {launched}, expected {want}")
+        outs.append(p18_host(out))
+        runs.append({"path": f"entry() chunk, call {i + 1}",
+                     "launches": launched, "seconds": secs,
+                     "examples": float(outs[-1][2]["n"].sum()),
+                     "card": card})
+    if not p18_equal(outs[0], outs[1]):
+        raise AssertionError("phase 18 (a): entry() gave other bits on its "
+                             "second call")
+    if not p18_equal(before, p18_host(args[:3])):
+        raise AssertionError("phase 18 (a): entry()'s call changed its "
+                             "arguments")
+    cfn, cargs = fe.entry(device="cpu")
+    init = max(float(np.abs(before[0][k] - v.numpy()).max())
+               for k, v in cargs[0].items())
+    cpu = p18_host(cfn(*cargs))
+    card_out = outs[0]
+    worst = max(
+        [float(np.abs(card_out[0][k] - cpu[0][k]).max()
+               / np.abs(cpu[0][k]).max()) for k in cpu[0]]
+        + [float(np.abs(card_out[1] - cpu[1]).max()
+                 / np.abs(cpu[1]).max())])
+    if not worst <= 1e-5:
+        raise AssertionError(f"phase 18 (a): entry() card vs CPU: {worst} "
+                             "of the largest value > 1e-5")
+    out = {"calls_bit_equal": True, "arguments_unchanged": True,
+           "card_vs_cpu": worst, "initial_tables_max_diff": init,
+           "launches_per_call": runs[0]["launches"],
+           "seconds": [r["seconds"] for r in runs]}
+    log(f"phase 18 (a): entry() twice bit-equal, arguments unchanged, "
+        f"{P18_ENTRY_LAUNCHES} a call, card vs CPU {worst} of the largest "
+        f"value ({card})")
+    return runs, out
+
+
+def p18_dryrun(torch, kernels, card):
+    """(b): ``dryrun_multichip(4)`` and ``(8)``, every position on
+    ``cuda:0``."""
+    from fps_tpu_torch import entry as fe
+
+    runs, out = [], {}
+    for n in (4, 8):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fe.dryrun_multichip(n, device="cuda:0")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = kernels.launch_counts()
+        idle = [k for k, v in launched.items() if not v]
+        if idle:
+            raise AssertionError(f"phase 18 (b): dryrun_multichip({n}) "
+                                 f"launched no {idle}: {launched}")
+        if got["launches"] != launched:
+            raise AssertionError(f"phase 18 (b): dryrun_multichip({n}) "
+                                 f"counted {got['launches']}, the counters "
+                                 f"{launched}")
+        if got["k3_calls"] <= 0 or min(got["hot_rows"].values()) <= 0:
+            raise AssertionError(f"phase 18 (b): dryrun_multichip({n}): {got}")
+        runs.append({"path": f"dryrun_multichip({n}) on cuda:0",
+                     "launches": launched, "seconds": secs,
+                     "examples": sum(got["examples"].values()),
+                     "mesh": list(got["mesh"]), "card": card})
+        out[str(n)] = {k: v for k, v in got.items() if k != "launches"}
+        out[str(n)]["seconds"] = secs
+        log(f"phase 18 (b): dryrun_multichip({n}) on cuda:0 in {secs:.1f} s: "
+            f"{json.dumps(out[str(n)])}, launches {launched} ({card})")
+    return runs, out
+
+
+def p18_tools(torch, kernels, card):
+    """(c): the four tools at full width, ``P18_T`` steps a timed pass."""
+    from fps_tpu_torch.examples import bench_logreg_routes as bl
+    from fps_tpu_torch.examples import bench_scatter as bs
+    from fps_tpu_torch.examples import pa_scaling as ps
+    from fps_tpu_torch.examples import profile_mf_step as pm
+
+    dev = torch.device("cuda", 0)
+    jobs = {
+        "profile_mf_step": lambda: pm.profile(dev, card, iters=P18_T),
+        "bench_scatter run": lambda: bs.main_shapes(dev, card, iters=P18_T),
+        "bench_scatter dim1": lambda: [bs.dim1_shapes(dev, card,
+                                                      iters=P18_T)],
+        "bench_scatter sweep": lambda: bs.small_r_sweep(dev, card,
+                                                        iters=P18_T),
+        "bench_logreg_routes": lambda: bl.run_stages(list(bl.STAGES), dev,
+                                                     card, iters=P18_T),
+        "pa_scaling": lambda: ps.run_curves(ps.ROUTES, dev, card),
+    }
+    runs, readings = [], {}
+    for name, job in jobs.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lines = job()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = kernels.launch_counts()
+        idle = [k for k in P18_TOOL_KERNELS[name] if not launched[k]]
+        if idle:
+            raise AssertionError(f"phase 18 (c): {name} launched no {idle}: "
+                                 f"{launched}")
+        runs.append({"path": f"tool {name}", "launches": launched,
+                     "seconds": secs, "lines": len(lines), "card": card})
+        readings[name] = lines
+        log(f"phase 18 (c): {name}: {len(lines)} lines in {secs:.1f} s, "
+            f"launches {launched} ({card})")
+    return runs, readings
+
+
+def entry_phase(torch, kernels, card):
+    """Phase 18, (a)-(c). Nothing is caught: a failed gate fails the
+    script."""
+    t0 = time.perf_counter()
+    entry_runs, entry_out = p18_entry(torch, kernels, card)
+    dry_runs, dry = p18_dryrun(torch, kernels, card)
+    tool_runs, readings = p18_tools(torch, kernels, card)
+    out = {"entry": entry_out, "dryrun": dry, "tools": readings,
+           "tool_t": P18_T, "runs": entry_runs + dry_runs + tool_runs}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def guard_kernel_cases(torch, kernels, cases, lr_data, dev):
     """Phase 3 at the guard's shapes (phase 11 (d)): K2 at the MF item push
     (the mean combine's count column, ML-20M items, B = 32,768 Zipf ids)
@@ -7658,9 +7852,119 @@ def path_sums(cases, path, copy=False):
     return out
 
 
-def main() -> int:
+def kernels_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data,
+                  w2v_tokens, w2v_uni, ials_chunks, dev):
+    """Phase 3: every kernel against its plain version at its paths'
+    shapes, the sort's edges and the crossover sweep. Returns ``(cases,
+    sort_cases, sweep, inputs)``, ``inputs`` phase 5's traced calls."""
+    cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
+                         dev)
+    w2v_kernel_cases(torch, kernels, cases,
+                     w2v_first_step_ids(torch, fps, w2v_tokens, w2v_uni),
+                     dev)
+    ials_kernel_cases(torch, kernels, cases, ials_chunks, dev)
+    sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
+    tier_kernel_cases(torch, kernels, cases, lr_data, dev)
+    adaptive_kernel_cases(torch, kernels, cases, dev)
+    guard_kernel_cases(torch, kernels, cases, lr_data, dev)
+    inputs = {k: cases.pop(k) for k in ("k2_inputs", "k3_inputs",
+                                        "k4_inputs", "gather_inputs")}
+    sort_cases, inputs["sort_inputs"] = sort_edges(torch, kernels, dev)
+    sweep = crossover_sweep(torch, kernels, dev)
+    return cases, sort_cases, sweep, inputs
+
+
+def main_paths_phase(torch, fps, kernels, pa_data, pa_q, mc_data, lr_data,
+                     w2v_tokens, w2v_uni, ials_train, ials_test, ials_chunks,
+                     card):
+    """Phase 4: the paths at full width, counters at 0 just before each.
+    Returns ``(runs, traced MF, traced w2v, traced iALS, MF data)``."""
+    w2v_runs = w2v_paths(torch, fps, kernels, w2v_tokens, w2v_uni, card)
+    w2v_runs.append(w2v_sketch_path(torch, fps, kernels, w2v_tokens, w2v_uni,
+                                    card))
+    ials_run, traced_ials = ials_path(torch, fps, kernels, ials_train,
+                                      ials_test, ials_chunks, card)
+    w2v_runs.append(ials_run)
+    runs, traced, mf_data = paths_phase(torch, fps, kernels, pa_data, pa_q,
+                                        mc_data, lr_data, card)
+    runs += w2v_runs
+    traced_w2v = traced_w2v_epoch(torch, fps, w2v_tokens, w2v_uni, card)
+    return runs, traced, traced_w2v, traced_ials, mf_data
+
+
+def card_vs_cpu_phase(torch, fps, kernels, inputs):
+    """Phase 5: the card against the CPU, and phase 3's calls traced.
+
+    Both devices read exactly. The CPU folds each row's pushes one by one
+    in batch order (index_add_); on the card K2 sums each row's pushes in a
+    fixed tree order (a scan within tiles of sorted positions, then across
+    the tiles) and adds the sum into the row once, and K3 and K4 sum each
+    row's pushes in a fixed tree a batch of 1,024, the batches in order
+    within a block's share, then across a cluster's blocks and the clusters
+    in order. So a row's sum differs from the CPU's by a few float32
+    roundings of its terms each push. The card and the CPU also order dot
+    products and row sums differently (about one rounding each). PA's and
+    the logistic loss's steps are continuous in the weights, and so are
+    SGNS's (whose draws, a hash of seeds and counters, are the same on both
+    devices), so these differences stay near a few ulps of the largest
+    value over the ~30 steps of each job (about 1e-6 relative); 1e-5 of the
+    largest value leaves a margin and still catches a wrong row or a
+    dropped push (a push moves a weight by 1e-4 to 1e-2 of its size
+    here)."""
+    worst = card_vs_cpu(torch, fps)
+    taps_worst = taps_card_vs_cpu(torch, fps)
+    breakdown, sort_traced = k2_breakdown(torch, kernels,
+                                          inputs["k2_inputs"],
+                                          inputs["sort_inputs"])
+    k3_traced = k3_breakdown(torch, kernels, inputs["k3_inputs"])
+    k4_traced = k4_breakdown(torch, kernels, inputs["k4_inputs"])
+    gather_traced = gather_breakdown(torch, inputs["gather_inputs"])
+    tol = 1e-5
+    for job, diff in worst.items():
+        if not diff <= tol:
+            raise AssertionError(f"card vs CPU, {job}: tables differ by "
+                                 f"{diff} of their largest value > {tol}")
+    log(f"card vs CPU: tables agree within {tol} of their largest value "
+        f"({json.dumps(worst)})")
+    return (worst, taps_worst, breakdown, sort_traced, k3_traced, k4_traced,
+            gather_traced)
+
+
+ALL_PHASES = frozenset(range(1, 19))
+# A phase that reads another's results brings it with it.
+PHASE_NEEDS = {5: 3, 6: 4}
+
+
+def parse_phases(spec: str | None) -> frozenset:
+    """``--phases``: a comma list of phases and ranges (``3,18``,
+    ``9-11``); phases 1 and 2 (environment, build) always run, and a phase
+    brings the one whose results it reads (:data:`PHASE_NEEDS`)."""
+    if spec is None:
+        return ALL_PHASES
+    want = {1, 2}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        want.update(range(int(lo), int(hi or lo) + 1))
+    if not want <= ALL_PHASES:
+        raise SystemExit(f"chip_smoke: --phases {spec}: phases are 1-18")
+    for phase, need in PHASE_NEEDS.items():
+        if phase in want:
+            want.add(need)
+    return frozenset(want)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch "
+                                 "port on one NVIDIA GPU (see the module's "
+                                 "docstring).")
+    ap.add_argument("--phases", default=None,
+                    help="run these phases only, e.g. 3,18 or 9-11 "
+                         "(default: all)")
+    want = parse_phases(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test runs on the "
               "card only", file=sys.stderr)
@@ -7697,159 +8001,145 @@ def main() -> int:
         if "registers" in line or "==" in line:
             log("  " + line.strip())
 
+    if want != ALL_PHASES:
+        log(f"phases {sorted(want)} of 1-18")
     # The sparse workloads' data, as bench.py makes it (seeds 3, 5, 0).
-    t0 = time.perf_counter()
-    pa_data = ds.synthetic_sparse_classification(PA_NEX, PA_NF, PA_NNZ,
-                                                 seed=3, noise=0.05)
-    pa_data["label"] = np.where(pa_data["label"] > 0, 1.0,
-                                -1.0).astype(np.float32)
-    pa_data, pa_q = ds.head_sort_slots(pa_data, PA_HEAD)
-    mc_data = ds.synthetic_sparse_multiclass(PA_MC_NEX, PA_NF, PA_MC_CLASSES,
-                                             PA_NNZ, seed=5)
-    lr_data = ds.synthetic_sparse_classification(
-        LR_NEX, LR_NF, LR_NNZ, seed=0, noise=0.05, dense_features=LR_DENSE)
-    lr_data["label"] = (lr_data["label"] > 0).astype(np.float32)
-    log(f"sparse data made in {time.perf_counter() - t0:.1f} s; PA head "
-        f"prefix q = {pa_q} columns of {PA_NNZ}")
+    pa_data = pa_q = mc_data = lr_data = None
+    if want & {3, 4, 7, 8, 9, 11, 12, 16}:
+        t0 = time.perf_counter()
+        pa_data = ds.synthetic_sparse_classification(PA_NEX, PA_NF, PA_NNZ,
+                                                     seed=3, noise=0.05)
+        pa_data["label"] = np.where(pa_data["label"] > 0, 1.0,
+                                    -1.0).astype(np.float32)
+        pa_data, pa_q = ds.head_sort_slots(pa_data, PA_HEAD)
+        mc_data = ds.synthetic_sparse_multiclass(PA_MC_NEX, PA_NF,
+                                                 PA_MC_CLASSES, PA_NNZ,
+                                                 seed=5)
+        lr_data = ds.synthetic_sparse_classification(
+            LR_NEX, LR_NF, LR_NNZ, seed=0, noise=0.05,
+            dense_features=LR_DENSE)
+        lr_data["label"] = (lr_data["label"] > 0).astype(np.float32)
+        log(f"sparse data made in {time.perf_counter() - t0:.1f} s; PA head "
+            f"prefix q = {pa_q} columns of {PA_NNZ}")
     # word2vec's corpus, as bench.py run_w2v makes it (load_text8 with no
     # file: the synthetic Zipfian stream), cut to 2M tokens.
-    t0 = time.perf_counter()
-    w2v_tokens, _, w2v_uni = ds.load_text8(None, W2V_VOCAB, W2V_TOKENS)
-    log(f"text8-size corpus ({W2V_TOKENS} tokens, vocab {W2V_VOCAB}) made "
-        f"in {time.perf_counter() - t0:.1f} s")
+    w2v_tokens = w2v_uni = None
+    if want & {3, 4, 7, 8, 17}:
+        t0 = time.perf_counter()
+        w2v_tokens, _, w2v_uni = ds.load_text8(None, W2V_VOCAB, W2V_TOKENS)
+        log(f"text8-size corpus ({W2V_TOKENS} tokens, vocab {W2V_VOCAB}) "
+            f"made in {time.perf_counter() - t0:.1f} s")
     # iALS's interactions and chunks, as bench.py run_ials makes them.
-    t0 = time.perf_counter()
-    ials_train, ials_test, ials_chunks = ials_data(ds)
-    log(f"iALS data ({len(ials_train['user'])} training interactions, "
-        f"{len(ials_chunks)} chunks) made in {time.perf_counter() - t0:.1f} s")
-
-    # 3. Kernels against their plain versions at the paths' shapes.
-    cases = kernel_phase(torch, kernels, pa_data, pa_q, mc_data, lr_data,
-                         dev)
-    w2v_kernel_cases(torch, kernels, cases,
-                     w2v_first_step_ids(torch, fps, w2v_tokens, w2v_uni),
-                     dev)
-    ials_kernel_cases(torch, kernels, cases, ials_chunks, dev)
-    sketch_kernel_case(torch, fps, kernels, cases, w2v_tokens, w2v_uni, dev)
-    tier_kernel_cases(torch, kernels, cases, lr_data, dev)
-    adaptive_kernel_cases(torch, kernels, cases, dev)
-    guard_kernel_cases(torch, kernels, cases, lr_data, dev)
-    k2_inputs = cases.pop("k2_inputs")
-    k3_inputs = cases.pop("k3_inputs")
-    k4_inputs = cases.pop("k4_inputs")
-    gather_inputs = cases.pop("gather_inputs")
-    split = cases.pop("split")
-    sort_cases, sort_inputs = sort_edges(torch, kernels, dev)
-
-    sweep = crossover_sweep(torch, kernels, dev)
-
-    # 4. The paths at full width, counters at 0 just before each.
-    w2v_runs = w2v_paths(torch, fps, kernels, w2v_tokens, w2v_uni, card)
-    w2v_runs.append(w2v_sketch_path(torch, fps, kernels, w2v_tokens, w2v_uni,
-                                    card))
-    ials_run, traced_ials = ials_path(torch, fps, kernels, ials_train,
-                                      ials_test, ials_chunks, card)
-    w2v_runs.append(ials_run)
-    runs, traced, mf_data = paths_phase(torch, fps, kernels, pa_data, pa_q,
-                                        mc_data, lr_data, card)
-    runs += w2v_runs
-    traced_w2v = traced_w2v_epoch(torch, fps, w2v_tokens, w2v_uni, card)
-
-
-    # 5. The card against the CPU.
-    worst = card_vs_cpu(torch, fps)
-    taps_worst = taps_card_vs_cpu(torch, fps)
-    breakdown, sort_traced = k2_breakdown(torch, kernels, k2_inputs,
-                                          sort_inputs)
-    k3_traced = k3_breakdown(torch, kernels, k3_inputs)
-    k4_traced = k4_breakdown(torch, kernels, k4_inputs)
-    gather_traced = gather_breakdown(torch, gather_inputs)
-    del k2_inputs, sort_inputs, k3_inputs, k4_inputs, gather_inputs
-
-    # 6. The host pipeline and delayed pushes, counters at 0 before each.
-    # It runs after phase 5's traces: its times compare runs made inside
-    # it, in turns, never with a phase that ran before the profiler.
-    pipeline = pipeline_phase(torch, fps, kernels, mf_data, lr_data,
-                              ials_train, ials_test, runs, card)
-
-    # 7. The sharded mesh, counters at 0 before each run.
-    mesh = mesh_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
-                      w2v_tokens, w2v_uni, ials_train, ials_test, ials_chunks,
-                      card)
-    # 8. The mesh over several processes, counters at 0 before each run in
-    # every rank.
-    processes = process_phase(torch, fps, kernels, mf_data, pa_data, pa_q,
-                              w2v_tokens, w2v_uni, ials_chunks, card)
-    del ials_chunks
-    # 9. The static hot tier, counters at 0 before each run.
-    tier = tier_phase(torch, fps, kernels, lr_data, card)
-    # 10. The adaptive tier, counters at 0 before each run.
-    adaptive = adaptive_phase(torch, fps, kernels, card)
-    # 11. Durability, counters at 0 before each run.
-    durability = durability_phase(torch, fps, kernels, mf_data, lr_data,
-                                  card)
-    # 12. Telemetry, counters at 0 before each run.
-    telemetry = telemetry_phase(torch, fps, kernels, mf_data, lr_data, card)
-    # 13. Serving while the card trains, counters at 0 before each run.
-    serving = serving_phase(torch, fps, kernels, mf_data, card)
-    del mf_data
-    # 14. The supervisor drives training on the card (its children count
-    # their own launches).
-    supervised = supervise_phase(torch, card)
-    # 15. A pod and two tenants on the card, one after another (their
-    # children count their own launches).
-    pod = pod_phase(torch, card)
-    # 16. The program auditor on the card (its audited call's launches
-    # counted from 0).
-    auditor = audit_phase(torch, fps, kernels, lr_data, card)
-    # 17. The chaos sweep (its children count their own launches), the
-    # native pair stream (counters at 0 before its run) and the planner.
-    chaos = sweep_phase(torch, fps, kernels, w2v_tokens, w2v_uni, card)
-    runs += [dict(arm, path=f"{arm['path']}, arm {i}")
-             for ab in pipeline["prefetch_ab"]
-             for i, arm in enumerate(ab["arms"])]
-    runs += pipeline.pop("push_delay_runs")
-    runs += mesh["runs"]
-    runs += processes["runs"]
-    runs += tier["runs"]
-    runs += adaptive["runs"]
-    runs += durability["runs"]
-    runs += telemetry["runs"]
-    runs += serving["runs"]
-    runs += supervised["runs"]
-    runs += pod["runs"]
-    runs += auditor["runs"]
-    runs += chaos["runs"]
+    ials_train = ials_test = ials_chunks = None
+    if want & {3, 4, 6, 7, 8}:
+        t0 = time.perf_counter()
+        ials_train, ials_test, ials_chunks = ials_data(ds)
+        log(f"iALS data ({len(ials_train['user'])} training interactions, "
+            f"{len(ials_chunks)} chunks) made in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if 3 in want:
+        cases, sort_cases, sweep, k_inputs = kernels_phase(
+            torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, w2v_tokens,
+            w2v_uni, ials_chunks, dev)
+    runs = []
+    if 4 in want:
+        runs, traced, traced_w2v, traced_ials, mf_data = main_paths_phase(
+            torch, fps, kernels, pa_data, pa_q, mc_data, lr_data, w2v_tokens,
+            w2v_uni, ials_train, ials_test, ials_chunks, card)
+    elif want & {6, 7, 8, 11, 12, 13}:
+        mf_data = ds.synthetic_ratings(ML20M_USERS, ML20M_ITEMS,
+                                       ML20M_RATINGS, seed=0)
+    if 5 in want:
+        (worst, taps_worst, breakdown, sort_traced, k3_traced, k4_traced,
+         gather_traced) = card_vs_cpu_phase(torch, fps, kernels, k_inputs)
+        del k_inputs
+    phase_out = {}
+    for phase, key, fn in (
+        (6, "host_pipeline_and_push_delay", lambda: pipeline_phase(
+            torch, fps, kernels, mf_data, lr_data, ials_train, ials_test,
+            runs, card)),
+        (7, "sharded_mesh", lambda: mesh_phase(
+            torch, fps, kernels, mf_data, pa_data, pa_q, w2v_tokens, w2v_uni,
+            ials_train, ials_test, ials_chunks, card)),
+        (8, "processes", lambda: process_phase(
+            torch, fps, kernels, mf_data, pa_data, pa_q, w2v_tokens, w2v_uni,
+            ials_chunks, card)),
+        (9, "hot_tier", lambda: tier_phase(torch, fps, kernels, lr_data,
+                                           card)),
+        (10, "adaptive_tier", lambda: adaptive_phase(torch, fps, kernels,
+                                                     card)),
+        (11, "durability", lambda: durability_phase(
+            torch, fps, kernels, mf_data, lr_data, card)),
+        (12, "telemetry", lambda: telemetry_phase(torch, fps, kernels,
+                                                  mf_data, lr_data, card)),
+        (13, "serving", lambda: serving_phase(torch, fps, kernels, mf_data,
+                                              card)),
+        (14, "supervised", lambda: supervise_phase(torch, card)),
+        (15, "pod_and_tenants", lambda: pod_phase(torch, card)),
+        (16, "auditor", lambda: audit_phase(torch, fps, kernels, lr_data,
+                                            card)),
+        (17, "chaos_native_plan", lambda: sweep_phase(
+            torch, fps, kernels, w2v_tokens, w2v_uni, card)),
+        (18, "entry_points_and_tools", lambda: entry_phase(torch, kernels,
+                                                           card)),
+    ):
+        # 6. The host pipeline and delayed pushes, after phase 5's traces:
+        # its times compare runs made inside it, in turns, never with a
+        # phase that ran before the profiler. 7. The sharded mesh. 8. The
+        # mesh over several processes (every rank counts from 0). 9. The
+        # static hot tier. 10. The adaptive tier. 11. Durability. 12.
+        # Telemetry. 13. Serving while the card trains. 14. The supervisor
+        # drives training on the card and 15. a pod and two tenants (their
+        # children count their own launches). 16. The program auditor (its
+        # audited call's launches counted from 0). 17. The chaos sweep (its
+        # children count their own), the native pair stream and the
+        # planner. 18. The entry points and the route-timing tools. Counters
+        # at 0 before each run.
+        if phase in want:
+            phase_out[key] = fn()
+        if phase == 8:
+            ials_chunks = None
+        if phase == 13:
+            mf_data = None
+    pipeline = phase_out.get("host_pipeline_and_push_delay")
+    if pipeline is not None:
+        runs += [dict(arm, path=f"{arm['path']}, arm {i}")
+                 for ab in pipeline["prefetch_ab"]
+                 for i, arm in enumerate(ab["arms"])]
+        runs += pipeline.pop("push_delay_runs")
+    for key, out in phase_out.items():
+        if key != "host_pipeline_and_push_delay":
+            runs += out["runs"]
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in kernels.WRAPPERS}
     log(f"launch counters over the paths: {launches}")
+    if want != ALL_PHASES:
+        # A subset: what its phases ran, in place of the kernels line.
+        log(card)
+        log(json.dumps({
+            "phases": sorted(want), "launches": launches, "paths": runs,
+            **{k: ({kk: vv for kk, vv in v.items() if kk != "runs"}
+                   if isinstance(v, dict) else v)
+               for k, v in phase_out.items()},
+            **({"card_vs_cpu": worst,
+                "card_vs_cpu_ials_and_sketch_tap": taps_worst}
+               if 5 in want else {}),
+            "seconds": time.perf_counter() - t_start, "card": card}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    (mesh, processes, tier, adaptive, durability, telemetry, serving,
+     supervised, pod, auditor, chaos, entry_points) = (phase_out[k] for k in (
+        "sharded_mesh", "processes", "hot_tier", "adaptive_tier",
+        "durability", "telemetry", "serving", "supervised",
+        "pod_and_tenants", "auditor", "chaos_native_plan",
+        "entry_points_and_tools"))
+    split = cases.pop("split")
     for case in sort_cases:
         case["sort_passes"] = sort_traced[case["shape"]]["sort_passes"]
-    # Both devices read exactly. The CPU folds each row's pushes one by one
-    # in batch order (index_add_); on the card K2 sums each row's pushes in
-    # a fixed tree order (a scan within tiles of sorted positions, then
-    # across the tiles) and adds the sum into the row once, and K3 and K4
-    # sum each row's pushes in a fixed tree a batch of 1,024, the batches in
-    # order within a block's share, then across a cluster's blocks and the
-    # clusters in order. So a row's sum differs from the CPU's by a few
-    # float32 roundings of its terms each push. The card and the CPU also order dot products and row
-    # sums differently (about one rounding each). PA's and the logistic
-    # loss's steps are continuous in the weights, and so are SGNS's (whose
-    # draws, a hash of seeds and counters, are the same on both devices),
-    # so these differences stay
-    # near a few ulps of the largest value over the ~30 steps of each job
-    # (about 1e-6 relative); 1e-5 of the largest value leaves a margin and
-    # still catches a wrong row or a dropped push (a push moves a weight by
-    # 1e-4 to 1e-2 of its size here).
-    tol = 1e-5
-    for job, diff in worst.items():
-        if not diff <= tol:
-            raise AssertionError(f"card vs CPU, {job}: tables differ by "
-                                 f"{diff} of their largest value > {tol}")
-    log(f"card vs CPU: tables agree within {tol} of their largest value "
-        f"({json.dumps(worst)})")
 
-    # 18. Summary lines. Each entry's times are per step of its first path
+    # 19. Summary lines. Each entry's times are per step of its first path
     # (K1 / K2: one MF step; K5 / K4: one binary PA step, head and tail;
     # K3: one MF step with hot_items, the item head); every shape is listed
     # under per_shape with the path it belongs to.
@@ -7956,6 +8246,8 @@ def main() -> int:
         "pod_and_tenants": {k: v for k, v in pod.items() if k != "runs"},
         "auditor": {k: v for k, v in auditor.items() if k != "runs"},
         "chaos_native_plan": {k: v for k, v in chaos.items() if k != "runs"},
+        "entry_points_and_tools": {k: v for k, v in entry_points.items()
+                                   if k != "runs"},
         "trace_windows": {
             "windows": len(TRACE_WINDOWS),
             "retraced": sum(1 for w in TRACE_WINDOWS if w["attempt"] > 0),

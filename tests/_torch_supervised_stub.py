@@ -21,6 +21,13 @@ quarantine set, and can misbehave on demand:
 * ``--misbehave-host H`` — only misbehave when this process runs as pod
   member ``H`` (``FPS_TPU_POD_HOST``): one shared pod command template
   can then poison exactly one member.
+* ``--await-first-signal DIR`` — before a ``--crash-at`` crash, wait (at
+  most 30 s) until the supervisor's journal in ``DIR``
+  (``journal-supervisor.jsonl``; a tenant's ``{state}``) records this
+  attempt's ``attempt_first_signal``. The stub beats and crashes within
+  milliseconds, which a supervisor polling every 20 ms can miss under
+  load; with the flag every crashing attempt is seen before it dies, so
+  each attempt counts in the recovery times of either package's journal.
 
 Pod contract (the reference's ``fps_tpu/supervise/pod.py``): besides ``progress.json``
 the stub publishes tiny zip "snapshots" named like real checkpoints
@@ -48,6 +55,7 @@ import time
 import zipfile
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AWAIT_FIRST_SIGNAL_S = 30.0
 
 
 def _load_child_module():
@@ -85,6 +93,29 @@ def _publish_snapshot(child, directory: str, step: int, epoch,
             pass
 
 
+def _await_first_signal(state_dir: str, attempt: int) -> bool:
+    """Wait until ``state_dir``'s supervisor journal records attempt
+    ``attempt``'s ``attempt_first_signal``; False after
+    :data:`AWAIT_FIRST_SIGNAL_S` without it."""
+    path = os.path.join(state_dir, "journal-supervisor.jsonl")
+    deadline = time.monotonic() + AWAIT_FIRST_SIGNAL_S
+    while time.monotonic() < deadline:
+        try:
+            with open(path, encoding="utf-8") as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue  # a torn tail write
+                    if (rec.get("event") == "attempt_first_signal"
+                            and rec.get("attempt") == attempt):
+                        return True
+        except OSError:
+            pass
+        time.sleep(0.01)
+    return False
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", required=True)
@@ -106,6 +137,10 @@ def main() -> int:
     ap.add_argument("--misbehave-host", default=None,
                     help="apply wedge/crash flags only when running as "
                          "this pod member")
+    ap.add_argument("--await-first-signal", default=None, metavar="DIR",
+                    help="before a --crash-at crash, wait until the "
+                         "supervisor journal in DIR records this attempt's "
+                         "first signal")
     args = ap.parse_args()
 
     if args.trap_term:
@@ -146,6 +181,10 @@ def main() -> int:
         if i in quarantined:
             continue  # carried quarantine: consume the index, skip the work
         if misbehave and args.crash_at is not None and i == args.crash_at:
+            if args.await_first_signal is not None:
+                seen = _await_first_signal(args.await_first_signal,
+                                           child.attempt_from_env())
+                print(f"stub: first signal seen: {seen}", flush=True)
             print(f"stub: deterministic crash at chunk {i}", flush=True)
             return 3
         if misbehave and args.wedge_at is not None and i == args.wedge_at \

@@ -371,6 +371,11 @@ def test_port_imports_neither_jax_nor_fps_tpu():
         "import fps_tpu_torch.examples.plan\n"
         "import fps_tpu_torch.examples.staleness_sweep\n"
         "import fps_tpu_torch.testing.serve_race_trace\n"
+        "import fps_tpu_torch.entry, fps_tpu_torch.utils.route_timing\n"
+        "import fps_tpu_torch.examples.profile_mf_step\n"
+        "import fps_tpu_torch.examples.bench_scatter\n"
+        "import fps_tpu_torch.examples.bench_logreg_routes\n"
+        "import fps_tpu_torch.examples.pa_scaling\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fps_tpu' or m.startswith('fps_tpu.')]\n"

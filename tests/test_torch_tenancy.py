@@ -602,7 +602,8 @@ def _write_root(writer, root):
     pkg, sup_mod = {"ref": (jten, jsup), "port": (ten, sup)}[writer]
     slo_name = obs_fleet.DEFAULT_SLOS[0].name
     mgr = pkg.TenantManager(
-        root, [_stub_spec("a", "--crash-at", "3", spec_cls=pkg.TenantSpec,
+        root, [_stub_spec("a", "--crash-at", "3", "--await-first-signal",
+                          "{state}", spec_cls=pkg.TenantSpec,
                           weight=2.0, slo={slo_name: {"target": 7.0}}),
                _stub_spec("b", spec_cls=pkg.TenantSpec)],
         config=sup_mod.SupervisorConfig(max_restarts=3, **_FAST))
